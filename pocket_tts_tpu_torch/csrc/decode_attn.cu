@@ -1,0 +1,147 @@
+// K1: T=1 flash-decode attention over the backbone's flat KV cache.
+//
+// Replaces the TPU kernel `pocket_tts_tpu/ops/pallas_attn.py:
+// decode_attention` (`_decode_attention_batched` -> `_decode_attn_kernel`,
+// `_flash_main_block`, `_collapse_out`), unquantized and without stats.
+//
+// What it computes, per head h: one query q[h] (D) over cache rows
+// k[s, h*D : h*D+D] for the live slots s <= end, skipping slots whose
+// recorded position pos[s] < 0. Logits and softmax statistics are float32
+// with scale 1/sqrt(D); the softmax weights are rounded to the cache type
+// before the PV product (as the TPU kernel does) and PV accumulates in
+// float32. Output (H, D) in the cache type.
+//
+// What bounds it on the H100: bytes. Each call streams 2 * (end+1) * D
+// elements per head from HBM and does ~4 flops per element, far below the
+// card's ~295 flop/byte ridge (1.2 MB at S=384 would take ~0.4 us at full
+// bandwidth). The design reads only the live prefix [0, end] (never the
+// whole capacity), reads every K and V element once, and keeps scores, the
+// running max/sum and the accumulator on chip. With one block per head,
+// 16 blocks cannot draw the card's bandwidth, so this version is bound by
+// per-block latency instead; splitting S across more blocks is the next
+// step.
+//
+// Layout: one thread block per head (16 at batch 1), 256 threads. The block
+// walks the live slots in tiles of 128: two threads score one slot (each a
+// half of the D-dot, joined by a shuffle), warp 0 folds the tile into the
+// online max/sum, and all 256 threads (4 slot groups x D lanes) accumulate
+// PV from the tile's V rows, which the block stages in shared memory with
+// coalesced loads while it scores the tile. A split-S second pass, for
+// more blocks than heads, is later work.
+#include "common.cuh"
+
+namespace ptt {
+
+constexpr int K1_THREADS = 256;
+constexpr int K1_TILE = 128;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(K1_THREADS)
+decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ pos,
+                   T* __restrict__ out, int ld, int end, float scale) {
+  static_assert(K1_THREADS % D == 0 && D % 2 == 0, "bad head dim");
+  constexpr int G = K1_THREADS / D;  // slot groups in the PV phase
+  const int h = blockIdx.x;
+  const int tid = threadIdx.x;
+  q += h * D;
+  k += h * D;
+  v += h * D;
+  out += h * D;
+
+  __shared__ float qs[D];
+  __shared__ float ps[K1_TILE];
+  __shared__ float vs[K1_TILE][D];
+  __shared__ float red[G][D];
+  __shared__ float corr_sh, l_sh;
+
+  if (tid < D) qs[tid] = to_f(q[tid]);
+  __syncthreads();
+
+  float m = -INFINITY, l = 0.f;  // meaningful in warp 0
+  float acc = 0.f;               // PV partial of (slot group g, lane d)
+  const int d = tid % D, g = tid / D;
+
+  for (int base = 0; base <= end; base += K1_TILE) {
+    const int n = min(K1_TILE, end - base + 1);
+    // ---- stage the tile's V rows in shared memory (coalesced, all loads
+    // in flight at once) ----
+    for (int e = tid; e < n * D; e += K1_THREADS)
+      vs[e / D][e % D] = to_f(v[(size_t)(base + e / D) * ld + e % D]);
+    // ---- scores: two threads per slot ----
+    {
+      const int i = tid >> 1, half = tid & 1, s = base + i;
+      float dot = 0.f;
+      bool ok = false;
+      if (s <= end) {
+        ok = pos[s] >= 0;
+        const T* kr = k + (size_t)s * ld + half * (D / 2);
+        const float* qh = qs + half * (D / 2);
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) dot += to_f(kr[j]) * qh[j];
+      }
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      if (half == 0) ps[i] = ok ? dot * scale : -INFINITY;
+    }
+    __syncthreads();
+    // ---- online softmax statistics: warp 0 ----
+    if (tid < 32) {
+      float tmax = -INFINITY;
+      for (int j = tid; j < K1_TILE; j += 32) tmax = fmaxf(tmax, ps[j]);
+      tmax = warp_max(tmax);
+      const float m_new = fmaxf(m, tmax);
+      float corr = 1.f, sum = 0.f;
+      if (m_new != -INFINITY) {
+        corr = expf(m - m_new);
+        for (int j = tid; j < K1_TILE; j += 32) {
+          const float p = expf(ps[j] - m_new);
+          ps[j] = p;
+          sum += p;
+        }
+      } else {
+        for (int j = tid; j < K1_TILE; j += 32) ps[j] = 0.f;
+      }
+      sum = warp_sum(sum);
+      l = l * corr + sum;
+      m = m_new;
+      if (tid == 0) corr_sh = corr;
+    }
+    __syncthreads();
+    // ---- PV: p rounded to the cache type, f32 accumulation ----
+    {
+      const float corr = corr_sh;
+      float part = 0.f;
+      for (int j = g; j < n; j += G) part += rnd<T>(ps[j]) * vs[j][d];
+      acc = acc * corr + part;
+    }
+    __syncthreads();
+  }
+  red[g][d] = acc;
+  if (tid == 0) l_sh = l;
+  __syncthreads();
+  if (tid < D) {
+    float s = 0.f;
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg) s += red[gg][tid];
+    out[tid] = from_f<T>(s / fmaxf(l_sh, 1e-30f));
+  }
+}
+
+}  // namespace ptt
+
+// q (H, D); k, v (S, ld) flat rows with ld = H*D; pos (S,) int32;
+// out (H, D). end: last written slot (0 <= end < S).
+extern "C" int ptt_decode_attn(const void* q, const void* k, const void* v,
+                               const void* pos, void* out, int H, int D,
+                               int S, int ld, int end, int dtype,
+                               void* stream) {
+  if (D != 64 || ld < H * D || end < 0 || end >= S)
+    return (int)cudaErrorInvalidValue;
+  const float scale = 1.0f / sqrtf((float)D);
+  cudaStream_t st = (cudaStream_t)stream;
+  PTT_DISPATCH(dtype, T,
+               ptt::decode_attn_kernel<T, 64><<<H, ptt::K1_THREADS, 0, st>>>(
+                   (const T*)q, (const T*)k, (const T*)v, (const int*)pos,
+                   (T*)out, ld, end, scale));
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,186 @@
+// K2: mimi ring-cache insert + T=16 attention, in place.
+//
+// Replaces the TPU kernel `pocket_tts_tpu/ops/pallas_mimi.py:
+// ring_insert_attention` (`_make_ring_attention.batched` -> `_kernel`),
+// unquantized.
+//
+// What it computes, per head h: T new rows (q, k_new, v_new; positions
+// off .. off+T-1) attend over the PRE-insert ring (cap slots) plus the new
+// block, then the new K/V rows are written into the ring at
+// slot0 = ((off / T) % (cap / T)) * T. The mask is arithmetic, exactly the
+// TPU kernel's (pallas_mimi.py:130-145): an old slot j holds ring position
+// pk(j) and is visible to query position pq iff it was written (j < off),
+// is not among the slots this frame overwrites, pk >= start (the stream's
+// admission fence), pq >= pk and pq - pk < context; a new row j' is visible
+// iff pq >= off + j' (causal inside the block). Logits and softmax are
+// float32 with scale 1/sqrt(D); weights are rounded to the cache type
+// before PV, which accumulates in float32.
+//
+// What bounds it on the H100: latency. A call reads the two ring caches
+// (2 * cap * H*D elements, 512 KB in bf16 at the default sizes) once and
+// writes 2 * T rows; its ~0.3 MFLOP per head are negligible, and 512 KB
+// would stream in ~0.2 us. Eight blocks (one per head) walk three
+// dependent phases (scores, softmax, PV), so per-block latency sets the
+// time. Each block reads its head's columns of every ring row once, keeps
+// the (T, cap + T) scores in shared memory, and never writes a score or
+// probability to HBM.
+//
+// Layout: one block per head (8), 256 threads. Thread j scores key j for all
+// T queries (its K row in registers), one warp per query row does the
+// softmax, and (T/4 rows x D lanes) threads accumulate PV from V rows
+// staged in shared memory 64 at a time with coalesced loads. Each block
+// finally writes ITS OWN head's D columns of the new rows: blocks touch
+// disjoint columns, and the overwritten slots are masked for
+// every query, so no block races another.
+#include "common.cuh"
+
+namespace ptt {
+
+constexpr int K2_THREADS = 256;
+constexpr int K2_MAXT = 16;
+constexpr int K2_VCHUNK = 64;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(K2_THREADS)
+ring_attn_kernel(const T* __restrict__ q, const T* __restrict__ kn,
+                 const T* __restrict__ vn, T* __restrict__ kc,
+                 T* __restrict__ vc, T* __restrict__ out, int nt, int ld,
+                 int cap, int off, int start, int context, float scale) {
+  constexpr int G = K2_THREADS / D;          // query-row groups in PV
+  constexpr int R = (K2_MAXT + G - 1) / G;   // rows per thread in PV
+  const int h = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nk = cap + nt;
+  extern __shared__ float sm[];
+  float* qs = sm;                 // (nt, D)
+  float* sc = qs + nt * D;        // (nt, nk) scores, then probabilities
+  float* ls = sc + nt * nk;       // (nt,) softmax denominators
+  float* vs = ls + K2_MAXT;       // (K2_VCHUNK, D) staged V rows
+
+  for (int i = tid; i < nt * D; i += K2_THREADS)
+    qs[i] = to_f(q[(size_t)(i / D) * ld + h * D + i % D]);
+  __syncthreads();
+
+  const int slot0 = ((off / nt) % (cap / nt)) * nt;
+  const int last = off - 1;
+  const int end_index = ((last % cap) + cap) % cap;  // floor mod, as jnp
+
+  // ---- scores: thread j owns key j (old ring slot, then new row) ----
+  for (int j = tid; j < nk; j += K2_THREADS) {
+    const bool is_new = j >= cap;
+    const int jn = j - cap;
+    const T* kr = is_new ? kn + (size_t)jn * ld + h * D
+                         : kc + (size_t)j * ld + h * D;
+    float kv[D];
+#pragma unroll
+    for (int e = 0; e < D; ++e) kv[e] = to_f(kr[e]);
+    int pk = 0;
+    bool base_ok = true;
+    if (!is_new) {
+      const int delta = j - end_index;
+      pk = last + delta - (delta > 0 ? cap : 0);
+      const bool written = j < off;
+      const bool overwrite = (((j - slot0) % cap) + cap) % cap < nt;
+      base_ok = written && !overwrite && pk >= start;
+    }
+    for (int t = 0; t < nt; ++t) {
+      const int pq = off + t;
+      const bool ok = is_new ? (t >= jn)
+                             : (base_ok && pq >= pk && pq - pk < context);
+      float dot = 0.f;
+      const float* qt = qs + t * D;
+#pragma unroll
+      for (int e = 0; e < D; ++e) dot += qt[e] * kv[e];
+      sc[t * nk + j] = ok ? dot * scale : -INFINITY;
+    }
+  }
+  __syncthreads();
+
+  // ---- softmax: one warp per query row ----
+  const int warp = tid / 32, lane = tid % 32;
+  for (int t = warp; t < nt; t += K2_THREADS / 32) {
+    float* row = sc + t * nk;
+    float mx = -INFINITY;
+    for (int j = lane; j < nk; j += 32) mx = fmaxf(mx, row[j]);
+    mx = warp_max(mx);  // finite: query t always sees new row t
+    float s = 0.f;
+    for (int j = lane; j < nk; j += 32) {
+      const float p = expf(row[j] - mx);
+      row[j] = p;
+      s += p;
+    }
+    s = warp_sum(s);
+    if (lane == 0) ls[t] = s;
+  }
+  __syncthreads();
+
+  // ---- PV: thread (row group g, lane d), rows g, g+G, ...; V staged
+  // through shared memory in chunks of K2_VCHUNK rows (coalesced loads) --
+  {
+    const int d = tid % D, g = tid / D;
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    for (int j0 = 0; j0 < nk; j0 += K2_VCHUNK) {
+      const int n = min(K2_VCHUNK, nk - j0);
+      __syncthreads();  // the previous chunk is consumed
+      for (int e = tid; e < n * D; e += K2_THREADS) {
+        const int j = j0 + e / D;
+        vs[e] = to_f(j < cap ? vc[(size_t)j * ld + h * D + e % D]
+                             : vn[(size_t)(j - cap) * ld + h * D + e % D]);
+      }
+      __syncthreads();
+      for (int jj = 0; jj < n; ++jj) {
+        const float vv = vs[jj * D + d];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int t = g + r * G;
+          if (t < nt) acc[r] += rnd<T>(sc[t * nk + j0 + jj]) * vv;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int t = g + r * G;
+      if (t < nt)
+        out[(size_t)t * ld + h * D + d] =
+            from_f<T>(acc[r] / fmaxf(ls[t], 1e-30f));
+    }
+  }
+  __syncthreads();  // every read of this head's cache columns is done
+
+  // ---- insert: this head's columns of the new rows, at slot0 ----
+  for (int i = tid; i < nt * D; i += K2_THREADS) {
+    const size_t src = (size_t)(i / D) * ld + h * D + i % D;
+    const size_t dst = (size_t)(slot0 + i / D) * ld + h * D + i % D;
+    kc[dst] = kn[src];
+    vc[dst] = vn[src];
+  }
+}
+
+}  // namespace ptt
+
+// q, k_new, v_new, out (T, ld); k_cache, v_cache (cap, ld), ld = H*D,
+// updated in place. off: timesteps written so far (a multiple of T);
+// start: the stream's first timestep.
+extern "C" int ptt_ring_attn(const void* q, const void* k_new,
+                             const void* v_new, void* k_cache, void* v_cache,
+                             void* out, int T, int H, int D, int cap,
+                             int off, int start, int context, int dtype,
+                             void* stream) {
+  if (D != 64 || T < 1 || T > ptt::K2_MAXT || cap % T || off % T || off < 0)
+    return (int)cudaErrorInvalidValue;
+  const float scale = 1.0f / sqrtf((float)D);
+  const size_t smem =
+      sizeof(float) * ((size_t)T * D + (size_t)T * (cap + T) + ptt::K2_MAXT
+                       + (size_t)ptt::K2_VCHUNK * D);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  PTT_DISPATCH(dtype, Ty,
+               ptt::ring_attn_kernel<Ty, 64>
+               <<<H, ptt::K2_THREADS, smem, st>>>(
+                   (const Ty*)q, (const Ty*)k_new, (const Ty*)v_new,
+                   (Ty*)k_cache, (Ty*)v_cache, (Ty*)out, T, H * D, cap, off,
+                   start, context, scale));
+  return (int)cudaGetLastError();
+}

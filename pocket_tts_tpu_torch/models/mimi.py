@@ -1,0 +1,56 @@
+"""Decode-only Mimi codec: 32-d latent -> 1920 samples of 24 kHz PCM.
+
+Counterpart of `pocket_tts_tpu/models/mimi.py`:
+  quantizer output projection, conv 1x1 (32 -> 512)
+  x16 depthwise transposed-conv upsample (k32 s16) with its carry
+  2-layer ring-KV transformer over the 16 rows (kernel K2 per layer)
+  SEANet decoder (kernel K3)
+The state is updated in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import mimi_transformer, seanet
+from ..ops.conv import depthwise_upsample
+
+
+@dataclasses.dataclass
+class MimiState:
+    upsample_prev: torch.Tensor  # (upsample_kernel, dim) overlap-add carry
+    transformer: mimi_transformer.MimiTransformerState
+    seanet: dict
+
+
+def init_state(cfg, dtype=torch.float32, device="cpu") -> MimiState:
+    return MimiState(
+        upsample_prev=torch.zeros(cfg.upsample_kernel, cfg.dim, dtype=dtype,
+                                  device=device),
+        transformer=mimi_transformer.init_state(cfg.transformer, dtype,
+                                                device),
+        seanet=seanet.init_state(cfg.seanet, cfg.upsample_stride, dtype,
+                                 device))
+
+
+def decode_frame(p, cfg, state: MimiState, latent, gelu_approx: bool = False,
+                 seanet_weights: dict = None):
+    """latent: (latent_dim,) de-normalized latent -> (state, pcm (frame,)).
+    seanet_weights: the decoder's kernel layouts
+    (ops.seanet_frame.prep_weights), built once at load."""
+    x = (p["quantizer"]["w"][:, :, 0].float()
+         @ latent.float()).to(latent.dtype)
+    k, s = cfg.upsample_kernel, cfg.upsample_stride
+    y = depthwise_upsample(p["upsample"], x[None, :], k, s)   # (k, dim)
+    y = torch.cat([y[: k - s] + state.upsample_prev[s:], y[k - s:]], 0)
+    state.upsample_prev = y
+    if p["upsample"].get("b") is not None:
+        y = y + p["upsample"]["b"][None, :]
+    emb = y[: k - s]
+    _, z = mimi_transformer.forward(p["decoder_transformer"],
+                                    cfg.transformer, state.transformer, emb,
+                                    gelu_approx)
+    _, pcm = seanet.forward(p["decoder"], cfg.seanet, state.seanet, z,
+                            seanet_weights)
+    return state, pcm[:, 0]

@@ -1,0 +1,99 @@
+"""Top-level TTS model: prefill, per-frame step, sentence decode.
+
+Counterpart of `pocket_tts_tpu/models/tts.py`. The JAX package compiles a
+frame into one program and scans it on the device; here the frame is a
+host loop over eager PyTorch ops and kernels. The EOS decision is read on
+the host once per frame (one device sync per frame; CUDA graphs are later
+work). Noise is an argument of `frame_step`: the caller draws it (the
+engine from a seeded torch.Generator on the device; tests inject the JAX
+package's noise).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import backbone, flow_lm, mimi
+
+
+@dataclasses.dataclass
+class StreamState:
+    """Everything carried across frames for one stream."""
+    flow: backbone.BackboneState
+    mimi: mimi.MimiState
+    prev_latent: torch.Tensor  # (latent,) backbone input for the next step
+    eos_step: int = -1         # frame at which EOS fired, -1 until then
+    step: int = 0              # frames generated this sentence
+    done: bool = False
+
+
+def prime_voice(p, cfg, flow_state, prompt, n_valid: int):
+    """Run the voice prompt rows (Tp, d_model), padded, through the
+    backbone once; the KV is the reusable per-voice prefix."""
+    return flow_lm.prefill(p, cfg, flow_state, prompt, n_valid)
+
+
+def sentence_prefill(p, cfg, voice_state: backbone.BackboneState, tokens,
+                     n_valid: int) -> StreamState:
+    """Start a sentence from a COPY of the voice prefix (`shrink_state` it
+    first: the prefill writes in place), with fresh mimi state.
+    tokens: (Tt,) int padded; n_valid real tokens."""
+    emb = flow_lm.embed_tokens(p, tokens)
+    flow_state = flow_lm.prefill(p, cfg, voice_state, emb, n_valid)
+    return StreamState(
+        flow=flow_state,
+        mimi=mimi.init_state(cfg.mimi, emb.dtype, emb.device),
+        prev_latent=p["bos_emb"].to(emb.dtype))
+
+
+def frame_step(p, cfg, state: StreamState, noise, frames_after_eos: int,
+               max_steps: int, seanet_weights: dict = None):
+    """Generate one frame in place. Returns (pcm (frame_size,) float32 on
+    the device, valid).
+
+    EOS protocol (the JAX package's): the backbone runs first; if this step
+    fires EOS for the first time, eos_step is recorded; the frame is NOT
+    emitted once step >= eos_step + frames_after_eos or step >= max_steps.
+    When the KV slot budget runs out, the current frame is still emitted
+    and later frames stop. A stream already done emits nothing and computes
+    nothing (the JAX step computes a masked frame there).
+    """
+    if state.done:
+        return torch.zeros(cfg.mimi.frame_size,
+                           device=state.prev_latent.device), False
+    _, latent, is_eos = flow_lm.decode_step(p, cfg, state.flow,
+                                            state.prev_latent, noise)
+    if state.eos_step < 0 and bool(is_eos):
+        state.eos_step = state.step
+    stop = ((state.eos_step >= 0
+             and state.step >= state.eos_step + frames_after_eos)
+            or state.step >= max_steps)
+    capacity = state.flow.k[0].shape[0]
+    _, pcm = mimi.decode_frame(p["mimi"], cfg.mimi, state.mimi,
+                               flow_lm.denormalize(p, latent),
+                               cfg.gelu_approx, seanet_weights)
+    state.prev_latent = latent
+    state.step += 1
+    state.done = stop or state.flow.end >= capacity
+    pcm = pcm.float()
+    return (pcm * 0.0 if stop else pcm), not stop
+
+
+def decode_sentence_early_exit(p, cfg, state: StreamState, noise_fn,
+                               frames_after_eos: int, max_steps: int,
+                               scan_len: int, seanet_weights: dict = None):
+    """Step until the stream is done or scan_len frames ran. noise_fn(i)
+    gives frame i's noise. Returns the emitted frames' pcm, (n, frame)."""
+    frames = []
+    for i in range(scan_len):
+        if state.done:
+            break
+        pcm, valid = frame_step(p, cfg, state, noise_fn(i),
+                                frames_after_eos, max_steps, seanet_weights)
+        if valid:
+            frames.append(pcm)
+    if not frames:
+        return torch.zeros(0, cfg.mimi.frame_size,
+                           device=state.prev_latent.device)
+    return torch.stack(frames)

@@ -1,0 +1,141 @@
+"""Port loader vs the JAX loader: bit-identical random checkpoints, and
+params_from_flat == from_jax_numpy(JAX params) leaf for leaf."""
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pocket_tts_tpu.config import DEFAULT_CONFIG, tiny_config
+from pocket_tts_tpu.io import params as jparams
+from pocket_tts_tpu.io.safetensors_io import save_safetensors
+from pocket_tts_tpu_torch.config import check_supported
+from pocket_tts_tpu_torch.io import params as tparams
+
+torch.set_num_threads(1)
+CFG0 = tiny_config()
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("seed", [0, 3, 11])
+def test_random_flat_bit_identical(seed):
+    a = jparams.random_flat(CFG0, seed)
+    b = tparams.random_flat(CFG0, seed)
+    assert list(a) == list(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("length,seed", [(32, 1), (120, 5)])
+def test_random_voice_prompt_bit_identical(length, seed):
+    np.testing.assert_array_equal(
+        jparams.random_voice_prompt(DEFAULT_CONFIG, length, seed),
+        tparams.random_voice_prompt(DEFAULT_CONFIG, length, seed))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_params_from_flat_equals_bridge(seed):
+    flat = tparams.random_flat(CFG0, seed)
+    pj, cfg_j = jparams.params_from_flat(flat, CFG0)
+    pt, cfg_t = tparams.params_from_flat(flat, CFG0)
+    assert cfg_j == cfg_t
+    bridged = tparams.from_jax_numpy(jax.tree.map(np.asarray, pj))
+    lt = dict(_leaves(pt))
+    lb = dict(_leaves(bridged))
+    assert sorted(lt) == sorted(lb)
+    for k in lt:
+        assert lt[k].shape == lb[k].shape, k
+        assert lt[k].dtype == lb[k].dtype, k
+        if k == "/_time_cond":   # computed by each package's own ops
+            torch.testing.assert_close(lt[k], lb[k], atol=1e-5, rtol=0)
+        else:
+            assert torch.equal(lt[k], lb[k]), k
+
+
+def test_params_from_flat_bf16_weights_equal():
+    flat = tparams.random_flat(CFG0, 2)
+    pj, _ = jparams.params_from_flat(flat, CFG0, jnp.bfloat16)
+    pt, _ = tparams.params_from_flat(flat, CFG0, torch.bfloat16)
+    bridged = dict(_leaves(tparams.from_jax_numpy(
+        jax.tree.map(np.asarray, pj))))
+    for k, v in _leaves(pt):
+        assert v.dtype == torch.bfloat16, k
+        if k != "/_time_cond":
+            assert torch.equal(v, bridged[k]), k
+
+
+def test_rope_permutation_matches():
+    flat = tparams.random_flat(CFG0, 4)
+    pj, _ = jparams.params_from_flat(flat, CFG0)
+    pt, _ = tparams.params_from_flat(flat, CFG0)
+    np.testing.assert_array_equal(
+        np.asarray(pj["layers"]["in_proj"]["w"]),
+        pt["layers"]["in_proj"]["w"].numpy())
+    # the q block is permuted, the v block is not
+    w = flat["flow_lm.transformer.layers.0.self_attn.in_proj.weight"].T
+    dm = CFG0.backbone.d_model
+    assert not np.array_equal(pt["layers"]["in_proj"]["w"][0, :, :dm],
+                              w[:, :dm])
+    np.testing.assert_array_equal(
+        pt["layers"]["in_proj"]["w"][0, :, 2 * dm:].numpy(), w[:, 2 * dm:])
+
+
+def test_load_checkpoint_and_voice(tmp_path):
+    flat = tparams.random_flat(CFG0, 5)
+    path = str(tmp_path / "ckpt.safetensors")
+    save_safetensors(flat, path)
+    a, cfg_a = tparams.load_checkpoint(path, CFG0)
+    b, cfg_b = tparams.params_from_flat(flat, CFG0)
+    assert cfg_a == cfg_b
+    for (ka, va), (kb, vb) in zip(_leaves(a), _leaves(b)):
+        assert ka == kb and torch.equal(va, vb), ka
+    prompt = tparams.random_voice_prompt(CFG0, 9)
+    vpath = str(tmp_path / "voice.safetensors")
+    save_safetensors({"voice.audio_prompt": prompt[None]}, vpath)
+    np.testing.assert_array_equal(tparams.load_voice(vpath).numpy(), prompt)
+    np.testing.assert_array_equal(np.asarray(jparams.load_voice(vpath)),
+                                  prompt)
+
+
+@pytest.mark.parametrize("change", [
+    dict(backbone=dict(quantize_kv=True)),
+    dict(backbone=dict(fuse_insert=True)),
+    dict(backbone=dict(use_megalayer=True)),
+    dict(backbone=dict(use_bilayer=True)),
+    dict(on_mesh=True),
+    dict(mimi=dict(transformer=dict(quantize_kv=True))),
+    dict(mimi=dict(transformer=dict(capacity=250))),
+])
+def test_unsupported_config_raises(change):
+    def apply(obj, ch):
+        return dataclasses.replace(obj, **{
+            k: (apply(getattr(obj, k), v) if isinstance(v, dict) else v)
+            for k, v in ch.items()})
+    check_supported(CFG0)
+    with pytest.raises(NotImplementedError):
+        check_supported(apply(CFG0, change))
+
+
+@pytest.mark.parametrize("key", [
+    "flow_lm.transformer.layers.0.cross_attention.in_proj.weight",
+    "mimi.decoder_transformer.transformer.layers.0.gating.linear_in.weight",
+    "mimi.decoder_transformer.transformer.layers.0.norm1.alpha",
+])
+def test_unported_checkpoint_modules_raise(key):
+    flat = tparams.random_flat(CFG0, 1)
+    flat[key] = np.zeros((4,), np.float32)
+    with pytest.raises(NotImplementedError):
+        tparams.params_from_flat(flat, CFG0)
