@@ -5,8 +5,10 @@ Usage:
       -o out.wav "Hello world."
 
 Text streams through `Stream.send/flush/receive` in 15-character chunks,
-as the JAX package's CLI feeds it. --device defaults to "cuda" when a card
-is present (kernels K1-K3 run there, in bf16), else "cpu" (f32).
+as the JAX package's CLI feeds it. --device defaults to "cuda" (the
+hand-written kernels run there, in bf16) and fails when there is no card;
+--device cpu runs the plain versions in f32. --quantize int8 (or q8)
+quantizes the linear weights to int8 after load.
 """
 from __future__ import annotations
 
@@ -33,8 +35,11 @@ def build_parser():
     p.add_argument("--random-weights", action="store_true",
                    help="random weights and the mock tokenizer (no "
                         "checkpoint needed)")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    p.add_argument("--quantize", default=None, choices=["int8", "q8"],
+                   help="per-channel int8 linear weights (quantized after "
+                        "load)")
     return p
 
 
@@ -49,14 +54,19 @@ def main(argv=None):
     from .config import DEFAULT_CONFIG
     from .runtime.engine import TTSEngine
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = args.device
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        print("no CUDA device (torch.cuda.is_available() is False); pass "
+              "--device cpu to run on the CPU", file=sys.stderr)
+        return 1
     dtype = torch.bfloat16 if device.startswith("cuda") else torch.float32
     if args.random_weights:
         from .io.params import random_params, random_voice_prompt
         params, cfg = random_params(DEFAULT_CONFIG, dtype=dtype,
                                     device=device)
         engine = TTSEngine(params=params, cfg=cfg, dtype=dtype,
-                           device=device, seed=args.seed)
+                           device=device, seed=args.seed,
+                           quantize=args.quantize)
         voice = random_voice_prompt(cfg)
     else:
         model = args.model or "."
@@ -66,10 +76,11 @@ def main(argv=None):
                   "--random-weights", file=sys.stderr)
             return 1
         engine = TTSEngine(model_path=model, dtype=dtype, device=device,
-                           seed=args.seed)
+                           seed=args.seed, quantize=args.quantize)
         voice = args.voice
     print(f"seed: {engine.seed}")
-    print(f"device: {engine.device} ({dtype})")
+    print(f"device: {engine.device} ({dtype}"
+          f"{', int8 weights' if args.quantize else ''})")
 
     stream = engine.open_stream(voice, args.temperature)
     frames = []

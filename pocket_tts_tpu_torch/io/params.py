@@ -29,8 +29,10 @@ from pocket_tts_tpu.config import DEFAULT_CONFIG, ModelConfig, SeanetStage
 
 
 def _t(a, dtype, device):
-    # np.array copies: checkpoint arrays may be read-only memory maps
-    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+    # a C-order copy: checkpoint arrays may be read-only memory maps, and
+    # transposed linear weights must be row-major (in, out) for the kernels
+    return torch.from_numpy(np.array(a, order="C")).to(device=device,
+                                                        dtype=dtype)
 
 
 def _lin(flat, name, dtype, device, required=True):
@@ -275,14 +277,20 @@ def params_from_flat(flat: Dict[str, np.ndarray],
     return p, cfg
 
 
-def from_jax_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None):
+def from_jax_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None,
+                   _keep: bool = False):
     """The JAX package's params pytree, given with numpy leaves
     (`jax.tree.map(np.asarray, params)`), as the port's params tree: the
     same nesting, stacking and rope permutation, with torch tensors. dtype
     None keeps each leaf's float type (bf16 leaves arrive as ml_dtypes
-    bfloat16 and become torch.bfloat16)."""
+    bfloat16 and become torch.bfloat16); a dtype casts the float leaves to
+    it, except the float32 `scale` of a quantized linear ({"q", "scale"}),
+    which the JAX package keeps float32 in every engine dtype. Integer
+    leaves (int8 `q`) keep their type."""
     if isinstance(tree, dict):
-        return {k: from_jax_numpy(v, device, dtype) for k, v in tree.items()}
+        quant = "q" in tree or "q4" in tree
+        return {k: from_jax_numpy(v, device, dtype, quant and k == "scale")
+                for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return tuple(from_jax_numpy(v, device, dtype) for v in tree)
     a = np.asarray(tree)
@@ -290,7 +298,7 @@ def from_jax_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None):
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))
-    if dtype is not None and t.is_floating_point():
+    if dtype is not None and t.is_floating_point() and not _keep:
         t = t.to(dtype)
     return t.to(device)
 

@@ -13,7 +13,10 @@ returns the same state; `advance` moves the host-side cursors. Copy a state
 Prefill (T > 1) attends with plain PyTorch, as the JAX package runs it on
 XLA. Decode (T = 1) inserts the row at `end` first and then attends with
 `end` as the last written slot, through kernel K1
-(ops/decode_attn.decode_attention).
+(ops/decode_attn.decode_attention). With int8 weights (io/quant.py) the
+decode step's norm1 + in_proj run as kernel K5a and its out_proj + MLP
+as kernel K5b (ops/fused_layer.py), as the JAX package does at T = 1;
+prefill keeps the unfused route, its linears through kernel K4a.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import dataclasses
 
 import torch
 
+from ..ops import fused_layer
 from ..ops.attention import pos_cache_bias, sdpa
 from ..ops.basic import gelu, layer_norm, linear, slice_layer_params
 from ..ops.decode_attn import decode_attention
@@ -53,8 +57,12 @@ def _layer(p, x, k_cache, v_cache, end: int, cos, sin, bias, pos_vec,
     """One pre-LN layer; writes its KV rows at slot `end` in place."""
     t, dm = x.shape
     d = dm // num_heads
-    h = layer_norm(p["norm1"], x, eps=1e-5)
-    q, k, v = linear(p["in_proj"], h).split(dm, -1)
+    fused = t == 1 and fused_layer.supported(p)
+    if fused:
+        qkv = fused_layer.pre_attention(p, x, eps=1e-5)
+    else:
+        qkv = linear(p["in_proj"], layer_norm(p["norm1"], x, eps=1e-5))
+    q, k, v = qkv.split(dm, -1)
     q = apply_rope(q.reshape(t, num_heads, d), cos, sin)
     k = apply_rope(k.reshape(t, num_heads, d), cos, sin)
     k_cache[end:end + t] = k.reshape(t, dm)
@@ -65,6 +73,9 @@ def _layer(p, x, k_cache, v_cache, end: int, cos, sin, bias, pos_vec,
         s = k_cache.shape[0]
         attn = sdpa(q, k_cache.view(s, num_heads, d),
                     v_cache.view(s, num_heads, d), bias)
+    if fused:
+        return fused_layer.post_attention(p, x, attn.reshape(t, dm),
+                                          eps=1e-5, approx=gelu_approx)
     x = x + linear(p["out_proj"], attn.reshape(t, dm))
     h = layer_norm(p["norm2"], x, eps=1e-5)
     return x + linear(p["linear2"],

@@ -6,12 +6,15 @@ Counterpart of `pocket_tts_tpu/models/flow_mlp.py`, same params tree:
   time_embed: 2 x {freqs, mlp_0, mlp_2, mlp_3 {alpha}}
   res_blocks (stacked over depth): {in_ln, mlp_0, mlp_2, adaln}
   final: {norm, linear, adaln}
-Functions take one feature vector (no batch axis).
+Functions take one feature vector (no batch axis). With int8 weights
+(io/quant.py) `forward` runs the whole net as kernel K6
+(ops/fused_flow.py), as the JAX package does on the TPU.
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops import fused_flow
 from ..ops.basic import (layer_norm, linear, mlp_std_norm, modulate, silu,
                          slice_layer_params)
 
@@ -52,9 +55,11 @@ def forward(p, c, x, t_combined=None):
     (latent,) noise; t_combined: precomputed `time_cond(p)`."""
     if t_combined is None:
         t_combined = time_cond(p)
+    if fused_flow.supported(p):
+        return fused_flow.flow_forward(p, c, x, t_combined)
     h = linear(p["input_proj"], x)
     y = t_combined + linear(p["cond_embed"], c)
-    depth = p["res_blocks"]["mlp_0"]["w"].shape[0]
+    depth = next(iter(p["res_blocks"]["adaln"].values())).shape[0]
     for i in range(depth):
         h = res_block(slice_layer_params(p["res_blocks"], i), h, y)
     return final_layer(p["final"], h, y)

@@ -7,7 +7,10 @@ are FLAT (cap, H*D) like the JAX package's; `offset` counts the timesteps
 written and `start` is the stream's first timestep (0 solo). Each layer's
 ring step, insert + attention, goes through kernel K2
 (ops/ring_attn.ring_insert_attention), which writes the caches IN PLACE;
-`forward` advances `offset` on the same state object.
+`forward` advances `offset` on the same state object. With int8 weights
+(io/quant.py) each layer's norm1 + in_proj run as kernel K5a and its
+out_proj + MLP (with both layer scales) as kernel K5b
+(ops/fused_layer.py), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import dataclasses
 
 import torch
 
+from ..ops import fused_layer
 from ..ops.basic import gelu, layer_norm, linear, slice_layer_params
 from ..ops.ring_attn import ring_insert_attention
 from ..ops.rope import apply_rope_halves as apply_rope, rope_cos_sin
@@ -40,13 +44,21 @@ def init_state(cfg, dtype=torch.float32, device="cpu"):
 def _layer(p, x, k_cache, v_cache, offset: int, start: int, cos, sin, cfg,
            gelu_approx: bool):
     t, dm = x.shape
-    h = layer_norm(p["norm1"], x, eps=cfg.norm_eps)
-    q, k, v = linear(p["in_proj"], h).split(dm, -1)
+    fused = fused_layer.supported(p)
+    if fused:
+        qkv = fused_layer.pre_attention(p, x, eps=cfg.norm_eps)
+    else:
+        qkv = linear(p["in_proj"], layer_norm(p["norm1"], x,
+                                              eps=cfg.norm_eps))
+    q, k, v = qkv.split(dm, -1)
     q = apply_rope(q.reshape(t, cfg.num_heads, cfg.head_dim), cos, sin)
     k = apply_rope(k.reshape(t, cfg.num_heads, cfg.head_dim), cos, sin)
     attn = ring_insert_attention(
         q.reshape(t, dm), k.reshape(t, dm), v.contiguous(), k_cache, v_cache,
         offset, start, cfg.num_heads, cfg.context)
+    if fused:
+        return fused_layer.post_attention(p, x, attn, eps=cfg.norm_eps,
+                                          approx=gelu_approx)
     x = x + p["layer_scale_1"]["scale"] * linear(p["out_proj"], attn)
     h = layer_norm(p["norm2"], x, eps=cfg.norm_eps)
     up = linear(p["linear2"], gelu(linear(p["linear1"], h), gelu_approx))

@@ -1,15 +1,19 @@
 """Build and load the port's CUDA kernels.
 
-All sources under `pocket_tts_tpu_torch/csrc/` compile with nvcc into ONE
-shared library with a plain C interface, loaded with ctypes:
+Every source under `pocket_tts_tpu_torch/csrc/` compiles with nvcc to an
+object file, all at once in parallel processes, and the objects link into
+ONE shared library with a plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libptt_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas=-v -c csrc/<name>.cu -o <name>.o  (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o \
+         _build/libptt_kernels_<hash>.so *.o
 
 The build runs on first use (never at import) into the package's `_build/`
 directory, which git ignores. The file name carries a hash of the sources
 and flags, so an edited source is rebuilt. Every C entry returns
-`cudaGetLastError()` after its launch; `check` raises when it is not 0.
+`cudaGetLastError()` (or the launch call's own error) after its launch;
+`check` raises when it is not 0.
 """
 from __future__ import annotations
 
@@ -26,11 +30,13 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES = {
     # q, k, v, pos, out, H, D, S, row stride (H*D), end, dtype, stream
@@ -45,6 +51,19 @@ SIGNATURES = {
     "ptt_convtr_overlap": [P, P, P, P, I, I, I, I, P],
     # x, carry, T, C, P(carry rows), elu, dtype, stream
     "ptt_carry_tail": [P, P, I, I, I, I, I, P],
+    # x, q, scale, y, M, K, N, dtype, stream
+    "ptt_int8_matmul": [P, P, P, P, I, I, I, I, P],
+    # x, norm scale, norm bias, q, scale, bias, out, T, dm, N, eps, dtype,
+    # stream
+    "ptt_fused_pre": [P, P, P, P, P, P, P, I, I, I, F, I, P],
+    # T, dm, dtype -> blocks
+    "ptt_fused_post_max_blocks": [I, I, I],
+    # pointer array (18), T, dm, H, eps, approx, grid, dtype, stream
+    "ptt_fused_post": [P, I, I, I, F, I, I, I, P],
+    # d_model, dim, hid, latent, dtype -> blocks
+    "ptt_fused_flow_max_blocks": [I, I, I, I, I],
+    # pointer array (30), dims array (5), grid, dtype, stream
+    "ptt_fused_flow": [P, P, I, I, P],
 }
 
 _state = {"lib": None, "build_seconds": None, "path": None, "log": ""}
@@ -71,6 +90,43 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmd):
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                           + res.stdout + res.stderr)
+    return res.stdout + res.stderr
+
+
+def _build(path: str) -> str:
+    """Compile every source in parallel, link them into `path`; returns
+    nvcc's output (the ptxas reports)."""
+    nvcc = _nvcc()
+    tmp_dir = f"{path}.{os.getpid()}.d"
+    os.makedirs(tmp_dir, exist_ok=True)
+    jobs = []
+    for src in sources():
+        obj = os.path.join(tmp_dir, os.path.basename(src) + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = f"{path}.{os.getpid()}.tmp"
+    log.append(_run([nvcc, *ARCH, "-shared", "-o", tmp,
+                     *(obj for _, obj, _ in jobs)]))
+    os.replace(tmp, path)
+    shutil.rmtree(tmp_dir, ignore_errors=True)
+    return "".join(log)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
     if _state["lib"] is not None:
@@ -78,20 +134,12 @@ def library() -> ctypes.CDLL:
     path = os.path.join(BUILD_DIR, f"libptt_kernels_{_digest()}.so")
     t0 = time.perf_counter()
     if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *sources()]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                               + res.stdout + res.stderr)
-        os.replace(tmp, path)
-        _state["log"] = res.stdout + res.stderr
+        _state["log"] = _build(path)
     lib = ctypes.CDLL(path)
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = I
     _state.update(lib=lib, path=path,
                   build_seconds=time.perf_counter() - t0)
     return lib

@@ -6,8 +6,11 @@ Counterpart of `pocket_tts_tpu/runtime/engine.py`: `TTSEngine.synthesize`
 per-sentence KV capacity (the smallest 128-multiple that covers prompt,
 text and max frames), so the KV length S varies per sentence.
 
-Everything runs on `device` ("cuda" launches the hand-written kernels K1-K3
-on the card; "cpu" runs their plain versions). Noise comes from a
+Everything runs on `device` ("cuda", the default, launches the
+hand-written kernels on the card; "cpu" runs their plain versions).
+`quantize="int8"` (or "q8") quantizes the linear weights after load, as
+the JAX engine does; the decode step then runs kernels K4a, K5a, K5b and
+K6 beside K1-K3. Noise comes from a
 torch.Generator on that device, seeded from the engine seed: it does not
 reproduce jax.random, so the two packages agree only at temp 0 or when the
 same noise is fed to both (`_draw_noise` is the single place it is drawn).
@@ -27,6 +30,7 @@ from pocket_tts_tpu.text.tokenizer import load_tokenizer
 
 from ..config import check_supported
 from ..io import params as params_io
+from ..io.quant import quantize_params
 from ..models import backbone, tts
 from ..ops.seanet_frame import prep_weights
 
@@ -54,17 +58,25 @@ class TTSEngine:
                  quantize: Optional[str] = None, quantize_kv: bool = False,
                  quantize_convs: bool = False,
                  allow_mock_tokenizer: bool = False):
-        """Load weights onto `device` (default: "cuda" when a card is
-        present, else "cpu"). params: a tree already on that device (with
-        its cfg), or None to load `tts_b6369a24.safetensors` under
-        model_path. The JAX engine's quantize options are not ported yet:
-        setting any of them raises NotImplementedError."""
-        if quantize or quantize_kv or quantize_convs:
+        """Load weights onto `device` ("cuda" when None; it raises when
+        there is no card, and running on the CPU takes device="cpu").
+        params: a tree already on that device (with its cfg), or None to
+        load `tts_b6369a24.safetensors` under model_path. quantize: None,
+        "int8" or "q8" (per-channel int8 linear weights, quantized after
+        load). int4 / q4_0, quantize_kv and quantize_convs are not ported
+        yet and raise NotImplementedError."""
+        if quantize in ("int4", "q4", "q4_0") or quantize_kv \
+                or quantize_convs:
             raise NotImplementedError(
-                "quantized weights and KV caches are not ported yet")
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+                "int4 weights, quantized KV caches and quantized convs are "
+                "not ported yet")
+        if quantize not in (None, "int8", "q8"):
+            raise ValueError(f"unknown quantization: {quantize}")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TTSEngine: no CUDA device (torch.cuda.is_available() is "
+                "False); pass device='cpu' to run on the CPU")
         self.model_path = model_path
         if params is None:
             ckpt = os.path.join(model_path or ".", "tts_b6369a24.safetensors")
@@ -73,6 +85,8 @@ class TTSEngine:
         if cfg is None:
             raise ValueError("cfg is required with params")
         check_supported(cfg)
+        if quantize:
+            params = quantize_params(params, bits=8)
         self.params = params
         self.cfg = cfg
         self.dtype = dtype

@@ -31,7 +31,8 @@ def jengine(seed=0):
 
 
 def tengine(seed=0, cls=TTSEngine, **kw):
-    return cls(params=PT, cfg=CFG, seed=seed, device="cpu",
+    kw.setdefault("device", "cpu")
+    return cls(params=PT, cfg=CFG, seed=seed,
                tokenizer=MockTokenizer(CFG.lut.n_bins), **kw)
 
 
@@ -116,13 +117,27 @@ def test_same_seed_same_audio_and_wav(tmp_path):
     assert sr == CFG.mimi.sample_rate and back.size == pcm.size
 
 
-@pytest.mark.parametrize("option", [dict(quantize="int8"),
+@pytest.mark.parametrize("option", [dict(quantize="int4"),
                                     dict(quantize="q4_0"),
                                     dict(quantize_kv=True),
                                     dict(quantize_convs=True)])
 def test_quantize_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError):
         tengine(**option)
+
+
+def test_no_card_raises_instead_of_running_on_cpu(monkeypatch):
+    """The engine and the CLI default to the card; without one they raise
+    (the CLI exits 1) rather than run on the CPU. The CPU takes an explicit
+    device."""
+    from pocket_tts_tpu_torch import cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TTSEngine(params=PT, cfg=CFG,
+                  tokenizer=MockTokenizer(CFG.lut.n_bins))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tengine(device="cuda")
+    assert cli.main(["--random-weights", "-o", "/dev/null", "Hi."]) == 1
 
 
 @pytest.mark.parametrize("argv", [["--device", "cpu", "-s", "1", "-t",

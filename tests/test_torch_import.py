@@ -17,6 +17,10 @@ MODULES = [
     "pocket_tts_tpu_torch.ops.decode_attn",
     "pocket_tts_tpu_torch.ops.ring_attn",
     "pocket_tts_tpu_torch.ops.seanet_frame",
+    "pocket_tts_tpu_torch.ops.quant_matmul",
+    "pocket_tts_tpu_torch.ops.fused_layer",
+    "pocket_tts_tpu_torch.ops.fused_flow",
+    "pocket_tts_tpu_torch.io.quant",
     "pocket_tts_tpu_torch.models.tts",
 ]
 
@@ -38,7 +42,10 @@ def test_import_builds_nothing():
     library (the build happens at first launch, on the card)."""
     code = ("import pocket_tts_tpu_torch.ops.seanet_frame, "
             "pocket_tts_tpu_torch.ops.decode_attn, "
-            "pocket_tts_tpu_torch.ops.ring_attn; "
+            "pocket_tts_tpu_torch.ops.ring_attn, "
+            "pocket_tts_tpu_torch.ops.quant_matmul, "
+            "pocket_tts_tpu_torch.ops.fused_layer, "
+            "pocket_tts_tpu_torch.ops.fused_flow; "
             "from pocket_tts_tpu_torch.ops import cuda_lib; "
             "import sys; sys.exit(0 if cuda_lib._state['lib'] is None "
             "and 'triton' not in sys.modules else 1)")
