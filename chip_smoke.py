@@ -3,37 +3,46 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Drives the port's two solo paths (synthesis through `TTSEngine`, with
-bf16 weights and with int8 weights, `quantize="int8"`) at the full width of
-DEFAULT_CONFIG with random weights from seed 0, and checks the seven
-hand-written CUDA kernels on them against their plain PyTorch versions.
-Phases, in order; any failure raises and the exit code is 1:
+Drives the port's four solo paths (synthesis through `TTSEngine` with
+bf16 weights, and with `quantize="int8"`, `"int4"` and `"q4_0"`) at the
+full width of DEFAULT_CONFIG with random weights from seed 0, and checks
+the eleven hand-written CUDA kernel entries on them against their plain
+PyTorch versions. Phases, in order; any failure raises, names its phase
+and the exit code is 1:
 
   1. environment   torch / CUDA versions, card name and power limit
   2. build         nvcc builds the kernel library (pocket_tts_tpu_torch/csrc)
   3. kernels       K1 decode attention, K2 ring insert + attention, K3 SEANet
-                   frame, K4a int8 matmul, K5a/K5b fused layer pre/post, K6
-                   fused flow net vs their plain versions at main-path
-                   shapes, f32 and bf16, with the tolerances stated below
-  4. end to end    synthesis of the benchmark sentence at temp 0, bf16 then
-                   int8, counters set to 0 before each run and read after:
-                   per decoded frame bf16 must launch 6 K1, 2 K2 and 1 K3;
-                   int8 1 K4a, 8 K5a, 8 K5b, 1 K6, 6 K1, 2 K2, 1 K3, plus
-                   24 K4a launches per prefill call
-  5. card vs CPU   12 f32 frames on the card vs the port on the CPU, bf16
-                   weights and int8 weights
-  6. timing        decode frames/s of both paths in alternating rounds
+                   frame; K4a int8 matmul, K5a/K5b fused layer pre/post and
+                   K6 fused flow net on int8 weights; K4b int4 matmul and
+                   the int4 K5a/K5b/K6 on per-channel int4 and on q4_0
+                   (K-grouped) weights: each vs its plain version at
+                   main-path shapes, f32 and bf16, with the tolerances
+                   stated below
+  4. end to end    synthesis of the benchmark sentence at temp 0 on each
+                   path, counters set to 0 before each run and read after:
+                   per decoded frame every path launches 6 K1, 2 K2 and 1
+                   K3; int8 adds 1 K4a, 8 K5a, 8 K5b, 1 K6 and 24 K4a per
+                   prefill call; int4 and q4_0 the same counts of K4b and
+                   the int4 K5a/K5b/K6 (counted apart from int8). Then the
+                   q4_0 engine is built again from a params cache written
+                   and read back here, and must give the same pcm, bit for
+                   bit
+  5. card vs CPU   12 f32 frames on the card vs the port on the CPU, with
+                   bf16, int8, int4 and q4_0 weights
+  6. timing        decode frames/s of the four paths in alternating rounds
                    (with and without the per-frame host sync), each
                    kernel's device time vs its plain version's (CUDA
                    events), device busy share and launches per frame of
-                   both paths (profiler)
+                   each path (profiler)
 
 The last three lines of standard output are a JSON object of the kernels
-(launches from the run of the path that uses each: K1-K3 from bf16, the
-others from int8), the card's `nvidia-smi` name and power limit, and the
-result object {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
-prints no result. With --out DIR, the longer output (nvcc's register
-report, the profiler table) is also written under DIR.
+(launches from the runs of the path that uses each: K1-K3 from bf16, the
+int8 entries from int8, the int4 entries from int4 and q4_0 together),
+the card's `nvidia-smi` name and power limit, and the result object
+{"ok": true, "device": {...}}. Without a CUDA device the script exits 1
+and prints no result. With --out DIR, the longer output (nvcc's register
+report, the profiler tables) is also written under DIR.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,11 +68,12 @@ TOL = {
     ("attn", "f32"): 1e-4, ("attn", "bf16"): 2e-2,
     # SEANet: relative to max |plain| (ten rounding stages in a row in bf16)
     ("seanet", "f32"): 1e-4, ("seanet", "bf16"): 5e-2,
-    # int8 matmul (K4a) and the fused layer (K5a/K5b): relative to
-    # max |plain|. Kernel and plain version round at the same points; in
-    # bf16 a float32 sum taken in another order can round one ulp apart
-    # (2^-8 of the largest output) at each rounding point, here one or
-    # two in a row.
+    # quantized matmul (K4a, K4b) and the fused layer (K5a/K5b), int8 and
+    # int4: relative to max |plain|. Kernel and plain version round at the
+    # same points (int4 nibbles times group scales are exact in float32 on
+    # both sides); in bf16 a float32 sum taken in another order can round
+    # one ulp apart (2^-8 of the largest output) at each rounding point,
+    # here one or two in a row.
     ("quant", "f32"): 1e-4, ("quant", "bf16"): 1e-2,
     # flow net (K6): relative to max |plain|; bf16 as above, over a chain
     # of ~14 rounding points, each of which can move the next by one ulp
@@ -92,8 +103,28 @@ KERNELS = {
     "fused_flow": dict(
         source="pocket_tts_tpu_torch/csrc/fused_flow.cu",
         replaces="pocket_tts_tpu/ops/fused_flow.py:188"),
+    "int4_matmul": dict(
+        source="pocket_tts_tpu_torch/csrc/int4_matmul.cu",
+        replaces="pocket_tts_tpu/ops/quant_matmul.py:407"),
+    "fused_pre_int4": dict(
+        source="pocket_tts_tpu_torch/csrc/fused_layer.cu",
+        replaces="pocket_tts_tpu/ops/fused_layer.py:208"),
+    "fused_post_int4": dict(
+        source="pocket_tts_tpu_torch/csrc/fused_layer.cu",
+        replaces="pocket_tts_tpu/ops/fused_layer.py:576"),
+    "fused_flow_int4": dict(
+        source="pocket_tts_tpu_torch/csrc/fused_flow.cu",
+        replaces="pocket_tts_tpu/ops/fused_flow.py:188"),
 }
-BF16_KERNELS = ("decode_attn", "ring_attn", "seanet_frame")
+# the kernels each path adds to K1-K3, and the paths whose counts the
+# kernels line reports for each
+PATH_KERNELS = {
+    "int8": ("int8_matmul", "fused_pre", "fused_post", "fused_flow"),
+    "int4": ("int4_matmul", "fused_pre_int4", "fused_post_int4",
+             "fused_flow_int4"),
+}
+PATH_KERNELS["q4_0"] = PATH_KERNELS["int4"]
+QUANT_PATHS = ("int8", "int4", "q4_0")
 
 
 def log(*args):
@@ -217,9 +248,10 @@ def check_k3(dec, cfg, device, dtype, results, weights):
     results.setdefault("seanet_frame", {})[_dt_name(dtype)] = worst_abs
 
 
-def _rel_check(name, key, dtype, pairs, results):
+def _rel_check(name, key, dtype, pairs, results, label=""):
     """Largest |kernel - plain| over `pairs`, relative to max |plain| per
-    pair, against TOL[(key, dtype)]; records the largest absolute error."""
+    pair, against TOL[(key, dtype)]; records the largest absolute error
+    (over every call for `name`)."""
     worst_rel = worst_abs = 0.0
     for got, want in pairs:
         scale = max(want.float().abs().max().item(), 1e-30)
@@ -229,13 +261,14 @@ def _rel_check(name, key, dtype, pairs, results):
         worst_abs = max(worst_abs, err)
         worst_rel = max(worst_rel, err / scale)
     tol = TOL[(key, _dt_name(dtype))]
-    log(f"  {name} {_dt_name(dtype)}: {len(pairs)} cases, max_abs_err "
-        f"{worst_abs:.3e}, relative to max|plain| {worst_rel:.3e} "
-        f"(tol {tol})")
+    log(f"  {name}{label} {_dt_name(dtype)}: {len(pairs)} cases, "
+        f"max_abs_err {worst_abs:.3e}, relative to max|plain| "
+        f"{worst_rel:.3e} (tol {tol})")
     if not worst_rel <= tol:
-        raise AssertionError(f"{name} {_dt_name(dtype)} rel error "
+        raise AssertionError(f"{name}{label} {_dt_name(dtype)} rel error "
                              f"{worst_rel} > {tol}")
-    results.setdefault(name, {})[_dt_name(dtype)] = worst_abs
+    errs = results.setdefault(name, {})
+    errs[_dt_name(dtype)] = max(errs.get(_dt_name(dtype), 0.0), worst_abs)
 
 
 def _rand(rng, device, dtype, *shape, scale=1.0):
@@ -250,39 +283,65 @@ def _with_biases(p, rng, device, dtype):
     out = dict(p)
     for name in ("in_proj", "out_proj", "linear1", "linear2"):
         out[name] = dict(p[name], b=_rand(rng, device, dtype,
-                                          p[name]["q"].shape[1], scale=0.1))
+                                          p[name]["scale"].shape[-1],
+                                          scale=0.1))
     return out
 
 
-def check_quant_kernels(pq, cfg, device, dtype, results):
-    """K4a, K5a, K5b and K6 vs their plain versions at the int8 main
-    path's shapes; pq: quantize_params of the full-width tree on the card
-    in `dtype`; inputs from numpy seed 5. Also the options the main path
-    leaves unused: biases on the layer's linears, and a flow net whose
-    input_proj and final.linear stay plain (tiny_config(64))."""
+QUANTIZE = {"int8": dict(bits=8), "int4": dict(bits=4),
+            "q4_0": dict(bits=4, group=32)}
+
+
+def quant_matmul_fns(path):
+    """(kernel name, wrapper, plain version, weight key) of the matmul
+    kernel of a quantized path."""
+    from pocket_tts_tpu_torch.ops import quant_matmul as qm
+    if path == "int8":
+        return "int8_matmul", qm.int8_matmul, qm.int8_matmul_plain, "q"
+    return "int4_matmul", qm.int4_matmul, qm.int4_matmul_plain, "q4"
+
+
+def check_quant_kernels(pq, cfg, device, dtype, results, path):
+    """The path's matmul kernel (K4a or K4b), K5a, K5b and K6 vs their
+    plain versions at the main path's shapes; pq: the full-width tree
+    quantized for `path` (int8, int4 or q4_0) on the card in `dtype`;
+    inputs from numpy seed 5. Also the options the main path leaves
+    unused: biases on the layer's linears, and a flow net whose input_proj
+    and final.linear stay plain (tiny_config(64)). Under q4_0 at full
+    width input_linear and the flow net's input_proj (K = 32) keep
+    per-channel int4 scales beside grouped ones."""
     from pocket_tts_tpu_torch.config import tiny_config
     from pocket_tts_tpu_torch.io.params import random_params
     from pocket_tts_tpu_torch.io.quant import quantize_params
     from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
     from pocket_tts_tpu_torch.ops.basic import slice_layer_params
-    from pocket_tts_tpu_torch.ops.quant_matmul import (int8_matmul,
-                                                       int8_matmul_plain)
+    mm_name, mm, mm_plain, key = quant_matmul_fns(path)
+    suffix = PATH_KERNELS[path][1][len("fused_pre"):]
+    label = f" [{path}]"
     rng = np.random.RandomState(5)
     bb = pq["layers"]
     mt = pq["mimi"]["decoder_transformer"]["layers"]
-    # K4a: input_linear each frame (T=1, K=32), and prefill buckets through
-    # in_proj (K=1024, N=3072), linear1 (N=4096) and linear2 (K=4096)
+    if path == "q4_0" and not (
+            pq["input_linear"]["scale"].dim() == 1
+            and pq["flow_net"]["input_proj"]["scale"].dim() == 1
+            and pq["flow_net"]["cond_embed"]["scale"].dim() == 2
+            and bb["in_proj"]["scale"].dim() == 3):
+        raise AssertionError("q4_0 tree lacks its mixed scale layouts")
+    # K4a / K4b: input_linear each frame (T=1, K=32), and prefill buckets
+    # through in_proj (K=1024, N=3072), linear1 (N=4096) and linear2
+    # (K=4096)
     pairs = []
     cases = [(1, pq["input_linear"])]
     for t in (16, 130):
         for name in ("in_proj", "linear1", "linear2", "out_proj"):
             cases.append((t, slice_layer_params(bb, -1)[name]))
     for t, lin in cases:
-        x = _rand(rng, device, dtype, t, lin["q"].shape[0], scale=0.5)
-        pairs.append((int8_matmul(x, lin["q"], lin["scale"]),
-                      int8_matmul_plain(x, lin["q"], lin["scale"])))
+        k = lin[key].shape[0] * (2 if key == "q4" else 1)
+        x = _rand(rng, device, dtype, t, k, scale=0.5)
+        pairs.append((mm(x, lin[key], lin["scale"]),
+                      mm_plain(x, lin[key], lin["scale"])))
     sync(device)
-    _rel_check("int8_matmul", "quant", dtype, pairs, results)
+    _rel_check(mm_name, "quant", dtype, pairs, results, label)
     # K5a / K5b: backbone T=1 (eps 1e-5; erf and tanh GELU) and mimi T=16
     # (eps 0, layer scales)
     dm, md = cfg.backbone.d_model, cfg.mimi.transformer.d_model
@@ -291,7 +350,7 @@ def check_quant_kernels(pq, cfg, device, dtype, results):
     for layers, t, d, eps, bias in ((bb, 1, dm, 1e-5, False),
                                     (bb, 1, dm, 1e-5, True),
                                     (mt, 16, md, eps_m, False)):
-        for l in (0, layers["in_proj"]["q"].shape[0] - 1):
+        for l in (0, layers["in_proj"]["scale"].shape[0] - 1):
             p = slice_layer_params(layers, l)
             if bias:
                 p = _with_biases(p, rng, device, dtype)
@@ -307,13 +366,13 @@ def check_quant_kernels(pq, cfg, device, dtype, results):
                     fused_layer.post_attention_plain(p, x, attn, eps,
                                                      approx)))
     sync(device)
-    _rel_check("fused_pre", "quant", dtype, pre, results)
-    _rel_check("fused_post", "quant", dtype, post, results)
+    _rel_check("fused_pre" + suffix, "quant", dtype, pre, results, label)
+    _rel_check("fused_post" + suffix, "quant", dtype, post, results, label)
     # K6: the flow net on one conditioning row; then a tiny_config(64) net
     # with plain input_proj / final.linear
     tiny, _ = random_params(tiny_config(64), seed=7, dtype=dtype,
                             device=device)
-    tiny = quantize_params(tiny)
+    tiny = quantize_params(tiny, **QUANTIZE[path])
     if "w" not in tiny["flow_net"]["input_proj"]:
         raise AssertionError("tiny flow net has no plain linear")
     pairs = []
@@ -327,7 +386,7 @@ def check_quant_kernels(pq, cfg, device, dtype, results):
             pairs.append((fused_flow.flow_forward(fp, c, x, tc),
                           fused_flow.flow_forward_plain(fp, c, x, tc)))
     sync(device)
-    _rel_check("fused_flow", "flow", dtype, pairs, results)
+    _rel_check("fused_flow" + suffix, "flow", dtype, pairs, results, label)
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -354,57 +413,72 @@ def counted_frame_steps():
     return count
 
 
-def _wrappers():
+def _counters():
+    """{kernel name: (wrapper, attribute of its launch count)}: the fused
+    wrappers count int8 launches in `launches` and int4 ones in
+    `launches_int4`."""
     from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
     from pocket_tts_tpu_torch.ops.decode_attn import decode_attention
-    from pocket_tts_tpu_torch.ops.quant_matmul import int8_matmul
+    from pocket_tts_tpu_torch.ops.quant_matmul import (int4_matmul,
+                                                       int8_matmul)
     from pocket_tts_tpu_torch.ops.ring_attn import ring_insert_attention
     from pocket_tts_tpu_torch.ops.seanet_frame import seanet_frame
-    return {"decode_attn": decode_attention,
-            "ring_attn": ring_insert_attention,
-            "seanet_frame": seanet_frame, "int8_matmul": int8_matmul,
-            "fused_pre": fused_layer.pre_attention,
-            "fused_post": fused_layer.post_attention,
-            "fused_flow": fused_flow.flow_forward}
+    out = {"decode_attn": (decode_attention, "launches"),
+           "ring_attn": (ring_insert_attention, "launches"),
+           "seanet_frame": (seanet_frame, "launches"),
+           "int8_matmul": (int8_matmul, "launches"),
+           "int4_matmul": (int4_matmul, "launches")}
+    for name, fn in (("fused_pre", fused_layer.pre_attention),
+                     ("fused_post", fused_layer.post_attention),
+                     ("fused_flow", fused_flow.flow_forward)):
+        out[name] = (fn, "launches")
+        out[name + "_int4"] = (fn, "launches_int4")
+    return out
 
 
 def reset_counters():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counters():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counters().items()}
+
+
+def _engine_kw(cfg, device, dtype):
+    from pocket_tts_tpu.text.tokenizer import MockTokenizer
+    return dict(cfg=cfg, dtype=dtype, device=device, seed=0,
+                tokenizer=MockTokenizer(cfg.lut.n_bins))
 
 
 def make_engine(cfg, device, dtype, quantize=None):
-    from pocket_tts_tpu.text.tokenizer import MockTokenizer
     from pocket_tts_tpu_torch.io.params import random_params
     from pocket_tts_tpu_torch.runtime.engine import TTSEngine
     params, cfg = random_params(cfg, seed=0, dtype=dtype, device=device)
-    return TTSEngine(params=params, cfg=cfg, dtype=dtype, device=device,
-                     seed=0, tokenizer=MockTokenizer(cfg.lut.n_bins),
-                     quantize=quantize)
+    return TTSEngine(params=params, quantize=quantize,
+                     **_engine_kw(cfg, device, dtype))
 
 
-def expected_launches(cfg, quantized):
-    """(launches per decoded frame, launches per prefill call) by kernel."""
+def expected_launches(cfg, path):
+    """(launches per decoded frame, launches per prefill call) by kernel
+    for a path: "bf16", "int8", "int4" or "q4_0"."""
     nb, nm = cfg.backbone.num_layers, cfg.mimi.transformer.num_layers
     per_frame = {"decode_attn": nb, "ring_attn": nm, "seanet_frame": 1}
     per_prefill = {}
-    if quantized:
-        per_frame.update(int8_matmul=1, fused_pre=nb + nm,
-                         fused_post=nb + nm, fused_flow=1)
-        per_prefill = {"int8_matmul": 4 * nb}
+    if path in PATH_KERNELS:
+        mm, pre, post, flow = PATH_KERNELS[path]
+        per_frame.update({mm: 1, pre: nb + nm, post: nb + nm, flow: 1})
+        per_prefill = {mm: 4 * nb}
     return per_frame, per_prefill
 
 
 def end_to_end(engine, voice, counts, label, text=BENCH_TEXT):
-    """Synthesize `text` at temp 0 with the counters set to 0 just before
-    and read just after; checks the pcm and the launch counts."""
+    """Synthesize `text` at temp 0 on path `label` with the counters set to
+    0 just before and read just after; checks the pcm and the launch
+    counts."""
     frames0, prefills0 = counts["frames"], counts["prefills"]
-    quantized = "q" in engine.params["input_linear"]
-    per_frame, per_prefill = expected_launches(engine.cfg, quantized)
+    per_frame, per_prefill = expected_launches(engine.cfg, label)
     reset_counters()
     t0 = time.perf_counter()
     pcm = engine.synthesize(text, voice, temp=0.0)
@@ -433,6 +507,55 @@ def end_to_end(engine, voice, counts, label, text=BENCH_TEXT):
                 f"{label} {name}: {launches[name]} launches for {frames} "
                 f"frames and {prefills} prefill calls (want {want})")
     return launches, frames, pcm
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {p: t for k, v in tree.items()
+                for p, t in _leaves(v, f"{prefix}/{k}").items()}
+    if isinstance(tree, (tuple, list)):
+        return {p: t for i, v in enumerate(tree)
+                for p, t in _leaves(v, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def check_cache(engine, voice, pcm):
+    """Write engine's params to a params cache, build an engine from it
+    and check that every tensor comes back equal (dtype, shape, bits) and
+    that the benchmark sentence at temp 0 gives `pcm` again, bit for bit.
+    The cache goes to a temporary directory (TMPDIR)."""
+    import torch
+    from pocket_tts_tpu_torch.runtime.engine import TTSEngine
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "params_q4_0.safetensors")
+        t0 = time.perf_counter()
+        engine.save_params_cache(path)
+        size = os.path.getsize(path)
+        t1 = time.perf_counter()
+        eng2 = TTSEngine.from_params_cache(
+            path, **_engine_kw(engine.cfg, engine.device, engine.dtype))
+        t2 = time.perf_counter()
+    want, got = _leaves(engine.params), _leaves(eng2.params)
+    if sorted(want) != sorted(got):
+        raise AssertionError("params cache: the tree changed")
+    for key, t in want.items():
+        u = got[key]
+        if not (t.dtype == u.dtype and t.shape == u.shape
+                and u.device == t.device
+                and torch.equal(t.view(torch.int16) if t.dtype ==
+                                torch.bfloat16 else t,
+                                u.view(torch.int16) if u.dtype ==
+                                torch.bfloat16 else u)):
+            raise AssertionError(f"params cache: {key} differs")
+    pcm2 = eng2.synthesize(BENCH_TEXT, voice, temp=0.0)
+    same = pcm2.shape == pcm.shape and np.array_equal(pcm2, pcm)
+    n_bf16 = sum(t.dtype == torch.bfloat16 for t in want.values())
+    log(f"  q4_0 params cache: {size / 2**20:.1f} MiB, {len(want)} tensors "
+        f"({n_bf16} bf16), written in {t1 - t0:.2f} s, read into an "
+        f"engine in {t2 - t1:.2f} s; tensors equal; pcm "
+        f"{'equal bit for bit' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError("engine from the params cache: pcm differs")
 
 
 # ---------------------------------------------------------------- phase 5 --
@@ -577,55 +700,54 @@ def time_kernels(engine, device, dtype):
     return out
 
 
-def time_quant_kernels(pq, cfg, device, dtype):
-    """Device time of K4a, K5a, K5b and K6 vs their plain versions at the
-    int8 decode step's shapes (the first shape of each is the one the JSON
-    line reports)."""
+def time_quant_kernels(pq, cfg, device, dtype, path, out):
+    """Device time of the path's K4a/K4b, K5a, K5b and K6 vs their plain
+    versions at the decode step's shapes, appended to out[kernel name] (the
+    first row of each name is the one the JSON line reports)."""
     from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
     from pocket_tts_tpu_torch.ops.basic import slice_layer_params
-    from pocket_tts_tpu_torch.ops.quant_matmul import (int8_matmul,
-                                                       int8_matmul_plain)
+    mm_name, mm, mm_plain, key = quant_matmul_fns(path)
+    _, pre, post, flow = PATH_KERNELS[path]
     rng = np.random.RandomState(6)
     dm, md = cfg.backbone.d_model, cfg.mimi.transformer.d_model
     eps_m = cfg.mimi.transformer.norm_eps
     bb = slice_layer_params(pq["layers"], 0)
     mt = slice_layer_params(pq["mimi"]["decoder_transformer"]["layers"], 0)
-    out = {}
+    rows = {n: out.setdefault(n, []) for n in PATH_KERNELS[path]}
     lin = pq["input_linear"]
     x = _rand(rng, device, dtype, 1, cfg.latent_dim)
-    out["int8_matmul"] = [(
-        device_ms(lambda: int8_matmul(x, lin["q"], lin["scale"]), 200),
-        device_ms(lambda: int8_matmul_plain(x, lin["q"], lin["scale"]), 50),
-        f"input_linear T=1 K={cfg.latent_dim} N={dm}")]
+    rows[mm_name].append((
+        device_ms(lambda: mm(x, lin[key], lin["scale"]), 200),
+        device_ms(lambda: mm_plain(x, lin[key], lin["scale"]), 50),
+        f"{path} input_linear T=1 K={cfg.latent_dim} N={dm}"))
     lin = bb["in_proj"]
     xp = _rand(rng, device, dtype, 128, dm)
-    out["int8_matmul"].append((
-        device_ms(lambda: int8_matmul(xp, lin["q"], lin["scale"]), 20),
-        device_ms(lambda: int8_matmul_plain(xp, lin["q"], lin["scale"]), 20),
-        f"prefill in_proj T=128 K={dm} N={3 * dm}"))
-    out["fused_pre"], out["fused_post"] = [], []
+    rows[mm_name].append((
+        device_ms(lambda: mm(xp, lin[key], lin["scale"]), 20),
+        device_ms(lambda: mm_plain(xp, lin[key], lin["scale"]), 20),
+        f"{path} prefill in_proj T=128 K={dm} N={3 * dm}"))
     for p, t, d, eps, name in ((bb, 1, dm, 1e-5, "backbone"),
                                (mt, 16, md, eps_m, "mimi")):
         x = _rand(rng, device, dtype, t, d, scale=0.5)
         attn = _rand(rng, device, dtype, t, d, scale=0.5)
-        out["fused_pre"].append((
+        rows[pre].append((
             device_ms(lambda: fused_layer.pre_attention(p, x, eps), 200),
             device_ms(lambda: fused_layer.pre_attention_plain(p, x, eps),
-                      50), f"{name} T={t} dm={d}"))
-        out["fused_post"].append((
+                      50), f"{path} {name} T={t} dm={d}"))
+        rows[post].append((
             device_ms(lambda: fused_layer.post_attention(p, x, attn, eps),
                       200),
             device_ms(lambda: fused_layer.post_attention_plain(p, x, attn,
                                                                eps), 50),
-            f"{name} T={t} dm={d}"))
+            f"{path} {name} T={t} dm={d}"))
     fp, tc = pq["flow_net"], pq["_time_cond"]
     c = _rand(rng, device, dtype, dm)
     x = _rand(rng, device, dtype, cfg.latent_dim)
-    out["fused_flow"] = [(
+    rows[flow].append((
         device_ms(lambda: fused_flow.flow_forward(fp, c, x, tc), 200),
         device_ms(lambda: fused_flow.flow_forward_plain(fp, c, x, tc), 20),
-        f"c={dm} x={cfg.latent_dim} dim={cfg.flow.dim} "
-        f"depth={cfg.flow.depth}")]
+        f"{path} c={dm} x={cfg.latent_dim} dim={cfg.flow.dim} "
+        f"depth={cfg.flow.depth}"))
     return out
 
 
@@ -714,54 +836,62 @@ def main(argv=None) -> int:
         phase = "kernels"
         log("[3] kernels vs plain versions")
         errs = {}
-        engines, qengines = {}, {}
+        engines = {}   # (path, dtype) -> engine
         for dtype in (torch.float32, torch.bfloat16):
             check_k1(device, dtype, errs)
             check_k2(device, dtype, errs)
             eng = make_engine(DEFAULT_CONFIG, device, dtype)
-            engines[dtype] = eng
+            engines["bf16", dtype] = eng
             check_k3(eng.params["mimi"]["decoder"], eng.cfg, device, dtype,
                      errs, eng.seanet_weights)
-            qeng = make_engine(DEFAULT_CONFIG, device, dtype, "int8")
-            qengines[dtype] = qeng
-            check_quant_kernels(qeng.params, qeng.cfg, device, dtype, errs)
+            for path in QUANT_PATHS:
+                qeng = make_engine(DEFAULT_CONFIG, device, dtype, path)
+                engines[path, dtype] = qeng
+                check_quant_kernels(qeng.params, qeng.cfg, device, dtype,
+                                    errs, path)
 
         phase = "end to end"
-        log("[4] end to end, DEFAULT_CONFIG, temp 0: bf16, then int8")
+        log("[4] end to end, DEFAULT_CONFIG, temp 0: bf16, int8, int4, "
+            "q4_0")
         counts = counted_frame_steps()
-        engine, qengine = engines[torch.bfloat16], qengines[torch.bfloat16]
+        paths = ("bf16",) + QUANT_PATHS
+        engine = engines["bf16", torch.bfloat16]
         voice = random_voice_prompt(engine.cfg, 120)
-        launches, frames, _ = end_to_end(engine, voice, counts, "bf16")
-        qlaunches, qframes, _ = end_to_end(qengine, voice, counts, "int8")
+        runs = {path: end_to_end(engines[path, torch.bfloat16], voice, counts,
+                                 path) for path in paths}
+
+        phase = "params cache"
+        log("[4b] q4_0 engine again from a params cache")
+        check_cache(engines["q4_0", torch.bfloat16], voice, runs["q4_0"][2])
 
         phase = "card vs cpu"
         log("[5] end to end, card vs CPU, f32, first 12 frames")
-        for label, gpu, quantize in (("bf16 weights", engines, None),
-                                     ("int8 weights", qengines, "int8")):
+        for path in paths:
             eng_cpu = make_engine(DEFAULT_CONFIG, "cpu", torch.float32,
-                                  quantize)
-            pcm_gpu = first_frames(gpu[torch.float32], voice, 12)
+                                  None if path == "bf16" else path)
+            pcm_gpu = first_frames(engines[path, torch.float32], voice, 12)
             pcm_cpu = first_frames(eng_cpu, voice, 12)
             del eng_cpu
             scale = float(np.abs(pcm_cpu).max())
             err = float(np.abs(pcm_gpu - pcm_cpu).max())
             tol = TOL[("e2e", "f32")]
-            log(f"  {label}: max |pcm card - pcm cpu| {err:.3e}, max |pcm| "
-                f"{scale:.3e}, relative {err / max(scale, 1e-30):.3e} "
+            log(f"  {path} weights: max |pcm card - pcm cpu| {err:.3e}, max "
+                f"|pcm| {scale:.3e}, relative {err / max(scale, 1e-30):.3e} "
                 f"(tol {tol})")
             if not (np.isfinite(pcm_gpu).all() and scale > 0
                     and err <= tol * scale):
-                raise AssertionError(f"card vs CPU pcm differ ({label})")
-        del engines[torch.float32], qengines[torch.float32]
+                raise AssertionError(f"card vs CPU pcm differ ({path})")
+            del engines[path, torch.float32]
 
         phase = "timing"
         log(f"[6] timing on {card} (CUDA events, bf16, warm L2)")
-        dec = time_decode({"bf16": engine, "int8": qengine}, voice)
+        bf = {path: engines[path, torch.bfloat16] for path in paths}
+        dec = time_decode(bf, voice)
         med = {}
         for label, modes in dec.items():
-            for mode, runs in modes.items():
+            for mode, rounds in modes.items():
                 log(f"  {label} decode frames/s [{mode}], 100-frame rounds: "
-                    + ", ".join(f"{r:.1f}" for r in runs))
+                    + ", ".join(f"{r:.1f}" for r in rounds))
             ms_sync = 1e3 / float(np.median(modes["sync"]))
             ms_nosync = 1e3 / float(np.median(modes["nosync"]))
             med[label] = ms_sync
@@ -771,39 +901,40 @@ def main(argv=None) -> int:
                 f"{ms_sync - ms_nosync:.3f} ms/frame")
         times = {k: [v] for k, v in time_kernels(engine, device,
                                                   torch.bfloat16).items()}
-        times.update(time_quant_kernels(qengine.params, qengine.cfg, device,
-                                        torch.bfloat16))
+        for path in QUANT_PATHS:
+            time_quant_kernels(bf[path].params, bf[path].cfg, device,
+                               torch.bfloat16, path, times)
         for name, rows in times.items():
             for (ms, host), (plain_ms, plain_host), shape in rows:
                 log(f"  {name} ({shape}): kernel {ms * 1e3:.2f} us device, "
                     f"{host * 1e3:.2f} us host per call; plain "
                     f"{plain_ms * 1e3:.2f} us device, {plain_host * 1e3:.2f}"
                     f" us host per call")
-        for label, eng in (("bf16", engine), ("int8", qengine)):
-            try:
-                busy, kern = profile_frames(
-                    eng, voice,
-                    os.path.join(out_dir, f"profile_frames_{label}.txt")
-                    if out_dir else None)
-                log(f"  {label} profiler: device busy {busy:.1f} us per "
-                    f"frame in {sum(r[2] for r in kern):.0f} kernel "
-                    f"launches, {1e3 * med[label]:.1f} us wall per frame: "
-                    f"device idle {1 - busy / (1e3 * med[label]):.1%}")
-                for key, us, calls in kern[:12]:
-                    log(f"    {us:9.1f} us/frame  {calls:6.1f} calls/frame "
-                        f" {key[:70]}")
-            except Exception as e:  # measurement only: the run stays valid
-                log(f"  {label} profiler unavailable: {type(e).__name__}: "
-                    f"{e}")
+        for label, eng in bf.items():
+            phase = f"timing: profiler, {label}"
+            busy, kern = profile_frames(
+                eng, voice,
+                os.path.join(out_dir, f"profile_frames_{label}.txt")
+                if out_dir else None)
+            log(f"  {label} profiler: device busy {busy:.1f} us per "
+                f"frame in {sum(r[2] for r in kern):.0f} kernel "
+                f"launches, {1e3 * med[label]:.1f} us wall per frame: "
+                f"device idle {1 - busy / (1e3 * med[label]):.1%}")
+            for key, us, calls in kern[:12]:
+                log(f"    {us:9.1f} us/frame  {calls:6.1f} calls/frame "
+                    f" {key[:70]}")
     except Exception:
         import traceback
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase '{phase}'", file=sys.stderr)
         return 1
 
+    def path_launches(name):
+        users = [p for p in QUANT_PATHS if name in PATH_KERNELS[p]]
+        return sum(runs[p][0][name] for p in users or ["bf16"])
+
     kernels = [dict(name=name, route="cuda", **KERNELS[name],
-                    launches=(launches if name in BF16_KERNELS
-                              else qlaunches)[name],
+                    launches=path_launches(name),
                     max_abs_err=errs[name]["bf16"],
                     ms=times[name][0][0][0], plain_ms=times[name][0][1][0])
                for name in KERNELS]

@@ -8,7 +8,10 @@ Text streams through `Stream.send/flush/receive` in 15-character chunks,
 as the JAX package's CLI feeds it. --device defaults to "cuda" (the
 hand-written kernels run there, in bf16) and fails when there is no card;
 --device cpu runs the plain versions in f32. --quantize int8 (or q8)
-quantizes the linear weights to int8 after load.
+quantizes the linear weights to int8 after load, int4 (or q4) to packed
+int4 with per-channel scales, q4_0 to int4 with 32-row K-grouped scales.
+--save-cache writes the (quantized) params to a safetensors params cache,
+--load-cache starts from one (either package's; DEFAULT_CONFIG).
 """
 from __future__ import annotations
 
@@ -37,15 +40,25 @@ def build_parser():
                         "checkpoint needed)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
-    p.add_argument("--quantize", default=None, choices=["int8", "q8"],
-                   help="per-channel int8 linear weights (quantized after "
-                        "load)")
+    p.add_argument("--quantize", default=None,
+                   choices=["int8", "q8", "int4", "q4", "q4_0"],
+                   help="quantized linear weights (after load): per-channel "
+                        "int8 or int4; q4_0 = int4 with 32-row K-grouped "
+                        "scales")
+    p.add_argument("--save-cache", default=None, metavar="PATH",
+                   help="write the params cache (.safetensors) and go on")
+    p.add_argument("--load-cache", default=None, metavar="PATH",
+                   help="load params from a params cache (.safetensors)")
     return p
+
+
+_WEIGHTS = {"int8": "int8", "q8": "int8", "int4": "int4", "q4": "int4",
+            "q4_0": "q4_0"}
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.text is None:
+    if args.text is None and not args.save_cache:
         build_parser().print_help()
         return 1
     import torch
@@ -60,7 +73,18 @@ def main(argv=None):
               "--device cpu to run on the CPU", file=sys.stderr)
         return 1
     dtype = torch.bfloat16 if device.startswith("cuda") else torch.float32
-    if args.random_weights:
+    if args.load_cache:
+        # the model directory, when given, provides tokenizer and voices
+        engine = TTSEngine.from_params_cache(
+            args.load_cache, DEFAULT_CONFIG, model_path=args.model,
+            dtype=dtype, device=device, seed=args.seed,
+            quantize=args.quantize)
+        if args.random_weights:  # no model directory: a synthetic voice
+            from .io.params import random_voice_prompt
+            voice = random_voice_prompt(engine.cfg)
+        else:
+            voice = args.voice
+    elif args.random_weights:
         from .io.params import random_params, random_voice_prompt
         params, cfg = random_params(DEFAULT_CONFIG, dtype=dtype,
                                     device=device)
@@ -78,9 +102,15 @@ def main(argv=None):
         engine = TTSEngine(model_path=model, dtype=dtype, device=device,
                            seed=args.seed, quantize=args.quantize)
         voice = args.voice
+    if args.save_cache:
+        engine.save_params_cache(args.save_cache)
+        print(f"wrote params cache: {args.save_cache}")
+        if args.text is None:
+            return 0
+    weights = (f", {_WEIGHTS[args.quantize]} weights" if args.quantize
+               else "")
     print(f"seed: {engine.seed}")
-    print(f"device: {engine.device} ({dtype}"
-          f"{', int8 weights' if args.quantize else ''})")
+    print(f"device: {engine.device} ({dtype}{weights})")
 
     stream = engine.open_stream(voice, args.temperature)
     frames = []

@@ -2,9 +2,10 @@
 
 The dataclasses are shared with the JAX package (`pocket_tts_tpu.config`
 imports nothing of JAX). `check_supported` names what this port runs: solo
-decode, with bf16/f32 or int8 weights (int8 is an engine option, not a
-config field). Every config option outside that raises, so no
-configuration silently runs something other than what it asks for.
+decode, with bf16/f32, int8, int4 or q4_0 weights (quantization is an
+engine option, not a config field). Every config option outside that
+raises, so no configuration silently runs something other than what it
+asks for.
 
 The JAX package's backend switches (`use_pallas_attn`, `use_pallas`) are
 not read here: the port picks by device, plain PyTorch for tensors on the

@@ -11,16 +11,20 @@
 //     h  = h + gate * (silu(hn @ W0[i]) @ W2[i])
 //   shift, scale = sy @ Wfa
 //   out  = (LN(h; final norm, eps 1e-6) * (1 + scale) + shift) @ Wf
-// where "v @ W" is round(v) @ q * s + b in float32: the activations stay
-// float32 between dots and each dot's operand is rounded to the working
-// type first (the TPU kernel's `xb = x32.astype(dt)`). The output is
-// rounded once. The large linears are int8; input_proj and final.linear
-// may be plain weights of the working type (they can fall under the
-// quantization size floor), read with unit scales.
+// where "v @ W" is round(v) @ W + b in float32 with the weight's scales
+// (qdot.cuh `Lin`): the activations stay float32 between dots and each
+// dot's operand is rounded to the working type first (the TPU kernel's
+// `xb = x32.astype(dt)`). The output is rounded once. The large linears are
+// all int8 or all int4 (per-channel or K-grouped q4_0 scales); each of
+// input_proj and final.linear has its own layout: int8, int4 or a plain
+// weight of the working type (they can fall under the quantization size
+// floor, and under q4_0 input_proj, K = 32, keeps per-channel int4 scales
+// beside grouped big linears).
 //
 // What bounds it on the H100: latency, not bytes. The weights are ~8.9 MB
-// of int8 at full width (~2.7 us at full HBM bandwidth) but the net is a
-// chain of dependent matrix-vector products. The TPU kernel keeps every
+// of int8 (~4.5 MB of int4) at full width (~2.7 us at full HBM bandwidth
+// for int8) but the net is a chain of dependent matrix-vector products.
+// The TPU kernel keeps every
 // weight resident in VMEM and runs the chain in one grid step; 227 KB of
 // shared memory per SM cannot hold them, so here they stream from HBM (or
 // L2, where they stay between frames) inside one COOPERATIVE launch, with
@@ -51,59 +55,25 @@ constexpr int FF_TILE = 32;  // columns per tile
 
 struct FlowArgs {
   const void *x, *c, *tc;        // (latent,), (d_model,), (dim,)
-  const void* wi;                // (latent, dim) int8 or plain
-  const float* si;               // (dim,) or null for a plain wi
-  const void* bi;                // (dim,) or null
-  const int8_t* wc;              // (d_model, dim)
-  const float* sc;
-  const void* bc;
+  Lin wi;                        // input_proj (latent, dim)
+  Lin wc;                        // cond_embed (d_model, dim)
   const void *lns, *lnb;         // (depth, dim) or null
-  const int8_t* wa;              // (depth, dim, 3 dim)
-  const float* sa;               // (depth, 3 dim)
-  const void* ba;                // (depth, 3 dim) or null
-  const int8_t* w0;              // (depth, dim, hid)
-  const float* s0;
-  const void* b0;
-  const int8_t* w2;              // (depth, hid, dim)
-  const float* s2;
-  const void* b2;
+  Lin wa;                        // depth x (dim, 3 dim)
+  Lin w0;                        // depth x (dim, hid)
+  Lin w2;                        // depth x (hid, dim)
   const void *fns, *fnb;         // (dim,) or null
-  const int8_t* wfa;             // (dim, 2 dim)
-  const float* sfa;
-  const void* bfa;
-  const void* wf;                // (dim, latent) int8 or plain
-  const float* sf;               // (latent,) or null for a plain wf
-  const void* bf;
+  Lin wfa;                       // (dim, 2 dim)
+  Lin wf;                        // final.linear (dim, latent)
   float* scratch;                // sy | h | u | mods (see below)
   void* out;                     // (latent,)
   int latent, dmodel, dim, hid, depth;
 };
 
-// A linear's output column n: v * s[n] + b[n], unit scale / zero bias when
-// absent. The bias has the working type T.
-template <typename T>
-__device__ __forceinline__ float lin_out(float v, const float* s,
-                                         const void* b, int n) {
-  return v * (s ? s[n] : 1.f) + opt((const T*)b, n, 0.f);
-}
-
-// tile_dot on a weight that is int8 (s != null) or plain T (s == null)
-template <typename T, typename Epi>
-__device__ __forceinline__ void any_dot(const float* xs, int K, const void* w,
-                                        const float* s, int ldw, int n0,
-                                        int ncols, float* red, Epi epi) {
-  if (s)
-    tile_dot(xs, K, 1, K, (const int8_t*)w, ldw, n0, ncols, FF_TILE / 4, red,
-             epi);
-  else
-    tile_dot(xs, K, 1, K, (const T*)w, ldw, n0, ncols, FF_TILE / 4, red,
-             epi);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(QD_THREADS) fused_flow_kernel(FlowArgs a) {
   extern __shared__ float smem[];
   const int dim = a.dim, hid = a.hid, depth = a.depth;
+  constexpr int CG = FF_TILE / 4;
   float* red = smem;                 // QD_RED
   float* xs = red + QD_RED;          // one activation row (max width)
   float* sy = a.scratch;             // (dim)
@@ -123,14 +93,13 @@ __global__ void __launch_bounds__(QD_THREADS) fused_flow_kernel(FlowArgs a) {
     for (int i = tid; i < K; i += QD_THREADS) xs[i] = to_f(src[i]);
     __syncthreads();
     if (cond) {
-      tile_dot(xs, K, 1, K, a.wc, dim, n0, min(FF_TILE, dim - n0),
-               FF_TILE / 4, red, [&](int, int n, float v) {
-                 sy[n] = silu_f(to_f(((const T*)a.tc)[n]) +
-                                lin_out<T>(v, a.sc, a.bc, n));
-               });
+      lin_tile<T>(xs, K, 1, K, a.wc, dim, n0, min(FF_TILE, dim - n0), CG,
+                  red, [&](int, int n, float v) {
+                    sy[n] = silu_f(to_f(((const T*)a.tc)[n]) + v);
+                  });
     } else {
-      any_dot<T>(xs, K, a.wi, a.si, dim, n0, min(FF_TILE, dim - n0), red,
-                 [&](int, int n, float v) { h[n] = lin_out<T>(v, a.si, a.bi, n); });
+      lin_tile<T>(xs, K, 1, K, a.wi, dim, n0, min(FF_TILE, dim - n0), CG,
+                  red, [&](int, int n, float v) { h[n] = v; });
     }
   }
   grid.sync();
@@ -144,21 +113,15 @@ __global__ void __launch_bounds__(QD_THREADS) fused_flow_kernel(FlowArgs a) {
     for (int t = b; t < depth * nt3 + nt2; t += G) {
       if (t < depth * nt3) {
         const int l = t / nt3, n0 = (t % nt3) * FF_TILE;
-        const int8_t* w = a.wa + (size_t)l * dim * n3;
-        const float* s = a.sa + l * n3;
-        const T* bb = a.ba ? (const T*)a.ba + l * n3 : nullptr;
         float* m = mods + l * n3;
-        tile_dot(xs, dim, 1, dim, w, n3, n0, min(FF_TILE, n3 - n0),
-                 FF_TILE / 4, red, [&](int, int n, float v) {
-                   m[n] = v * s[n] + opt(bb, n, 0.f);
-                 });
+        lin_tile<T>(xs, dim, 1, dim, lin_at<T>(a.wa, l, dim, n3), n3, n0,
+                    min(FF_TILE, n3 - n0), CG, red,
+                    [&](int, int n, float v) { m[n] = v; });
       } else {
         const int n0 = (t - depth * nt3) * FF_TILE;
         float* m = mods + depth * n3;
-        tile_dot(xs, dim, 1, dim, a.wfa, n2, n0, min(FF_TILE, n2 - n0),
-                 FF_TILE / 4, red, [&](int, int n, float v) {
-                   m[n] = lin_out<T>(v, a.sfa, a.bfa, n);
-                 });
+        lin_tile<T>(xs, dim, 1, dim, a.wfa, n2, n0, min(FF_TILE, n2 - n0),
+                    CG, red, [&](int, int n, float v) { m[n] = v; });
       }
     }
   }
@@ -179,31 +142,24 @@ __global__ void __launch_bounds__(QD_THREADS) fused_flow_kernel(FlowArgs a) {
     if (b < nt_hid) {
       modulated_ln(a.lns ? (const T*)a.lns + l * dim : nullptr,
                    a.lnb ? (const T*)a.lnb + l * dim : nullptr, m);
-      const int8_t* w = a.w0 + (size_t)l * dim * hid;
-      const float* s = a.s0 + l * hid;
-      const T* bb = a.b0 ? (const T*)a.b0 + l * hid : nullptr;
+      const Lin w = lin_at<T>(a.w0, l, dim, hid);
       for (int t = b; t < nt_hid; t += G) {
         const int n0 = t * FF_TILE;
-        tile_dot(xs, dim, 1, dim, w, hid, n0, min(FF_TILE, hid - n0),
-                 FF_TILE / 4, red, [&](int, int n, float v) {
-                   u[n] = silu_f(v * s[n] + opt(bb, n, 0.f));
-                 });
+        lin_tile<T>(xs, dim, 1, dim, w, hid, n0, min(FF_TILE, hid - n0), CG,
+                    red, [&](int, int n, float v) { u[n] = silu_f(v); });
       }
     }
     grid.sync();
     if (b < nt_dim) {
       for (int i = tid; i < hid; i += QD_THREADS) xs[i] = rnd<T>(__ldcg(u + i));
       __syncthreads();
-      const int8_t* w = a.w2 + (size_t)l * hid * dim;
-      const float* s = a.s2 + l * dim;
-      const T* bb = a.b2 ? (const T*)a.b2 + l * dim : nullptr;
+      const Lin w = lin_at<T>(a.w2, l, hid, dim);
       for (int t = b; t < nt_dim; t += G) {
         const int n0 = t * FF_TILE;
-        tile_dot(xs, hid, 1, hid, w, dim, n0, min(FF_TILE, dim - n0),
-                 FF_TILE / 4, red, [&](int, int n, float v) {
-                   const float hh = v * s[n] + opt(bb, n, 0.f);
-                   h[n] = __ldcg(h + n) + __ldcg(m + 2 * dim + n) * hh;
-                 });
+        lin_tile<T>(xs, hid, 1, hid, w, dim, n0, min(FF_TILE, dim - n0), CG,
+                    red, [&](int, int n, float v) {
+                      h[n] = __ldcg(h + n) + __ldcg(m + 2 * dim + n) * v;
+                    });
       }
     }
     grid.sync();
@@ -216,10 +172,9 @@ __global__ void __launch_bounds__(QD_THREADS) fused_flow_kernel(FlowArgs a) {
     T* out = (T*)a.out;
     for (int t = b; t < nt_lat; t += G) {
       const int n0 = t * FF_TILE;
-      any_dot<T>(xs, dim, a.wf, a.sf, a.latent, n0,
-                 min(FF_TILE, a.latent - n0), red, [&](int, int n, float v) {
-                   out[n] = from_f<T>(lin_out<T>(v, a.sf, a.bf, n));
-                 });
+      lin_tile<T>(xs, dim, 1, dim, a.wf, a.latent, n0,
+                  min(FF_TILE, a.latent - n0), CG, red,
+                  [&](int, int n, float v) { out[n] = from_f<T>(v); });
     }
   }
 }
@@ -251,21 +206,49 @@ extern "C" int ptt_fused_flow_max_blocks(int dmodel, int dim, int hid,
   return per_sm * sms;
 }
 
-// ptrs: x, c, tc, wi, si, bi, wc, sc, bc, lns, lnb, wa, sa, ba, w0, s0, b0,
-//       w2, s2, b2, fns, fnb, wfa, sfa, bfa, wf, sf, bf, scratch, out
-//       (device pointers; optional ones null; si / sf null for plain
-//       weights). dims: latent, d_model, dim, hid, depth.
-extern "C" int ptt_fused_flow(void* const* p, const int* dims, int grid,
+// A linear of logical shape (K, N) K6 takes: quantized (int8, int4 in
+// either scale layout) or, when `plain_ok`, a plain weight.
+static bool flow_lin_ok(const ptt::Lin& l, int K, bool plain_ok) {
+  switch (l.kind) {
+    case ptt::LIN_PLAIN: return plain_ok && l.s == nullptr;
+    case ptt::LIN_INT8: return l.s != nullptr;
+    case ptt::LIN_INT4: return l.s != nullptr && K % 2 == 0;
+    case ptt::LIN_INT4_G:
+      return l.s != nullptr && l.group > 0 && K % 2 == 0 &&
+             (K / 2) % l.group == 0;
+    default: return false;
+  }
+}
+
+// p: x, c, tc, then (w, scale, bias) of input_proj and cond_embed, in_ln
+//    scale and bias, (w, scale, bias) of adaln, mlp_0 and mlp_2 (stacked
+//    over depth), final norm scale and bias, (w, scale, bias) of the final
+//    adaln and final.linear, then scratch and out (device pointers;
+//    optional ones null).
+// ints: latent, d_model, dim, hid, depth, then (kind, group) of
+//    input_proj, cond_embed, adaln, mlp_0, mlp_2, final adaln,
+//    final.linear.
+extern "C" int ptt_fused_flow(void* const* p, const int* ints, int grid,
                               int dtype, void* stream) {
-  ptt::FlowArgs a{p[0], p[1], p[2], p[3], (const float*)p[4], p[5],
-                  (const int8_t*)p[6], (const float*)p[7], p[8], p[9], p[10],
-                  (const int8_t*)p[11], (const float*)p[12], p[13],
-                  (const int8_t*)p[14], (const float*)p[15], p[16],
-                  (const int8_t*)p[17], (const float*)p[18], p[19], p[20],
-                  p[21], (const int8_t*)p[22], (const float*)p[23], p[24],
-                  p[25], (const float*)p[26], p[27], (float*)p[28], p[29],
-                  dims[0], dims[1], dims[2], dims[3], dims[4]};
-  if (grid < 1 || a.dim % 4 || a.hid % 4 || a.latent % 4 || a.depth < 1)
+  const int* k = ints + 5;
+  ptt::FlowArgs a{p[0], p[1], p[2],
+                  {p[3], p[4], p[5], k[0], k[1]},
+                  {p[6], p[7], p[8], k[2], k[3]},
+                  p[9], p[10],
+                  {p[11], p[12], p[13], k[4], k[5]},
+                  {p[14], p[15], p[16], k[6], k[7]},
+                  {p[17], p[18], p[19], k[8], k[9]},
+                  p[20], p[21],
+                  {p[22], p[23], p[24], k[10], k[11]},
+                  {p[25], p[26], p[27], k[12], k[13]},
+                  (float*)p[28], p[29],
+                  ints[0], ints[1], ints[2], ints[3], ints[4]};
+  if (grid < 1 || a.dim % 4 || a.hid % 4 || a.latent % 4 || a.depth < 1 ||
+      !flow_lin_ok(a.wi, a.latent, true) ||
+      !flow_lin_ok(a.wc, a.dmodel, false) ||
+      !flow_lin_ok(a.wa, a.dim, false) || !flow_lin_ok(a.w0, a.dim, false) ||
+      !flow_lin_ok(a.w2, a.hid, false) ||
+      !flow_lin_ok(a.wfa, a.dim, false) || !flow_lin_ok(a.wf, a.dim, true))
     return (int)cudaErrorInvalidValue;
   const size_t smem = flow_smem(a.dmodel, a.dim, a.hid, a.latent);
   cudaStream_t st = (cudaStream_t)stream;

@@ -1,47 +1,61 @@
 // K5a and K5b: one transformer layer's quantized linears, fused around the
 // attention, for the backbone decode step (T = 1) and the mimi decoder
-// transformer (T = 16 rows per frame).
+// transformer (T = 16 rows per frame); int8 weights, or int4 (packed
+// halves) with per-channel or K-grouped (q4_0) scales (qdot.cuh).
 //
 // K5a replaces `pocket_tts_tpu/ops/fused_layer.py:_pre_call`
 // (`_pre_kernel`):
-//   qkv = round(round(LN(x)) @ q_in * s_in + b_in)
+//   qkv = round(round(LN(x)) @ W_in + b_in)
 // LN in float32 over d_model with eps, times norm scale plus bias, rounded
 // to the working type before the dot, as the TPU kernel stages it.
 //
 // K5b replaces `pocket_tts_tpu/ops/fused_layer.py:_post_call`
 // (`_post_kernel`, `_post_x1_ln`, `_mlp_add`, `_post_tail`):
-//   x1  = x + ls1 * (attn @ q_o * s_o + b_o)            float32, kept so
+//   x1  = x + ls1 * (attn @ W_o + b_o)                  float32, kept so
 //   ln  = round(LN(x1) * n2s + n2b)
-//   h   = round(gelu(ln @ q_1 * s_1 + b_1))             per hidden unit
-//   up  = (sum over hidden of h @ q_2) * s_2 + b_2     s_2 once, on the
-//                                                       float32 sum
+//   h   = round(gelu(ln @ W_1 + b_1))                   per hidden unit
+//   up  = (sum over hidden of h @ q_2) * s_2 + b_2     per-channel s_2
+//                                                       once, on the
+//                                                       float32 sum;
+//                                                       grouped s_2 inside
 //   out = round(x1 + ls2 * up)
-// Absent biases read as zeros, absent layer scales as ones. GELU is erf
-// (erff, correctly rounded to ~1 ulp; the TPU kernel uses a 1.5e-7
-// polynomial) or tanh.
+// "v @ W" is the float32 product with the weight's scales: per-channel
+// scales on the sum, grouped scales on each nibble. Absent biases read as
+// zeros, absent layer scales as ones. GELU is erf (erff, correctly rounded
+// to ~1 ulp; the TPU kernel uses a 1.5e-7 polynomial) or tanh. The TPU
+// kernels' int4 MXU workarounds (INT4_SCHEME rawf32m, the block-diagonal
+// grouped T == 1 path, the 0/1 scale-expansion matmul) round in other
+// places; they are not carried over: the exact math is computed in f32.
 //
 // What bounds them on the H100: bytes. At T = 1 each weight element feeds
-// one multiply-add per row: 3 MB of int8 for the backbone's in_proj, 9 MB
-// for out_proj + the MLP, i.e. ~1 us and ~3 us at full HBM bandwidth. What
-// keeps them from it in this version is latency: few blocks per phase and
-// grid-wide barriers.
+// one multiply-add per row: 3 MB of int8 (1.5 MB of int4, plus 0.1 MB of
+// bf16 group scales under q4_0) for the backbone's in_proj, 9 MB (4.5 MB)
+// for out_proj + the MLP, i.e. ~1 us and ~3 us at full HBM bandwidth for
+// int8. What keeps them from it in this version is latency: few blocks per
+// phase and grid-wide barriers.
 //
 // Design. K5a is one ordinary launch: each block recomputes the LayerNorm
 // of the T rows (at most 16 x 1024 values) into shared memory, then streams
-// its 32-column tile of q_in; there is no dependency between blocks.
+// its 32-column tile of W_in; there is no dependency between blocks.
 // K5b has two dependencies across blocks that the TPU kernel met by walking
 // its hidden tiles in order with scratch carried between grid steps: the
 // LayerNorm of x1 needs all of out_proj, and the W2 sum runs over every
 // hidden tile. Here it is one COOPERATIVE launch with two grid barriers:
 //   phase 1  out_proj column tiles -> x1 (float32 scratch in HBM)
 //   sync
-//   phase 2  every block: LN(x1) into shared memory; then its 32-wide
-//            hidden tiles: h tile, then h tile @ q_2 rows into a per-block
-//            float32 partial of `up` (shared memory), written to HBM
+//   phase 2  every block: LN(x1) into shared memory; then its hidden tiles:
+//            the h tile, then h tile @ the matching W2 rows into a
+//            per-block float32 partial of `up` (shared memory), written to
+//            HBM. A tile is 32 hidden units either way, so int4 runs as
+//            many blocks as int8. int8: W2 rows h0..h0+31. int4: packed W2
+//            row j holds hidden units j and j + H/2, so a tile is 16
+//            packed rows and the block first computes BOTH h halves (W1
+//            columns h0.. and H/2 + h0.., 16 each) into one h tile, whose
+//            low half meets the low nibbles and high half the high ones.
 //   sync
 //   phase 3  each output element sums the blocks' partials in block order
 //            (no float atomics: the result does not depend on scheduling)
-//            and applies s_2, b_2, ls2 and the residual.
+//            and applies s_2 (per-channel), b_2, ls2 and the residual.
 // Scratch (x1 and the partials) is allocated by the caller.
 #include <cooperative_groups.h>
 
@@ -55,9 +69,7 @@ constexpr int FL_TILE = 32;  // columns per K5a tile / hidden units per tile
 
 struct PreArgs {
   const void *x, *ns, *nb;  // (T, dm); norm scale/bias (dm,) or null
-  const int8_t* w;          // (dm, N)
-  const float* s;           // (N,)
-  const void* b;            // (N,) or null
+  Lin w;                    // in_proj (dm, N)
   void* out;                // (T, N)
   int T, dm, N;
   float eps;
@@ -71,7 +83,6 @@ __global__ void __launch_bounds__(QD_THREADS) fused_pre_kernel(PreArgs a) {
   const T* x = (const T*)a.x;
   const T* ns = (const T*)a.ns;
   const T* nb = (const T*)a.nb;
-  const T* b = (const T*)a.b;
   T* out = (T*)a.out;
   const int dm = a.dm, N = a.N;
   block_layernorm(
@@ -82,32 +93,28 @@ __global__ void __launch_bounds__(QD_THREADS) fused_pre_kernel(PreArgs a) {
   const int ntiles = (N + FL_TILE - 1) / FL_TILE;
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const int n0 = t * FL_TILE;
-    tile_dot(xs, dm, a.T, dm, a.w, N, n0, min(FL_TILE, N - n0), FL_TILE / 4,
-             red, [&](int r, int n, float v) {
-               out[(size_t)r * N + n] =
-                   from_f<T>(v * a.s[n] + opt(b, n, 0.f));
-             });
+    lin_tile<T>(xs, dm, a.T, dm, a.w, N, n0, min(FL_TILE, N - n0),
+                FL_TILE / 4, red, [&](int r, int n, float v) {
+                  out[(size_t)r * N + n] = from_f<T>(v);
+                });
   }
 }
 
 struct PostArgs {
   const void *x, *attn;          // (T, dm)
-  const int8_t* wo;              // (dm, dm)
-  const float* so;               // (dm,)
-  const void *bo, *ls1, *ls2;    // (dm,) or null
+  const void *ls1, *ls2;         // (dm,) or null
   const void *ns, *nb;           // norm2 (dm,) or null
-  const int8_t* w1;              // (dm, H)
-  const float* s1;               // (H,)
-  const void* b1;                // (H,) or null
-  const int8_t* w2;              // (H, dm)
-  const float* s2;               // (dm,)
-  const void* b2;                // (dm,) or null
+  Lin wo, w1, w2;                // (dm, dm), (dm, H), (H, dm)
   float* x1;                     // scratch (T, dm)
   float* part;                   // scratch (gridDim.x, T, dm)
   void* out;                     // (T, dm)
   int T, dm, H, approx;
   float eps;
 };
+
+__host__ __device__ __forceinline__ bool packed(const Lin& l) {
+  return l.kind == LIN_INT4 || l.kind == LIN_INT4_G;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(QD_THREADS) fused_post_kernel(PostArgs a) {
@@ -121,28 +128,24 @@ __global__ void __launch_bounds__(QD_THREADS) fused_post_kernel(PostArgs a) {
   const T* attn = (const T*)a.attn;
   const T* ls1 = (const T*)a.ls1;
   const T* ls2 = (const T*)a.ls2;
-  const T* bo = (const T*)a.bo;
-  const T* b1 = (const T*)a.b1;
-  const T* b2 = (const T*)a.b2;
   const T* ns = (const T*)a.ns;
   const T* nb = (const T*)a.nb;
   T* out = (T*)a.out;
   coop::grid_group grid = coop::this_grid();
   const int tid = threadIdx.x;
 
-  // phase 1: x1 = x + ls1 * (attn @ q_o * s_o + b_o)
+  // phase 1: x1 = x + ls1 * (attn @ W_o + b_o)
   const int ntiles_o = (dm + FL_TILE - 1) / FL_TILE;
   if ((int)blockIdx.x < ntiles_o) {
     for (int i = tid; i < T_ * dm; i += QD_THREADS) xs[i] = to_f(attn[i]);
     __syncthreads();
     for (int t = blockIdx.x; t < ntiles_o; t += gridDim.x) {
       const int n0 = t * FL_TILE;
-      tile_dot(xs, dm, T_, dm, a.wo, dm, n0, min(FL_TILE, dm - n0),
-               FL_TILE / 4, red, [&](int r, int n, float v) {
-                 const float proj = v * a.so[n] + opt(bo, n, 0.f);
-                 a.x1[r * dm + n] =
-                     to_f(x[r * dm + n]) + opt(ls1, n, 1.f) * proj;
-               });
+      lin_tile<T>(xs, dm, T_, dm, a.wo, dm, n0, min(FL_TILE, dm - n0),
+                  FL_TILE / 4, red, [&](int r, int n, float proj) {
+                    a.x1[r * dm + n] =
+                        to_f(x[r * dm + n]) + opt(ls1, n, 1.f) * proj;
+                  });
     }
   }
   grid.sync();
@@ -155,22 +158,37 @@ __global__ void __launch_bounds__(QD_THREADS) fused_post_kernel(PostArgs a) {
       });
   for (int i = tid; i < T_ * dm; i += QD_THREADS) acc[i] = 0.f;
   __syncthreads();
-  const int ntiles_h = (H + FL_TILE - 1) / FL_TILE;
-  // q_2 rows: as many 4-column groups as the row has, up to one per thread
+  const bool p2 = packed(a.w2);
+  const int span = p2 ? H / 2 : H;   // stored rows of W2
+  const int tile = p2 ? FL_TILE / 2 : FL_TILE;  // stored W2 rows per tile
+  const int ntiles_h = (span + tile - 1) / tile;
+  const int8_t* q2 = (const int8_t*)a.w2.w;
+  const bf16* gs2 = a.w2.kind == LIN_INT4_G ? (const bf16*)a.w2.s : nullptr;
+  // W2 rows: as many 4-column groups as the row has, up to one per thread
   // (tile_dot takes a power of two)
   int cg2 = 1;
   while (2 * cg2 <= min(dm / 4, QD_THREADS)) cg2 *= 2;
+  auto add = [&](int r, int n, float v) { acc[r * dm + n] += v; };
   for (int t = blockIdx.x; t < ntiles_h; t += gridDim.x) {
-    const int h0 = t * FL_TILE, nh = min(FL_TILE, H - h0);
-    tile_dot(xs, dm, T_, dm, a.w1, H, h0, nh, FL_TILE / 4, red,
-             [&](int r, int n, float v) {
-               hs[r * FL_TILE + (n - h0)] =
-                   rnd<T>(gelu_f(v * a.s1[n] + opt(b1, n, 0.f), a.approx));
-             });
+    const int h0 = t * tile, nh = min(tile, span - h0);
+    for (int half = 0; half < (p2 ? 2 : 1); ++half) {
+      const int c0 = h0 + half * span;
+      lin_tile<T>(xs, dm, T_, dm, a.w1, H, c0, nh, tile / 4, red,
+                  [&](int r, int n, float v) {
+                    hs[r * FL_TILE + half * tile + (n - c0)] =
+                        rnd<T>(gelu_f(v, a.approx));
+                  });
+    }
     for (int n0 = 0; n0 < dm; n0 += 4 * cg2) {
-      tile_dot(hs, FL_TILE, T_, nh, a.w2 + (size_t)h0 * dm, dm, n0,
-               min(4 * cg2, dm - n0), cg2, red,
-               [&](int r, int n, float v) { acc[r * dm + n] += v; });
+      const int nc = min(4 * cg2, dm - n0);
+      if (p2)
+        tile_dot(hs, FL_TILE, T_,
+                 Int4W{q2 + (size_t)h0 * dm, dm, nh, tile, gs2,
+                       a.w2.group, h0, span},
+                 n0, nc, cg2, red, add);
+      else
+        tile_dot(hs, FL_TILE, T_, DenseW<int8_t>{q2 + (size_t)h0 * dm, dm, nh},
+                 n0, nc, cg2, red, add);
     }
   }
   float* mine = a.part + (size_t)blockIdx.x * T_ * dm;
@@ -178,13 +196,15 @@ __global__ void __launch_bounds__(QD_THREADS) fused_post_kernel(PostArgs a) {
   grid.sync();
 
   // phase 3: up = (sum of the partials, in block order) * s_2 + b_2
+  const float* s2 = gs2 ? nullptr : (const float*)a.w2.s;
+  const T* b2 = (const T*)a.w2.b;
   const int G = gridDim.x;
   for (int i = blockIdx.x * QD_THREADS + tid; i < T_ * dm;
        i += G * QD_THREADS) {
     float v = 0.f;
     for (int g = 0; g < G; ++g) v += __ldcg(a.part + (size_t)g * T_ * dm + i);
     const int n = i % dm;
-    const float up = v * a.s2[n] + opt(b2, n, 0.f);
+    const float up = v * (s2 ? s2[n] : 1.f) + opt(b2, n, 0.f);
     out[i] = from_f<T>(__ldcg(a.x1 + i) + opt(ls2, n, 1.f) * up);
   }
 }
@@ -204,13 +224,26 @@ static size_t post_smem(int T, int dm) {
          (ptt::QD_RED + 2 * (size_t)T * dm + (size_t)T * ptt::FL_TILE);
 }
 
+// A linear of logical shape (K, N) the fused kernels take: quantized, with
+// its scales, and whole scale groups in each half of K for grouped int4.
+static bool lin_ok(const ptt::Lin& l, int K) {
+  switch (l.kind) {
+    case ptt::LIN_INT8: return l.s != nullptr;
+    case ptt::LIN_INT4: return l.s != nullptr && K % 2 == 0;
+    case ptt::LIN_INT4_G:
+      return l.s != nullptr && l.group > 0 && K % 2 == 0 &&
+             (K / 2) % l.group == 0;
+    default: return false;
+  }
+}
+
 extern "C" int ptt_fused_pre(const void* x, const void* ns, const void* nb,
                              const void* w, const void* s, const void* b,
-                             void* out, int T, int dm, int N, float eps,
-                             int dtype, void* stream) {
-  if (T < 1 || dm < 1 || N < 1 || N % 4) return (int)cudaErrorInvalidValue;
-  ptt::PreArgs a{x, ns, nb, (const int8_t*)w, (const float*)s, b, out,
-                 T, dm, N, eps};
+                             void* out, int T, int dm, int N, int kind,
+                             int group, float eps, int dtype, void* stream) {
+  ptt::PreArgs a{x, ns, nb, {w, s, b, kind, group}, out, T, dm, N, eps};
+  if (T < 1 || dm < 1 || N < 1 || N % 4 || !lin_ok(a.w, dm))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (ptt::QD_RED + (size_t)T * dm);
   const int grid = (N + ptt::FL_TILE - 1) / ptt::FL_TILE;
   cudaStream_t st = (cudaStream_t)stream;
@@ -241,20 +274,38 @@ extern "C" int ptt_fused_post_max_blocks(int T, int dm, int dtype) {
   return per_sm * sms;
 }
 
-// ptrs: x, attn, wo, so, bo, ls1, ls2, ns, nb, w1, s1, b1, w2, s2, b2,
-//       x1 scratch, partial scratch, out (device pointers; optional ones
-//       null). grid: the cooperative grid (<= ptt_fused_post_max_blocks),
-//       the partial scratch holds grid * T * dm floats.
-extern "C" int ptt_fused_post(void* const* p, int T, int dm, int H,
-                              float eps, int approx, int grid, int dtype,
-                              void* stream) {
-  if (T < 1 || dm < 4 || dm % 4 || H % 4 || grid < 1)
+// p: x, attn, ls1, ls2, norm2 scale, norm2 bias, then (w, scale, bias) of
+//    out_proj, linear1 and linear2, then the x1 scratch, the partial
+//    scratch and out (device pointers; optional ones null).
+// lin: (kind, group) of out_proj, linear1, linear2 (one kind for all
+//    three: int8, or int4 in either scale layout).
+// grid: the cooperative grid (<= ptt_fused_post_max_blocks); the partial
+//    scratch holds grid * T * dm floats.
+extern "C" int ptt_fused_post(void* const* p, const int* lin, int T, int dm,
+                              int H, float eps, int approx, int grid,
+                              int dtype, void* stream) {
+  ptt::PostArgs a{p[0],
+                  p[1],
+                  p[2],
+                  p[3],
+                  p[4],
+                  p[5],
+                  {p[6], p[7], p[8], lin[0], lin[1]},
+                  {p[9], p[10], p[11], lin[2], lin[3]},
+                  {p[12], p[13], p[14], lin[4], lin[5]},
+                  (float*)p[15],
+                  (float*)p[16],
+                  p[17],
+                  T,
+                  dm,
+                  H,
+                  approx,
+                  eps};
+  if (T < 1 || dm < 4 || dm % 4 || H % 8 || grid < 1 ||
+      !lin_ok(a.wo, dm) || !lin_ok(a.w1, dm) || !lin_ok(a.w2, H) ||
+      ptt::packed(a.wo) != ptt::packed(a.w2) ||
+      ptt::packed(a.w1) != ptt::packed(a.w2))
     return (int)cudaErrorInvalidValue;
-  ptt::PostArgs a{p[0], p[1], (const int8_t*)p[2], (const float*)p[3],
-                  p[4], p[5], p[6], p[7], p[8], (const int8_t*)p[9],
-                  (const float*)p[10], p[11], (const int8_t*)p[12],
-                  (const float*)p[13], p[14], (float*)p[15], (float*)p[16],
-                  p[17], T, dm, H, approx, eps};
   const size_t smem = post_smem(T, dm);
   cudaStream_t st = (cudaStream_t)stream;
   void* args[] = {&a};

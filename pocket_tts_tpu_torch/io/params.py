@@ -284,9 +284,10 @@ def from_jax_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None,
     same nesting, stacking and rope permutation, with torch tensors. dtype
     None keeps each leaf's float type (bf16 leaves arrive as ml_dtypes
     bfloat16 and become torch.bfloat16); a dtype casts the float leaves to
-    it, except the float32 `scale` of a quantized linear ({"q", "scale"}),
-    which the JAX package keeps float32 in every engine dtype. Integer
-    leaves (int8 `q`) keep their type."""
+    it, except the `scale` of a quantized linear ({"q"/"q4", "scale"}),
+    which the JAX package keeps in its storage type (float32, bfloat16 for
+    K-grouped int4) in every engine dtype. Integer leaves (int8 `q`, packed
+    `q4`) keep their type."""
     if isinstance(tree, dict):
         quant = "q" in tree or "q4" in tree
         return {k: from_jax_numpy(v, device, dtype, quant and k == "scale")

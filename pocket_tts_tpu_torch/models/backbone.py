@@ -13,10 +13,11 @@ returns the same state; `advance` moves the host-side cursors. Copy a state
 Prefill (T > 1) attends with plain PyTorch, as the JAX package runs it on
 XLA. Decode (T = 1) inserts the row at `end` first and then attends with
 `end` as the last written slot, through kernel K1
-(ops/decode_attn.decode_attention). With int8 weights (io/quant.py) the
-decode step's norm1 + in_proj run as kernel K5a and its out_proj + MLP
-as kernel K5b (ops/fused_layer.py), as the JAX package does at T = 1;
-prefill keeps the unfused route, its linears through kernel K4a.
+(ops/decode_attn.decode_attention). With int8 or int4 weights
+(io/quant.py; int4 with per-channel or q4_0 K-grouped scales) the decode
+step's norm1 + in_proj run as kernel K5a and its out_proj + MLP as kernel
+K5b (ops/fused_layer.py), as the JAX package does at T = 1; prefill keeps
+the unfused route, its linears through kernel K4a (int8) or K4b (int4).
 """
 from __future__ import annotations
 

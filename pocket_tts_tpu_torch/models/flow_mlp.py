@@ -6,8 +6,8 @@ Counterpart of `pocket_tts_tpu/models/flow_mlp.py`, same params tree:
   time_embed: 2 x {freqs, mlp_0, mlp_2, mlp_3 {alpha}}
   res_blocks (stacked over depth): {in_ln, mlp_0, mlp_2, adaln}
   final: {norm, linear, adaln}
-Functions take one feature vector (no batch axis). With int8 weights
-(io/quant.py) `forward` runs the whole net as kernel K6
+Functions take one feature vector (no batch axis). With int8 or int4
+weights (io/quant.py) `forward` runs the whole net as kernel K6
 (ops/fused_flow.py), as the JAX package does on the TPU.
 """
 from __future__ import annotations

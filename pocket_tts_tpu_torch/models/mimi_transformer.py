@@ -7,9 +7,9 @@ are FLAT (cap, H*D) like the JAX package's; `offset` counts the timesteps
 written and `start` is the stream's first timestep (0 solo). Each layer's
 ring step, insert + attention, goes through kernel K2
 (ops/ring_attn.ring_insert_attention), which writes the caches IN PLACE;
-`forward` advances `offset` on the same state object. With int8 weights
-(io/quant.py) each layer's norm1 + in_proj run as kernel K5a and its
-out_proj + MLP (with both layer scales) as kernel K5b
+`forward` advances `offset` on the same state object. With int8 or int4
+weights (io/quant.py) each layer's norm1 + in_proj run as kernel K5a and
+its out_proj + MLP (with both layer scales) as kernel K5b
 (ops/fused_layer.py), as the JAX package does.
 """
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """Elementary ops: linear layers, norms, activations.
 
 Counterpart of `pocket_tts_tpu/ops/basic.py`. Parameters are dicts:
-  linear: {"w": (in, out), "b": (out,) optional}, or int8-quantized
-          {"q": (in, out) int8, "scale": (out,) float32, "b" optional}
+  linear: {"w": (in, out), "b": (out,) optional}, int8-quantized
+          {"q": (in, out) int8, "scale": (out,) float32, "b" optional} or
+          int4-quantized {"q4": (in/2, out) int8 packed, "scale": (out,)
+          float32 or (in/32, out) bfloat16, "b" optional}
   norm:   {"scale": (d,), "bias": (d,) optional}
 Norms compute in float32 and round once to the input dtype, as the JAX
 package does.
@@ -12,25 +14,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .quant_matmul import int8_matmul
+from .quant_matmul import int4_matmul, int8_matmul
 
 
 def linear(p, x):
     """y = x @ w + b, accumulated in f32 and rounded once to x's dtype
     (addmm adds the bias in the matmul's f32 epilogue). An int8 linear goes
-    through kernel K4a (ops/quant_matmul.int8_matmul) and keeps the JAX
-    package's rounding order: the scaled product is rounded to x's dtype,
-    then the bias is added in that dtype."""
-    q = p.get("q")
+    through kernel K4a (ops/quant_matmul.int8_matmul), an int4 one through
+    K4b (int4_matmul); both keep the JAX package's rounding order: the
+    scaled product is rounded to x's dtype, then the bias is added in that
+    dtype."""
     b = p.get("b")
-    if q is not None:
-        y = int8_matmul(x, q, p["scale"])
+    if "q" in p or "q4" in p:
+        y = (int8_matmul(x, p["q"], p["scale"]) if "q" in p
+             else int4_matmul(x, p["q4"], p["scale"]))
         return y if b is None else (y + b).to(x.dtype)
-    w = p.get("w")
-    if w is None:
-        raise NotImplementedError(
-            f"linear weights {sorted(p)} not ported yet (int4 is later "
-            "work)")
+    w = p["w"]
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     y = x2 @ w if b is None else torch.addmm(b, x2, w)

@@ -53,16 +53,20 @@ SIGNATURES = {
     "ptt_carry_tail": [P, P, I, I, I, I, I, P],
     # x, q, scale, y, M, K, N, dtype, stream
     "ptt_int8_matmul": [P, P, P, P, I, I, I, I, P],
-    # x, norm scale, norm bias, q, scale, bias, out, T, dm, N, eps, dtype,
-    # stream
-    "ptt_fused_pre": [P, P, P, P, P, P, P, I, I, I, F, I, P],
+    # x, q4, scale, y, M, K, N, group (0: per-channel), dtype, stream
+    "ptt_int4_matmul": [P, P, P, P, I, I, I, I, I, P],
+    # x, norm scale, norm bias, w, scale, bias, out, T, dm, N, kind, group,
+    # eps, dtype, stream
+    "ptt_fused_pre": [P, P, P, P, P, P, P, I, I, I, I, I, F, I, P],
     # T, dm, dtype -> blocks
     "ptt_fused_post_max_blocks": [I, I, I],
-    # pointer array (18), T, dm, H, eps, approx, grid, dtype, stream
-    "ptt_fused_post": [P, I, I, I, F, I, I, I, P],
+    # pointer array (18), (kind, group) array (6), T, dm, H, eps, approx,
+    # grid, dtype, stream
+    "ptt_fused_post": [P, P, I, I, I, F, I, I, I, P],
     # d_model, dim, hid, latent, dtype -> blocks
     "ptt_fused_flow_max_blocks": [I, I, I, I, I],
-    # pointer array (30), dims array (5), grid, dtype, stream
+    # pointer array (30), dims and (kind, group) array (19), grid, dtype,
+    # stream
     "ptt_fused_flow": [P, P, I, I, P],
 }
 

@@ -1,21 +1,81 @@
-"""K4a: x @ int8 weight with per-output-channel scales.
+"""K4a and K4b: x @ a quantized weight (int8, or packed int4).
 
-Replaces the TPU kernel `pocket_tts_tpu/ops/quant_matmul.py:
-int8_matmul_pallas`. The CUDA kernel is `csrc/int8_matmul.cu` (its header
-says what bounds it on the H100 and what the design does about it); the
-plain version is the JAX package's off-TPU math (`_core`, bits 8).
+K4a replaces the TPU kernel `pocket_tts_tpu/ops/quant_matmul.py:
+int8_matmul_pallas`, K4b `int4_matmul_pallas` (`_int4_kernel`,
+`_int4_grouped_kernel`). The CUDA kernels are `csrc/int8_matmul.cu` and
+`csrc/int4_matmul.cu` (their headers say what bounds them on the H100 and
+what the designs do about it); the plain versions are the JAX package's
+off-TPU math (`_core`), with grouped int4 scales applied in float32.
 
-Layout (io/quant.py): q (K, N) int8, scale (N,) float32. A layer of a
-stacked (L, K, N) weight is `q[l]`, a contiguous view.
+Layouts (io/quant.py), one layer of a stacked (L, ...) weight being `q[l]`,
+a contiguous view:
+  int8  q (K, N) int8, scale (N,) float32 per output channel
+  int4  q4 (K/2, N) int8, packed halves: byte = 16*hi + (lo + 8), packed
+        row r holds logical row r in the low nibble (biased) and logical
+        row r + K/2 in the high nibble (signed); scale (N,) float32 per
+        output channel, or K-grouped (K/group, N) bfloat16 (q4_0, group
+        32), whose row g covers logical rows [g*group, (g+1)*group)
 
-`int8_matmul` runs the plain version for tensors on the CPU and the kernel
-for tensors on the card; there is no other switch.
+`int8_matmul` and `int4_matmul` run the plain version for tensors on the
+CPU and the kernel for tensors on the card; there is no other switch.
+`kernel_operands` is the layout check the fused kernels (K5a, K5b, K6)
+share.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import cuda_lib
+
+# weight kinds of a linear as the fused CUDA kernels take them (csrc/qdot.cuh)
+PLAIN, INT8, INT4, INT4_GROUPED = range(4)
+
+
+def pack_int4(q: np.ndarray) -> np.ndarray:
+    """q (..., K, N) integers in [-8, 7] -> packed (..., K/2, N) int8:
+    byte = 16*hi + (lo + 8), lo = logical row r, hi = row r + K/2."""
+    k = q.shape[-2]
+    if k % 2:
+        raise ValueError(f"int4 packing needs an even K, not {k}")
+    q16 = q.astype(np.int16)
+    lo, hi = q16[..., : k // 2, :] + 8, q16[..., k // 2:, :]
+    return (16 * hi + lo).astype(np.int8)
+
+
+def unpack_int4(q4, dtype=torch.float32):
+    """packed (..., K/2, N) int8 -> (..., K, N) values in [-8, 7]."""
+    b = q4.to(torch.int16)
+    return torch.cat([(b & 0xF) - 8, b >> 4], dim=-2).to(dtype)
+
+
+def grouped(lin) -> bool:
+    """True when an int4 linear carries K-grouped (q4_0) scales."""
+    return "q4" in lin and lin["scale"].dim() == lin["q4"].dim()
+
+
+def deq_dot(x, lin):
+    """float32 x @ W for a linear {"w"}, {"q", "scale"} or {"q4",
+    "scale"} (one layer), without the bias: per-channel scales multiply
+    the float32 product, grouped scales the (exact) float32 weight."""
+    x32 = x.float()
+    if "w" in lin:
+        return x32 @ lin["w"].float()
+    if "q" in lin:
+        return (x32 @ lin["q"].float()) * lin["scale"]
+    w = unpack_int4(lin["q4"])
+    if grouped(lin):
+        s = lin["scale"].float()
+        return x32 @ (w * s.repeat_interleave(w.shape[-2] // s.shape[-2],
+                                              dim=-2))
+    return (x32 @ w) * lin["scale"]
+
+
+def _bad(name, **tensors):
+    return ValueError(
+        f"{name}: bad operands " + ", ".join(
+            f"{k}{tuple(t.shape)} {t.dtype} {t.device} "
+            f"contiguous={t.is_contiguous()}" for k, t in tensors.items()))
 
 
 def int8_matmul_plain(x, q, scale):
@@ -23,7 +83,7 @@ def int8_matmul_plain(x, q, scale):
     times scale, rounded to x's type. x and q widen to float32 exactly
     (bf16 values and |q| <= 127), so the float32 product is the f32-
     accumulated product of the working-type operands."""
-    y = (x.reshape(-1, x.shape[-1]).float() @ q.float()) * scale
+    y = deq_dot(x.reshape(-1, x.shape[-1]), {"q": q, "scale": scale})
     return y.to(x.dtype).reshape(*x.shape[:-1], q.shape[-1])
 
 
@@ -40,12 +100,7 @@ def int8_matmul(x, q, scale):
             and scale.dtype == torch.float32 and scale.shape == (n,)
             and all(t.is_contiguous() and t.device == x.device
                     for t in (x2, q, scale))):
-        raise ValueError(
-            "int8_matmul: bad operands "
-            + ", ".join(f"{name}{tuple(t.shape)} {t.dtype} {t.device} "
-                        f"contiguous={t.is_contiguous()}"
-                        for name, t in (("x", x), ("q", q),
-                                        ("scale", scale))))
+        raise _bad("int8_matmul", x=x, q=q, scale=scale)
     y = torch.empty(x2.shape[0], n, dtype=x.dtype, device=x.device)
     rc = cuda_lib.library().ptt_int8_matmul(
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
@@ -56,4 +111,99 @@ def int8_matmul(x, q, scale):
     return y.reshape(*x.shape[:-1], n)
 
 
+def int4_matmul_plain(x, q4, scale):
+    """x (..., K) @ dequant(q4 (K/2, N)) accumulated in float32, with
+    per-channel scale (N,) applied to the product or grouped scale
+    (K/group, N) to the weight (nibble x bf16 scale is exact in float32),
+    rounded once to x's type."""
+    y = deq_dot(x.reshape(-1, x.shape[-1]), {"q4": q4, "scale": scale})
+    return y.to(x.dtype).reshape(*x.shape[:-1], q4.shape[-1])
+
+
+def int4_matmul(x, q4, scale):
+    """Same contract as int4_matmul_plain; launches the CUDA kernel for
+    CUDA tensors (x float32 or bfloat16, N a multiple of 4; grouped scales
+    bfloat16 with whole groups in each half of K)."""
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, q4, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"int4_matmul: unsupported device {x.device}")
+    kh, n = q4.shape
+    x2 = x.reshape(-1, x.shape[-1])
+    if scale.dim() == 2:
+        ng = scale.shape[0]
+        group = 2 * kh // max(ng, 1)
+        s_ok = (scale.dtype == torch.bfloat16 and ng * group == 2 * kh
+                and kh % group == 0 and scale.data_ptr() % 8 == 0)
+    else:
+        group = 0
+        s_ok = scale.dtype == torch.float32
+    if not (s_ok and x2.shape[1] == 2 * kh and q4.dtype == torch.int8
+            and scale.shape[-1] == n and n % 4 == 0
+            and q4.data_ptr() % 4 == 0
+            and all(t.is_contiguous() and t.device == x.device
+                    for t in (x2, q4, scale))):
+        raise _bad("int4_matmul", x=x, q4=q4, scale=scale)
+    y = torch.empty(x2.shape[0], n, dtype=x.dtype, device=x.device)
+    rc = cuda_lib.library().ptt_int4_matmul(
+        x2.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr(),
+        x2.shape[0], 2 * kh, n, group, cuda_lib.dtype_code(x),
+        cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(rc, "ptt_int4_matmul")
+    int4_matmul.launches += 1
+    return y.reshape(*x.shape[:-1], n)
+
+
 int8_matmul.launches = 0
+int4_matmul.launches = 0
+
+
+def bits(lin) -> int:
+    """8 or 4 for a quantized linear, 16 for a plain one, 0 otherwise (the
+    JAX package's `fused_layer._qw` classes)."""
+    for key, b in (("q", 8), ("q4", 4), ("w", 16)):
+        if key in lin:
+            return b
+    return 0
+
+
+def kernel_operands(lin, k: int, n: int, x, layers=None):
+    """[w, scale, bias] and [kind, group] of a linear of logical shape
+    (k, n) (stacked over `layers` when given) for the fused kernels, after
+    checking what they read: shapes, dtypes, contiguity, x's device, N a
+    multiple of 4, and the alignment of 4-column loads. A missing scale or
+    bias is None. Raises ValueError on anything else."""
+    pre = () if layers is None else (layers,)
+    b = lin.get("b")
+    items = [(b, pre + (n,), x.dtype, 1)]
+    layout_ok = n % 4 == 0
+    if "q" in lin:
+        w, s, kind, group = lin["q"], lin["scale"], INT8, 0
+        items += [(w, pre + (k, n), torch.int8, 4),
+                  (s, pre + (n,), torch.float32, 1)]
+    elif "q4" in lin:
+        w, s = lin["q4"], lin["scale"]
+        items.append((w, pre + (k // 2, n), torch.int8, 4))
+        layout_ok = layout_ok and k % 2 == 0
+        if grouped(lin):
+            ng = s.shape[-2]
+            kind, group = INT4_GROUPED, k // max(ng, 1)
+            items.append((s, pre + (ng, n), torch.bfloat16, 8))
+            # whole groups in each half of K (io/quant.py's rule)
+            layout_ok = layout_ok and ng * group == k and (k // 2) % group == 0
+        else:
+            kind, group = INT4, 0
+            items.append((s, pre + (n,), torch.float32, 1))
+    elif "w" in lin:
+        w, s, kind, group = lin["w"], None, PLAIN, 0
+        items.append((w, pre + (k, n), x.dtype, 4 * x.element_size()))
+    else:
+        raise ValueError(f"not a linear: {sorted(lin)}")
+    bad = [(tuple(t.shape), t.dtype) for t, shape, dtype, align in items
+           if t is not None and not (
+               tuple(t.shape) == shape and t.dtype == dtype
+               and t.is_contiguous() and t.device == x.device
+               and t.data_ptr() % align == 0)]
+    if bad or not layout_ok:
+        raise ValueError(f"linear ({k}, {n}): bad operands {bad}")
+    return [w, s, b], [kind, group]

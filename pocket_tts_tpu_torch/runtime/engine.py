@@ -8,9 +8,12 @@ text and max frames), so the KV length S varies per sentence.
 
 Everything runs on `device` ("cuda", the default, launches the
 hand-written kernels on the card; "cpu" runs their plain versions).
-`quantize="int8"` (or "q8") quantizes the linear weights after load, as
-the JAX engine does; the decode step then runs kernels K4a, K5a, K5b and
-K6 beside K1-K3. Noise comes from a
+`quantize="int8"` (or "q8") quantizes the linear weights to int8 after
+load, as the JAX engine does, and "int4" (or "q4") to packed int4 with
+per-channel scales, "q4_0" with 32-row K-grouped bf16 scales; the decode
+step then runs kernels K4a (K4b), K5a, K5b and K6 beside K1-K3.
+`save_params_cache` / `from_params_cache` write and read the JAX
+package's safetensors params cache. Noise comes from a
 torch.Generator on that device, seeded from the engine seed: it does not
 reproduce jax.random, so the two packages agree only at temp 0 or when the
 same noise is fed to both (`_draw_noise` is the single place it is drawn).
@@ -30,7 +33,8 @@ from pocket_tts_tpu.text.tokenizer import load_tokenizer
 
 from ..config import check_supported
 from ..io import params as params_io
-from ..io.quant import quantize_params
+from ..io.quant import (load_params_cache, quantize_params,
+                        save_params_cache)
 from ..models import backbone, tts
 from ..ops.seanet_frame import prep_weights
 
@@ -41,6 +45,17 @@ _TOKEN_BUCKETS = (16, 32, 64, 128, 256)
 _PROMPT_BUCKET = 128
 _SCAN_BUCKET = 25  # frames (2 s of audio) granularity for the offline loop
 MAX_SENTENCE_TOKENS = 50
+
+
+def _device(device) -> torch.device:
+    """The engine's device: "cuda" when None; raises when that is the card
+    and there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "TTSEngine: no CUDA device (torch.cuda.is_available() is "
+            "False); pass device='cpu' to run on the CPU")
+    return device
 
 
 def _bucket(n: int, buckets=_TOKEN_BUCKETS) -> int:
@@ -62,21 +77,17 @@ class TTSEngine:
         there is no card, and running on the CPU takes device="cpu").
         params: a tree already on that device (with its cfg), or None to
         load `tts_b6369a24.safetensors` under model_path. quantize: None,
-        "int8" or "q8" (per-channel int8 linear weights, quantized after
-        load). int4 / q4_0, quantize_kv and quantize_convs are not ported
+        "int8" or "q8" (per-channel int8 linear weights), "int4" or "q4"
+        (per-channel int4), "q4_0" (int4 with 32-row K-grouped scales),
+        quantized after load (a tree that is quantized already keeps its
+        quantized leaves). quantize_kv and quantize_convs are not ported
         yet and raise NotImplementedError."""
-        if quantize in ("int4", "q4", "q4_0") or quantize_kv \
-                or quantize_convs:
+        if quantize_kv or quantize_convs:
             raise NotImplementedError(
-                "int4 weights, quantized KV caches and quantized convs are "
-                "not ported yet")
-        if quantize not in (None, "int8", "q8"):
+                "quantized KV caches and quantized convs are not ported yet")
+        if quantize not in (None, "int8", "q8", "int4", "q4", "q4_0"):
             raise ValueError(f"unknown quantization: {quantize}")
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TTSEngine: no CUDA device (torch.cuda.is_available() is "
-                "False); pass device='cpu' to run on the CPU")
+        self.device = _device(device)
         self.model_path = model_path
         if params is None:
             ckpt = os.path.join(model_path or ".", "tts_b6369a24.safetensors")
@@ -86,7 +97,8 @@ class TTSEngine:
             raise ValueError("cfg is required with params")
         check_supported(cfg)
         if quantize:
-            params = quantize_params(params, bits=8)
+            params = quantize_params(params, bits=4 if "4" in quantize else 8,
+                                     group=32 if quantize == "q4_0" else 0)
         self.params = params
         self.cfg = cfg
         self.dtype = dtype
@@ -111,6 +123,18 @@ class TTSEngine:
     @property
     def frame_size(self) -> int:
         return self.cfg.mimi.frame_size
+
+    def save_params_cache(self, path: str):
+        """Write the (possibly quantized) params tree to a safetensors
+        params cache that either package loads."""
+        save_params_cache(self.params, path)
+
+    @classmethod
+    def from_params_cache(cls, path: str, cfg, **kw):
+        """An engine on the params of a cache file written by either
+        package (kw as for the constructor: device, dtype, seed, ...)."""
+        return cls(params=load_params_cache(path, _device(kw.get("device"))),
+                   cfg=cfg, **kw)
 
     def set_seed(self, seed: int):
         self.seed = seed

@@ -117,9 +117,7 @@ def test_same_seed_same_audio_and_wav(tmp_path):
     assert sr == CFG.mimi.sample_rate and back.size == pcm.size
 
 
-@pytest.mark.parametrize("option", [dict(quantize="int4"),
-                                    dict(quantize="q4_0"),
-                                    dict(quantize_kv=True),
+@pytest.mark.parametrize("option", [dict(quantize_kv=True),
                                     dict(quantize_convs=True)])
 def test_quantize_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError):

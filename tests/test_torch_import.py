@@ -1,5 +1,6 @@
-"""The PyTorch port imports no JAX and no flax, even transitively: the
-machine with the card has neither. Checked in a fresh interpreter, since
+"""The PyTorch port imports no JAX, no flax and no ml_dtypes, even
+transitively: the machine with the card has none of them (the params
+cache reads bf16 without ml_dtypes). Checked in a fresh interpreter, since
 this test process has JAX loaded already."""
 import os
 import subprocess
@@ -29,7 +30,7 @@ MODULES = [
 def test_import_leaves_jax_out(module):
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax')); print(bad); "
+            "('jax', 'jaxlib', 'flax', 'ml_dtypes')); print(bad); "
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -38,8 +39,9 @@ def test_import_leaves_jax_out(module):
 
 
 def test_import_builds_nothing():
-    """Importing the kernel modules neither compiles nor loads the CUDA
-    library (the build happens at first launch, on the card)."""
+    """Importing the kernel modules (K4b's int4_matmul among them) neither
+    compiles nor loads the CUDA library (the build happens at first
+    launch, on the card)."""
     code = ("import pocket_tts_tpu_torch.ops.seanet_frame, "
             "pocket_tts_tpu_torch.ops.decode_attn, "
             "pocket_tts_tpu_torch.ops.ring_attn, "

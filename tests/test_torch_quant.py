@@ -1,9 +1,10 @@
 """The port's int8 quantization against the JAX package's: the same
 quantized leaves, bit for bit (q bytes and scale bits), on one random
 checkpoint at tiny_config(64), where every backbone, mimi and flow linear
-is large enough to quantize; the leaves that must stay plain; the options
-not ported yet; and from_jax_numpy keeping int8 and float32 scale leaves
-in their own type under a dtype cast."""
+is large enough to quantize; the leaves that must stay plain; the option
+not ported yet (quantized convs; int4 is in tests/test_torch_int4.py);
+and from_jax_numpy keeping int8 and float32 scale leaves in their own
+type under a dtype cast."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -77,8 +78,7 @@ def test_small_weights_stay_plain():
         assert tree["conditioner"]["embed"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("kw", [dict(bits=4), dict(group=32),
-                                dict(convs=True)])
+@pytest.mark.parametrize("kw", [dict(convs=True)])
 def test_options_not_ported_raise(kw):
     pt, _ = params_from_flat(FLAT, CFG0)
     with pytest.raises(NotImplementedError):

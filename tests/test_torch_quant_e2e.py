@@ -1,13 +1,15 @@
-"""The port's TTSEngine(quantize="int8") against the JAX TTSEngine with
-quantize="int8" on one random checkpoint at tiny_config(64), where every
-backbone, mimi and flow linear quantizes (f32, temp 0, atol 1e-4 as
+"""The port's quantized TTSEngine against the JAX TTSEngine with the same
+`quantize` option (int8, q8, int4, q4, q4_0) on one random checkpoint at
+tiny_config(64), where every backbone, mimi and flow linear quantizes,
+under q4_0 with K-grouped scales (f32, temp 0, atol 1e-4 as
 test_torch_e2e.py uses): offline `synthesize` and the `Stream` loop. The
 checkpoint's weights are drawn at scale 0.05, not the default 0.02: at
 0.02 the random SEANet biases dominate the pcm, and int8 weights move it
-by less than 1e-7, so a match would not show that the int8 path runs. The
-JAX engine runs its unfused XLA path off the TPU; the port runs the plain
-versions of K4a, K5a, K5b and K6, which round where those kernels round,
-identically in f32. Also the CLI with --quantize int8 --device cpu."""
+by less than 1e-7, so a match would not show that the quantized path
+runs. The JAX engine runs its unfused XLA path off the TPU; the port runs
+the plain versions of K4a/K4b, K5a, K5b and K6, which round where those
+kernels round, identically in f32 up to summation order. Also the CLI
+with --quantize and --device cpu."""
 import numpy as np
 import pytest
 import torch
@@ -46,25 +48,35 @@ def tengine(quantize):
                      tokenizer=MockTokenizer(CFG.lut.n_bins))
 
 
-@pytest.mark.parametrize("quantize", ["int8", "q8"])
+QUANTIZE = ["int8", "q8", "int4", "q4", "q4_0"]
+# the quantized weight key and the scale's type of each option
+LAYOUT = {"int8": ("q", torch.float32), "q8": ("q", torch.float32),
+          "int4": ("q4", torch.float32), "q4": ("q4", torch.float32),
+          "q4_0": ("q4", torch.bfloat16)}
+
+
+@pytest.mark.parametrize("quantize", QUANTIZE)
 def test_engine_quantizes_and_routes_fused(quantize):
     p = tengine(quantize).params
-    assert "q" in p["layers"]["in_proj"] and "w" in p["out_eos"]
+    key, sdt = LAYOUT[quantize]
+    assert key in p["layers"]["in_proj"] and "w" in p["out_eos"]
+    assert p["layers"]["in_proj"]["scale"].dtype == sdt
     assert fused_layer.supported(slice_layer_params(p["layers"], 0))
     assert fused_layer.supported(slice_layer_params(
         p["mimi"]["decoder_transformer"]["layers"], 1))
     assert fused_flow.supported(p["flow_net"])
 
 
-def test_synthesize_int8_temp0_matches_jax():
-    want = jengine("int8").synthesize(TEXT, VOICE, temp=0.0)
-    eng = tengine("int8")
+@pytest.mark.parametrize("quantize", QUANTIZE)
+def test_synthesize_int8_temp0_matches_jax(quantize):
+    want = jengine(quantize).synthesize(TEXT, VOICE, temp=0.0)
+    eng = tengine(quantize)
     got = eng.synthesize(TEXT, VOICE, temp=0.0)
     assert got.shape == want.shape and got.size > 0
     assert got.size % eng.frame_size == 0
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
-    # int8 moves the audio by more than the tolerance: the match is one of
-    # two int8 runs
+    # quantizing moves the audio by more than the tolerance: the match is
+    # one of two quantized runs
     plain = tengine(None).synthesize(TEXT, VOICE, temp=0.0)
     assert np.abs(plain - got).max() > ATOL
 
@@ -82,14 +94,16 @@ def _drain(stream, text):
     return np.concatenate(frames) if frames else np.zeros(0, np.float32)
 
 
-def test_stream_loop_int8_temp0_matches_jax():
-    want = _drain(jengine("int8").open_stream(VOICE, temp=0.0), TEXT)
-    got = _drain(tengine("int8").open_stream(VOICE, temp=0.0), TEXT)
+@pytest.mark.parametrize("quantize", QUANTIZE)
+def test_stream_loop_int8_temp0_matches_jax(quantize):
+    want = _drain(jengine(quantize).open_stream(VOICE, temp=0.0), TEXT)
+    got = _drain(tengine(quantize).open_stream(VOICE, temp=0.0), TEXT)
     assert got.shape == want.shape and got.size > 0
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
-def test_decode_step_takes_fused_route_only_at_t1(monkeypatch):
+@pytest.mark.parametrize("quantize", ["int8", "q4_0"])
+def test_decode_step_takes_fused_route_only_at_t1(monkeypatch, quantize):
     """Prefill (T > 1) stays unfused, as in the JAX package; each decode
     step runs K5a and K5b once per backbone layer."""
     calls = []
@@ -97,7 +111,7 @@ def test_decode_step_takes_fused_route_only_at_t1(monkeypatch):
     monkeypatch.setattr(fused_layer, "pre_attention",
                         lambda p, x, eps=1e-5: calls.append(x.shape[0])
                         or real(p, x, eps))
-    eng = tengine("int8")
+    eng = tengine(quantize)
     vstate = eng.prime_voice(VOICE)
     assert calls == []
     state, _ = eng._prefill_sentence(vstate, "Hello world.")
@@ -109,7 +123,7 @@ def test_decode_step_takes_fused_route_only_at_t1(monkeypatch):
     assert isinstance(state.flow, backbone.BackboneState)
 
 
-@pytest.mark.parametrize("quantize", ["int8", "q8"])
+@pytest.mark.parametrize("quantize", QUANTIZE)
 def test_cli_quantized_writes_wav(tmp_path, quantize, monkeypatch, capsys):
     from pocket_tts_tpu_torch import cli
     from pocket_tts_tpu_torch.io import params as tparams
@@ -119,6 +133,7 @@ def test_cli_quantized_writes_wav(tmp_path, quantize, monkeypatch, capsys):
     out = str(tmp_path / "out.wav")
     assert cli.main(["--random-weights", "--device", "cpu", "--quantize",
                      quantize, "-t", "0", "-o", out, "Hello world."]) == 0
-    assert "int8 weights" in capsys.readouterr().out
+    weights = {"q8": "int8", "q4": "int4"}.get(quantize, quantize)
+    assert f"{weights} weights" in capsys.readouterr().out
     pcm, sr = load_wav(out)
     assert sr == 24000 and pcm.size > 0 and pcm.size % 1920 == 0
