@@ -4,11 +4,12 @@
     python3 chip_smoke.py [--out DIR]
 
 Drives the port's four solo paths (synthesis through `TTSEngine` with
-bf16 weights, and with `quantize="int8"`, `"int4"` and `"q4_0"`) at the
-full width of DEFAULT_CONFIG with random weights from seed 0, and checks
-the eleven hand-written CUDA kernel entries on them against their plain
-PyTorch versions. Phases, in order; any failure raises, names its phase
-and the exit code is 1:
+bf16 weights, and with `quantize="int8"`, `"int4"` and `"q4_0"`) and its
+continuous-batching server (`ContinuousBatchingServer`, bf16, 32 lanes,
+and CLI `--serve`) at the full width of DEFAULT_CONFIG with random weights
+from seed 0, and checks the twelve hand-written CUDA kernel entries on
+them against their plain PyTorch versions. Phases, in order; any failure
+raises, names its phase and the exit code is 1:
 
   1. environment   torch / CUDA versions, card name and power limit
   2. build         nvcc builds the kernel library (pocket_tts_tpu_torch/csrc)
@@ -19,6 +20,10 @@ and the exit code is 1:
                    (K-grouped) weights: each vs its plain version at
                    main-path shapes, f32 and bf16, with the tolerances
                    stated below
+  3c. at batch     K7 fused insert + decode attention at B=32, S=1024,
+                   H*D=1024 (linear and ring, one invalid lane), K2 over 32
+                   lanes with distinct starts (each lane equal to the solo
+                   call bit for bit), K3 over 32 lanes, f32 and bf16
   4. end to end    synthesis of the benchmark sentence at temp 0 on each
                    path, counters set to 0 before each run and read after:
                    per decoded frame every path launches 6 K1, 2 K2 and 1
@@ -32,13 +37,24 @@ and the exit code is 1:
                    bf16, int8, int4 and q4_0 weights
   6. timing        decode frames/s of the four paths in alternating rounds
                    (with and without the per-frame host sync), each
-                   kernel's device time vs its plain version's (CUDA
-                   events), device busy share and launches per frame of
-                   each path (profiler)
+                   kernel's device time vs its plain version's and the
+                   library call's (SDPA for K1, K2, K7; CUDA events) beside
+                   its bound
+  7. serving       f32, 4 lanes, 6 requests (two admitted mid-decode), each
+                   pcm vs the solo engine on the card; bf16, 32 lanes, 48
+                   requests, counters set to 0 before and read after: per
+                   batch frame step 6 K7, 2 K2, 1 K3 and no K1; aggregate
+                   frames/s, TTFA p50/p95; CLI --serve writes one wav per
+                   request
+  8. profiler      device busy share and launches per frame of each solo
+                   path and per chunk of serving with every lane busy
+                   (torch.profiler; last, after every host-clock
+                   measurement)
 
 The last three lines of standard output are a JSON object of the kernels
 (launches from the runs of the path that uses each: K1-K3 from bf16, the
-int8 entries from int8, the int4 entries from int4 and q4_0 together),
+int8 entries from int8, the int4 entries from int4 and q4_0 together, K7
+from the serving run),
 the card's `nvidia-smi` name and power limit, and the result object
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 and prints no result. With --out DIR, the longer output (nvcc's register
@@ -115,7 +131,13 @@ KERNELS = {
     "fused_flow_int4": dict(
         source="pocket_tts_tpu_torch/csrc/fused_flow.cu",
         replaces="pocket_tts_tpu/ops/fused_flow.py:188"),
+    "decode_insert_attn": dict(
+        source="pocket_tts_tpu_torch/csrc/insert_attn.cu",
+        replaces="pocket_tts_tpu/ops/pallas_attn.py:809"),
 }
+# the kernels whose launches the kernels line reports from the serving run
+# (phase 7): this slice's path
+SERVING_KERNELS = ("decode_insert_attn",)
 # the kernels each path adds to K1-K3, and the paths whose counts the
 # kernels line reports for each
 PATH_KERNELS = {
@@ -246,6 +268,148 @@ def check_k3(dec, cfg, device, dtype, results, weights):
     if not worst_rel <= tol:
         raise AssertionError(f"K3 {_dt_name(dtype)} rel error {worst_rel}")
     results.setdefault("seanet_frame", {})[_dt_name(dtype)] = worst_abs
+
+
+# --------------------------------------------------------------- phase 3c --
+
+LANES = 32  # the continuous server's default lane count
+
+
+def k7_case(g, device, dtype, mode, b=LANES, s=1024, h=16, d=64):
+    """Inputs of one K7 call at the serving shapes: (q, k_new, v_new,
+    cur_pos, k_cache, v_cache, pos, read_end, write_slot). linear: lanes
+    hold 1..S live slots below the write slot; ring: every slot is live
+    and the write slot holds a stale row whose position was overwritten;
+    lane 1 carries an invalid new row (cur_pos = -1) in both."""
+    import torch
+    hd = h * d
+    ws = 700 if mode == "linear" else 300
+    read_end = ws if mode == "linear" else s - 1
+    kc = torch.randn(b, s, hd, generator=g).to(device, dtype)
+    vc = torch.randn(b, s, hd, generator=g).to(device, dtype)
+    q = torch.randn(b, h, d, generator=g).to(device, dtype)
+    kn = torch.randn(b, 1, hd, generator=g).to(device, dtype)
+    vn = torch.randn(b, 1, hd, generator=g).to(device, dtype)
+    pos = torch.arange(s, dtype=torch.int32).repeat(b, 1) + 5000
+    if mode == "linear":
+        pos[:, ws + 1:] = -1
+        for i in range(b):       # lanes of different lengths, with holes
+            pos[i, : (i * 37) % ws] = -1
+    pos[::3, 40:60] = -1         # padding rows of short prompts/texts
+    cur = pos[:, ws] + 10 ** 6
+    cur[1] = -1
+    pos[:, ws] = cur
+    return (q, kn, vn, cur.to(device), kc, vc, pos.to(device), read_end,
+            ws)
+
+
+def check_k7(device, dtype, results):
+    import torch
+    from pocket_tts_tpu_torch.ops.insert_attn import (
+        decode_insert_attention, decode_insert_attention_plain)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    worst = 0.0
+    for mode in ("linear", "ring"):
+        q, kn, vn, cur, kc, vc, pos, re_, ws = k7_case(g, device, dtype,
+                                                       mode)
+        kc2, vc2 = kc.clone(), vc.clone()
+        got = decode_insert_attention(q, kn, vn, cur, kc, vc, pos, re_, ws)
+        want = decode_insert_attention_plain(q, kn, vn, cur, kc2, vc2, pos,
+                                             re_, ws)
+        sync(device)
+        if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
+            raise AssertionError(f"K7 caches differ after insert ({mode})")
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"K7 non-finite output ({mode})")
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+    tol = TOL[("attn", _dt_name(dtype))]
+    log(f"  K7 decode_insert_attn {_dt_name(dtype)}: B={LANES} S=1024 "
+        f"H*D=1024, linear and ring, one invalid lane: max_abs_err "
+        f"{worst:.3e} (tol {tol}); caches equal")
+    if not worst <= tol:
+        raise AssertionError(f"K7 {_dt_name(dtype)} error {worst} > {tol}")
+    results.setdefault("decode_insert_attn", {})[_dt_name(dtype)] = worst
+
+
+def check_k2_lanes(device, dtype, results):
+    """K2 over 32 lanes with distinct starts against its plain version;
+    lane i of the lane call equals the solo call on lane i's data bit for
+    bit (the same code)."""
+    import torch
+    from pocket_tts_tpu_torch.ops.ring_attn import (
+        ring_insert_attention, ring_insert_attention_plain)
+    h, d, cap, t, ctx, b = 8, 64, 256, 16, 250, LANES
+    g = torch.Generator(device="cpu").manual_seed(8)
+    worst = 0.0
+    for off in (240, 4096):
+        starts = torch.tensor([(i * 97) % (off + 1) // t * t
+                               for i in range(b)], dtype=torch.int32)
+        starts[0], starts[1] = 0, off
+        kc = torch.randn(b, cap, h * d, generator=g).to(device, dtype)
+        vc = torch.randn(b, cap, h * d, generator=g).to(device, dtype)
+        q, kn, vn = (torch.randn(b, t, h * d, generator=g).to(device, dtype)
+                     for _ in range(3))
+        kc2, vc2, kc3, vc3 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        st = starts.to(device)
+        got = ring_insert_attention(q, kn, vn, kc, vc, off, st, h, ctx)
+        want = ring_insert_attention_plain(q, kn, vn, kc2, vc2, off, st, h,
+                                           ctx)
+        solo = [ring_insert_attention(q[i], kn[i], vn[i], kc3[i], vc3[i],
+                                      off, int(starts[i]), h, ctx)
+                for i in (0, 1, b - 1)]
+        sync(device)
+        if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
+            raise AssertionError(f"K2 lanes: caches differ at offset {off}")
+        for i, o in zip((0, 1, b - 1), solo):
+            if not torch.equal(got[i], o):
+                raise AssertionError(f"K2 lane {i} differs from the solo "
+                                     f"call at offset {off}")
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+    tol = TOL[("attn", _dt_name(dtype))]
+    log(f"  K2 ring_attn lanes {_dt_name(dtype)}: B={b}, distinct starts: "
+        f"max_abs_err {worst:.3e} (tol {tol}); caches equal; lanes equal "
+        "the solo call bit for bit")
+    if not worst <= tol:
+        raise AssertionError(f"K2 lanes {_dt_name(dtype)} error {worst}")
+    errs = results.setdefault("ring_attn", {})
+    errs[_dt_name(dtype)] = max(errs.get(_dt_name(dtype), 0.0), worst)
+
+
+def check_k3_lanes(dec, cfg, device, dtype, results, weights):
+    """K3 over 32 lanes (streams stacked on M) for 3 frames against the
+    plain chain with a lane axis, pcm and the 8 carries."""
+    import torch
+    from pocket_tts_tpu_torch.models import mimi, seanet
+    from pocket_tts_tpu_torch.ops.seanet_frame import seanet_frame
+    sc, tpf = cfg.mimi.seanet, cfg.mimi.upsample_stride
+    g = torch.Generator(device="cpu").manual_seed(9)
+    st_k = mimi.init_state_lanes(cfg.mimi, LANES, dtype, device).seanet
+    st_p = {k: v.clone() for k, v in st_k.items()}
+    worst_rel = worst_abs = 0.0
+    for _ in range(3):
+        z = torch.randn(LANES, tpf, sc.in_ch, generator=g).to(device, dtype)
+        got = seanet_frame(dec, sc, st_k, z, weights)
+        new, want = seanet.forward_plain(dec, sc, st_p, z)
+        for key in st_p:
+            st_p[key].copy_(new[key])
+        sync(device)
+        scale = max(want.float().abs().max().item(), 1e-30)
+        err = (got.float() - want.float()).abs().max().item()
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / scale)
+        for key in st_p:
+            cs = max(st_p[key].float().abs().max().item(), 1e-30)
+            cerr = (st_k[key].float() - st_p[key].float()).abs().max().item()
+            worst_rel = max(worst_rel, cerr / cs)
+    tol = TOL[("seanet", _dt_name(dtype))]
+    log(f"  K3 seanet_frame lanes {_dt_name(dtype)}: B={LANES}, 3 frames, "
+        f"max_abs_err {worst_abs:.3e}, relative (pcm and 8 carries) "
+        f"{worst_rel:.3e} (tol {tol})")
+    if not worst_rel <= tol:
+        raise AssertionError(f"K3 lanes {_dt_name(dtype)} rel error "
+                             f"{worst_rel}")
+    errs = results.setdefault("seanet_frame", {})
+    errs[_dt_name(dtype)] = max(errs.get(_dt_name(dtype), 0.0), worst_abs)
 
 
 def _rel_check(name, key, dtype, pairs, results, label=""):
@@ -419,6 +583,7 @@ def _counters():
     `launches_int4`."""
     from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
     from pocket_tts_tpu_torch.ops.decode_attn import decode_attention
+    from pocket_tts_tpu_torch.ops.insert_attn import decode_insert_attention
     from pocket_tts_tpu_torch.ops.quant_matmul import (int4_matmul,
                                                        int8_matmul)
     from pocket_tts_tpu_torch.ops.ring_attn import ring_insert_attention
@@ -427,7 +592,8 @@ def _counters():
            "ring_attn": (ring_insert_attention, "launches"),
            "seanet_frame": (seanet_frame, "launches"),
            "int8_matmul": (int8_matmul, "launches"),
-           "int4_matmul": (int4_matmul, "launches")}
+           "int4_matmul": (int4_matmul, "launches"),
+           "decode_insert_attn": (decode_insert_attention, "launches")}
     for name, fn in (("fused_pre", fused_layer.pre_attention),
                      ("fused_post", fused_layer.post_attention),
                      ("fused_flow", fused_flow.flow_forward)):
@@ -447,7 +613,7 @@ def read_counters():
 
 
 def _engine_kw(cfg, device, dtype):
-    from pocket_tts_tpu.text.tokenizer import MockTokenizer
+    from pocket_tts_tpu_torch.text.tokenizer import MockTokenizer
     return dict(cfg=cfg, dtype=dtype, device=device, seed=0,
                 tokenizer=MockTokenizer(cfg.lut.n_bins))
 
@@ -563,7 +729,7 @@ def check_cache(engine, voice, pcm):
 def first_frames(engine, voice, n_frames, text=BENCH_TEXT):
     """pcm of the first n_frames of `text` at temp 0, (n, frame)."""
     import torch
-    from pocket_tts_tpu.text.preprocess import prepare_text_prompt
+    from pocket_tts_tpu_torch.text.preprocess import prepare_text_prompt
     from pocket_tts_tpu_torch.models import tts
     prepared, _ = prepare_text_prompt(text)
     vstate = engine.prime_voice(voice)
@@ -615,7 +781,7 @@ def time_decode(engines, voice, n_frames=100, rounds=3, text=BENCH_TEXT):
     round. Returns {label: {"sync": [fps...], "nosync": [fps...]}} (host
     clock around work that ends in a synchronize)."""
     import torch
-    from pocket_tts_tpu.text.preprocess import prepare_text_prompt
+    from pocket_tts_tpu_torch.text.preprocess import prepare_text_prompt
     from pocket_tts_tpu_torch.models import flow_lm, mimi, tts
     prepared, _ = prepare_text_prompt(text)
     vstates = {k: e.prime_voice(voice) for k, e in engines.items()}
@@ -651,16 +817,108 @@ def time_decode(engines, voice, n_frames=100, rounds=3, text=BENCH_TEXT):
     return res
 
 
+# H100 SXM peaks (NVIDIA data sheet, dense rates): HBM3 bytes/s and the
+# FLOP/s of the inputs' type (bf16 on the tensor cores, f32 outside them)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+
+def bound_ms(nbytes, flops, dtype_name="bf16"):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the HBM rate and the operations over the peak rate
+    for the inputs' type."""
+    t_b = nbytes / HBM_BYTES_S
+    t_f = flops / PEAK_FLOPS[dtype_name]
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return _nbytes(tree)
+
+
+def _linear_flops(tree, t):
+    """2 * t * K * N summed over the linears of a params subtree (the
+    logical K: a packed int4 row holds two)."""
+    if not isinstance(tree, dict):
+        return 0
+    for key, mult in (("w", 1), ("q", 1), ("q4", 2)):
+        if key in tree:
+            k, n = tree[key].shape[-2:]
+            return 2 * t * (tree[key].numel() // n) * mult * n
+    return sum(_linear_flops(v, t) for v in tree.values())
+
+
+def seanet_work(weights, cfg, state, z, b=1):
+    """(bytes, flops) of one K3 frame over b lanes: every conv weight read
+    once, the latents in, the pcm out, the 8 carries read and written."""
+    sc, t = cfg.mimi.seanet, cfg.mimi.upsample_stride
+    w0 = weights["model_0"][0]
+    flops = 2 * b * t * w0.shape[0] * w0.shape[1]
+    m = b * t
+    for st, (tr, rn) in zip(sc.stages, (("model_2", "model_3"),
+                                        ("model_5", "model_6"),
+                                        ("model_8", "model_9"))):
+        w2 = weights[tr][0]
+        wr, _, wc, _ = weights[rn]
+        flops += 2 * m * w2.shape[0] * w2.shape[1]
+        m *= st.stride
+        flops += 2 * m * (wr.shape[0] * wr.shape[1]
+                          + wc.shape[0] * wc.shape[1])
+    w11 = weights["model_11"][0]
+    flops += 2 * m * w11.shape[0] * w11.shape[1]
+    wbytes = sum(_nbytes(*v) for v in weights.values())
+    nbytes = (wbytes + _nbytes(z) + m * sc.out_ch * z.element_size()
+              + 2 * sum(_nbytes(c) for c in state.values()))
+    return nbytes, flops
+
+
+def _heads(c, h):
+    """(S, H*D) or (B, S, H*D) flat rows -> a (B, H, S, D) view."""
+    c = c if c.dim() == 3 else c[None]
+    b, s, hd = c.shape
+    return c.view(b, s, h, hd // h).transpose(1, 2)
+
+
+def sdpa_call(q, k, v, mask):
+    """torch's scaled_dot_product_attention: the library yardstick of K1,
+    K2 and K7 (timed here, never called by the port)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def _row(kernel, plain, lib, bound, shape):
+    return {"k": kernel, "plain": plain, "lib": lib, "bound": bound,
+            "shape": shape}
+
+
 def time_kernels(engine, device, dtype):
+    """Device time of K1, K2, K3 and K7 against their plain versions and
+    the library call (SDPA with the kernel's mask, on a cache that already
+    holds the new rows), with each call's bound: {name: [rows]}, the first
+    row of each name the one the JSON line reports."""
     import torch
-    from pocket_tts_tpu_torch.models import seanet
+    from pocket_tts_tpu_torch.models import mimi, seanet
+    from pocket_tts_tpu_torch.ops.attention import ring_cache_bias
     from pocket_tts_tpu_torch.ops.decode_attn import (decode_attention,
                                                       decode_attention_plain)
+    from pocket_tts_tpu_torch.ops.insert_attn import (
+        decode_insert_attention, decode_insert_attention_plain)
     from pocket_tts_tpu_torch.ops.ring_attn import (
         ring_insert_attention, ring_insert_attention_plain)
     from pocket_tts_tpu_torch.ops.seanet_frame import seanet_frame
     g = torch.Generator(device="cpu").manual_seed(4)
     cfg = engine.cfg
+    dn = _dt_name(dtype)
+    isz = torch.tensor([], dtype=dtype).element_size()
     out = {}
     # K1 at the benchmark sentence's bucket: S = 384, ~300 live slots
     h, d, s, end = 16, 64, 384, 300
@@ -670,82 +928,157 @@ def time_kernels(engine, device, dtype):
     pos = torch.arange(s, dtype=torch.int32)
     pos[end + 1:] = -1
     pos = pos.to(device)
-    out["decode_attn"] = (
+    mask = (pos >= 0)[None, None, None, :]
+    out["decode_attn"] = [_row(
         device_ms(lambda: decode_attention(q, k, v, pos, end), 200),
         device_ms(lambda: decode_attention_plain(q, k, v, pos, end), 50),
-        f"S={s} end={end} H={h} D={d}")
-    # K2 at a wrapped ring
+        device_ms(lambda: sdpa_call(q[None, :, None], _heads(k, h),
+                                    _heads(v, h), mask), 200)[0],
+        # K and V of the live slots and their positions read, q in, the
+        # output out; 2 flops per multiply-add in the scores and in PV
+        bound_ms((2 * (end + 1) + 2) * h * d * isz + 4 * (end + 1),
+                 4 * (end + 1) * h * d, dn),
+        f"S={s} end={end} H={h} D={d}")]
+    # K2 at a wrapped ring, solo and over 32 lanes with distinct starts
     h, d, cap, t = 8, 64, 256, 16
-    kc = torch.randn(cap, h * d, generator=g).to(device, dtype)
-    vc = torch.randn(cap, h * d, generator=g).to(device, dtype)
-    q, kn, vn = (torch.randn(t, h * d, generator=g).to(device, dtype)
-                 for _ in range(3))
     ctx = cfg.mimi.transformer.context
-    out["ring_attn"] = (
-        device_ms(lambda: ring_insert_attention(q, kn, vn, kc, vc, 4096, 0,
-                                                h, ctx), 200),
-        device_ms(lambda: ring_insert_attention_plain(q, kn, vn, kc, vc,
-                                                      4096, 0, h, ctx), 20),
-        f"cap={cap} T={t} H={h} D={d} offset=4096")
-    # K3: one frame of the full decoder
+    out["ring_attn"] = []
+    for b in (1, LANES):
+        kc = torch.randn(b, cap, h * d, generator=g).to(device, dtype)
+        vc = torch.randn(b, cap, h * d, generator=g).to(device, dtype)
+        q, kn, vn = (torch.randn(b, t, h * d, generator=g).to(device, dtype)
+                     for _ in range(3))
+        if b == 1:
+            kc, vc, q, kn, vn = kc[0], vc[0], q[0], kn[0], vn[0]
+            st = 0
+            bias = ring_cache_bias(t, cap, 4096, ctx, device=device)
+        else:
+            st = (torch.arange(b, dtype=torch.int32) * 64).to(device)
+            bias = ring_cache_bias(t, cap, 4096, ctx, start=st[:, None, None],
+                                   device=device)[:, None]
+        mask = bias == 0
+        # per lane: the ring and the new rows read once, q in, the output
+        # out, the new rows written; every query scores cap + t keys
+        hd = h * d
+        nb = b * (2 * (cap + t) + 2 * t + 2 * t) * hd * isz
+        fl = 4 * b * t * (cap + t) * hd
+        out["ring_attn"].append(_row(
+            device_ms(lambda: ring_insert_attention(q, kn, vn, kc, vc, 4096,
+                                                    st, h, ctx), 200),
+            device_ms(lambda: ring_insert_attention_plain(
+                q, kn, vn, kc, vc, 4096, st, h, ctx), 20),
+            device_ms(lambda: sdpa_call(_heads(q, h), _heads(kc, h),
+                                        _heads(vc, h), mask), 200)[0],
+            bound_ms(nb, fl, dn),
+            f"B={b} cap={cap} T={t} H={h} D={d} offset=4096"))
+    # K3: one frame of the full decoder, solo and over 32 lanes
     sc, tpf = cfg.mimi.seanet, cfg.mimi.upsample_stride
     dec = engine.params["mimi"]["decoder"]
-    st = seanet.init_state(sc, tpf, dtype, device)
-    z = torch.randn(tpf, sc.in_ch, generator=g).to(device, dtype)
-    out["seanet_frame"] = (
-        device_ms(lambda: seanet_frame(dec, sc, st, z,
-                                       engine.seanet_weights), 30),
-        device_ms(lambda: seanet.forward_plain(dec, sc, st, z), 5),
-        f"z=({tpf}, {sc.in_ch}) -> {tpf * sc.total_stride} samples")
+    out["seanet_frame"] = []
+    for b in (1, LANES):
+        if b == 1:
+            stt = seanet.init_state(sc, tpf, dtype, device)
+            z = torch.randn(tpf, sc.in_ch, generator=g).to(device, dtype)
+        else:
+            stt = mimi.init_state_lanes(cfg.mimi, b, dtype, device).seanet
+            z = torch.randn(b, tpf, sc.in_ch, generator=g).to(device, dtype)
+        out["seanet_frame"].append(_row(
+            device_ms(lambda: seanet_frame(dec, sc, stt, z,
+                                           engine.seanet_weights), 30),
+            device_ms(lambda: seanet.forward_plain(dec, sc, stt, z), 5),
+            None,
+            bound_ms(*seanet_work(engine.seanet_weights, cfg, stt, z, b),
+                     dn),
+            f"B={b} z=({tpf}, {sc.in_ch}) -> {tpf * sc.total_stride} "
+            "samples per lane"))
+    # K7 at the serving shapes: 32 lanes, S = 1024, ring mode (every slot
+    # read) and linear mode
+    out["decode_insert_attn"] = []
+    for mode in ("ring", "linear"):
+        q, kn, vn, cur, kc, vc, pos, re_, ws = k7_case(g, device, dtype,
+                                                       mode)
+        b, h, d = q.shape
+        mask = (torch.arange(pos.shape[1], device=device) <= re_) & (pos >= 0)
+        # this run's data: the K and V rows of the attended slots, q in,
+        # the output and the new rows out, the positions read
+        nread = int(mask.sum())
+        hd = h * d
+        nb = ((2 * nread + 2 * b + 2 * b) * hd * isz
+              + 4 * b * (re_ + 2))
+        out["decode_insert_attn"].append(_row(
+            device_ms(lambda: decode_insert_attention(
+                q, kn, vn, cur, kc, vc, pos, re_, ws), 200),
+            device_ms(lambda: decode_insert_attention_plain(
+                q, kn, vn, cur, kc, vc, pos, re_, ws), 20),
+            device_ms(lambda: sdpa_call(q[:, :, None], _heads(kc, h),
+                                        _heads(vc, h),
+                                        mask[:, None, None, :]), 200)[0],
+            bound_ms(nb, 4 * nread * hd, dn),
+            f"{mode} B={b} S={pos.shape[1]} read_end={re_} H={h} D={d}"))
     return out
 
 
 def time_quant_kernels(pq, cfg, device, dtype, path, out):
     """Device time of the path's K4a/K4b, K5a, K5b and K6 vs their plain
-    versions at the decode step's shapes, appended to out[kernel name] (the
-    first row of each name is the one the JSON line reports)."""
+    versions at the decode step's shapes, with each call's bound (no single
+    PyTorch call computes these functions), appended to out[kernel name]
+    (the first row of each name is the one the JSON line reports)."""
+    import torch
     from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
     from pocket_tts_tpu_torch.ops.basic import slice_layer_params
     mm_name, mm, mm_plain, key = quant_matmul_fns(path)
     _, pre, post, flow = PATH_KERNELS[path]
+    dn = _dt_name(dtype)
     rng = np.random.RandomState(6)
     dm, md = cfg.backbone.d_model, cfg.mimi.transformer.d_model
     eps_m = cfg.mimi.transformer.norm_eps
     bb = slice_layer_params(pq["layers"], 0)
     mt = slice_layer_params(pq["mimi"]["decoder_transformer"]["layers"], 0)
     rows = {n: out.setdefault(n, []) for n in PATH_KERNELS[path]}
-    lin = pq["input_linear"]
-    x = _rand(rng, device, dtype, 1, cfg.latent_dim)
-    rows[mm_name].append((
-        device_ms(lambda: mm(x, lin[key], lin["scale"]), 200),
-        device_ms(lambda: mm_plain(x, lin[key], lin["scale"]), 50),
-        f"{path} input_linear T=1 K={cfg.latent_dim} N={dm}"))
-    lin = bb["in_proj"]
-    xp = _rand(rng, device, dtype, 128, dm)
-    rows[mm_name].append((
-        device_ms(lambda: mm(xp, lin[key], lin["scale"]), 20),
-        device_ms(lambda: mm_plain(xp, lin[key], lin["scale"]), 20),
-        f"{path} prefill in_proj T=128 K={dm} N={3 * dm}"))
+    for lin, t, kdim, label in ((pq["input_linear"], 1, cfg.latent_dim,
+                                 "input_linear"),
+                                (bb["in_proj"], 128, dm, "prefill in_proj")):
+        x = _rand(rng, device, dtype, t, kdim)
+        y = mm(x, lin[key], lin["scale"])
+        rows[mm_name].append(_row(
+            device_ms(lambda: mm(x, lin[key], lin["scale"]),
+                      200 if t == 1 else 20),
+            device_ms(lambda: mm_plain(x, lin[key], lin["scale"]),
+                      50 if t == 1 else 20), None,
+            bound_ms(_nbytes(x, y) + _tree_bytes(lin),
+                     _linear_flops(lin, t), dn),
+            f"{path} {label} T={t} K={kdim} N={y.shape[-1]}"))
     for p, t, d, eps, name in ((bb, 1, dm, 1e-5, "backbone"),
                                (mt, 16, md, eps_m, "mimi")):
         x = _rand(rng, device, dtype, t, d, scale=0.5)
         attn = _rand(rng, device, dtype, t, d, scale=0.5)
-        rows[pre].append((
+        pre_p = {k: p[k] for k in ("norm1", "in_proj")}
+        post_p = {k: v for k, v in p.items() if k not in pre_p}
+        rows[pre].append(_row(
             device_ms(lambda: fused_layer.pre_attention(p, x, eps), 200),
             device_ms(lambda: fused_layer.pre_attention_plain(p, x, eps),
-                      50), f"{path} {name} T={t} dm={d}"))
-        rows[post].append((
+                      50), None,
+            bound_ms(_tree_bytes(pre_p) + _nbytes(x) * 4,
+                     _linear_flops(pre_p, t), dn),
+            f"{path} {name} T={t} dm={d}"))
+        rows[post].append(_row(
             device_ms(lambda: fused_layer.post_attention(p, x, attn, eps),
                       200),
             device_ms(lambda: fused_layer.post_attention_plain(p, x, attn,
                                                                eps), 50),
+            None,
+            bound_ms(_tree_bytes(post_p) + _nbytes(x, attn) * 3 // 2,
+                     _linear_flops(post_p, t), dn),
             f"{path} {name} T={t} dm={d}"))
     fp, tc = pq["flow_net"], pq["_time_cond"]
     c = _rand(rng, device, dtype, dm)
     x = _rand(rng, device, dtype, cfg.latent_dim)
-    rows[flow].append((
+    rows[flow].append(_row(
         device_ms(lambda: fused_flow.flow_forward(fp, c, x, tc), 200),
         device_ms(lambda: fused_flow.flow_forward_plain(fp, c, x, tc), 20),
+        None,
+        bound_ms(_tree_bytes(fp) + _nbytes(c, tc) + 2 * _nbytes(x),
+                 _linear_flops(fp, 1), dn),
         f"{path} c={dm} x={cfg.latent_dim} dim={cfg.flow.dim} "
         f"depth={cfg.flow.depth}"))
     return out
@@ -759,7 +1092,7 @@ def profile_frames(engine, voice, path, n_frames=20):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from pocket_tts_tpu.text.preprocess import prepare_text_prompt
+    from pocket_tts_tpu_torch.text.preprocess import prepare_text_prompt
     from pocket_tts_tpu_torch.models import tts
     prepared, _ = prepare_text_prompt(BENCH_TEXT)
     state, _ = engine._prefill_sentence(engine.prime_voice(voice), prepared)
@@ -782,6 +1115,187 @@ def profile_frames(engine, voice, path, n_frames=20):
                for e in ka if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda r: -r[1])
     return sum(r[1] for r in kernels), kernels
+
+
+# ---------------------------------------------------------------- phase 7 --
+
+# requests of different lengths (random weights never fire EOS, so each
+# runs to its max_steps = (words + 2) * 12.5 frames)
+SERVE_TEXTS = (
+    "Hello there.",
+    "The quick brown fox jumped over the sleeping dog.",
+    "Short one here.",
+    "A somewhat longer request that keeps its lane busy for a while.",
+    "Two words.",
+    "Serving many streams on one card at once.",
+)
+
+
+def counted_lane_steps():
+    """Wrap models.tts.frame_step_lanes to count the batch frame steps (one
+    frame of every lane) the servers run."""
+    from pocket_tts_tpu_torch.models import tts
+    real = tts.frame_step_lanes
+    count = {"steps": 0}
+
+    def frame_step_lanes(*args, **kw):
+        count["steps"] += 1
+        return real(*args, **kw)
+
+    tts.frame_step_lanes = frame_step_lanes
+    return count
+
+
+def serve_vs_solo(device, voice):
+    """f32, 4 lanes, the 6 SERVE_TEXTS at temp 0: the last two are
+    admitted mid-decode, into lanes the short ones freed. Each request's pcm
+    must match the solo engine's on the card within TOL e2e (relative to
+    max |pcm|)."""
+    import torch
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
+    from pocket_tts_tpu_torch.text.preprocess import prepare_text_prompt
+    engine = make_engine(DEFAULT_CONFIG, device, torch.float32)
+    srv = ContinuousBatchingServer(engine, lanes=4)
+    srv.register_voices({"v": voice})
+    reqs = [srv.submit(t, "v", temp=0.0) for t in SERVE_TEXTS]
+    srv.run_pending()
+    late = [r for r in reqs if r.admit_step]
+    if len(late) < 2:
+        raise AssertionError(f"only {len(late)} requests admitted mid-decode")
+    vstate = engine.prime_voice(voice)
+    worst = 0.0
+    for r in reqs:
+        prepared, guess = prepare_text_prompt(r.text)
+        want = engine.synthesize_sentence(vstate, prepared, 0.0, guess + 2)
+        if r.pcm.shape != want.shape:
+            raise AssertionError(f"served {r.pcm.shape} vs solo {want.shape}"
+                                 f" samples for {r.text!r}")
+        rel = float(np.abs(r.pcm - want).max()) / max(
+            float(np.abs(want).max()), 1e-30)
+        worst = max(worst, rel)
+    tol = TOL[("e2e", "f32")]
+    log(f"  f32, 4 lanes, {len(reqs)} requests ({len(late)} admitted "
+        f"mid-decode, at chunks {[r.admit_step for r in late]}), "
+        f"{srv.steps} chunks: max |served - solo| relative to max |solo| "
+        f"{worst:.3e} (tol {tol})")
+    if not worst <= tol:
+        raise AssertionError(f"served pcm differs from solo: {worst}")
+
+
+def serve_throughput(engine, voice, steps, lanes=LANES, n_requests=48):
+    """bf16 at `lanes` lanes, n_requests of the SERVE_TEXTS at temp 0,
+    counters set to 0 just before the run and read just after: per batch
+    frame step 6 K7, 2 K2, one K3 sequence and nothing else. Returns
+    (launches, frame steps, stats)."""
+    import torch
+    from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
+    srv = ContinuousBatchingServer(engine, lanes=lanes)
+    srv.register_voices({"v": voice})
+    nb = engine.cfg.backbone.num_layers
+    nm = engine.cfg.mimi.transformer.num_layers
+    steps0 = steps["steps"]
+    for i in range(n_requests):
+        srv.submit(SERVE_TEXTS[i % len(SERVE_TEXTS)], "v", temp=0.0)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.run_pending()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    n = steps["steps"] - steps0
+    st = srv.stats()
+    want = {"decode_insert_attn": nb * n, "ring_attn": nm * n,
+            "seanet_frame": n}
+    log(f"  bf16, {lanes} lanes, {n_requests} requests: {st['frames']} "
+        f"frames emitted in {srv.steps} chunks ({n} batch frame steps), "
+        f"wall {wall:.3f} s: {st['frames'] / wall:.1f} frames/s aggregate; "
+        f"TTFA p50 {st['p50_ttfa_s'] * 1e3:.1f} ms, p95 "
+        f"{st['p95_ttfa_s'] * 1e3:.1f} ms (host clock from submission; "
+        f"requests beyond {lanes} wait for a lane); latency p50 "
+        f"{st['p50_latency_s']:.3f} s, p95 {st['p95_latency_s']:.3f} s")
+    log(f"  launches {launches}; expected per batch frame step 6 K7, 2 K2, "
+        f"1 K3, 0 K1")
+    if st["requests"] != n_requests or st["frames"] < 1:
+        raise AssertionError(f"served {st}")
+    for name in KERNELS:
+        if launches[name] != want.get(name, 0):
+            raise AssertionError(f"serving {name}: {launches[name]} launches "
+                                 f"for {n} batch frame steps (want "
+                                 f"{want.get(name, 0)})")
+    st.update(wall_s=wall, frame_steps=n, frames_per_s=st["frames"] / wall)
+    return launches, n, st
+
+
+def profile_serving(engine, voice, path, lanes=LANES, n_steps=4):
+    """Device busy share of steady serving: `lanes` long requests, two
+    chunks to admit them and warm up, then 2 * n_steps chunks each timed
+    on the host clock (synchronized) and n_steps more under
+    torch.profiler. Returns (busy us per chunk, [wall us of each timed
+    chunk], frames per chunk, [(kernel, us per chunk, calls per
+    chunk)])."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
+    srv = ContinuousBatchingServer(engine, lanes=lanes)
+    srv.register_voices({"v": voice})
+    for _ in range(lanes):
+        srv.submit(SERVE_TEXTS[3], "v", temp=0.0)
+    srv.step()
+    srv.step()
+    walls = []
+    for _ in range(2 * n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            srv.step()
+        torch.cuda.synchronize()
+    if any(r is None for r in srv._live):
+        raise AssertionError("a lane finished inside the profiled window")
+    ka = prof.key_averages()
+    if path:
+        with open(path, "w") as f:
+            f.write(ka.table(sort_by="self_cuda_time_total", row_limit=60))
+    kernels = [(e.key, e.self_device_time_total / n_steps,
+                e.count / n_steps)
+               for e in ka if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda r: -r[1])
+    return (sum(r[1] for r in kernels), walls, lanes * srv.chunk_frames,
+            kernels)
+
+
+def serve_cli(tmp):
+    """`python -m pocket_tts_tpu_torch.cli --random-weights --serve FILE
+    --serve-out DIR` on the card: one wav per request."""
+    reqs = os.path.join(tmp, "reqs.txt")
+    with open(reqs, "w") as f:
+        f.write("Hello from the command line.\n"
+                + json.dumps({"text": "A second request. It has two "
+                              "sentences.", "id": "second"}) + "\n"
+                + "Third.\n")
+    out = os.path.join(tmp, "wavs")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "pocket_tts_tpu_torch.cli", "--random-weights",
+         "-t", "0", "--lanes", "8", "--serve", reqs, "--serve-out", out],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"cli --serve failed:\n{res.stdout}\n"
+                             f"{res.stderr}")
+    wavs = sorted(os.listdir(out))
+    log(f"  cli --serve: {wavs} in {wall:.1f} s (process start, weights, "
+        f"serving); last line {res.stdout.strip().splitlines()[-1]}")
+    if wavs != ["req_0000.wav", "req_0002.wav", "second.wav"]:
+        raise AssertionError(f"cli --serve wrote {wavs}")
 
 
 # ------------------------------------------------------------------- main --
@@ -834,7 +1348,8 @@ def main(argv=None) -> int:
                 log("  " + line.strip())
 
         phase = "kernels"
-        log("[3] kernels vs plain versions")
+        log("[3] kernels vs plain versions (3c: K7, K2 and K3 over 32 "
+            "lanes)")
         errs = {}
         engines = {}   # (path, dtype) -> engine
         for dtype in (torch.float32, torch.bfloat16):
@@ -844,6 +1359,12 @@ def main(argv=None) -> int:
             engines["bf16", dtype] = eng
             check_k3(eng.params["mimi"]["decoder"], eng.cfg, device, dtype,
                      errs, eng.seanet_weights)
+            phase = "kernels at batch"
+            check_k7(device, dtype, errs)
+            check_k2_lanes(device, dtype, errs)
+            check_k3_lanes(eng.params["mimi"]["decoder"], eng.cfg, device,
+                           dtype, errs, eng.seanet_weights)
+            phase = "kernels"
             for path in QUANT_PATHS:
                 qeng = make_engine(DEFAULT_CONFIG, device, dtype, path)
                 engines[path, dtype] = qeng
@@ -899,30 +1420,62 @@ def main(argv=None) -> int:
                 f"frames/s with the per-frame EOS sync, "
                 f"{1e3 / ms_nosync:.1f} without; sync cost "
                 f"{ms_sync - ms_nosync:.3f} ms/frame")
-        times = {k: [v] for k, v in time_kernels(engine, device,
-                                                  torch.bfloat16).items()}
+        times = time_kernels(engine, device, torch.bfloat16)
         for path in QUANT_PATHS:
             time_quant_kernels(bf[path].params, bf[path].cfg, device,
                                torch.bfloat16, path, times)
         for name, rows in times.items():
-            for (ms, host), (plain_ms, plain_host), shape in rows:
-                log(f"  {name} ({shape}): kernel {ms * 1e3:.2f} us device, "
-                    f"{host * 1e3:.2f} us host per call; plain "
+            for r in rows:
+                (ms, host), (plain_ms, plain_host) = r["k"], r["plain"]
+                lib = ("none" if r["lib"] is None
+                       else f"{r['lib'] * 1e3:.2f} us")
+                log(f"  {name} ({r['shape']}): kernel {ms * 1e3:.2f} us "
+                    f"device, {host * 1e3:.2f} us host per call; plain "
                     f"{plain_ms * 1e3:.2f} us device, {plain_host * 1e3:.2f}"
-                    f" us host per call")
+                    f" us host; library {lib}; bound "
+                    f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}): "
+                    f"{r['bound'][0] / ms:.1%} of it")
+
+        phase = "serving"
+        log("[7] serving, DEFAULT_CONFIG, ContinuousBatchingServer (prefix+"
+            "ring), temp 0")
+        serve_vs_solo(device, voice)
+        lane_steps = counted_lane_steps()
+        serve_launches, _, _ = serve_throughput(engine, voice, lane_steps)
+        phase = "serving: cli"
+        with tempfile.TemporaryDirectory() as tmp:
+            serve_cli(tmp)
+
+        # the profilers run last, so that no profiler session precedes a
+        # host-clock measurement
+        log("[8] profiler (torch.profiler, device time by kernel)")
         for label, eng in bf.items():
-            phase = f"timing: profiler, {label}"
+            phase = f"profiler, {label}"
             busy, kern = profile_frames(
                 eng, voice,
                 os.path.join(out_dir, f"profile_frames_{label}.txt")
                 if out_dir else None)
             log(f"  {label} profiler: device busy {busy:.1f} us per "
                 f"frame in {sum(r[2] for r in kern):.0f} kernel "
-                f"launches, {1e3 * med[label]:.1f} us wall per frame: "
-                f"device idle {1 - busy / (1e3 * med[label]):.1%}")
+                f"launches, {1e3 * med[label]:.1f} us wall per frame "
+                f"(phase 6): device idle {1 - busy / (1e3 * med[label]):.1%}")
             for key, us, calls in kern[:12]:
                 log(f"    {us:9.1f} us/frame  {calls:6.1f} calls/frame "
                     f" {key[:70]}")
+        phase = "profiler, serving"
+        busy, walls, frames, kern = profile_serving(
+            engine, voice, os.path.join(out_dir, "profile_serving.txt")
+            if out_dir else None)
+        wall = float(np.median(walls))
+        log(f"  serving, {LANES} lanes busy: device busy {busy:.1f} us per "
+            f"chunk ({frames} frames) in {sum(r[2] for r in kern):.0f} "
+            f"kernel launches; wall per chunk (host clock, before the "
+            f"profiler) median {wall:.1f} us, range {min(walls):.1f}-"
+            f"{max(walls):.1f}: device idle {1 - busy / wall:.1%}; "
+            f"{frames / wall * 1e6:.1f} frames/s with every lane busy")
+        for key, us, calls in kern[:12]:
+            log(f"    {us:9.1f} us/chunk  {calls:6.1f} calls/chunk "
+                f" {key[:70]}")
     except Exception:
         import traceback
         traceback.print_exc()
@@ -930,14 +1483,19 @@ def main(argv=None) -> int:
         return 1
 
     def path_launches(name):
+        if name in SERVING_KERNELS:
+            return serve_launches[name]
         users = [p for p in QUANT_PATHS if name in PATH_KERNELS[p]]
         return sum(runs[p][0][name] for p in users or ["bf16"])
 
-    kernels = [dict(name=name, route="cuda", **KERNELS[name],
-                    launches=path_launches(name),
-                    max_abs_err=errs[name]["bf16"],
-                    ms=times[name][0][0][0], plain_ms=times[name][0][1][0])
-               for name in KERNELS]
+    kernels = []
+    for name in KERNELS:
+        r = times[name][0]
+        kernels.append(dict(
+            name=name, route="cuda", **KERNELS[name],
+            launches=path_launches(name), max_abs_err=errs[name]["bf16"],
+            ms=r["k"][0], plain_ms=r["plain"][0], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=r["lib"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,22 @@ quantizes the linear weights to int8 after load, int4 (or q4) to packed
 int4 with per-channel scales, q4_0 to int4 with 32-row K-grouped scales.
 --save-cache writes the (quantized) params to a safetensors params cache,
 --load-cache starts from one (either package's; DEFAULT_CONFIG).
+--fuse-insert routes each solo decode step's KV-row write and attention
+through kernel K7 instead of a row write and K1.
+
+Serving (bf16/f32 weights):
+  python -m pocket_tts_tpu_torch.cli --random-weights --serve reqs.txt \
+      --serve-out out_dir [--lanes 32]
+
+--serve reads requests from a file ('-' for stdin), one per line: a JSON
+object ({"text": ..., "voice"?: ..., "temp"?: ..., "id"?: ...}) or a
+plain text line, decodes them through the ContinuousBatchingServer and
+writes one wav per request under --serve-out.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -49,6 +61,23 @@ def build_parser():
                    help="write the params cache (.safetensors) and go on")
     p.add_argument("--load-cache", default=None, metavar="PATH",
                    help="load params from a params cache (.safetensors)")
+    p.add_argument("--fuse-insert", action="store_true",
+                   help="solo decode: write the KV row and attend in one "
+                        "kernel (K7); serving always does")
+    p.add_argument("--serve", default=None, metavar="PATH",
+                   help="continuous-serving mode: read requests from PATH "
+                        "('-' = stdin; JSON objects with text/voice/temp/id "
+                        "or plain text lines), decode them through the "
+                        "ContinuousBatchingServer and write one wav per "
+                        "request")
+    p.add_argument("--serve-out", default=None, metavar="DIR",
+                   help="output directory for --serve wavs "
+                        "(default: serve_out)")
+    p.add_argument("--lanes", type=int, default=32,
+                   help="continuous server decode lanes (--serve)")
+    p.add_argument("--share-prefix", action="store_true",
+                   help="--serve: one shared copy of each voice's prompt KV "
+                        "(not ported yet)")
     return p
 
 
@@ -56,15 +85,92 @@ _WEIGHTS = {"int8": "int8", "q8": "int8", "int4": "int4", "q4": "int4",
             "q4_0": "q4_0"}
 
 
+def _serve(engine, args, voice):
+    """Drain a request file through the ContinuousBatchingServer. Each
+    request's text is split into sentences of at most 50 tokens (the
+    engine's splitter); the chunks' audio concatenates back into ONE wav
+    per request."""
+    from .io.params import load_voice
+    from .io.wav import save_wav
+    from .runtime.engine import DEFAULT_VOICES
+    from .runtime.server import ContinuousBatchingServer
+    from .text.preprocess import split_into_best_sentences
+
+    lines = (sys.stdin.read() if args.serve == "-"
+             else open(args.serve).read()).splitlines()
+    reqs = []
+    for i, line in enumerate(lines):
+        line = line.strip()
+        if not line:
+            continue
+        obj = json.loads(line) if line.startswith("{") else {"text": line}
+        obj.setdefault("id", f"req_{i:04d}")
+        obj.setdefault("voice", "default")
+        obj.setdefault("temp", args.temperature)
+        reqs.append(obj)
+    if not reqs:
+        print("no requests in input", file=sys.stderr)
+        return 1
+    srv = ContinuousBatchingServer(engine, lanes=args.lanes,
+                                   share_prefix=args.share_prefix)
+
+    def resolve(name):
+        if not isinstance(voice, str):
+            # random weights: every name maps to the synthetic prompt
+            return np.asarray(voice, np.float32)
+        v = voice if name == "default" else name
+        path = (os.path.join(args.model or ".", "embeddings",
+                             v + ".safetensors")
+                if v in DEFAULT_VOICES else v)
+        return load_voice(path).cpu().numpy()
+
+    srv.register_voices({name: resolve(name)
+                         for name in {r["voice"] for r in reqs}})
+    budget = min(50, srv.text_bucket)
+    parts = []  # (request index, chunk index, server Request)
+    for ri, obj in enumerate(reqs):
+        for ci, chunk in enumerate(split_into_best_sentences(
+                engine.tokenizer, obj["text"], budget)):
+            parts.append((ri, ci, srv.submit(chunk, obj["voice"],
+                                             float(obj["temp"]))))
+    t0 = time.perf_counter()
+    srv.run_pending()
+    wall = time.perf_counter() - t0
+    outdir = args.serve_out or "serve_out"
+    os.makedirs(outdir, exist_ok=True)
+    per_req = {}
+    for ri, ci, sr in parts:
+        per_req.setdefault(ri, []).append((ci, sr.pcm))
+    frames = 0
+    for ri, chunks in sorted(per_req.items()):
+        pcm = np.concatenate([p for _, p in sorted(chunks, key=lambda c:
+                                                   c[0])])
+        frames += pcm.size // engine.frame_size
+        save_wav(os.path.join(outdir, f"{reqs[ri]['id']}.wav"), pcm,
+                 engine.sample_rate)
+    stats = srv.stats()
+    stats.update({"requests": len(reqs), "chunks": len(parts),
+                  "lanes": srv.lanes, "wall_s": round(wall, 3),
+                  "aggregate_frames_per_second": round(frames / wall, 1),
+                  "outdir": outdir})
+    print(json.dumps(stats))
+    return 0
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.text is None and not args.save_cache:
+    if args.text is None and not (args.save_cache or args.serve):
         build_parser().print_help()
         return 1
+    if args.share_prefix:
+        raise NotImplementedError(
+            "--share-prefix (shared-prefix serving) is not ported yet")
+    import dataclasses
+
     import torch
 
-    from pocket_tts_tpu.io.wav import save_wav
     from .config import DEFAULT_CONFIG
+    from .io.wav import save_wav
     from .runtime.engine import TTSEngine
 
     device = args.device
@@ -73,10 +179,14 @@ def main(argv=None):
               "--device cpu to run on the CPU", file=sys.stderr)
         return 1
     dtype = torch.bfloat16 if device.startswith("cuda") else torch.float32
+    cfg0 = DEFAULT_CONFIG
+    if args.fuse_insert:
+        cfg0 = dataclasses.replace(cfg0, backbone=dataclasses.replace(
+            cfg0.backbone, fuse_insert=True))
     if args.load_cache:
         # the model directory, when given, provides tokenizer and voices
         engine = TTSEngine.from_params_cache(
-            args.load_cache, DEFAULT_CONFIG, model_path=args.model,
+            args.load_cache, cfg0, model_path=args.model,
             dtype=dtype, device=device, seed=args.seed,
             quantize=args.quantize)
         if args.random_weights:  # no model directory: a synthetic voice
@@ -86,8 +196,7 @@ def main(argv=None):
             voice = args.voice
     elif args.random_weights:
         from .io.params import random_params, random_voice_prompt
-        params, cfg = random_params(DEFAULT_CONFIG, dtype=dtype,
-                                    device=device)
+        params, cfg = random_params(cfg0, dtype=dtype, device=device)
         engine = TTSEngine(params=params, cfg=cfg, dtype=dtype,
                            device=device, seed=args.seed,
                            quantize=args.quantize)
@@ -99,14 +208,17 @@ def main(argv=None):
             print(f"no checkpoint under {model}; pass -m or "
                   "--random-weights", file=sys.stderr)
             return 1
-        engine = TTSEngine(model_path=model, dtype=dtype, device=device,
-                           seed=args.seed, quantize=args.quantize)
+        engine = TTSEngine(model_path=model, cfg=cfg0, dtype=dtype,
+                           device=device, seed=args.seed,
+                           quantize=args.quantize)
         voice = args.voice
     if args.save_cache:
         engine.save_params_cache(args.save_cache)
         print(f"wrote params cache: {args.save_cache}")
-        if args.text is None:
+        if args.text is None and not args.serve:
             return 0
+    if args.serve:
+        return _serve(engine, args, voice)
     weights = (f", {_WEIGHTS[args.quantize]} weights" if args.quantize
                else "")
     print(f"seed: {engine.seed}")

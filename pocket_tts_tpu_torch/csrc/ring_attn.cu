@@ -4,34 +4,37 @@
 // ring_insert_attention` (`_make_ring_attention.batched` -> `_kernel`),
 // unquantized.
 //
-// What it computes, per head h: T new rows (q, k_new, v_new; positions
-// off .. off+T-1) attend over the PRE-insert ring (cap slots) plus the new
-// block, then the new K/V rows are written into the ring at
+// What it computes, per lane b and head h: T new rows (q, k_new, v_new;
+// positions off .. off+T-1) attend over the PRE-insert ring (cap slots)
+// plus the new block, then the new K/V rows are written into the ring at
 // slot0 = ((off / T) % (cap / T)) * T. The mask is arithmetic, exactly the
 // TPU kernel's (pallas_mimi.py:130-145): an old slot j holds ring position
 // pk(j) and is visible to query position pq iff it was written (j < off),
-// is not among the slots this frame overwrites, pk >= start (the stream's
-// admission fence), pq >= pk and pq - pk < context; a new row j' is visible
-// iff pq >= off + j' (causal inside the block). Logits and softmax are
-// float32 with scale 1/sqrt(D); weights are rounded to the cache type
-// before PV, which accumulates in float32.
+// is not among the slots this frame overwrites, pk >= start (the lane's
+// admission fence), pq >= pk and pq - pk < context; a new row j' is
+// visible iff pq >= off + j' (causal inside the block). The lanes share
+// the ring offset, so every lane writes the same slots, and each has its
+// own start: the continuous-batching fence of `pallas_mimi.py`, by which a
+// lane that joined a running batch sees only its own rows. Logits and
+// softmax are float32 with scale 1/sqrt(D); weights are rounded to the
+// cache type before PV, which accumulates in float32.
 //
 // What bounds it on the H100: latency. A call reads the two ring caches
-// (2 * cap * H*D elements, 512 KB in bf16 at the default sizes) once and
-// writes 2 * T rows; its ~0.3 MFLOP per head are negligible, and 512 KB
-// would stream in ~0.2 us. Eight blocks (one per head) walk three
-// dependent phases (scores, softmax, PV), so per-block latency sets the
-// time. Each block reads its head's columns of every ring row once, keeps
-// the (T, cap + T) scores in shared memory, and never writes a score or
-// probability to HBM.
+// (2 * cap * H*D elements per lane, 512 KB in bf16 at the default sizes)
+// once and writes 2 * T rows; its ~0.3 MFLOP per head are negligible, and
+// 512 KB would stream in ~0.2 us. At B = 1 eight blocks (one per head)
+// walk three dependent phases (scores, softmax, PV), so per-block latency
+// sets the time; B lanes run 8 * B blocks side by side. Each block reads
+// its head's columns of every ring row once, keeps the (T, cap + T) scores
+// in shared memory, and never writes a score or probability to HBM.
 //
-// Layout: one block per head (8), 256 threads. Thread j scores key j for all
-// T queries (its K row in registers), one warp per query row does the
-// softmax, and (T/4 rows x D lanes) threads accumulate PV from V rows
-// staged in shared memory 64 at a time with coalesced loads. Each block
-// finally writes ITS OWN head's D columns of the new rows: blocks touch
-// disjoint columns, and the overwritten slots are masked for
-// every query, so no block races another.
+// Layout: one block per (head, lane), 8 x B, 256 threads; B = 1 is the
+// solo call. Thread j scores key j for all T queries (its K row in
+// registers), one warp per query row does the softmax, and (T/4 rows x D
+// lanes) threads accumulate PV from V rows staged in shared memory 64 at a
+// time with coalesced loads. Each block finally writes ITS OWN (lane,
+// head) columns of the new rows: blocks touch disjoint columns, and the
+// overwritten slots are masked for every query, so no block races another.
 #include "common.cuh"
 
 namespace ptt {
@@ -44,13 +47,21 @@ template <typename T, int D>
 __global__ void __launch_bounds__(K2_THREADS)
 ring_attn_kernel(const T* __restrict__ q, const T* __restrict__ kn,
                  const T* __restrict__ vn, T* __restrict__ kc,
-                 T* __restrict__ vc, T* __restrict__ out, int nt, int ld,
-                 int cap, int off, int start, int context, float scale) {
+                 T* __restrict__ vc, T* __restrict__ out,
+                 const int* __restrict__ starts, int nt, int ld, int cap,
+                 int off, int start, int context, float scale) {
   constexpr int G = K2_THREADS / D;          // query-row groups in PV
   constexpr int R = (K2_MAXT + G - 1) / G;   // rows per thread in PV
-  const int h = blockIdx.x;
+  const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x;
   const int nk = cap + nt;
+  q += (size_t)b * nt * ld;
+  kn += (size_t)b * nt * ld;
+  vn += (size_t)b * nt * ld;
+  out += (size_t)b * nt * ld;
+  kc += (size_t)b * cap * ld;
+  vc += (size_t)b * cap * ld;
+  if (starts) start = starts[b];
   extern __shared__ float sm[];
   float* qs = sm;                 // (nt, D)
   float* sc = qs + nt * D;        // (nt, nk) scores, then probabilities
@@ -160,15 +171,17 @@ ring_attn_kernel(const T* __restrict__ q, const T* __restrict__ kn,
 
 }  // namespace ptt
 
-// q, k_new, v_new, out (T, ld); k_cache, v_cache (cap, ld), ld = H*D,
-// updated in place. off: timesteps written so far (a multiple of T);
-// start: the stream's first timestep.
+// q, k_new, v_new, out (B, T, ld); k_cache, v_cache (B, cap, ld),
+// ld = H*D, updated in place. off: timesteps written so far (a multiple of
+// T), shared by the lanes; starts: (B,) int32 on the device, each lane's
+// first timestep, or null to give every lane `start`.
 extern "C" int ptt_ring_attn(const void* q, const void* k_new,
                              const void* v_new, void* k_cache, void* v_cache,
-                             void* out, int T, int H, int D, int cap,
-                             int off, int start, int context, int dtype,
-                             void* stream) {
-  if (D != 64 || T < 1 || T > ptt::K2_MAXT || cap % T || off % T || off < 0)
+                             void* out, const void* starts, int B, int T,
+                             int H, int D, int cap, int off, int start,
+                             int context, int dtype, void* stream) {
+  if (D != 64 || B < 1 || T < 1 || T > ptt::K2_MAXT || cap % T || off % T
+      || off < 0)
     return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)D);
   const size_t smem =
@@ -176,11 +189,12 @@ extern "C" int ptt_ring_attn(const void* q, const void* k_new,
                        + (size_t)ptt::K2_VCHUNK * D);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid(H, B);
   PTT_DISPATCH(dtype, Ty,
                ptt::ring_attn_kernel<Ty, 64>
-               <<<H, ptt::K2_THREADS, smem, st>>>(
+               <<<grid, ptt::K2_THREADS, smem, st>>>(
                    (const Ty*)q, (const Ty*)k_new, (const Ty*)v_new,
-                   (Ty*)k_cache, (Ty*)v_cache, (Ty*)out, T, H * D, cap, off,
-                   start, context, scale));
+                   (Ty*)k_cache, (Ty*)v_cache, (Ty*)out, (const int*)starts,
+                   T, H * D, cap, off, start, context, scale));
   return (int)cudaGetLastError();
 }

@@ -29,14 +29,22 @@
 // their (1, s*C) shapes and are read as (s, C) rows, and the block-diagonal
 // kron taps the TPU needed to fill its 128 lanes (s times the FLOPs) are
 // not needed.
+//
+// Lanes: B streams stack on the GEMMs' M axis (B * T rows, the weights
+// read once for all of them), as the TPU kernel's batched grid shares its
+// weights. Row m belongs to lane m / T; the conv-GEMM builds its window
+// from that lane's carry, and the overlap-add and carry-tail kernels read
+// and write each lane's own carry (B carries of P rows each, lane-major).
+// The launch sequence is the same for every B.
 #include "common.cuh"
 
 namespace ptt {
 
 constexpr int BM = 16, BN = 32, BK = 32, GEMM_THREADS = 128;
 
-// out[m, n] = epilogue(sum_{j < K, c < Cin} xc[m + j, c] * w[j*Cin + c, n])
-// where xc = [carry[P-(K-1):]; act(x)] and act is round(ELU) if in_elu.
+// out[m, n] = epilogue(sum_{j < K, c < Cin} xc[t + j, c] * w[j*Cin + c, n])
+// for row m = b*T + t of lane b, where xc = [carry_b[P-(K-1):]; act(x_b)]
+// and act is round(ELU) if in_elu.
 // Epilogue: y = rnd(acc + bias); out_elu: y = rnd(elu(y));
 // res: y = rnd(res + y), then res_elu: y = rnd(elu(y)).
 template <typename T>
@@ -63,8 +71,9 @@ __global__ void __launch_bounds__(GEMM_THREADS)
 conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ carry,
                  const T* __restrict__ w, const T* __restrict__ bias,
                  const T* __restrict__ res, T* __restrict__ out,
-                 float* __restrict__ ws, int nt, int cin, int cout, int kw,
-                 int pc, int kchunk, int in_elu, int out_elu, int res_elu) {
+                 float* __restrict__ ws, int nt, int mt, int cin, int cout,
+                 int kw, int pc, int kchunk, int in_elu, int out_elu,
+                 int res_elu) {
   __shared__ float As[BK][BM + 1];
   __shared__ float Bs[BK][BN];
   const int tid = threadIdx.x;
@@ -74,22 +83,40 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ carry,
   const int kk_total = min(kw * cin, kbeg + kchunk);
   const int lead = kw - 1;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  // A-tile loads: this thread fills column kk_a of rows mm_a + i * A_STEP;
+  // each row's lane and its base offsets in x and the carry are fixed for
+  // the whole reduction, so they are computed once here
+  constexpr int A_STEP = GEMM_THREADS / BK, A_ROWS = BM / A_STEP;
+  static_assert(GEMM_THREADS % BK == 0 && BM % A_STEP == 0, "A tile");
+  const int kk_a = tid % BK, mm_a = tid / BK;
+  int a_t[A_ROWS];          // row within its lane, or -1 past the last row
+  long long a_x[A_ROWS], a_c[A_ROWS];
+#pragma unroll
+  for (int i = 0; i < A_ROWS; ++i) {
+    const int m = m0 + mm_a + i * A_STEP;
+    const int lane = m / nt;
+    a_t[i] = m < mt ? m - lane * nt : -1;
+    a_x[i] = ((long long)lane * nt - lead) * cin;
+    a_c[i] = ((long long)lane * pc + pc - lead) * cin;
+  }
 
   for (int k0 = kbeg; k0 < kk_total; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += GEMM_THREADS) {
-      const int mm = e / BK, kk = e % BK;
-      const int m = m0 + mm, kg = k0 + kk;
+    const int kg = k0 + kk_a;
+    const bool k_ok = kg < kk_total;
+    const int j = kg / cin, c = kg % cin;
+#pragma unroll
+    for (int i = 0; i < A_ROWS; ++i) {
       float val = 0.f;
-      if (m < nt && kg < kk_total) {
-        const int j = kg / cin, c = kg % cin, r = m + j;
+      if (a_t[i] >= 0 && k_ok) {
+        const int r = a_t[i] + j;
         if (r < lead) {
-          val = to_f(carry[(size_t)(pc - lead + r) * cin + c]);
+          val = to_f(carry[a_c[i] + (long long)r * cin + c]);
         } else {
-          val = to_f(x[(size_t)(r - lead) * cin + c]);
+          val = to_f(x[a_x[i] + (long long)r * cin + c]);
           if (in_elu) val = rnd<T>(elu(val));
         }
       }
-      As[kk][mm] = val;
+      As[kk_a][mm_a + i * A_STEP] = val;
     }
     for (int e = tid; e < BK * BN; e += GEMM_THREADS) {
       const int kk = e / BN, nn = e % BN;
@@ -107,13 +134,13 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ carry,
     __syncthreads();
   }
   const int m = m0 + tr;
-  if (m >= nt) return;
+  if (m >= mt) return;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const int n = n0 + tc + c;
     if (n >= cout) continue;
     if (ws)
-      ws[((size_t)blockIdx.z * nt + m) * cout + n] = acc[c];
+      ws[((size_t)blockIdx.z * mt + m) * cout + n] = acc[c];
     else
       conv_epilogue<T>(acc[c], m, n, bias, res, out, cout, out_elu, res_elu);
   }
@@ -123,109 +150,121 @@ template <typename T>
 __global__ void splitk_epilogue_kernel(const float* __restrict__ ws,
                                        int splits, const T* __restrict__ bias,
                                        const T* __restrict__ res,
-                                       T* __restrict__ out, int nt, int cout,
+                                       T* __restrict__ out, int mt, int cout,
                                        int out_elu, int res_elu) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= nt * cout) return;
+  if (idx >= mt * cout) return;
   float acc = 0.f;
-  for (int z = 0; z < splits; ++z) acc += ws[(size_t)z * nt * cout + idx];
+  for (int z = 0; z < splits; ++z) acc += ws[(size_t)z * mt * cout + idx];
   conv_epilogue<T>(acc, idx / cout, idx % cout, bias, res, out, cout,
                    out_elu, res_elu);
 }
 
 // Overlap-add of a K == 2s transposed conv from u = x @ w2 (T, 2s*Cout),
 // already rounded: out[i*s + j, o] = rnd(u[i, j, o] + prev + bias[o]) with
-// prev = u[i-1, s+j, o], or carry[j, o] for i == 0. The thread that reads
-// carry[j, o] also writes its new value u[T-1, s+j, o], so the in-place
-// carry update has no race.
+// prev = u[i-1, s+j, o], or the lane's carry[j, o] for its first row i.
+// The thread that reads carry[j, o] also writes its new value
+// u[last row of the lane, s+j, o], so the in-place carry update has no
+// race.
 template <typename T>
 __global__ void convtr_overlap_kernel(const T* __restrict__ u,
                                       T* __restrict__ carry,
                                       const T* __restrict__ bias,
-                                      T* __restrict__ out, int nt, int s,
-                                      int cout) {
+                                      T* __restrict__ out, int nb, int nt,
+                                      int s, int cout) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= nt * s * cout) return;
+  if (idx >= nb * nt * s * cout) return;
   const int o = idx % cout, r = idx / cout;
-  const int i = r / s, j = r % s;
+  const int ig = r / s, j = r % s;        // global input row, phase
+  const int lane = ig / nt, i = ig % nt;  // lane, row within the lane
   const size_t ldu = (size_t)2 * s * cout;
-  const float a = to_f(u[i * ldu + (size_t)j * cout + o]);
+  const size_t cidx = ((size_t)lane * s + j) * cout + o;
+  const float a = to_f(u[ig * ldu + (size_t)j * cout + o]);
   float prev;
   if (i == 0) {
-    prev = to_f(carry[j * cout + o]);
+    prev = to_f(carry[cidx]);
   } else {
-    prev = to_f(u[(i - 1) * ldu + (size_t)(s + j) * cout + o]);
+    prev = to_f(u[(ig - 1) * ldu + (size_t)(s + j) * cout + o]);
   }
   out[idx] = from_f<T>(a + prev + (bias ? to_f(bias[o]) : 0.f));
   if (i == 0)
-    carry[j * cout + o] = u[(nt - 1) * ldu + (size_t)(s + j) * cout + o];
+    carry[cidx] = u[((size_t)lane * nt + nt - 1) * ldu
+                    + (size_t)(s + j) * cout + o];
 }
 
-// carry[i, c] = act(x[T - P + i, c]) for i < P (T >= P): the last P input
-// rows of a causal conv, after its input ELU when elu is set.
+// carry_b[i, c] = act(x_b[T - P + i, c]) for i < P (T >= P), each lane b:
+// the last P input rows of a causal conv, after its input ELU when elu is
+// set.
 template <typename T>
 __global__ void carry_tail_kernel(const T* __restrict__ x,
-                                  T* __restrict__ carry, int nt, int c,
-                                  int pc, int use_elu) {
+                                  T* __restrict__ carry, int nb, int nt,
+                                  int c, int pc, int use_elu) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= pc * c) return;
-  float val = to_f(x[(size_t)(nt - pc) * c + idx]);
+  if (idx >= nb * pc * c) return;
+  const int lane = idx / (pc * c), rem = idx % (pc * c);
+  float val = to_f(x[((size_t)lane * nt + nt - pc) * c + rem]);
   if (use_elu) val = rnd<T>(elu(val));
   carry[idx] = from_f<T>(val);
 }
 
 }  // namespace ptt
 
-// ws: splits * T * Cout float32 scratch when splits > 1, else unused.
+// x (B*T, Cin) lane-major; carry (B, P, Cin); res, out (B*T, Cout).
+// ws: splits * B*T * Cout float32 scratch when splits > 1, else unused.
 extern "C" int ptt_conv_gemm(const void* x, const void* carry, const void* w,
                              const void* bias, const void* res, void* out,
-                             void* ws, int T, int Cin, int Cout, int K, int P,
-                             int splits, int in_elu, int out_elu, int res_elu,
-                             int dtype, void* stream) {
-  if (T < 1 || K < 1 || splits < 1 || (splits > 1 && ws == nullptr)
+                             void* ws, int B, int T, int Cin, int Cout, int K,
+                             int P, int splits, int in_elu, int out_elu,
+                             int res_elu, int dtype, void* stream) {
+  if (B < 1 || T < 1 || K < 1 || splits < 1 || (splits > 1 && ws == nullptr)
       || (K > 1 && (carry == nullptr || P < K - 1)))
     return (int)cudaErrorInvalidValue;
+  const int M = B * T;
   const int ktiles = (K * Cin + ptt::BK - 1) / ptt::BK;
   const int kchunk = ((ktiles + splits - 1) / splits) * ptt::BK;
-  dim3 grid((Cout + ptt::BN - 1) / ptt::BN, (T + ptt::BM - 1) / ptt::BM,
+  dim3 grid((Cout + ptt::BN - 1) / ptt::BN, (M + ptt::BM - 1) / ptt::BM,
             splits);
   float* wsp = splits > 1 ? (float*)ws : nullptr;
   cudaStream_t st = (cudaStream_t)stream;
   PTT_DISPATCH(dtype, Ty,
                ptt::conv_gemm_kernel<Ty><<<grid, ptt::GEMM_THREADS, 0, st>>>(
                    (const Ty*)x, (const Ty*)carry, (const Ty*)w,
-                   (const Ty*)bias, (const Ty*)res, (Ty*)out, wsp, T, Cin,
+                   (const Ty*)bias, (const Ty*)res, (Ty*)out, wsp, T, M, Cin,
                    Cout, K, P, kchunk, in_elu, out_elu, res_elu));
   if (splits > 1) {
-    const int n = T * Cout;
+    const int n = M * Cout;
     PTT_DISPATCH(dtype, Ty,
                  ptt::splitk_epilogue_kernel<Ty>
                  <<<(n + 255) / 256, 256, 0, st>>>(
                      wsp, splits, (const Ty*)bias, (const Ty*)res, (Ty*)out,
-                     T, Cout, out_elu, res_elu));
+                     M, Cout, out_elu, res_elu));
   }
   return (int)cudaGetLastError();
 }
 
+// u (B*T, 2s*Cout); carry (B, s, Cout); out (B*T*s, Cout).
 extern "C" int ptt_convtr_overlap(const void* u, void* carry,
-                                  const void* bias, void* out, int T, int s,
-                                  int Cout, int dtype, void* stream) {
-  const int n = T * s * Cout;
+                                  const void* bias, void* out, int B, int T,
+                                  int s, int Cout, int dtype, void* stream) {
+  const int n = B * T * s * Cout;
   if (n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   PTT_DISPATCH(dtype, Ty,
                ptt::convtr_overlap_kernel<Ty><<<(n + 255) / 256, 256, 0, st>>>(
-                   (const Ty*)u, (Ty*)carry, (const Ty*)bias, (Ty*)out, T, s,
-                   Cout));
+                   (const Ty*)u, (Ty*)carry, (const Ty*)bias, (Ty*)out, B, T,
+                   s, Cout));
   return (int)cudaGetLastError();
 }
 
-extern "C" int ptt_carry_tail(const void* x, void* carry, int T, int C,
-                              int P, int use_elu, int dtype, void* stream) {
-  if (P < 1 || T < P) return (int)cudaErrorInvalidValue;
+// x (B*T, C); carry (B, P, C).
+extern "C" int ptt_carry_tail(const void* x, void* carry, int B, int T,
+                              int C, int P, int use_elu, int dtype,
+                              void* stream) {
+  if (B < 1 || P < 1 || T < P) return (int)cudaErrorInvalidValue;
+  const int n = B * P * C;
   cudaStream_t st = (cudaStream_t)stream;
   PTT_DISPATCH(dtype, Ty,
-               ptt::carry_tail_kernel<Ty><<<(P * C + 255) / 256, 256, 0, st>>>(
-                   (const Ty*)x, (Ty*)carry, T, C, P, use_elu));
+               ptt::carry_tail_kernel<Ty><<<(n + 255) / 256, 256, 0, st>>>(
+                   (const Ty*)x, (Ty*)carry, B, T, C, P, use_elu));
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from pocket_tts_tpu.config import DEFAULT_CONFIG, ModelConfig, SeanetStage
+from ..config import DEFAULT_CONFIG, ModelConfig, SeanetStage
 
 
 def _t(a, dtype, device):
@@ -310,14 +310,14 @@ def load_checkpoint(path: str, cfg: Optional[ModelConfig] = None,
     checkpoints are not ported yet."""
     if path.endswith(".gguf"):
         raise NotImplementedError("GGUF checkpoints are not ported yet")
-    from pocket_tts_tpu.io.safetensors_io import load_safetensors
+    from .safetensors_io import load_safetensors
     return params_from_flat(load_safetensors(path), cfg, dtype, device)
 
 
 def load_voice(path: str, dtype: torch.dtype = torch.float32, device="cpu"):
     """Load a voice embedding file as a (Tp, d_model) tensor (the
     "voice.audio_prompt" tensor, flattened to rows)."""
-    from pocket_tts_tpu.io.safetensors_io import load_safetensors
+    from .safetensors_io import load_safetensors
     prompt = np.asarray(load_safetensors(path)["voice.audio_prompt"],
                         np.float32)
     return _t(prompt.reshape(-1, prompt.shape[-1]), dtype, device)

@@ -6,10 +6,14 @@ Counterpart of `pocket_tts_tpu/models/flow_lm.py`:
   decode_step  one 80 ms frame: backbone step on the previous latent, EOS
                head, one flow-matching step on the given noise.
 The backbone state is updated in place (see models/backbone.py).
+`prefill_lanes` and `decode_step_lanes` do the same for B lanes
+(continuous batching) with bf16/f32 weights: the rows of all lanes go
+through each linear as one matrix.
 """
 from __future__ import annotations
 
 from . import backbone, flow_mlp
+from ..ops import fused_flow
 from ..ops.basic import layer_norm, linear
 
 
@@ -47,3 +51,28 @@ def denormalize(p, latent):
     """emb_std * latent + emb_mean."""
     return p["emb_std"] * latent + p["emb_mean"]
 
+
+def prefill_lanes(p, cfg, state: backbone.BatchedBackboneState, emb,
+                  n_valid):
+    """prefill for B lanes: emb (B, T, d_model), n_valid (B,) int tensor."""
+    state, _ = backbone.forward_lanes(p, cfg.backbone, state, emb, n_valid,
+                                      cfg.gelu_approx)
+    return backbone.advance_lanes(state, emb.shape[1], n_valid)
+
+
+def decode_step_lanes(p, cfg, state: backbone.BatchedBackboneState,
+                      prev_latent, noise):
+    """One step of B lanes: prev_latent, noise (B, latent). Returns (state,
+    latent (B, latent), eos (B,) bool on the device)."""
+    if fused_flow.supported(p["flow_net"]):
+        raise NotImplementedError(
+            "quantized weights at batch are not ported yet (slice 5)")
+    x = linear(p["input_linear"], prev_latent)[:, None, :]
+    state, h = backbone.forward_lanes(p, cfg.backbone, state, x, None,
+                                      cfg.gelu_approx)
+    backbone.advance_lanes(state, 1, 1)
+    h = layer_norm(p["out_norm"], h, eps=1e-5)[:, -1]
+    is_eos = linear(p["out_eos"], h)[:, 0] > cfg.eos_threshold
+    latent = flow_mlp.sample_latent(p["flow_net"], h, noise,
+                                    p.get("_time_cond"))
+    return state, latent, is_eos

@@ -11,6 +11,15 @@ ring step, insert + attention, goes through kernel K2
 weights (io/quant.py) each layer's norm1 + in_proj run as kernel K5a and
 its out_proj + MLP (with both layer scales) as kernel K5b
 (ops/fused_layer.py), as the JAX package does.
+
+Lanes (continuous batching): with caches (B, cap, H*D) and `start` a (B,)
+int32 device tensor, `forward` takes x (B, T, d_model). The lanes share
+`offset` (so every lane writes the same ring slots, as the JAX package's
+`_axes_like` keeps it unbatched); each lane's RoPE positions are
+offset - start[b] and its ring window is fenced at its own start, so a
+lane that joined a running batch decodes as a solo stream would. K2 runs
+all lanes in one launch per layer. Quantized weights at batch are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -26,10 +35,11 @@ from ..ops.rope import apply_rope_halves as apply_rope, rope_cos_sin
 
 @dataclasses.dataclass
 class MimiTransformerState:
-    k: list          # L x (cap, H*D)
-    v: list          # L x (cap, H*D)
-    offset: int = 0  # timesteps seen
-    start: int = 0   # first timestep owned by this stream
+    k: list          # L x (cap, H*D), or L x (B, cap, H*D) with lanes
+    v: list
+    offset: int = 0  # timesteps seen (shared by the lanes)
+    start: object = 0  # first timestep of the stream; (B,) int32 tensor
+                       # with lanes
 
 
 def init_state(cfg, dtype=torch.float32, device="cpu"):
@@ -41,21 +51,25 @@ def init_state(cfg, dtype=torch.float32, device="cpu"):
            for _ in range(cfg.num_layers)])
 
 
-def _layer(p, x, k_cache, v_cache, offset: int, start: int, cos, sin, cfg,
+def _layer(p, x, k_cache, v_cache, offset: int, start, cos, sin, cfg,
            gelu_approx: bool):
-    t, dm = x.shape
+    *lead, t, dm = x.shape
     fused = fused_layer.supported(p)
+    if fused and lead:
+        raise NotImplementedError(
+            "quantized weights at batch are not ported yet (slice 5)")
     if fused:
         qkv = fused_layer.pre_attention(p, x, eps=cfg.norm_eps)
     else:
         qkv = linear(p["in_proj"], layer_norm(p["norm1"], x,
                                               eps=cfg.norm_eps))
     q, k, v = qkv.split(dm, -1)
-    q = apply_rope(q.reshape(t, cfg.num_heads, cfg.head_dim), cos, sin)
-    k = apply_rope(k.reshape(t, cfg.num_heads, cfg.head_dim), cos, sin)
+    heads = (*lead, t, cfg.num_heads, cfg.head_dim)
+    q = apply_rope(q.reshape(heads), cos, sin)
+    k = apply_rope(k.reshape(heads), cos, sin)
     attn = ring_insert_attention(
-        q.reshape(t, dm), k.reshape(t, dm), v.contiguous(), k_cache, v_cache,
-        offset, start, cfg.num_heads, cfg.context)
+        q.reshape(*lead, t, dm), k.reshape(*lead, t, dm), v.contiguous(),
+        k_cache, v_cache, offset, start, cfg.num_heads, cfg.context)
     if fused:
         return fused_layer.post_attention(p, x, attn, eps=cfg.norm_eps,
                                           approx=gelu_approx)
@@ -67,10 +81,13 @@ def _layer(p, x, k_cache, v_cache, offset: int, start: int, cos, sin, cfg,
 
 def forward(p, cfg, state: MimiTransformerState, x,
             gelu_approx: bool = False):
-    """x: (T, d_model) -> (state, y); advances state.offset by T."""
-    t = x.shape[0]
-    positions = (state.offset - state.start
-                 + torch.arange(t, dtype=torch.int32, device=x.device))
+    """x: (T, d_model), or (B, T, d_model) with lanes -> (state, y);
+    advances state.offset by T."""
+    t = x.shape[-2]
+    rel = state.offset - state.start      # an int, or (B,) with lanes
+    if isinstance(rel, torch.Tensor):
+        rel = rel[:, None]
+    positions = rel + torch.arange(t, dtype=torch.int32, device=x.device)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.max_period)
     for l in range(cfg.num_layers):
         x = _layer(slice_layer_params(p["layers"], l), x, state.k[l],

@@ -71,13 +71,15 @@ def _resnet_blocked(p, prev, xb):
     v = elu(xb)
     prev, v = conv1d_blocked(p["block_1"], v, prev)
     v = elu(v)
-    _, v = conv1d_blocked(p["block_3"], v, v[-1:] * 0)
+    _, v = conv1d_blocked(p["block_3"], v, v[..., -1:, :] * 0)
     return prev, xb + v
 
 
 def forward_plain(p, cfg, state: dict, x):
     """The plain chain (K3's plain version). x: (T, in_ch) -> (new_state,
-    pcm (T * total_stride, out_ch)); `state` is not modified."""
+    pcm (T * total_stride, out_ch)), or with a lane axis x (B, T, in_ch)
+    and carries (B, ...) -> pcm (B, T * total_stride, out_ch); `state` is
+    not modified."""
     new_state = {}
     new_state["model_0"], x = streaming_conv1d(
         p["model_0"], state["model_0"], x, stride=1)
@@ -97,7 +99,7 @@ def forward_plain(p, cfg, state: dict, x):
     if blocked:
         new_state["model_11"], yb = conv1d_blocked(
             p["model_11"], x, state["model_11"])
-        return new_state, yb.reshape(-1, cfg.out_ch)
+        return new_state, yb.reshape(*yb.shape[:-2], -1, cfg.out_ch)
     new_state["model_11"], x = streaming_conv1d(
         p["model_11"], state["model_11"], x, stride=1)
     return new_state, x
@@ -105,6 +107,8 @@ def forward_plain(p, cfg, state: dict, x):
 
 def forward(p, cfg, state: dict, x, weights: dict = None):
     """x: (T, in_ch) -> (state, pcm (T * total_stride, out_ch)), the
-    carries updated in place. weights: `ops.seanet_frame.prep_weights(p,
-    cfg)`, built once at load for the card."""
+    carries updated in place; with a lane axis x (B, T, in_ch), carries
+    (B, ...) and pcm (B, T * total_stride, out_ch). weights:
+    `ops.seanet_frame.prep_weights(p, cfg)`, built once at load for the
+    card."""
     return state, seanet_frame(p, cfg, state, x, weights)

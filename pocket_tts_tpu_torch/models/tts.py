@@ -7,6 +7,13 @@ the host once per frame (one device sync per frame; CUDA graphs are later
 work). Noise is an argument of `frame_step`: the caller draws it (the
 engine from a seeded torch.Generator on the device; tests inject the JAX
 package's noise).
+
+Lanes (continuous batching): `BatchedStreamState` holds B streams, and
+`frame_step_lanes` follows the JAX `frame_step` under vmap: every lane is
+computed unconditionally (a finished lane runs on garbage and its frame is
+masked, so the shared slot cursor stays uniform), and eos_step, step and
+done are updated on the device with no host read: the caller reads pcm,
+valid and done when it chooses (the servers once per chunk).
 """
 from __future__ import annotations
 
@@ -97,3 +104,67 @@ def decode_sentence_early_exit(p, cfg, state: StreamState, noise_fn,
         return torch.zeros(0, cfg.mimi.frame_size,
                            device=state.prev_latent.device)
     return torch.stack(frames)
+
+
+# ---------------------------------------------------------------------------
+# lanes (continuous batching)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BatchedStreamState:
+    """B streams decoding together; every field has a leading lane axis
+    except the shared cursors inside `flow` (end, ring_start) and `mimi`
+    (the ring offset)."""
+    flow: backbone.BatchedBackboneState
+    mimi: mimi.MimiState
+    prev_latent: torch.Tensor  # (B, latent)
+    eos_step: torch.Tensor     # (B,) int32, -1 until EOS fired
+    step: torch.Tensor         # (B,) int32 frames generated
+    done: torch.Tensor         # (B,) bool
+
+    @property
+    def lanes(self) -> int:
+        return self.step.shape[0]
+
+
+def sentence_prefill_lanes(p, cfg, voice_states, tokens, n_valid
+                           ) -> BatchedStreamState:
+    """Start B sentences. voice_states: a BatchedBackboneState holding each
+    lane's voice prefix, WRITTEN IN PLACE (pass a copy); tokens (B, Tt)
+    padded, n_valid (B,) int tensor. The mimi states start at zero."""
+    emb = flow_lm.embed_tokens(p, tokens)
+    flow = flow_lm.prefill_lanes(p, cfg, voice_states, emb, n_valid)
+    b, dev = tokens.shape[0], emb.device
+    return BatchedStreamState(
+        flow=flow, mimi=mimi.init_state_lanes(cfg.mimi, b, emb.dtype, dev),
+        prev_latent=p["bos_emb"].to(emb.dtype).expand(b, -1).clone(),
+        eos_step=torch.full((b,), -1, dtype=torch.int32, device=dev),
+        step=torch.zeros(b, dtype=torch.int32, device=dev),
+        done=torch.zeros(b, dtype=torch.bool, device=dev))
+
+
+def frame_step_lanes(p, cfg, state: BatchedStreamState, noise,
+                     frames_after_eos, max_steps, seanet_weights: dict = None):
+    """One frame of every lane, in place. noise (B, latent); frames_after_eos
+    and max_steps (B,) int tensors. Returns (pcm (B, frame_size) float32,
+    valid (B,) bool), both on the device. The EOS protocol is frame_step's;
+    a lane done before this step emits nothing but is still computed."""
+    _, latent, is_eos = flow_lm.decode_step_lanes(p, cfg, state.flow,
+                                                  state.prev_latent, noise)
+    step, done = state.step, state.done
+    eos_step = torch.where((state.eos_step < 0) & is_eos & ~done, step,
+                           state.eos_step)
+    stop = (done | ((eos_step >= 0) & (step >= eos_step + frames_after_eos))
+            | (step >= max_steps))
+    # linear cursor: the KV budget ran out with this frame (ring mode
+    # wraps below capacity, so this never fires there)
+    full = state.flow.end >= state.flow.pos.shape[1]
+    _, pcm = mimi.decode_frame(p["mimi"], cfg.mimi, state.mimi,
+                               flow_lm.denormalize(p, latent),
+                               cfg.gelu_approx, seanet_weights)
+    state.prev_latent = latent
+    state.eos_step = eos_step
+    state.step = step + 1
+    state.done = stop | full
+    pcm = torch.where(stop[:, None], 0.0, 1.0) * pcm.float()
+    return pcm, ~stop

@@ -22,14 +22,17 @@ NEG_INF = -1e9  # large negative instead of -inf, safe in f32 softmax
 def sdpa(q, k, v, bias=None):
     """softmax(q k^T / sqrt(D) + bias) v.
 
-    q: (T, H, D), k/v: (S, H, D), bias: (T, S) additive or None.
+    q: (..., T, H, D), k/v: (..., S, H, D), bias: (..., T, S) additive or
+    None; the leading axes (a lane axis) are batch axes.
     """
     scale = inv_sqrt(q.shape[-1])
-    logits = torch.einsum("thd,shd->hts", q.float(), k.float()) * scale
+    logits = torch.einsum("...thd,...shd->...hts", q.float(),
+                          k.float()) * scale
     if bias is not None:
-        logits = logits + bias[None]
+        logits = logits + bias[..., None, :, :]
     w = torch.softmax(logits, -1)
-    out = torch.einsum("hts,shd->thd", w.to(v.dtype).float(), v.float())
+    out = torch.einsum("...hts,...shd->...thd", w.to(v.dtype).float(),
+                       v.float())
     return out.to(q.dtype)
 
 
@@ -51,12 +54,12 @@ def sdpa_decode_seg(q, k, v, bias):
 def pos_cache_bias(q_pos, slot_pos, neg: float = NEG_INF):
     """Additive bias for a slot/position-decoupled cache.
 
-    q_pos: (T,) absolute positions of the queries; slot_pos: (S,) position
-    stored in each slot, -1 = invalid. Allowed(i, j) = slot_pos[j] >= 0 and
-    slot_pos[j] <= q_pos[i].
+    q_pos: (..., T) absolute positions of the queries; slot_pos: (..., S)
+    position stored in each slot, -1 = invalid (a leading lane axis
+    allowed). Allowed(i, j) = slot_pos[j] >= 0 and slot_pos[j] <= q_pos[i].
     """
-    pk = slot_pos[None, :]
-    allowed = (pk >= 0) & (pk <= q_pos[:, None])
+    pk = slot_pos[..., None, :]
+    allowed = (pk >= 0) & (pk <= q_pos[..., :, None])
     return torch.where(allowed, 0.0, neg).float()
 
 

@@ -1,8 +1,9 @@
 """1-D convolutions, offline and streaming (causal, stateful), TIME-MAJOR.
 
 Counterpart of `pocket_tts_tpu/ops/conv.py`. Every function works on one
-stream with x of shape (T, C), as the JAX package does; products accumulate
-in float32 and round to the input dtype at the same points as there.
+stream with x of shape (T, C), as the JAX package does, or on B streams at
+once with x (B, T, C) and carries (B, ...); products accumulate in float32
+and round to the input dtype at the same points as there.
 
 Weight layouts follow the torch checkpoint:
   conv1d:           w (out_ch, in_ch, K), b (out_ch,)
@@ -23,13 +24,14 @@ def _dot32(a, b):
 
 
 def conv1d(p, x, stride: int = 1):
-    """VALID conv1d. x: (T, Cin) -> ((T-K)//stride + 1, Cout)."""
+    """VALID conv1d. x: (..., T, Cin) -> (..., (T-K)//stride + 1, Cout)."""
     w = p["w"]
     cout, cin, k = w.shape
-    tout = (x.shape[0] - k) // stride + 1
-    y = torch.zeros(tout, cout, dtype=torch.float32, device=x.device)
+    tout = (x.shape[-2] - k) // stride + 1
+    y = torch.zeros(*x.shape[:-2], tout, cout, dtype=torch.float32,
+                    device=x.device)
     for j in range(k):
-        y = y + _dot32(x[j: j + stride * (tout - 1) + 1: stride],
+        y = y + _dot32(x[..., j: j + stride * (tout - 1) + 1: stride, :],
                        w[:, :, j].T)
     y = y.to(x.dtype)
     b = p.get("b")
@@ -42,8 +44,8 @@ def streaming_conv1d(p, prev, x, stride: int = 1):
     """Causal streaming conv: prepend the cached tail, conv, save the new
     tail. prev: (K - stride, Cin). Returns (new_prev, y)."""
     tp = p["w"].shape[-1] - stride
-    xc = torch.cat([prev, x], 0) if tp > 0 else x
-    new_prev = xc[xc.shape[0] - tp:] if tp > 0 else prev
+    xc = torch.cat([prev, x], -2) if tp > 0 else x
+    new_prev = xc[..., xc.shape[-2] - tp:, :] if tp > 0 else prev
     return new_prev, conv1d(p, xc, stride)
 
 
@@ -65,15 +67,15 @@ def conv_transpose1d(p, x, stride: int, include_bias: bool = True):
     """Full VALID transposed conv for K == 2*stride (every convtr of this
     model). x: (T, Cin) -> (T*stride + stride, Cout): output row i*s + j is
     u[i, j] + u[i-1, j+s]."""
-    t = x.shape[0]
+    lead, t = x.shape[:-2], x.shape[-2]
     s = stride
     u, cout, k = _convtr_matmul(p, x)
     if k != 2 * s:
         raise NotImplementedError("conv_transpose1d needs K == 2*stride")
-    a = u[:, : s * cout].reshape(t * s, cout)
-    bb = u[:, s * cout:].reshape(t * s, cout)
-    z = a.new_zeros(s, cout)
-    y = torch.cat([a, z], 0) + torch.cat([z, bb], 0)
+    a = u[..., : s * cout].reshape(*lead, t * s, cout)
+    bb = u[..., s * cout:].reshape(*lead, t * s, cout)
+    z = a.new_zeros(*lead, s, cout)
+    y = torch.cat([a, z], -2) + torch.cat([z, bb], -2)
     if include_bias and p.get("b") is not None:
         y = y + p["b"][None, :]
     return y
@@ -85,11 +87,11 @@ def streaming_conv_transpose1d(p, prev_y, x, stride: int):
     Returns (new_prev, out (T*stride, Cout))."""
     pt = p["w"].shape[-1] - stride
     y = conv_transpose1d(p, x, stride, include_bias=False)
-    y = torch.cat([y[:pt] + prev_y, y[pt:]], 0)
-    new_prev = y[y.shape[0] - pt:]
+    y = torch.cat([y[..., :pt, :] + prev_y, y[..., pt:, :]], -2)
+    new_prev = y[..., y.shape[-2] - pt:, :]
     if p.get("b") is not None:
         y = y + p["b"][None, :]
-    return new_prev, y[: y.shape[0] - pt]
+    return new_prev, y[..., : y.shape[-2] - pt, :]
 
 
 def conv_transpose1d_init_state(out_ch: int, kernel: int, stride: int,
@@ -113,24 +115,26 @@ def conv1d_blocked(p, xb, prev_row):
     (new_prev_row, yb (T, s*Cout))."""
     w = p["w"]
     cout, cin, k = w.shape
-    t, sc = xb.shape
+    t, sc = xb.shape[-2:]
     sblk = sc // cin
     if sc % cin or k - 1 >= sblk:
         raise ValueError((w.shape, xb.shape))
-    top = torch.cat([prev_row, xb[:-1]], 0)
-    y = torch.zeros(t, sblk * cout, dtype=torch.float32, device=xb.device)
+    top = torch.cat([prev_row, xb[..., :-1, :]], -2)
+    y = torch.zeros(*xb.shape[:-2], t, sblk * cout, dtype=torch.float32,
+                    device=xb.device)
     for d in range(k):
         wj = w[:, :, k - 1 - d].T
         if d == 0:
             src = xb
         else:
             lanes = d * cin
-            src = torch.cat([top[:, sc - lanes:], xb[:, : sc - lanes]], 1)
+            src = torch.cat([top[..., sc - lanes:], xb[..., : sc - lanes]],
+                            -1)
         y = y + _dot32(src, _blockdiag(wj, sblk).to(xb.dtype))
     y = y.to(xb.dtype)
     if p.get("b") is not None:
         y = y + p["b"].repeat(sblk)[None, :]
-    return xb[-1:], y
+    return xb[..., -1:, :], y
 
 
 def streaming_conv_transpose1d_blocked(p, prev_row, x, stride: int):
@@ -141,13 +145,13 @@ def streaming_conv_transpose1d_blocked(p, prev_row, x, stride: int):
     u, cout, k = _convtr_matmul(p, x)
     if k != 2 * s:
         raise NotImplementedError("blocked convtr needs K == 2*stride")
-    a = u[:, : s * cout]
-    bb = u[:, s * cout:]
-    z = a.new_zeros(1, s * cout)
-    yb = torch.cat([a, z], 0) + torch.cat([z, bb], 0)
-    yb = torch.cat([yb[:1] + prev_row, yb[1:]], 0)
-    new_prev = yb[-1:]
-    out = yb[:-1]
+    a = u[..., : s * cout]
+    bb = u[..., s * cout:]
+    z = a.new_zeros(*a.shape[:-2], 1, s * cout)
+    yb = torch.cat([a, z], -2) + torch.cat([z, bb], -2)
+    yb = torch.cat([yb[..., :1, :] + prev_row, yb[..., 1:, :]], -2)
+    new_prev = yb[..., -1:, :]
+    out = yb[..., :-1, :]
     if p.get("b") is not None:
         out = out + p["b"].repeat(s)[None, :]
     return new_prev, out

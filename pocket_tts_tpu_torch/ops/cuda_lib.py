@@ -41,16 +41,20 @@ F = ctypes.c_float
 SIGNATURES = {
     # q, k, v, pos, out, H, D, S, row stride (H*D), end, dtype, stream
     "ptt_decode_attn": [P, P, P, P, P, I, I, I, I, I, I, P],
-    # q, k_new, v_new, k_cache, v_cache, out, T, H, D, cap, offset, start,
-    # context, dtype, stream
-    "ptt_ring_attn": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-    # x, carry, w, bias, res, out, ws, T, Cin, Cout, K, P(carry rows),
+    # q, k_new, v_new, cur_pos, k_cache, v_cache, pos, out, B, H, D, S,
+    # read_end, write_slot, dtype, stream
+    "ptt_insert_attn": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # q, k_new, v_new, k_cache, v_cache, out, starts (or null), B, T, H, D,
+    # cap, offset, start, context, dtype, stream
+    "ptt_ring_attn": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    # x, carry, w, bias, res, out, ws, B, T, Cin, Cout, K, P(carry rows),
     # splits, in_elu, out_elu, res_elu, dtype, stream
-    "ptt_conv_gemm": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
-    # u, carry, bias, out, T, s, Cout, dtype, stream
-    "ptt_convtr_overlap": [P, P, P, P, I, I, I, I, P],
-    # x, carry, T, C, P(carry rows), elu, dtype, stream
-    "ptt_carry_tail": [P, P, I, I, I, I, I, P],
+    "ptt_conv_gemm": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I,
+                      P],
+    # u, carry, bias, out, B, T, s, Cout, dtype, stream
+    "ptt_convtr_overlap": [P, P, P, P, I, I, I, I, I, P],
+    # x, carry, B, T, C, P(carry rows), elu, dtype, stream
+    "ptt_carry_tail": [P, P, I, I, I, I, I, I, P],
     # x, q, scale, y, M, K, N, dtype, stream
     "ptt_int8_matmul": [P, P, P, P, I, I, I, I, P],
     # x, q4, scale, y, M, K, N, group (0: per-channel), dtype, stream

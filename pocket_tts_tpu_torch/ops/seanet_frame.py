@@ -18,7 +18,10 @@ kernels run it flat.
 
 `seanet_frame` runs the plain version for tensors on the CPU and the kernels
 for tensors on the card; there is no other switch. Both update the 8
-carries in `state` IN PLACE.
+carries in `state` IN PLACE. Both take an optional lane axis: x (B, T,
+in_ch) with carries (B, ...); the kernels then stack the B streams on the
+GEMMs' M axis, with the weights shared, and launch the same sequence as
+for one stream.
 """
 from __future__ import annotations
 
@@ -81,10 +84,11 @@ def _ptr(t):
 
 
 def seanet_frame(p, cfg, state: dict, x, weights: dict = None):
-    """x: (T, in_ch) -> pcm (T * total_stride, out_ch); the carries in
-    `state` are updated in place. p: decoder params; weights: their
-    `prep_weights` (built here when not given, which costs the transforms
-    every call)."""
+    """x: (T, in_ch) -> pcm (T * total_stride, out_ch), or with a lane axis
+    x (B, T, in_ch) -> (B, T * total_stride, out_ch); the carries in
+    `state` (with the lane axis: (B, ...) each) are updated in place. p:
+    decoder params; weights: their `prep_weights` (built here when not
+    given, which costs the transforms every call)."""
     if x.device.type == "cpu":
         from ..models.seanet import forward_plain
         new, pcm = forward_plain(p, cfg, state, x)
@@ -100,30 +104,37 @@ def seanet_frame(p, cfg, state: dict, x, weights: dict = None):
         if c.dtype != x.dtype or not c.is_contiguous() \
                 or c.device != x.device:
             raise ValueError(f"seanet_frame: bad carry {key}")
+    lanes = x.dim() == 3
+    nb = x.shape[0] if lanes else 1
+    for key in CARRY_KEYS:
+        if lanes and state[key].shape[0] != nb:
+            raise ValueError(f"seanet_frame: carry {key} has no lane axis "
+                             f"of {nb}")
     lib = cuda_lib.library()
     dt = cuda_lib.dtype_code(x)
     stream = cuda_lib.stream_ptr(x.device)
-    x = x.contiguous()
+    x = x.reshape(-1, x.shape[-1]).contiguous()   # (B*T, in_ch)
 
     def conv(src, carry, w, b, cout, kw, in_elu=0, out_elu=0, res=None,
              res_elu=0):
-        nt, cin = src.shape
-        pc = 0 if carry is None else carry.numel() // cin
-        splits = split_k(nt, cout, kw * cin)
-        y = torch.empty(nt, cout, dtype=src.dtype, device=src.device)
-        ws = (torch.empty(splits, nt, cout, dtype=torch.float32,
+        m, cin = src.shape
+        pc = 0 if carry is None else carry.numel() // (nb * cin)
+        splits = split_k(m, cout, kw * cin)
+        y = torch.empty(m, cout, dtype=src.dtype, device=src.device)
+        ws = (torch.empty(splits, m, cout, dtype=torch.float32,
                           device=src.device) if splits > 1 else None)
         rc = lib.ptt_conv_gemm(
             src.data_ptr(), _ptr(carry), w.data_ptr(), _ptr(b), _ptr(res),
-            y.data_ptr(), _ptr(ws), nt, cin, cout, kw, pc, splits, in_elu,
-            out_elu, res_elu, dt, stream)
+            y.data_ptr(), _ptr(ws), nb, m // nb, cin, cout, kw, pc, splits,
+            in_elu, out_elu, res_elu, dt, stream)
         cuda_lib.check(rc, "ptt_conv_gemm")
         return y
 
     def carry_tail(src, carry, use_elu):
-        nt, c = src.shape
-        rc = lib.ptt_carry_tail(src.data_ptr(), carry.data_ptr(), nt, c,
-                                carry.numel() // c, use_elu, dt, stream)
+        m, c = src.shape
+        rc = lib.ptt_carry_tail(src.data_ptr(), carry.data_ptr(), nb,
+                                m // nb, c, carry.numel() // (nb * c),
+                                use_elu, dt, stream)
         cuda_lib.check(rc, "ptt_carry_tail")
 
     w0, b0 = weights["model_0"]
@@ -131,13 +142,13 @@ def seanet_frame(p, cfg, state: dict, x, weights: dict = None):
              out_elu=1)
     carry_tail(x, state["model_0"], 0)
     for st, (tr, rn) in zip(cfg.stages, STAGES):
-        nt, s, cout = h.shape[0], st.stride, st.out_ch
+        m, s, cout = h.shape[0], st.stride, st.out_ch
         w2, b2 = weights[tr]
         u = conv(h, None, w2, None, w2.shape[1], 1)
-        y = torch.empty(nt * s, cout, dtype=h.dtype, device=h.device)
+        y = torch.empty(m * s, cout, dtype=h.dtype, device=h.device)
         rc = lib.ptt_convtr_overlap(u.data_ptr(), state[tr].data_ptr(),
-                                    _ptr(b2), y.data_ptr(), nt, s, cout, dt,
-                                    stream)
+                                    _ptr(b2), y.data_ptr(), nb, m // nb, s,
+                                    cout, dt, stream)
         cuda_lib.check(rc, "ptt_convtr_overlap")
         wr, br, wc, bc = weights[rn]
         v = conv(y, state[rn], wr, br, wr.shape[1], cfg.resnet_kernel,
@@ -148,7 +159,7 @@ def seanet_frame(p, cfg, state: dict, x, weights: dict = None):
     pcm = conv(h, state["model_11"], w11, b11, cfg.out_ch, cfg.last_kernel)
     carry_tail(h, state["model_11"], 0)
     seanet_frame.launches += 1
-    return pcm
+    return pcm.reshape(nb, -1, cfg.out_ch) if lanes else pcm
 
 
 seanet_frame.launches = 0

@@ -17,6 +17,8 @@ package's safetensors params cache. Noise comes from a
 torch.Generator on that device, seeded from the engine seed: it does not
 reproduce jax.random, so the two packages agree only at temp 0 or when the
 same noise is fed to both (`_draw_noise` is the single place it is drawn).
+The batched paths (runtime/batched.py, runtime/server.py) draw each
+request's noise from a seed of its own (`request_seed`).
 """
 from __future__ import annotations
 
@@ -27,16 +29,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pocket_tts_tpu.text.preprocess import (count_words, prepare_text_prompt,
-                                            split_into_best_sentences)
-from pocket_tts_tpu.text.tokenizer import load_tokenizer
-
 from ..config import check_supported
 from ..io import params as params_io
 from ..io.quant import (load_params_cache, quantize_params,
                         save_params_cache)
 from ..models import backbone, tts
 from ..ops.seanet_frame import prep_weights
+from ..text.preprocess import (StrProcessor, count_words,
+                               prepare_text_prompt, split_into_best_sentences)
+from ..text.tokenizer import load_tokenizer
 
 DEFAULT_VOICES = ["alba", "azelma", "cosette", "eponine", "fantine",
                   "javert", "jean", "marius"]
@@ -56,6 +57,15 @@ def _device(device) -> torch.device:
             "TTSEngine: no CUDA device (torch.cuda.is_available() is "
             "False); pass device='cpu' to run on the CPU")
     return device
+
+
+def _has_quantized_leaves(tree) -> bool:
+    if isinstance(tree, dict):
+        return ("q" in tree or "q4" in tree
+                or any(_has_quantized_leaves(v) for v in tree.values()))
+    if isinstance(tree, (list, tuple)):
+        return any(_has_quantized_leaves(v) for v in tree)
+    return False
 
 
 def _bucket(n: int, buckets=_TOKEN_BUCKETS) -> int:
@@ -102,6 +112,7 @@ class TTSEngine:
         self.params = params
         self.cfg = cfg
         self.dtype = dtype
+        self.quantized = _has_quantized_leaves(params)
         # K3's weight layouts, built once (the card path reads them)
         self.seanet_weights = (prep_weights(params["mimi"]["decoder"],
                                             cfg.mimi.seanet)
@@ -140,6 +151,14 @@ class TTSEngine:
         self.seed = seed
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self._requests = 0
+
+    def request_seed(self) -> int:
+        """The next request's noise seed: the n-th seed of a sequence set by
+        the engine seed (the counterpart of the JAX engine's `_next_rng`)."""
+        self._requests += 1
+        return int(np.random.SeedSequence(
+            [self.seed, self._requests]).generate_state(1)[0])
 
     def _draw_noise(self, temp: float):
         """One frame's N(0, temp) noise, (latent,) in the engine dtype."""
@@ -229,7 +248,7 @@ class TTSEngine:
 
     def synthesize_to_wav(self, text: str, voice, path: str,
                           temp: float = 0.6):
-        from pocket_tts_tpu.io.wav import save_wav
+        from ..io.wav import save_wav
         pcm = self.synthesize(text, voice, temp)
         save_wav(path, pcm, self.sample_rate)
         return pcm
@@ -242,8 +261,7 @@ class Stream:
         self.engine = engine
         self.voice_state = voice_state
         self.temp = temp
-        from pocket_tts_tpu.native import make_str_processor
-        self.sproc = make_str_processor()
+        self.sproc = StrProcessor()
         self.reset()
 
     def reset(self):

@@ -1,0 +1,591 @@
+"""Multi-stream serving: cohort-batched and continuously-batched synthesis.
+
+Counterpart of `pocket_tts_tpu/runtime/server.py`, with bf16/f32 weights,
+on one card. Two schedulers over the batched runtime (runtime/batched.py):
+
+- MultiStreamServer: fixed cohorts. Requests queue, prefill together and
+  decode in chunks; a late request waits for the cohort.
+- ContinuousBatchingServer: per-chunk admission into a RUNNING batch. The
+  slot/position decoupling allows it with a shared slot cursor: a joining
+  lane's KV prefix is written whole (admit_group), its positions, step
+  and mimi start are its own, and its later KV writes share the batch's
+  slot cursor. A request submitted mid-decode starts within chunk_frames
+  and its audio equals solo synthesis.
+
+A decode chunk runs on the device with no host read; the server reads
+pcm, valid and done once per chunk. Per-request time to first audio and
+completion latency are recorded and summarized p50/p95 (`stats`). Noise
+comes from each request's seed (`Request.seed`, else the engine's
+`request_seed()`), so a seeded request gives the same audio in any lane
+and under any admission order. Shared-prefix serving, quantized weights
+and a quantized KV cache at batch are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models import backbone, tts
+from ..text.preprocess import count_words, prepare_text_prompt
+from .batched import (_PROMPT_BUCKETS, admit_group, batched_decode_sentence,
+                      batched_prime_voice, batched_sentence_prefill,
+                      compact_batch, continuous_decode_chunk, draw_noise,
+                      empty_batch_state, serving_cfg, shrink_lanes,
+                      stack_states)
+from .engine import _SCAN_BUCKET, _bucket
+
+
+def _check_servable(engine, share_prefix: bool = False):
+    if share_prefix:
+        raise NotImplementedError(
+            "shared-prefix serving is not ported yet (slice 5)")
+    if engine.quantized:
+        raise NotImplementedError(
+            "quantized weights at batch are not ported yet (slice 5)")
+    if engine.cfg.backbone.quantize_kv:
+        raise NotImplementedError(
+            "a quantized KV cache is not ported yet (slice 5)")
+
+
+@dataclasses.dataclass
+class Request:
+    text: str
+    voice: str
+    temp: float = 0.6
+    seed: Optional[int] = None   # noise seed; the engine's next when None
+    submitted_at: float = 0.0
+    ttfa_s: Optional[float] = None
+    done_at: Optional[float] = None
+    pcm: Optional[np.ndarray] = None
+    chunks: Optional[List[np.ndarray]] = None
+    # scheduling clock (ContinuousBatchingServer): decode chunks run
+    # before admission and until first audio
+    submit_step: Optional[int] = None
+    admit_step: Optional[int] = None
+    first_audio_step: Optional[int] = None
+
+    @property
+    def latency_s(self):
+        return None if self.done_at is None else (self.done_at
+                                                  - self.submitted_at)
+
+
+def _prep(engine, req: Request):
+    """Tokenize a request once: (prepared text, frames-after-EOS guess,
+    token ids), cached on the request."""
+    if getattr(req, "_prep", None) is None:
+        text, guess = prepare_text_prompt(req.text)
+        req._prep = (text, guess, engine.tokenizer.encode(text))
+    return req._prep
+
+
+def _max_steps(engine, text: str) -> int:
+    return int((count_words(text) + 2.0) * engine.cfg.mimi.frame_rate)
+
+
+class MultiStreamServer:
+    def __init__(self, engine, max_batch: int = 32, mesh=None,
+                 chunk_frames: int = _SCAN_BUCKET):
+        _check_servable(engine)
+        self.engine = engine
+        self.max_batch = max_batch
+        self.cfg = serving_cfg(engine.cfg, mesh)
+        self.chunk_frames = chunk_frames
+        self._voices: Dict[str, int] = {}
+        self._voice_states = None
+        self._queue: List[Request] = []
+        self.completed: List[Request] = []
+
+    # -- voices -------------------------------------------------------------
+    def register_voices(self, prompts: Dict[str, np.ndarray]):
+        """Prime all voices at once at a shared prompt bucket (a uniform
+        slot cursor across the cohort)."""
+        eng = self.engine
+        names = list(prompts)
+        arrs = [np.asarray(prompts[n], np.float32) for n in names]
+        tp = max(_bucket(a.shape[0], _PROMPT_BUCKETS) for a in arrs)
+        padded = torch.from_numpy(np.stack(
+            [np.pad(a, ((0, tp - a.shape[0]), (0, 0))) for a in arrs])).to(
+            eng.device, eng.dtype)
+        n_valid = torch.tensor([a.shape[0] for a in arrs], dtype=torch.int32,
+                               device=eng.device)
+        states = stack_states([backbone.init_state(
+            self.cfg.backbone, eng.dtype, eng.device) for _ in arrs])
+        self._voice_states = batched_prime_voice(eng.params, self.cfg,
+                                                 states, padded, n_valid)
+        self._voices = {n: i for i, n in enumerate(names)}
+
+    # -- requests -----------------------------------------------------------
+    def submit(self, text: str, voice: str, temp: float = 0.6,
+               seed: Optional[int] = None) -> Request:
+        req = Request(text=text, voice=voice, temp=temp, seed=seed,
+                      submitted_at=time.perf_counter())
+        self._queue.append(req)
+        return req
+
+    def run_pending(self):
+        """Drain the queue in cohorts of max_batch. A request whose text
+        exceeds the largest token bucket is evicted and its error raised,
+        AFTER the fitting requests gathered so far have run (an eviction
+        never loses its cohort siblings)."""
+        while self._queue:
+            cohort, err = [], None
+            while self._queue and len(cohort) < self.max_batch:
+                req = self._queue[0]
+                try:
+                    _bucket(len(_prep(self.engine, req)[2]))
+                except ValueError as e:
+                    self._queue.pop(0)  # evict the oversized request
+                    err = e
+                    break
+                self._queue.pop(0)
+                cohort.append(req)
+            if cohort:
+                self._run_cohort(cohort)
+            if err is not None:
+                raise err
+
+    def _run_cohort(self, cohort: List[Request]):
+        eng = self.engine
+        dev = eng.device
+        # pad the cohort to a fixed batch
+        reqs = list(cohort) + [cohort[-1]] * (self.max_batch - len(cohort))
+        b = len(reqs)
+        preps = [_prep(eng, r) for r in reqs]
+        tp = max(_bucket(len(ids)) for _, _, ids in preps)
+        tokens = torch.from_numpy(np.stack(
+            [np.pad(np.asarray(ids, np.int64), (0, tp - len(ids)))
+             for _, _, ids in preps])).to(dev)
+        n_valid = torch.tensor([len(ids) for _, _, ids in preps],
+                               dtype=torch.int32, device=dev)
+        max_steps = np.asarray([_max_steps(eng, t) for t, _, _ in preps],
+                               np.int32)
+        max_steps[len(cohort):] = 0  # padding lanes stop at frame 0
+        cap = eng._sentence_capacity(tp, int(max_steps.max()),
+                                     prompt_slots=self._voice_states.end)
+        vstates = shrink_lanes(self._voice_states, cap,
+                               [self._voices[r.voice] for r in reqs])
+        states = batched_sentence_prefill(eng.params, self.cfg, vstates,
+                                          tokens, n_valid)
+        total = int(max_steps.max())
+        n_noise = -(-total // self.chunk_frames) * self.chunk_frames
+        lat = eng.cfg.latent_dim
+        noise = torch.stack(
+            [draw_noise(r.seed if r.seed is not None else eng.request_seed(),
+                        n_noise, lat, r.temp, eng.dtype, dev)
+             for r in cohort]
+            + [torch.zeros(n_noise, lat, dtype=eng.dtype, device=dev)]
+            * (b - len(cohort)))
+        fae = torch.tensor([g + 2 for _, g, _ in preps], dtype=torch.int32,
+                           device=dev)
+        max_steps_t = torch.from_numpy(max_steps).to(dev)
+
+        chunks: List[List[np.ndarray]] = [[] for _ in cohort]
+        offset = 0
+        while offset < total:
+            states, pcm, valid = batched_decode_sentence(
+                eng.params, self.cfg, states, noise, fae, max_steps_t,
+                self.chunk_frames, frame_offset=offset,
+                seanet_weights=eng.seanet_weights)
+            pcm, valid = pcm.cpu().numpy(), valid.cpu().numpy()
+            now = time.perf_counter()
+            for i, req in enumerate(cohort):
+                nv = int(valid[i].sum())
+                if nv > 0:
+                    if req.ttfa_s is None:
+                        req.ttfa_s = now - req.submitted_at
+                    chunks[i].append(pcm[i, :nv].reshape(-1))
+            offset += self.chunk_frames
+            if not valid.any():
+                break
+
+        now = time.perf_counter()
+        for i, req in enumerate(cohort):
+            req.pcm = (np.concatenate(chunks[i]) if chunks[i]
+                       else np.zeros(0, np.float32))
+            req.chunks = chunks[i]
+            req.done_at = now
+            self.completed.append(req)
+
+    def stats(self) -> dict:
+        return _stats(self.completed, self.engine.frame_size)
+
+
+def _stats(completed: List[Request], frame_size: int) -> dict:
+    ttfa = sorted(r.ttfa_s for r in completed if r.ttfa_s is not None)
+    lat = sorted(r.latency_s for r in completed if r.latency_s is not None)
+
+    def pct(xs, p):
+        return None if not xs else xs[min(len(xs) - 1, int(p * len(xs)))]
+
+    frames = sum(r.pcm.size for r in completed
+                 if r.pcm is not None) / frame_size
+    return {
+        "requests": len(completed),
+        "frames": int(frames),
+        "p50_ttfa_s": pct(ttfa, 0.50),
+        "p95_ttfa_s": pct(ttfa, 0.95),
+        "p50_latency_s": pct(lat, 0.50),
+        "p95_latency_s": pct(lat, 0.95),
+    }
+
+
+class ContinuousBatchingServer:
+    """Per-chunk admission of new requests into a running batch.
+
+    B lanes decode together; between chunks, finished lanes are re-filled
+    from the queue.
+
+    Default (ring=True) the backbone KV is a PREFIX+RING: slots
+    [0, prefix_slots) hold each lane's prompt+text prefix, and the shared
+    decode cursor wraps inside [prefix_slots, capacity). A slot is safely
+    recycled because a row only has to outlive its own sentence, and
+    admission bounds every request to the ring size; per-slot positions,
+    not slot indices, key RoPE and masking, so wrapping is invisible to
+    attention (K7 reads every slot and skips the stale write slot).
+
+    ring=False is the linear-cursor epoch design: a request is admitted
+    only if its worst-case frame budget fits the remaining capacity; when
+    nothing fits and all lanes are idle the epoch resets, and between
+    exhaustions eager compaction (compact_margin) keeps the cursor near the
+    true live-row maximum.
+    """
+
+    def __init__(self, engine, lanes: int = 32,
+                 capacity: Optional[int] = None, chunk_frames: int = 5,
+                 text_bucket: int = 64, ring: bool = True,
+                 compact_margin: Optional[int] = 128, mesh=None,
+                 share_prefix: bool = False):
+        _check_servable(engine, share_prefix)
+        self.engine = engine
+        self.lanes = lanes
+        self.capacity = capacity or engine.cfg.backbone.kv_capacity
+        self.chunk_frames = chunk_frames
+        self.text_bucket = text_bucket
+        self.ring = ring
+        # (ring=False only) eager compaction: attention reads scale with the
+        # slot cursor, and finished lanes leave garbage rows below it. The
+        # host knows every live lane's valid-row count (prompt rows + text
+        # tokens + frames decoded), so once cursor - max(live rows) >=
+        # compact_margin, one compact_batch pulls the cursor back down.
+        # None disables (exhaustion-only compaction).
+        self.compact_margin = compact_margin
+        self.cfg = serving_cfg(engine.cfg, mesh)
+        self._voice_states: Dict[str, backbone.BackboneState] = {}
+        self.prompt_pad: Optional[int] = None
+        self._queue: List[Request] = []
+        self._live: List[Optional[Request]] = [None] * lanes
+        self._chunks: List[List[np.ndarray]] = [[] for _ in range(lanes)]
+        self.completed: List[Request] = []
+        self.steps = 0  # decode chunks executed (scheduling clock)
+        self.compactions = 0
+        # compaction reclaims finished lanes' slots; until another lane
+        # finishes, compacting again frees nothing
+        self._compact_useful = True
+        self.batch: Optional[tts.BatchedStreamState] = None
+        dev = engine.device
+        # per-lane noise (lanes, capacity, latent): a request runs at most
+        # capacity - prefix_slots frames
+        self._noise = torch.zeros(lanes, self.capacity, engine.cfg.latent_dim,
+                                  dtype=engine.dtype, device=dev)
+        self._fae = np.ones((lanes,), np.int32)
+        self._max_steps = np.zeros((lanes,), np.int32)
+        self._fae_t = self._max_steps_t = None
+        self._rows0 = np.zeros((lanes,), np.int32)  # valid rows at admission
+        self._voice_rows: Dict[str, int] = {}
+
+    @property
+    def prefix_slots(self) -> int:
+        assert self.prompt_pad is not None, "register_voices first"
+        return self.prompt_pad + self.text_bucket
+
+    # -- voices --------------------------------------------------------------
+    def register_voices(self, prompts: Dict[str, np.ndarray]):
+        """Prime each voice at a COMMON prompt bucket so every admission's
+        prefill lands exactly on the uniform prefix budget. Callable again
+        to add voices; a change of the lane cache shapes (a larger prompt
+        bucket) starts a fresh epoch, so it requires an idle server (no
+        live requests; queued requests survive)."""
+        eng = self.engine
+        arrs = {n: np.asarray(a, np.float32).reshape(-1, a.shape[-1])
+                for n, a in prompts.items()}
+        tp = max(_bucket(a.shape[0], _PROMPT_BUCKETS)
+                 for a in arrs.values())
+        # monotonic across calls: earlier voices must still fit the budget
+        tp = max(tp, self.prompt_pad or 0)
+        changed = tp != (self.prompt_pad or tp)
+        self.capacity = min(self.capacity, eng.cfg.backbone.kv_capacity)
+        with torch.no_grad():
+            for name, a in arrs.items():
+                padded = torch.from_numpy(
+                    np.pad(a, ((0, tp - a.shape[0]), (0, 0)))).to(
+                    eng.device, eng.dtype)
+                state = backbone.init_state(self.cfg.backbone, eng.dtype,
+                                            eng.device)
+                vstate = tts.prime_voice(eng.params, self.cfg, state, padded,
+                                         a.shape[0])
+                self._voice_states[name] = backbone.shrink_state(
+                    vstate, self.capacity)
+                self._voice_rows[name] = a.shape[0]
+        self.prompt_pad = tp
+        if changed and self.batch is not None:
+            if any(r is not None for r in self._live):
+                raise ValueError(
+                    "register_voices changed the lane cache shapes while "
+                    "requests are live; drain the server first")
+            self.batch = None  # the next _admit builds a fresh epoch
+
+    # -- requests ------------------------------------------------------------
+    def submit(self, text: str, voice: str, temp: float = 0.6,
+               seed: Optional[int] = None) -> Request:
+        req = Request(text=text, voice=voice, temp=temp, seed=seed,
+                      submitted_at=time.perf_counter(),
+                      submit_step=self.steps)
+        self._queue.append(req)
+        return req
+
+    def _validate(self, req: Request) -> int:
+        """Tokenize and bound-check a request BEFORE it joins an admission
+        group; returns its worst-case frame need. Raising here is safe: the
+        request is still at the front of the queue and no sibling has been
+        popped."""
+        text, _, ids = _prep(self.engine, req)
+        if len(ids) > self.text_bucket:
+            raise ValueError(
+                f"request is {len(ids)} tokens > text_bucket "
+                f"{self.text_bucket}; split it (engine.synthesize "
+                "re-chunks)")
+        return _max_steps(self.engine, text) + 8
+
+    def _prefill_many(self, reqs: Sequence[Request]):
+        """ONE batched prefill for a whole admission group, padded to a
+        power-of-two lane count. Returns (BatchedStreamState,
+        [(max_steps, frames_after_eos, n_tokens)])."""
+        eng = self.engine
+        metas, ids_list = [], []
+        for req in reqs:
+            text, guess, ids = req._prep  # cached by _validate
+            ids_list.append(ids)
+            metas.append((_max_steps(eng, text), guess + 2, len(ids)))
+        k = 1
+        while k < len(reqs):
+            k *= 2
+        tokens = np.zeros((k, self.text_bucket), np.int64)
+        n_valid = np.zeros((k,), np.int32)
+        for i, ids in enumerate(ids_list):
+            tokens[i, : len(ids)] = ids
+            n_valid[i] = len(ids)
+        vstates = stack_states(
+            [self._voice_states[req.voice] for req in reqs]
+            + [self._voice_states[reqs[-1].voice]] * (k - len(reqs)))
+        batch = batched_sentence_prefill(
+            eng.params, self.cfg, vstates,
+            torch.from_numpy(tokens).to(eng.device),
+            torch.from_numpy(n_valid).to(eng.device))
+        return batch, metas
+
+    def _reset_epoch(self):
+        eng = self.engine
+        self._compact_useful = True
+        self.batch = empty_batch_state(eng.params, self.cfg, self.lanes,
+                                       self.capacity, self.prefix_slots,
+                                       eng.dtype, eng.device, ring=self.ring)
+
+    def _compact(self, live):
+        self.batch = compact_batch(
+            self.batch, torch.tensor(live, device=self.engine.device),
+            self.prefix_slots)
+        self.compactions += 1
+        self._compact_useful = False
+
+    def _admit(self):
+        """Fill idle lanes from the queue (between decode chunks): pick the
+        admissible (lane, request) group first, prefill it in ONE batched
+        call, then write the whole group into its lanes."""
+        if self.batch is None:
+            self._reset_epoch()
+        if self.ring:
+            # ring admission: a lane is admissible whenever it is idle; the
+            # request's worst-case frame budget must fit the ring
+            group = []
+            ring_slots = self.capacity - self.prefix_slots
+            try:
+                for lane in range(self.lanes):
+                    if not self._queue or self._live[lane] is not None:
+                        continue
+                    req = self._queue[0]
+                    try:
+                        need = self._validate(req)
+                    except ValueError:
+                        self._queue.pop(0)  # evict the rejected request
+                        raise
+                    if need > ring_slots:
+                        self._queue.pop(0)
+                        raise ValueError(
+                            f"request needs {need} frames > ring capacity "
+                            f"{ring_slots} ({self.capacity} - "
+                            f"{self.prefix_slots} prefix); split it or grow "
+                            "capacity")
+                    self._queue.pop(0)
+                    group.append((lane, req))
+            finally:
+                # a raise mid-loop must not lose the already-popped group
+                self._admit_group(group)
+            return
+        end = self.batch.flow.end
+        # eager compaction: reclaim finished lanes' garbage once it exceeds
+        # the margin (the cursor sets the per-frame attention read size)
+        live_lanes = [r is not None for r in self._live]
+        if (self.compact_margin is not None and any(live_lanes)
+                and self._compact_useful):
+            est_max = max(
+                int(self._rows0[lane])
+                + (self.steps - r.admit_step) * self.chunk_frames
+                for lane, r in enumerate(self._live) if r is not None)
+            if end - max(est_max, self.prefix_slots) >= self.compact_margin:
+                self._compact(live_lanes)
+                end = self.batch.flow.end
+        group = []
+        compacted = False
+        try:
+            for lane in range(self.lanes):
+                if not self._queue or self._live[lane] is not None:
+                    continue
+                req = self._queue[0]
+                try:
+                    need = self._validate(req)
+                except ValueError:
+                    self._queue.pop(0)  # evict the rejected request
+                    raise
+                if end + need > self.capacity and not compacted:
+                    # slot budget exhausted: compact the live lanes' rows
+                    # to the cache front (finished lanes' slots come back
+                    # without draining the epoch)
+                    live = [r is not None for r in self._live]
+                    if any(live) and self._compact_useful:
+                        self._compact(live)
+                        end = self.batch.flow.end
+                    elif not any(live):
+                        self._reset_epoch()
+                        end = self.prefix_slots
+                    compacted = True
+                if end + need > self.capacity:
+                    if not group and all(r is None for r in self._live):
+                        self._queue.pop(0)
+                        raise ValueError(
+                            f"request needs {need} frames + {end} prefix "
+                            f"slots > capacity {self.capacity}")
+                    break  # even compacted, the live lanes fill the budget
+                self._queue.pop(0)
+                group.append((lane, req))
+        finally:
+            self._admit_group(group)
+
+    def _drop_epoch(self, extra_requeue=()):
+        """A decode or admission call failed part-way: the batch state may
+        be half-written. Reset the epoch and put every affected request
+        back at the queue front to restart from scratch (seeded requests
+        reproduce their audio)."""
+        for req in reversed(list(extra_requeue)):
+            self._queue.insert(0, req)
+        for lane, req in enumerate(self._live):
+            if req is not None:
+                req.ttfa_s = None
+                req.first_audio_step = None
+                req.admit_step = None
+                self._queue.insert(0, req)
+                self._live[lane] = None
+                self._chunks[lane] = []
+        self.batch = None
+
+    def _admit_group(self, group):
+        if not group:
+            return
+        eng = self.engine
+        fresh, metas = self._prefill_many([r for _, r in group])
+        # the prefill's power-of-two padding lanes get out-of-range lane
+        # indices, so their writes are dropped
+        k = fresh.lanes
+        lane_idx = ([lane for lane, _ in group]
+                    + list(range(self.lanes, self.lanes + k - len(group))))
+        try:
+            self.batch = admit_group(self.batch, lane_idx, fresh)
+        except Exception:
+            # the lane writes are in place: a failure part-way leaves the
+            # batch half-written
+            self._drop_epoch(extra_requeue=[r for _, r in group])
+            raise
+        n = self._noise.shape[1]
+        for (lane, req), (max_steps, fae, n_tok) in zip(group, metas):
+            if req.seed is None:
+                req.seed = eng.request_seed()
+            self._noise[lane] = draw_noise(req.seed, n, eng.cfg.latent_dim,
+                                           req.temp, eng.dtype, eng.device)
+            self._fae[lane] = fae
+            self._max_steps[lane] = max_steps
+            self._rows0[lane] = self._voice_rows[req.voice] + n_tok
+            self._live[lane] = req
+            self._chunks[lane] = []
+            req.admit_step = self.steps
+        self._fae_t = torch.from_numpy(self._fae).to(eng.device)
+        self._max_steps_t = torch.from_numpy(self._max_steps).to(eng.device)
+
+    def step(self) -> int:
+        """One admission + one decode chunk. Returns frames emitted."""
+        self._admit()
+        if all(r is None for r in self._live):
+            return 0
+        eng = self.engine
+        try:
+            self.batch, pcm, valid = continuous_decode_chunk(
+                eng.params, self.cfg, self.chunk_frames, self.batch,
+                self._noise, self._fae_t, self._max_steps_t,
+                eng.seanet_weights)
+        except Exception:
+            # the state is updated in place, so a failure part-way leaves
+            # it half-written: drop the epoch and restart the live requests
+            # from scratch (their seeds reproduce their audio)
+            self._drop_epoch()
+            raise
+        # the one host read of the chunk
+        pcm = pcm.cpu().numpy()
+        valid = valid.cpu().numpy()
+        done = self.batch.done.cpu().numpy()
+        now = time.perf_counter()
+        self.steps += 1
+        emitted = 0
+        for lane, req in enumerate(self._live):
+            if req is None:
+                continue
+            nv = int(valid[lane].sum())
+            if nv > 0:
+                if req.ttfa_s is None:
+                    req.ttfa_s = now - req.submitted_at
+                    req.first_audio_step = self.steps
+                self._chunks[lane].append(pcm[lane, valid[lane]].reshape(-1))
+                emitted += nv
+            if bool(done[lane]):
+                req.pcm = (np.concatenate(self._chunks[lane])
+                           if self._chunks[lane]
+                           else np.zeros(0, np.float32))
+                req.chunks = self._chunks[lane]
+                req.done_at = now
+                self.completed.append(req)
+                self._live[lane] = None
+                self._chunks[lane] = []
+                self._compact_useful = True
+        return emitted
+
+    def run_pending(self, max_chunks: int = 10_000):
+        for _ in range(max_chunks):
+            if not self._queue and all(r is None for r in self._live):
+                return
+            self.step()
+        raise RuntimeError("run_pending did not drain the queue")
+
+    def stats(self) -> dict:
+        return _stats(self.completed, self.engine.frame_size)

@@ -1,12 +1,14 @@
 """chip_smoke.py (the port's check on the card) fails when any phase
 fails: its `main` catches exceptions in one place only, the final handler
 that names the phase and returns 1, so no measurement or check can fail
-while the run still exits 0. And without a CUDA device it exits 1 and
-prints no result."""
+while the run still exits 0 (a failing serving phase included). And
+without a CUDA device it exits 1 and prints no result."""
 import ast
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "chip_smoke.py")
@@ -38,3 +40,60 @@ def test_without_cuda_exits_1_and_prints_no_result():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 1
     assert '"ok"' not in res.stdout and "kernels" not in res.stdout
+
+
+SERVING = {"serve_vs_solo": "serving", "serve_throughput": "serving",
+           "serve_cli": "serving: cli", "profile_serving": "profiler, serving"}
+
+
+@pytest.mark.parametrize("failing", sorted(SERVING))
+def test_failing_serving_phase_fails_the_run(failing, monkeypatch, capsys):
+    """Every other phase is stubbed to pass; the serving step that raises
+    (or the serving profiler) makes main return 1, name its phase and
+    print no result."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    from pocket_tts_tpu_torch.ops import cuda_lib
+
+    class Engine:
+        cfg = DEFAULT_CONFIG
+        params = {"mimi": {"decoder": None}}
+        seanet_weights = None
+
+    def boom(*a, **k):
+        raise RuntimeError(f"{failing} failed")
+
+    stubs = dict(
+        nvidia_smi=lambda: "card, 700 W", make_engine=lambda *a, **k: Engine(),
+        counted_frame_steps=lambda: {}, counted_lane_steps=lambda: {},
+        end_to_end=lambda *a, **k: ({}, 1, np.ones(4)),
+        first_frames=lambda *a, **k: np.ones((12, 4)),
+        time_decode=lambda bf, voice: {k: {"sync": [1.0], "nosync": [1.0]}
+                                       for k in bf},
+        time_kernels=lambda *a: {},
+        profile_frames=lambda *a, **k: (1.0, []),
+        serve_vs_solo=lambda *a: None,
+        serve_throughput=lambda *a: ({}, 0, {}),
+        profile_serving=lambda *a: (1.0, [2.0], 160, []),
+        serve_cli=lambda *a: None)
+    for name in ("check_k1", "check_k2", "check_k3", "check_k7",
+                 "check_k2_lanes", "check_k3_lanes", "check_quant_kernels",
+                 "check_cache", "time_quant_kernels"):
+        stubs[name] = lambda *a, **k: None
+    stubs[failing] = boom
+    for name, fn in stubs.items():
+        monkeypatch.setattr(cs, name, fn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(cuda_lib, "library", lambda: None)
+    monkeypatch.setattr(cuda_lib, "build_seconds", lambda: 0.0)
+    assert cs.main([]) == 1
+    out = capsys.readouterr()
+    assert f"FAILED in phase '{SERVING[failing]}'" in out.err
+    assert '"ok"' not in out.out
+    assert not any(line.startswith('{"kernels"')
+                   for line in out.out.splitlines())

@@ -1,7 +1,9 @@
-"""The PyTorch port imports no JAX, no flax and no ml_dtypes, even
-transitively: the machine with the card has none of them (the params
-cache reads bf16 without ml_dtypes). Checked in a fresh interpreter, since
-this test process has JAX loaded already."""
+"""The PyTorch port imports no JAX, no flax, no ml_dtypes and nothing of
+the JAX package `pocket_tts_tpu`, even transitively: the machine with the
+card has none of the first three, and the port keeps its own copies of the
+JAX package's JAX-free modules (config, text, io.wav, io.safetensors_io).
+Checked in a fresh interpreter, since this test process has JAX loaded
+already."""
 import os
 import subprocess
 import sys
@@ -23,15 +25,41 @@ MODULES = [
     "pocket_tts_tpu_torch.ops.fused_flow",
     "pocket_tts_tpu_torch.io.quant",
     "pocket_tts_tpu_torch.models.tts",
+    "pocket_tts_tpu_torch.config",
+    "pocket_tts_tpu_torch.ops.insert_attn",
+    "pocket_tts_tpu_torch.runtime.batched",
+    "pocket_tts_tpu_torch.runtime.server",
+    "pocket_tts_tpu_torch.text.tokenizer",
+    "pocket_tts_tpu_torch.text.preprocess",
+    "pocket_tts_tpu_torch.io.wav",
+    "pocket_tts_tpu_torch.io.safetensors_io",
+    "chip_smoke",
 ]
+
+# modules outside the port that it must never load
+_BAD = ("sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ml_dtypes', 'pocket_tts_tpu'))")
 
 
 @pytest.mark.parametrize("module", MODULES)
 def test_import_leaves_jax_out(module):
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'ml_dtypes')); print(bad); "
-            "sys.exit(1 if bad else 0)")
+            f"bad = {_BAD}; print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_every_module_and_chip_smoke_together():
+    """Every module file of the port, found by walking the package, and
+    chip_smoke.py, imported into one interpreter."""
+    code = ("import sys, importlib, pkgutil, pocket_tts_tpu_torch as p; "
+            "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "'pocket_tts_tpu_torch.')]; "
+            "[importlib.import_module(m) for m in mods + ['chip_smoke']]; "
+            f"bad = {_BAD}; print(len(mods), bad); "
+            "sys.exit(1 if bad or len(mods) < 30 else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -47,7 +75,8 @@ def test_import_builds_nothing():
             "pocket_tts_tpu_torch.ops.ring_attn, "
             "pocket_tts_tpu_torch.ops.quant_matmul, "
             "pocket_tts_tpu_torch.ops.fused_layer, "
-            "pocket_tts_tpu_torch.ops.fused_flow; "
+            "pocket_tts_tpu_torch.ops.fused_flow, "
+            "pocket_tts_tpu_torch.ops.insert_attn; "
             "from pocket_tts_tpu_torch.ops import cuda_lib; "
             "import sys; sys.exit(0 if cuda_lib._state['lib'] is None "
             "and 'triton' not in sys.modules else 1)")
