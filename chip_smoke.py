@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Drives the port's four solo paths (synthesis through `TTSEngine` with
-bf16 weights, and with `quantize="int8"`, `"int4"` and `"q4_0"`) and its
-continuous-batching server (`ContinuousBatchingServer`, bf16, 32 lanes,
-and CLI `--serve`) at the full width of DEFAULT_CONFIG with random weights
-from seed 0, and checks the twelve hand-written CUDA kernel entries on
-them against their plain PyTorch versions. Phases, in order; any failure
-raises, names its phase and the exit code is 1:
+Drives the port's solo paths (synthesis through `TTSEngine` with bf16
+weights, with `quantize="int8"`, `"int4"` and `"q4_0"`, and with int4
+weights and the int8 KV cache, `quantize_kv=True`) and its
+continuous-batching server (`ContinuousBatchingServer`, 32 lanes, with
+bf16 weights and in the JAX package's serving mode: int4 weights, int8
+KV cache, shared prefix; and CLI `--serve`) at the full width of
+DEFAULT_CONFIG with random weights from seed 0, and checks the eighteen
+hand-written CUDA kernel entries on them against their plain PyTorch
+versions. Phases, in order; any failure raises, names its phase and the
+exit code is 1:
 
   1. environment   torch / CUDA versions, card name and power limit
   2. build         nvcc builds the kernel library (pocket_tts_tpu_torch/csrc)
@@ -24,37 +27,55 @@ raises, names its phase and the exit code is 1:
                    H*D=1024 (linear and ring, one invalid lane), K2 over 32
                    lanes with distinct starts (each lane equal to the solo
                    call bit for bit), K3 over 32 lanes, f32 and bf16
+  3d. serving mode K1 over int8 caches (S=384, end=300 and more); K7 over
+                   int8 caches (ring B=32 S=896 and linear, one invalid
+                   lane: output, cache bytes and scale rows) and with
+                   statistics (out, m, l; an idle lane gives 0, -inf, 0);
+                   K5a/K5b over 32 backbone rows and 64, 256 and 512 mimi
+                   rows and K6 over 32 (and 40) rows, int8, int4 and q4_0;
+                   f32 and bf16
   4. end to end    synthesis of the benchmark sentence at temp 0 on each
                    path, counters set to 0 before each run and read after:
                    per decoded frame every path launches 6 K1, 2 K2 and 1
                    K3; int8 adds 1 K4a, 8 K5a, 8 K5b, 1 K6 and 24 K4a per
                    prefill call; int4 and q4_0 the same counts of K4b and
-                   the int4 K5a/K5b/K6 (counted apart from int8). Then the
-                   q4_0 engine is built again from a params cache written
-                   and read back here, and must give the same pcm, bit for
-                   bit
-  5. card vs CPU   12 f32 frames on the card vs the port on the CPU, with
-                   bf16, int8, int4 and q4_0 weights
-  6. timing        decode frames/s of the four paths in alternating rounds
+                   the int4 K5a/K5b/K6 (counted apart from int8); int4 +
+                   int8 KV the int4 counts with K1's int8-KV variant in
+                   place of K1. Then the q4_0 engine is built again from a
+                   params cache written and read back here, and must give
+                   the same pcm, bit for bit
+  5. card vs CPU   12 f32 frames on the card vs the port on the CPU, on
+                   each of the five paths
+  6. timing        decode frames/s of the five paths in alternating rounds
                    (with and without the per-frame host sync), each
                    kernel's device time vs its plain version's and the
-                   library call's (SDPA for K1, K2, K7; CUDA events) beside
+                   library call's (SDPA for K1, K2, K7; none for the int8
+                   KV variants, beside which SDPA over bf16 caches of the
+                   same shape is timed for comparison; CUDA events) beside
                    its bound
   7. serving       f32, 4 lanes, 6 requests (two admitted mid-decode), each
-                   pcm vs the solo engine on the card; bf16, 32 lanes, 48
-                   requests, counters set to 0 before and read after: per
-                   batch frame step 6 K7, 2 K2, 1 K3 and no K1; aggregate
-                   frames/s, TTFA p50/p95; CLI --serve writes one wav per
-                   request
+                   pcm vs the solo engine on the card, with bf16 weights
+                   and with int8 weights + int8 KV + shared prefix; 32
+                   lanes, 48 requests, counters set to 0 before and read
+                   after, with bf16 weights (per batch frame step 6 K7, 2
+                   K2, 1 K3, no K1) and in the serving mode (per step 6
+                   K7 int8 with statistics, 2 K2, 1 K3, 0 K1, 1 K6 over
+                   the 32 rows, 8 K5a and 24 K5b launches over the lanes'
+                   rows, 1 K4b, and 24 K4b per admission prefill);
+                   aggregate frames/s, TTFA p50/p95; CLI --serve writes one
+                   wav per request, and so does CLI --serve --quantize int4
+                   --quantize-kv --share-prefix
   8. profiler      device busy share and launches per frame of each solo
-                   path and per chunk of serving with every lane busy
-                   (torch.profiler; last, after every host-clock
-                   measurement)
+                   path and per chunk of serving with every lane busy, in
+                   both serving modes (torch.profiler; last, after every
+                   host-clock measurement)
 
 The last three lines of standard output are a JSON object of the kernels
 (launches from the runs of the path that uses each: K1-K3 from bf16, the
-int8 entries from int8, the int4 entries from int4 and q4_0 together, K7
-from the serving run),
+int8 entries from int8, the int4 entries from int4 and q4_0 together, K1's
+int8-KV variant from int4 + int8 KV, K7 from the bf16 serving run, the
+serving mode's entries (K7 int8 / statistics, K5a/K5b/K6 over lanes) from
+its serving run),
 the card's `nvidia-smi` name and power limit, and the result object
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 and prints no result. With --out DIR, the longer output (nvcc's register
@@ -134,10 +155,34 @@ KERNELS = {
     "decode_insert_attn": dict(
         source="pocket_tts_tpu_torch/csrc/insert_attn.cu",
         replaces="pocket_tts_tpu/ops/pallas_attn.py:809"),
+    # the reference's serving mode: int8 KV cache, shared prefix, quantized
+    # weights at batch
+    "decode_attn_kv8": dict(
+        source="pocket_tts_tpu_torch/csrc/decode_attn.cu",
+        replaces="pocket_tts_tpu/ops/pallas_attn.py:332"),
+    "decode_insert_attn_kv8": dict(
+        source="pocket_tts_tpu_torch/csrc/insert_attn.cu",
+        replaces="pocket_tts_tpu/ops/pallas_attn.py:809"),
+    "decode_insert_attn_stats": dict(
+        source="pocket_tts_tpu_torch/csrc/insert_attn.cu",
+        replaces="pocket_tts_tpu/ops/pallas_attn.py:809"),
+    "fused_pre_lanes": dict(
+        source="pocket_tts_tpu_torch/csrc/fused_layer.cu",
+        replaces="pocket_tts_tpu/ops/fused_layer.py:208"),
+    "fused_post_lanes": dict(
+        source="pocket_tts_tpu_torch/csrc/fused_layer.cu",
+        replaces="pocket_tts_tpu/ops/fused_layer.py:576"),
+    "fused_flow_lanes": dict(
+        source="pocket_tts_tpu_torch/csrc/fused_flow.cu",
+        replaces="pocket_tts_tpu/ops/fused_flow.py:188"),
 }
-# the kernels whose launches the kernels line reports from the serving run
-# (phase 7): this slice's path
+# the kernels whose launches the kernels line reports from the bf16 serving
+# run (phase 7, slice 4's path), and from the serving run in the reference's
+# serving mode (int4 weights, int8 KV, shared prefix; slice 5's path)
 SERVING_KERNELS = ("decode_insert_attn",)
+SERVING_KV8_KERNELS = ("decode_insert_attn_kv8", "decode_insert_attn_stats",
+                       "fused_pre_lanes", "fused_post_lanes",
+                       "fused_flow_lanes")
 # the kernels each path adds to K1-K3, and the paths whose counts the
 # kernels line reports for each
 PATH_KERNELS = {
@@ -147,10 +192,24 @@ PATH_KERNELS = {
 }
 PATH_KERNELS["q4_0"] = PATH_KERNELS["int4"]
 QUANT_PATHS = ("int8", "int4", "q4_0")
+# solo paths with the int8 KV cache: (weights, quantize_kv)
+KV8_PATH = "int4_kv8"
+ENGINE_KW = {"bf16": dict(), "int8": dict(quantize="int8"),
+             "int4": dict(quantize="int4"), "q4_0": dict(quantize="q4_0"),
+             KV8_PATH: dict(quantize="int4", quantize_kv=True),
+             "int8_kv8": dict(quantize="int8", quantize_kv=True)}
+
+
+_T0 = time.perf_counter()
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def header(text):
+    """A phase's first line, with the seconds since the script started."""
+    log(f"{text} [{time.perf_counter() - _T0:.1f} s]")
 
 
 def nvidia_smi() -> str:
@@ -553,6 +612,187 @@ def check_quant_kernels(pq, cfg, device, dtype, results, path):
     _rel_check("fused_flow" + suffix, "flow", dtype, pairs, results, label)
 
 
+# ------------------------------------------------- phase 3d: serving mode --
+
+def kv8_rows(g, device, dtype, *shape):
+    """Random rows of the working type quantized as the backbone does:
+    (int8 rows, float32 scales)."""
+    import torch
+    from pocket_tts_tpu_torch.models.backbone import quantize_rows
+    return quantize_rows(torch.randn(*shape, generator=g).to(device, dtype))
+
+
+def check_k1_kv8(device, dtype, results):
+    """K1 over int8 caches with per-row scales vs its plain version: S =
+    384 with end 300 (the benchmark sentence's bucket), and S = 128, 1024
+    at several ends, with position holes."""
+    import torch
+    from pocket_tts_tpu_torch.ops.decode_attn import (decode_attention,
+                                                      decode_attention_plain)
+    h, d = 16, 64
+    g = torch.Generator(device="cpu").manual_seed(11)
+    worst = 0.0
+    for s, ends in ((384, (300, 0, 383)), (128, (127,)), (1024, (700,))):
+        k, ks = kv8_rows(g, device, dtype, s, h * d)
+        v, vs = kv8_rows(g, device, dtype, s, h * d)
+        q = torch.randn(h, d, generator=g).to(device, dtype)
+        for end in ends:
+            pos = torch.arange(s, dtype=torch.int32)
+            pos[end + 1:] = -1
+            if end > 20:
+                pos[3:9] = -1
+            pos = pos.to(device)
+            got = decode_attention(q, k, v, pos, end, ks, vs)
+            want = decode_attention_plain(q, k, v, pos, end, ks, vs)
+            sync(device)
+            worst = max(worst, (got.float() - want.float()).abs().max()
+                        .item())
+    tol = TOL[("attn", _dt_name(dtype))]
+    log(f"  K1 decode_attn_kv8 {_dt_name(dtype)}: int8 caches, S=384 "
+        f"end=300 and more: max_abs_err {worst:.3e} (tol {tol})")
+    if not worst <= tol:
+        raise AssertionError(f"K1 kv8 {_dt_name(dtype)} error {worst}")
+    results.setdefault("decode_attn_kv8", {})[_dt_name(dtype)] = worst
+
+
+def k7_kv8_case(g, device, dtype, mode, b=LANES, s=896):
+    """k7_case with int8 caches and scale rows (the ring is the serving
+    mode's 896 slots: kv_capacity - the prompt bucket), the new rows
+    quantized: (q, k_new, v_new, cur_pos, k, v, pos, read_end, ws, ks, vs,
+    ks_new, vs_new); the write slot holds stale bytes and scales."""
+    import torch
+    q, _, _, cur, _, _, pos, re_, ws = k7_case(g, device, dtype, mode, b, s)
+    h, d = q.shape[1:]
+    k, ks = kv8_rows(g, device, dtype, b, s, h * d)
+    v, vs = kv8_rows(g, device, dtype, b, s, h * d)
+    kn, ksn = kv8_rows(g, device, dtype, b, 1, h * d)
+    vn, vsn = kv8_rows(g, device, dtype, b, 1, h * d)
+    ks[:, ws] = vs[:, ws] = 1e3          # stale scales: never read
+    return (q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn[:, 0].contiguous(),
+            vsn[:, 0].contiguous())
+
+
+def check_k7_kv8(device, dtype, results):
+    """K7 with int8 caches (ring B=32 S=896 and linear, one invalid lane)
+    vs its plain version: the output, the cache bytes and the scale rows
+    after the insert; and K7 with statistics (int8 and working-type caches):
+    out, m and l. An idle lane (no attended slot) must give out 0, m = -inf
+    and l = 0 on both sides."""
+    import torch
+    from pocket_tts_tpu_torch.ops.insert_attn import (
+        decode_insert_attention, decode_insert_attention_plain)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    tol = TOL[("attn", _dt_name(dtype))]
+    worst = {"decode_insert_attn_kv8": 0.0, "decode_insert_attn_stats": 0.0}
+    worst_m = worst_l = 0.0
+    for mode in ("ring", "linear"):
+        for kind in ("kv8", "kv8_stats", "stats"):
+            if kind == "stats":
+                q, kn, vn, cur, k, v, pos, re_, ws = k7_case(
+                    g, device, dtype, mode, s=896)
+                kw, kw2 = {}, {}
+            else:
+                (q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn,
+                 vsn) = k7_kv8_case(g, device, dtype, mode)
+                kw = dict(k_scale=ks, v_scale=vs, ks_new=ksn, vs_new=vsn)
+                kw2 = dict(k_scale=ks.clone(), v_scale=vs.clone(),
+                           ks_new=ksn, vs_new=vsn)
+            stats = kind != "kv8"
+            if stats:                        # lane 2 idle: nothing attended
+                pos[2] = -1
+                cur[2] = -1
+            k2, v2 = k.clone(), v.clone()
+            got = decode_insert_attention(q, kn, vn, cur, k, v, pos, re_, ws,
+                                          stats=stats, **kw)
+            want = decode_insert_attention_plain(q, kn, vn, cur, k2, v2, pos,
+                                                 re_, ws, stats=stats, **kw2)
+            sync(device)
+            if not (torch.equal(k, k2) and torch.equal(v, v2)):
+                raise AssertionError(f"K7 {kind} caches differ ({mode})")
+            if kw and not (torch.equal(kw["k_scale"], kw2["k_scale"])
+                           and torch.equal(kw["v_scale"], kw2["v_scale"])):
+                raise AssertionError(f"K7 {kind} scale rows differ ({mode})")
+            got = got if stats else (got,)
+            want = want if stats else (want,)
+            if not torch.isfinite(got[0].float()).all():
+                raise AssertionError(f"K7 {kind} non-finite output ({mode})")
+            err = (got[0].float() - want[0].float()).abs().max().item()
+            name = ("decode_insert_attn_stats" if stats
+                    else "decode_insert_attn_kv8")
+            worst[name] = max(worst[name], err)
+            if stats:
+                (_, m, l), (_, mp, lp) = got, want
+                if not (torch.isneginf(m[2]).all() and (l[2] == 0).all()
+                        and (got[0][2] == 0).all()):
+                    raise AssertionError(f"K7 {kind}: the idle lane is not "
+                                         f"(0, -inf, 0) ({mode})")
+                live = torch.isfinite(mp)
+                if not torch.equal(live, torch.isfinite(m)):
+                    raise AssertionError(f"K7 {kind}: m masks differ")
+                worst_m = max(worst_m, (m[live] - mp[live]).abs().max()
+                              .item())
+                worst_l = max(worst_l, ((l[live] - lp[live]).abs()
+                                        / lp[live]).max().item())
+    log(f"  K7 decode_insert_attn_kv8 {_dt_name(dtype)}: int8 caches, "
+        f"B={LANES} S=896 ring and linear, one invalid lane: max_abs_err "
+        f"{worst['decode_insert_attn_kv8']:.3e} (tol {tol}); cache bytes "
+        "and scale rows equal")
+    log(f"  K7 decode_insert_attn_stats {_dt_name(dtype)}: int8 and "
+        f"{_dt_name(dtype)} caches, an idle lane: out max_abs_err "
+        f"{worst['decode_insert_attn_stats']:.3e} (tol {tol}), m max_abs_err"
+        f" {worst_m:.3e} (tol {tol}), l max relative error {worst_l:.3e} "
+        f"(tol {tol})")
+    if not (max(worst.values()) <= tol and worst_m <= tol
+            and worst_l <= tol):
+        raise AssertionError(f"K7 int8/stats {_dt_name(dtype)} errors "
+                             f"{worst} m {worst_m} l {worst_l}")
+    for name, err in worst.items():
+        results.setdefault(name, {})[_dt_name(dtype)] = err
+
+
+LANE_ROWS = ((LANES, "backbone"), (64, "mimi"), (256, "mimi"),
+             (512, "mimi"))
+
+
+def check_quant_lanes(pq, cfg, device, dtype, results, path):
+    """K5a and K5b over many rows, as the serving mode runs them at a lane
+    axis: 32 backbone rows (32 lanes x 1) and 64, 256 and 512 mimi rows (4,
+    16 and 32 lanes x 16); K6 over 32 rows (and 40: a second launch of
+    8). Each vs its plain version; inputs from numpy seed 8."""
+    from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
+    from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    rng = np.random.RandomState(8)
+    label = f" [{path}]"
+    pre, post = [], []
+    for rows, which in LANE_ROWS:
+        if which == "backbone":
+            p = slice_layer_params(pq["layers"], 1)
+            t, dm, eps = 1, cfg.backbone.d_model, 1e-5
+        else:
+            p = slice_layer_params(
+                pq["mimi"]["decoder_transformer"]["layers"], 1)
+            t, dm = 16, cfg.mimi.transformer.d_model
+            eps = cfg.mimi.transformer.norm_eps
+        x = _rand(rng, device, dtype, rows // t, t, dm, scale=0.5)
+        attn = _rand(rng, device, dtype, rows // t, t, dm, scale=0.5)
+        pre.append((fused_layer.pre_attention(p, x, eps),
+                    fused_layer.pre_attention_plain(p, x, eps)))
+        post.append((fused_layer.post_attention(p, x, attn, eps),
+                     fused_layer.post_attention_plain(p, x, attn, eps)))
+    sync(device)
+    _rel_check("fused_pre_lanes", "quant", dtype, pre, results, label)
+    _rel_check("fused_post_lanes", "quant", dtype, post, results, label)
+    fp, tc = pq["flow_net"], pq["_time_cond"]
+    pairs = []
+    for b in (LANES, 40):
+        c = _rand(rng, device, dtype, b, cfg.backbone.d_model)
+        x = _rand(rng, device, dtype, b, cfg.latent_dim)
+        pairs.append((fused_flow.flow_forward(fp, c, x, tc),
+                      fused_flow.flow_forward_plain(fp, c, x, tc)))
+    sync(device)
+    _rel_check("fused_flow_lanes", "flow", dtype, pairs, results, label)
+
+
 # ---------------------------------------------------------------- phase 4 --
 
 def counted_frame_steps():
@@ -579,8 +819,10 @@ def counted_frame_steps():
 
 def _counters():
     """{kernel name: (wrapper, attribute of its launch count)}: the fused
-    wrappers count int8 launches in `launches` and int4 ones in
-    `launches_int4`."""
+    wrappers count solo int8 launches in `launches`, solo int4 ones in
+    `launches_int4` and launches over lanes in `launches_lanes`; K1 and K7
+    count int8-KV launches in `launches_kv8`, and K7 its launches with
+    statistics once more in `launches_stats`."""
     from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
     from pocket_tts_tpu_torch.ops.decode_attn import decode_attention
     from pocket_tts_tpu_torch.ops.insert_attn import decode_insert_attention
@@ -589,16 +831,22 @@ def _counters():
     from pocket_tts_tpu_torch.ops.ring_attn import ring_insert_attention
     from pocket_tts_tpu_torch.ops.seanet_frame import seanet_frame
     out = {"decode_attn": (decode_attention, "launches"),
+           "decode_attn_kv8": (decode_attention, "launches_kv8"),
            "ring_attn": (ring_insert_attention, "launches"),
            "seanet_frame": (seanet_frame, "launches"),
            "int8_matmul": (int8_matmul, "launches"),
            "int4_matmul": (int4_matmul, "launches"),
-           "decode_insert_attn": (decode_insert_attention, "launches")}
+           "decode_insert_attn": (decode_insert_attention, "launches"),
+           "decode_insert_attn_kv8": (decode_insert_attention,
+                                      "launches_kv8"),
+           "decode_insert_attn_stats": (decode_insert_attention,
+                                        "launches_stats")}
     for name, fn in (("fused_pre", fused_layer.pre_attention),
                      ("fused_post", fused_layer.post_attention),
                      ("fused_flow", fused_flow.flow_forward)):
         out[name] = (fn, "launches")
         out[name + "_int4"] = (fn, "launches_int4")
+        out[name + "_lanes"] = (fn, "launches_lanes")
     return out
 
 
@@ -618,22 +866,30 @@ def _engine_kw(cfg, device, dtype):
                 tokenizer=MockTokenizer(cfg.lut.n_bins))
 
 
-def make_engine(cfg, device, dtype, quantize=None):
+def make_engine(cfg, device, dtype, quantize=None, quantize_kv=False,
+                params=None):
+    """An engine on random weights from seed 0 (or on `params`, a tree of
+    an engine made here, with its cfg)."""
     from pocket_tts_tpu_torch.io.params import random_params
     from pocket_tts_tpu_torch.runtime.engine import TTSEngine
-    params, cfg = random_params(cfg, seed=0, dtype=dtype, device=device)
+    if params is None:
+        params, cfg = random_params(cfg, seed=0, dtype=dtype, device=device)
     return TTSEngine(params=params, quantize=quantize,
+                     quantize_kv=quantize_kv,
                      **_engine_kw(cfg, device, dtype))
 
 
 def expected_launches(cfg, path):
     """(launches per decoded frame, launches per prefill call) by kernel
-    for a path: "bf16", "int8", "int4" or "q4_0"."""
+    for a path: "bf16", "int8", "int4", "q4_0" or "int4_kv8" (int4 weights,
+    int8 KV cache: K1's int8-KV variant)."""
     nb, nm = cfg.backbone.num_layers, cfg.mimi.transformer.num_layers
-    per_frame = {"decode_attn": nb, "ring_attn": nm, "seanet_frame": 1}
+    k1 = "decode_attn_kv8" if path == KV8_PATH else "decode_attn"
+    per_frame = {k1: nb, "ring_attn": nm, "seanet_frame": 1}
     per_prefill = {}
-    if path in PATH_KERNELS:
-        mm, pre, post, flow = PATH_KERNELS[path]
+    weights = ENGINE_KW[path].get("quantize")
+    if weights in PATH_KERNELS:
+        mm, pre, post, flow = PATH_KERNELS[weights]
         per_frame.update({mm: 1, pre: nb + nm, post: nb + nm, flow: 1})
         per_prefill = {mm: 4 * nb}
     return per_frame, per_prefill
@@ -1084,6 +1340,128 @@ def time_quant_kernels(pq, cfg, device, dtype, path, out):
     return out
 
 
+def time_kv8_kernels(device, dtype, out):
+    """Device time of K1 and K7 over int8 caches (K7 with and without the
+    statistics) vs their plain versions at the serving mode's shapes, with
+    each call's bound, appended to out[kernel name]. No single PyTorch call
+    computes attention over int8 rows with per-row scales (library: none);
+    for comparison only, the row's "cmp" is SDPA over bf16 caches of the
+    same shape and mask."""
+    import torch
+    from pocket_tts_tpu_torch.ops.decode_attn import (decode_attention,
+                                                      decode_attention_plain)
+    from pocket_tts_tpu_torch.ops.insert_attn import (
+        decode_insert_attention, decode_insert_attention_plain)
+    g = torch.Generator(device="cpu").manual_seed(13)
+    dn = _dt_name(dtype)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    h, d, s, end = 16, 64, 384, 300
+    hd = h * d
+    k, ks = kv8_rows(g, device, dtype, s, hd)
+    v, vs = kv8_rows(g, device, dtype, s, hd)
+    q = torch.randn(h, d, generator=g).to(device, dtype)
+    pos = torch.arange(s, dtype=torch.int32)
+    pos[end + 1:] = -1
+    pos = pos.to(device)
+    mask = (pos >= 0)[None, None, None, :]
+    kb = (k.float() * ks[:, None]).to(torch.bfloat16)
+    vb = (v.float() * vs[:, None]).to(torch.bfloat16)
+    qb = q.to(torch.bfloat16)
+    row = _row(
+        device_ms(lambda: decode_attention(q, k, v, pos, end, ks, vs), 200),
+        device_ms(lambda: decode_attention_plain(q, k, v, pos, end, ks, vs),
+                  50), None,
+        # int8 K and V rows of the live slots, their scales and positions
+        # read, q in, the output out
+        bound_ms(2 * (end + 1) * (hd + 4) + 4 * (end + 1) + 2 * hd * isz,
+                 4 * (end + 1) * hd, dn),
+        f"int8 KV S={s} end={end} H={h} D={d}")
+    row["cmp"] = device_ms(lambda: sdpa_call(qb[None, :, None], _heads(kb, h),
+                                             _heads(vb, h), mask), 200)[0]
+    out.setdefault("decode_attn_kv8", []).append(row)
+    for name, stats in (("decode_insert_attn_kv8", False),
+                        ("decode_insert_attn_stats", True)):
+        (q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn,
+         vsn) = k7_kv8_case(g, device, dtype, "ring")
+        b = q.shape[0]
+        mask = (torch.arange(pos.shape[1], device=device) <= re_) & (pos >= 0)
+        nread = int(mask.sum())
+        kw = dict(k_scale=ks, v_scale=vs, ks_new=ksn, vs_new=vsn,
+                  stats=stats)
+        # this run's data: the int8 rows and scales of the attended slots,
+        # the positions, q in and the output out, the new rows and their
+        # scales in and written, the statistics out
+        nb = (2 * nread * (hd + 4) + 4 * b * (re_ + 1) + 2 * b * hd * isz
+              + 4 * b * (hd + 4) + (2 * b * h * 4 if stats else 0))
+        kb = (k.float() * ks[..., None]).to(torch.bfloat16)
+        vb = (v.float() * vs[..., None]).to(torch.bfloat16)
+        qb = q.to(torch.bfloat16)
+        row = _row(
+            device_ms(lambda: decode_insert_attention(
+                q, kn, vn, cur, k, v, pos, re_, ws, **kw), 200),
+            device_ms(lambda: decode_insert_attention_plain(
+                q, kn, vn, cur, k, v, pos, re_, ws, **kw), 20), None,
+            bound_ms(nb, 4 * nread * hd, dn),
+            f"int8 KV{' + stats' if stats else ''} ring B={b} "
+            f"S={pos.shape[1]} H={h} D={d}")
+        row["cmp"] = device_ms(lambda: sdpa_call(
+            qb[:, :, None], _heads(kb, h), _heads(vb, h),
+            mask[:, None, None, :]), 200)[0]
+        out.setdefault(name, []).append(row)
+    return out
+
+
+def time_lane_kernels(pq, cfg, device, dtype, out):
+    """Device time of K5a and K5b over the serving mode's rows (32 backbone
+    rows, 512 mimi rows) and K6 over 32 rows vs their plain versions, on
+    the int4 tree pq, with each call's bound (no single PyTorch call
+    computes these functions), appended to out[kernel name]."""
+    from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
+    from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    dn = _dt_name(dtype)
+    rng = np.random.RandomState(9)
+    bb = slice_layer_params(pq["layers"], 0)
+    mt = slice_layer_params(pq["mimi"]["decoder_transformer"]["layers"], 0)
+    for p, b, t, d, eps, name in (
+            (bb, LANES, 1, cfg.backbone.d_model, 1e-5, "backbone"),
+            (mt, LANES, 16, cfg.mimi.transformer.d_model,
+             cfg.mimi.transformer.norm_eps, "mimi")):
+        x = _rand(rng, device, dtype, b, t, d, scale=0.5)
+        attn = _rand(rng, device, dtype, b, t, d, scale=0.5)
+        pre_p = {k: p[k] for k in ("norm1", "in_proj")}
+        post_p = {k: v for k, v in p.items() if k not in pre_p}
+        rows = b * t
+        out.setdefault("fused_pre_lanes", []).append(_row(
+            device_ms(lambda: fused_layer.pre_attention(p, x, eps), 50),
+            device_ms(lambda: fused_layer.pre_attention_plain(p, x, eps),
+                      20), None,
+            bound_ms(_tree_bytes(pre_p) + _nbytes(x) * 4,
+                     _linear_flops(pre_p, rows), dn),
+            f"int4 {name} rows={rows} ({b} lanes x {t}) dm={d}"))
+        out.setdefault("fused_post_lanes", []).append(_row(
+            device_ms(lambda: fused_layer.post_attention(p, x, attn, eps),
+                      20),
+            device_ms(lambda: fused_layer.post_attention_plain(p, x, attn,
+                                                               eps), 20),
+            None,
+            bound_ms(_tree_bytes(post_p) + _nbytes(x, attn) * 3 // 2,
+                     _linear_flops(post_p, rows), dn),
+            f"int4 {name} rows={rows} ({b} lanes x {t}) dm={d}, "
+            f"{fused_layer.post_launches(rows, d)} launches"))
+    fp, tc = pq["flow_net"], pq["_time_cond"]
+    c = _rand(rng, device, dtype, LANES, cfg.backbone.d_model)
+    x = _rand(rng, device, dtype, LANES, cfg.latent_dim)
+    out.setdefault("fused_flow_lanes", []).append(_row(
+        device_ms(lambda: fused_flow.flow_forward(fp, c, x, tc), 100),
+        device_ms(lambda: fused_flow.flow_forward_plain(fp, c, x, tc), 20),
+        None,
+        bound_ms(_tree_bytes(fp) + _nbytes(c, tc) + 2 * _nbytes(x),
+                 _linear_flops(fp, LANES), dn),
+        f"int4 rows={LANES} c={cfg.backbone.d_model} x={cfg.latent_dim} "
+        f"dim={cfg.flow.dim} depth={cfg.flow.depth}"))
+    return out
+
+
 def profile_frames(engine, voice, path, n_frames=20):
     """Device time by kernel over n_frames of the frame loop
     (torch.profiler). Returns (device busy us per frame, [(kernel, us per
@@ -1132,31 +1510,39 @@ SERVE_TEXTS = (
 
 
 def counted_lane_steps():
-    """Wrap models.tts.frame_step_lanes to count the batch frame steps (one
-    frame of every lane) the servers run."""
-    from pocket_tts_tpu_torch.models import tts
-    real = tts.frame_step_lanes
-    count = {"steps": 0}
+    """Wrap models.tts.frame_step_lanes and models.flow_lm.prefill_lanes to
+    count the batch frame steps (one frame of every lane) and the batched
+    prefill calls (one per admission group) the servers run."""
+    from pocket_tts_tpu_torch.models import flow_lm, tts
+    real, real_prefill = tts.frame_step_lanes, flow_lm.prefill_lanes
+    count = {"steps": 0, "prefills": 0}
 
     def frame_step_lanes(*args, **kw):
         count["steps"] += 1
         return real(*args, **kw)
 
+    def prefill_lanes(*args, **kw):
+        count["prefills"] += 1
+        return real_prefill(*args, **kw)
+
     tts.frame_step_lanes = frame_step_lanes
+    flow_lm.prefill_lanes = prefill_lanes
     return count
 
 
-def serve_vs_solo(device, voice):
+def serve_vs_solo(device, voice, path="bf16", share_prefix=False):
     """f32, 4 lanes, the 6 SERVE_TEXTS at temp 0: the last two are
     admitted mid-decode, into lanes the short ones freed. Each request's pcm
-    must match the solo engine's on the card within TOL e2e (relative to
-    max |pcm|)."""
+    must match the solo engine's (the same weights and KV cache, path
+    ENGINE_KW[path]) on the card within TOL e2e (relative to max |pcm|)."""
     import torch
     from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
     from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
     from pocket_tts_tpu_torch.text.preprocess import prepare_text_prompt
-    engine = make_engine(DEFAULT_CONFIG, device, torch.float32)
-    srv = ContinuousBatchingServer(engine, lanes=4)
+    engine = make_engine(DEFAULT_CONFIG, device, torch.float32,
+                         **ENGINE_KW[path])
+    srv = ContinuousBatchingServer(engine, lanes=4,
+                                   share_prefix=share_prefix)
     srv.register_voices({"v": voice})
     reqs = [srv.submit(t, "v", temp=0.0) for t in SERVE_TEXTS]
     srv.run_pending()
@@ -1175,7 +1561,8 @@ def serve_vs_solo(device, voice):
             float(np.abs(want).max()), 1e-30)
         worst = max(worst, rel)
     tol = TOL[("e2e", "f32")]
-    log(f"  f32, 4 lanes, {len(reqs)} requests ({len(late)} admitted "
+    log(f"  f32 {path}{', shared prefix' if share_prefix else ''}, 4 lanes,"
+        f" {len(reqs)} requests ({len(late)} admitted "
         f"mid-decode, at chunks {[r.admit_step for r in late]}), "
         f"{srv.steps} chunks: max |served - solo| relative to max |solo| "
         f"{worst:.3e} (tol {tol})")
@@ -1183,18 +1570,42 @@ def serve_vs_solo(device, voice):
         raise AssertionError(f"served pcm differs from solo: {worst}")
 
 
-def serve_throughput(engine, voice, steps, lanes=LANES, n_requests=48):
-    """bf16 at `lanes` lanes, n_requests of the SERVE_TEXTS at temp 0,
-    counters set to 0 just before the run and read just after: per batch
-    frame step 6 K7, 2 K2, one K3 sequence and nothing else. Returns
-    (launches, frame steps, stats)."""
+def expected_serving(cfg, mode, n, prefills, lanes=LANES):
+    """Launches by kernel for n batch frame steps and `prefills` admission
+    prefill calls at `lanes` lanes: "bf16" (slice 4's server) or "int4_kv8"
+    (int4 weights, int8 KV, shared prefix: K7's int8 variant with
+    statistics, K5a/K5b over the lanes' rows, K6 over the lanes, K4b for
+    input_linear and the prefill linears)."""
+    from pocket_tts_tpu_torch.ops.fused_layer import post_launches
+    nb, nm = cfg.backbone.num_layers, cfg.mimi.transformer.num_layers
+    want = {"ring_attn": nm * n, "seanet_frame": n}
+    if mode == "bf16":
+        want["decode_insert_attn"] = nb * n
+        return want
+    tpf = cfg.mimi.upsample_stride
+    want.update(
+        decode_insert_attn_kv8=nb * n, decode_insert_attn_stats=nb * n,
+        fused_pre_lanes=(nb + nm) * n, fused_flow_lanes=n,
+        fused_post_lanes=n * (
+            nb * post_launches(lanes, cfg.backbone.d_model)
+            + nm * post_launches(lanes * tpf, cfg.mimi.transformer.d_model)),
+        int4_matmul=n + 4 * nb * prefills)
+    return want
+
+
+def serve_throughput(engine, voice, steps, lanes=LANES, n_requests=48,
+                     mode="bf16"):
+    """`lanes` lanes, n_requests of the SERVE_TEXTS at temp 0, counters set
+    to 0 just before the run and read just after: per batch frame step 6
+    K7, 2 K2, one K3 sequence, and in the serving mode ("int4_kv8": shared
+    prefix) the K5a/K5b/K6 launches over the lanes (expected_serving) and
+    nothing else. Returns (launches, frame steps, stats)."""
     import torch
     from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
-    srv = ContinuousBatchingServer(engine, lanes=lanes)
+    srv = ContinuousBatchingServer(engine, lanes=lanes,
+                                   share_prefix=mode != "bf16")
     srv.register_voices({"v": voice})
-    nb = engine.cfg.backbone.num_layers
-    nm = engine.cfg.mimi.transformer.num_layers
-    steps0 = steps["steps"]
+    steps0, prefills0 = steps["steps"], steps["prefills"]
     for i in range(n_requests):
         srv.submit(SERVE_TEXTS[i % len(SERVE_TEXTS)], "v", temp=0.0)
     reset_counters()
@@ -1206,17 +1617,17 @@ def serve_throughput(engine, voice, steps, lanes=LANES, n_requests=48):
     launches = read_counters()
     n = steps["steps"] - steps0
     st = srv.stats()
-    want = {"decode_insert_attn": nb * n, "ring_attn": nm * n,
-            "seanet_frame": n}
-    log(f"  bf16, {lanes} lanes, {n_requests} requests: {st['frames']} "
+    want = expected_serving(engine.cfg, mode, n,
+                            steps["prefills"] - prefills0, lanes)
+    log(f"  {mode}, {lanes} lanes, {n_requests} requests: {st['frames']} "
         f"frames emitted in {srv.steps} chunks ({n} batch frame steps), "
         f"wall {wall:.3f} s: {st['frames'] / wall:.1f} frames/s aggregate; "
         f"TTFA p50 {st['p50_ttfa_s'] * 1e3:.1f} ms, p95 "
         f"{st['p95_ttfa_s'] * 1e3:.1f} ms (host clock from submission; "
         f"requests beyond {lanes} wait for a lane); latency p50 "
         f"{st['p50_latency_s']:.3f} s, p95 {st['p95_latency_s']:.3f} s")
-    log(f"  launches {launches}; expected per batch frame step 6 K7, 2 K2, "
-        f"1 K3, 0 K1")
+    log(f"  launches {launches}; expected {want} (per batch frame step 6 "
+        f"K7, 2 K2, 1 K3, 0 K1)")
     if st["requests"] != n_requests or st["frames"] < 1:
         raise AssertionError(f"served {st}")
     for name in KERNELS:
@@ -1228,7 +1639,8 @@ def serve_throughput(engine, voice, steps, lanes=LANES, n_requests=48):
     return launches, n, st
 
 
-def profile_serving(engine, voice, path, lanes=LANES, n_steps=4):
+def profile_serving(engine, voice, path, lanes=LANES, n_steps=4,
+                    share_prefix=False):
     """Device busy share of steady serving: `lanes` long requests, two
     chunks to admit them and warm up, then 2 * n_steps chunks each timed
     on the host clock (synchronized) and n_steps more under
@@ -1239,7 +1651,8 @@ def profile_serving(engine, voice, path, lanes=LANES, n_steps=4):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
-    srv = ContinuousBatchingServer(engine, lanes=lanes)
+    srv = ContinuousBatchingServer(engine, lanes=lanes,
+                                   share_prefix=share_prefix)
     srv.register_voices({"v": voice})
     for _ in range(lanes):
         srv.submit(SERVE_TEXTS[3], "v", temp=0.0)
@@ -1271,20 +1684,21 @@ def profile_serving(engine, voice, path, lanes=LANES, n_steps=4):
             kernels)
 
 
-def serve_cli(tmp):
+def serve_cli(tmp, extra=()):
     """`python -m pocket_tts_tpu_torch.cli --random-weights --serve FILE
-    --serve-out DIR` on the card: one wav per request."""
+    --serve-out DIR [extra]` on the card: one wav per request."""
     reqs = os.path.join(tmp, "reqs.txt")
     with open(reqs, "w") as f:
         f.write("Hello from the command line.\n"
                 + json.dumps({"text": "A second request. It has two "
                               "sentences.", "id": "second"}) + "\n"
                 + "Third.\n")
-    out = os.path.join(tmp, "wavs")
+    out = os.path.join(tmp, "wavs" + "".join(extra).replace("-", "_"))
     t0 = time.perf_counter()
     res = subprocess.run(
         [sys.executable, "-m", "pocket_tts_tpu_torch.cli", "--random-weights",
-         "-t", "0", "--lanes", "8", "--serve", reqs, "--serve-out", out],
+         "-t", "0", "--lanes", "8", "--serve", reqs, "--serve-out", out,
+         *extra],
         capture_output=True, text=True, timeout=600,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     wall = time.perf_counter() - t0
@@ -1292,8 +1706,9 @@ def serve_cli(tmp):
         raise AssertionError(f"cli --serve failed:\n{res.stdout}\n"
                              f"{res.stderr}")
     wavs = sorted(os.listdir(out))
-    log(f"  cli --serve: {wavs} in {wall:.1f} s (process start, weights, "
-        f"serving); last line {res.stdout.strip().splitlines()[-1]}")
+    log(f"  cli --serve {' '.join(extra)}: {wavs} in {wall:.1f} s (process "
+        f"start, weights, serving); last line "
+        f"{res.stdout.strip().splitlines()[-1]}")
     if wavs != ["req_0000.wav", "req_0002.wav", "second.wav"]:
         raise AssertionError(f"cli --serve wrote {wavs}")
 
@@ -1328,7 +1743,7 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     phase = "environment"
     try:
-        log("[1] environment")
+        header("[1] environment")
         log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
             f"CUDA {torch.version.cuda}, device {kind}, "
             f"count {torch.cuda.device_count()}")
@@ -1336,7 +1751,7 @@ def main(argv=None) -> int:
         log(f"  matmul allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
         phase = "build"
-        log("[2] build")
+        header("[2] build")
         cuda_lib.library()
         log(f"  kernel library {cuda_lib._state['path']}: "
             f"{cuda_lib.build_seconds():.1f} s to build and load")
@@ -1348,10 +1763,12 @@ def main(argv=None) -> int:
                 log("  " + line.strip())
 
         phase = "kernels"
-        log("[3] kernels vs plain versions (3c: K7, K2 and K3 over 32 "
-            "lanes)")
+        header("[3] kernels vs plain versions (3c: K7, K2 and K3 over 32 "
+            "lanes; 3d: the serving mode's int8-KV K1 and K7, K7 with "
+            "statistics, K5a/K5b/K6 over many rows)")
         errs = {}
         engines = {}   # (path, dtype) -> engine
+        paths = ("bf16",) + QUANT_PATHS + (KV8_PATH,)
         for dtype in (torch.float32, torch.bfloat16):
             check_k1(device, dtype, errs)
             check_k2(device, dtype, errs)
@@ -1370,26 +1787,36 @@ def main(argv=None) -> int:
                 engines[path, dtype] = qeng
                 check_quant_kernels(qeng.params, qeng.cfg, device, dtype,
                                     errs, path)
+            phase = "kernels, serving mode"
+            check_k1_kv8(device, dtype, errs)
+            check_k7_kv8(device, dtype, errs)
+            for path in QUANT_PATHS:
+                check_quant_lanes(engines[path, dtype].params,
+                                  engines[path, dtype].cfg, device, dtype,
+                                  errs, path)
+            # the int4 engine's weights with the int8 KV cache
+            engines[KV8_PATH, dtype] = make_engine(
+                engines["int4", dtype].cfg, device, dtype, quantize_kv=True,
+                params=engines["int4", dtype].params)
 
         phase = "end to end"
-        log("[4] end to end, DEFAULT_CONFIG, temp 0: bf16, int8, int4, "
-            "q4_0")
+        header("[4] end to end, DEFAULT_CONFIG, temp 0: bf16, int8, int4, "
+            "q4_0, int4 weights + int8 KV cache")
         counts = counted_frame_steps()
-        paths = ("bf16",) + QUANT_PATHS
         engine = engines["bf16", torch.bfloat16]
         voice = random_voice_prompt(engine.cfg, 120)
         runs = {path: end_to_end(engines[path, torch.bfloat16], voice, counts,
                                  path) for path in paths}
 
         phase = "params cache"
-        log("[4b] q4_0 engine again from a params cache")
+        header("[4b] q4_0 engine again from a params cache")
         check_cache(engines["q4_0", torch.bfloat16], voice, runs["q4_0"][2])
 
         phase = "card vs cpu"
-        log("[5] end to end, card vs CPU, f32, first 12 frames")
+        header("[5] end to end, card vs CPU, f32, first 12 frames")
         for path in paths:
             eng_cpu = make_engine(DEFAULT_CONFIG, "cpu", torch.float32,
-                                  None if path == "bf16" else path)
+                                  **ENGINE_KW[path])
             pcm_gpu = first_frames(engines[path, torch.float32], voice, 12)
             pcm_cpu = first_frames(eng_cpu, voice, 12)
             del eng_cpu
@@ -1405,7 +1832,7 @@ def main(argv=None) -> int:
             del engines[path, torch.float32]
 
         phase = "timing"
-        log(f"[6] timing on {card} (CUDA events, bf16, warm L2)")
+        header(f"[6] timing on {card} (CUDA events, bf16, warm L2)")
         bf = {path: engines[path, torch.bfloat16] for path in paths}
         dec = time_decode(bf, voice)
         med = {}
@@ -1424,31 +1851,48 @@ def main(argv=None) -> int:
         for path in QUANT_PATHS:
             time_quant_kernels(bf[path].params, bf[path].cfg, device,
                                torch.bfloat16, path, times)
+        time_kv8_kernels(device, torch.bfloat16, times)
+        time_lane_kernels(bf[KV8_PATH].params, bf[KV8_PATH].cfg, device,
+                          torch.bfloat16, times)
         for name, rows in times.items():
             for r in rows:
                 (ms, host), (plain_ms, plain_host) = r["k"], r["plain"]
                 lib = ("none" if r["lib"] is None
                        else f"{r['lib'] * 1e3:.2f} us")
+                cmp = ("" if "cmp" not in r else
+                       f" (for comparison, SDPA over bf16 caches of the "
+                       f"same shape: {r['cmp'] * 1e3:.2f} us)")
                 log(f"  {name} ({r['shape']}): kernel {ms * 1e3:.2f} us "
                     f"device, {host * 1e3:.2f} us host per call; plain "
                     f"{plain_ms * 1e3:.2f} us device, {plain_host * 1e3:.2f}"
-                    f" us host; library {lib}; bound "
+                    f" us host; library {lib}{cmp}; bound "
                     f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}): "
                     f"{r['bound'][0] / ms:.1%} of it")
 
         phase = "serving"
-        log("[7] serving, DEFAULT_CONFIG, ContinuousBatchingServer (prefix+"
+        header("[7] serving, DEFAULT_CONFIG, ContinuousBatchingServer (prefix+"
             "ring), temp 0")
         serve_vs_solo(device, voice)
+        serve_vs_solo(device, voice, "int8_kv8", share_prefix=True)
         lane_steps = counted_lane_steps()
+        # the two modes in turns (bf16, serving mode, serving mode, bf16):
+        # host timing drifts within a call; every run checks its launches
         serve_launches, _, _ = serve_throughput(engine, voice, lane_steps)
+        phase = "serving, int4 + int8 KV + shared prefix"
+        serve_kv8_launches, _, _ = serve_throughput(
+            bf[KV8_PATH], voice, lane_steps, mode=KV8_PATH)
+        serve_throughput(bf[KV8_PATH], voice, lane_steps, mode=KV8_PATH)
+        phase = "serving"
+        serve_throughput(engine, voice, lane_steps)
         phase = "serving: cli"
         with tempfile.TemporaryDirectory() as tmp:
             serve_cli(tmp)
+            serve_cli(tmp, ("--quantize", "int4", "--quantize-kv",
+                            "--share-prefix"))
 
         # the profilers run last, so that no profiler session precedes a
         # host-clock measurement
-        log("[8] profiler (torch.profiler, device time by kernel)")
+        header("[8] profiler (torch.profiler, device time by kernel)")
         for label, eng in bf.items():
             phase = f"profiler, {label}"
             busy, kern = profile_frames(
@@ -1462,29 +1906,41 @@ def main(argv=None) -> int:
             for key, us, calls in kern[:12]:
                 log(f"    {us:9.1f} us/frame  {calls:6.1f} calls/frame "
                     f" {key[:70]}")
-        phase = "profiler, serving"
-        busy, walls, frames, kern = profile_serving(
-            engine, voice, os.path.join(out_dir, "profile_serving.txt")
-            if out_dir else None)
-        wall = float(np.median(walls))
-        log(f"  serving, {LANES} lanes busy: device busy {busy:.1f} us per "
-            f"chunk ({frames} frames) in {sum(r[2] for r in kern):.0f} "
-            f"kernel launches; wall per chunk (host clock, before the "
-            f"profiler) median {wall:.1f} us, range {min(walls):.1f}-"
-            f"{max(walls):.1f}: device idle {1 - busy / wall:.1%}; "
-            f"{frames / wall * 1e6:.1f} frames/s with every lane busy")
-        for key, us, calls in kern[:12]:
-            log(f"    {us:9.1f} us/chunk  {calls:6.1f} calls/chunk "
-                f" {key[:70]}")
+        for label, eng, share in (("bf16", engine, False),
+                                  (KV8_PATH, bf[KV8_PATH], True)):
+            phase = ("profiler, serving" if label == "bf16"
+                     else f"profiler, serving {label}")
+            busy, walls, frames, kern = profile_serving(
+                eng, voice, os.path.join(
+                    out_dir, "profile_serving.txt" if label == "bf16"
+                    else f"profile_serving_{label}.txt")
+                if out_dir else None, share_prefix=share)
+            wall = float(np.median(walls))
+            log(f"  serving {label}{', shared prefix' if share else ''}, "
+                f"{LANES} lanes busy: device busy {busy:.1f} us per "
+                f"chunk ({frames} frames) in {sum(r[2] for r in kern):.0f} "
+                f"kernel launches; wall per chunk (host clock, before the "
+                f"profiler) median {wall:.1f} us, range {min(walls):.1f}-"
+                f"{max(walls):.1f}: device idle {1 - busy / wall:.1%}; "
+                f"{frames / wall * 1e6:.1f} frames/s with every lane busy")
+            for key, us, calls in kern[:12]:
+                log(f"    {us:9.1f} us/chunk  {calls:6.1f} calls/chunk "
+                    f" {key[:70]}")
     except Exception:
         import traceback
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase '{phase}'", file=sys.stderr)
         return 1
 
+    header("[done]")
+
     def path_launches(name):
         if name in SERVING_KERNELS:
             return serve_launches[name]
+        if name in SERVING_KV8_KERNELS:
+            return serve_kv8_launches[name]
+        if name == "decode_attn_kv8":
+            return runs[KV8_PATH][0][name]
         users = [p for p in QUANT_PATHS if name in PATH_KERNELS[p]]
         return sum(runs[p][0][name] for p in users or ["bf16"])
 

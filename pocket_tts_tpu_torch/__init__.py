@@ -2,9 +2,11 @@
 
 Solo offline and streaming synthesis (`runtime.engine.TTSEngine`) in
 PyTorch, with bf16/f32 weights or quantized ones (`quantize="int8"`,
-`"int4"`, `"q4_0"`), and continuous-batching serving of many streams
+`"int4"`, `"q4_0"`) and optionally the int8 backbone KV cache
+(`quantize_kv=True`), and continuous-batching serving of many streams
 (`runtime.server.ContinuousBatchingServer`, `MultiStreamServer`,
-`runtime.batched.BatchedEngine`, CLI `--serve`) with bf16/f32 weights.
+`runtime.batched.BatchedEngine`, CLI `--serve`) with the same options and
+shared-prefix serving (`share_prefix=True`, `--share-prefix`).
 The TPU kernels of those paths are rewritten as hand-written CUDA kernels
 for Hopper (sm_90a): K1 decode attention (ops/decode_attn.py), K2 mimi
 ring insert + attention (ops/ring_attn.py), K3 the SEANet decoder frame
@@ -12,7 +14,9 @@ ring insert + attention (ops/ring_attn.py), K3 the SEANet decoder frame
 (ops/quant_matmul.py), K5a/K5b a transformer layer's fused quantized
 linears (ops/fused_layer.py), K6 the fused quantized flow net
 (ops/fused_flow.py) and K7 the fused KV-row insert + decode attention of
-batched decode (ops/insert_attn.py). K2, K3 and K7 take a lane axis. Each
+batched decode (ops/insert_attn.py). K2, K3 and K7 take a lane axis, K1
+and K7 int8 caches, K7 returns flash statistics, and K5a/K5b/K6 take the
+rows of all lanes. Each
 runs its plain PyTorch version for tensors on the CPU. The kernels build
 with nvcc at first use (ops/cuda_lib.py). `io.quant` also reads and
 writes the JAX package's params cache. This package imports nothing of

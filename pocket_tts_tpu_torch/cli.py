@@ -12,17 +12,21 @@ quantizes the linear weights to int8 after load, int4 (or q4) to packed
 int4 with per-channel scales, q4_0 to int4 with 32-row K-grouped scales.
 --save-cache writes the (quantized) params to a safetensors params cache,
 --load-cache starts from one (either package's; DEFAULT_CONFIG).
---fuse-insert routes each solo decode step's KV-row write and attention
-through kernel K7 instead of a row write and K1.
+--quantize-kv keeps the backbone's KV cache in int8 with per-row scales
+(solo and --serve). --fuse-insert routes each solo decode step's KV-row
+write and attention through kernel K7 instead of a row write and K1.
 
-Serving (bf16/f32 weights):
+Serving:
   python -m pocket_tts_tpu_torch.cli --random-weights --serve reqs.txt \
-      --serve-out out_dir [--lanes 32]
+      --serve-out out_dir [--lanes 32] [--quantize int4 --quantize-kv \
+      --share-prefix]
 
 --serve reads requests from a file ('-' for stdin), one per line: a JSON
 object ({"text": ..., "voice"?: ..., "temp"?: ..., "id"?: ...}) or a
 plain text line, decodes them through the ContinuousBatchingServer and
-writes one wav per request under --serve-out.
+writes one wav per request under --serve-out. --share-prefix holds one
+shared copy of each voice's prompt KV for the whole batch; with --quantize
+int4 --quantize-kv it is the JAX package's serving mode.
 """
 from __future__ import annotations
 
@@ -57,6 +61,11 @@ def build_parser():
                    help="quantized linear weights (after load): per-channel "
                         "int8 or int4; q4_0 = int4 with 32-row K-grouped "
                         "scales")
+    p.add_argument("--quantize-kv", action="store_true",
+                   help="int8 backbone KV cache (per-row scales): the "
+                        "serving-throughput mode")
+    p.add_argument("--quantize-convs", action="store_true",
+                   help="quantize the SEANet/mimi convs (not ported yet)")
     p.add_argument("--save-cache", default=None, metavar="PATH",
                    help="write the params cache (.safetensors) and go on")
     p.add_argument("--load-cache", default=None, metavar="PATH",
@@ -77,7 +86,7 @@ def build_parser():
                    help="continuous server decode lanes (--serve)")
     p.add_argument("--share-prefix", action="store_true",
                    help="--serve: one shared copy of each voice's prompt KV "
-                        "(not ported yet)")
+                        "for the whole batch instead of one per lane")
     return p
 
 
@@ -162,9 +171,9 @@ def main(argv=None):
     if args.text is None and not (args.save_cache or args.serve):
         build_parser().print_help()
         return 1
-    if args.share_prefix:
+    if args.quantize_convs:  # before any weights are built
         raise NotImplementedError(
-            "--share-prefix (shared-prefix serving) is not ported yet")
+            "--quantize-convs is not ported yet (slice 6)")
     import dataclasses
 
     import torch
@@ -188,7 +197,7 @@ def main(argv=None):
         engine = TTSEngine.from_params_cache(
             args.load_cache, cfg0, model_path=args.model,
             dtype=dtype, device=device, seed=args.seed,
-            quantize=args.quantize)
+            quantize=args.quantize, quantize_kv=args.quantize_kv)
         if args.random_weights:  # no model directory: a synthetic voice
             from .io.params import random_voice_prompt
             voice = random_voice_prompt(engine.cfg)
@@ -199,7 +208,8 @@ def main(argv=None):
         params, cfg = random_params(cfg0, dtype=dtype, device=device)
         engine = TTSEngine(params=params, cfg=cfg, dtype=dtype,
                            device=device, seed=args.seed,
-                           quantize=args.quantize)
+                           quantize=args.quantize,
+                           quantize_kv=args.quantize_kv)
         voice = random_voice_prompt(cfg)
     else:
         model = args.model or "."
@@ -210,7 +220,8 @@ def main(argv=None):
             return 1
         engine = TTSEngine(model_path=model, cfg=cfg0, dtype=dtype,
                            device=device, seed=args.seed,
-                           quantize=args.quantize)
+                           quantize=args.quantize,
+                           quantize_kv=args.quantize_kv)
         voice = args.voice
     if args.save_cache:
         engine.save_params_cache(args.save_cache)
@@ -220,7 +231,7 @@ def main(argv=None):
     if args.serve:
         return _serve(engine, args, voice)
     weights = (f", {_WEIGHTS[args.quantize]} weights" if args.quantize
-               else "")
+               else "") + (", int8 KV cache" if args.quantize_kv else "")
     print(f"seed: {engine.seed}")
     print(f"device: {engine.device} ({dtype}{weights})")
 

@@ -5,17 +5,21 @@ The port's own copy of the dataclasses of `pocket_tts_tpu/config.py`
 field for field, so a configuration means the same in both packages
 (tests/test_torch_config.py compares them). The comments on the fields
 describe the JAX package's switches; the port reads only the model's
-dimensions, `kv_capacity`, `mask_value`, `gelu_approx`, `eos_threshold`
-and `backbone.fuse_insert`.
+dimensions, `kv_capacity`, `mask_value`, `gelu_approx`, `eos_threshold`,
+`backbone.quantize_kv` and `backbone.fuse_insert`.
 
-`check_supported` names what this port runs: solo decode with bf16/f32,
-int8, int4 or q4_0 weights (quantization is an engine option, not a
-config field), and continuous-batching serving (runtime/batched.py,
-runtime/server.py) with bf16/f32 weights. `backbone.fuse_insert` routes
-each T = 1 decode step through kernel K7 (ops/insert_attn.py) instead of
-a row write and kernel K1; the serving paths set it
-(`runtime.batched.serving_cfg`). Every config option outside that raises,
-so no configuration silently runs something other than what it asks for.
+`check_supported` names what this port runs: solo decode and
+continuous-batching serving (runtime/batched.py, runtime/server.py, with
+shared-prefix serving) with bf16/f32, int8, int4 or q4_0 weights
+(quantization is an engine option, not a config field), with the
+backbone's KV cache in the working type or in int8 with per-row scales
+(`backbone.quantize_kv`; the engine's `quantize_kv=True` sets it).
+`backbone.fuse_insert` routes each T = 1 decode step through kernel K7
+(ops/insert_attn.py) instead of a row write and kernel K1; the serving
+paths set it (`runtime.batched.serving_cfg`). Every config option outside
+that raises, so no configuration silently runs something other than what
+it asks for. The int8 mimi ring (`mimi.transformer.quantize_kv`), the
+bilayer and megalayer kernels and a device mesh are slice 6 of the port.
 
 The JAX package's backend switches (`use_pallas_attn`, `use_pallas`) are
 not read here: the port picks by device, plain PyTorch for tensors on the
@@ -54,7 +58,7 @@ class BackboneConfig:
     # the JAX package's Pallas decode-attention switch (None = auto);
     # not read by the port
     use_pallas_attn: bool = None
-    # int8 KV cache with per-row absmax scales (not ported yet)
+    # int8 KV cache with per-row absmax scales
     quantize_kv: bool = False
     # fold the T = 1 KV-row insert into the decode-attention kernel
     # (K7). None = auto: on for batched serving (set by the serving
@@ -258,8 +262,6 @@ def check_supported(cfg: ModelConfig) -> None:
     bb = cfg.backbone
     mt = cfg.mimi.transformer
     bad = []
-    if bb.quantize_kv:
-        bad.append("backbone.quantize_kv")
     if bb.use_megalayer:
         bad.append("backbone.use_megalayer")
     if bb.use_bilayer:

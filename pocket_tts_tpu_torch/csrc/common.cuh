@@ -35,6 +35,19 @@ __device__ __forceinline__ float elu(float x) {
   return x > 0.f ? x : expm1f(x);
 }
 
+// 16 int8 values at a 16-byte aligned address -> 16 floats (one vector
+// load; byte i of the vector is value i)
+__device__ __forceinline__ void load16(const int8_t* p, float* out) {
+  const int4 u = *reinterpret_cast<const int4*>(p);
+  const int w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      out[4 * i + j] = (float)(int8_t)((w[i] >> (8 * j)) & 0xff);
+  }
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

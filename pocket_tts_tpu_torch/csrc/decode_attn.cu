@@ -2,24 +2,29 @@
 //
 // Replaces the TPU kernel `pocket_tts_tpu/ops/pallas_attn.py:
 // decode_attention` (`_decode_attention_batched` -> `_decode_attn_kernel`,
-// `_flash_main_block`, `_collapse_out`), unquantized and without stats.
+// `_flash_main_block`, `_collapse_out`) without stats, over caches of the
+// working type or, as `_make_decode_attention_q` (the solo int8-KV cache),
+// int8 caches with one float32 scale per row.
 //
 // What it computes, per head h: one query q[h] (D) over cache rows
 // k[s, h*D : h*D+D] for the live slots s <= end, skipping slots whose
 // recorded position pos[s] < 0. Logits and softmax statistics are float32
 // with scale 1/sqrt(D); the softmax weights are rounded to the cache type
 // before the PV product (as the TPU kernel does) and PV accumulates in
-// float32. Output (H, D) in the cache type.
+// float32. Output (H, D) in the working type. int8 caches (`_flash_main_
+// block` with `quant`): logit = (q . k_int8) * scale * k_scale[s], and the
+// weight times v_scale[s] is rounded to the working type before it meets
+// the int8 row, so the dequantised cache never exists.
 //
 // What bounds it on the H100: bytes. Each call streams 2 * (end+1) * D
 // elements per head from HBM and does ~4 flops per element, far below the
 // card's ~295 flop/byte ridge (1.2 MB at S=384 would take ~0.4 us at full
-// bandwidth). The design reads only the live prefix [0, end] (never the
-// whole capacity), reads every K and V element once, and keeps scores, the
-// running max/sum and the accumulator on chip. With one block per head,
-// 16 blocks cannot draw the card's bandwidth, so this version is bound by
-// per-block latency instead; splitting S across more blocks is the next
-// step.
+// bandwidth; half that with int8 rows). The design reads only the live
+// prefix [0, end] (never the whole capacity), reads every K and V element
+// once (int8 rows in 16-byte vector loads), and keeps scores, the running
+// max/sum and the accumulator on chip. With one block per head, 16 blocks
+// cannot draw the card's bandwidth, so this version is bound by per-block
+// latency instead; splitting S across more blocks is the next step.
 //
 // Layout: one thread block per head (16 at batch 1), 256 threads. The block
 // walks the live slots in tiles of 128: two threads score one slot (each a
@@ -28,6 +33,8 @@
 // PV from the tile's V rows, which the block stages in shared memory with
 // coalesced loads while it scores the tile. A split-S second pass, for
 // more blocks than heads, is later work.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace ptt {
@@ -35,12 +42,15 @@ namespace ptt {
 constexpr int K1_THREADS = 256;
 constexpr int K1_TILE = 128;
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(K1_THREADS)
-decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ pos,
-                   T* __restrict__ out, int ld, int end, float scale) {
-  static_assert(K1_THREADS % D == 0 && D % 2 == 0, "bad head dim");
+decode_attn_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                   const KV* __restrict__ v, const int* __restrict__ pos,
+                   const float* __restrict__ ksc,
+                   const float* __restrict__ vsc, T* __restrict__ out,
+                   int ld, int end, float scale) {
+  static_assert(K1_THREADS % D == 0 && D % 32 == 0, "bad head dim");
+  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   constexpr int G = K1_THREADS / D;  // slot groups in the PV phase
   const int h = blockIdx.x;
   const int tid = threadIdx.x;
@@ -51,6 +61,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   __shared__ float qs[D];
   __shared__ float ps[K1_TILE];
+  __shared__ float vscs[K1_TILE];  // int8: the tile's v scales
   __shared__ float vs[K1_TILE][D];
   __shared__ float red[G][D];
   __shared__ float corr_sh, l_sh;
@@ -65,9 +76,17 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int base = 0; base <= end; base += K1_TILE) {
     const int n = min(K1_TILE, end - base + 1);
     // ---- stage the tile's V rows in shared memory (coalesced, all loads
-    // in flight at once) ----
-    for (int e = tid; e < n * D; e += K1_THREADS)
-      vs[e / D][e % D] = to_f(v[(size_t)(base + e / D) * ld + e % D]);
+    // in flight at once; int8 rows 16 bytes a thread) ----
+    if constexpr (QUANT) {
+      for (int e = tid; e < n * (D / 16); e += K1_THREADS) {
+        const int i = e / (D / 16), c0 = (e % (D / 16)) * 16;
+        load16(v + (size_t)(base + i) * ld + c0, &vs[i][c0]);
+      }
+      if (tid < n) vscs[tid] = vsc[base + tid];
+    } else {
+      for (int e = tid; e < n * D; e += K1_THREADS)
+        vs[e / D][e % D] = to_f(v[(size_t)(base + e / D) * ld + e % D]);
+    }
     // ---- scores: two threads per slot ----
     {
       const int i = tid >> 1, half = tid & 1, s = base + i;
@@ -75,13 +94,25 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       bool ok = false;
       if (s <= end) {
         ok = pos[s] >= 0;
-        const T* kr = k + (size_t)s * ld + half * (D / 2);
+        const KV* kr = k + (size_t)s * ld + half * (D / 2);
         const float* qh = qs + half * (D / 2);
+        if constexpr (QUANT) {
+          float kf[D / 2];
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) dot += to_f(kr[j]) * qh[j];
+          for (int c = 0; c < D / 2; c += 16) load16(kr + c, kf + c);
+#pragma unroll
+          for (int j = 0; j < D / 2; ++j) dot += kf[j] * qh[j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < D / 2; ++j) dot += to_f(kr[j]) * qh[j];
+        }
       }
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      if (half == 0) ps[i] = ok ? dot * scale : -INFINITY;
+      if (half == 0) {
+        float lg = dot * scale;
+        if constexpr (QUANT) lg = ok ? lg * ksc[s] : 0.f;
+        ps[i] = ok ? lg : -INFINITY;
+      }
     }
     __syncthreads();
     // ---- online softmax statistics: warp 0 ----
@@ -107,11 +138,15 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (tid == 0) corr_sh = corr;
     }
     __syncthreads();
-    // ---- PV: p rounded to the cache type, f32 accumulation ----
+    // ---- PV: p (times the v scale) rounded to the working type, f32
+    // accumulation ----
     {
       const float corr = corr_sh;
       float part = 0.f;
-      for (int j = g; j < n; j += G) part += rnd<T>(ps[j]) * vs[j][d];
+      for (int j = g; j < n; j += G) {
+        const float p = QUANT ? ps[j] * vscs[j] : ps[j];
+        part += rnd<T>(p) * vs[j][d];
+      }
       acc = acc * corr + part;
     }
     __syncthreads();
@@ -129,19 +164,30 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 }  // namespace ptt
 
-// q (H, D); k, v (S, ld) flat rows with ld = H*D; pos (S,) int32;
-// out (H, D). end: last written slot (0 <= end < S).
+// q (H, D); k, v (S, ld) flat rows with ld = H*D, of q's type, or int8 when
+// k_scale and v_scale ((S,) float32) are given; pos (S,) int32; out (H, D).
+// end: last written slot (0 <= end < S).
 extern "C" int ptt_decode_attn(const void* q, const void* k, const void* v,
-                               const void* pos, void* out, int H, int D,
+                               const void* pos, const void* k_scale,
+                               const void* v_scale, void* out, int H, int D,
                                int S, int ld, int end, int dtype,
                                void* stream) {
-  if (D != 64 || ld < H * D || end < 0 || end >= S)
+  const bool quant = k_scale != nullptr;
+  if (D != 64 || ld < H * D || end < 0 || end >= S ||
+      quant != (v_scale != nullptr) || (quant && ld % 16))
     return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)D);
   cudaStream_t st = (cudaStream_t)stream;
-  PTT_DISPATCH(dtype, T,
-               ptt::decode_attn_kernel<T, 64><<<H, ptt::K1_THREADS, 0, st>>>(
-                   (const T*)q, (const T*)k, (const T*)v, (const int*)pos,
-                   (T*)out, ld, end, scale));
+  PTT_DISPATCH(dtype, T, {
+    if (quant)
+      ptt::decode_attn_kernel<T, int8_t, 64><<<H, ptt::K1_THREADS, 0, st>>>(
+          (const T*)q, (const int8_t*)k, (const int8_t*)v, (const int*)pos,
+          (const float*)k_scale, (const float*)v_scale, (T*)out, ld, end,
+          scale);
+    else
+      ptt::decode_attn_kernel<T, T, 64><<<H, ptt::K1_THREADS, 0, st>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const int*)pos, nullptr,
+          nullptr, (T*)out, ld, end, scale);
+  });
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // K6: the whole flow net (SimpleMLPAdaLN) in one launch.
 //
 // Replaces the TPU kernel `pocket_tts_tpu/ops/fused_flow.py:_make_flow`
-// (`_kernel`). For one conditioning row c (d_model), noise x (latent) and
-// the time conditioning tc (dim):
+// (`_kernel`, and its vmap rule: all B rows of a batch in one call). For R
+// rows (1 solo, one per lane at batch) of conditioning c (d_model) and noise
+// x (latent), and the time conditioning tc (dim):
 //   sy   = silu(tc + c @ Wc)                     once: loop-invariant
 //   h    = x @ Wi
 //   per res block i < depth:
@@ -38,7 +39,11 @@
 //                h += gate * (u @ W2[i]); sync
 //   head     LN + modulate + @ Wf -> out
 // 2 + 2 * depth barriers in all. Every block recomputes the (dim-wide)
-// LayerNorm itself, so only the matrix products are split across blocks.
+// LayerNorm of each row itself, so only the matrix products are split
+// across blocks. Each column tile applies to all R rows (tile_dot walks
+// them 8 at a time), so a launch reads each weight byte once from HBM
+// whatever R is; R is bounded by the rows of activations shared memory
+// holds (32 at full width; the wrapper launches again for more).
 // The float32 intermediates (sy, h, u, the modulations) live in a scratch
 // buffer the caller allocates; reads after a barrier bypass L1 (__ldcg).
 #include <cooperative_groups.h>
@@ -54,7 +59,7 @@ namespace ptt {
 constexpr int FF_TILE = 32;  // columns per tile
 
 struct FlowArgs {
-  const void *x, *c, *tc;        // (latent,), (d_model,), (dim,)
+  const void *x, *c, *tc;        // (R, latent), (R, d_model), (dim,)
   Lin wi;                        // input_proj (latent, dim)
   Lin wc;                        // cond_embed (d_model, dim)
   const void *lns, *lnb;         // (depth, dim) or null
@@ -64,22 +69,27 @@ struct FlowArgs {
   const void *fns, *fnb;         // (dim,) or null
   Lin wfa;                       // (dim, 2 dim)
   Lin wf;                        // final.linear (dim, latent)
-  float* scratch;                // sy | h | u | mods (see below)
-  void* out;                     // (latent,)
-  int latent, dmodel, dim, hid, depth;
+  float* scratch;                // R rows of sy | h | u | mods (see below)
+  void* out;                     // (R, latent)
+  int latent, dmodel, dim, hid, depth, rows;
 };
 
-template <typename T>
+// SOLO: one row, known at compile time (the solo decode step), so the
+// row loops of tile_dot fold away as they did before lanes existed.
+template <typename T, bool SOLO>
 __global__ void __launch_bounds__(QD_THREADS) fused_flow_kernel(FlowArgs a) {
   extern __shared__ float smem[];
   const int dim = a.dim, hid = a.hid, depth = a.depth;
+  const int R = SOLO ? 1 : a.rows;
   constexpr int CG = FF_TILE / 4;
   float* red = smem;                 // QD_RED
-  float* xs = red + QD_RED;          // one activation row (max width)
-  float* sy = a.scratch;             // (dim)
-  float* h = sy + dim;               // (dim)
-  float* u = h + dim;                // (hid)
-  float* mods = u + hid;             // depth x 3 dim, then 2 dim (final)
+  float* xs = red + QD_RED;          // R activation rows (max width)
+  const int n3 = 3 * dim, n2 = 2 * dim;
+  const int ms = depth * n3 + n2;    // modulation floats per row
+  float* sy = a.scratch;             // (R, dim)
+  float* h = sy + R * dim;           // (R, dim)
+  float* u = h + R * dim;            // (R, hid)
+  float* mods = u + R * hid;         // (R, ms): depth x 3 dim, then 2 dim
   coop::grid_group grid = coop::this_grid();
   const int tid = threadIdx.x, b = blockIdx.x, G = gridDim.x;
   const int nt_dim = (dim + FF_TILE - 1) / FF_TILE;
@@ -90,75 +100,87 @@ __global__ void __launch_bounds__(QD_THREADS) fused_flow_kernel(FlowArgs a) {
     const int n0 = (cond ? t : t - nt_dim) * FF_TILE;
     const int K = cond ? a.dmodel : a.latent;
     const T* src = (const T*)(cond ? a.c : a.x);
-    for (int i = tid; i < K; i += QD_THREADS) xs[i] = to_f(src[i]);
+    __syncthreads();  // xs of the previous tile is consumed
+    for (int i = tid; i < R * K; i += QD_THREADS) xs[i] = to_f(src[i]);
     __syncthreads();
     if (cond) {
-      lin_tile<T>(xs, K, 1, K, a.wc, dim, n0, min(FF_TILE, dim - n0), CG,
-                  red, [&](int, int n, float v) {
-                    sy[n] = silu_f(to_f(((const T*)a.tc)[n]) + v);
+      lin_tile<T>(xs, K, R, K, a.wc, dim, n0, min(FF_TILE, dim - n0), CG,
+                  red, [&](int r, int n, float v) {
+                    sy[r * dim + n] =
+                        silu_f(to_f(((const T*)a.tc)[n]) + v);
                   });
     } else {
-      lin_tile<T>(xs, K, 1, K, a.wi, dim, n0, min(FF_TILE, dim - n0), CG,
-                  red, [&](int, int n, float v) { h[n] = v; });
+      lin_tile<T>(xs, K, R, K, a.wi, dim, n0, min(FF_TILE, dim - n0), CG,
+                  red, [&](int r, int n, float v) { h[r * dim + n] = v; });
     }
   }
   grid.sync();
 
   // phase B: every modulation, from round(sy)
-  const int n3 = 3 * dim, nt3 = (n3 + FF_TILE - 1) / FF_TILE;
-  const int n2 = 2 * dim, nt2 = (n2 + FF_TILE - 1) / FF_TILE;
+  const int nt3 = (n3 + FF_TILE - 1) / FF_TILE;
+  const int nt2 = (n2 + FF_TILE - 1) / FF_TILE;
   if (b < depth * nt3 + nt2) {
-    for (int i = tid; i < dim; i += QD_THREADS) xs[i] = rnd<T>(__ldcg(sy + i));
+    for (int i = tid; i < R * dim; i += QD_THREADS)
+      xs[i] = rnd<T>(__ldcg(sy + i));
     __syncthreads();
     for (int t = b; t < depth * nt3 + nt2; t += G) {
       if (t < depth * nt3) {
         const int l = t / nt3, n0 = (t % nt3) * FF_TILE;
-        float* m = mods + l * n3;
-        lin_tile<T>(xs, dim, 1, dim, lin_at<T>(a.wa, l, dim, n3), n3, n0,
+        lin_tile<T>(xs, dim, R, dim, lin_at<T>(a.wa, l, dim, n3), n3, n0,
                     min(FF_TILE, n3 - n0), CG, red,
-                    [&](int, int n, float v) { m[n] = v; });
+                    [&](int r, int n, float v) {
+                      mods[r * ms + l * n3 + n] = v;
+                    });
       } else {
         const int n0 = (t - depth * nt3) * FF_TILE;
-        float* m = mods + depth * n3;
-        lin_tile<T>(xs, dim, 1, dim, a.wfa, n2, n0, min(FF_TILE, n2 - n0),
-                    CG, red, [&](int, int n, float v) { m[n] = v; });
+        lin_tile<T>(xs, dim, R, dim, a.wfa, n2, n0, min(FF_TILE, n2 - n0),
+                    CG, red, [&](int r, int n, float v) {
+                      mods[r * ms + depth * n3 + n] = v;
+                    });
       }
     }
   }
   grid.sync();
 
-  // LN(h) * (1 + scale) + shift, rounded, into xs (every block)
-  auto modulated_ln = [&](const T* ns, const T* nb, const float* m) {
+  // LN(h) * (1 + scale) + shift of every row, rounded, into xs (every
+  // block); m: the row's shift | scale for this step
+  auto modulated_ln = [&](const T* ns, const T* nb, int moff) {
     block_layernorm(
-        1, dim, 1e-6f, [&](int, int i) { return __ldcg(h + i); },
-        [&](int, int i, float v) {
+        R, dim, 1e-6f, [&](int r, int i) { return __ldcg(h + r * dim + i); },
+        [&](int r, int i, float v) {
+          const float* m = mods + r * ms + moff;
           const float hn = v * opt(ns, i, 1.f) + opt(nb, i, 0.f);
-          xs[i] = rnd<T>(hn * (1.0f + __ldcg(m + dim + i)) + __ldcg(m + i));
+          xs[r * dim + i] =
+              rnd<T>(hn * (1.0f + __ldcg(m + dim + i)) + __ldcg(m + i));
         });
   };
   const int nt_hid = (hid + FF_TILE - 1) / FF_TILE;
   for (int l = 0; l < depth; ++l) {
-    const float* m = mods + l * n3;
     if (b < nt_hid) {
       modulated_ln(a.lns ? (const T*)a.lns + l * dim : nullptr,
-                   a.lnb ? (const T*)a.lnb + l * dim : nullptr, m);
+                   a.lnb ? (const T*)a.lnb + l * dim : nullptr, l * n3);
       const Lin w = lin_at<T>(a.w0, l, dim, hid);
       for (int t = b; t < nt_hid; t += G) {
         const int n0 = t * FF_TILE;
-        lin_tile<T>(xs, dim, 1, dim, w, hid, n0, min(FF_TILE, hid - n0), CG,
-                    red, [&](int, int n, float v) { u[n] = silu_f(v); });
+        lin_tile<T>(xs, dim, R, dim, w, hid, n0, min(FF_TILE, hid - n0), CG,
+                    red, [&](int r, int n, float v) {
+                      u[r * hid + n] = silu_f(v);
+                    });
       }
     }
     grid.sync();
     if (b < nt_dim) {
-      for (int i = tid; i < hid; i += QD_THREADS) xs[i] = rnd<T>(__ldcg(u + i));
+      for (int i = tid; i < R * hid; i += QD_THREADS)
+        xs[i] = rnd<T>(__ldcg(u + i));
       __syncthreads();
       const Lin w = lin_at<T>(a.w2, l, hid, dim);
       for (int t = b; t < nt_dim; t += G) {
         const int n0 = t * FF_TILE;
-        lin_tile<T>(xs, hid, 1, hid, w, dim, n0, min(FF_TILE, dim - n0), CG,
-                    red, [&](int, int n, float v) {
-                      h[n] = __ldcg(h + n) + __ldcg(m + 2 * dim + n) * v;
+        lin_tile<T>(xs, hid, R, hid, w, dim, n0, min(FF_TILE, dim - n0), CG,
+                    red, [&](int r, int n, float v) {
+                      const float gate =
+                          __ldcg(mods + r * ms + l * n3 + 2 * dim + n);
+                      h[r * dim + n] = __ldcg(h + r * dim + n) + gate * v;
                     });
       }
     }
@@ -168,34 +190,39 @@ __global__ void __launch_bounds__(QD_THREADS) fused_flow_kernel(FlowArgs a) {
   // head: the latent-wide output
   const int nt_lat = (a.latent + FF_TILE - 1) / FF_TILE;
   if (b < nt_lat) {
-    modulated_ln((const T*)a.fns, (const T*)a.fnb, mods + depth * n3);
+    modulated_ln((const T*)a.fns, (const T*)a.fnb, depth * n3);
     T* out = (T*)a.out;
     for (int t = b; t < nt_lat; t += G) {
       const int n0 = t * FF_TILE;
-      lin_tile<T>(xs, dim, 1, dim, a.wf, a.latent, n0,
+      lin_tile<T>(xs, dim, R, dim, a.wf, a.latent, n0,
                   min(FF_TILE, a.latent - n0), CG, red,
-                  [&](int, int n, float v) { out[n] = from_f<T>(v); });
+                  [&](int r, int n, float v) {
+                    out[r * a.latent + n] = from_f<T>(v);
+                  });
     }
   }
 }
 
 }  // namespace ptt
 
-static size_t flow_smem(int dmodel, int dim, int hid, int latent) {
+static size_t flow_smem(int dmodel, int dim, int hid, int latent,
+                        int rows) {
   const int w = std::max(std::max(dmodel, dim), std::max(hid, latent));
-  return sizeof(float) * (ptt::QD_RED + (size_t)w);
+  return sizeof(float) * (ptt::QD_RED + (size_t)rows * w);
 }
 
-// Largest cooperative grid K6 can take on this device. 0 on error.
+// Largest cooperative grid K6 can take on this device for `rows` rows. 0 on
+// error.
 extern "C" int ptt_fused_flow_max_blocks(int dmodel, int dim, int hid,
-                                         int latent, int dtype) {
+                                         int latent, int rows, int dtype) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
     return 0;
-  const size_t smem = flow_smem(dmodel, dim, hid, latent);
+  const size_t smem = flow_smem(dmodel, dim, hid, latent, rows);
   PTT_DISPATCH(dtype, T_, {
-    auto kern = ptt::fused_flow_kernel<T_>;
+    auto kern = rows == 1 ? ptt::fused_flow_kernel<T_, true>
+                          : ptt::fused_flow_kernel<T_, false>;
     if (cudaFuncSetAttribute(kern,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem) ||
@@ -225,12 +252,12 @@ static bool flow_lin_ok(const ptt::Lin& l, int K, bool plain_ok) {
 //    over depth), final norm scale and bias, (w, scale, bias) of the final
 //    adaln and final.linear, then scratch and out (device pointers;
 //    optional ones null).
-// ints: latent, d_model, dim, hid, depth, then (kind, group) of
+// ints: latent, d_model, dim, hid, depth, rows, then (kind, group) of
 //    input_proj, cond_embed, adaln, mlp_0, mlp_2, final adaln,
 //    final.linear.
 extern "C" int ptt_fused_flow(void* const* p, const int* ints, int grid,
                               int dtype, void* stream) {
-  const int* k = ints + 5;
+  const int* k = ints + 6;
   ptt::FlowArgs a{p[0], p[1], p[2],
                   {p[3], p[4], p[5], k[0], k[1]},
                   {p[6], p[7], p[8], k[2], k[3]},
@@ -242,19 +269,21 @@ extern "C" int ptt_fused_flow(void* const* p, const int* ints, int grid,
                   {p[22], p[23], p[24], k[10], k[11]},
                   {p[25], p[26], p[27], k[12], k[13]},
                   (float*)p[28], p[29],
-                  ints[0], ints[1], ints[2], ints[3], ints[4]};
+                  ints[0], ints[1], ints[2], ints[3], ints[4], ints[5]};
   if (grid < 1 || a.dim % 4 || a.hid % 4 || a.latent % 4 || a.depth < 1 ||
+      a.rows < 1 ||
       !flow_lin_ok(a.wi, a.latent, true) ||
       !flow_lin_ok(a.wc, a.dmodel, false) ||
       !flow_lin_ok(a.wa, a.dim, false) || !flow_lin_ok(a.w0, a.dim, false) ||
       !flow_lin_ok(a.w2, a.hid, false) ||
       !flow_lin_ok(a.wfa, a.dim, false) || !flow_lin_ok(a.wf, a.dim, true))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = flow_smem(a.dmodel, a.dim, a.hid, a.latent);
+  const size_t smem = flow_smem(a.dmodel, a.dim, a.hid, a.latent, a.rows);
   cudaStream_t st = (cudaStream_t)stream;
   void* args[] = {&a};
   PTT_DISPATCH(dtype, T_, {
-    auto kern = ptt::fused_flow_kernel<T_>;
+    auto kern = a.rows == 1 ? ptt::fused_flow_kernel<T_, true>
+                            : ptt::fused_flow_kernel<T_, false>;
     int rc = (int)cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc) return rc;

@@ -1,7 +1,8 @@
 // K5a and K5b: one transformer layer's quantized linears, fused around the
-// attention, for the backbone decode step (T = 1) and the mimi decoder
-// transformer (T = 16 rows per frame); int8 weights, or int4 (packed
-// halves) with per-channel or K-grouped (q4_0) scales (qdot.cuh).
+// attention, for the backbone decode step (T = 1 row per lane) and the mimi
+// decoder transformer (T = 16 rows per frame and lane), solo or over B
+// lanes (B * T rows: 32 and 512 at 32 lanes); int8 weights, or int4
+// (packed halves) with per-channel or K-grouped (q4_0) scales (qdot.cuh).
 //
 // K5a replaces `pocket_tts_tpu/ops/fused_layer.py:_pre_call`
 // (`_pre_kernel`):
@@ -34,9 +35,13 @@
 // int8. What keeps them from it in this version is latency: few blocks per
 // phase and grid-wide barriers.
 //
-// Design. K5a is one ordinary launch: each block recomputes the LayerNorm
-// of the T rows (at most 16 x 1024 values) into shared memory, then streams
-// its 32-column tile of W_in; there is no dependency between blocks.
+// Design. K5a is one ordinary launch of `rows_kernel` over (32-column
+// tiles) x (row blocks of at most FL_ROW_FLOATS activations: 16 rows at
+// dm 1024, 32 at dm 512):
+// each block computes the LayerNorm of its rows into shared memory, then
+// streams its tile of W_in; there is no dependency between blocks. The row
+// blocks of one tile read the same weight bytes, which stay in L2 (3 MB of
+// int8 in_proj at most), so HBM sees the weights about once per call.
 // K5b has two dependencies across blocks that the TPU kernel met by walking
 // its hidden tiles in order with scratch carried between grid steps: the
 // LayerNorm of x1 needs all of out_proj, and the W2 sum runs over every
@@ -56,10 +61,25 @@
 //   phase 3  each output element sums the blocks' partials in block order
 //            (no float atomics: the result does not depend on scheduling)
 //            and applies s_2 (per-channel), b_2, ls2 and the residual.
-// Scratch (x1 and the partials) is allocated by the caller.
+// Scratch (x1 and the partials) is allocated by the caller. The
+// cooperative launch holds at most FL_ROW_FLOATS activations (its two
+// T x dm buffers of shared memory), and its per-block partials of `up`
+// (grid x T x dm floats) grow with the rows. More rows (the lanes of a
+// batch: 32 backbone rows, up to 512 mimi rows) take three ordinary
+// launches of `rows_kernel`, K5a's kernel with other prologues and
+// epilogues, with x1 (float32) and h (the working type) in HBM between
+// them: x1 = x + ls1 * (attn @ W_o + b_o); h = round(gelu(round(LN(x1))
+// @ W_1 + b_1)); out = round(x1 + ls2 * (h @ W_2 + b_2)). Splitting the W2
+// product by output columns once h is in HBM needs no cross-block sum, and
+// each launch spreads (column tiles) x (row blocks) over the card.
 #include <cooperative_groups.h>
 
+#include <algorithm>
+
 #include "qdot.cuh"
+
+// activations a K5a block or a K5b launch holds in shared memory
+constexpr int FL_ROW_FLOATS = 16384;
 
 namespace coop = cooperative_groups;
 
@@ -67,35 +87,78 @@ namespace ptt {
 
 constexpr int FL_TILE = 32;  // columns per K5a tile / hidden units per tile
 
-struct PreArgs {
-  const void *x, *ns, *nb;  // (T, dm); norm scale/bias (dm,) or null
-  Lin w;                    // in_proj (dm, N)
-  void* out;                // (T, N)
-  int T, dm, N;
+// How a rows_kernel block stages its rows of A in shared memory, and what
+// it writes for output (r, n) from v = A @ W + b (float32, scales applied).
+enum { ROWS_LOAD = 0, ROWS_LN = 1, ROWS_LN_F32 = 2 };
+enum { EPI_ROUND = 0, EPI_RESID_F32 = 1, EPI_GELU = 2, EPI_RESID = 3 };
+
+struct RowsArgs {
+  const void *a, *ns, *nb;  // A (T, K): working type, float32 for
+                            // ROWS_LN_F32; norm scale/bias (K,) or null
+  Lin w;                    // (K, N)
+  const void* res;          // residual (T, N): x of the working type
+                            // (EPI_RESID_F32) or x1 float32 (EPI_RESID)
+  const void* ls;           // layer scale (N,) or null
+  void* out;                // (T, N): float32 for EPI_RESID_F32
+  int T, K, N, rows, prologue, epilogue, approx;
   float eps;
 };
 
+// One skinny product over (32-column tiles) x (row blocks of `rows` rows,
+// blockIdx.y): the block stages its rows (ROWS_LOAD: as they are; ROWS_LN:
+// round(LN(x) * ns + nb) of working-type rows; ROWS_LN_F32: the same of
+// float32 rows), streams its weight tile and writes
+//   EPI_ROUND      out = round(v)                       K5a's qkv
+//   EPI_RESID_F32  out = res + ls * v  (float32)        K5b's x1
+//   EPI_GELU       out = round(gelu(v))                 K5b's h
+//   EPI_RESID      out = round(res + ls * v)            K5b's output
 template <typename T>
-__global__ void __launch_bounds__(QD_THREADS) fused_pre_kernel(PreArgs a) {
+__global__ void __launch_bounds__(QD_THREADS) rows_kernel(RowsArgs a) {
   extern __shared__ float smem[];
   float* red = smem;            // QD_RED
-  float* xs = smem + QD_RED;    // T x dm
-  const T* x = (const T*)a.x;
+  float* xs = smem + QD_RED;    // rows x K
+  const int K = a.K, N = a.N;
+  const int r0 = blockIdx.y * a.rows, nrows = min(a.rows, a.T - r0);
   const T* ns = (const T*)a.ns;
   const T* nb = (const T*)a.nb;
-  T* out = (T*)a.out;
-  const int dm = a.dm, N = a.N;
-  block_layernorm(
-      a.T, dm, a.eps, [&](int r, int i) { return to_f(x[r * dm + i]); },
-      [&](int r, int i, float v) {
-        xs[r * dm + i] = rnd<T>(v * opt(ns, i, 1.f) + opt(nb, i, 0.f));
-      });
+  const T* ls = (const T*)a.ls;
+  auto store = [&](int r, int i, float v) {
+    xs[r * K + i] = rnd<T>(v * opt(ns, i, 1.f) + opt(nb, i, 0.f));
+  };
+  if (a.prologue == ROWS_LN_F32) {
+    const float* x = (const float*)a.a + (size_t)r0 * K;
+    block_layernorm(nrows, K, a.eps, [&](int r, int i) { return x[r * K + i]; },
+                    store);
+  } else {
+    const T* x = (const T*)a.a + (size_t)r0 * K;
+    if (a.prologue == ROWS_LN) {
+      block_layernorm(nrows, K, a.eps,
+                      [&](int r, int i) { return to_f(x[r * K + i]); }, store);
+    } else {
+      for (int i = threadIdx.x; i < nrows * K; i += QD_THREADS)
+        xs[i] = to_f(x[i]);
+      __syncthreads();
+    }
+  }
   const int ntiles = (N + FL_TILE - 1) / FL_TILE;
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const int n0 = t * FL_TILE;
-    lin_tile<T>(xs, dm, a.T, dm, a.w, N, n0, min(FL_TILE, N - n0),
+    lin_tile<T>(xs, K, nrows, K, a.w, N, n0, min(FL_TILE, N - n0),
                 FL_TILE / 4, red, [&](int r, int n, float v) {
-                  out[(size_t)r * N + n] = from_f<T>(v);
+                  const size_t i = (size_t)(r0 + r) * N + n;
+                  switch (a.epilogue) {
+                    case EPI_ROUND: ((T*)a.out)[i] = from_f<T>(v); break;
+                    case EPI_RESID_F32:
+                      ((float*)a.out)[i] = to_f(((const T*)a.res)[i]) +
+                                           opt(ls, n, 1.f) * v;
+                      break;
+                    case EPI_GELU:
+                      ((T*)a.out)[i] = from_f<T>(gelu_f(v, a.approx));
+                      break;
+                    default:
+                      ((T*)a.out)[i] = from_f<T>(((const float*)a.res)[i] +
+                                                 opt(ls, n, 1.f) * v);
+                  }
                 });
   }
 }
@@ -237,23 +300,53 @@ static bool lin_ok(const ptt::Lin& l, int K) {
   }
 }
 
-extern "C" int ptt_fused_pre(const void* x, const void* ns, const void* nb,
-                             const void* w, const void* s, const void* b,
-                             void* out, int T, int dm, int N, int kind,
-                             int group, float eps, int dtype, void* stream) {
-  ptt::PreArgs a{x, ns, nb, {w, s, b, kind, group}, out, T, dm, N, eps};
-  if (T < 1 || dm < 1 || N < 1 || N % 4 || !lin_ok(a.w, dm))
+// Launch rows_kernel over all T rows: row blocks of at most FL_ROW_FLOATS
+// activations (16 rows at K 1024, 32 at 512, 4 at 4096), one per
+// blockIdx.y.
+static int launch_rows(ptt::RowsArgs a, int dtype, cudaStream_t st) {
+  if (a.T < 1 || a.K < 1 || a.N < 1 || a.N % 4 || !lin_ok(a.w, a.K))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (ptt::QD_RED + (size_t)T * dm);
-  const int grid = (N + ptt::FL_TILE - 1) / ptt::FL_TILE;
-  cudaStream_t st = (cudaStream_t)stream;
+  a.rows = std::max(1, std::min(a.T, FL_ROW_FLOATS / a.K));
+  const size_t smem = sizeof(float) * (ptt::QD_RED + (size_t)a.rows * a.K);
+  const dim3 grid((a.N + ptt::FL_TILE - 1) / ptt::FL_TILE,
+                  (a.T + a.rows - 1) / a.rows);
   PTT_DISPATCH(dtype, T_, {
-    auto kern = ptt::fused_pre_kernel<T_>;
+    auto kern = ptt::rows_kernel<T_>;
     int rc = ptt::set_smem(kern, smem);
     if (rc) return rc;
     kern<<<grid, ptt::QD_THREADS, smem, st>>>(a);
   });
   return (int)cudaGetLastError();
+}
+
+// K5a: qkv (T, N) = round(round(LN(x)) @ W_in + b_in), x (T, dm).
+extern "C" int ptt_fused_pre(const void* x, const void* ns, const void* nb,
+                             const void* w, const void* s, const void* b,
+                             void* out, int T, int dm, int N, int kind,
+                             int group, float eps, int dtype, void* stream) {
+  return launch_rows({x, ns, nb, {w, s, b, kind, group}, nullptr, nullptr,
+                      out, T, dm, N, 0, ptt::ROWS_LN, ptt::EPI_ROUND, 0, eps},
+                     dtype, (cudaStream_t)stream);
+}
+
+// One step of K5b over many rows (rows_kernel): a (T, K) (float32 when
+// prologue is ROWS_LN_F32), the linear (w, s, b; kind, group) of logical
+// shape (K, N), norm (ns, nb) for the LN prologues, residual `res` and
+// layer scale `ls` for the residual epilogues, out (T, N).
+extern "C" int ptt_fused_rows(const void* a, const void* ns, const void* nb,
+                              const void* w, const void* s, const void* b,
+                              const void* res, const void* ls, void* out,
+                              int T, int K, int N, int kind, int group,
+                              int prologue, int epilogue, int approx,
+                              float eps, int dtype, void* stream) {
+  if (prologue < ptt::ROWS_LOAD || prologue > ptt::ROWS_LN_F32 ||
+      epilogue < ptt::EPI_ROUND || epilogue > ptt::EPI_RESID ||
+      ((epilogue == ptt::EPI_RESID_F32 || epilogue == ptt::EPI_RESID) &&
+       res == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return launch_rows({a, ns, nb, {w, s, b, kind, group}, res, ls, out, T, K,
+                      N, 0, prologue, epilogue, approx, eps},
+                     dtype, (cudaStream_t)stream);
 }
 
 // Largest cooperative grid K5b can take on this device for (T, dm): blocks

@@ -7,13 +7,14 @@ Counterpart of `pocket_tts_tpu/models/flow_lm.py`:
                head, one flow-matching step on the given noise.
 The backbone state is updated in place (see models/backbone.py).
 `prefill_lanes` and `decode_step_lanes` do the same for B lanes
-(continuous batching) with bf16/f32 weights: the rows of all lanes go
-through each linear as one matrix.
+(continuous batching): the rows of all lanes go through each linear as one
+matrix; with int8 or int4 weights the decode step's flow net runs as ONE
+launch of kernel K6 over the B rows (ops/fused_flow.py), as the JAX
+package's vmap rule runs it.
 """
 from __future__ import annotations
 
 from . import backbone, flow_mlp
-from ..ops import fused_flow
 from ..ops.basic import layer_norm, linear
 
 
@@ -64,9 +65,6 @@ def decode_step_lanes(p, cfg, state: backbone.BatchedBackboneState,
                       prev_latent, noise):
     """One step of B lanes: prev_latent, noise (B, latent). Returns (state,
     latent (B, latent), eos (B,) bool on the device)."""
-    if fused_flow.supported(p["flow_net"]):
-        raise NotImplementedError(
-            "quantized weights at batch are not ported yet (slice 5)")
     x = linear(p["input_linear"], prev_latent)[:, None, :]
     state, h = backbone.forward_lanes(p, cfg.backbone, state, x, None,
                                       cfg.gelu_approx)

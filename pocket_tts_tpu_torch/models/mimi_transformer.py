@@ -18,8 +18,8 @@ int32 device tensor, `forward` takes x (B, T, d_model). The lanes share
 `_axes_like` keeps it unbatched); each lane's RoPE positions are
 offset - start[b] and its ring window is fenced at its own start, so a
 lane that joined a running batch decodes as a solo stream would. K2 runs
-all lanes in one launch per layer. Quantized weights at batch are not
-ported yet.
+all lanes in one launch per layer, and with quantized weights K5a and K5b
+take the B * T rows of all lanes in one call each (ops/fused_layer.py).
 """
 from __future__ import annotations
 
@@ -55,9 +55,6 @@ def _layer(p, x, k_cache, v_cache, offset: int, start, cos, sin, cfg,
            gelu_approx: bool):
     *lead, t, dm = x.shape
     fused = fused_layer.supported(p)
-    if fused and lead:
-        raise NotImplementedError(
-            "quantized weights at batch are not ported yet (slice 5)")
     if fused:
         qkv = fused_layer.pre_attention(p, x, eps=cfg.norm_eps)
     else:

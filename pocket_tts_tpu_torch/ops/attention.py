@@ -1,10 +1,12 @@
 """Scaled dot-product attention over fixed-shape KV caches, with masks made
 by position arithmetic.
 
-Counterpart of `pocket_tts_tpu/ops/attention.py` (the solo main-path
-subset). Caches keep the JAX package's FLAT (S, H*D) row layout. Logits and
-softmax are float32; the softmax weights are rounded to the value dtype
-before the PV product, as in the JAX functions.
+Counterpart of `pocket_tts_tpu/ops/attention.py` (the main-path subset,
+with the shared-prefix partials `prefix_attn_stats`, `sdpa_seg_stats`,
+`sdpa_decode_seg_stats` and `merge_attn_partials`, which the JAX package
+computes in XLA too). Caches keep the JAX package's FLAT (S, H*D) row
+layout. Logits and softmax are float32; the softmax weights are rounded to
+the value dtype before the PV product, as in the JAX functions.
 
 These are also the plain versions of two kernels: `sdpa_decode_seg` with a
 slot bias is K1's (ops/decode_attn.py), and `cache_insert_ring` +
@@ -49,6 +51,67 @@ def sdpa_decode_seg(q, k, v, bias):
     """T=1 decode attention over FLAT caches. q: (1, H, D); k/v: (S, H*D);
     bias: (1, S). Returns (1, H, D)."""
     return sdpa_seg(q, k, v, bias)
+
+
+def sdpa_seg_stats(q, k, v, bias):
+    """sdpa_seg with the flash statistics of an external merge: q
+    (..., T, H, D), flat k/v (..., S, H*D), bias (..., T, S). Returns (out
+    (..., T, H, D) in q's dtype, m (..., T, H) float32 running max, l
+    (..., T, H) float32 normaliser). The shared-prefix prefill's own-cache
+    partial."""
+    *lead, t, h, d = q.shape
+    s = k.shape[-2]
+    logits = torch.einsum("...thd,...shd->...ths", q.float(),
+                          k.view(*lead, s, h, d).float()) * inv_sqrt(d)
+    logits = logits + bias[..., :, None, :]
+    m = logits.amax(-1)
+    w = torch.exp(logits - m[..., None])
+    l = w.sum(-1)
+    wn = (w / l.clamp_min(1e-30)[..., None]).to(v.dtype).float()
+    out = torch.einsum("...ths,...shd->...thd", wn,
+                       v.view(*lead, s, h, d).float())
+    return out.to(q.dtype), m, l
+
+
+def sdpa_decode_seg_stats(q, k, v, bias):
+    """sdpa_seg_stats at T = 1: q (..., 1, H, D), bias (..., 1, S)."""
+    return sdpa_seg_stats(q, k, v, bias)
+
+
+def prefix_attn_stats(q, pk, pv, ppos):
+    """Partial attention over a SHARED prompt-prefix table, with the flash
+    statistics of an exact external merge (merge_attn_partials).
+
+    q: (..., T, H, D), the leading axes (lanes) batch; pk/pv: (H, P, D)
+    head-major tables shared by every lane, read once for all of them;
+    ppos: (..., P) int32 per lane, -1 masks a slot (each lane unmasks only
+    its own voice's segment; prompt positions precede every decode
+    position, so no causal test is needed). One batched product for all
+    lanes. Returns (out (..., T, H, D) float32 normalised, m (..., T, H),
+    l (..., T, H))."""
+    scale = inv_sqrt(q.shape[-1])
+    logits = torch.einsum("...thd,hpd->...htp", q.float(),
+                          pk.float()) * scale
+    bias = torch.where(ppos >= 0, 0.0, NEG_INF).float()
+    logits = logits + bias[..., None, None, :]
+    m = logits.amax(-1)                                   # (..., H, T)
+    w = torch.exp(logits - m[..., None])
+    l = w.sum(-1)
+    wn = (w / l.clamp_min(1e-30)[..., None]).to(pv.dtype).float()
+    out = torch.einsum("...htp,hpd->...thd", wn, pv.float())
+    return out, m.transpose(-1, -2), l.transpose(-1, -2)
+
+
+def merge_attn_partials(o1, m1, l1, o2, m2, l2):
+    """Exact flash merge of two NORMALISED attention partials over
+    disjoint key sets: o (..., H, D), m and l (..., H). A partial with
+    m = -inf and l = 0 (no key attended) drops out. Returns o2's dtype."""
+    m = torch.maximum(m1, m2)
+    a1 = torch.exp(m1 - m) * l1
+    a2 = torch.exp(m2 - m) * l2
+    denom = (a1 + a2).clamp_min(1e-30)
+    return (o1.float() * (a1 / denom)[..., None]
+            + o2.float() * (a2 / denom)[..., None]).to(o2.dtype)
 
 
 def pos_cache_bias(q_pos, slot_pos, neg: float = NEG_INF):

@@ -39,11 +39,14 @@ I = ctypes.c_int
 F = ctypes.c_float
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES = {
-    # q, k, v, pos, out, H, D, S, row stride (H*D), end, dtype, stream
-    "ptt_decode_attn": [P, P, P, P, P, I, I, I, I, I, I, P],
-    # q, k_new, v_new, cur_pos, k_cache, v_cache, pos, out, B, H, D, S,
-    # read_end, write_slot, dtype, stream
-    "ptt_insert_attn": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # q, k, v, pos, k_scale, v_scale (int8 caches, else null), out, H, D, S,
+    # row stride (H*D), end, dtype, stream
+    "ptt_decode_attn": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # q, k_new, v_new, cur_pos, k_cache, v_cache, pos, k_scale, v_scale,
+    # ks_new, vs_new (int8 caches, else null), out, stats (or null), B, H,
+    # D, S, read_end, write_slot, dtype, stream
+    "ptt_insert_attn": [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                        I, I, P],
     # q, k_new, v_new, k_cache, v_cache, out, starts (or null), B, T, H, D,
     # cap, offset, start, context, dtype, stream
     "ptt_ring_attn": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
@@ -62,14 +65,18 @@ SIGNATURES = {
     # x, norm scale, norm bias, w, scale, bias, out, T, dm, N, kind, group,
     # eps, dtype, stream
     "ptt_fused_pre": [P, P, P, P, P, P, P, I, I, I, I, I, F, I, P],
+    # a, norm scale, norm bias, w, scale, bias, res, ls, out, T, K, N, kind,
+    # group, prologue, epilogue, approx, eps, dtype, stream
+    "ptt_fused_rows": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
+                       I, P],
     # T, dm, dtype -> blocks
     "ptt_fused_post_max_blocks": [I, I, I],
     # pointer array (18), (kind, group) array (6), T, dm, H, eps, approx,
     # grid, dtype, stream
     "ptt_fused_post": [P, P, I, I, I, F, I, I, I, P],
-    # d_model, dim, hid, latent, dtype -> blocks
-    "ptt_fused_flow_max_blocks": [I, I, I, I, I],
-    # pointer array (30), dims and (kind, group) array (19), grid, dtype,
+    # d_model, dim, hid, latent, rows, dtype -> blocks
+    "ptt_fused_flow_max_blocks": [I, I, I, I, I, I],
+    # pointer array (30), dims and (kind, group) array (20), grid, dtype,
     # stream
     "ptt_fused_flow": [P, P, I, I, P],
 }

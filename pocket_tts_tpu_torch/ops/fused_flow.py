@@ -14,10 +14,16 @@ per-channel or K-grouped (q4_0) scales; input_proj and final.linear may be
 int8, int4 or plain (under q4_0 at full width input_proj, K = 32, falls
 back to per-channel int4 beside grouped big linears).
 
+Lanes: c (B, d_model) and x (B, latent) give (B, latent), the JAX
+package's vmap rule (`fused_flow.py:202-211`): all B rows in one launch
+(up to ROWS; more run as successive launches of ROWS rows), so each weight
+tile is read once for all of them. The plain version takes either shape.
+
 `flow_forward` runs the plain version for tensors on the CPU and the kernel
-for tensors on the card; there is no other switch. Launches whose big
-linears are int8 count in `flow_forward.launches`, int4 in
-`flow_forward.launches_int4`.
+for tensors on the card; there is no other switch. Solo launches (1-D x)
+whose big linears are int8 count in `flow_forward.launches`, int4 in
+`flow_forward.launches_int4`; launches over lanes (2-D x) in
+`flow_forward.launches_lanes`.
 """
 from __future__ import annotations
 
@@ -59,9 +65,14 @@ def _modulated_ln(h, norm, shift, scale):
     return layer_norm(norm, h, eps=1e-6) * (1.0 + scale) + shift
 
 
+# rows one K6 launch holds in shared memory (32 x the widest activation,
+# d_model = 1024 floats, at full width)
+ROWS = 32
+
+
 def flow_forward_plain(p, c, x, t_combined):
-    """c (d_model,), x (latent,), t_combined (dim,) -> (latent,) in x's
-    dtype."""
+    """c (..., d_model), x (..., latent), t_combined (dim,) -> (...,
+    latent) in x's dtype."""
     dt = x.dtype
     rb = p["res_blocks"]
     sy = silu(t_combined.float() + _dot(c.float(), p["cond_embed"], dt))
@@ -79,32 +90,35 @@ def flow_forward_plain(p, c, x, t_combined):
 
 @functools.lru_cache(maxsize=None)
 def _grid(dmodel: int, dim: int, hid: int, latent: int, depth: int,
-          code: int) -> int:
+          rows: int, code: int) -> int:
     """K6's cooperative grid: enough blocks for the widest phase (the
     modulations, 32 columns a block) but at most one per SM (every extra
     block slows each of the grid barriers) and as many as the card holds
-    at once (0 when the query fails)."""
+    at once with `rows` rows in shared memory (0 when the query fails)."""
     widest = depth * -(-3 * dim // 32) + -(-2 * dim // 32)
     sms = torch.cuda.get_device_properties(
         torch.cuda.current_device()).multi_processor_count
     return min(widest, sms, cuda_lib.library().ptt_fused_flow_max_blocks(
-        dmodel, dim, hid, latent, code))
+        dmodel, dim, hid, latent, rows, code))
 
 
 def flow_forward(p, c, x, t_combined):
-    """Same contract as flow_forward_plain; launches K6 for CUDA tensors
-    (one cooperative launch; float32 or bfloat16; supported(p))."""
+    """Same contract as flow_forward_plain, for x (latent,) or (B, latent);
+    launches K6 for CUDA tensors (one cooperative launch per ROWS rows;
+    float32 or bfloat16; supported(p))."""
     if x.device.type == "cpu":
         return flow_forward_plain(p, c, x, t_combined)
     if x.device.type != "cuda":
         raise ValueError(f"flow_forward: unsupported device {x.device}")
     if not supported(p):
         raise ValueError("flow_forward: unsupported linear layouts")
+    lanes = x.dim() == 2
+    x2, c2 = x.reshape(-1, x.shape[-1]), c.reshape(-1, c.shape[-1])
     rb, fin = p["res_blocks"], p["final"]
-    (latent,), (dmodel,), (dim,) = x.shape, c.shape, t_combined.shape
+    (b, latent), (_, dmodel), (dim,) = x2.shape, c2.shape, t_combined.shape
     depth, hid = rb["mlp_0"]["scale"].shape[0], rb["mlp_0"]["scale"].shape[-1]
-    vecs = [(c, (dmodel,)), (t_combined, (dim,))]
-    ptrs, ints = [x, c, t_combined], [latent, dmodel, dim, hid, depth]
+    vecs = [(c2, (b, dmodel)), (t_combined, (dim,))]
+    ptrs, ints = [], [latent, dmodel, dim, hid, depth, 0]
 
     def lin(m, k, n, layers=None):
         tensors, layout = kernel_operands(m, k, n, x, layers)
@@ -134,22 +148,30 @@ def flow_forward(p, c, x, t_combined):
         raise ValueError(f"flow_forward: bad operands {bad} for x"
                          f"{tuple(x.shape)} {x.dtype}")
     code = cuda_lib.dtype_code(x)
-    grid = _grid(dmodel, dim, hid, latent, depth, code)
-    scratch = torch.empty(2 * dim + hid + depth * 3 * dim + 2 * dim,
+    rows = min(b, ROWS)
+    grid = _grid(dmodel, dim, hid, latent, depth, rows, code)
+    scratch = torch.empty(rows * (2 * dim + hid + depth * 3 * dim + 2 * dim),
                           dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
-    ptrs += [scratch, out]
-    rc = cuda_lib.library().ptt_fused_flow(
-        (ctypes.c_void_p * len(ptrs))(*[0 if t is None else t.data_ptr()
-                                        for t in ptrs]),
-        (ctypes.c_int * len(ints))(*ints), grid, code,
-        cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(rc, "ptt_fused_flow")
-    if bits(rb["adaln"]) == 4:
-        flow_forward.launches_int4 += 1
-    else:
-        flow_forward.launches += 1
-    return out
+    out = torch.empty_like(x2)
+    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(x.device)
+    for r0 in range(0, b, rows):
+        n = min(rows, b - r0)
+        ints[5] = n
+        args = [x2[r0:r0 + n], c2[r0:r0 + n], t_combined] + ptrs + [
+            scratch, out[r0:r0 + n]]
+        rc = lib.ptt_fused_flow(
+            (ctypes.c_void_p * len(args))(*[0 if t is None else t.data_ptr()
+                                            for t in args]),
+            (ctypes.c_int * len(ints))(*ints), grid, code, stream)
+        cuda_lib.check(rc, "ptt_fused_flow")
+        if lanes:
+            flow_forward.launches_lanes += 1
+        elif bits(rb["adaln"]) == 4:
+            flow_forward.launches_int4 += 1
+        else:
+            flow_forward.launches += 1
+    return out.reshape(x.shape)
 
 
 flow_forward.launches = flow_forward.launches_int4 = 0
+flow_forward.launches_lanes = 0

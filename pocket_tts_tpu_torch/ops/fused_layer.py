@@ -21,11 +21,27 @@ where "v @ W" is the float32 product with the weight's scales
 on the weight). Absent biases read as zeros, absent layer scales as ones.
 The backbone calls them at T = 1 with eps 1e-5, the mimi decoder
 transformer at T = 16 with eps = cfg.norm_eps (0) and its two layer
-scales.
+scales; with lanes (continuous batching) x is (B, T, dm) and the B * T rows
+go through one call, as the JAX package's vmap rules collapse the lanes
+into rows (`fused_layer.py:928-980`).
+
+Many rows. The wrappers take any row count; on the card every row goes
+through the hand-written kernels (the JAX package composes the same math
+in XLA above 256 rows). K5a is ONE launch per call: its grid has a row-block
+axis (row blocks of at most 16384 activations: 16 rows at dm 1024, 32 at
+dm 512), and the row blocks of a weight tile hit L2. K5b is one
+cooperative launch up to one such row block (the solo shapes); above it
+(the lanes of a batch) its shared memory and cross-block partials would
+grow with the rows, so it runs as THREE ordinary launches of K5a's
+row-block kernel with x1 and h in HBM between them: out_proj + residual,
+LN + linear1 + GELU, linear2 + residual. Launches per call
+(`post_launches`): 1 at the solo shapes, 3 at 32 backbone rows (32 lanes)
+and at 64 / 256 / 512 mimi rows (4 / 16 / 32 lanes x 16).
 
 `pre_attention` and `post_attention` run the plain version for tensors on
 the CPU and the kernel for tensors on the card; there is no other switch.
-Launches with int8 weights count in `.launches`, with int4 weights (either
+Launches with a lane axis (x of rank 3) count in `.launches_lanes`;
+without one, with int8 weights in `.launches`, with int4 weights (either
 scale layout) in `.launches_int4`.
 """
 from __future__ import annotations
@@ -98,8 +114,24 @@ def _check(name, p, x, vecs):
                          f" or layer layouts {[bits(p[k]) for k in _LINEARS]}")
 
 
-def _count(fn, p):
-    if bits(p["in_proj"]) == 4:
+# activations one K5a row block or one cooperative K5b launch holds
+# (csrc/fused_layer.cu FL_ROW_FLOATS)
+ROW_FLOATS = 16384
+# rows_kernel's prologues and epilogues (csrc/fused_layer.cu)
+ROWS_LOAD, ROWS_LN, ROWS_LN_F32 = range(3)
+EPI_ROUND, EPI_RESID_F32, EPI_GELU, EPI_RESID = range(4)
+
+
+def post_launches(rows: int, dm: int) -> int:
+    """K5b launches per call of `rows` rows of width dm: one cooperative
+    launch up to a row block, three row-block launches above."""
+    return 1 if rows <= max(1, ROW_FLOATS // dm) else 3
+
+
+def _count(fn, p, x):
+    if x.dim() == 3:
+        fn.launches_lanes += 1
+    elif bits(p["in_proj"]) == 4:
         fn.launches_int4 += 1
     else:
         fn.launches += 1
@@ -115,73 +147,95 @@ def _post_grid(t: int, dm: int, hid: int, code: int) -> int:
 
 
 def pre_attention(p, x, eps: float = 1e-5):
-    """Same contract as pre_attention_plain; launches K5a for CUDA
-    tensors (x float32 or bfloat16, supported(p))."""
+    """Same contract as pre_attention_plain (x (..., dm)); launches K5a
+    once for CUDA tensors (x float32 or bfloat16, supported(p))."""
     if x.device.type == "cpu":
         return pre_attention_plain(p, x, eps)
     if x.device.type != "cuda":
         raise ValueError(f"pre_attention: unsupported device {x.device}")
-    t, dm = x.shape
+    dm = x.shape[-1]
+    x2 = x.reshape(-1, dm)
+    t = x2.shape[0]
     norm = p["norm1"]
-    _check("pre_attention", p, x,
+    _check("pre_attention", p, x2,
            [(norm.get("scale"), dm), (norm.get("bias"), dm)])
     n = p["in_proj"]["scale"].shape[-1]
     (w, s, b), (kind, group) = kernel_operands(p["in_proj"], dm, n, x)
-    if t * dm > 16384:
-        raise ValueError(f"pre_attention: {t} rows of {dm} exceed the "
-                         "kernel's shared-memory row buffer")
     out = torch.empty(t, n, dtype=x.dtype, device=x.device)
     rc = cuda_lib.library().ptt_fused_pre(
-        x.data_ptr(), _ptr(norm.get("scale")), _ptr(norm.get("bias")),
+        x2.data_ptr(), _ptr(norm.get("scale")), _ptr(norm.get("bias")),
         w.data_ptr(), _ptr(s), _ptr(b), out.data_ptr(), t, dm, n, kind,
         group, float(eps), cuda_lib.dtype_code(x),
         cuda_lib.stream_ptr(x.device))
     cuda_lib.check(rc, "ptt_fused_pre")
-    _count(pre_attention, p)
-    return out
+    _count(pre_attention, p, x)
+    return out.reshape(*x.shape[:-1], n)
 
 
 def post_attention(p, x, attn, eps: float = 1e-5, approx: bool = False):
-    """Same contract as post_attention_plain; launches K5b for CUDA
-    tensors (one cooperative launch; x, attn float32 or bfloat16,
-    supported(p))."""
+    """Same contract as post_attention_plain (x, attn (..., dm)); launches
+    K5b for CUDA tensors (cooperative launches, `post_launches` per call;
+    x, attn float32 or bfloat16, supported(p))."""
     if x.device.type == "cpu":
         return post_attention_plain(p, x, attn, eps, approx)
     if x.device.type != "cuda":
         raise ValueError(f"post_attention: unsupported device {x.device}")
-    t, dm = x.shape
+    dm = x.shape[-1]
+    x2, a2 = x.reshape(-1, dm), attn.reshape(-1, dm)
+    rows = x2.shape[0]
     n2 = p["norm2"]
     ls1 = p.get("layer_scale_1", {}).get("scale")
     ls2 = p.get("layer_scale_2", {}).get("scale")
-    _check("post_attention", p, x,
+    _check("post_attention", p, x2,
            [(ls1, dm), (ls2, dm), (n2.get("scale"), dm),
             (n2.get("bias"), dm)])
     hid = p["linear1"]["scale"].shape[-1]
-    ptrs, ints = [x, attn, ls1, ls2, n2.get("scale"), n2.get("bias")], []
+    vecs, ints = [ls1, ls2, n2.get("scale"), n2.get("bias")], []
     for name, k, n in (("out_proj", dm, dm), ("linear1", dm, hid),
                        ("linear2", hid, dm)):
         tensors, layout = kernel_operands(p[name], k, n, x)
-        ptrs += tensors
+        vecs += tensors
         ints += layout
     if not (attn.shape == x.shape and attn.dtype == x.dtype
-            and attn.is_contiguous() and attn.device == x.device
-            and t * dm <= 16384):
+            and attn.is_contiguous() and attn.device == x.device):
         raise ValueError(f"post_attention: bad attn{tuple(attn.shape)} for "
                          f"x{tuple(x.shape)}")
     code = cuda_lib.dtype_code(x)
-    grid = _post_grid(t, dm, hid, code)
-    x1 = torch.empty(t, dm, dtype=torch.float32, device=x.device)
-    part = torch.empty(grid, t, dm, dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
-    ptrs += [x1, part, out]
-    rc = cuda_lib.library().ptt_fused_post(
-        (ctypes.c_void_p * len(ptrs))(*[_ptr(v) for v in ptrs]),
-        (ctypes.c_int * len(ints))(*ints), t, dm, hid, float(eps),
-        int(approx), grid, code, cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(rc, "ptt_fused_post")
-    _count(post_attention, p)
-    return out
+    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(x.device)
+    x1 = torch.empty(rows, dm, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x2)
+    if post_launches(rows, dm) == 1:
+        grid = _post_grid(rows, dm, hid, code)
+        part = torch.empty(grid, rows, dm, dtype=torch.float32,
+                           device=x.device)
+        ptrs = [x2, a2] + vecs + [x1, part, out]
+        rc = lib.ptt_fused_post(
+            (ctypes.c_void_p * len(ptrs))(*[_ptr(v) for v in ptrs]),
+            (ctypes.c_int * len(ints))(*ints), rows, dm, hid, float(eps),
+            int(approx), grid, code, stream)
+        cuda_lib.check(rc, "ptt_fused_post")
+        _count(post_attention, p, x)
+        return out.reshape(x.shape)
+    ls1, ls2, ns, nb, *lins = vecs
+    h = torch.empty(rows, hid, dtype=x.dtype, device=x.device)
+    # (A, norm, linear, residual, layer scale, out, K, N, prologue, epilogue)
+    steps = ((a2, (None, None), 0, x2, ls1, x1, dm, dm, ROWS_LOAD,
+              EPI_RESID_F32),
+             (x1, (ns, nb), 1, None, None, h, dm, hid, ROWS_LN_F32, EPI_GELU),
+             (h, (None, None), 2, x1, ls2, out, hid, dm, ROWS_LOAD,
+              EPI_RESID))
+    for a, (s_n, b_n), i, res, ls, dst, k, n, pro, epi in steps:
+        w, s, b = lins[3 * i:3 * i + 3]
+        rc = lib.ptt_fused_rows(
+            a.data_ptr(), _ptr(s_n), _ptr(b_n), w.data_ptr(), _ptr(s),
+            _ptr(b), _ptr(res), _ptr(ls), dst.data_ptr(), rows, k, n,
+            ints[2 * i], ints[2 * i + 1], pro, epi, int(approx), float(eps),
+            code, stream)
+        cuda_lib.check(rc, "ptt_fused_rows")
+        _count(post_attention, p, x)
+    return out.reshape(x.shape)
 
 
 pre_attention.launches = pre_attention.launches_int4 = 0
 post_attention.launches = post_attention.launches_int4 = 0
+pre_attention.launches_lanes = post_attention.launches_lanes = 0

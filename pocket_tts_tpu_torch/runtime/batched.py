@@ -20,7 +20,11 @@ the decode loop indexes by the lane's step. At temp 0 the noise is zero on
 both sides. The state is updated in place throughout; the JAX functions
 donate and return it.
 
-Quantized weights at batch and sharding over a mesh are not ported yet.
+Quantized weights (the decode step's K5a/K5b over the B rows, K6 over the
+lanes), the int8 backbone KV cache (its per-row scales ride along with
+the rows through every function here) and shared-prefix tables (`pk`/`pv`
+shared by the lanes, `ppos` per lane) go through every function here.
+Sharding over a mesh is not ported yet.
 """
 from __future__ import annotations
 
@@ -83,14 +87,24 @@ def stack_states(states: Sequence):
     (copies). The shared cursors must be equal across the streams."""
     s0 = states[0]
     if isinstance(s0, backbone.BackboneState):
+        def layers(name):
+            if getattr(s0, name) is None:
+                return None
+            return [torch.stack([getattr(s, name)[l] for s in states])
+                    for l in range(len(s0.k))]
+
+        if any(s.pk is not s0.pk for s in states):
+            raise ValueError("stack_states: the streams hold different "
+                             "shared-prefix tables")
         return backbone.BatchedBackboneState(
-            k=[torch.stack([s.k[l] for s in states])
-               for l in range(len(s0.k))],
-            v=[torch.stack([s.v[l] for s in states])
-               for l in range(len(s0.v))],
+            k=layers("k"), v=layers("v"),
             pos=torch.stack([s.pos for s in states]),
             next_pos=_i32([s.next_pos for s in states], s0.pos.device),
-            end=_uniform([s.end for s in states], "end"))
+            end=_uniform([s.end for s in states], "end"),
+            k_scale=layers("k_scale"), v_scale=layers("v_scale"),
+            pk=s0.pk, pv=s0.pv,
+            ppos=(None if s0.ppos is None
+                  else torch.stack([s.ppos for s in states])))
     dev = s0.prev_latent.device
     trs = [s.mimi.transformer for s in states]
     mstate = mimi.MimiState(
@@ -117,10 +131,16 @@ def unstack_states(state, n: int = None) -> list:
     n = state.lanes if n is None else n
     if isinstance(state, backbone.BatchedBackboneState):
         nxt = state.next_pos.tolist()
+
+        def lane(cs, i):
+            return None if cs is None else [c[i].clone() for c in cs]
+
         return [backbone.BackboneState(
-            k=[c[i].clone() for c in state.k],
-            v=[c[i].clone() for c in state.v], pos=state.pos[i].clone(),
-            end=state.end, next_pos=nxt[i]) for i in range(n)]
+            k=lane(state.k, i), v=lane(state.v, i), pos=state.pos[i].clone(),
+            end=state.end, next_pos=nxt[i], k_scale=lane(state.k_scale, i),
+            v_scale=lane(state.v_scale, i), pk=state.pk, pv=state.pv,
+            ppos=None if state.ppos is None else state.ppos[i].clone())
+            for i in range(n)]
     tr = state.mimi.transformer
     flows = unstack_states(state.flow, n)
     starts, eos = tr.start.tolist(), state.eos_step.tolist()
@@ -146,12 +166,18 @@ def shrink_lanes(state: backbone.BatchedBackboneState, capacity: int,
     idx = (slice(None) if lanes is None
            else torch.as_tensor(lanes, dtype=torch.long,
                                 device=state.pos.device))
+
+    def take(cs):
+        return None if cs is None else [c[idx, :capacity].clone()
+                                        for c in cs]
+
     return backbone.BatchedBackboneState(
-        k=[c[idx, :capacity].clone() for c in state.k],
-        v=[c[idx, :capacity].clone() for c in state.v],
+        k=take(state.k), v=take(state.v),
         pos=state.pos[idx, :capacity].clone(),
         next_pos=state.next_pos[idx].clone(), end=state.end,
-        ring_start=state.ring_start)
+        ring_start=state.ring_start, k_scale=take(state.k_scale),
+        v_scale=take(state.v_scale), pk=state.pk, pv=state.pv,
+        ppos=None if state.ppos is None else state.ppos[idx].clone())
 
 
 # ---------------------------------------------------------------------------
@@ -228,22 +254,34 @@ def continuous_decode_chunk(p, cfg, chunk_frames: int, states, noise,
 # ---------------------------------------------------------------------------
 
 def empty_batch_state(p, cfg, b: int, capacity: int, prefix_slots: int,
-                      dtype=torch.float32, device="cpu",
-                      ring: bool = False) -> tts.BatchedStreamState:
+                      dtype=torch.float32, device="cpu", ring: bool = False,
+                      prefix_tables=None) -> tts.BatchedStreamState:
     """A B-lane batch with every lane idle (done) and the shared slot
     cursor parked at `prefix_slots`, the uniform prompt+text budget every
     admission prefills into slots [0, prefix_slots). ring=True: the cursor
     wraps inside [prefix_slots, capacity) instead of exhausting (the
-    continuous server's no-compaction mode)."""
+    continuous server's no-compaction mode). The caches are int8 with
+    per-row scales under cfg.backbone.quantize_kv. prefix_tables: the
+    (pk, pv) shared-prefix tables (prefix_slots then budgets the text
+    only); each lane's ppos row arrives with its admission."""
     bb = cfg.backbone
     shape = (b, capacity, bb.num_heads * bb.head_dim)
-    dd = dict(dtype=dtype, device=device)
+    dd = dict(dtype=torch.int8 if bb.quantize_kv else dtype, device=device)
+
+    def scales():
+        return ([torch.zeros(b, capacity, device=device)
+                 for _ in range(bb.num_layers)] if bb.quantize_kv else None)
+
+    pk, pv = prefix_tables if prefix_tables is not None else (None, None)
     flow = backbone.BatchedBackboneState(
         k=[torch.zeros(shape, **dd) for _ in range(bb.num_layers)],
         v=[torch.zeros(shape, **dd) for _ in range(bb.num_layers)],
         pos=torch.full((b, capacity), -1, dtype=torch.int32, device=device),
         next_pos=torch.zeros(b, dtype=torch.int32, device=device),
-        end=prefix_slots, ring_start=prefix_slots if ring else None)
+        end=prefix_slots, ring_start=prefix_slots if ring else None,
+        k_scale=scales(), v_scale=scales(), pk=pk, pv=pv,
+        ppos=(None if pk is None else torch.full(
+            (b, pk[0].shape[1]), -1, dtype=torch.int32, device=device)))
     return tts.BatchedStreamState(
         flow=flow, mimi=mimi.init_state_lanes(cfg.mimi, b, dtype, device),
         prev_latent=p["bos_emb"].to(dtype).expand(b, -1).clone(),
@@ -260,8 +298,9 @@ def admit_group(batch: tts.BatchedStreamState, lanes: Sequence[int],
     mimi state, latent and counters are replaced; the shared slot cursor
     and mimi ring offset stay, and each joining lane's mimi `start` is the
     ring offset now, so its RoPE phases and ring window are its own (its
-    audio equals solo synthesis). The caches of `fresh` must have the
-    batch's slot count."""
+    audio equals solo synthesis). int8 KV scale rows and shared-prefix
+    `ppos` rows go with their lanes; the shared tables stay. The caches of
+    `fresh` must have the batch's slot count."""
     src = [i for i, lane in enumerate(lanes) if lane < batch.lanes]
     if not src:
         return batch
@@ -274,10 +313,15 @@ def admit_group(batch: tts.BatchedStreamState, lanes: Sequence[int],
             dst_t.dtype))
 
     bf, ff = batch.flow, fresh.flow
-    for dst_c, src_c in zip(bf.k + bf.v, ff.k + ff.v):
+    for dst_c, src_c in zip(bf.k + bf.v + (bf.k_scale or [])
+                            + (bf.v_scale or []),
+                            ff.k + ff.v + (ff.k_scale or [])
+                            + (ff.v_scale or [])):
         put(dst_c, src_c)
     put(bf.pos, ff.pos)
     put(bf.next_pos, ff.next_pos)
+    if bf.ppos is not None:
+        put(bf.ppos, ff.ppos)
     bm, fm = batch.mimi, fresh.mimi
     put(bm.upsample_prev, fm.upsample_prev)
     for dst_c, src_c in zip(bm.transformer.k + bm.transformer.v,
@@ -314,6 +358,8 @@ def compact_batch(batch: tts.BatchedStreamState, live,
     idx = torch.argsort(key, dim=1)
     for c in bf.k + bf.v:
         c.copy_(c.gather(1, idx[..., None].expand(-1, -1, c.shape[2])))
+    for c in (bf.k_scale or []) + (bf.v_scale or []):
+        c.copy_(c.gather(1, idx))
     pos.copy_(torch.where(valid.gather(1, idx), pos.gather(1, idx), -1))
     bf.end = max(prefix_slots, int(valid.sum(-1).max()))
     return batch
@@ -327,9 +373,6 @@ class BatchedEngine:
     """Synthesize many sentences concurrently on one card."""
 
     def __init__(self, engine, mesh=None):
-        if engine.quantized:
-            raise NotImplementedError(
-                "quantized weights at batch are not ported yet (slice 5)")
         self.engine = engine
         # kept local: mutating engine.cfg would change the solo engine too
         self.cfg = serving_cfg(engine.cfg, mesh)

@@ -12,6 +12,9 @@ hand-written kernels on the card; "cpu" runs their plain versions).
 load, as the JAX engine does, and "int4" (or "q4") to packed int4 with
 per-channel scales, "q4_0" with 32-row K-grouped bf16 scales; the decode
 step then runs kernels K4a (K4b), K5a, K5b and K6 beside K1-K3.
+`quantize_kv=True` keeps the backbone's KV cache in int8 with per-row
+scales (K1's int8-KV variant solo, K7's at batch), the JAX engine's
+serving-throughput mode.
 `save_params_cache` / `from_params_cache` write and read the JAX
 package's safetensors params cache. Noise comes from a
 torch.Generator on that device, seeded from the engine seed: it does not
@@ -22,6 +25,7 @@ request's noise from a seed of its own (`request_seed`).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from collections import deque
 from typing import Optional
@@ -90,11 +94,14 @@ class TTSEngine:
         "int8" or "q8" (per-channel int8 linear weights), "int4" or "q4"
         (per-channel int4), "q4_0" (int4 with 32-row K-grouped scales),
         quantized after load (a tree that is quantized already keeps its
-        quantized leaves). quantize_kv and quantize_convs are not ported
-        yet and raise NotImplementedError."""
-        if quantize_kv or quantize_convs:
+        quantized leaves). quantize_kv: the backbone's KV cache in int8
+        with per-row scales, as the JAX engine applies it (backbone only:
+        the int8 mimi ring stays a cfg-level option, which slice 6 of the
+        port brings); the serving-throughput mode. quantize_convs is not
+        ported yet (slice 6) and raises NotImplementedError."""
+        if quantize_convs:
             raise NotImplementedError(
-                "quantized KV caches and quantized convs are not ported yet")
+                "quantized convs are not ported yet (slice 6)")
         if quantize not in (None, "int8", "q8", "int4", "q4", "q4_0"):
             raise ValueError(f"unknown quantization: {quantize}")
         self.device = _device(device)
@@ -105,6 +112,9 @@ class TTSEngine:
                                                     self.device)
         if cfg is None:
             raise ValueError("cfg is required with params")
+        if quantize_kv:
+            cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+                cfg.backbone, quantize_kv=True))
         check_supported(cfg)
         if quantize:
             params = quantize_params(params, bits=4 if "4" in quantize else 8,

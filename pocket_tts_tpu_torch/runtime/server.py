@@ -1,7 +1,9 @@
 """Multi-stream serving: cohort-batched and continuously-batched synthesis.
 
-Counterpart of `pocket_tts_tpu/runtime/server.py`, with bf16/f32 weights,
-on one card. Two schedulers over the batched runtime (runtime/batched.py):
+Counterpart of `pocket_tts_tpu/runtime/server.py` on one card, with bf16,
+f32, int8, int4 or q4_0 weights and the backbone KV cache in the working
+type or in int8 (`TTSEngine(quantize_kv=True)`). Two schedulers over the
+batched runtime (runtime/batched.py):
 
 - MultiStreamServer: fixed cohorts. Requests queue, prefill together and
   decode in chunks; a late request waits for the cohort.
@@ -17,8 +19,18 @@ pcm, valid and done once per chunk. Per-request time to first audio and
 completion latency are recorded and summarized p50/p95 (`stats`). Noise
 comes from each request's seed (`Request.seed`, else the engine's
 `request_seed()`), so a seeded request gives the same audio in any lane
-and under any admission order. Shared-prefix serving, quantized weights
-and a quantized KV cache at batch are not ported yet.
+and under any admission order.
+
+Shared-prefix serving (`ContinuousBatchingServer(share_prefix=True)`, ring
+mode only), as the JAX package's: each voice's prompt KV is split off its
+primed state (models/backbone.split_prefix) into per-layer tables that
+concatenate every registered voice along the slot axis and are read once
+per frame for the whole batch; each lane's `ppos` row unmasks its own
+voice's segment. The lane caches then hold text and decode rows only:
+`prefix_slots` is `text_bucket`, and the capacity clamps to what a voice's
+residual holds (kv_capacity - prompt bucket). `register_voices` may add
+voices to an idle server. The JAX package's serving bench runs this mode
+with int4 weights and the int8 KV cache at 32 lanes.
 """
 from __future__ import annotations
 
@@ -37,18 +49,6 @@ from .batched import (_PROMPT_BUCKETS, admit_group, batched_decode_sentence,
                       empty_batch_state, serving_cfg, shrink_lanes,
                       stack_states)
 from .engine import _SCAN_BUCKET, _bucket
-
-
-def _check_servable(engine, share_prefix: bool = False):
-    if share_prefix:
-        raise NotImplementedError(
-            "shared-prefix serving is not ported yet (slice 5)")
-    if engine.quantized:
-        raise NotImplementedError(
-            "quantized weights at batch are not ported yet (slice 5)")
-    if engine.cfg.backbone.quantize_kv:
-        raise NotImplementedError(
-            "a quantized KV cache is not ported yet (slice 5)")
 
 
 @dataclasses.dataclass
@@ -90,7 +90,6 @@ def _max_steps(engine, text: str) -> int:
 class MultiStreamServer:
     def __init__(self, engine, max_batch: int = 32, mesh=None,
                  chunk_frames: int = _SCAN_BUCKET):
-        _check_servable(engine)
         self.engine = engine
         self.max_batch = max_batch
         self.cfg = serving_cfg(engine.cfg, mesh)
@@ -253,6 +252,10 @@ class ContinuousBatchingServer:
     nothing fits and all lanes are idle the epoch resets, and between
     exhaustions eager compaction (compact_margin) keeps the cursor near the
     true live-row maximum.
+
+    share_prefix=True (ring mode only): one shared copy of each voice's
+    prompt KV for the whole batch (see the module docstring); `capacity`
+    then budgets text + ring only.
     """
 
     def __init__(self, engine, lanes: int = 32,
@@ -260,7 +263,9 @@ class ContinuousBatchingServer:
                  text_bucket: int = 64, ring: bool = True,
                  compact_margin: Optional[int] = 128, mesh=None,
                  share_prefix: bool = False):
-        _check_servable(engine, share_prefix)
+        if share_prefix and not ring:
+            raise ValueError("share_prefix requires the prefix+ring KV "
+                             "mode (ring=True)")
         self.engine = engine
         self.lanes = lanes
         self.capacity = capacity or engine.cfg.backbone.kv_capacity
@@ -275,6 +280,11 @@ class ContinuousBatchingServer:
         # None disables (exhaustion-only compaction).
         self.compact_margin = compact_margin
         self.cfg = serving_cfg(engine.cfg, mesh)
+        self.share_prefix = share_prefix
+        # share_prefix: per-voice (pk, pv, ppos) from split_prefix, kept so
+        # that a later register_voices rebuilds the tables over every voice
+        self._voice_tables: Dict[str, tuple] = {}
+        self._prefix_tables = None
         self._voice_states: Dict[str, backbone.BackboneState] = {}
         self.prompt_pad: Optional[int] = None
         self._queue: List[Request] = []
@@ -301,15 +311,19 @@ class ContinuousBatchingServer:
     @property
     def prefix_slots(self) -> int:
         assert self.prompt_pad is not None, "register_voices first"
+        if self.share_prefix:  # the prompt lives in the shared tables
+            return self.text_bucket
         return self.prompt_pad + self.text_bucket
 
     # -- voices --------------------------------------------------------------
     def register_voices(self, prompts: Dict[str, np.ndarray]):
         """Prime each voice at a COMMON prompt bucket so every admission's
         prefill lands exactly on the uniform prefix budget. Callable again
-        to add voices; a change of the lane cache shapes (a larger prompt
-        bucket) starts a fresh epoch, so it requires an idle server (no
-        live requests; queued requests survive)."""
+        to add voices. Anything that changes the lane cache shapes (the
+        capacity tightening to what the voice residuals hold, a larger
+        prompt bucket, or in share mode larger concatenated tables) starts
+        a fresh epoch, so it requires an idle server (no live requests;
+        queued requests survive)."""
         eng = self.engine
         arrs = {n: np.asarray(a, np.float32).reshape(-1, a.shape[-1])
                 for n, a in prompts.items()}
@@ -317,8 +331,7 @@ class ContinuousBatchingServer:
                  for a in arrs.values())
         # monotonic across calls: earlier voices must still fit the budget
         tp = max(tp, self.prompt_pad or 0)
-        changed = tp != (self.prompt_pad or tp)
-        self.capacity = min(self.capacity, eng.cfg.backbone.kv_capacity)
+        residuals = {}
         with torch.no_grad():
             for name, a in arrs.items():
                 padded = torch.from_numpy(
@@ -328,16 +341,58 @@ class ContinuousBatchingServer:
                                             eng.device)
                 vstate = tts.prime_voice(eng.params, self.cfg, state, padded,
                                          a.shape[0])
-                self._voice_states[name] = backbone.shrink_state(
-                    vstate, self.capacity)
+                if self.share_prefix:
+                    self._voice_tables[name], vstate = backbone.split_prefix(
+                        vstate, tp, self.cfg.backbone.num_heads, eng.dtype)
+                residuals[name] = vstate
                 self._voice_rows[name] = a.shape[0]
+        # lane caches must match the voice caches exactly (admission copies
+        # voice rows into lanes): the capacity clamps to what a residual
+        # holds (kv_capacity - prompt bucket in share mode)
+        new_cap = min(self.capacity,
+                      min(v.pos.shape[0] for v in residuals.values()))
+        changed = (new_cap != self.capacity
+                   or tp != (self.prompt_pad or tp))
+        if new_cap < self.capacity:
+            self._voice_states = {
+                n: backbone.shrink_state(v, new_cap)
+                for n, v in self._voice_states.items()}
+            self.capacity = new_cap
+        self._voice_states.update({
+            n: (backbone.shrink_state(v, self.capacity)
+                if self.capacity < v.pos.shape[0] else v)
+            for n, v in residuals.items()})
         self.prompt_pad = tp
+        if self.share_prefix:
+            changed |= self._build_prefix_tables()
         if changed and self.batch is not None:
             if any(r is not None for r in self._live):
                 raise ValueError(
                     "register_voices changed the lane cache shapes while "
                     "requests are live; drain the server first")
             self.batch = None  # the next _admit builds a fresh epoch
+
+    def _build_prefix_tables(self) -> bool:
+        """Concatenate every registered voice's tables along the slot axis
+        and give each voice state its ppos row (its own segment unmasked).
+        Returns whether the tables' shape changed."""
+        names = list(self._voice_tables)
+        nl = self.cfg.backbone.num_layers
+        pk, pv = ([torch.cat([self._voice_tables[n][i][l] for n in names], 1)
+                   for l in range(nl)] for i in (0, 1))
+        changed = (self._prefix_tables is not None
+                   and pk[0].shape != self._prefix_tables[0][0].shape)
+        self._prefix_tables = (pk, pv)
+        off = 0
+        for n in names:
+            seg = self._voice_tables[n][2]
+            ppos = torch.full((pk[0].shape[1],), -1, dtype=torch.int32,
+                              device=seg.device)
+            ppos[off:off + seg.shape[0]] = seg
+            off += seg.shape[0]
+            self._voice_states[n] = dataclasses.replace(
+                self._voice_states[n], pk=pk, pv=pv, ppos=ppos)
+        return changed
 
     # -- requests ------------------------------------------------------------
     def submit(self, text: str, voice: str, temp: float = 0.6,
@@ -393,7 +448,8 @@ class ContinuousBatchingServer:
         self._compact_useful = True
         self.batch = empty_batch_state(eng.params, self.cfg, self.lanes,
                                        self.capacity, self.prefix_slots,
-                                       eng.dtype, eng.device, ring=self.ring)
+                                       eng.dtype, eng.device, ring=self.ring,
+                                       prefix_tables=self._prefix_tables)
 
     def _compact(self, live):
         self.batch = compact_batch(

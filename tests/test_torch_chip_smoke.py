@@ -75,13 +75,15 @@ def test_failing_serving_phase_fails_the_run(failing, monkeypatch, capsys):
                                        for k in bf},
         time_kernels=lambda *a: {},
         profile_frames=lambda *a, **k: (1.0, []),
-        serve_vs_solo=lambda *a: None,
-        serve_throughput=lambda *a: ({}, 0, {}),
-        profile_serving=lambda *a: (1.0, [2.0], 160, []),
+        serve_vs_solo=lambda *a, **k: None,
+        serve_throughput=lambda *a, **k: ({}, 0, {}),
+        profile_serving=lambda *a, **k: (1.0, [2.0], 160, []),
         serve_cli=lambda *a: None)
     for name in ("check_k1", "check_k2", "check_k3", "check_k7",
                  "check_k2_lanes", "check_k3_lanes", "check_quant_kernels",
-                 "check_cache", "time_quant_kernels"):
+                 "check_cache", "time_quant_kernels", "check_k1_kv8",
+                 "check_k7_kv8", "check_quant_lanes", "time_kv8_kernels",
+                 "time_lane_kernels"):
         stubs[name] = lambda *a, **k: None
     stubs[failing] = boom
     for name, fn in stubs.items():
@@ -97,3 +99,42 @@ def test_failing_serving_phase_fails_the_run(failing, monkeypatch, capsys):
     assert '"ok"' not in out.out
     assert not any(line.startswith('{"kernels"')
                    for line in out.out.splitlines())
+
+
+def test_every_kernel_entry_has_a_counter_source_and_tpu_site():
+    """Each KERNELS entry (the serving mode's int8-KV, statistics and lane
+    entries included) names a launch counter, a CUDA source of the port and
+    the `pallas_call` line of the TPU kernel it replaces; the serving runs'
+    entries are entries."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    counters = cs._counters()
+    for name, entry in cs.KERNELS.items():
+        fn, attr = counters[name]
+        assert isinstance(getattr(fn, attr), int), name
+        assert os.path.exists(os.path.join(ROOT, entry["source"])), name
+        path, line = entry["replaces"].rsplit(":", 1)
+        with open(os.path.join(ROOT, path)) as f:
+            assert "pallas_call" in f.read().splitlines()[int(line) - 1], name
+    assert set(cs.SERVING_KV8_KERNELS) <= set(cs.KERNELS)
+    assert len({(fn, attr) for fn, attr in counters.values()}) == len(
+        counters)
+
+
+def test_expected_serving_launches_per_step():
+    """The serving mode at 32 lanes of DEFAULT_CONFIG: per batch frame step
+    6 K7 (int8, with statistics), 2 K2, 1 K3, 1 K6 over the lanes, 8 K5a
+    and (6 + 2) x 3 = 24 K5b launches, 1 K4b; 24 K4b per prefill."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    want = cs.expected_serving(DEFAULT_CONFIG, "int4_kv8", 1, 0)
+    assert want == {"ring_attn": 2, "seanet_frame": 1,
+                    "decode_insert_attn_kv8": 6,
+                    "decode_insert_attn_stats": 6, "fused_pre_lanes": 8,
+                    "fused_flow_lanes": 1, "fused_post_lanes": 24,
+                    "int4_matmul": 1}
+    assert cs.expected_serving(DEFAULT_CONFIG, "int4_kv8", 0, 2)[
+        "int4_matmul"] == 48
+    assert cs.expected_serving(DEFAULT_CONFIG, "bf16", 3, 1) == {
+        "ring_attn": 6, "seanet_frame": 3, "decode_insert_attn": 18}

@@ -117,9 +117,12 @@ def test_same_seed_same_audio_and_wav(tmp_path):
     assert sr == CFG.mimi.sample_rate and back.size == pcm.size
 
 
-@pytest.mark.parametrize("option", [dict(quantize_kv=True),
+@pytest.mark.parametrize("option", [dict(quantize="int4",
+                                         quantize_convs=True),
                                     dict(quantize_convs=True)])
 def test_quantize_options_not_ported_raise(option):
+    """Quantized convs are slice 6 (quantize_kv runs: see
+    tests/test_torch_share_prefix.py)."""
     with pytest.raises(NotImplementedError):
         tengine(**option)
 

@@ -112,7 +112,7 @@ def test_load_checkpoint_and_voice(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(backbone=dict(quantize_kv=True)),
+    dict(mimi=dict(seanet=dict(mesh="data"))),
     dict(backbone=dict(mesh="data")),
     dict(backbone=dict(use_megalayer=True)),
     dict(backbone=dict(use_bilayer=True)),

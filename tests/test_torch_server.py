@@ -207,17 +207,23 @@ def test_unseeded_requests_draw_engine_seeds():
 
 @pytest.mark.parametrize("what", ["share_prefix", "quantize", "mesh"])
 def test_unported_serving_options_raise(what):
+    """What serving still refuses: shared-prefix tables outside the
+    prefix+ring mode (as the JAX server does), quantized convs (slice 6;
+    quantized weights and the int8 KV cache serve, see
+    tests/test_torch_share_prefix.py) and a device mesh."""
     if what == "quantize":
-        eng = engine(quantize="int8")
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            ContinuousBatchingServer(eng)
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            MultiStreamServer(eng)
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            engine(quantize="int8", quantize_convs=True)
+        for cls in (ContinuousBatchingServer, MultiStreamServer):
+            assert cls(engine(quantize="int8", quantize_kv=True)) is not None
         return
-    kw = {"share_prefix": True} if what == "share_prefix" else \
-        {"mesh": object()}
+    if what == "share_prefix":
+        with pytest.raises(ValueError, match="ring"):
+            ContinuousBatchingServer(engine(), share_prefix=True,
+                                     ring=False)
+        return
     with pytest.raises(NotImplementedError):
-        ContinuousBatchingServer(engine(), **kw)
+        ContinuousBatchingServer(engine(), mesh=object())
 
 
 def test_cli_serve_writes_one_wav_per_request(tmp_path, monkeypatch,
@@ -249,4 +255,4 @@ def test_cli_without_card_needs_device_cpu(capsys):
     assert "--device cpu" in capsys.readouterr().err
     with pytest.raises(NotImplementedError):
         cli.main(["--random-weights", "--device", "cpu", "--serve", "-",
-                  "--share-prefix"])
+                  "--quantize-convs"])
