@@ -4,15 +4,17 @@
     python3 chip_smoke.py [--out DIR]
 
 Drives the port's solo paths (synthesis through `TTSEngine` with bf16
-weights, with `quantize="int8"`, `"int4"` and `"q4_0"`, and with int4
-weights and the int8 KV cache, `quantize_kv=True`) and its
+weights, with `quantize="int8"`, `"int4"` and `"q4_0"`, with int4 weights
+and the int8 KV cache, `quantize_kv=True`, and slice 6's paths: int8 +
+`backbone.use_megalayer`; int4 + int8 KV + megalayer + the int8 mimi ring,
+`mimi.transformer.quantize_kv`; int4 + `backbone.use_bilayer`) and its
 continuous-batching server (`ContinuousBatchingServer`, 32 lanes, with
 bf16 weights and in the JAX package's serving mode: int4 weights, int8
-KV cache, shared prefix; and CLI `--serve`) at the full width of
-DEFAULT_CONFIG with random weights from seed 0, and checks the eighteen
-hand-written CUDA kernel entries on them against their plain PyTorch
-versions. Phases, in order; any failure raises, names its phase and the
-exit code is 1:
+KV cache, shared prefix; 4 lanes without the fused insert; and CLI
+`--serve`) at the full width of DEFAULT_CONFIG with random weights from
+seed 0, and checks the twenty-five hand-written CUDA kernel entries on
+them against their plain PyTorch versions. Phases, in order; any failure
+raises, names its phase and the exit code is 1:
 
   1. environment   torch / CUDA versions, card name and power limit
   2. build         nvcc builds the kernel library (pocket_tts_tpu_torch/csrc)
@@ -34,6 +36,16 @@ exit code is 1:
                    K5a/K5b over 32 backbone rows and 64, 256 and 512 mimi
                    rows and K6 over 32 (and 40) rows, int8, int4 and q4_0;
                    f32 and bf16
+  3e. slice 6      K8 megalayer on every layer of the int8 and int4 trees,
+                   caches of the working type and int8, S=384 with the
+                   write slot at 300 and at a tile edge (y, cache rows and
+                   scale rows); K5c bilayer on all five layer pairs of the
+                   int4 and q4_0 trees; K2-q over an int8 ring of 256 slots,
+                   solo and 32 lanes with distinct starts (ring bytes and
+                   scales equal, each lane equal to the solo call bit for
+                   bit); K1 over 32 lanes, S=1024 and 896, caches of the
+                   working type and int8, with and without statistics, an
+                   idle lane (0, -inf, 0); f32 and bf16
   4. end to end    synthesis of the benchmark sentence at temp 0 on each
                    path, counters set to 0 before each run and read after:
                    per decoded frame every path launches 6 K1, 2 K2 and 1
@@ -41,24 +53,34 @@ exit code is 1:
                    prefill call; int4 and q4_0 the same counts of K4b and
                    the int4 K5a/K5b/K6 (counted apart from int8); int4 +
                    int8 KV the int4 counts with K1's int8-KV variant in
-                   place of K1. Then the q4_0 engine is built again from a
-                   params cache written and read back here, and must give
-                   the same pcm, bit for bit
+                   place of K1; int8 + megalayer 6 K8 and 2 K5a, 2 K5b (the
+                   mimi layers) and no K1; int4 + int8 KV + megalayer + the
+                   int8 mimi ring 6 K8 (int4, int8 KV) and K2-q in place of
+                   K2; int4 + bilayer 1 + 2 K5a, 5 K5c, 1 + 2 K5b, 6 K1.
+                   Then the q4_0 engine is built again from a params cache
+                   written and read back here, and must give the same pcm,
+                   bit for bit
   5. card vs CPU   12 f32 frames on the card vs the port on the CPU, on
-                   each of the five paths
-  6. timing        decode frames/s of the five paths in alternating rounds
-                   (with and without the per-frame host sync), each
-                   kernel's device time vs its plain version's and the
-                   library call's (SDPA for K1, K2, K7; none for the int8
-                   KV variants, beside which SDPA over bf16 caches of the
-                   same shape is timed for comparison; CUDA events) beside
-                   its bound
+                   each of the eight paths
+  6. timing        decode frames/s of the eight paths in alternating rounds
+                   (with and without the per-frame host sync; each of slice
+                   6's paths beside its 3-call counterpart), each kernel's
+                   device time vs its plain version's and the library
+                   call's (SDPA for K1, K2, K7 and K1 over lanes; none for
+                   the int8 KV variants, beside which SDPA over bf16 caches
+                   of the same shape is timed for comparison; none for K8,
+                   beside which the 3-call path it replaces is timed, and
+                   for K5c, beside K5b then K5a; CUDA events) beside its
+                   bound
   7. serving       f32, 4 lanes, 6 requests (two admitted mid-decode), each
-                   pcm vs the solo engine on the card, with bf16 weights
-                   and with int8 weights + int8 KV + shared prefix; 32
-                   lanes, 48 requests, counters set to 0 before and read
-                   after, with bf16 weights (per batch frame step 6 K7, 2
-                   K2, 1 K3, no K1) and in the serving mode (per step 6
+                   pcm vs the solo engine on the card, with bf16 weights,
+                   with int8 weights + int8 KV + shared prefix, and with
+                   int8 weights + int8 KV + shared prefix + the int8 mimi
+                   ring without the fused insert (counters read: per batch
+                   frame step 6 K1 over lanes with statistics, 2 K2-q, no
+                   K7); 32 lanes, 48 requests, counters set to 0 before and
+                   read after, with bf16 weights (per batch frame step 6 K7,
+                   2 K2, 1 K3, no K1) and in the serving mode (per step 6
                    K7 int8 with statistics, 2 K2, 1 K3, 0 K1, 1 K6 over
                    the 32 rows, 8 K5a and 24 K5b launches over the lanes'
                    rows, 1 K4b, and 24 K4b per admission prefill);
@@ -75,11 +97,14 @@ The last three lines of standard output are a JSON object of the kernels
 int8 entries from int8, the int4 entries from int4 and q4_0 together, K1's
 int8-KV variant from int4 + int8 KV, K7 from the bf16 serving run, the
 serving mode's entries (K7 int8 / statistics, K5a/K5b/K6 over lanes) from
-its serving run),
+its serving run, K8 from int8 + megalayer and (int4, int8 KV) from int4 +
+int8 KV + megalayer, K2-q from the same, K5c from int4 + bilayer, K1 over
+lanes from the 4-lane serving run without the fused insert),
 the card's `nvidia-smi` name and power limit, and the result object
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 and prints no result. With --out DIR, the longer output (nvcc's register
-report, the profiler tables) is also written under DIR.
+report, the profiler tables, and a copy of the log as chip_smoke.log) is
+also written under DIR.
 """
 from __future__ import annotations
 
@@ -115,6 +140,12 @@ TOL = {
     # flow net (K6): relative to max |plain|; bf16 as above, over a chain
     # of ~14 rounding points, each of which can move the next by one ulp
     ("flow", "f32"): 1e-4, ("flow", "bf16"): 3e-2,
+    # the megalayer (K8): relative to max |plain|; a chain of ~8 rounding
+    # points in bf16 (ln1, q/k/v, rope, softmax weights, attn, ln2, h, y);
+    # its int8 K/V bytes may quantize one step apart where a value lies
+    # within an ulp of an int8 rounding boundary (checked: at most one
+    # step, on few bytes)
+    ("mega", "f32"): 1e-4, ("mega", "bf16"): 3e-2,
     # end to end card vs CPU, f32, relative to max |pcm| after 12 frames
     ("e2e", "f32"): 1e-3,
 }
@@ -175,6 +206,29 @@ KERNELS = {
     "fused_flow_lanes": dict(
         source="pocket_tts_tpu_torch/csrc/fused_flow.cu",
         replaces="pocket_tts_tpu/ops/fused_flow.py:188"),
+    # slice 6: the whole-layer megakernel (int8 and int4 weights, and its
+    # int8-KV variant), the bilayer, the int8 mimi ring, K1 over lanes
+    "megalayer": dict(
+        source="pocket_tts_tpu_torch/csrc/megalayer.cu",
+        replaces="pocket_tts_tpu/ops/fused_step.py:454"),
+    "megalayer_int4": dict(
+        source="pocket_tts_tpu_torch/csrc/megalayer.cu",
+        replaces="pocket_tts_tpu/ops/fused_step.py:454"),
+    "megalayer_kv8": dict(
+        source="pocket_tts_tpu_torch/csrc/megalayer.cu",
+        replaces="pocket_tts_tpu/ops/fused_step.py:454"),
+    "bilayer": dict(
+        source="pocket_tts_tpu_torch/csrc/fused_layer.cu",
+        replaces="pocket_tts_tpu/ops/fused_layer.py:750"),
+    "ring_attn_kv8": dict(
+        source="pocket_tts_tpu_torch/csrc/ring_attn.cu",
+        replaces="pocket_tts_tpu/ops/pallas_mimi.py:324"),
+    "decode_attn_lanes": dict(
+        source="pocket_tts_tpu_torch/csrc/decode_attn.cu",
+        replaces="pocket_tts_tpu/ops/pallas_attn.py:332"),
+    "decode_attn_stats": dict(
+        source="pocket_tts_tpu_torch/csrc/decode_attn.cu",
+        replaces="pocket_tts_tpu/ops/pallas_attn.py:332"),
 }
 # the kernels whose launches the kernels line reports from the bf16 serving
 # run (phase 7, slice 4's path), and from the serving run in the reference's
@@ -194,17 +248,59 @@ PATH_KERNELS["q4_0"] = PATH_KERNELS["int4"]
 QUANT_PATHS = ("int8", "int4", "q4_0")
 # solo paths with the int8 KV cache: (weights, quantize_kv)
 KV8_PATH = "int4_kv8"
+# slice 6's solo paths: the megalayer (int8; int4 + int8 KV + the int8 mimi
+# ring) and the bilayer (int4), each timed beside its 3-call counterpart
+MEGA_PATHS = ("int8_mega", "int4_kv8_mega", "int4_bilayer")
+COUNTERPART = {"int8_mega": "int8", "int4_kv8_mega": KV8_PATH,
+               "int4_bilayer": "int4"}
+# slice 6's solo kernels and the path whose run the kernels line reports
+MEGA_KERNELS = {"megalayer": "int8_mega", "megalayer_int4": "int4_kv8_mega",
+                "megalayer_kv8": "int4_kv8_mega",
+                "ring_attn_kv8": "int4_kv8_mega", "bilayer": "int4_bilayer"}
+# the f32 serving check of batched decode without the fused insert: int8
+# weights + int8 KV + shared prefix + the int8 mimi ring, K1 over lanes
+K1_SERVE = "int8_kv8_k1"
 ENGINE_KW = {"bf16": dict(), "int8": dict(quantize="int8"),
              "int4": dict(quantize="int4"), "q4_0": dict(quantize="q4_0"),
              KV8_PATH: dict(quantize="int4", quantize_kv=True),
-             "int8_kv8": dict(quantize="int8", quantize_kv=True)}
+             "int8_kv8": dict(quantize="int8", quantize_kv=True),
+             "int8_mega": dict(quantize="int8"),
+             "int4_kv8_mega": dict(quantize="int4", quantize_kv=True),
+             "int4_bilayer": dict(quantize="int4"),
+             K1_SERVE: dict(quantize="int8", quantize_kv=True)}
+# the cfg changes of a path: backbone fields, and the mimi ring's
+# quantize_kv
+PATH_CFG = {"int8_mega": dict(use_megalayer=True, fuse_insert=True),
+            "int4_kv8_mega": dict(use_megalayer=True, fuse_insert=True,
+                                  mimi_kv8=True),
+            "int4_bilayer": dict(use_bilayer=True),
+            K1_SERVE: dict(fuse_insert=False, mimi_kv8=True)}
+
+
+def path_cfg(cfg, path):
+    """cfg with the options of `path` (PATH_CFG) set."""
+    import dataclasses
+    ch = dict(PATH_CFG.get(path, {}))
+    mimi_kv8 = ch.pop("mimi_kv8", False)
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, **ch))
+    if mimi_kv8:
+        cfg = dataclasses.replace(cfg, mimi=dataclasses.replace(
+            cfg.mimi, transformer=dataclasses.replace(
+                cfg.mimi.transformer, quantize_kv=True)))
+    return cfg
 
 
 _T0 = time.perf_counter()
+# with --out DIR: a copy of every log line (the standard output's end may be
+# all a caller gets back)
+_LOG = []
 
 
 def log(*args):
     print(*args, flush=True)
+    for f in _LOG:
+        print(*args, file=f, flush=True)
 
 
 def header(text):
@@ -793,6 +889,293 @@ def check_quant_lanes(pq, cfg, device, dtype, results, path):
     _rel_check("fused_flow_lanes", "flow", dtype, pairs, results, label)
 
 
+# ------------------------------------------------- phase 3e: slice 6 -------
+
+def k8_case(g, device, dtype, kvq, s=384, end=300, dm=1024):
+    """Inputs of one K8 call at the benchmark bucket: x (1, dm), caches
+    (S, dm) pre-insert with slots 0..end-1 live (a few padding holes) and
+    a stale row at the write slot `end`, pos (S,) post-insert, scales for
+    int8 caches: (x, k, v, ks, vs, pos, cur_pos)."""
+    import torch
+    x = (0.5 * torch.randn(1, dm, generator=g)).to(device, dtype)
+    if kvq:
+        k, ks = kv8_rows(g, device, dtype, s, dm)
+        v, vs = kv8_rows(g, device, dtype, s, dm)
+        ks[end] = vs[end] = 1e3           # stale scales: never read
+    else:
+        k = torch.randn(s, dm, generator=g).to(device, dtype)
+        v = torch.randn(s, dm, generator=g).to(device, dtype)
+        k[end], v[end] = 1e3, -1e3        # stale row: never read
+        ks = vs = None
+    pos = torch.arange(s, dtype=torch.int32) + 5
+    pos[end + 1:] = -1
+    pos[40:47] = -1
+    return x, k, v, ks, vs, pos.to(device), pos[end:end + 1].to(device)
+
+
+def _cache_check(name, got, want):
+    """K8's cache rows and scale rows after the insert: int8 bytes at most
+    one step apart, float rows and scales relative to max |plain|. Returns
+    the largest relative error of the float ones."""
+    import torch
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a is None:
+            continue
+        if a.dtype == torch.int8:
+            d = (a.int() - b.int()).abs()
+            if int(d.max()) > 1:
+                raise AssertionError(f"{name}: int8 bytes {int(d.max())} "
+                                     "steps apart")
+            continue
+        scale = max(b.float().abs().max().item(), 1e-30)
+        worst = max(worst, (a.float() - b.float()).abs().max().item() / scale)
+    return worst
+
+
+def check_k8(engines, device, dtype, results):
+    """K8 vs megalayer_plain on the full-width int8 and int4 trees, caches
+    of the working type and int8: S = 384 with end = 300 (the write slot
+    inside a 128-slot tile) and with the write slot at a tile edge (end =
+    255, 256), every layer; y, the cache rows and the scale rows."""
+    import torch
+    from pocket_tts_tpu_torch.ops import fused_step
+    from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    from pocket_tts_tpu_torch.ops.rope import rope_cos_sin
+    g = torch.Generator(device="cpu").manual_seed(21)
+    dn = _dt_name(dtype)
+    tol = TOL[("mega", dn)]
+    for path, name in (("int8", "megalayer"), ("int4", "megalayer_int4")):
+        eng = engines[path, dtype]
+        bb = eng.cfg.backbone
+        worst_y = worst_c = 0.0
+        nbytes = ndiff = 0
+        for kvq in (False, True):
+            for end in (300, 255, 256):
+                x, k, v, ks, vs, pos, cur = k8_case(g, device, dtype, kvq,
+                                                    end=end, dm=bb.d_model)
+                cos, sin = rope_cos_sin(cur, bb.head_dim, bb.max_period)
+                for l in range(bb.num_layers):
+                    p = slice_layer_params(eng.params["layers"], l)
+                    c1 = [c if c is None else c.clone() for c in (k, v, ks,
+                                                                  vs)]
+                    c2 = [c if c is None else c.clone() for c in (k, v, ks,
+                                                                  vs)]
+                    y = fused_step.megalayer(p, x, cos, sin, cur, c1[0],
+                                             c1[1], pos, end, end, c1[2],
+                                             c1[3])
+                    want = fused_step.megalayer_plain(
+                        p, x, cos, sin, cur, c2[0], c2[1], pos, end, end,
+                        c2[2], c2[3])
+                    sync(device)
+                    if not torch.isfinite(y.float()).all():
+                        raise AssertionError(f"K8 {path}: non-finite y")
+                    scale = max(want.float().abs().max().item(), 1e-30)
+                    worst_y = max(worst_y, (y.float() - want.float()).abs()
+                                  .max().item() / scale)
+                    worst_c = max(worst_c, _cache_check(
+                        f"K8 {path}", c1, c2))
+                    rows = torch.arange(k.shape[0], device=device) != end
+                    if not (torch.equal(c1[0][rows], k[rows])
+                            and torch.equal(c1[1][rows], v[rows])):
+                        raise AssertionError(f"K8 {path}: rows other than "
+                                             "the write slot changed")
+                    if kvq:
+                        nbytes += 2 * k.shape[1]
+                        ndiff += int((c1[0][end] != c2[0][end]).sum()
+                                     + (c1[1][end] != c2[1][end]).sum())
+                    err = (y.float() - want.float()).abs().max().item()
+                    errs = results.setdefault(name, {})
+                    errs[dn] = max(errs.get(dn, 0.0), err)
+                    if kvq:
+                        e8 = results.setdefault("megalayer_kv8", {})
+                        e8[dn] = max(e8.get(dn, 0.0), err)
+        log(f"  K8 {name} {dn}: S=384, write slot 300 / 255 / 256, "
+            f"{bb.num_layers} layers, {dn} and int8 caches: y error "
+            f"relative to max|plain| {worst_y:.3e}, cache and scale rows "
+            f"{worst_c:.3e} (tol {tol}); int8 bytes one step apart: "
+            f"{ndiff} of {nbytes}")
+        if not (worst_y <= tol and worst_c <= tol):
+            raise AssertionError(f"K8 {path} {dn}: y {worst_y} cache "
+                                 f"{worst_c} > {tol}")
+
+
+def check_k5c(engines, device, dtype, results):
+    """K5c vs bilayer_post_pre_plain on the full-width int4 and q4_0 trees,
+    all five layer pairs, with and without the tanh GELU."""
+    from pocket_tts_tpu_torch.ops import fused_layer
+    from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    rng = np.random.RandomState(22)
+    pairs = []
+    for path in ("int4", "q4_0"):
+        eng = engines[path, dtype]
+        layers = eng.params["layers"]
+        dm = eng.cfg.backbone.d_model
+        for l in range(eng.cfg.backbone.num_layers - 1):
+            p0, p1 = (slice_layer_params(layers, i) for i in (l, l + 1))
+            if not fused_layer.bilayer_supported(p0, p1):
+                raise AssertionError(f"{path}: bilayer route not taken")
+            x = _rand(rng, device, dtype, 1, dm, scale=0.5)
+            a = _rand(rng, device, dtype, 1, dm, scale=0.5)
+            got = fused_layer.bilayer_post_pre(p0, p1, x, a,
+                                               approx=l % 2 == 1)
+            want = fused_layer.bilayer_post_pre_plain(p0, p1, x, a,
+                                                      approx=l % 2 == 1)
+            pairs += list(zip(got, want))
+    sync(device)
+    _rel_check("bilayer", "quant", dtype, pairs, results,
+               " [int4, q4_0; x_next and qkv]")
+
+
+def check_k2q(device, dtype, results):
+    """K2-q vs its plain version: solo (cap 256, offsets before and after
+    the ring wraps) and 32 lanes with distinct starts, each lane equal to
+    the solo call bit for bit; ring bytes and scale rows equal."""
+    import torch
+    from pocket_tts_tpu_torch.ops.ring_attn import (
+        ring_insert_attention, ring_insert_attention_plain)
+    h, d, cap, t, ctx = 8, 64, 256, 16, 250
+    hd = h * d
+    g = torch.Generator(device="cpu").manual_seed(23)
+    worst = 0.0
+
+    def case(*lead):
+        q = torch.randn(*lead, t, hd, generator=g).to(device, dtype)
+        kn, ksn = kv8_rows(g, device, dtype, *lead, t, hd)
+        vn, vsn = kv8_rows(g, device, dtype, *lead, t, hd)
+        k, ks = kv8_rows(g, device, dtype, *lead, cap, hd)
+        v, vs = kv8_rows(g, device, dtype, *lead, cap, hd)
+        return q, kn, vn, k, v, ksn, vsn, ks, vs
+
+    def run(fn, c, off, start):
+        q, kn, vn, k, v, ksn, vsn, ks, vs = c
+        caches = [k.clone(), v.clone(), ks.clone(), vs.clone()]
+        out = fn(q, kn, vn, caches[0], caches[1], off, start, h, ctx,
+                 k_scale=caches[2], v_scale=caches[3], ks_new=ksn,
+                 vs_new=vsn)
+        return [out] + caches
+
+    for off in (0, 16, 240, 256, 4096):
+        for start in (0, 32):
+            if start > off:
+                continue
+            c = case()
+            got = run(ring_insert_attention, c, off, start)
+            want = run(ring_insert_attention_plain, c, off, start)
+            sync(device)
+            if not all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])):
+                raise AssertionError(f"K2-q rings differ at offset {off}")
+            worst = max(worst, (got[0].float() - want[0].float()).abs()
+                        .max().item())
+    for off in (240, 4096):
+        c = case(LANES)
+        starts = torch.tensor([(i * 97) % (off + 1) // t * t
+                               for i in range(LANES)], dtype=torch.int32)
+        starts[0], starts[1] = 0, off
+        st = starts.to(device)
+        got = run(ring_insert_attention, c, off, st)
+        want = run(ring_insert_attention_plain, c, off, st)
+        solo = [run(ring_insert_attention, [a[i] for a in c], off,
+                    int(starts[i])) for i in (0, 1, LANES - 1)]
+        sync(device)
+        if not all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])):
+            raise AssertionError(f"K2-q lanes: rings differ at {off}")
+        for i, o in zip((0, 1, LANES - 1), solo):
+            if not torch.equal(got[0][i], o[0]):
+                raise AssertionError(f"K2-q lane {i} differs from the solo "
+                                     f"call at offset {off}")
+        worst = max(worst, (got[0].float() - want[0].float()).abs().max()
+                    .item())
+    tol = TOL[("attn", _dt_name(dtype))]
+    log(f"  K2-q ring_attn_kv8 {_dt_name(dtype)}: int8 ring cap 256, solo "
+        f"and B={LANES} with distinct starts: max_abs_err {worst:.3e} (tol "
+        f"{tol}); ring bytes and scale rows equal; lanes equal the solo "
+        "call bit for bit")
+    if not worst <= tol:
+        raise AssertionError(f"K2-q {_dt_name(dtype)} error {worst}")
+    results.setdefault("ring_attn_kv8", {})[_dt_name(dtype)] = worst
+
+
+def k1_lanes_case(g, device, dtype, kvq, s, b=LANES, end=None, h=16,
+                  d=64):
+    """K1 over lanes: q (B, H, D), caches (B, S, H*D) of the working type
+    or int8 with (B, S) scales, pos (B, S) with lanes of different lengths
+    and holes; lane 2 attends nothing. end: S - 1 (ring mode) by
+    default."""
+    import torch
+    end = s - 1 if end is None else end
+    q = torch.randn(b, h, d, generator=g).to(device, dtype)
+    if kvq:
+        k, ks = kv8_rows(g, device, dtype, b, s, h * d)
+        v, vs = kv8_rows(g, device, dtype, b, s, h * d)
+    else:
+        k = torch.randn(b, s, h * d, generator=g).to(device, dtype)
+        v = torch.randn(b, s, h * d, generator=g).to(device, dtype)
+        ks = vs = None
+    pos = torch.arange(s, dtype=torch.int32).repeat(b, 1) + 5000
+    for i in range(b):
+        pos[i, : (i * 37) % s] = -1
+    pos[::3, 40:60] = -1
+    pos[:, end + 1:] = -1
+    pos[2] = -1
+    return q, k, v, ks, vs, pos.to(device), end
+
+
+def check_k1_lanes(device, dtype, results):
+    """K1 over 32 lanes vs its plain version: S = 1024 (bf16 caches) and S
+    = 896 (int8), ring (every slot read) and linear (end 700), with and
+    without statistics; the idle lane gives out 0, m = -inf, l = 0."""
+    import torch
+    from pocket_tts_tpu_torch.ops.decode_attn import (decode_attention,
+                                                      decode_attention_plain)
+    g = torch.Generator(device="cpu").manual_seed(24)
+    tol = TOL[("attn", _dt_name(dtype))]
+    worst = {"decode_attn_lanes": 0.0, "decode_attn_stats": 0.0}
+    worst_m = worst_l = 0.0
+    for kvq, s in ((False, 1024), (True, 896)):
+        for end in (None, 700):
+            q, k, v, ks, vs, pos, e = k1_lanes_case(g, device, dtype, kvq, s,
+                                                    end=end)
+            for stats in (False, True):
+                got = decode_attention(q, k, v, pos, e, ks, vs, stats=stats)
+                want = decode_attention_plain(q, k, v, pos, e, ks, vs,
+                                              stats=stats)
+                sync(device)
+                got = got if stats else (got,)
+                want = want if stats else (want,)
+                name = "decode_attn_stats" if stats else "decode_attn_lanes"
+                if not torch.isfinite(got[0].float()).all():
+                    raise AssertionError("K1 lanes: non-finite output")
+                if not (got[0][2] == 0).all():
+                    raise AssertionError("K1 lanes: the idle lane is not 0")
+                worst[name] = max(worst[name], (got[0].float()
+                                                - want[0].float()).abs()
+                                  .max().item())
+                if stats:
+                    (_, m, l), (_, mp, lp) = got, want
+                    if not (torch.isneginf(m[2]).all() and (l[2] == 0).all()):
+                        raise AssertionError("K1 lanes: the idle lane is not "
+                                             "(0, -inf, 0)")
+                    live = torch.isfinite(mp)
+                    if not torch.equal(live, torch.isfinite(m)):
+                        raise AssertionError("K1 lanes: m masks differ")
+                    worst_m = max(worst_m, (m[live] - mp[live]).abs().max()
+                                  .item())
+                    worst_l = max(worst_l, ((l[live] - lp[live]).abs()
+                                            / lp[live]).max().item())
+    log(f"  K1 decode_attn_lanes {_dt_name(dtype)}: B={LANES}, S=1024 "
+        f"{_dt_name(dtype)} and S=896 int8, ring and end=700, an idle lane: "
+        f"max_abs_err {worst['decode_attn_lanes']:.3e}; with statistics out "
+        f"{worst['decode_attn_stats']:.3e}, m {worst_m:.3e}, l relative "
+        f"{worst_l:.3e} (tol {tol})")
+    if not (max(worst.values()) <= tol and worst_m <= tol
+            and worst_l <= tol):
+        raise AssertionError(f"K1 lanes {_dt_name(dtype)} errors {worst} "
+                             f"m {worst_m} l {worst_l}")
+    for name, err in worst.items():
+        results.setdefault(name, {})[_dt_name(dtype)] = err
+
+
 # ---------------------------------------------------------------- phase 4 --
 
 def counted_frame_steps():
@@ -820,9 +1203,11 @@ def counted_frame_steps():
 def _counters():
     """{kernel name: (wrapper, attribute of its launch count)}: the fused
     wrappers count solo int8 launches in `launches`, solo int4 ones in
-    `launches_int4` and launches over lanes in `launches_lanes`; K1 and K7
-    count int8-KV launches in `launches_kv8`, and K7 its launches with
-    statistics once more in `launches_stats`."""
+    `launches_int4` and launches over lanes in `launches_lanes`; K1, K2 and
+    K7 count int8-KV launches in `launches_kv8` (K1 over lanes in
+    `launches_lanes` instead), K1 and K7 their launches with statistics
+    once more in `launches_stats`; K8 counts by weights and once more with
+    an int8 cache, K5c in `bilayer_post_pre.launches_bilayer`."""
     from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
     from pocket_tts_tpu_torch.ops.decode_attn import decode_attention
     from pocket_tts_tpu_torch.ops.insert_attn import decode_insert_attention
@@ -830,9 +1215,17 @@ def _counters():
                                                        int8_matmul)
     from pocket_tts_tpu_torch.ops.ring_attn import ring_insert_attention
     from pocket_tts_tpu_torch.ops.seanet_frame import seanet_frame
+    from pocket_tts_tpu_torch.ops.fused_step import megalayer
     out = {"decode_attn": (decode_attention, "launches"),
            "decode_attn_kv8": (decode_attention, "launches_kv8"),
+           "decode_attn_lanes": (decode_attention, "launches_lanes"),
+           "decode_attn_stats": (decode_attention, "launches_stats"),
            "ring_attn": (ring_insert_attention, "launches"),
+           "ring_attn_kv8": (ring_insert_attention, "launches_kv8"),
+           "megalayer": (megalayer, "launches"),
+           "megalayer_int4": (megalayer, "launches_int4"),
+           "megalayer_kv8": (megalayer, "launches_kv8"),
+           "bilayer": (fused_layer.bilayer_post_pre, "launches_bilayer"),
            "seanet_frame": (seanet_frame, "launches"),
            "int8_matmul": (int8_matmul, "launches"),
            "int4_matmul": (int4_matmul, "launches"),
@@ -881,17 +1274,36 @@ def make_engine(cfg, device, dtype, quantize=None, quantize_kv=False,
 
 def expected_launches(cfg, path):
     """(launches per decoded frame, launches per prefill call) by kernel
-    for a path: "bf16", "int8", "int4", "q4_0" or "int4_kv8" (int4 weights,
-    int8 KV cache: K1's int8-KV variant)."""
+    for a path: "bf16", "int8", "int4", "q4_0", "int4_kv8" (int4 weights,
+    int8 KV cache: K1's int8-KV variant), "int8_mega" (K8 per backbone
+    layer), "int4_kv8_mega" (K8's int4 and int8-KV variant, and K2-q for
+    the int8 mimi ring) or "int4_bilayer" (K5a of layer 0, K5c at each
+    layer boundary, K5b after the last, K1 per layer)."""
     nb, nm = cfg.backbone.num_layers, cfg.mimi.transformer.num_layers
-    k1 = "decode_attn_kv8" if path == KV8_PATH else "decode_attn"
-    per_frame = {k1: nb, "ring_attn": nm, "seanet_frame": 1}
+    kv8 = ENGINE_KW[path].get("quantize_kv", False)
+    k1 = "decode_attn_kv8" if kv8 else "decode_attn"
+    ring = ("ring_attn_kv8" if PATH_CFG.get(path, {}).get("mimi_kv8")
+            else "ring_attn")
+    per_frame = {ring: nm, "seanet_frame": 1}
     per_prefill = {}
     weights = ENGINE_KW[path].get("quantize")
-    if weights in PATH_KERNELS:
-        mm, pre, post, flow = PATH_KERNELS[weights]
-        per_frame.update({mm: 1, pre: nb + nm, post: nb + nm, flow: 1})
-        per_prefill = {mm: 4 * nb}
+    if weights not in PATH_KERNELS:
+        per_frame[k1] = nb
+        return per_frame, per_prefill
+    mm, pre, post, flow = PATH_KERNELS[weights]
+    per_frame.update({mm: 1, pre: nb + nm, post: nb + nm, flow: 1})
+    per_prefill = {mm: 4 * nb}
+    if cfg.backbone.use_megalayer:
+        per_frame.update({pre: nm, post: nm,
+                          ("megalayer" if weights == "int8"
+                           else "megalayer_int4"): nb})
+        if kv8:
+            per_frame["megalayer_kv8"] = nb
+    elif cfg.backbone.use_bilayer:
+        per_frame.update({pre: 1 + nm, post: 1 + nm, "bilayer": nb - 1,
+                          k1: nb})
+    else:
+        per_frame[k1] = nb
     return per_frame, per_prefill
 
 
@@ -1005,9 +1417,14 @@ def first_frames(engine, voice, n_frames, text=BENCH_TEXT):
 
 def device_ms(fn, iters, warmup=3):
     """(device ms, host ms) per call of fn. Device time: a sleep kernel
-    holds the stream while the host queues `iters` calls, so the CUDA events
+    holds the stream while the host queues the calls, so the CUDA events
     around them time the device work back to back, not the host's launch
-    rate. Host time: wall clock per call of a synchronised run."""
+    rate. It is taken twice, with one sleep ahead of all `iters` calls and
+    with one ahead of each call, and the smaller kept: the first runs at
+    the host's pace once a call of many small launches fills the CUDA
+    launch queue while the device sleeps; the second adds each call's
+    start-up latency (~3 us). Host time: wall clock per call of a
+    synchronised run."""
     import torch
     for _ in range(warmup):
         fn()
@@ -1017,16 +1434,23 @@ def device_ms(fn, iters, warmup=3):
         fn()
     torch.cuda.synchronize()
     host = (time.perf_counter() - t0) / iters
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    # hold the stream ~2x the time the host needs to queue the calls
-    torch.cuda._sleep(int(2 * host * iters * 2e9))
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters, host * 1e3
+
+    def held(per_sleep):
+        events = []
+        for _ in range(iters // per_sleep):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            # hold the stream ~2x the time the host needs to queue the calls
+            torch.cuda._sleep(int(2 * host * per_sleep * 2e9))
+            a.record()
+            for _ in range(per_sleep):
+                fn()
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in events) / iters
+
+    return min(held(iters), held(1)), host * 1e3
 
 
 def time_decode(engines, voice, n_frames=100, rounds=3, text=BENCH_TEXT):
@@ -1462,6 +1886,151 @@ def time_lane_kernels(pq, cfg, device, dtype, out):
     return out
 
 
+def time_slice6_kernels(engines, device, dtype, out):
+    """Device time of slice 6's kernels vs their plain versions, with each
+    call's bound, appended to out[kernel name]: K8 on layer 0 of the int8
+    and int4 trees at S = 384, end = 300 (caches of the working type and
+    int8), beside the device time of the 3-call path it replaces for the
+    same layer (K5a + rope + row quantization + K7 + K5b: backbone._layer
+    with the fused insert); K5c on layers (0, 1) of the int4 and q4_0
+    trees, beside K5b + K5a; K2-q solo and over 32 lanes; K1 over 32 lanes
+    (S = 1024 bf16 caches against SDPA; S = 896 int8 caches with
+    statistics). No single PyTorch call computes K8, K5c or attention over
+    int8 rows with per-row scales (library: none); beside those, for
+    comparison only, SDPA over bf16 caches of the same shape."""
+    import torch
+    from pocket_tts_tpu_torch.models import backbone as tbb
+    from pocket_tts_tpu_torch.ops import fused_layer, fused_step
+    from pocket_tts_tpu_torch.ops.attention import ring_cache_bias
+    from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    from pocket_tts_tpu_torch.ops.decode_attn import (decode_attention,
+                                                      decode_attention_plain)
+    from pocket_tts_tpu_torch.ops.ring_attn import (
+        ring_insert_attention, ring_insert_attention_plain)
+    from pocket_tts_tpu_torch.ops.rope import rope_cos_sin
+    g = torch.Generator(device="cpu").manual_seed(25)
+    dn = _dt_name(dtype)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    # K8: (tree, int8 cache, kernel name)
+    for path, kvq, name in (("int8", False, "megalayer"),
+                            ("int4", False, "megalayer_int4"),
+                            ("int4", True, "megalayer_kv8"),
+                            ("int8", True, "megalayer")):
+        eng = engines[path]
+        bb = eng.cfg.backbone
+        dm, end = bb.d_model, 300
+        p = slice_layer_params(eng.params["layers"], 0)
+        x, k, v, ks, vs, pos, cur = k8_case(g, device, dtype, kvq, end=end,
+                                            dm=dm)
+        cos, sin = rope_cos_sin(cur, bb.head_dim, bb.max_period)
+        nread = int(((pos >= 0) & (torch.arange(pos.shape[0], device=device)
+                                   < end)).sum())
+        row = dm * (1 if kvq else isz) + (4 if kvq else 0)
+        nbytes = (_tree_bytes(p) + 2 * nread * row + 4 * (end + 1)
+                  + 2 * dm * isz + 2 * row)
+        fl = _linear_flops(p, 1) + 4 * nread * dm
+        r = _row(
+            device_ms(lambda: fused_step.megalayer(
+                p, x, cos, sin, cur, k, v, pos, end, end, ks, vs), 200),
+            device_ms(lambda: fused_step.megalayer_plain(
+                p, x, cos, sin, cur, k, v, pos, end, end, ks, vs), 20),
+            None, bound_ms(nbytes, fl, dn),
+            f"{path} weights, {'int8' if kvq else dn} cache S=384 "
+            f"end={end}, layer 0")
+        r["three"] = device_ms(lambda: tbb._layer(
+            p, x, k, v, ks, vs, end, cos, sin, None, pos, bb.num_heads,
+            False, cur), 200)[0]
+        out.setdefault(name, []).append(r)
+    # K5c on layers (0, 1)
+    for path in ("int4", "q4_0"):
+        eng = engines[path]
+        dm = eng.cfg.backbone.d_model
+        layers = eng.params["layers"]
+        p0, p1 = (slice_layer_params(layers, i) for i in (0, 1))
+        x = (0.5 * torch.randn(1, dm, generator=g)).to(device, dtype)
+        a = (0.5 * torch.randn(1, dm, generator=g)).to(device, dtype)
+        post_p = {k: w for k, w in p0.items() if k not in ("norm1",
+                                                             "in_proj")}
+        pre_p = {k: p1[k] for k in ("norm1", "in_proj")}
+        r = _row(
+            device_ms(lambda: fused_layer.bilayer_post_pre(p0, p1, x, a),
+                      200),
+            device_ms(lambda: fused_layer.bilayer_post_pre_plain(p0, p1, x,
+                                                                 a), 20),
+            None,
+            bound_ms(_tree_bytes(post_p) + _tree_bytes(pre_p)
+                     + _nbytes(x) * 6, _linear_flops(post_p, 1)
+                     + _linear_flops(pre_p, 1), dn),
+            f"{path} layers (0, 1) dm={dm}")
+        r["two"] = device_ms(lambda: fused_layer.pre_attention(
+            p1, fused_layer.post_attention(p0, x, a)), 200)[0]
+        out.setdefault("bilayer", []).append(r)
+    # K2-q at a wrapped ring, solo and over 32 lanes
+    h, d, cap, t = 8, 64, 256, 16
+    hd = h * d
+    ctx = engines["int4"].cfg.mimi.transformer.context
+    for b in (1, LANES):
+        lead = () if b == 1 else (b,)
+        q = torch.randn(*lead, t, hd, generator=g).to(device, dtype)
+        kn, ksn = kv8_rows(g, device, dtype, *lead, t, hd)
+        vn, vsn = kv8_rows(g, device, dtype, *lead, t, hd)
+        kc, ks = kv8_rows(g, device, dtype, *lead, cap, hd)
+        vc, vs = kv8_rows(g, device, dtype, *lead, cap, hd)
+        if b == 1:
+            st = 0
+            bias = ring_cache_bias(t, cap, 4096, ctx, device=device)
+        else:
+            st = (torch.arange(b, dtype=torch.int32) * 64).to(device)
+            bias = ring_cache_bias(t, cap, 4096, ctx, start=st[:, None, None],
+                                   device=device)[:, None]
+        kw = dict(k_scale=ks, v_scale=vs, ks_new=ksn, vs_new=vsn)
+        # per lane: the ring's bytes and scales read once, the new rows
+        # and scales in and written, q in, the output out
+        nb = b * (2 * (cap + 2 * t) * (hd + 4) + 2 * t * hd * isz)
+        r = _row(
+            device_ms(lambda: ring_insert_attention(
+                q, kn, vn, kc, vc, 4096, st, h, ctx, **kw), 200),
+            device_ms(lambda: ring_insert_attention_plain(
+                q, kn, vn, kc, vc, 4096, st, h, ctx, **kw), 20), None,
+            bound_ms(nb, 4 * b * t * (cap + t) * hd, dn),
+            f"int8 ring B={b} cap={cap} T={t} H={h} D={d} offset=4096")
+        kb = (kc.float() * ks[..., None]).to(torch.bfloat16)
+        vb = (vc.float() * vs[..., None]).to(torch.bfloat16)
+        r["cmp"] = device_ms(lambda: sdpa_call(
+            _heads(q.to(torch.bfloat16), h), _heads(kb, h), _heads(vb, h),
+            bias == 0), 200)[0]
+        out.setdefault("ring_attn_kv8", []).append(r)
+    # K1 over 32 lanes, ring mode: bf16 caches S = 1024 (SDPA the
+    # library); int8 caches S = 896 with statistics
+    for kvq, s, stats, name in ((False, 1024, False, "decode_attn_lanes"),
+                                (True, 896, True, "decode_attn_stats")):
+        q, k, v, ks, vs, pos, e = k1_lanes_case(g, device, dtype, kvq, s)
+        b, h, d = q.shape
+        mask = (pos >= 0)[:, None, None, :]
+        nread = int((pos >= 0).sum())
+        row = h * d * (1 if kvq else isz) + (4 if kvq else 0)
+        nbytes = (2 * nread * row + 4 * b * s + 2 * b * h * d * isz
+                  + (2 * b * h * 4 if stats else 0))
+        r = _row(
+            device_ms(lambda: decode_attention(q, k, v, pos, e, ks, vs,
+                                               stats=stats), 200),
+            device_ms(lambda: decode_attention_plain(q, k, v, pos, e, ks, vs,
+                                                     stats=stats), 20),
+            None if kvq else device_ms(lambda: sdpa_call(
+                q[:, :, None], _heads(k, h), _heads(v, h), mask), 200)[0],
+            bound_ms(nbytes, 4 * nread * h * d, dn),
+            f"{'int8' if kvq else dn} caches{' + stats' if stats else ''}, "
+            f"ring B={b} S={s} H={h} D={d}")
+        if kvq:
+            kb = (k.float() * ks[..., None]).to(torch.bfloat16)
+            vb = (v.float() * vs[..., None]).to(torch.bfloat16)
+            r["cmp"] = device_ms(lambda: sdpa_call(
+                q.to(torch.bfloat16)[:, :, None], _heads(kb, h),
+                _heads(vb, h), mask), 200)[0]
+        out.setdefault(name, []).append(r)
+    return out
+
+
 def profile_frames(engine, voice, path, n_frames=20):
     """Device time by kernel over n_frames of the frame loop
     (torch.profiler). Returns (device busy us per frame, [(kernel, us per
@@ -1530,22 +2099,44 @@ def counted_lane_steps():
     return count
 
 
-def serve_vs_solo(device, voice, path="bf16", share_prefix=False):
+def serve_vs_solo(device, voice, path="bf16", share_prefix=False,
+                  steps=None):
     """f32, 4 lanes, the 6 SERVE_TEXTS at temp 0: the last two are
     admitted mid-decode, into lanes the short ones freed. Each request's pcm
     must match the solo engine's (the same weights and KV cache, path
-    ENGINE_KW[path]) on the card within TOL e2e (relative to max |pcm|)."""
+    ENGINE_KW[path] with PATH_CFG[path]) on the card within TOL e2e
+    (relative to max |pcm|). steps (counted_lane_steps): the counters are
+    set to 0 just before the serving run and read just after, and checked
+    against expected_serving; returns the launches."""
     import torch
     from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
     from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
     from pocket_tts_tpu_torch.text.preprocess import prepare_text_prompt
-    engine = make_engine(DEFAULT_CONFIG, device, torch.float32,
-                         **ENGINE_KW[path])
+    engine = make_engine(path_cfg(DEFAULT_CONFIG, path), device,
+                         torch.float32, **ENGINE_KW[path])
     srv = ContinuousBatchingServer(engine, lanes=4,
                                    share_prefix=share_prefix)
     srv.register_voices({"v": voice})
     reqs = [srv.submit(t, "v", temp=0.0) for t in SERVE_TEXTS]
+    if steps is not None:
+        steps0, prefills0 = steps["steps"], steps["prefills"]
+        reset_counters()
     srv.run_pending()
+    launches = None
+    if steps is not None:
+        sync(device)
+        launches = read_counters()
+        n = steps["steps"] - steps0
+        want = expected_serving(engine.cfg, path, n,
+                                steps["prefills"] - prefills0, lanes=4)
+        log(f"  {path}, 4 lanes: launches {launches}; expected {want} (per "
+            f"batch frame step 6 K1 over lanes with statistics, 2 K2-q, 0 "
+            f"K7)")
+        for name in KERNELS:
+            if launches[name] != want.get(name, 0):
+                raise AssertionError(
+                    f"{path} serving {name}: {launches[name]} launches for "
+                    f"{n} batch frame steps (want {want.get(name, 0)})")
     late = [r for r in reqs if r.admit_step]
     if len(late) < 2:
         raise AssertionError(f"only {len(late)} requests admitted mid-decode")
@@ -1568,28 +2159,40 @@ def serve_vs_solo(device, voice, path="bf16", share_prefix=False):
         f"{worst:.3e} (tol {tol})")
     if not worst <= tol:
         raise AssertionError(f"served pcm differs from solo: {worst}")
+    return launches
 
 
 def expected_serving(cfg, mode, n, prefills, lanes=LANES):
     """Launches by kernel for n batch frame steps and `prefills` admission
-    prefill calls at `lanes` lanes: "bf16" (slice 4's server) or "int4_kv8"
+    prefill calls at `lanes` lanes: "bf16" (slice 4's server), "int4_kv8"
     (int4 weights, int8 KV, shared prefix: K7's int8 variant with
     statistics, K5a/K5b over the lanes' rows, K6 over the lanes, K4b for
-    input_linear and the prefill linears)."""
+    input_linear and the prefill linears) or K1_SERVE (int8 weights, int8
+    KV, shared prefix, the int8 mimi ring, no fused insert: K1 over lanes
+    with statistics, K2-q, K4a)."""
     from pocket_tts_tpu_torch.ops.fused_layer import post_launches
     nb, nm = cfg.backbone.num_layers, cfg.mimi.transformer.num_layers
-    want = {"ring_attn": nm * n, "seanet_frame": n}
+    want = {"seanet_frame": n}
+    if mode == K1_SERVE:
+        want.update(decode_attn_lanes=nb * n, decode_attn_stats=nb * n,
+                    ring_attn_kv8=nm * n)
+    else:
+        want["ring_attn"] = nm * n
     if mode == "bf16":
         want["decode_insert_attn"] = nb * n
         return want
+    if mode != K1_SERVE:
+        want.update(decode_insert_attn_kv8=nb * n,
+                    decode_insert_attn_stats=nb * n)
     tpf = cfg.mimi.upsample_stride
+    mm = "int8_matmul" if ENGINE_KW[mode]["quantize"] == "int8" \
+        else "int4_matmul"
     want.update(
-        decode_insert_attn_kv8=nb * n, decode_insert_attn_stats=nb * n,
         fused_pre_lanes=(nb + nm) * n, fused_flow_lanes=n,
         fused_post_lanes=n * (
             nb * post_launches(lanes, cfg.backbone.d_model)
             + nm * post_launches(lanes * tpf, cfg.mimi.transformer.d_model)),
-        int4_matmul=n + 4 * nb * prefills)
+        **{mm: n + 4 * nb * prefills})
     return want
 
 
@@ -1738,6 +2341,7 @@ def main(argv=None) -> int:
 
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
+        _LOG.append(open(os.path.join(out_dir, "chip_smoke.log"), "w"))
     device = torch.device("cuda:0")
     card = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -1765,10 +2369,11 @@ def main(argv=None) -> int:
         phase = "kernels"
         header("[3] kernels vs plain versions (3c: K7, K2 and K3 over 32 "
             "lanes; 3d: the serving mode's int8-KV K1 and K7, K7 with "
-            "statistics, K5a/K5b/K6 over many rows)")
+            "statistics, K5a/K5b/K6 over many rows; 3e: K8, K5c, K2-q, K1 "
+            "over lanes)")
         errs = {}
         engines = {}   # (path, dtype) -> engine
-        paths = ("bf16",) + QUANT_PATHS + (KV8_PATH,)
+        paths = ("bf16",) + QUANT_PATHS + (KV8_PATH,) + MEGA_PATHS
         for dtype in (torch.float32, torch.bfloat16):
             check_k1(device, dtype, errs)
             check_k2(device, dtype, errs)
@@ -1798,10 +2403,23 @@ def main(argv=None) -> int:
             engines[KV8_PATH, dtype] = make_engine(
                 engines["int4", dtype].cfg, device, dtype, quantize_kv=True,
                 params=engines["int4", dtype].params)
+            phase = "kernels, slice 6"
+            check_k8(engines, device, dtype, errs)
+            check_k5c(engines, device, dtype, errs)
+            check_k2q(device, dtype, errs)
+            check_k1_lanes(device, dtype, errs)
+            # slice 6's solo paths on the int8 and int4 engines' weights
+            for path in MEGA_PATHS:
+                base = engines[ENGINE_KW[path]["quantize"], dtype]
+                engines[path, dtype] = make_engine(
+                    path_cfg(base.cfg, path), device, dtype,
+                    quantize_kv=ENGINE_KW[path].get("quantize_kv", False),
+                    params=base.params)
 
         phase = "end to end"
         header("[4] end to end, DEFAULT_CONFIG, temp 0: bf16, int8, int4, "
-            "q4_0, int4 weights + int8 KV cache")
+            "q4_0, int4 weights + int8 KV cache, int8 + megalayer, int4 + "
+            "int8 KV + megalayer + int8 mimi ring, int4 + bilayer")
         counts = counted_frame_steps()
         engine = engines["bf16", torch.bfloat16]
         voice = random_voice_prompt(engine.cfg, 120)
@@ -1815,8 +2433,8 @@ def main(argv=None) -> int:
         phase = "card vs cpu"
         header("[5] end to end, card vs CPU, f32, first 12 frames")
         for path in paths:
-            eng_cpu = make_engine(DEFAULT_CONFIG, "cpu", torch.float32,
-                                  **ENGINE_KW[path])
+            eng_cpu = make_engine(path_cfg(DEFAULT_CONFIG, path), "cpu",
+                                  torch.float32, **ENGINE_KW[path])
             pcm_gpu = first_frames(engines[path, torch.float32], voice, 12)
             pcm_cpu = first_frames(eng_cpu, voice, 12)
             del eng_cpu
@@ -1847,6 +2465,10 @@ def main(argv=None) -> int:
                 f"frames/s with the per-frame EOS sync, "
                 f"{1e3 / ms_nosync:.1f} without; sync cost "
                 f"{ms_sync - ms_nosync:.3f} ms/frame")
+        for path, other in COUNTERPART.items():
+            log(f"  {path} vs its 3-call counterpart {other}, same rounds: "
+                f"{1e3 / med[path]:.1f} vs {1e3 / med[other]:.1f} frames/s "
+                "(medians with the EOS sync)")
         times = time_kernels(engine, device, torch.bfloat16)
         for path in QUANT_PATHS:
             time_quant_kernels(bf[path].params, bf[path].cfg, device,
@@ -1854,6 +2476,7 @@ def main(argv=None) -> int:
         time_kv8_kernels(device, torch.bfloat16, times)
         time_lane_kernels(bf[KV8_PATH].params, bf[KV8_PATH].cfg, device,
                           torch.bfloat16, times)
+        time_slice6_kernels(bf, device, torch.bfloat16, times)
         for name, rows in times.items():
             for r in rows:
                 (ms, host), (plain_ms, plain_host) = r["k"], r["plain"]
@@ -1862,6 +2485,13 @@ def main(argv=None) -> int:
                 cmp = ("" if "cmp" not in r else
                        f" (for comparison, SDPA over bf16 caches of the "
                        f"same shape: {r['cmp'] * 1e3:.2f} us)")
+                if "three" in r:
+                    cmp += (f"; the 3-call path it replaces (K5a, rope, "
+                            f"row quantization, K7, K5b): "
+                            f"{r['three'] * 1e3:.2f} us device")
+                if "two" in r:
+                    cmp += (f"; K5b then K5a: {r['two'] * 1e3:.2f} us "
+                            "device")
                 log(f"  {name} ({r['shape']}): kernel {ms * 1e3:.2f} us "
                     f"device, {host * 1e3:.2f} us host per call; plain "
                     f"{plain_ms * 1e3:.2f} us device, {plain_host * 1e3:.2f}"
@@ -1872,9 +2502,14 @@ def main(argv=None) -> int:
         phase = "serving"
         header("[7] serving, DEFAULT_CONFIG, ContinuousBatchingServer (prefix+"
             "ring), temp 0")
+        lane_steps = counted_lane_steps()
         serve_vs_solo(device, voice)
         serve_vs_solo(device, voice, "int8_kv8", share_prefix=True)
-        lane_steps = counted_lane_steps()
+        phase = "serving without the fused insert (K1 over lanes)"
+        k1_serve_launches = serve_vs_solo(device, voice, K1_SERVE,
+                                          share_prefix=True,
+                                          steps=lane_steps)
+        phase = "serving"
         # the two modes in turns (bf16, serving mode, serving mode, bf16):
         # host timing drifts within a call; every run checks its launches
         serve_launches, _, _ = serve_throughput(engine, voice, lane_steps)
@@ -1941,6 +2576,10 @@ def main(argv=None) -> int:
             return serve_kv8_launches[name]
         if name == "decode_attn_kv8":
             return runs[KV8_PATH][0][name]
+        if name in ("decode_attn_lanes", "decode_attn_stats"):
+            return k1_serve_launches[name]
+        if name in MEGA_KERNELS:
+            return runs[MEGA_KERNELS[name]][0][name]
         users = [p for p in QUANT_PATHS if name in PATH_KERNELS[p]]
         return sum(runs[p][0][name] for p in users or ["bf16"])
 

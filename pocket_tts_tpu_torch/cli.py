@@ -15,6 +15,13 @@ int4 with per-channel scales, q4_0 to int4 with 32-row K-grouped scales.
 --quantize-kv keeps the backbone's KV cache in int8 with per-row scales
 (solo and --serve). --fuse-insert routes each solo decode step's KV-row
 write and attention through kernel K7 instead of a row write and K1.
+--megalayer (implies --fuse-insert) runs each quantized decode layer as
+one launch of kernel K8 (int8 or int4 weights; q4_0 raises).
+
+The checkpoint, tokenizer and voice embeddings are read from -m/--model,
+or else from <-r/--model-root, or $MODEL_CACHE, or .>/kyutai/
+pocket-tts-without-voice-cloning, the JAX package's CLI layout; with no
+checkpoint there the CLI exits 1 (pass --random-weights to run without).
 
 Serving:
   python -m pocket_tts_tpu_torch.cli --random-weights --serve reqs.txt \
@@ -43,9 +50,13 @@ def build_parser():
     p = argparse.ArgumentParser(prog="pocket-tts-torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("text", nargs="?", default=None)
+    p.add_argument("-r", "--model-root", default=None,
+                   help="root for kyutai models (default: $MODEL_CACHE or "
+                        ".)")
     p.add_argument("-m", "--model", default=None,
                    help="model directory (tts_b6369a24.safetensors, "
-                        "tokenizer.model, embeddings/)")
+                        "tokenizer.model, embeddings/; default: <root>/"
+                        "kyutai/pocket-tts-without-voice-cloning)")
     p.add_argument("-v", "--voice", default="cosette",
                    help="voice name or voice .safetensors path")
     p.add_argument("-s", "--seed", type=int, default=0)
@@ -73,6 +84,9 @@ def build_parser():
     p.add_argument("--fuse-insert", action="store_true",
                    help="solo decode: write the KV row and attend in one "
                         "kernel (K7); serving always does")
+    p.add_argument("--megalayer", action="store_true",
+                   help="solo quantized decode: one kernel (K8) per backbone "
+                        "layer (implies --fuse-insert)")
     p.add_argument("--serve", default=None, metavar="PATH",
                    help="continuous-serving mode: read requests from PATH "
                         "('-' = stdin; JSON objects with text/voice/temp/id "
@@ -92,6 +106,13 @@ def build_parser():
 
 _WEIGHTS = {"int8": "int8", "q8": "int8", "int4": "int4", "q4": "int4",
             "q4_0": "q4_0"}
+
+
+def model_dir(args) -> str:
+    """-m, or the JAX CLI's default layout under -r / $MODEL_CACHE / ."""
+    return args.model or os.path.join(
+        args.model_root or os.environ.get("MODEL_CACHE", "."), "kyutai",
+        "pocket-tts-without-voice-cloning")
 
 
 def _serve(engine, args, voice):
@@ -128,7 +149,7 @@ def _serve(engine, args, voice):
             # random weights: every name maps to the synthetic prompt
             return np.asarray(voice, np.float32)
         v = voice if name == "default" else name
-        path = (os.path.join(args.model or ".", "embeddings",
+        path = (os.path.join(model_dir(args), "embeddings",
                              v + ".safetensors")
                 if v in DEFAULT_VOICES else v)
         return load_voice(path).cpu().numpy()
@@ -172,8 +193,7 @@ def main(argv=None):
         build_parser().print_help()
         return 1
     if args.quantize_convs:  # before any weights are built
-        raise NotImplementedError(
-            "--quantize-convs is not ported yet (slice 6)")
+        raise NotImplementedError("--quantize-convs is not ported yet")
     import dataclasses
 
     import torch
@@ -189,9 +209,9 @@ def main(argv=None):
         return 1
     dtype = torch.bfloat16 if device.startswith("cuda") else torch.float32
     cfg0 = DEFAULT_CONFIG
-    if args.fuse_insert:
+    if args.fuse_insert or args.megalayer:
         cfg0 = dataclasses.replace(cfg0, backbone=dataclasses.replace(
-            cfg0.backbone, fuse_insert=True))
+            cfg0.backbone, fuse_insert=True, use_megalayer=args.megalayer))
     if args.load_cache:
         # the model directory, when given, provides tokenizer and voices
         engine = TTSEngine.from_params_cache(
@@ -212,10 +232,10 @@ def main(argv=None):
                            quantize_kv=args.quantize_kv)
         voice = random_voice_prompt(cfg)
     else:
-        model = args.model or "."
+        model = model_dir(args)
         if not os.path.exists(os.path.join(model,
                                            "tts_b6369a24.safetensors")):
-            print(f"no checkpoint under {model}; pass -m or "
+            print(f"no checkpoint under {model}; pass -m, -r or "
                   "--random-weights", file=sys.stderr)
             return 1
         engine = TTSEngine(model_path=model, cfg=cfg0, dtype=dtype,

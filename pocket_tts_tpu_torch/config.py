@@ -4,22 +4,31 @@ The port's own copy of the dataclasses of `pocket_tts_tpu/config.py`
 (`ModelConfig`, `DEFAULT_CONFIG`, `tiny_config`, `reference_exact_config`),
 field for field, so a configuration means the same in both packages
 (tests/test_torch_config.py compares them). The comments on the fields
-describe the JAX package's switches; the port reads only the model's
-dimensions, `kv_capacity`, `mask_value`, `gelu_approx`, `eos_threshold`,
-`backbone.quantize_kv` and `backbone.fuse_insert`.
+describe the JAX package's switches; the port reads the model's
+dimensions, `kv_capacity`, `gelu_approx`, `eos_threshold`, the two
+`quantize_kv` fields, `backbone.fuse_insert`, `backbone.use_megalayer` and
+`backbone.use_bilayer`. It does not read `mask_value`: it masks with the
+-1e9 default everywhere, and `check_supported` refuses any other value.
 
 `check_supported` names what this port runs: solo decode and
 continuous-batching serving (runtime/batched.py, runtime/server.py, with
 shared-prefix serving) with bf16/f32, int8, int4 or q4_0 weights
 (quantization is an engine option, not a config field), with the
 backbone's KV cache in the working type or in int8 with per-row scales
-(`backbone.quantize_kv`; the engine's `quantize_kv=True` sets it).
+(`backbone.quantize_kv`; the engine's `quantize_kv=True` sets it), and the
+mimi ring in int8 with per-row scales (`mimi.transformer.quantize_kv`, a
+config-only option, kernel K2's int8 variant).
 `backbone.fuse_insert` routes each T = 1 decode step through kernel K7
 (ops/insert_attn.py) instead of a row write and kernel K1; the serving
-paths set it (`runtime.batched.serving_cfg`). Every config option outside
-that raises, so no configuration silently runs something other than what
-it asks for. The int8 mimi ring (`mimi.transformer.quantize_kv`), the
-bilayer and megalayer kernels and a device mesh are slice 6 of the port.
+paths set it unless the caller did (`runtime.batched.serving_cfg`).
+`backbone.use_megalayer` runs a solo quantized T = 1 layer as ONE launch
+of kernel K8 (ops/fused_step.py); `backbone.use_bilayer` fuses post(l)
+with pre(l+1) for solo int4 decode through kernel K5c
+(ops/fused_layer.bilayer_post_pre). Every config option outside that
+raises: a device mesh, a mimi capacity that is not a multiple of the
+upsample stride, and mask values other than -1e9 (the reference-exact
+mode, `reference_exact_config`, is not ported). So no configuration
+silently runs something other than what it asks for.
 
 The JAX package's backend switches (`use_pallas_attn`, `use_pallas`) are
 not read here: the port picks by device, plain PyTorch for tensors on the
@@ -64,10 +73,9 @@ class BackboneConfig:
     # (K7). None = auto: on for batched serving (set by the serving
     # cfg helper of each package), off for solo decode
     fuse_insert: bool = None
-    # whole-layer megakernel for solo quantized decode (not ported yet)
+    # whole-layer megakernel for solo quantized decode (kernel K8)
     use_megalayer: bool = False
-    # post(l) + pre(l+1) bilayer kernel for solo int4 decode (not ported
-    # yet)
+    # post(l) + pre(l+1) bilayer kernel for solo int4 decode (kernel K5c)
     use_bilayer: bool = False
     # additive bias for masked attention slots: -1e9 (ours, negligible after
     # softmax) vs the reference's -1e5 "can't use infinity" hack
@@ -110,7 +118,7 @@ class MimiTransformerConfig:
     # reference's ring had already overwritten — i.e. closer to the true
     # 250-step sliding window.
     capacity: int = 256
-    # int8 ring KV with per-row absmax scales (not ported yet)
+    # int8 ring KV with per-row absmax scales (kernel K2's int8 variant)
     quantize_kv: bool = False
     # the JAX package's Pallas ring-kernel switch; not read by the port
     use_pallas_attn: bool = None
@@ -262,18 +270,17 @@ def check_supported(cfg: ModelConfig) -> None:
     bb = cfg.backbone
     mt = cfg.mimi.transformer
     bad = []
-    if bb.use_megalayer:
-        bad.append("backbone.use_megalayer")
-    if bb.use_bilayer:
-        bad.append("backbone.use_bilayer")
     if bb.mesh is not None or mt.mesh is not None \
             or cfg.mimi.seanet.mesh is not None or cfg.on_mesh:
         bad.append("mesh")
-    if mt.quantize_kv:
-        bad.append("mimi.transformer.quantize_kv")
     if mt.capacity % cfg.mimi.upsample_stride:
         bad.append(f"mimi.transformer.capacity={mt.capacity} "
                    f"(must be a multiple of {cfg.mimi.upsample_stride})")
+    for name, value in (("backbone.mask_value", bb.mask_value),
+                        ("mimi.transformer.mask_value", mt.mask_value)):
+        if value != -1e9:
+            bad.append(f"{name}={value} (only -1e9 runs: the "
+                       "reference-exact mode is not ported)")
     if bad:
         raise NotImplementedError(
             "not ported yet: " + ", ".join(bad))

@@ -10,6 +10,16 @@
 // LN in float32 over d_model with eps, times norm scale plus bias, rounded
 // to the working type before the dot, as the TPU kernel stages it.
 //
+// K5c replaces `pocket_tts_tpu/ops/fused_layer.py:_bilayer_call`
+// (`_bilayer_kernel`, `:595-641`): K5b of layer l and K5a of layer l + 1 in
+// one launch, for solo (T = 1) int4 decode:
+//   x_next = x1 + ls2 * up                              float32
+//   out    = round(x_next)
+//   qkv    = round(round(LN1_{l+1}(x_next)) @ W_in_{l+1} + b_in_{l+1})
+// with LN1 taken from the UNROUNDED float32 x_next, as the TPU kernel does
+// (`:628-635`); a separate K5a would read the rounded row. So K5c equals K5b
+// followed by K5a in float32 and differs from them by bf16 rounding.
+//
 // K5b replaces `pocket_tts_tpu/ops/fused_layer.py:_post_call`
 // (`_post_kernel`, `_post_x1_ln`, `_mlp_add`, `_post_tail`):
 //   x1  = x + ls1 * (attn @ W_o + b_o)                  float32, kept so
@@ -61,6 +71,13 @@
 //   phase 3  each output element sums the blocks' partials in block order
 //            (no float atomics: the result does not depend on scheduling)
 //            and applies s_2 (per-channel), b_2, ls2 and the residual.
+// The phases are the device functions of layer_post.cuh, which K5c and K8
+// (megalayer.cu) run too. K5c is K5b's cooperative kernel with a tail: after
+// the final residual (x_next written rounded, and in float32 to a scratch
+// row), a third grid barrier, then every block takes LN1 of layer l + 1 of
+// the float32 row and the in_proj(l + 1) column tiles (3072 at the
+// backbone's width) spread over the grid, as K5a's tiles. It reads layer
+// l + 1's weights from their own (stacked) layer view, like K5a.
 // Scratch (x1 and the partials) is allocated by the caller. The
 // cooperative launch holds at most FL_ROW_FLOATS activations (its two
 // T x dm buffers of shared memory), and its per-block partials of `up`
@@ -76,7 +93,7 @@
 
 #include <algorithm>
 
-#include "qdot.cuh"
+#include "layer_post.cuh"
 
 // activations a K5a block or a K5b launch holds in shared memory
 constexpr int FL_ROW_FLOATS = 16384;
@@ -84,8 +101,6 @@ constexpr int FL_ROW_FLOATS = 16384;
 namespace coop = cooperative_groups;
 
 namespace ptt {
-
-constexpr int FL_TILE = 32;  // columns per K5a tile / hidden units per tile
 
 // How a rows_kernel block stages its rows of A in shared memory, and what
 // it writes for output (r, n) from v = A @ W + b (float32, scales applied).
@@ -175,101 +190,81 @@ struct PostArgs {
   float eps;
 };
 
-__host__ __device__ __forceinline__ bool packed(const Lin& l) {
-  return l.kind == LIN_INT4 || l.kind == LIN_INT4_G;
-}
+// K5c's tail: layer l + 1's norm1 and in_proj.
+struct NextArgs {
+  const void *ns, *nb;           // norm1 of layer l + 1 (dm,) or null
+  Lin win;                       // (dm, N)
+  float* xn;                     // scratch (dm,): x_next in float32
+  void* qkv;                     // (N,)
+  int N;
+};
 
+// K5b (next == nullptr) and K5c: phases 1-3 of layer_post.cuh; K5c then
+// its tail.
 template <typename T>
-__global__ void __launch_bounds__(QD_THREADS) fused_post_kernel(PostArgs a) {
+__device__ void post_phases(const PostArgs& a, const NextArgs* next) {
   extern __shared__ float smem[];
-  const int T_ = a.T, dm = a.dm, H = a.H;
+  const int T_ = a.T, dm = a.dm;
   float* red = smem;                 // QD_RED
   float* xs = red + QD_RED;          // T x dm: attn, then LN(x1)
   float* acc = xs + T_ * dm;         // T x dm: this block's partial of up
   float* hs = acc + T_ * dm;         // T x FL_TILE: one hidden tile
-  const T* x = (const T*)a.x;
   const T* attn = (const T*)a.attn;
-  const T* ls1 = (const T*)a.ls1;
-  const T* ls2 = (const T*)a.ls2;
-  const T* ns = (const T*)a.ns;
-  const T* nb = (const T*)a.nb;
-  T* out = (T*)a.out;
   coop::grid_group grid = coop::this_grid();
-  const int tid = threadIdx.x;
 
   // phase 1: x1 = x + ls1 * (attn @ W_o + b_o)
-  const int ntiles_o = (dm + FL_TILE - 1) / FL_TILE;
-  if ((int)blockIdx.x < ntiles_o) {
-    for (int i = tid; i < T_ * dm; i += QD_THREADS) xs[i] = to_f(attn[i]);
+  if ((int)blockIdx.x < (dm + FL_TILE - 1) / FL_TILE) {
+    for (int i = threadIdx.x; i < T_ * dm; i += QD_THREADS)
+      xs[i] = to_f(attn[i]);
     __syncthreads();
-    for (int t = blockIdx.x; t < ntiles_o; t += gridDim.x) {
-      const int n0 = t * FL_TILE;
-      lin_tile<T>(xs, dm, T_, dm, a.wo, dm, n0, min(FL_TILE, dm - n0),
-                  FL_TILE / 4, red, [&](int r, int n, float proj) {
-                    a.x1[r * dm + n] =
-                        to_f(x[r * dm + n]) + opt(ls1, n, 1.f) * proj;
-                  });
-    }
+    out_proj_tiles<T>(xs, T_, dm, a.wo, (const T*)a.x, (const T*)a.ls1,
+                      a.x1, red);
   }
   grid.sync();
 
-  // phase 2: LN(x1), then this block's hidden tiles into acc
+  // phase 2: LN(x1), then this block's hidden tiles into its partial
+  mlp_tiles<T>(T_, dm, a.H, a.x1, (const T*)a.ns, (const T*)a.nb, a.eps,
+               a.w1, a.w2, a.approx, true, xs, acc, hs, red, a.part);
+  grid.sync();
+
+  // phase 3: out = round(x1 + ls2 * (sum of the partials * s_2 + b_2))
+  T* out = (T*)a.out;
+  float* xn = next ? next->xn : nullptr;
+  mlp_finish<T>(T_, dm, a.w2, (const T*)a.ls2, a.x1, a.part,
+                [&](int i, float v) {
+                  out[i] = from_f<T>(v);
+                  if (xn) xn[i] = v;
+                });
+  if (!next) return;
+  grid.sync();
+
+  // K5c's tail: qkv = round(round(LN1(x_next)) @ W_in + b_in), layer l + 1
+  const T* ns = (const T*)next->ns;
+  const T* nb = (const T*)next->nb;
   block_layernorm(
-      T_, dm, a.eps, [&](int r, int i) { return __ldcg(a.x1 + r * dm + i); },
-      [&](int r, int i, float v) {
-        xs[r * dm + i] = rnd<T>(v * opt(ns, i, 1.f) + opt(nb, i, 0.f));
+      1, dm, a.eps, [&](int, int i) { return __ldcg(xn + i); },
+      [&](int, int i, float v) {
+        xs[i] = rnd<T>(v * opt(ns, i, 1.f) + opt(nb, i, 0.f));
       });
-  for (int i = tid; i < T_ * dm; i += QD_THREADS) acc[i] = 0.f;
-  __syncthreads();
-  const bool p2 = packed(a.w2);
-  const int span = p2 ? H / 2 : H;   // stored rows of W2
-  const int tile = p2 ? FL_TILE / 2 : FL_TILE;  // stored W2 rows per tile
-  const int ntiles_h = (span + tile - 1) / tile;
-  const int8_t* q2 = (const int8_t*)a.w2.w;
-  const bf16* gs2 = a.w2.kind == LIN_INT4_G ? (const bf16*)a.w2.s : nullptr;
-  // W2 rows: as many 4-column groups as the row has, up to one per thread
-  // (tile_dot takes a power of two)
-  int cg2 = 1;
-  while (2 * cg2 <= min(dm / 4, QD_THREADS)) cg2 *= 2;
-  auto add = [&](int r, int n, float v) { acc[r * dm + n] += v; };
-  for (int t = blockIdx.x; t < ntiles_h; t += gridDim.x) {
-    const int h0 = t * tile, nh = min(tile, span - h0);
-    for (int half = 0; half < (p2 ? 2 : 1); ++half) {
-      const int c0 = h0 + half * span;
-      lin_tile<T>(xs, dm, T_, dm, a.w1, H, c0, nh, tile / 4, red,
-                  [&](int r, int n, float v) {
-                    hs[r * FL_TILE + half * tile + (n - c0)] =
-                        rnd<T>(gelu_f(v, a.approx));
-                  });
-    }
-    for (int n0 = 0; n0 < dm; n0 += 4 * cg2) {
-      const int nc = min(4 * cg2, dm - n0);
-      if (p2)
-        tile_dot(hs, FL_TILE, T_,
-                 Int4W{q2 + (size_t)h0 * dm, dm, nh, tile, gs2,
-                       a.w2.group, h0, span},
-                 n0, nc, cg2, red, add);
-      else
-        tile_dot(hs, FL_TILE, T_, DenseW<int8_t>{q2 + (size_t)h0 * dm, dm, nh},
-                 n0, nc, cg2, red, add);
-    }
+  T* qkv = (T*)next->qkv;
+  const int ntiles = (next->N + FL_TILE - 1) / FL_TILE;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int n0 = t * FL_TILE;
+    lin_tile<T>(xs, dm, 1, dm, next->win, next->N, n0,
+                min(FL_TILE, next->N - n0), FL_TILE / 4, red,
+                [&](int, int n, float v) { qkv[n] = from_f<T>(v); });
   }
-  float* mine = a.part + (size_t)blockIdx.x * T_ * dm;
-  for (int i = tid; i < T_ * dm; i += QD_THREADS) mine[i] = acc[i];
-  grid.sync();
+}
 
-  // phase 3: up = (sum of the partials, in block order) * s_2 + b_2
-  const float* s2 = gs2 ? nullptr : (const float*)a.w2.s;
-  const T* b2 = (const T*)a.w2.b;
-  const int G = gridDim.x;
-  for (int i = blockIdx.x * QD_THREADS + tid; i < T_ * dm;
-       i += G * QD_THREADS) {
-    float v = 0.f;
-    for (int g = 0; g < G; ++g) v += __ldcg(a.part + (size_t)g * T_ * dm + i);
-    const int n = i % dm;
-    const float up = v * (s2 ? s2[n] : 1.f) + opt(b2, n, 0.f);
-    out[i] = from_f<T>(__ldcg(a.x1 + i) + opt(ls2, n, 1.f) * up);
-  }
+template <typename T>
+__global__ void __launch_bounds__(QD_THREADS) fused_post_kernel(PostArgs a) {
+  post_phases<T>(a, nullptr);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(QD_THREADS)
+bilayer_kernel(PostArgs a, NextArgs next) {
+  post_phases<T>(a, &next);
 }
 
 template <typename K>
@@ -349,22 +344,55 @@ extern "C" int ptt_fused_rows(const void* a, const void* ns, const void* nb,
                      dtype, (cudaStream_t)stream);
 }
 
-// Largest cooperative grid K5b can take on this device for (T, dm): blocks
-// resident per SM at its shared-memory size times the SM count. 0 on error.
-extern "C" int ptt_fused_post_max_blocks(int T, int dm, int dtype) {
+// Largest cooperative grid K5b (bilayer = 0) or K5c (bilayer = 1) can take
+// on this device for (T, dm): blocks resident per SM at its shared-memory
+// size times the SM count. 0 on error.
+extern "C" int ptt_fused_post_max_blocks(int T, int dm, int bilayer,
+                                         int dtype) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
     return 0;
   const size_t smem = post_smem(T, dm);
   PTT_DISPATCH(dtype, T_, {
-    auto kern = ptt::fused_post_kernel<T_>;
-    if (ptt::set_smem(kern, smem) ||
+    const void* kern = bilayer ? (const void*)ptt::bilayer_kernel<T_>
+                               : (const void*)ptt::fused_post_kernel<T_>;
+    if (cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem) ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             &per_sm, kern, ptt::QD_THREADS, smem))
       return 0;
   });
   return per_sm * sms;
+}
+
+static ptt::PostArgs post_args(void* const* p, const int* lin, int T, int dm,
+                               int H, float eps, int approx) {
+  return ptt::PostArgs{p[0],
+                       p[1],
+                       p[2],
+                       p[3],
+                       p[4],
+                       p[5],
+                       {p[6], p[7], p[8], lin[0], lin[1]},
+                       {p[9], p[10], p[11], lin[2], lin[3]},
+                       {p[12], p[13], p[14], lin[4], lin[5]},
+                       (float*)p[15],
+                       (float*)p[16],
+                       p[17],
+                       T,
+                       dm,
+                       H,
+                       approx,
+                       eps};
+}
+
+static bool post_ok(const ptt::PostArgs& a, int grid) {
+  return !(a.T < 1 || a.dm < 4 || a.dm % 4 || a.H % 8 || grid < 1 ||
+           !lin_ok(a.wo, a.dm) || !lin_ok(a.w1, a.dm) || !lin_ok(a.w2, a.H) ||
+           ptt::packed(a.wo) != ptt::packed(a.w2) ||
+           ptt::packed(a.w1) != ptt::packed(a.w2));
 }
 
 // p: x, attn, ls1, ls2, norm2 scale, norm2 bias, then (w, scale, bias) of
@@ -377,33 +405,41 @@ extern "C" int ptt_fused_post_max_blocks(int T, int dm, int dtype) {
 extern "C" int ptt_fused_post(void* const* p, const int* lin, int T, int dm,
                               int H, float eps, int approx, int grid,
                               int dtype, void* stream) {
-  ptt::PostArgs a{p[0],
-                  p[1],
-                  p[2],
-                  p[3],
-                  p[4],
-                  p[5],
-                  {p[6], p[7], p[8], lin[0], lin[1]},
-                  {p[9], p[10], p[11], lin[2], lin[3]},
-                  {p[12], p[13], p[14], lin[4], lin[5]},
-                  (float*)p[15],
-                  (float*)p[16],
-                  p[17],
-                  T,
-                  dm,
-                  H,
-                  approx,
-                  eps};
-  if (T < 1 || dm < 4 || dm % 4 || H % 8 || grid < 1 ||
-      !lin_ok(a.wo, dm) || !lin_ok(a.w1, dm) || !lin_ok(a.w2, H) ||
-      ptt::packed(a.wo) != ptt::packed(a.w2) ||
-      ptt::packed(a.w1) != ptt::packed(a.w2))
-    return (int)cudaErrorInvalidValue;
+  ptt::PostArgs a = post_args(p, lin, T, dm, H, eps, approx);
+  if (!post_ok(a, grid)) return (int)cudaErrorInvalidValue;
   const size_t smem = post_smem(T, dm);
   cudaStream_t st = (cudaStream_t)stream;
   void* args[] = {&a};
   PTT_DISPATCH(dtype, T_, {
     auto kern = ptt::fused_post_kernel<T_>;
+    int rc = ptt::set_smem(kern, smem);
+    if (rc) return rc;
+    rc = (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(grid),
+                                          dim3(ptt::QD_THREADS), args, smem,
+                                          st);
+    if (rc) return rc;
+  });
+  return (int)cudaGetLastError();
+}
+
+// K5c, T = 1: p and lin as ptt_fused_post for layer l (p[17] = x_next out),
+// then q: norm1 scale, norm1 bias, (w, scale, bias) of layer l + 1's
+// in_proj, the x_next float32 scratch (dm,) and qkv out (N,); qlin: the
+// in_proj's (kind, group). grid <= ptt_fused_post_max_blocks(1, dm, 1).
+extern "C" int ptt_bilayer(void* const* p, const int* lin, void* const* q,
+                           const int* qlin, int dm, int H, int N, float eps,
+                           int approx, int grid, int dtype, void* stream) {
+  ptt::PostArgs a = post_args(p, lin, 1, dm, H, eps, approx);
+  ptt::NextArgs next{q[0], q[1], {q[2], q[3], q[4], qlin[0], qlin[1]},
+                     (float*)q[5], q[6], N};
+  if (!post_ok(a, grid) || N < 4 || N % 4 || !lin_ok(next.win, dm) ||
+      ptt::packed(next.win) != ptt::packed(a.w2))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = post_smem(1, dm);
+  cudaStream_t st = (cudaStream_t)stream;
+  void* args[] = {&a, &next};
+  PTT_DISPATCH(dtype, T_, {
+    auto kern = ptt::bilayer_kernel<T_>;
     int rc = ptt::set_smem(kern, smem);
     if (rc) return rc;
     rc = (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(grid),

@@ -3,11 +3,11 @@
 Counterpart of `pocket_tts_tpu/models/backbone.py`, solo (`BackboneState`,
 `forward`) and over B lanes (`BatchedBackboneState`, `forward_lanes`). The
 KV cache keeps the JAX package's layout: per-layer FLAT (S, H*D) rows
-written at the slot cursor `end`, with `pos` recording the absolute position each
-slot holds (-1 = padding or unwritten). RoPE and causality use positions.
-With `cfg.quantize_kv` the rows are int8 with one float32 absmax scale per
-row (`k_scale`, `v_scale`; `quantize_rows`, bit for bit the JAX package's),
-the engine's serving-throughput mode.
+written at the slot cursor `end`, with `pos` recording the absolute
+position each slot holds (-1 = padding or unwritten). RoPE and causality
+use positions. With `cfg.quantize_kv` the rows are int8 with one float32
+absmax scale per row (`k_scale`, `v_scale`; `quantize_rows`, bit for bit
+the JAX package's), the engine's serving-throughput mode.
 
 Unlike the JAX package, which threads the state functionally, `forward`
 writes the new KV rows and positions INTO the state's tensors in place and
@@ -26,14 +26,23 @@ the unfused route, its linears through kernel K4a (int8) or K4b (int4).
 With `cfg.fuse_insert` set, a decode step instead hands the new row to
 kernel K7 (ops/insert_attn.decode_insert_attention), which writes it and
 attends in one launch per layer, as the JAX package's `fuse_insert` does.
+With `cfg.use_megalayer` a quantized decode layer is ONE launch of kernel
+K8 (ops/fused_step.megalayer: K5a, the row quantization, K7 and K5b in
+one), and with `cfg.use_bilayer` (int4 weights, without the megalayer)
+the step runs K5a of layer 0, then per layer the attention and K5c
+(fused_layer.bilayer_post_pre: K5b of layer l with K5a of layer l + 1),
+K5b after the last (`_forward_bilayer`). K7, K8 and K5c update the caches
+in place, as the rest of the port does, where the JAX docstrings say
+"aliased".
 
 Lanes (continuous batching): the caches are (B, S, H*D) and `pos` (B, S);
 the write slot `end` (and, in prefix+ring mode, `ring_start`) is a host
 int shared by the lanes, while each lane's `next_pos` is a (B,) device
 tensor, so lanes hold streams at different points of their sentences. A
 decode step (T = 1) runs K7 over all lanes in one launch per layer (int8
-caches: its int8-KV variant, the new rows quantized here), and with
-quantized weights K5a and K5b over the B rows; a prefill (T > 1) attends
+caches: its int8-KV variant, the new rows quantized here), or without
+`cfg.fuse_insert` a row write and K1 over the lanes, and with quantized
+weights K5a and K5b over the B rows; a prefill (T > 1) attends
 with plain PyTorch under a (B, T, S) position bias, as the JAX package
 runs it on XLA.
 
@@ -43,7 +52,8 @@ voice's prompt KV moves out of the lane caches into per-layer head-major
 holding every registered voice's prompt side by side; `ppos` (B, P)
 unmasks each lane's own voice segment. Each layer attends the tables
 (ops/attention.prefix_attn_stats, one batched product for all lanes) and
-its own cache (K7 with statistics at T = 1, `sdpa_seg_stats` in prefill),
+its own cache (K7 or K1 with statistics at T = 1, `sdpa_seg_stats` in
+prefill),
 and merges the two partials exactly (`merge_attn_partials`).
 """
 from __future__ import annotations
@@ -53,10 +63,11 @@ from typing import Optional
 
 import torch
 
-from ..ops import fused_layer
+from ..ops import fused_layer, fused_step
 from ..ops.attention import (merge_attn_partials, pos_cache_bias,
                              prefix_attn_stats, sdpa, sdpa_seg_stats)
-from ..ops.basic import gelu, layer_norm, linear, slice_layer_params
+from ..ops.basic import (gelu, layer_norm, linear, quantize_rows,
+                         slice_layer_params)
 from ..ops.decode_attn import decode_attention
 from ..ops.insert_attn import decode_insert_attention
 from ..ops.rope import apply_rope_halves as apply_rope, rope_cos_sin
@@ -96,15 +107,6 @@ def init_state(cfg, dtype=torch.float32, device="cpu") -> BackboneState:
         pos=torch.full((cfg.kv_capacity,), -1, dtype=torch.int32,
                        device=device),
         end=0, next_pos=0, k_scale=scales(), v_scale=scales())
-
-
-def quantize_rows(x):
-    """(..., H*D) -> (int8 rows, (...,) float32 absmax scales): the JAX
-    package's `quantize_rows`, bit for bit."""
-    x32 = x.float()
-    s = (x32.abs().amax(-1) / 127.0).clamp_min(1e-12)
-    q = torch.clamp(torch.round(x32 / s[..., None]), -127, 127)
-    return q.to(torch.int8), s
 
 
 def _write_rows(k_cache, v_cache, k_scale, v_scale, end: int, k_rows,
@@ -154,18 +156,16 @@ def _post(p, x, attn, fused: bool, gelu_approx: bool):
                       gelu(linear(p["linear1"], h), gelu_approx))
 
 
-def _layer(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
-           bias, pos_vec, num_heads: int, gelu_approx: bool, cur_pos=None):
-    """One pre-LN layer; writes its KV rows at slot `end` in place.
-    cur_pos: the (1,) int32 position of a decode step's row when it goes
-    through K7 (cfg.fuse_insert), else None."""
-    t, dm = x.shape
+def _attend(qkv, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
+            bias, pos_vec, num_heads: int, cur_pos=None):
+    """The attention middle of a solo layer: qkv (T, 3 dm) -> attn (T, dm),
+    the new KV rows written at slot `end` in place. cur_pos: the (1,) int32
+    position of a decode step's row when it goes through K7
+    (cfg.fuse_insert), else None. The JAX package's `_attend` (factored out
+    for the bilayer loop) and the middle of its `_layer`."""
+    t = qkv.shape[0]
+    dm = qkv.shape[-1] // 3
     d = dm // num_heads
-    fused = t == 1 and fused_layer.supported(p)
-    if fused:
-        qkv = fused_layer.pre_attention(p, x, eps=1e-5)
-    else:
-        qkv = linear(p["in_proj"], layer_norm(p["norm1"], x, eps=1e-5))
     q, k, v = qkv.split(dm, -1)
     q = apply_rope(q.reshape(t, num_heads, d), cos, sin)
     k = apply_rope(k.reshape(t, num_heads, d), cos, sin).reshape(t, dm)
@@ -187,7 +187,53 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
             attn = sdpa(q, _deq(k_cache, k_scale, q.dtype).view(
                 s, num_heads, d), _deq(v_cache, v_scale, q.dtype).view(
                 s, num_heads, d), bias)
-    return _post(p, x, attn.reshape(t, dm), fused, gelu_approx)
+    return attn.reshape(t, dm)
+
+
+def _layer(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
+           bias, pos_vec, num_heads: int, gelu_approx: bool, cur_pos=None,
+           megalayer: bool = False):
+    """One pre-LN layer; writes its KV rows at slot `end` in place.
+    cur_pos: as in _attend. megalayer (cfg.use_megalayer): a T = 1
+    quantized layer runs as ONE launch of kernel K8 (ops/fused_step), read
+    end and write slot both `end`, as the JAX package's `_layer` routes
+    it; it raises for a layer K8 does not take (q4_0 scales)."""
+    t = x.shape[0]
+    fused = t == 1 and fused_layer.supported(p)
+    if fused and megalayer:
+        return fused_step.megalayer(
+            p, x, cos, sin, pos_vec[end:end + 1], k_cache, v_cache,
+            pos_vec, end, end, k_scale, v_scale, gelu_approx)
+    if fused:
+        qkv = fused_layer.pre_attention(p, x, eps=1e-5)
+    else:
+        qkv = linear(p["in_proj"], layer_norm(p["norm1"], x, eps=1e-5))
+    attn = _attend(qkv, k_cache, v_cache, k_scale, v_scale, end, cos, sin,
+                   bias, pos_vec, num_heads, cur_pos)
+    return _post(p, x, attn, fused, gelu_approx)
+
+
+def _forward_bilayer(p, cfg, state: BackboneState, x, cos, sin, cur_pos,
+                     gelu_approx: bool):
+    """Solo int4 decode with post(l) + pre(l + 1) fused at each layer
+    boundary (cfg.use_bilayer), the JAX package's `_forward_bilayer`: K5a
+    of layer 0, then per layer the attention and K5c (K5b for the last
+    layer), 2L + 1 fused launches per step instead of 3L."""
+    quant = state.k_scale is not None
+    lps = [slice_layer_params(p["layers"], l) for l in range(cfg.num_layers)]
+    qkv = fused_layer.pre_attention(lps[0], x, eps=1e-5)
+    for l in range(cfg.num_layers):
+        attn = _attend(qkv, state.k[l], state.v[l],
+                       state.k_scale[l] if quant else None,
+                       state.v_scale[l] if quant else None, state.end, cos,
+                       sin, None, state.pos, cfg.num_heads, cur_pos)
+        if l + 1 < cfg.num_layers:
+            x, qkv = fused_layer.bilayer_post_pre(
+                lps[l], lps[l + 1], x, attn, eps=1e-5, approx=gelu_approx)
+        else:
+            x = fused_layer.post_attention(lps[l], x, attn, eps=1e-5,
+                                           approx=gelu_approx)
+    return state, x
 
 
 def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
@@ -197,7 +243,10 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
     x: (T, d_model); rows >= n_valid are padding (position -1, masked by
     every later step). Returns (state, y (T, d_model)); the caller moves the
     cursors with `advance`. A state holding shared-prefix tables runs only
-    over lanes (`forward_lanes`).
+    over lanes (`forward_lanes`). A decode step (T = 1) with quantized
+    weights runs each layer through K8 under cfg.use_megalayer, or, under
+    cfg.use_bilayer without it and with int4 weights, the bilayer loop
+    (K5c), as the JAX package gates them (`backbone.py:438-452`).
     """
     if state.pk is not None:
         raise ValueError("a shared-prefix state decodes over lanes "
@@ -216,12 +265,22 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
             else pos_cache_bias(positions, state.pos, neg=cfg.mask_value))
     cur_pos = (state.pos[end:end + 1] if t == 1 and cfg.fuse_insert
                else None)
+    if (t == 1 and cfg.use_bilayer and not cfg.use_megalayer
+            and cfg.num_layers > 1):
+        l0 = slice_layer_params(p["layers"], 0)
+        # the (0, 1) pair stands for every pair: the layers are quantized
+        # as one stacked array (io/quant.py), one layout for all
+        if (fused_layer.supported(l0) and fused_layer.bilayer_supported(
+                l0, slice_layer_params(p["layers"], 1))):
+            return _forward_bilayer(p, cfg, state, x, cos, sin, cur_pos,
+                                    gelu_approx)
     quant = state.k_scale is not None
     for l in range(cfg.num_layers):
         x = _layer(slice_layer_params(p["layers"], l), x, state.k[l],
                    state.v[l], state.k_scale[l] if quant else None,
                    state.v_scale[l] if quant else None, end, cos, sin, bias,
-                   state.pos, cfg.num_heads, gelu_approx, cur_pos)
+                   state.pos, cfg.num_heads, gelu_approx, cur_pos,
+                   cfg.use_megalayer)
     return state, x
 
 
@@ -312,10 +371,12 @@ class BatchedBackboneState:
 
 def _layer_lanes(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos,
                  sin, bias, pos, cur_pos, read_end: int, num_heads: int,
-                 gelu_approx: bool, prefix=None):
+                 gelu_approx: bool, prefix=None, fuse_insert: bool = True):
     """One pre-LN layer over B lanes, x (B, T, d_model); writes the KV rows
-    at slot `end` of every lane in place (through K7 when T == 1). prefix:
-    this layer's (pk, pv, ppos) in shared-prefix mode, else None."""
+    at slot `end` of every lane in place. A decode step (T = 1) goes
+    through K7 under fuse_insert, else writes the rows and runs K1 over the
+    lanes. prefix: this layer's (pk, pv, ppos) in shared-prefix mode, else
+    None."""
     b, t, dm = x.shape
     d = dm // num_heads
     fused = t == 1 and fused_layer.supported(p)
@@ -329,11 +390,17 @@ def _layer_lanes(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos,
     share = prefix is not None
     if share:
         o1, m1, l1 = prefix_attn_stats(q, *prefix)
-    if t == 1:
+    if t == 1 and fuse_insert:
         kn, vn, extra = _k7_rows(k, v.contiguous(), k_scale, v_scale)
         res = decode_insert_attention(
             q[:, 0].contiguous(), kn, vn, cur_pos, k_cache, v_cache, pos,
             read_end, end, stats=share, **extra)
+        attn = (merge_attn_partials(o1[:, 0], m1[:, 0], l1[:, 0], *res)
+                if share else res)
+    elif t == 1:
+        _write_rows(k_cache, v_cache, k_scale, v_scale, end, k, v)
+        res = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, pos,
+                               read_end, k_scale, v_scale, stats=share)
         attn = (merge_attn_partials(o1[:, 0], m1[:, 0], l1[:, 0], *res)
                 if share else res)
     else:
@@ -356,8 +423,13 @@ def forward_lanes(p, cfg, state: BatchedBackboneState, x, n_valid=None,
     state.end of every lane. x: (B, T, d_model); n_valid: (B,) int tensor
     of real rows per lane (the rest get position -1), or None for all.
     Returns (state, y (B, T, d_model)); the caller moves the cursors with
-    `advance_lanes`. A decode step (T = 1) needs cfg.fuse_insert (K7): the
-    vmapped K1 the JAX package runs without it is not ported."""
+    `advance_lanes`. A decode step (T = 1) runs K7 under cfg.fuse_insert,
+    else a row write and K1 over the lanes (with statistics under a shared
+    prefix), the JAX package's vmapped `_layer`. cfg.use_bilayer and
+    cfg.use_megalayer change nothing over lanes: the JAX package gates the
+    bilayer to solo decode, and its vmap rule for K8 runs the 3-call path
+    (`fused_step.py:579-587`), which the serving cfg's fused insert gives
+    here; both compute the function of the unfused layer."""
     b, t, _ = x.shape
     s = state.pos.shape[1]
     end = state.end
@@ -369,9 +441,6 @@ def forward_lanes(p, cfg, state: BatchedBackboneState, x, n_valid=None,
         # after it write the last slot, as the JAX package's
         # dynamic_update_slice clamps its index
         end = s - t
-    if t == 1 and not cfg.fuse_insert:
-        raise NotImplementedError(
-            "batched decode without fuse_insert is not ported")
     ar = torch.arange(t, dtype=torch.int32, device=x.device)
     positions = state.next_pos[:, None] + ar                  # (B, T)
     rows = (positions if n_valid is None
@@ -380,19 +449,20 @@ def forward_lanes(p, cfg, state: BatchedBackboneState, x, n_valid=None,
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.max_period)
     bias = (None if t == 1
             else pos_cache_bias(positions, state.pos, neg=cfg.mask_value))
-    # prefix+ring mode: after warm-up every slot is live, so K7 reads them
-    # all; stale and unwritten slots are masked by their positions
+    # prefix+ring mode: after warm-up every slot is live, so K7 (K1) reads
+    # them all; stale and unwritten slots are masked by their positions
     read_end = s - 1 if state.ring_start is not None else end
     cur_pos = rows[:, 0].contiguous()
     quant = state.k_scale is not None
+    share = state.pk is not None
     for l in range(cfg.num_layers):
         x = _layer_lanes(
             slice_layer_params(p["layers"], l), x, state.k[l], state.v[l],
             state.k_scale[l] if quant else None,
             state.v_scale[l] if quant else None, end, cos, sin, bias,
             state.pos, cur_pos, read_end, cfg.num_heads, gelu_approx,
-            None if state.pk is None
-            else (state.pk[l], state.pv[l], state.ppos))
+            (state.pk[l], state.pv[l], state.ppos) if share else None,
+            bool(cfg.fuse_insert))
     return state, x
 
 

@@ -6,8 +6,9 @@ Counterpart of `pocket_tts_tpu/models/mimi.py`:
   2-layer ring-KV transformer over the 16 rows (kernel K2 per layer)
   SEANet decoder (kernel K3)
 The state is updated in place. With lanes (continuous batching) every
-tensor of the state has a leading (B,) axis, except the transformer's
-shared ring `offset`, and `decode_frame` takes latents (B, latent_dim).
+tensor of the state has a leading (B,) axis (the int8 ring's scale rows
+too), except the transformer's shared ring `offset`, and `decode_frame`
+takes latents (B, latent_dim).
 """
 from __future__ import annotations
 
@@ -41,12 +42,17 @@ def init_state_lanes(cfg, b: int, dtype=torch.float32,
     """A B-lane state of zeros: offset 0, every lane's start 0."""
     one = init_state(cfg, dtype, device)
     tr = one.transformer
+
+    def lanes(cs):
+        return None if cs is None else [c.expand(b, *c.shape).clone()
+                                         for c in cs]
+
     return MimiState(
         upsample_prev=one.upsample_prev.expand(b, -1, -1).clone(),
         transformer=mimi_transformer.MimiTransformerState(
-            k=[c.expand(b, -1, -1).clone() for c in tr.k],
-            v=[c.expand(b, -1, -1).clone() for c in tr.v], offset=0,
-            start=torch.zeros(b, dtype=torch.int32, device=device)),
+            k=lanes(tr.k), v=lanes(tr.v), offset=0,
+            start=torch.zeros(b, dtype=torch.int32, device=device),
+            k_scale=lanes(tr.k_scale), v_scale=lanes(tr.v_scale)),
         seanet={key: c.expand(b, *c.shape).clone()
                 for key, c in one.seanet.items()})
 

@@ -10,7 +10,11 @@ ring step, insert + attention, goes through kernel K2
 `forward` advances `offset` on the same state object. With int8 or int4
 weights (io/quant.py) each layer's norm1 + in_proj run as kernel K5a and
 its out_proj + MLP (with both layer scales) as kernel K5b
-(ops/fused_layer.py), as the JAX package does.
+(ops/fused_layer.py), as the JAX package does. With `cfg.quantize_kv` the
+ring rows are int8 with one float32 absmax scale per row (`k_scale`,
+`v_scale`, L x (cap,) or (B, cap) with lanes): each layer quantizes its 16
+new K and V rows with `quantize_rows` and hands them to K2's int8 variant
+(K2-q), which writes bytes and scales into the ring in place.
 
 Lanes (continuous batching): with caches (B, cap, H*D) and `start` a (B,)
 int32 device tensor, `forward` takes x (B, T, d_model). The lanes share
@@ -24,35 +28,48 @@ take the B * T rows of all lanes in one call each (ops/fused_layer.py).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from ..ops import fused_layer
-from ..ops.basic import gelu, layer_norm, linear, slice_layer_params
+from ..ops.basic import (gelu, layer_norm, linear, quantize_rows,
+                         slice_layer_params)
 from ..ops.ring_attn import ring_insert_attention
 from ..ops.rope import apply_rope_halves as apply_rope, rope_cos_sin
 
 
 @dataclasses.dataclass
 class MimiTransformerState:
-    k: list          # L x (cap, H*D), or L x (B, cap, H*D) with lanes
-    v: list
+    k: list          # L x (cap, H*D), or L x (B, cap, H*D) with lanes;
+    v: list          # int8 with cfg.quantize_kv
     offset: int = 0  # timesteps seen (shared by the lanes)
     start: object = 0  # first timestep of the stream; (B,) int32 tensor
                        # with lanes
+    # int8 ring: L x (cap,) float32 per-row scales, (B, cap) with lanes
+    k_scale: Optional[list] = None
+    v_scale: Optional[list] = None
 
 
 def init_state(cfg, dtype=torch.float32, device="cpu"):
     shape = (cfg.capacity, cfg.num_heads * cfg.head_dim)
+    cache = torch.int8 if cfg.quantize_kv else dtype
+
+    def scales():
+        return ([torch.zeros(cfg.capacity, device=device)
+                 for _ in range(cfg.num_layers)] if cfg.quantize_kv
+                else None)
+
     return MimiTransformerState(
-        k=[torch.zeros(shape, dtype=dtype, device=device)
+        k=[torch.zeros(shape, dtype=cache, device=device)
            for _ in range(cfg.num_layers)],
-        v=[torch.zeros(shape, dtype=dtype, device=device)
-           for _ in range(cfg.num_layers)])
+        v=[torch.zeros(shape, dtype=cache, device=device)
+           for _ in range(cfg.num_layers)],
+        k_scale=scales(), v_scale=scales())
 
 
-def _layer(p, x, k_cache, v_cache, offset: int, start, cos, sin, cfg,
-           gelu_approx: bool):
+def _layer(p, x, k_cache, v_cache, k_scale, v_scale, offset: int, start,
+           cos, sin, cfg, gelu_approx: bool):
     *lead, t, dm = x.shape
     fused = fused_layer.supported(p)
     if fused:
@@ -63,10 +80,15 @@ def _layer(p, x, k_cache, v_cache, offset: int, start, cos, sin, cfg,
     q, k, v = qkv.split(dm, -1)
     heads = (*lead, t, cfg.num_heads, cfg.head_dim)
     q = apply_rope(q.reshape(heads), cos, sin)
-    k = apply_rope(k.reshape(heads), cos, sin)
+    k = apply_rope(k.reshape(heads), cos, sin).reshape(*lead, t, dm)
+    v = v.contiguous()
+    extra = {}
+    if k_scale is not None:
+        (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+        extra = dict(k_scale=k_scale, v_scale=v_scale, ks_new=ks, vs_new=vs)
     attn = ring_insert_attention(
-        q.reshape(*lead, t, dm), k.reshape(*lead, t, dm), v.contiguous(),
-        k_cache, v_cache, offset, start, cfg.num_heads, cfg.context)
+        q.reshape(*lead, t, dm), k, v, k_cache, v_cache, offset, start,
+        cfg.num_heads, cfg.context, **extra)
     if fused:
         return fused_layer.post_attention(p, x, attn, eps=cfg.norm_eps,
                                           approx=gelu_approx)
@@ -86,9 +108,11 @@ def forward(p, cfg, state: MimiTransformerState, x,
         rel = rel[:, None]
     positions = rel + torch.arange(t, dtype=torch.int32, device=x.device)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.max_period)
+    quant = state.k_scale is not None
     for l in range(cfg.num_layers):
         x = _layer(slice_layer_params(p["layers"], l), x, state.k[l],
-                   state.v[l], state.offset, state.start, cos, sin, cfg,
-                   gelu_approx)
+                   state.v[l], state.k_scale[l] if quant else None,
+                   state.v_scale[l] if quant else None, state.offset,
+                   state.start, cos, sin, cfg, gelu_approx)
     state.offset += t
     return state, x

@@ -8,9 +8,9 @@ computes in XLA too). Caches keep the JAX package's FLAT (S, H*D) row
 layout. Logits and softmax are float32; the softmax weights are rounded to
 the value dtype before the PV product, as in the JAX functions.
 
-These are also the plain versions of two kernels: `sdpa_decode_seg` with a
-slot bias is K1's (ops/decode_attn.py), and `cache_insert_ring` +
-`ring_cache_bias` + `sdpa_seg` is K2's (ops/ring_attn.py).
+`cache_insert_ring` + `ring_cache_bias` + `sdpa_seg` are also the plain
+version of kernel K2 (ops/ring_attn.py); K1's (ops/decode_attn.py) is
+`sdpa_decode_seg`'s softmax over the live slots.
 """
 from __future__ import annotations
 

@@ -60,6 +60,16 @@ def layer_norm(p, x, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
+def quantize_rows(x):
+    """(..., H*D) -> (int8 rows, (...,) float32 absmax scales): the JAX
+    package's `models.backbone.quantize_rows`, bit for bit (the int8 KV
+    caches of the backbone and of the mimi ring)."""
+    x32 = x.float()
+    s = (x32.abs().amax(-1) / 127.0).clamp_min(1e-12)
+    q = torch.clamp(torch.round(x32 / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
 def mlp_std_norm(p, x, eps: float = 1e-5):
     """The flow net's "RMSNorm": x (not centred) divided by the
     (n-1)-divisor standard deviation of x, times alpha."""

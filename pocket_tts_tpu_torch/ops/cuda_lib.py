@@ -39,17 +39,19 @@ I = ctypes.c_int
 F = ctypes.c_float
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES = {
-    # q, k, v, pos, k_scale, v_scale (int8 caches, else null), out, H, D, S,
-    # row stride (H*D), end, dtype, stream
-    "ptt_decode_attn": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # q, k, v, pos, k_scale, v_scale (int8 caches, else null), out, stats
+    # (or null), B, H, D, S, row stride (H*D), end, dtype, stream
+    "ptt_decode_attn": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     # q, k_new, v_new, cur_pos, k_cache, v_cache, pos, k_scale, v_scale,
     # ks_new, vs_new (int8 caches, else null), out, stats (or null), B, H,
     # D, S, read_end, write_slot, dtype, stream
     "ptt_insert_attn": [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                         I, I, P],
-    # q, k_new, v_new, k_cache, v_cache, out, starts (or null), B, T, H, D,
-    # cap, offset, start, context, dtype, stream
-    "ptt_ring_attn": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    # q, k_new, v_new, k_cache, v_cache, out, starts (or null), ks_new,
+    # vs_new, k_scale, v_scale (int8 rings, else null), B, T, H, D, cap,
+    # offset, start, context, dtype, stream
+    "ptt_ring_attn": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                      I, I, P],
     # x, carry, w, bias, res, out, ws, B, T, Cin, Cout, K, P(carry rows),
     # splits, in_elu, out_elu, res_elu, dtype, stream
     "ptt_conv_gemm": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I,
@@ -69,11 +71,21 @@ SIGNATURES = {
     # group, prologue, epilogue, approx, eps, dtype, stream
     "ptt_fused_rows": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
                        I, P],
-    # T, dm, dtype -> blocks
-    "ptt_fused_post_max_blocks": [I, I, I],
+    # T, dm, bilayer (0: K5b, 1: K5c), dtype -> blocks
+    "ptt_fused_post_max_blocks": [I, I, I, I],
     # pointer array (18), (kind, group) array (6), T, dm, H, eps, approx,
     # grid, dtype, stream
     "ptt_fused_post": [P, P, I, I, I, F, I, I, I, P],
+    # K5b's pointer array (18; [17] = x_next out) and (kind, group) array
+    # (6), layer l+1's pointer array (7: norm1 scale, norm1 bias, in_proj
+    # w, scale, bias, x_next scratch, qkv out) and (kind, group) array (2),
+    # dm, H, N, eps, approx, grid, dtype, stream
+    "ptt_bilayer": [P, P, P, P, I, I, I, F, I, I, I, P],
+    # d_model, int8 cache (0/1), dtype -> blocks
+    "ptt_megalayer_max_blocks": [I, I, I],
+    # pointer array (30), weight kinds (4), dm, H (hidden), D, S, read_end,
+    # write_slot, eps, approx, grid, dtype, stream
+    "ptt_megalayer": [P, P, I, I, I, I, I, I, F, I, I, I, P],
     # d_model, dim, hid, latent, rows, dtype -> blocks
     "ptt_fused_flow_max_blocks": [I, I, I, I, I, I],
     # pointer array (30), dims and (kind, group) array (20), grid, dtype,

@@ -1,20 +1,24 @@
-"""K5a and K5b: a transformer layer's quantized linears fused around
+"""K5a, K5b and K5c: a transformer layer's quantized linears fused around
 attention.
 
 Replaces the TPU kernels `pocket_tts_tpu/ops/fused_layer.py:_pre_call`
-(K5a: norm1 + in_proj) and `_post_call` (K5b: out_proj + residual + norm2
-+ MLP + residual), for int8 and for int4 weights with per-channel or
-K-grouped (q4_0) scales (io/quant.py). The CUDA kernels are in
-`csrc/fused_layer.cu` (its header says what bounds them on the H100 and
-what the design does about it). The plain versions here round where the
-kernels round, which is not where the unfused chain of `linear` calls
-rounds:
+(K5a: norm1 + in_proj), `_post_call` (K5b: out_proj + residual + norm2
++ MLP + residual) and `_bilayer_call` (K5c: K5b of layer l and K5a of
+layer l + 1 in one launch, solo int4 decode), for int8 and for int4
+weights with per-channel or K-grouped (q4_0) scales (io/quant.py). The
+CUDA kernels are in `csrc/fused_layer.cu` (its header says what bounds
+them on the H100 and what the design does about it). The plain versions
+here round where the kernels round, which is not where the unfused chain
+of `linear` calls rounds:
 
   K5a  qkv = round(round(LN(x)) @ W_in + b_in)
   K5b  x1  = x + ls1 * (attn @ W_o + b_o)             kept in float32
        ln  = round(LN(x1))
        h   = round(gelu(ln @ W_1 + b_1))             computed in float32
        out = round(x1 + ls2 * (h @ W_2 + b_2))
+  K5c  x_next = x1 + ls2 * (h @ W_2 + b_2)             kept in float32
+       out    = round(x_next)
+       qkv    = round(round(LN1_{l+1}(x_next)) @ W_in_{l+1} + b_in_{l+1})
 
 where "v @ W" is the float32 product with the weight's scales
 (quant_matmul.deq_dot: per-channel scales on the product, grouped scales
@@ -38,11 +42,19 @@ LN + linear1 + GELU, linear2 + residual. Launches per call
 (`post_launches`): 1 at the solo shapes, 3 at 32 backbone rows (32 lanes)
 and at 64 / 256 / 512 mimi rows (4 / 16 / 32 lanes x 16).
 
-`pre_attention` and `post_attention` run the plain version for tensors on
-the CPU and the kernel for tensors on the card; there is no other switch.
-Launches with a lane axis (x of rank 3) count in `.launches_lanes`;
-without one, with int8 weights in `.launches`, with int4 weights (either
-scale layout) in `.launches_int4`.
+K5c takes LN1 of layer l + 1 from the unrounded float32 x_next, as the
+TPU kernel does (`fused_layer.py:628-635`), so it equals K5b followed by
+K5a in float32 and differs from them by bf16 rounding. It takes T = 1 and
+int4 weights in either scale layout (`bilayer_supported`, the JAX
+package's gate); the next layer's weights are its own layer view of the
+stacked arrays, as K5a reads them.
+
+`pre_attention`, `post_attention` and `bilayer_post_pre` run the plain
+version for tensors on the CPU and the kernel for tensors on the card;
+there is no other switch. Launches with a lane axis (x of rank 3) count in
+`.launches_lanes`; without one, with int8 weights in `.launches`, with int4
+weights (either scale layout) in `.launches_int4`; K5c's launches count in
+`bilayer_post_pre.launches_bilayer`.
 """
 from __future__ import annotations
 
@@ -83,9 +95,8 @@ def pre_attention_plain(p, x, eps: float = 1e-5):
     return _deq(ln, p["in_proj"]).to(x.dtype)
 
 
-def post_attention_plain(p, x, attn, eps: float = 1e-5,
-                         approx: bool = False):
-    """x, attn (T, dm) -> (T, dm) in x's dtype."""
+def _post_f32(p, x, attn, eps: float, approx: bool):
+    """K5b's output before its final rounding: float32 x1 + ls2 * up."""
     ls1 = p.get("layer_scale_1", {}).get("scale")
     ls2 = p.get("layer_scale_2", {}).get("scale")
     proj = _deq(attn, p["out_proj"])
@@ -93,7 +104,30 @@ def post_attention_plain(p, x, attn, eps: float = 1e-5,
     ln = layer_norm(p["norm2"], x1, eps=eps).to(x.dtype)
     h = gelu(_deq(ln, p["linear1"]), approx).to(x.dtype)
     up = _deq(h, p["linear2"])
-    return (x1 + (up if ls2 is None else ls2.float() * up)).to(x.dtype)
+    return x1 + (up if ls2 is None else ls2.float() * up)
+
+
+def post_attention_plain(p, x, attn, eps: float = 1e-5,
+                         approx: bool = False):
+    """x, attn (T, dm) -> (T, dm) in x's dtype."""
+    return _post_f32(p, x, attn, eps, approx).to(x.dtype)
+
+
+def bilayer_supported(p, p_next) -> bool:
+    """The JAX package's `fused_layer.bilayer_supported`: every linear of
+    layer l and layer l + 1's in_proj are int4 (either scale layout)."""
+    return ({bits(p[k]) for k in _LINEARS} == {4}
+            and bits(p_next["in_proj"]) == 4)
+
+
+def bilayer_post_pre_plain(p, p_next, x, attn, eps: float = 1e-5,
+                           approx: bool = False):
+    """x, attn (1, dm) -> (x_next (1, dm), qkv_next (1, 3 dm)) in x's
+    dtype: post_attention(p) then pre_attention(p_next), with layer l +
+    1's norm1 taken from the float32 x_next."""
+    xn = _post_f32(p, x, attn, eps, approx)
+    ln = layer_norm(p_next["norm1"], xn, eps=eps).to(x.dtype)
+    return xn.to(x.dtype), _deq(ln, p_next["in_proj"]).to(x.dtype)
 
 
 def _ptr(t):
@@ -138,12 +172,38 @@ def _count(fn, p, x):
 
 
 @functools.lru_cache(maxsize=None)
-def _post_grid(t: int, dm: int, hid: int, code: int) -> int:
-    """K5b's cooperative grid: one block per 32-unit hidden tile (32 W2
-    rows of int8, 16 packed rows of int4), at most as many as the card
-    holds at once (0 when the query fails)."""
-    return min(-(-hid // 32),
-               cuda_lib.library().ptt_fused_post_max_blocks(t, dm, code))
+def _post_grid(t: int, dm: int, hid: int, code: int,
+               bilayer: bool = False) -> int:
+    """K5b's (K5c's) cooperative grid: one block per 32-unit hidden tile
+    (32 W2 rows of int8, 16 packed rows of int4), at most as many as the
+    card holds at once (0 when the query fails)."""
+    return min(-(-hid // 32), cuda_lib.library().ptt_fused_post_max_blocks(
+        t, dm, int(bilayer), code))
+
+
+def _post_operands(name, p, x, attn):
+    """K5b's checked operands: [ls1, ls2, norm2 scale, norm2 bias, then
+    (w, scale, bias) of out_proj, linear1, linear2] and their (kind,
+    group) pairs."""
+    dm = x.shape[-1]
+    n2 = p["norm2"]
+    ls1 = p.get("layer_scale_1", {}).get("scale")
+    ls2 = p.get("layer_scale_2", {}).get("scale")
+    _check(name, p, x.reshape(-1, dm),
+           [(ls1, dm), (ls2, dm), (n2.get("scale"), dm),
+            (n2.get("bias"), dm)])
+    hid = p["linear1"]["scale"].shape[-1]
+    vecs, ints = [ls1, ls2, n2.get("scale"), n2.get("bias")], []
+    for lin, k, n in (("out_proj", dm, dm), ("linear1", dm, hid),
+                      ("linear2", hid, dm)):
+        tensors, layout = kernel_operands(p[lin], k, n, x)
+        vecs += tensors
+        ints += layout
+    if not (attn.shape == x.shape and attn.dtype == x.dtype
+            and attn.is_contiguous() and attn.device == x.device):
+        raise ValueError(f"{name}: bad attn{tuple(attn.shape)} for "
+                         f"x{tuple(x.shape)}")
+    return vecs, ints
 
 
 def pre_attention(p, x, eps: float = 1e-5):
@@ -183,23 +243,8 @@ def post_attention(p, x, attn, eps: float = 1e-5, approx: bool = False):
     dm = x.shape[-1]
     x2, a2 = x.reshape(-1, dm), attn.reshape(-1, dm)
     rows = x2.shape[0]
-    n2 = p["norm2"]
-    ls1 = p.get("layer_scale_1", {}).get("scale")
-    ls2 = p.get("layer_scale_2", {}).get("scale")
-    _check("post_attention", p, x2,
-           [(ls1, dm), (ls2, dm), (n2.get("scale"), dm),
-            (n2.get("bias"), dm)])
+    vecs, ints = _post_operands("post_attention", p, x, attn)
     hid = p["linear1"]["scale"].shape[-1]
-    vecs, ints = [ls1, ls2, n2.get("scale"), n2.get("bias")], []
-    for name, k, n in (("out_proj", dm, dm), ("linear1", dm, hid),
-                       ("linear2", hid, dm)):
-        tensors, layout = kernel_operands(p[name], k, n, x)
-        vecs += tensors
-        ints += layout
-    if not (attn.shape == x.shape and attn.dtype == x.dtype
-            and attn.is_contiguous() and attn.device == x.device):
-        raise ValueError(f"post_attention: bad attn{tuple(attn.shape)} for "
-                         f"x{tuple(x.shape)}")
     code = cuda_lib.dtype_code(x)
     lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(x.device)
     x1 = torch.empty(rows, dm, dtype=torch.float32, device=x.device)
@@ -236,6 +281,49 @@ def post_attention(p, x, attn, eps: float = 1e-5, approx: bool = False):
     return out.reshape(x.shape)
 
 
+def bilayer_post_pre(p, p_next, x, attn, eps: float = 1e-5,
+                     approx: bool = False):
+    """Same contract as bilayer_post_pre_plain; launches K5c once for CUDA
+    tensors (x, attn (1, dm) float32 or bfloat16, bilayer_supported and
+    supported(p); one cooperative launch)."""
+    if x.device.type == "cpu":
+        return bilayer_post_pre_plain(p, p_next, x, attn, eps, approx)
+    if x.device.type != "cuda":
+        raise ValueError(f"bilayer_post_pre: unsupported device {x.device}")
+    dm = x.shape[-1]
+    if not (x.shape == (1, dm) and bilayer_supported(p, p_next)):
+        raise ValueError(f"bilayer_post_pre: takes one row and int4 layers, "
+                         f"not x{tuple(x.shape)} with layouts "
+                         f"{[bits(p[k]) for k in _LINEARS]} + "
+                         f"{bits(p_next['in_proj'])}")
+    vecs, ints = _post_operands("bilayer_post_pre", p, x, attn)
+    hid = p["linear1"]["scale"].shape[-1]
+    n = p_next["in_proj"]["scale"].shape[-1]
+    norm = p_next["norm1"]
+    _check("bilayer_post_pre", p, x,
+           [(norm.get("scale"), dm), (norm.get("bias"), dm)])
+    (w, s, b), qints = kernel_operands(p_next["in_proj"], dm, n, x)
+    code = cuda_lib.dtype_code(x)
+    grid = _post_grid(1, dm, hid, code, True)
+    x1 = torch.empty(1, dm, dtype=torch.float32, device=x.device)
+    xn32 = torch.empty(dm, dtype=torch.float32, device=x.device)
+    part = torch.empty(grid, 1, dm, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    qkv = torch.empty(1, n, dtype=x.dtype, device=x.device)
+    ptrs = [x, attn] + vecs + [x1, part, out]
+    nptrs = [norm.get("scale"), norm.get("bias"), w, s, b, xn32, qkv]
+    rc = cuda_lib.library().ptt_bilayer(
+        (ctypes.c_void_p * len(ptrs))(*[_ptr(v) for v in ptrs]),
+        (ctypes.c_int * len(ints))(*ints),
+        (ctypes.c_void_p * len(nptrs))(*[_ptr(v) for v in nptrs]),
+        (ctypes.c_int * 2)(*qints), dm, hid, n, float(eps), int(approx),
+        grid, code, cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(rc, "ptt_bilayer")
+    bilayer_post_pre.launches_bilayer += 1
+    return out, qkv
+
+
+bilayer_post_pre.launches_bilayer = 0
 pre_attention.launches = pre_attention.launches_int4 = 0
 post_attention.launches = post_attention.launches_int4 = 0
 pre_attention.launches_lanes = post_attention.launches_lanes = 0

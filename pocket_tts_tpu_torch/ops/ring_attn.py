@@ -1,16 +1,28 @@
 """K2: mimi ring-cache insert + T=16 attention, in place.
 
 Replaces the TPU kernel `pocket_tts_tpu/ops/pallas_mimi.py:
-ring_insert_attention`. The CUDA kernel is `csrc/ring_attn.cu` (its header
-says what bounds it on the H100 and what the design does about it); the
-plain version is the `ops/attention.py` composition the JAX package runs
-off the TPU: `cache_insert_ring` + `ring_cache_bias` + `sdpa_seg`.
+ring_insert_attention`, over rings of the working type and (K2-q, with
+`k_scale`) int8 rings with per-row float32 scales
+(`mimi.transformer.quantize_kv`). The CUDA kernel is `csrc/ring_attn.cu`
+(its header says what bounds it on the H100 and what the design does about
+it); the plain version is the `ops/attention.py` composition the JAX
+package runs off the TPU: `cache_insert_ring` + `ring_cache_bias` +
+`sdpa_seg`. For int8 rings it follows the TPU kernel's arithmetic
+(`pallas_mimi.py:154-198`): the quantized new rows (`ks_new`, `vs_new`
+their (…, T) scales) and their scales go into the ring first, then each
+key's logit is (q . k_int8) * scale * k_scale[s] and its softmax weight
+times v_scale[s] is rounded to the working type before the PV product with
+the int8 rows. (The JAX package takes its plain XLA route below a
+32-multiple capacity, `models/mimi_transformer.py:209-213`: dequantized
+rows rounded to the working type; the two agree to f32 rounding.)
 
 `ring_insert_attention` runs the plain version for tensors on the CPU and
 the kernel for tensors on the card; there is no other switch. Both update
-the caches IN PLACE (the JAX function returns new caches). Both take an
-optional lane axis: B streams that share the ring offset, each with its own
-start (continuous batching), in one launch.
+the caches IN PLACE (the JAX function returns new caches), and for int8
+rings the (cap,) scale rows too. Both take an optional lane axis: B streams
+that share the ring offset, each with its own start (continuous batching),
+in one launch. Launches over rings of the working type count in
+`ring_insert_attention.launches`, over int8 rings in `.launches_kv8`.
 """
 from __future__ import annotations
 
@@ -23,14 +35,26 @@ from .basic import inv_sqrt
 
 def ring_insert_attention_plain(q, k_new, v_new, k_cache, v_cache,
                                 offset: int, start, num_heads: int,
-                                context: int):
+                                context: int, k_scale=None, v_scale=None,
+                                ks_new=None, vs_new=None):
     """q/k_new/v_new: (T, H*D) post-rope rows; k/v_cache: (cap, H*D),
     PRE-insert, written in place; offset: timesteps written so far; start:
-    the stream's first timestep. Returns attn (T, H*D).
+    the stream's first timestep. Returns attn (T, H*D). int8 rings: k_new,
+    v_new and the caches int8, ks_new/vs_new (T,) and k_scale/v_scale
+    (cap,) float32, the latter written in place.
 
     With a lane axis: q/k_new/v_new (B, T, H*D), caches (B, cap, H*D), the
     offset shared by the lanes and start a (B,) int32 tensor (each lane's
-    first timestep); returns (B, T, H*D)."""
+    first timestep); scales (B, T) and (B, cap); returns (B, T, H*D)."""
+    if k_scale is not None:
+        if q.dim() == 3:
+            return _ring_plain_q(q, k_new, v_new, k_cache, v_cache, offset,
+                                 start[:, None, None], num_heads, context,
+                                 k_scale, v_scale, ks_new, vs_new)
+        return _ring_plain_q(q[None], k_new[None], v_new[None],
+                             k_cache[None], v_cache[None], offset, start,
+                             num_heads, context, k_scale[None],
+                             v_scale[None], ks_new[None], vs_new[None])[0]
     if q.dim() == 3:
         return _ring_plain_lanes(q, k_new, v_new, k_cache, v_cache, offset,
                                  start, num_heads, context)
@@ -67,15 +91,44 @@ def _ring_plain_lanes(q, k_new, v_new, k_cache, v_cache, offset: int,
     return out.to(q.dtype).reshape(b, t, hd)
 
 
+def _ring_plain_q(q, k_new, v_new, k_cache, v_cache, offset: int, start,
+                  num_heads: int, context: int, k_scale, v_scale, ks_new,
+                  vs_new):
+    """The plain version over int8 rings, with a lane axis: bytes and
+    scales inserted at the ring slots, then the TPU kernel's arithmetic.
+    start: an int or a (B, 1, 1) tensor."""
+    b, t, hd = q.shape
+    cap = k_cache.shape[1]
+    d = hd // num_heads
+    idx = (offset + torch.arange(t, device=q.device)) % cap
+    k_cache[:, idx] = k_new
+    v_cache[:, idx] = v_new
+    k_scale[:, idx] = ks_new
+    v_scale[:, idx] = vs_new
+    bias = ring_cache_bias(t, cap, offset, context, start=start,
+                           device=q.device)                  # (B, T, cap)
+    logits = torch.einsum("bthd,bshd->bhts",
+                          q.view(b, t, num_heads, d).float(),
+                          k_cache.view(b, cap, num_heads, d).float())
+    logits = logits * inv_sqrt(d) * k_scale[:, None, None, :]
+    w = torch.softmax(logits + bias.expand(b, t, cap)[:, None], -1)
+    pv = (w * v_scale[:, None, None, :]).to(q.dtype).float()
+    out = torch.einsum("bhts,bshd->bthd", pv,
+                       v_cache.view(b, cap, num_heads, d).float())
+    return out.to(q.dtype).reshape(b, t, hd)
+
+
 def ring_insert_attention(q, k_new, v_new, k_cache, v_cache, offset: int,
-                          start, num_heads: int, context: int):
+                          start, num_heads: int, context: int, k_scale=None,
+                          v_scale=None, ks_new=None, vs_new=None):
     """Same contract as ring_insert_attention_plain, solo or with a lane
     axis; launches the CUDA kernel for CUDA tensors (float32 or bfloat16,
-    D = 64, T <= 16, cap and offset multiples of T), one launch for all
-    lanes."""
+    D = 64, T <= 16, cap and offset multiples of T; int8 rings with
+    float32 scales), one launch for all lanes."""
     if q.device.type == "cpu":
         return ring_insert_attention_plain(q, k_new, v_new, k_cache, v_cache,
-                                           offset, start, num_heads, context)
+                                           offset, start, num_heads, context,
+                                           k_scale, v_scale, ks_new, vs_new)
     if q.device.type != "cuda":
         raise ValueError(f"ring_insert_attention: unsupported device "
                          f"{q.device}")
@@ -84,32 +137,51 @@ def ring_insert_attention(q, k_new, v_new, k_cache, v_cache, offset: int,
     t, hd = q.shape[-2:]
     cap = k_cache.shape[-2]
     d = hd // num_heads
-    ops = (q, k_new, v_new, k_cache, v_cache)
-    shape = (b, t, hd) if lanes else (t, hd)
-    cshape = (b, cap, hd) if lanes else (cap, hd)
+    quant = k_scale is not None
+    lead = (b,) if lanes else ()
+    ops = (k_new, v_new, k_cache, v_cache)
+    scales = ((ks_new, lead + (t,)), (vs_new, lead + (t,)),
+              (k_scale, lead + (cap,)), (v_scale, lead + (cap,)))
     if lanes:
         start_ok = (isinstance(start, torch.Tensor) and start.shape == (b,)
                     and start.dtype == torch.int32
                     and start.device == q.device and start.is_contiguous())
     else:
         start_ok = 0 <= start <= offset
-    if not (k_new.shape == v_new.shape == shape
-            and k_cache.shape == v_cache.shape == cshape
-            and all(x.dtype == q.dtype and x.is_contiguous()
-                    and x.device == q.device for x in ops)
+    kv_dtype = torch.int8 if quant else q.dtype
+    if not (k_new.shape == v_new.shape == q.shape
+            and k_cache.shape == v_cache.shape == lead + (cap, hd)
+            and all(x.dtype == kv_dtype and x.is_contiguous()
+                    and x.device == q.device and x.data_ptr() % 16 == 0
+                    for x in ops)
+            and q.is_contiguous()
+            and all(x is not None and x.shape == shape
+                    and x.dtype == torch.float32 and x.is_contiguous()
+                    and x.device == q.device for x, shape in scales
+                    if quant)
+            and (quant or all(x is None for x, _ in scales))
             and cap % t == 0 and offset % t == 0 and start_ok):
         raise ValueError("ring_insert_attention: bad operands "
-                         f"q{tuple(q.shape)} cache{tuple(k_cache.shape)} "
+                         f"q{tuple(q.shape)} {q.dtype} cache"
+                         f"{tuple(k_cache.shape)} {k_cache.dtype} "
                          f"offset={offset} start={start}")
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     out = torch.empty_like(q)
     rc = cuda_lib.library().ptt_ring_attn(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), out.data_ptr(), start.data_ptr() if lanes else 0,
-        b, t, num_heads, d, cap, int(offset), 0 if lanes else int(start),
+        ptr(ks_new), ptr(vs_new), ptr(k_scale), ptr(v_scale), b, t,
+        num_heads, d, cap, int(offset), 0 if lanes else int(start),
         int(context), cuda_lib.dtype_code(q), cuda_lib.stream_ptr(q.device))
     cuda_lib.check(rc, "ptt_ring_attn")
-    ring_insert_attention.launches += 1
+    if quant:
+        ring_insert_attention.launches_kv8 += 1
+    else:
+        ring_insert_attention.launches += 1
     return out
 
 
-ring_insert_attention.launches = 0
+ring_insert_attention.launches = ring_insert_attention.launches_kv8 = 0

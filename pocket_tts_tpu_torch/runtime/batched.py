@@ -21,8 +21,8 @@ both sides. The state is updated in place throughout; the JAX functions
 donate and return it.
 
 Quantized weights (the decode step's K5a/K5b over the B rows, K6 over the
-lanes), the int8 backbone KV cache (its per-row scales ride along with
-the rows through every function here) and shared-prefix tables (`pk`/`pv`
+lanes), the int8 backbone KV cache and the int8 mimi ring (their per-row
+scales ride along with the rows) and shared-prefix tables (`pk`/`pv`
 shared by the lanes, `ppos` per lane) go through every function here.
 Sharding over a mesh is not ported yet.
 """
@@ -107,15 +107,20 @@ def stack_states(states: Sequence):
                   else torch.stack([s.ppos for s in states])))
     dev = s0.prev_latent.device
     trs = [s.mimi.transformer for s in states]
+
+    def ring(name):
+        if getattr(trs[0], name) is None:
+            return None
+        return [torch.stack([getattr(t, name)[l] for t in trs])
+                for l in range(len(trs[0].k))]
+
     mstate = mimi.MimiState(
         upsample_prev=torch.stack([s.mimi.upsample_prev for s in states]),
         transformer=mimi_transformer.MimiTransformerState(
-            k=[torch.stack([t.k[l] for t in trs])
-               for l in range(len(trs[0].k))],
-            v=[torch.stack([t.v[l] for t in trs])
-               for l in range(len(trs[0].v))],
+            k=ring("k"), v=ring("v"),
             offset=_uniform([t.offset for t in trs], "mimi offset"),
-            start=_i32([t.start for t in trs], dev)),
+            start=_i32([t.start for t in trs], dev),
+            k_scale=ring("k_scale"), v_scale=ring("v_scale")),
         seanet={key: torch.stack([s.mimi.seanet[key] for s in states])
                 for key in s0.mimi.seanet})
     return tts.BatchedStreamState(
@@ -145,14 +150,18 @@ def unstack_states(state, n: int = None) -> list:
     flows = unstack_states(state.flow, n)
     starts, eos = tr.start.tolist(), state.eos_step.tolist()
     steps, done = state.step.tolist(), state.done.tolist()
+
+    def lane(cs, i):
+        return None if cs is None else [c[i].clone() for c in cs]
+
     return [tts.StreamState(
         flow=flows[i],
         mimi=mimi.MimiState(
             upsample_prev=state.mimi.upsample_prev[i].clone(),
             transformer=mimi_transformer.MimiTransformerState(
-                k=[c[i].clone() for c in tr.k],
-                v=[c[i].clone() for c in tr.v], offset=tr.offset,
-                start=starts[i]),
+                k=lane(tr.k, i), v=lane(tr.v, i), offset=tr.offset,
+                start=starts[i], k_scale=lane(tr.k_scale, i),
+                v_scale=lane(tr.v_scale, i)),
             seanet={k: c[i].clone() for k, c in state.mimi.seanet.items()}),
         prev_latent=state.prev_latent[i].clone(), eos_step=eos[i],
         step=steps[i], done=bool(done[i])) for i in range(n)]
@@ -298,8 +307,9 @@ def admit_group(batch: tts.BatchedStreamState, lanes: Sequence[int],
     mimi state, latent and counters are replaced; the shared slot cursor
     and mimi ring offset stay, and each joining lane's mimi `start` is the
     ring offset now, so its RoPE phases and ring window are its own (its
-    audio equals solo synthesis). int8 KV scale rows and shared-prefix
-    `ppos` rows go with their lanes; the shared tables stay. The caches of
+    audio equals solo synthesis). int8 KV scale rows (backbone and mimi
+    ring) and shared-prefix `ppos` rows go with their lanes; the shared
+    tables stay. The caches of
     `fresh` must have the batch's slot count."""
     src = [i for i, lane in enumerate(lanes) if lane < batch.lanes]
     if not src:
@@ -323,9 +333,12 @@ def admit_group(batch: tts.BatchedStreamState, lanes: Sequence[int],
     if bf.ppos is not None:
         put(bf.ppos, ff.ppos)
     bm, fm = batch.mimi, fresh.mimi
+    bt, ft = bm.transformer, fm.transformer
     put(bm.upsample_prev, fm.upsample_prev)
-    for dst_c, src_c in zip(bm.transformer.k + bm.transformer.v,
-                            fm.transformer.k + fm.transformer.v):
+    for dst_c, src_c in zip(bt.k + bt.v + (bt.k_scale or [])
+                            + (bt.v_scale or []),
+                            ft.k + ft.v + (ft.k_scale or [])
+                            + (ft.v_scale or [])):
         put(dst_c, src_c)
     for key, c in bm.seanet.items():
         put(c, fm.seanet[key])

@@ -14,7 +14,11 @@ per-channel scales, "q4_0" with 32-row K-grouped bf16 scales; the decode
 step then runs kernels K4a (K4b), K5a, K5b and K6 beside K1-K3.
 `quantize_kv=True` keeps the backbone's KV cache in int8 with per-row
 scales (K1's int8-KV variant solo, K7's at batch), the JAX engine's
-serving-throughput mode.
+serving-throughput mode. The engine runs the cfg it is given, as the JAX
+engine does: `backbone.use_megalayer` (kernel K8 per quantized decode
+layer), `backbone.use_bilayer` (kernel K5c, int4 weights) and
+`mimi.transformer.quantize_kv` (the int8 mimi ring, K2's int8 variant)
+come from the cfg.
 `save_params_cache` / `from_params_cache` write and read the JAX
 package's safetensors params cache. Noise comes from a
 torch.Generator on that device, seeded from the engine seed: it does not
@@ -38,6 +42,8 @@ from ..io import params as params_io
 from ..io.quant import (load_params_cache, quantize_params,
                         save_params_cache)
 from ..models import backbone, tts
+from ..ops import fused_layer, fused_step
+from ..ops.basic import slice_layer_params
 from ..ops.seanet_frame import prep_weights
 from ..text.preprocess import (StrProcessor, count_words,
                                prepare_text_prompt, split_into_best_sentences)
@@ -96,12 +102,12 @@ class TTSEngine:
         quantized after load (a tree that is quantized already keeps its
         quantized leaves). quantize_kv: the backbone's KV cache in int8
         with per-row scales, as the JAX engine applies it (backbone only:
-        the int8 mimi ring stays a cfg-level option, which slice 6 of the
-        port brings); the serving-throughput mode. quantize_convs is not
-        ported yet (slice 6) and raises NotImplementedError."""
+        the int8 mimi ring is the cfg's `mimi.transformer.quantize_kv`);
+        the serving-throughput mode. quantize_convs is not ported yet and
+        raises NotImplementedError, and so do q4_0 weights with
+        `backbone.use_megalayer` (kernel K8 takes no K-grouped scales)."""
         if quantize_convs:
-            raise NotImplementedError(
-                "quantized convs are not ported yet (slice 6)")
+            raise NotImplementedError("quantized convs are not ported yet")
         if quantize not in (None, "int8", "q8", "int4", "q4", "q4_0"):
             raise ValueError(f"unknown quantization: {quantize}")
         self.device = _device(device)
@@ -119,6 +125,14 @@ class TTSEngine:
         if quantize:
             params = quantize_params(params, bits=4 if "4" in quantize else 8,
                                      group=32 if quantize == "q4_0" else 0)
+        layer0 = slice_layer_params(params["layers"], 0)
+        if (cfg.backbone.use_megalayer and fused_layer.supported(layer0)
+                and not fused_step.supported(layer0)):
+            raise NotImplementedError(
+                "q4_0 (K-grouped) weights with backbone.use_megalayer: the "
+                "megalayer kernel K8 takes no K-grouped scales (the JAX "
+                "package's fused_step.supported excludes them); use int4 or "
+                "int8 weights, or leave use_megalayer off")
         self.params = params
         self.cfg = cfg
         self.dtype = dtype

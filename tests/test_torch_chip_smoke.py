@@ -83,7 +83,8 @@ def test_failing_serving_phase_fails_the_run(failing, monkeypatch, capsys):
                  "check_k2_lanes", "check_k3_lanes", "check_quant_kernels",
                  "check_cache", "time_quant_kernels", "check_k1_kv8",
                  "check_k7_kv8", "check_quant_lanes", "time_kv8_kernels",
-                 "time_lane_kernels"):
+                 "time_lane_kernels", "check_k8", "check_k5c", "check_k2q",
+                 "check_k1_lanes", "time_slice6_kernels"):
         stubs[name] = lambda *a, **k: None
     stubs[failing] = boom
     for name, fn in stubs.items():
@@ -138,3 +139,67 @@ def test_expected_serving_launches_per_step():
         "int4_matmul"] == 48
     assert cs.expected_serving(DEFAULT_CONFIG, "bf16", 3, 1) == {
         "ring_attn": 6, "seanet_frame": 3, "decode_insert_attn": 18}
+
+
+SLICE6 = {
+    "megalayer": ("megalayer.cu", "pocket_tts_tpu/ops/fused_step.py:454"),
+    "megalayer_int4": ("megalayer.cu",
+                       "pocket_tts_tpu/ops/fused_step.py:454"),
+    "megalayer_kv8": ("megalayer.cu",
+                      "pocket_tts_tpu/ops/fused_step.py:454"),
+    "bilayer": ("fused_layer.cu", "pocket_tts_tpu/ops/fused_layer.py:750"),
+    "ring_attn_kv8": ("ring_attn.cu", "pocket_tts_tpu/ops/pallas_mimi.py:324"),
+    "decode_attn_lanes": ("decode_attn.cu",
+                          "pocket_tts_tpu/ops/pallas_attn.py:332"),
+    "decode_attn_stats": ("decode_attn.cu",
+                          "pocket_tts_tpu/ops/pallas_attn.py:332"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE6))
+def test_slice6_kernel_entries(name):
+    """Slice 6's kernels (K8 and its int4 / int8-KV variants, K5c, K2-q, K1
+    over lanes with and without statistics) are entries of the kernels
+    line, each with its CUDA source, the TPU site it replaces, and a
+    path whose run reports its launches."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    source, site = SLICE6[name]
+    assert cs.KERNELS[name] == dict(
+        source="pocket_tts_tpu_torch/csrc/" + source, replaces=site)
+    assert name in cs.MEGA_KERNELS or name in cs.expected_serving(
+        DEFAULT_CONFIG, cs.K1_SERVE, 1, 0, lanes=4)
+
+
+def test_expected_launches_of_the_slice6_paths():
+    """Per decoded frame at DEFAULT_CONFIG: int8 + megalayer 6 K8, 2 K5a, 2
+    K5b (the mimi layers), 2 K2, no K1; int4 + int8 KV + megalayer + int8
+    mimi ring the same with K8's int4 and int8-KV counts and K2-q; int4 +
+    bilayer 1 + 2 K5a, 5 K5c, 1 + 2 K5b, 6 K1. Serving without the fused
+    insert, per batch frame step: 6 K1 over lanes with statistics, 2 K2-q,
+    no K7."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+
+    def frame(path):
+        return cs.expected_launches(cs.path_cfg(DEFAULT_CONFIG, path),
+                                    path)[0]
+
+    assert frame("int8_mega") == {
+        "megalayer": 6, "fused_pre": 2, "fused_post": 2, "ring_attn": 2,
+        "fused_flow": 1, "int8_matmul": 1, "seanet_frame": 1}
+    assert frame("int4_kv8_mega") == {
+        "megalayer_int4": 6, "megalayer_kv8": 6, "fused_pre_int4": 2,
+        "fused_post_int4": 2, "ring_attn_kv8": 2, "fused_flow_int4": 1,
+        "int4_matmul": 1, "seanet_frame": 1}
+    assert frame("int4_bilayer") == {
+        "fused_pre_int4": 3, "bilayer": 5, "fused_post_int4": 3,
+        "decode_attn": 6, "ring_attn": 2, "seanet_frame": 1,
+        "fused_flow_int4": 1, "int4_matmul": 1}
+    want = cs.expected_serving(cs.path_cfg(DEFAULT_CONFIG, cs.K1_SERVE),
+                               cs.K1_SERVE, 1, 0, lanes=4)
+    assert (want["decode_attn_lanes"], want["decode_attn_stats"],
+            want["ring_attn_kv8"]) == (6, 6, 2)
+    assert not any(k.startswith("decode_insert") for k in want)

@@ -121,7 +121,7 @@ def test_same_seed_same_audio_and_wav(tmp_path):
                                          quantize_convs=True),
                                     dict(quantize_convs=True)])
 def test_quantize_options_not_ported_raise(option):
-    """Quantized convs are slice 6 (quantize_kv runs: see
+    """Quantized convs are not ported yet (quantize_kv runs: see
     tests/test_torch_share_prefix.py)."""
     with pytest.raises(NotImplementedError):
         tengine(**option)

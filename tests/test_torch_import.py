@@ -27,6 +27,10 @@ MODULES = [
     "pocket_tts_tpu_torch.models.tts",
     "pocket_tts_tpu_torch.config",
     "pocket_tts_tpu_torch.ops.insert_attn",
+    "pocket_tts_tpu_torch.ops.fused_step",
+    "pocket_tts_tpu_torch.models.backbone",
+    "pocket_tts_tpu_torch.models.mimi_transformer",
+    "pocket_tts_tpu_torch.models.mimi",
     "pocket_tts_tpu_torch.runtime.batched",
     "pocket_tts_tpu_torch.runtime.server",
     "pocket_tts_tpu_torch.text.tokenizer",
@@ -67,7 +71,8 @@ def test_every_module_and_chip_smoke_together():
 
 
 def test_import_builds_nothing():
-    """Importing the kernel modules (K4b's int4_matmul among them) neither
+    """Importing the kernel modules (K4b's int4_matmul and K8's fused_step
+    among them) neither
     compiles nor loads the CUDA library (the build happens at first
     launch, on the card)."""
     code = ("import pocket_tts_tpu_torch.ops.seanet_frame, "
@@ -76,7 +81,8 @@ def test_import_builds_nothing():
             "pocket_tts_tpu_torch.ops.quant_matmul, "
             "pocket_tts_tpu_torch.ops.fused_layer, "
             "pocket_tts_tpu_torch.ops.fused_flow, "
-            "pocket_tts_tpu_torch.ops.insert_attn; "
+            "pocket_tts_tpu_torch.ops.insert_attn, "
+            "pocket_tts_tpu_torch.ops.fused_step; "
             "from pocket_tts_tpu_torch.ops import cuda_lib; "
             "import sys; sys.exit(0 if cuda_lib._state['lib'] is None "
             "and 'triton' not in sys.modules else 1)")

@@ -11,7 +11,8 @@ import torch
 from pocket_tts_tpu.config import DEFAULT_CONFIG, tiny_config
 from pocket_tts_tpu.io import params as jparams
 from pocket_tts_tpu.io.safetensors_io import save_safetensors
-from pocket_tts_tpu_torch.config import check_supported
+from pocket_tts_tpu_torch.config import (check_supported,
+                                         reference_exact_config)
 from pocket_tts_tpu_torch.io import params as tparams
 
 torch.set_num_threads(1)
@@ -114,20 +115,34 @@ def test_load_checkpoint_and_voice(tmp_path):
 @pytest.mark.parametrize("change", [
     dict(mimi=dict(seanet=dict(mesh="data"))),
     dict(backbone=dict(mesh="data")),
-    dict(backbone=dict(use_megalayer=True)),
-    dict(backbone=dict(use_bilayer=True)),
+    dict(backbone=dict(mask_value=-1e5)),
+    dict(mimi=dict(transformer=dict(mask_value=-1e5))),
     dict(on_mesh=True),
-    dict(mimi=dict(transformer=dict(quantize_kv=True))),
+    reference_exact_config,
     dict(mimi=dict(transformer=dict(capacity=250))),
 ])
 def test_unsupported_config_raises(change):
+    """What the port refuses: a mesh, a mimi capacity off the upsample
+    stride, and mask values other than -1e9 (the reference-exact mode is
+    not ported). The megalayer, the bilayer and the int8 mimi ring run
+    (test_supported_slice6_options)."""
     def apply(obj, ch):
         return dataclasses.replace(obj, **{
             k: (apply(getattr(obj, k), v) if isinstance(v, dict) else v)
             for k, v in ch.items()})
     check_supported(CFG0)
-    with pytest.raises(NotImplementedError):
-        check_supported(apply(CFG0, change))
+    cfg = change(CFG0) if callable(change) else apply(CFG0, change)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        check_supported(cfg)
+
+
+def test_supported_slice6_options():
+    cfg = dataclasses.replace(
+        CFG0, backbone=dataclasses.replace(
+            CFG0.backbone, use_megalayer=True, use_bilayer=True),
+        mimi=dataclasses.replace(CFG0.mimi, transformer=dataclasses.replace(
+            CFG0.mimi.transformer, quantize_kv=True)))
+    check_supported(cfg)
 
 
 @pytest.mark.parametrize("key", [

@@ -208,11 +208,11 @@ def test_unseeded_requests_draw_engine_seeds():
 @pytest.mark.parametrize("what", ["share_prefix", "quantize", "mesh"])
 def test_unported_serving_options_raise(what):
     """What serving still refuses: shared-prefix tables outside the
-    prefix+ring mode (as the JAX server does), quantized convs (slice 6;
-    quantized weights and the int8 KV cache serve, see
+    prefix+ring mode (as the JAX server does), quantized convs (not
+    ported yet; quantized weights and the int8 KV cache serve, see
     tests/test_torch_share_prefix.py) and a device mesh."""
     if what == "quantize":
-        with pytest.raises(NotImplementedError, match="slice 6"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
             engine(quantize="int8", quantize_convs=True)
         for cls in (ContinuousBatchingServer, MultiStreamServer):
             assert cls(engine(quantize="int8", quantize_kv=True)) is not None
