@@ -18,13 +18,15 @@ raises, names its phase and the exit code is 1:
 
   1. environment   torch / CUDA versions, card name and power limit
   2. build         nvcc builds the kernel library (pocket_tts_tpu_torch/csrc)
-  3. kernels       K1 decode attention, K2 ring insert + attention, K3 SEANet
-                   frame; K4a int8 matmul, K5a/K5b fused layer pre/post and
-                   K6 fused flow net on int8 weights; K4b int4 matmul and
-                   the int4 K5a/K5b/K6 on per-channel int4 and on q4_0
-                   (K-grouped) weights: each vs its plain version at
-                   main-path shapes, f32 and bf16, with the tolerances
-                   stated below
+  3. kernels       K1 decode attention (ends at its chunk boundaries and
+                   the last slot of S = 1024, a chunk with no live slot),
+                   K2 ring insert + attention (starts that fence whole
+                   chunks), K3 SEANet frame; K4a int8 matmul, K5a/K5b
+                   fused layer pre/post and K6 fused flow net on int8
+                   weights; K4b int4 matmul and the int4 K5a/K5b/K6 on
+                   per-channel int4 and on q4_0 (K-grouped) weights:
+                   each vs its plain version at main-path shapes, f32 and
+                   bf16, with the tolerances stated below
   3c. at batch     K7 fused insert + decode attention at B=32, S=1024,
                    H*D=1024 (linear and ring, one invalid lane), K2 over 32
                    lanes with distinct starts (each lane equal to the solo
@@ -45,7 +47,8 @@ raises, names its phase and the exit code is 1:
                    scales equal, each lane equal to the solo call bit for
                    bit); K1 over 32 lanes, S=1024 and 896, caches of the
                    working type and int8, with and without statistics, an
-                   idle lane (0, -inf, 0); f32 and bf16
+                   idle lane and then every lane idle (0, -inf, 0), lanes
+                   equal to the solo call bit for bit; f32 and bf16
   4. end to end    synthesis of the benchmark sentence at temp 0 on each
                    path, counters set to 0 before each run and read after:
                    per decoded frame every path launches 6 K1, 2 K2 and 1
@@ -70,8 +73,9 @@ raises, names its phase and the exit code is 1:
                    the int8 KV variants, beside which SDPA over bf16 caches
                    of the same shape is timed for comparison; none for K8,
                    beside which the 3-call path it replaces is timed, and
-                   for K5c, beside K5b then K5a; CUDA events) beside its
-                   bound
+                   for K5c, beside K5b then K5a; the library call of K4a
+                   is torch._weight_int8pack_mm; CUDA events) beside its
+                   bound; K1 and K2 at every split count (time_splits)
   7. serving       f32, 4 lanes, 6 requests (two admitted mid-decode), each
                    pcm vs the solo engine on the card, with bf16 weights,
                    with int8 weights + int8 KV + shared prefix, and with
@@ -88,9 +92,11 @@ raises, names its phase and the exit code is 1:
                    wav per request, and so does CLI --serve --quantize int4
                    --quantize-kv --share-prefix
   8. profiler      device busy share and launches per frame of each solo
-                   path and per chunk of serving with every lane busy, in
-                   both serving modes (torch.profiler; last, after every
-                   host-clock measurement)
+                   path (6 K1, 0 on the megalayer paths, and 2 K2 a frame,
+                   no more launches than FRAME_LAUNCHES) and per chunk of
+                   serving with every lane busy, in both serving modes
+                   (torch.profiler; last, after every host-clock
+                   measurement)
 
 The last three lines of standard output are a JSON object of the kernels
 (launches from the runs of the path that uses each: K1-K3 from bf16, the
@@ -104,7 +110,8 @@ the card's `nvidia-smi` name and power limit, and the result object
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 and prints no result. With --out DIR, the longer output (nvcc's register
 report, the profiler tables, and a copy of the log as chip_smoke.log) is
-also written under DIR.
+also written under DIR, K1's and K2's registers, shared memory and
+spills in ptxas_k1_k2.txt.
 """
 from __future__ import annotations
 
@@ -317,6 +324,23 @@ def nvidia_smi() -> str:
         f"nvidia-smi failed: {res.stderr.strip()}"
 
 
+def kernel_ptxas(build_log, names=("decode_attn_kernel", "ring_attn_kernel")):
+    """nvcc -Xptxas -v's registers, shared memory and spills of each
+    instantiation of the named kernels: ["mangled name: Used ... | stack,
+    spills"]."""
+    rows, fn, spill = [], None, ""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else None
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn and any(
+                n in fn for n in names):
+            rows.append(f"{fn}: {line.split(':', 1)[1].strip()} | {spill}")
+            fn = None
+    return rows
+
+
 def sync(device):
     import torch
     if device.type == "cuda":
@@ -334,6 +358,8 @@ def check_k1(device, dtype, results):
     import torch
     from pocket_tts_tpu_torch.ops.decode_attn import (decode_attention,
                                                       decode_attention_plain)
+    from pocket_tts_tpu_torch.ops.decode_attn import (K1_UNIT, chunk_units,
+                                                      k1_split)
     h, d = 16, 64
     g = torch.Generator(device="cpu").manual_seed(1)
     worst = 0.0
@@ -341,20 +367,33 @@ def check_k1(device, dtype, results):
         k = torch.randn(s, h * d, generator=g).to(device, dtype)
         v = torch.randn(s, h * d, generator=g).to(device, dtype)
         q = torch.randn(h, d, generator=g).to(device, dtype)
-        for end in sorted({0, 127, 128, s - 1} & set(range(s))):
-            pos = torch.arange(s, dtype=torch.int32)
-            pos[end + 1:] = -1
-            if end > 20:
-                pos[3:9] = -1
-            pos = pos.to(device)
-            got = decode_attention(q, k, v, pos, end)
-            want = decode_attention_plain(q, k, v, pos, end)
-            sync(device)
-            err = (got.float() - want.float()).abs().max().item()
-            worst = max(worst, err)
+        # ends where the chunk count changes (every 32 slots) and where
+        # chunk boundaries fall, and the last slot of S
+        ends = {0, 31, 32, 33, 127, 128, 255, 256, 300, 301, s - 1}
+        for end in sorted(ends & set(range(s))):
+            n = k1_split(end, s)
+            for hole in ("holes", "chunk"):
+                pos = torch.arange(s, dtype=torch.int32)
+                pos[end + 1:] = -1
+                if hole == "holes" and end > 20:
+                    pos[3:9] = -1
+                if hole == "chunk":   # one chunk with no live slot
+                    if n < 3:
+                        continue
+                    for lo, hi in chunk_units(2, n, end + 1, K1_UNIT):
+                        pos[lo:hi] = -1
+                pos = pos.to(device)
+                got = decode_attention(q, k, v, pos, end)
+                want = decode_attention_plain(q, k, v, pos, end)
+                sync(device)
+                if not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"K1 non-finite at end {end}")
+                err = (got.float() - want.float()).abs().max().item()
+                worst = max(worst, err)
     tol = TOL[("attn", _dt_name(dtype))]
-    log(f"  K1 decode_attn {_dt_name(dtype)}: max_abs_err {worst:.3e} "
-        f"(tol {tol})")
+    log(f"  K1 decode_attn {_dt_name(dtype)}: S 128/384/1024, ends at "
+        f"chunk boundaries and the last slot, a chunk masked whole: "
+        f"max_abs_err {worst:.3e} (tol {tol})")
     if not worst <= tol:
         raise AssertionError(f"K1 {_dt_name(dtype)} error {worst} > {tol}")
     results.setdefault("decode_attn", {})[_dt_name(dtype)] = worst
@@ -368,7 +407,9 @@ def check_k2(device, dtype, results):
     g = torch.Generator(device="cpu").manual_seed(2)
     worst = 0.0
     for off in (0, 16, 240, 256, 4096):
-        for start in (0, 32):
+        # starts past 0 fence old slots; off - 48 and off leave whole
+        # chunks with no visible key
+        for start in sorted({0, 32, max(off - 48, 0), off}):
             if start > off:
                 continue
             kc = torch.randn(cap, h * d, generator=g).to(device, dtype)
@@ -385,8 +426,9 @@ def check_k2(device, dtype, results):
                                      f"offset {off} start {start}")
             worst = max(worst, (got.float() - want.float()).abs().max().item())
     tol = TOL[("attn", _dt_name(dtype))]
-    log(f"  K2 ring_attn {_dt_name(dtype)}: max_abs_err {worst:.3e} "
-        f"(tol {tol}); caches equal after every insert")
+    log(f"  K2 ring_attn {_dt_name(dtype)}: offsets 0-4096, starts that "
+        f"fence whole chunks: max_abs_err {worst:.3e} (tol {tol}); caches "
+        "equal after every insert")
     if not worst <= tol:
         raise AssertionError(f"K2 {_dt_name(dtype)} error {worst} > {tol}")
     results.setdefault("ring_attn", {})[_dt_name(dtype)] = worst
@@ -428,6 +470,9 @@ def check_k3(dec, cfg, device, dtype, results, weights):
 # --------------------------------------------------------------- phase 3c --
 
 LANES = 32  # the continuous server's default lane count
+# the lanes held against the solo call bit for bit (2 and 3 have whole
+# chunks fenced off in K2's checks)
+SOLO_LANES = (0, 1, 2, 3, LANES - 1)
 
 
 def k7_case(g, device, dtype, mode, b=LANES, s=1024, h=16, d=64):
@@ -500,6 +545,7 @@ def check_k2_lanes(device, dtype, results):
         starts = torch.tensor([(i * 97) % (off + 1) // t * t
                                for i in range(b)], dtype=torch.int32)
         starts[0], starts[1] = 0, off
+        starts[2], starts[3] = off - 16, off - 64   # whole chunks fenced
         kc = torch.randn(b, cap, h * d, generator=g).to(device, dtype)
         vc = torch.randn(b, cap, h * d, generator=g).to(device, dtype)
         q, kn, vn = (torch.randn(b, t, h * d, generator=g).to(device, dtype)
@@ -511,17 +557,18 @@ def check_k2_lanes(device, dtype, results):
                                            ctx)
         solo = [ring_insert_attention(q[i], kn[i], vn[i], kc3[i], vc3[i],
                                       off, int(starts[i]), h, ctx)
-                for i in (0, 1, b - 1)]
+                for i in SOLO_LANES]
         sync(device)
         if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
             raise AssertionError(f"K2 lanes: caches differ at offset {off}")
-        for i, o in zip((0, 1, b - 1), solo):
+        for i, o in zip(SOLO_LANES, solo):
             if not torch.equal(got[i], o):
                 raise AssertionError(f"K2 lane {i} differs from the solo "
                                      f"call at offset {off}")
         worst = max(worst, (got.float() - want.float()).abs().max().item())
     tol = TOL[("attn", _dt_name(dtype))]
-    log(f"  K2 ring_attn lanes {_dt_name(dtype)}: B={b}, distinct starts: "
+    log(f"  K2 ring_attn lanes {_dt_name(dtype)}: B={b}, distinct starts, "
+        "lanes with whole chunks fenced: "
         f"max_abs_err {worst:.3e} (tol {tol}); caches equal; lanes equal "
         "the solo call bit for bit")
     if not worst <= tol:
@@ -1056,7 +1103,7 @@ def check_k2q(device, dtype, results):
         return [out] + caches
 
     for off in (0, 16, 240, 256, 4096):
-        for start in (0, 32):
+        for start in sorted({0, 32, max(off - 48, 0), off}):
             if start > off:
                 continue
             c = case()
@@ -1072,15 +1119,16 @@ def check_k2q(device, dtype, results):
         starts = torch.tensor([(i * 97) % (off + 1) // t * t
                                for i in range(LANES)], dtype=torch.int32)
         starts[0], starts[1] = 0, off
+        starts[2], starts[3] = off - 16, off - 64   # whole chunks fenced
         st = starts.to(device)
         got = run(ring_insert_attention, c, off, st)
         want = run(ring_insert_attention_plain, c, off, st)
         solo = [run(ring_insert_attention, [a[i] for a in c], off,
-                    int(starts[i])) for i in (0, 1, LANES - 1)]
+                    int(starts[i])) for i in SOLO_LANES]
         sync(device)
         if not all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])):
             raise AssertionError(f"K2-q lanes: rings differ at {off}")
-        for i, o in zip((0, 1, LANES - 1), solo):
+        for i, o in zip(SOLO_LANES, solo):
             if not torch.equal(got[0][i], o[0]):
                 raise AssertionError(f"K2-q lane {i} differs from the solo "
                                      f"call at offset {off}")
@@ -1151,6 +1199,17 @@ def check_k1_lanes(device, dtype, results):
                 worst[name] = max(worst[name], (got[0].float()
                                                 - want[0].float()).abs()
                                   .max().item())
+                # each lane equals the solo call on its data bit for bit
+                for i in SOLO_LANES:
+                    solo = decode_attention(
+                        q[i], k[i], v[i], pos[i], e,
+                        None if ks is None else ks[i],
+                        None if vs is None else vs[i], stats=stats)
+                    solo = solo if stats else (solo,)
+                    if not all(torch.equal(a[i], o)
+                               for a, o in zip(got, solo)):
+                        raise AssertionError(f"K1 lane {i} differs from the "
+                                             "solo call")
                 if stats:
                     (_, m, l), (_, mp, lp) = got, want
                     if not (torch.isneginf(m[2]).all() and (l[2] == 0).all()):
@@ -1163,8 +1222,19 @@ def check_k1_lanes(device, dtype, results):
                                   .item())
                     worst_l = max(worst_l, ((l[live] - lp[live]).abs()
                                             / lp[live]).max().item())
+        # every lane idle: every chunk of every cluster is empty
+        pos = torch.full_like(pos, -1)
+        for stats in (False, True):
+            got = decode_attention(q, k, v, pos, e, ks, vs, stats=stats)
+            sync(device)
+            got = got if stats else (got,)
+            if not ((got[0] == 0).all() and (not stats or (
+                    torch.isneginf(got[1]).all() and (got[2] == 0).all()))):
+                raise AssertionError("K1 lanes: all-idle lanes are not "
+                                     "(0, -inf, 0)")
     log(f"  K1 decode_attn_lanes {_dt_name(dtype)}: B={LANES}, S=1024 "
-        f"{_dt_name(dtype)} and S=896 int8, ring and end=700, an idle lane: "
+        f"{_dt_name(dtype)} and S=896 int8, ring and end=700, an idle lane, "
+        f"then every lane idle; lanes equal the solo call bit for bit: "
         f"max_abs_err {worst['decode_attn_lanes']:.3e}; with statistics out "
         f"{worst['decode_attn_stats']:.3e}, m {worst_m:.3e}, l relative "
         f"{worst_l:.3e} (tol {tol})")
@@ -1698,6 +1768,90 @@ def time_kernels(engine, device, dtype):
     return out
 
 
+def int8pack_ms(x, q, scale):
+    """Device ms of torch._weight_int8pack_mm(x, q^T, scale), one PyTorch
+    call computing K4a's function (x @ int8 W times per-channel scales; the
+    library yardstick, never called by the port), or None when this torch
+    has no CUDA kernel for it (the reason is logged)."""
+    import torch
+    w, sc = q.t().contiguous(), scale.to(x.dtype)
+    try:
+        torch._weight_int8pack_mm(x, w, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"  K4a library: none (`_weight_int8pack_mm` has no CUDA kernel "
+            f"in torch {torch.__version__}: {str(e).splitlines()[0][:120]})")
+        return None
+    return device_ms(lambda: torch._weight_int8pack_mm(x, w, sc), 200)[0]
+
+
+def time_splits(device, dtype):
+    """Device us of K1 and K2 at each split count (the number of blocks in
+    each (head, lane)'s cluster), through the C entry points, at the timing
+    rows' shapes: the evidence behind k1_split and k2_split. Returns
+    {label: (the split count the wrapper takes, {splits: us})}."""
+    import torch
+    from pocket_tts_tpu_torch.ops import cuda_lib
+    from pocket_tts_tpu_torch.ops.decode_attn import (K1_UNIT, MAX_SPLITS,
+                                                      k1_split)
+    from pocket_tts_tpu_torch.ops.ring_attn import k2_split
+    lib = cuda_lib.library()
+    g = torch.Generator(device="cpu").manual_seed(26)
+    code, stream = cuda_lib.dtype_code(torch.empty(0, dtype=dtype)), \
+        cuda_lib.stream_ptr(device)
+    res = {}
+
+    def k1(q, k, v, pos, e, sp, ks=None, vs=None, st=None):
+        b, h, d = q.shape
+        out = torch.empty_like(q)
+        cuda_lib.check(lib.ptt_decode_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            None if ks is None else ks.data_ptr(),
+            None if vs is None else vs.data_ptr(), out.data_ptr(),
+            None if st is None else st.data_ptr(), b, h, d, k.shape[1],
+            k.shape[2], e, sp, code, stream), "ptt_decode_attn")
+
+    h, d, s, end = 16, 64, 384, 300
+    q = torch.randn(1, h, d, generator=g).to(device, dtype)
+    k = torch.randn(1, s, h * d, generator=g).to(device, dtype)
+    v = torch.randn(1, s, h * d, generator=g).to(device, dtype)
+    pos = torch.arange(s, dtype=torch.int32)[None].clone()
+    pos[:, end + 1:] = -1
+    pos = pos.to(device)
+    units = -(-(end + 1) // K1_UNIT)
+    res["K1 solo S=384 end=300"] = (k1_split(end, s), {
+        sp: 1e3 * device_ms(lambda: k1(q, k, v, pos, end, sp), 200)[0]
+        for sp in range(1, min(MAX_SPLITS, units) + 1)})
+    for kvq, s in ((False, 1024), (True, 896)):
+        q, k, v, ks, vs, pos, e = k1_lanes_case(g, device, dtype, kvq, s)
+        st = (torch.empty(2, *q.shape[:2], dtype=torch.float32,
+                          device=device) if kvq else None)
+        res[f"K1 B={LANES} S={s} {'int8 + stats' if kvq else _dt_name(dtype)}"
+            ] = (k1_split(e, s), {
+                sp: 1e3 * device_ms(lambda: k1(q, k, v, pos, e, sp, ks, vs,
+                                               st), 100)[0]
+                for sp in range(1, MAX_SPLITS + 1)})
+    h, d, cap, t, ctx = 8, 64, 256, 16, 250
+    for b in (1, LANES):
+        kc = torch.randn(b, cap, h * d, generator=g).to(device, dtype)
+        vc = torch.randn(b, cap, h * d, generator=g).to(device, dtype)
+        q, kn, vn = (torch.randn(b, t, h * d, generator=g).to(device, dtype)
+                     for _ in range(3))
+        st = (torch.arange(b, dtype=torch.int32) * 64).to(device)
+        out = torch.empty_like(q)
+
+        def k2(sp):
+            cuda_lib.check(lib.ptt_ring_attn(
+                q.data_ptr(), kn.data_ptr(), vn.data_ptr(), kc.data_ptr(),
+                vc.data_ptr(), out.data_ptr(), st.data_ptr(), None, None,
+                None, None, b, t, h, d, cap, 4096, 0, ctx, sp, code, stream),
+                "ptt_ring_attn")
+        res[f"K2 B={b} cap={cap}"] = (k2_split(cap, t), {
+            sp: 1e3 * device_ms(lambda: k2(sp), 200)[0]
+            for sp in range(1, MAX_SPLITS + 1)})
+    return res
+
+
 def time_quant_kernels(pq, cfg, device, dtype, path, out):
     """Device time of the path's K4a/K4b, K5a, K5b and K6 vs their plain
     versions at the decode step's shapes, with each call's bound (no single
@@ -1720,11 +1874,14 @@ def time_quant_kernels(pq, cfg, device, dtype, path, out):
                                 (bb["in_proj"], 128, dm, "prefill in_proj")):
         x = _rand(rng, device, dtype, t, kdim)
         y = mm(x, lin[key], lin["scale"])
+        lib = None
+        if path == "int8":
+            lib = int8pack_ms(x, lin[key], lin["scale"])
         rows[mm_name].append(_row(
             device_ms(lambda: mm(x, lin[key], lin["scale"]),
                       200 if t == 1 else 20),
             device_ms(lambda: mm_plain(x, lin[key], lin["scale"]),
-                      50 if t == 1 else 20), None,
+                      50 if t == 1 else 20), lib,
             bound_ms(_nbytes(x, y) + _tree_bytes(lin),
                      _linear_flops(lin, t), dn),
             f"{path} {label} T={t} K={kdim} N={y.shape[-1]}"))
@@ -2029,6 +2186,34 @@ def time_slice6_kernels(engines, device, dtype, out):
                 _heads(vb, h), mask), 200)[0]
         out.setdefault(name, []).append(r)
     return out
+
+
+# the most kernel launches a solo frame may make (profiler, phase 8: what
+# each path launched before K1 and K2 were split over clusters); K1 and K2
+# launch once per call
+FRAME_LAUNCHES = {"bf16": 647, "int8": 258, "int4": 258, "q4_0": 258,
+                  KV8_PATH: 378, "int8_mega": 126, "int4_kv8_mega": 162,
+                  "int4_bilayer": 253}
+K1_PER_FRAME = {"int8_mega": 0, "int4_kv8_mega": 0}   # else 6
+
+
+def check_frame_launches(label, kern):
+    """The profiler's launches per frame of a solo path: 6 K1 (0 on the
+    megalayer paths) and 2 K2, each one launch a call, and no more
+    launches in all (memsets included) than FRAME_LAUNCHES."""
+    def calls(name):
+        return sum(c for key, _, c in kern if name in key)
+    k1, k2 = calls("decode_attn_kernel"), calls("ring_attn_kernel")
+    total = sum(c for _, _, c in kern)
+    memset = calls("emset")
+    log(f"    launches per frame: K1 {k1:.1f}, K2 {k2:.1f}, memset "
+        f"{memset:.1f}, all {total:.1f} (at most {FRAME_LAUNCHES[label]})")
+    want_k1 = K1_PER_FRAME.get(label, 6)
+    if not (abs(k1 - want_k1) < 1e-6 and abs(k2 - 2) < 1e-6
+            and total <= FRAME_LAUNCHES[label] + 1e-6):
+        raise AssertionError(f"{label}: launches per frame changed: K1 {k1} "
+                             f"(want {want_k1}), K2 {k2} (want 2), memset "
+                             f"{memset}, all {total}")
 
 
 def profile_frames(engine, voice, path, n_frames=20):
@@ -2365,6 +2550,13 @@ def main(argv=None) -> int:
         for line in cuda_lib.build_log().splitlines():
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
+        k12 = kernel_ptxas(cuda_lib.build_log())
+        log("  K1 and K2 (registers, shared memory, spills):")
+        for line in k12:
+            log("    " + line)
+        if out_dir:
+            with open(os.path.join(out_dir, "ptxas_k1_k2.txt"), "w") as f:
+                f.write("\n".join(k12) + "\n")
 
         phase = "kernels"
         header("[3] kernels vs plain versions (3c: K7, K2 and K3 over 32 "
@@ -2469,6 +2661,11 @@ def main(argv=None) -> int:
             log(f"  {path} vs its 3-call counterpart {other}, same rounds: "
                 f"{1e3 / med[path]:.1f} vs {1e3 / med[other]:.1f} frames/s "
                 "(medians with the EOS sync)")
+        for label, (chosen, row) in time_splits(device,
+                                                torch.bfloat16).items():
+            log(f"  {label}, device us by split count (* the wrappers'): "
+                + ", ".join(f"{sp}{'*' if sp == chosen else ''} {us:.2f}"
+                            for sp, us in row.items()))
         times = time_kernels(engine, device, torch.bfloat16)
         for path in QUANT_PATHS:
             time_quant_kernels(bf[path].params, bf[path].cfg, device,
@@ -2534,10 +2731,12 @@ def main(argv=None) -> int:
                 eng, voice,
                 os.path.join(out_dir, f"profile_frames_{label}.txt")
                 if out_dir else None)
+            launches = sum(r[2] for r in kern)
             log(f"  {label} profiler: device busy {busy:.1f} us per "
-                f"frame in {sum(r[2] for r in kern):.0f} kernel "
+                f"frame in {launches:.0f} kernel "
                 f"launches, {1e3 * med[label]:.1f} us wall per frame "
                 f"(phase 6): device idle {1 - busy / (1e3 * med[label]):.1%}")
+            check_frame_launches(label, kern)
             for key, us, calls in kern[:12]:
                 log(f"    {us:9.1f} us/frame  {calls:6.1f} calls/frame "
                     f" {key[:70]}")

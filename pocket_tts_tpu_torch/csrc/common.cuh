@@ -35,17 +35,105 @@ __device__ __forceinline__ float elu(float x) {
   return x > 0.f ? x : expm1f(x);
 }
 
-// 16 int8 values at a 16-byte aligned address -> 16 floats (one vector
-// load; byte i of the vector is value i)
-__device__ __forceinline__ void load16(const int8_t* p, float* out) {
-  const int4 u = *reinterpret_cast<const int4*>(p);
-  const int w[4] = {u.x, u.y, u.z, u.w};
+// one 16-byte vector load (p 16-byte aligned)
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// the 16 / sizeof(KV) values of a 16-byte vector as floats (element i at
+// the i-th lowest address)
+template <typename KV>
+__device__ __forceinline__ void unpack16(const uint4& u, float* out);
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& u, float* out) {
+  out[0] = __uint_as_float(u.x);
+  out[1] = __uint_as_float(u.y);
+  out[2] = __uint_as_float(u.z);
+  out[3] = __uint_as_float(u.w);
+}
+template <>
+__device__ __forceinline__ void unpack16<bf16>(const uint4& u, float* out) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+template <>
+__device__ __forceinline__ void unpack16<int8_t>(const uint4& u,
+                                                 float* out) {
+  const int w[4] = {(int)u.x, (int)u.y, (int)u.z, (int)u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       out[4 * i + j] = (float)(int8_t)((w[i] >> (8 * j)) & 0xff);
   }
+}
+
+// 16 int8 values at a 16-byte aligned address -> 16 floats (one vector
+// load; byte i of the vector is value i)
+__device__ __forceinline__ void load16(const int8_t* p, float* out) {
+  unpack16<int8_t>(ld16(p), out);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// The weight 2^(m - m_max) of a flash partial with running max m (logits
+// in log2 units, as K1 and K2 keep them) in a merge whose largest max is
+// m_max: 0 when no partial attended a key (m_max = -inf), so merging empty
+// partials gives m = -inf, l = 0, acc = 0 instead of 2^(-inf + inf) = NaN.
+__device__ __forceinline__ float partial_weight(float m, float m_max) {
+  return m_max == -INFINITY ? 0.f : exp2f(m - m_max);
+}
+
+// 16 bytes global -> shared, asynchronously (cp.async, cached in L2 only);
+// zeros, and no read, when !valid
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Launch `kern` over `grid` in thread-block clusters of cluster_x blocks
+// along x (gridDim.x a multiple of it; at most 8, the portable size).
+template <typename... Params, typename... Args>
+cudaError_t launch_clustered(void (*kern)(Params...), dim3 grid, dim3 block,
+                             unsigned cluster_x, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // dynamic shared memory near or above 48 KB (with the kernel's few KB of
+  // static shared memory): opt in
+  if (smem > 46 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return rc;
+  }
+  return cudaLaunchKernelEx(&cfg, kern, args...);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

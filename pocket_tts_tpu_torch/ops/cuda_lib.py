@@ -40,8 +40,8 @@ F = ctypes.c_float
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES = {
     # q, k, v, pos, k_scale, v_scale (int8 caches, else null), out, stats
-    # (or null), B, H, D, S, row stride (H*D), end, dtype, stream
-    "ptt_decode_attn": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # (or null), B, H, D, S, row stride (H*D), end, splits, dtype, stream
+    "ptt_decode_attn": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # q, k_new, v_new, cur_pos, k_cache, v_cache, pos, k_scale, v_scale,
     # ks_new, vs_new (int8 caches, else null), out, stats (or null), B, H,
     # D, S, read_end, write_slot, dtype, stream
@@ -49,9 +49,9 @@ SIGNATURES = {
                         I, I, P],
     # q, k_new, v_new, k_cache, v_cache, out, starts (or null), ks_new,
     # vs_new, k_scale, v_scale (int8 rings, else null), B, T, H, D, cap,
-    # offset, start, context, dtype, stream
+    # offset, start, context, splits, dtype, stream
     "ptt_ring_attn": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                      I, I, P],
+                      I, I, I, P],
     # x, carry, w, bias, res, out, ws, B, T, Cin, Cout, K, P(carry rows),
     # splits, in_elu, out_elu, res_elu, dtype, stream
     "ptt_conv_gemm": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I,

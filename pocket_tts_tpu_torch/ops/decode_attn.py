@@ -20,6 +20,12 @@ with no live slot gives out 0, m = -inf and l = 0, which
 merge_attn_partials turns into the prefix partial alone, as K7 does
 (ops/insert_attn.py).
 
+The kernel splits the live slots [0, end] into `k1_split(end, S)` chunks,
+one thread block each, merged on chip (one thread-block cluster per head
+and lane; `chunk_units` is the rule that deals the slots out). The split
+depends on end and S only, so each lane of a batched call gives the solo
+call's bits.
+
 `decode_attention` runs the plain version for tensors on the CPU and the
 kernel for tensors on the card; there is no other switch. Solo launches
 over caches of the working type count in `decode_attention.launches`, over
@@ -34,6 +40,39 @@ import torch
 from . import cuda_lib
 from .attention import NEG_INF
 from .basic import inv_sqrt
+
+# the largest portable thread-block cluster: the most chunks one (head,
+# lane) can be split into
+MAX_SPLITS = 8
+# K1 gives a chunk at least K1_MIN_CHUNK slots, dealt out in units of
+# K1_UNIT, and makes at most K1_MAX_SPLITS chunks. chip_smoke.py's
+# `time_splits` times every split count: on an H100 four chunks run the
+# solo call (S = 384, end = 300) within 0.3 us of the fastest count, while
+# each chunk past two adds ~1-4 us at 32 lanes (S = 1024).
+K1_MIN_CHUNK = 64
+K1_UNIT = 8
+K1_MAX_SPLITS = 4
+
+
+def chunk_units(c: int, n: int, total: int, unit: int):
+    """The [lo, hi) ranges of chunk c of n over `total` items: the items are
+    cut into units of `unit` and unit u goes to chunk u % n. This is the
+    kernels' rule (csrc/decode_attn.cu with K1_UNIT slots, csrc/ring_attn.cu
+    with 16-key tiles). Dealt out in turn, a run of masked slots (a lane's
+    old prefix, a fenced stretch of the ring) spreads over all chunks
+    instead of idling some blocks of a cluster while the others work."""
+    units = -(-total // unit)
+    return [(u * unit, min(total, (u + 1) * unit))
+            for u in range(c, units, n)]
+
+
+def k1_split(end: int, s: int) -> int:
+    """The number of chunks K1 cuts the live slots [0, end] of an S-slot
+    cache into: one per K1_MIN_CHUNK slots, at most K1_MAX_SPLITS. It
+    depends on end and S only, never on the lane count."""
+    if not 0 <= end < s:
+        raise ValueError(f"k1_split: end {end} outside [0, {s})")
+    return min(K1_MAX_SPLITS, -(-(end + 1) // K1_MIN_CHUNK))
 
 
 def decode_attention_plain(q, k_cache, v_cache, pos, end: int,
@@ -96,6 +135,7 @@ def decode_attention(q, k_cache, v_cache, pos, end: int, k_scale=None,
           == (torch.int8 if quant else q.dtype)
           and all(t.is_contiguous() and t.device == q.device
                   for t in (q, k_cache, v_cache, pos) + scales)
+          and k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0
           and all(t.shape == lead + (s,) and t.dtype == torch.float32
                   for t in scales)
           and 0 <= end < s)
@@ -111,7 +151,8 @@ def decode_attention(q, k_cache, v_cache, pos, end: int, k_scale=None,
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         out.data_ptr(), None if st is None else st.data_ptr(), b, h, d, s,
-        hd, int(end), cuda_lib.dtype_code(q), cuda_lib.stream_ptr(q.device))
+        hd, int(end), k1_split(int(end), s), cuda_lib.dtype_code(q),
+        cuda_lib.stream_ptr(q.device))
     cuda_lib.check(rc, "ptt_decode_attn")
     if lanes:
         decode_attention.launches_lanes += 1

@@ -16,6 +16,11 @@ the int8 rows. (The JAX package takes its plain XLA route below a
 32-multiple capacity, `models/mimi_transformer.py:209-213`: dequantized
 rows rounded to the working type; the two agree to f32 rounding.)
 
+The kernel cuts the cap + T keys of each head into 16-key tiles and deals
+them out to `k2_split(cap, T)` chunks, one thread block each, merged on
+chip (ops/decode_attn.py `chunk_units` is the rule). The split depends on
+cap and T only, so each lane of a batched call gives the solo call's bits.
+
 `ring_insert_attention` runs the plain version for tensors on the CPU and
 the kernel for tensors on the card; there is no other switch. Both update
 the caches IN PLACE (the JAX function returns new caches), and for int8
@@ -31,6 +36,25 @@ import torch
 from . import cuda_lib
 from .attention import cache_insert_ring, ring_cache_bias, sdpa_seg
 from .basic import inv_sqrt
+from .decode_attn import MAX_SPLITS
+
+# K2 cuts the keys into tiles of this many (the M and K of the tensor
+# cores' m16n8k16 products), and makes one chunk per K2_CHUNK_SLOTS ring
+# slots. chip_smoke.py's `time_splits` times every split count: on an H100
+# at the default ring (256 slots) one or two chunks run 32 lanes fastest
+# and more add ~3-19 us there, while the solo call gains ~1-3 us a chunk
+# up to five; two keep both calls under the library's time.
+K2_TILE = 16
+K2_CHUNK_SLOTS = 128
+
+
+def k2_split(cap: int, t: int) -> int:
+    """The number of chunks K2 cuts the cap + T keys of each (head, lane)
+    into: one per K2_CHUNK_SLOTS slots of the ring, at most MAX_SPLITS. It
+    depends on cap and T only, never on the lane count."""
+    if not (1 <= t <= K2_TILE and cap % t == 0):
+        raise ValueError(f"k2_split: cap {cap}, T {t}")
+    return min(MAX_SPLITS, -(-cap // K2_CHUNK_SLOTS))
 
 
 def ring_insert_attention_plain(q, k_new, v_new, k_cache, v_cache,
@@ -175,7 +199,8 @@ def ring_insert_attention(q, k_new, v_new, k_cache, v_cache, offset: int,
         v_cache.data_ptr(), out.data_ptr(), start.data_ptr() if lanes else 0,
         ptr(ks_new), ptr(vs_new), ptr(k_scale), ptr(v_scale), b, t,
         num_heads, d, cap, int(offset), 0 if lanes else int(start),
-        int(context), cuda_lib.dtype_code(q), cuda_lib.stream_ptr(q.device))
+        int(context), k2_split(cap, t), cuda_lib.dtype_code(q),
+        cuda_lib.stream_ptr(q.device))
     cuda_lib.check(rc, "ptt_ring_attn")
     if quant:
         ring_insert_attention.launches_kv8 += 1

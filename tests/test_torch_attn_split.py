@@ -1,0 +1,329 @@
+"""How K1 (csrc/decode_attn.cu) and K2 (csrc/ring_attn.cu) cut their work
+over thread-block clusters, checked on the CPU, f32:
+
+- the split geometry: `k1_split` chunks [0, end] (units of 8 slots) and
+  `k2_split` the cap + T keys (16-key tiles), units dealt out in turn by
+  `chunk_units`, covering each slot exactly once with no empty chunk, at
+  most 8 chunks (the portable cluster size, which is the whole grid's x
+  extent, so it divides it); the split takes no lane count, so a lane of a
+  batched call runs the solo call's blocks;
+- a plain model of each kernel's decomposition: every chunk's flash
+  partial (m, l, acc) with the plain arithmetic, merged in chunk order by
+  the kernels' guarded rule (`partial_weight` in csrc/common.cuh), equals
+  the unsplit plain version within 1e-6 (both f32, summation order only):
+  K1 solo and over lanes, int8 caches, statistics, an idle lane (out 0, m =
+  -inf, l = 0), a chunk masked by pos < 0; K2 solo and over lanes with
+  starts that fence whole chunks, and over int8 rings. The K2 model masks
+  the pre-insert ring plus the new rows by the TPU kernel's arithmetic
+  (pallas_mimi.py:130-145), as the kernel does, and the plain version
+  inserts first and masks with ring_cache_bias: their agreement checks the
+  kernel's mask too.
+"""
+import inspect
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from pocket_tts_tpu_torch.ops.attention import merge_attn_partials
+from pocket_tts_tpu_torch.ops.decode_attn import (K1_UNIT, MAX_SPLITS,
+                                                  chunk_units,
+                                                  decode_attention_plain,
+                                                  k1_split)
+from pocket_tts_tpu_torch.ops.ring_attn import (K2_TILE, k2_split,
+                                                ring_insert_attention_plain)
+
+ATOL = 1e-6
+NEG = float("-inf")
+
+
+def chunk_slots(c, n, total, unit):
+    """The slots of chunk c, in the order the kernel walks them."""
+    return torch.cat([torch.arange(lo, hi)
+                      for lo, hi in chunk_units(c, n, total, unit)])
+
+
+def assert_split(n, total, unit):
+    """The n chunks cover [0, total) once, none empty, each range a whole
+    unit (the last one cut at total)."""
+    seen = torch.zeros(total, dtype=torch.int64)
+    for c in range(n):
+        ranges = chunk_units(c, n, total, unit)
+        assert ranges
+        for lo, hi in ranges:
+            assert lo % unit == 0 and (hi - lo == unit or hi == total)
+            seen[lo:hi] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("s", [128, 384, 1024])
+def test_k1_split_covers_live_slots_once(s):
+    for end in range(s):
+        n = k1_split(end, s)
+        assert 1 <= n <= MAX_SPLITS
+        assert_split(n, end + 1, K1_UNIT)
+    assert k1_split(300, 384) == 4            # 4 x 16 heads = 64 blocks
+
+
+@pytest.mark.parametrize("t", [1, 2, 4, 8, 16])
+def test_k2_split_covers_keys_once(t):
+    for cap in range(t, 1025, t):
+        n = k2_split(cap, t)
+        assert 1 <= n <= MAX_SPLITS
+        assert_split(n, cap + t, K2_TILE)
+    assert k2_split(256, 16) == 2             # 17 tiles, 9 and 8
+
+
+def test_splits_take_no_lane_count():
+    assert list(inspect.signature(k1_split).parameters) == ["end", "s"]
+    assert list(inspect.signature(k2_split).parameters) == ["cap", "t"]
+    with pytest.raises(ValueError):
+        k1_split(384, 384)
+    with pytest.raises(ValueError):
+        k2_split(250, 16)
+
+
+def merge_chunks(parts):
+    """The kernels' merge of flash partials (m, l, acc) of shapes (...),
+    (...), (..., D), summed in chunk order: each weighed by exp(m - M), M
+    the largest m, and by 0 when M = -inf (no chunk attended a key) ->
+    normalised out, M, l."""
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    live = mx > NEG
+    safe = torch.where(live, mx, torch.zeros_like(mx))
+    l = torch.zeros_like(mx)
+    acc = torch.zeros_like(parts[0][2])
+    for m, lc, ac in parts:
+        w = torch.where(live, torch.exp(m - safe), torch.zeros_like(mx))
+        acc = acc + ac * w[..., None]
+        l = l + lc * w
+    out = torch.where(l[..., None] > 0, acc / l.clamp_min(1e-30)[..., None],
+                      torch.zeros_like(acc))
+    return out, mx, l
+
+
+def flash_partial(logits, vals):
+    """One chunk's partial: logits (..., K) with -inf on masked keys, vals
+    (..., K, D) (the v scale already applied for int8 rings)."""
+    m = logits.amax(-1)
+    safe = torch.where(m > NEG, m, torch.zeros_like(m))
+    p = torch.exp(logits - safe[..., None])
+    return m, p.sum(-1), torch.einsum("...k,...kd->...d", p, vals)
+
+
+def test_merge_guard_keeps_empty_partials_empty():
+    e = (torch.full((2,), NEG), torch.zeros(2), torch.zeros(2, 4))
+    out, m, l = merge_chunks([e, e, e])
+    assert torch.equal(out, torch.zeros(2, 4))
+    assert torch.isneginf(m).all() and (l == 0).all()
+    # the unguarded rule (ops/attention.py, as the JAX package has it)
+    # turns two empty partials into NaN: the kernels must not use it
+    bad = merge_attn_partials(e[2], e[0], e[1], e[2], e[0], e[1])
+    assert torch.isnan(bad).all()
+
+
+# ---------------------------------------------------------------- K1 model --
+
+def k1_model(q, k, v, pos, end, ks=None, vs=None):
+    """K1's decomposition over lanes: q (B, H, D), caches (B, S, H*D),
+    pos and scales (B, S). Returns out, m, l."""
+    b, h, d = q.shape
+    s = k.shape[1]
+    kh = k.float().view(b, s, h, d)
+    vh = v.float().view(b, s, h, d)
+    n = k1_split(end, s)
+    parts = []
+    for c in range(n):
+        i = chunk_slots(c, n, end + 1, K1_UNIT)
+        lg = torch.einsum("bhd,bshd->bhs", q.float(), kh[:, i]) \
+            / math.sqrt(d)
+        vals = vh[:, i].permute(0, 2, 1, 3)               # (B, H, K, D)
+        if ks is not None:
+            lg = lg * ks[:, None, i]
+            vals = vals * vs[:, None, i, None]
+        lg = lg.masked_fill((pos[:, None, i] < 0), NEG)
+        parts.append(flash_partial(lg, vals))
+    return merge_chunks(parts)
+
+
+def k1_inputs(rng, b, s, h, d, int8):
+    q = torch.from_numpy(rng.randn(b, h, d).astype(np.float32))
+    if int8:
+        k = torch.from_numpy(rng.randint(-127, 128, (b, s, h * d))
+                             .astype(np.int8))
+        v = torch.from_numpy(rng.randint(-127, 128, (b, s, h * d))
+                             .astype(np.int8))
+        ks = torch.from_numpy(rng.uniform(0.005, 0.02, (b, s))
+                              .astype(np.float32))
+        vs = torch.from_numpy(rng.uniform(0.005, 0.02, (b, s))
+                              .astype(np.float32))
+        return q, k, v, ks, vs
+    k = torch.from_numpy(rng.randn(b, s, h * d).astype(np.float32))
+    v = torch.from_numpy(rng.randn(b, s, h * d).astype(np.float32))
+    return q, k, v, None, None
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("s,end", [(128, 0), (128, 40), (384, 300),
+                                   (384, 383), (1024, 1023)])
+def test_k1_model_equals_plain(int8, s, end):
+    """Solo (B = 1) and over 3 lanes: lane 1 idle (every pos < 0), lane 2
+    with its third chunk masked by pos < 0 and holes; with statistics."""
+    rng = np.random.RandomState(s + end)
+    h, d = 4, 16
+    for b in (1, 3):
+        q, k, v, ks, vs = k1_inputs(rng, b, s, h, d, int8)
+        pos = torch.arange(s, dtype=torch.int32).repeat(b, 1)
+        pos[:, end + 1:] = -1
+        if b == 3:
+            pos[1] = -1
+            n = k1_split(end, s)
+            pos[2, chunk_slots(min(2, n - 1), n, end + 1, K1_UNIT)] = -1
+            pos[2, :3] = -1
+        out, m, l = k1_model(q, k, v, pos, end, ks, vs)
+        want, wm, wl = decode_attention_plain(q, k, v, pos, end, ks, vs,
+                                              stats=True)
+        assert torch.isfinite(out).all()
+        np.testing.assert_allclose(out.numpy(), want.numpy(), atol=ATOL)
+        assert torch.equal(torch.isneginf(m), torch.isneginf(wm))
+        live = torch.isfinite(wm)
+        np.testing.assert_allclose(m[live].numpy(), wm[live].numpy(),
+                                   atol=ATOL)
+        np.testing.assert_allclose(l.numpy(), wl.numpy(), rtol=ATOL)
+        if b == 3:
+            assert (out[1] == 0).all() and (l[1] == 0).all()
+            assert torch.isneginf(m[1]).all()
+            # a lane runs the solo call's chunks: the split ignores B
+            solo = k1_model(q[2:], k[2:], v[2:], pos[2:], end,
+                            None if ks is None else ks[2:],
+                            None if vs is None else vs[2:])
+            np.testing.assert_allclose(solo[0].numpy(), out[2:].numpy(),
+                                       atol=ATOL)
+
+
+# ---------------------------------------------------------------- K2 model --
+
+def k2_mask(t, cap, off, start, context):
+    """(T, cap + T) visibility of the pre-insert ring's slots and the new
+    rows to the T queries: the TPU kernel's arithmetic, as the kernel has
+    it."""
+    slot0 = ((off // t) % (cap // t)) * t
+    last = off - 1
+    end_index = last % cap
+    mask = torch.zeros(t, cap + t, dtype=torch.bool)
+    for j in range(cap):
+        delta = j - end_index
+        pk = last + delta - (cap if delta > 0 else 0)
+        if not (j < off and (j - slot0) % cap >= t and pk >= start):
+            continue
+        for tq in range(t):
+            pq = off + tq
+            mask[tq, j] = pq >= pk and pq - pk < context
+    for jn in range(t):
+        mask[jn:, cap + jn] = True
+    return mask
+
+
+def k2_model(q, kn, vn, kc, vc, off, start, h, context, ks=None, vs=None,
+             ksn=None, vsn=None):
+    """K2's decomposition for one lane: q/kn/vn (T, H*D), PRE-insert caches
+    (cap, H*D). Returns (out (T, H*D), the chunks' m (n, H, T))."""
+    t, hd = q.shape
+    cap = kc.shape[0]
+    d = hd // h
+    keys = torch.cat([kc, kn]).float().view(cap + t, h, d)
+    vals = torch.cat([vc, vn]).float().view(cap + t, h, d)
+    mask = k2_mask(t, cap, off, start, context)
+    n = k2_split(cap, t)
+    parts, ms = [], []
+    for c in range(n):
+        i = chunk_slots(c, n, cap + t, K2_TILE)
+        lg = torch.einsum("thd,khd->htk", q.float().view(t, h, d),
+                          keys[i]) / math.sqrt(d)
+        vv = vals[i].permute(1, 0, 2)[:, None]               # (H, 1, K, D)
+        if ks is not None:
+            lg = lg * torch.cat([ks, ksn])[i]
+            vv = vv * torch.cat([vs, vsn])[i, None]
+        lg = lg.masked_fill(~mask[None, :, i], NEG)
+        part = flash_partial(lg, vv.expand(h, t, len(i), d))
+        parts.append(part)
+        ms.append(part[0])
+    out, _, _ = merge_chunks(parts)
+    return out.permute(1, 0, 2).reshape(t, hd), torch.stack(ms)
+
+
+def k2_inputs(rng, t, cap, hd, int8):
+    def rows(n):
+        if int8:
+            return torch.from_numpy(rng.randint(-127, 128, (n, hd))
+                                    .astype(np.int8))
+        return torch.from_numpy(rng.randn(n, hd).astype(np.float32))
+
+    def scales(n):
+        return torch.from_numpy(rng.uniform(0.005, 0.02, n)
+                                .astype(np.float32))
+    q = torch.from_numpy(rng.randn(t, hd).astype(np.float32))
+    kn, vn, kc, vc = rows(t), rows(t), rows(cap), rows(cap)
+    sc = ((scales(cap), scales(cap), scales(t), scales(t)) if int8
+          else (None,) * 4)
+    return (q, kn, vn, kc, vc) + sc
+
+
+def k2_plain(inp, off, start, h, ctx):
+    q, kn, vn, kc, vc, ks, vs, ksn, vsn = inp
+    kw = {}
+    if ks is not None:
+        kw = dict(k_scale=ks.clone(), v_scale=vs.clone(), ks_new=ksn,
+                  vs_new=vsn)
+    return ring_insert_attention_plain(q, kn, vn, kc.clone(), vc.clone(),
+                                       off, start, h, ctx, **kw)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("off", [0, 16, 240, 256, 4096])
+def test_k2_model_equals_plain(int8, off):
+    """Solo, cap 256, T 16, context 250; starts 0, 32, and fences that
+    leave only the newest rows (whole chunks masked)."""
+    rng = np.random.RandomState(off + int8)
+    h, d, cap, t, ctx = 2, 16, 256, 16, 250
+    for start in sorted({0, 32, max(off - 48, 0), off}):
+        if start > off:
+            continue
+        inp = k2_inputs(rng, t, cap, h * d, int8)
+        out, ms = k2_model(*inp[:5], off, start, h, ctx, *inp[5:])
+        want = k2_plain(inp, off, start, h, ctx)
+        assert torch.isfinite(out).all()
+        np.testing.assert_allclose(out.numpy(), want.numpy(), atol=ATOL)
+        if start == off:   # only the new rows' tile: the rest drop out
+            dropped = sum(bool(torch.isneginf(m).all()) for m in ms)
+            assert dropped == len(ms) - 1
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_k2_model_over_lanes_with_fences(int8):
+    """Four lanes at offset 4096 whose starts fence none, some and all of
+    the ring's chunks: each lane's model equals the plain lane call's rows,
+    and the fenced chunks give m = -inf and drop out."""
+    rng = np.random.RandomState(5 + int8)
+    h, d, cap, t, ctx, off = 2, 16, 256, 16, 250, 4096
+    starts = [0, off - 96, off - 16, off]
+    lanes = [k2_inputs(rng, t, cap, h * d, int8) for _ in starts]
+    stacked = [None if x[0] is None else torch.stack(x)
+               for x in zip(*lanes)]
+    q, kn, vn, kc, vc, ks, vs, ksn, vsn = stacked
+    kw = {}
+    if int8:
+        kw = dict(k_scale=ks.clone(), v_scale=vs.clone(), ks_new=ksn,
+                  vs_new=vsn)
+    want = ring_insert_attention_plain(
+        q, kn, vn, kc.clone(), vc.clone(), off,
+        torch.tensor(starts, dtype=torch.int32), h, ctx, **kw)
+    n = k2_split(cap, t)
+    for i, (inp, start) in enumerate(zip(lanes, starts)):
+        out, ms = k2_model(*inp[:5], off, start, h, ctx, *inp[5:])
+        np.testing.assert_allclose(out.numpy(), want[i].numpy(), atol=ATOL)
+        fenced = [c for c in range(n)
+                  if torch.isneginf(ms[c]).all()]
+        if start >= off - 16:   # at most two tiles seen: the rest drop out
+            assert len(fenced) >= n - 2

@@ -84,8 +84,10 @@ def test_failing_serving_phase_fails_the_run(failing, monkeypatch, capsys):
                  "check_cache", "time_quant_kernels", "check_k1_kv8",
                  "check_k7_kv8", "check_quant_lanes", "time_kv8_kernels",
                  "time_lane_kernels", "check_k8", "check_k5c", "check_k2q",
-                 "check_k1_lanes", "time_slice6_kernels"):
+                 "check_k1_lanes", "time_slice6_kernels",
+                 "check_frame_launches"):
         stubs[name] = lambda *a, **k: None
+    stubs["time_splits"] = lambda *a, **k: {}
     stubs[failing] = boom
     for name, fn in stubs.items():
         monkeypatch.setattr(cs, name, fn)
