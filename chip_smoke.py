@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py --kernel-times   # K3 and K7 device times only
 
 Drives the port's solo paths (synthesis through `TTSEngine` with bf16
 weights, with `quantize="int8"`, `"int4"` and `"q4_0"`, with int4 weights
@@ -21,20 +22,24 @@ raises, names its phase and the exit code is 1:
   3. kernels       K1 decode attention (ends at its chunk boundaries and
                    the last slot of S = 1024, a chunk with no live slot),
                    K2 ring insert + attention (starts that fence whole
-                   chunks), K3 SEANet frame; K4a int8 matmul, K5a/K5b
+                   chunks), K3 SEANet frame (and on tiny_config's narrow
+                   decoder); K4a int8 matmul, K5a/K5b
                    fused layer pre/post and K6 fused flow net on int8
                    weights; K4b int4 matmul and the int4 K5a/K5b/K6 on
                    per-channel int4 and on q4_0 (K-grouped) weights:
                    each vs its plain version at main-path shapes, f32 and
                    bf16, with the tolerances stated below
-  3c. at batch     K7 fused insert + decode attention at B=32, S=1024,
-                   H*D=1024 (linear and ring, one invalid lane), K2 over 32
-                   lanes with distinct starts (each lane equal to the solo
-                   call bit for bit), K3 over 32 lanes, f32 and bf16
+  3c. at batch     K7 fused insert + decode attention at S=1024, H*D=1024,
+                   B=32 and solo (linear and ring; write slot at 0, at
+                   chunk boundaries and at S-1; one invalid lane, one idle
+                   lane; with and without statistics), K2 over 32 lanes
+                   with distinct starts (each lane equal to the solo call
+                   bit for bit), K3 over 2, 5 (last M tiles partly filled)
+                   and 32 lanes, f32 and bf16
   3d. serving mode K1 over int8 caches (S=384, end=300 and more); K7 over
-                   int8 caches (ring B=32 S=896 and linear, one invalid
-                   lane: output, cache bytes and scale rows) and with
-                   statistics (out, m, l; an idle lane gives 0, -inf, 0);
+                   int8 caches at S=896, K7's cases of 3c (output, cache
+                   bytes and scale rows) and with statistics (out, m, l;
+                   an idle lane gives 0, -inf, 0);
                    K5a/K5b over 32 backbone rows and 64, 256 and 512 mimi
                    rows and K6 over 32 (and 40) rows, int8, int4 and q4_0;
                    f32 and bf16
@@ -75,7 +80,10 @@ raises, names its phase and the exit code is 1:
                    beside which the 3-call path it replaces is timed, and
                    for K5c, beside K5b then K5a; the library call of K4a
                    is torch._weight_int8pack_mm; CUDA events) beside its
-                   bound; K1 and K2 at every split count (time_splits)
+                   bound; K1, K7 and K2 at every split count
+                   (time_splits); each of K3's conv-GEMMs at every tile
+                   and split (time_k3_plans); each of K3's 14 launches solo
+                   and at 32 lanes beside torch.matmul at its (M, N, K)
   7. serving       f32, 4 lanes, 6 requests (two admitted mid-decode), each
                    pcm vs the solo engine on the card, with bf16 weights,
                    with int8 weights + int8 KV + shared prefix, and with
@@ -92,8 +100,9 @@ raises, names its phase and the exit code is 1:
                    wav per request, and so does CLI --serve --quantize int4
                    --quantize-kv --share-prefix
   8. profiler      device busy share and launches per frame of each solo
-                   path (6 K1, 0 on the megalayer paths, and 2 K2 a frame,
-                   no more launches than FRAME_LAUNCHES) and per chunk of
+                   path (6 K1, 0 on the megalayer paths, 2 K2 and 14 K3
+                   launches a frame, no memset, no more launches than
+                   FRAME_LAUNCHES) and per chunk of
                    serving with every lane busy, in both serving modes
                    (torch.profiler; last, after every host-clock
                    measurement)
@@ -111,7 +120,7 @@ the card's `nvidia-smi` name and power limit, and the result object
 and prints no result. With --out DIR, the longer output (nvcc's register
 report, the profiler tables, and a copy of the log as chip_smoke.log) is
 also written under DIR, K1's and K2's registers, shared memory and
-spills in ptxas_k1_k2.txt.
+spills in ptxas_k1_k2.txt, K3's and K7's in ptxas_k3_k7.txt.
 """
 from __future__ import annotations
 
@@ -465,6 +474,50 @@ def check_k3(dec, cfg, device, dtype, results, weights):
     if not worst_rel <= tol:
         raise AssertionError(f"K3 {_dt_name(dtype)} rel error {worst_rel}")
     results.setdefault("seanet_frame", {})[_dt_name(dtype)] = worst_abs
+    check_k3_narrow(device, dtype)
+
+
+def check_k3_narrow(device, dtype):
+    """K3 on tiny_config's decoder (4 to 32 channels: no 16-byte vector
+    holds a whole row of the narrow stages, so the kernels take their
+    value-at-a-time paths) solo and over 3 lanes, 3 frames each, pcm and
+    carries against the plain chain."""
+    import torch
+    from pocket_tts_tpu_torch.config import tiny_config
+    from pocket_tts_tpu_torch.io.params import random_params
+    from pocket_tts_tpu_torch.models import seanet
+    from pocket_tts_tpu_torch.ops.seanet_frame import (prep_weights,
+                                                       seanet_frame)
+    p, cfg = random_params(tiny_config(), seed=5, dtype=dtype, device=device)
+    dec, sc, tpf = p["mimi"]["decoder"], cfg.mimi.seanet, \
+        cfg.mimi.upsample_stride
+    weights = prep_weights(dec, sc)
+    g = torch.Generator(device="cpu").manual_seed(10)
+    worst = 0.0
+    for nb in (1, 3):
+        st_k = seanet.init_state(sc, tpf, dtype, device)
+        if nb > 1:
+            st_k = {k: v[None].repeat(nb, *([1] * v.dim())).contiguous()
+                    for k, v in st_k.items()}
+        st_p = {k: v.clone() for k, v in st_k.items()}
+        for _ in range(3):
+            z = torch.randn(*((nb,) if nb > 1 else ()), tpf, sc.in_ch,
+                            generator=g).to(device, dtype)
+            got = seanet_frame(dec, sc, st_k, z, weights)
+            new, want = seanet.forward_plain(dec, sc, st_p, z)
+            for key in st_p:
+                st_p[key].copy_(new[key])
+            sync(device)
+            for a, b in [(got, want)] + [(st_k[k], st_p[k]) for k in st_p]:
+                scale = max(b.float().abs().max().item(), 1e-30)
+                worst = max(worst, (a.float() - b.float()).abs().max()
+                            .item() / scale)
+    tol = TOL[("seanet", _dt_name(dtype))]
+    log(f"  K3 seanet_frame narrow {_dt_name(dtype)}: tiny_config, B=1 and "
+        f"3, 3 frames each, relative (pcm and 8 carries) {worst:.3e} (tol "
+        f"{tol})")
+    if not worst <= tol:
+        raise AssertionError(f"K3 narrow {_dt_name(dtype)} rel error {worst}")
 
 
 # --------------------------------------------------------------- phase 3c --
@@ -475,15 +528,18 @@ LANES = 32  # the continuous server's default lane count
 SOLO_LANES = (0, 1, 2, 3, LANES - 1)
 
 
-def k7_case(g, device, dtype, mode, b=LANES, s=1024, h=16, d=64):
+def k7_case(g, device, dtype, mode, b=LANES, s=1024, h=16, d=64, ws=None):
     """Inputs of one K7 call at the serving shapes: (q, k_new, v_new,
     cur_pos, k_cache, v_cache, pos, read_end, write_slot). linear: lanes
-    hold 1..S live slots below the write slot; ring: every slot is live
-    and the write slot holds a stale row whose position was overwritten;
-    lane 1 carries an invalid new row (cur_pos = -1) in both."""
+    hold 1..S live slots below the write slot (700 unless given), which is
+    the read extent; ring: every slot is live, the write slot (300 unless
+    given) holds a stale row whose position was overwritten, and every
+    slot is read; lane 1 carries an invalid new row (cur_pos = -1) in
+    both."""
     import torch
     hd = h * d
-    ws = 700 if mode == "linear" else 300
+    if ws is None:
+        ws = 700 if mode == "linear" else 300
     read_end = ws if mode == "linear" else s - 1
     kc = torch.randn(b, s, hd, generator=g).to(device, dtype)
     vc = torch.randn(b, s, hd, generator=g).to(device, dtype)
@@ -494,38 +550,87 @@ def k7_case(g, device, dtype, mode, b=LANES, s=1024, h=16, d=64):
     if mode == "linear":
         pos[:, ws + 1:] = -1
         for i in range(b):       # lanes of different lengths, with holes
-            pos[i, : (i * 37) % ws] = -1
+            pos[i, : (i * 37) % max(ws, 1)] = -1
     pos[::3, 40:60] = -1         # padding rows of short prompts/texts
     cur = pos[:, ws] + 10 ** 6
-    cur[1] = -1
+    if b > 1:
+        cur[1] = -1
     pos[:, ws] = cur
     return (q, kn, vn, cur.to(device), kc, vc, pos.to(device), read_end,
             ws)
 
 
+# K7's cases (mode, lanes, write slot; None: k7_case's): the serving shapes,
+# write slots at 0, at chunk boundaries (units of 8 slots) and at S - 1
+# (ring: every slot read; linear: read_end the last slot), and the solo
+# call of `--fuse-insert` (B = 1)
+K7_CASES = (("linear", LANES, None), ("ring", LANES, None),
+            ("ring", LANES, 0), ("ring", LANES, 8), ("ring", LANES, 512),
+            ("ring", LANES, -1), ("linear", LANES, -1), ("linear", 1, None),
+            ("ring", 1, None), ("ring", 1, 64))
+K7_IDLE = 3   # a lane with no attended slot (B > 1)
+
+
+def _k7_idle_check(name, got, stats, b):
+    """An idle lane gives out 0 (and m = -inf, l = 0)."""
+    import torch
+    if b <= K7_IDLE:
+        return
+    out = got[0] if stats else got
+    ok = bool((out[K7_IDLE] == 0).all())
+    if stats:
+        ok = ok and bool(torch.isneginf(got[1][K7_IDLE]).all()
+                         and (got[2][K7_IDLE] == 0).all())
+    if not ok:
+        raise AssertionError(f"{name}: the idle lane is not (0, -inf, 0)")
+
+
 def check_k7(device, dtype, results):
+    """K7 over caches of the working type vs its plain version, each case
+    of K7_CASES with and without statistics, lane K7_IDLE idle: output (m
+    and l), and the caches after the insert."""
     import torch
     from pocket_tts_tpu_torch.ops.insert_attn import (
         decode_insert_attention, decode_insert_attention_plain)
     g = torch.Generator(device="cpu").manual_seed(7)
     worst = 0.0
-    for mode in ("linear", "ring"):
-        q, kn, vn, cur, kc, vc, pos, re_, ws = k7_case(g, device, dtype,
-                                                       mode)
-        kc2, vc2 = kc.clone(), vc.clone()
-        got = decode_insert_attention(q, kn, vn, cur, kc, vc, pos, re_, ws)
-        want = decode_insert_attention_plain(q, kn, vn, cur, kc2, vc2, pos,
-                                             re_, ws)
-        sync(device)
-        if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
-            raise AssertionError(f"K7 caches differ after insert ({mode})")
-        if not torch.isfinite(got.float()).all():
-            raise AssertionError(f"K7 non-finite output ({mode})")
-        worst = max(worst, (got.float() - want.float()).abs().max().item())
+    for mode, b, ws in K7_CASES:
+        s = 1024
+        q, kn, vn, cur, kc, vc, pos, re_, ws = k7_case(
+            g, device, dtype, mode, b, s, ws=None if ws is None else ws % s)
+        if b > K7_IDLE:
+            pos[K7_IDLE] = -1
+            cur[K7_IDLE] = -1
+        for stats in (False, True):
+            kc2, vc2, kc3, vc3 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            got = decode_insert_attention(q, kn, vn, cur, kc2, vc2, pos, re_,
+                                          ws, stats=stats)
+            want = decode_insert_attention_plain(q, kn, vn, cur, kc3, vc3,
+                                                 pos, re_, ws, stats=stats)
+            sync(device)
+            label = f"{mode} B={b} ws={ws}{' stats' if stats else ''}"
+            if not (torch.equal(kc2, kc3) and torch.equal(vc2, vc3)):
+                raise AssertionError(f"K7 caches differ after insert "
+                                     f"({label})")
+            out, ref = (got[0], want[0]) if stats else (got, want)
+            if not torch.isfinite(out.float()).all():
+                raise AssertionError(f"K7 non-finite output ({label})")
+            _k7_idle_check(f"K7 {label}", got, stats, b)
+            err = (out.float() - ref.float()).abs().max().item()
+            if stats:
+                live = torch.isfinite(want[1])
+                if not torch.equal(live, torch.isfinite(got[1])):
+                    raise AssertionError(f"K7 m masks differ ({label})")
+                err = max(err, (got[1][live] - want[1][live]).abs().max()
+                          .item(), ((got[2][live] - want[2][live]).abs()
+                                    / want[2][live]).max().item())
+            worst = max(worst, err)
     tol = TOL[("attn", _dt_name(dtype))]
-    log(f"  K7 decode_insert_attn {_dt_name(dtype)}: B={LANES} S=1024 "
-        f"H*D=1024, linear and ring, one invalid lane: max_abs_err "
-        f"{worst:.3e} (tol {tol}); caches equal")
+    log(f"  K7 decode_insert_attn {_dt_name(dtype)}: S=1024 H*D=1024, "
+        f"{len(K7_CASES)} cases (B={LANES} and 1; linear and ring; write "
+        "slot at 0, chunk boundaries and S-1), with and without statistics,"
+        f" one invalid lane, one idle lane: max_abs_err {worst:.3e} (tol "
+        f"{tol}; m absolute, l relative); caches equal")
     if not worst <= tol:
         raise AssertionError(f"K7 {_dt_name(dtype)} error {worst} > {tol}")
     results.setdefault("decode_insert_attn", {})[_dt_name(dtype)] = worst
@@ -577,35 +682,44 @@ def check_k2_lanes(device, dtype, results):
     errs[_dt_name(dtype)] = max(errs.get(_dt_name(dtype), 0.0), worst)
 
 
+# K3's lane counts: two, a count whose GEMMs leave their last M tile partly
+# filled, and the server's
+K3_LANES = (2, 5, LANES)
+
+
 def check_k3_lanes(dec, cfg, device, dtype, results, weights):
-    """K3 over 32 lanes (streams stacked on M) for 3 frames against the
-    plain chain with a lane axis, pcm and the 8 carries."""
+    """K3 over K3_LANES lanes (streams stacked on M) for 3 frames each
+    against the plain chain with a lane axis, pcm and the 8 carries."""
     import torch
     from pocket_tts_tpu_torch.models import mimi, seanet
     from pocket_tts_tpu_torch.ops.seanet_frame import seanet_frame
     sc, tpf = cfg.mimi.seanet, cfg.mimi.upsample_stride
     g = torch.Generator(device="cpu").manual_seed(9)
-    st_k = mimi.init_state_lanes(cfg.mimi, LANES, dtype, device).seanet
-    st_p = {k: v.clone() for k, v in st_k.items()}
     worst_rel = worst_abs = 0.0
-    for _ in range(3):
-        z = torch.randn(LANES, tpf, sc.in_ch, generator=g).to(device, dtype)
-        got = seanet_frame(dec, sc, st_k, z, weights)
-        new, want = seanet.forward_plain(dec, sc, st_p, z)
-        for key in st_p:
-            st_p[key].copy_(new[key])
-        sync(device)
-        scale = max(want.float().abs().max().item(), 1e-30)
-        err = (got.float() - want.float()).abs().max().item()
-        worst_abs = max(worst_abs, err)
-        worst_rel = max(worst_rel, err / scale)
-        for key in st_p:
-            cs = max(st_p[key].float().abs().max().item(), 1e-30)
-            cerr = (st_k[key].float() - st_p[key].float()).abs().max().item()
-            worst_rel = max(worst_rel, cerr / cs)
+    for nb in K3_LANES:
+        st_k = mimi.init_state_lanes(cfg.mimi, nb, dtype, device).seanet
+        st_p = {k: v.clone() for k, v in st_k.items()}
+        for _ in range(3):
+            z = torch.randn(nb, tpf, sc.in_ch, generator=g).to(device, dtype)
+            got = seanet_frame(dec, sc, st_k, z, weights)
+            new, want = seanet.forward_plain(dec, sc, st_p, z)
+            for key in st_p:
+                st_p[key].copy_(new[key])
+            sync(device)
+            scale = max(want.float().abs().max().item(), 1e-30)
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"K3 lanes: non-finite pcm (B={nb})")
+            worst_abs = max(worst_abs, err)
+            worst_rel = max(worst_rel, err / scale)
+            for key in st_p:
+                cs = max(st_p[key].float().abs().max().item(), 1e-30)
+                cerr = (st_k[key].float() - st_p[key].float()).abs().max() \
+                    .item()
+                worst_rel = max(worst_rel, cerr / cs)
     tol = TOL[("seanet", _dt_name(dtype))]
-    log(f"  K3 seanet_frame lanes {_dt_name(dtype)}: B={LANES}, 3 frames, "
-        f"max_abs_err {worst_abs:.3e}, relative (pcm and 8 carries) "
+    log(f"  K3 seanet_frame lanes {_dt_name(dtype)}: B={K3_LANES}, 3 frames "
+        f"each, max_abs_err {worst_abs:.3e}, relative (pcm and 8 carries) "
         f"{worst_rel:.3e} (tol {tol})")
     if not worst_rel <= tol:
         raise AssertionError(f"K3 lanes {_dt_name(dtype)} rel error "
@@ -798,13 +912,14 @@ def check_k1_kv8(device, dtype, results):
     results.setdefault("decode_attn_kv8", {})[_dt_name(dtype)] = worst
 
 
-def k7_kv8_case(g, device, dtype, mode, b=LANES, s=896):
+def k7_kv8_case(g, device, dtype, mode, b=LANES, s=896, ws=None):
     """k7_case with int8 caches and scale rows (the ring is the serving
     mode's 896 slots: kv_capacity - the prompt bucket), the new rows
     quantized: (q, k_new, v_new, cur_pos, k, v, pos, read_end, ws, ks, vs,
     ks_new, vs_new); the write slot holds stale bytes and scales."""
     import torch
-    q, _, _, cur, _, _, pos, re_, ws = k7_case(g, device, dtype, mode, b, s)
+    q, _, _, cur, _, _, pos, re_, ws = k7_case(g, device, dtype, mode, b, s,
+                                               ws=ws)
     h, d = q.shape[1:]
     k, ks = kv8_rows(g, device, dtype, b, s, h * d)
     v, vs = kv8_rows(g, device, dtype, b, s, h * d)
@@ -816,11 +931,12 @@ def k7_kv8_case(g, device, dtype, mode, b=LANES, s=896):
 
 
 def check_k7_kv8(device, dtype, results):
-    """K7 with int8 caches (ring B=32 S=896 and linear, one invalid lane)
-    vs its plain version: the output, the cache bytes and the scale rows
-    after the insert; and K7 with statistics (int8 and working-type caches):
-    out, m and l. An idle lane (no attended slot) must give out 0, m = -inf
-    and l = 0 on both sides."""
+    """K7 with int8 caches vs its plain version, each case of K7_CASES at
+    the serving mode's S = 896 (one invalid lane, lane K7_IDLE idle): the
+    output, the cache bytes and the scale rows after the insert; and K7
+    with statistics (int8 and working-type caches): out, m and l. An idle
+    lane (no attended slot) must give out 0, m = -inf and l = 0 on both
+    sides."""
     import torch
     from pocket_tts_tpu_torch.ops.insert_attn import (
         decode_insert_attention, decode_insert_attention_plain)
@@ -828,60 +944,61 @@ def check_k7_kv8(device, dtype, results):
     tol = TOL[("attn", _dt_name(dtype))]
     worst = {"decode_insert_attn_kv8": 0.0, "decode_insert_attn_stats": 0.0}
     worst_m = worst_l = 0.0
-    for mode in ("ring", "linear"):
+    s = 896
+    for mode, b, ws in K7_CASES:
+        ws = None if ws is None else ws % s
         for kind in ("kv8", "kv8_stats", "stats"):
             if kind == "stats":
-                q, kn, vn, cur, k, v, pos, re_, ws = k7_case(
-                    g, device, dtype, mode, s=896)
+                q, kn, vn, cur, k, v, pos, re_, ws_ = k7_case(
+                    g, device, dtype, mode, b, s, ws=ws)
                 kw, kw2 = {}, {}
             else:
-                (q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn,
-                 vsn) = k7_kv8_case(g, device, dtype, mode)
+                (q, kn, vn, cur, k, v, pos, re_, ws_, ks, vs, ksn,
+                 vsn) = k7_kv8_case(g, device, dtype, mode, b, s, ws)
                 kw = dict(k_scale=ks, v_scale=vs, ks_new=ksn, vs_new=vsn)
                 kw2 = dict(k_scale=ks.clone(), v_scale=vs.clone(),
                            ks_new=ksn, vs_new=vsn)
             stats = kind != "kv8"
-            if stats:                        # lane 2 idle: nothing attended
-                pos[2] = -1
-                cur[2] = -1
+            if b > K7_IDLE:                  # nothing attended
+                pos[K7_IDLE] = -1
+                cur[K7_IDLE] = -1
+            label = f"{kind} {mode} B={b} ws={ws_}"
             k2, v2 = k.clone(), v.clone()
-            got = decode_insert_attention(q, kn, vn, cur, k, v, pos, re_, ws,
-                                          stats=stats, **kw)
+            got = decode_insert_attention(q, kn, vn, cur, k, v, pos, re_,
+                                          ws_, stats=stats, **kw)
             want = decode_insert_attention_plain(q, kn, vn, cur, k2, v2, pos,
-                                                 re_, ws, stats=stats, **kw2)
+                                                 re_, ws_, stats=stats, **kw2)
             sync(device)
             if not (torch.equal(k, k2) and torch.equal(v, v2)):
-                raise AssertionError(f"K7 {kind} caches differ ({mode})")
+                raise AssertionError(f"K7 caches differ ({label})")
             if kw and not (torch.equal(kw["k_scale"], kw2["k_scale"])
                            and torch.equal(kw["v_scale"], kw2["v_scale"])):
-                raise AssertionError(f"K7 {kind} scale rows differ ({mode})")
+                raise AssertionError(f"K7 scale rows differ ({label})")
+            _k7_idle_check(f"K7 {label}", got, stats, b)
             got = got if stats else (got,)
             want = want if stats else (want,)
             if not torch.isfinite(got[0].float()).all():
-                raise AssertionError(f"K7 {kind} non-finite output ({mode})")
+                raise AssertionError(f"K7 non-finite output ({label})")
             err = (got[0].float() - want[0].float()).abs().max().item()
             name = ("decode_insert_attn_stats" if stats
                     else "decode_insert_attn_kv8")
             worst[name] = max(worst[name], err)
             if stats:
                 (_, m, l), (_, mp, lp) = got, want
-                if not (torch.isneginf(m[2]).all() and (l[2] == 0).all()
-                        and (got[0][2] == 0).all()):
-                    raise AssertionError(f"K7 {kind}: the idle lane is not "
-                                         f"(0, -inf, 0) ({mode})")
                 live = torch.isfinite(mp)
                 if not torch.equal(live, torch.isfinite(m)):
-                    raise AssertionError(f"K7 {kind}: m masks differ")
+                    raise AssertionError(f"K7 m masks differ ({label})")
                 worst_m = max(worst_m, (m[live] - mp[live]).abs().max()
                               .item())
                 worst_l = max(worst_l, ((l[live] - lp[live]).abs()
                                         / lp[live]).max().item())
-    log(f"  K7 decode_insert_attn_kv8 {_dt_name(dtype)}: int8 caches, "
-        f"B={LANES} S=896 ring and linear, one invalid lane: max_abs_err "
-        f"{worst['decode_insert_attn_kv8']:.3e} (tol {tol}); cache bytes "
-        "and scale rows equal")
+    log(f"  K7 decode_insert_attn_kv8 {_dt_name(dtype)}: int8 caches, S=896,"
+        f" {len(K7_CASES)} cases (B={LANES} and 1; ring and linear; write "
+        "slot at 0, chunk boundaries and S-1), one invalid lane, one idle "
+        f"lane: max_abs_err {worst['decode_insert_attn_kv8']:.3e} (tol "
+        f"{tol}); cache bytes and scale rows equal")
     log(f"  K7 decode_insert_attn_stats {_dt_name(dtype)}: int8 and "
-        f"{_dt_name(dtype)} caches, an idle lane: out max_abs_err "
+        f"{_dt_name(dtype)} caches, the same cases: out max_abs_err "
         f"{worst['decode_insert_attn_stats']:.3e} (tol {tol}), m max_abs_err"
         f" {worst_m:.3e} (tol {tol}), l max relative error {worst_l:.3e} "
         f"(tol {tol})")
@@ -1654,7 +1771,8 @@ def time_kernels(engine, device, dtype):
     """Device time of K1, K2, K3 and K7 against their plain versions and
     the library call (SDPA with the kernel's mask, on a cache that already
     holds the new rows), with each call's bound: {name: [rows]}, the first
-    row of each name the one the JSON line reports."""
+    row of each name the one the JSON line reports; and K3's plan sweep
+    (time_k3_plans) and table of launches (time_k3_launches), logged."""
     import torch
     from pocket_tts_tpu_torch.models import mimi, seanet
     from pocket_tts_tpu_torch.ops.attention import ring_cache_bias
@@ -1741,6 +1859,19 @@ def time_kernels(engine, device, dtype):
                      dn),
             f"B={b} z=({tpf}, {sc.in_ch}) -> {tpf * sc.total_stride} "
             "samples per lane"))
+    for b, rows in time_k3_plans(engine, device, dtype).items():
+        log(f"  K3 plans at B={b} (device us of each conv-GEMM, k3_plan's "
+            "tile and splits against the fastest of all): " + "; ".join(
+                f"{name} {plan} {times[plan]:.2f}, fastest "
+                f"{min(times, key=times.get)} {min(times.values()):.2f}"
+                for name, _, plan, times in rows))
+    for b, rows in time_k3_launches(engine, device, dtype).items():
+        log(f"  K3 launches at B={b} (device us; [torch.matmul at the same "
+            f"M, N, K, informative only]): " + "; ".join(
+                f"{name} ({m}, {n}, {k}) {us:.2f}"
+                + ("" if mm is None else f" [{mm:.2f}]")
+                for name, (m, n, k), us, mm in rows)
+            + f"; sum {sum(r[2] for r in rows):.2f}")
     # K7 at the serving shapes: 32 lanes, S = 1024, ring mode (every slot
     # read) and linear mode
     out["decode_insert_attn"] = []
@@ -1768,6 +1899,127 @@ def time_kernels(engine, device, dtype):
     return out
 
 
+def time_k3_launches(engine, device, dtype):
+    """Device us of each launch of K3's frame, solo and over 32 lanes,
+    beside torch.matmul's at the same (M, N, K) (informative only: a
+    launch also builds its A operand, applies its epilogue and writes its
+    carries; None for the overlap-adds): {B: [(name, (M, N, K), us,
+    matmul us)]}."""
+    import torch
+    from pocket_tts_tpu_torch.models import mimi, seanet
+    from pocket_tts_tpu_torch.ops.seanet_frame import frame_steps
+    g = torch.Generator(device="cpu").manual_seed(27)
+    sc, tpf = engine.cfg.mimi.seanet, engine.cfg.mimi.upsample_stride
+    res = {}
+    for b in (1, LANES):
+        st = (seanet.init_state(sc, tpf, dtype, device) if b == 1 else
+              mimi.init_state_lanes(engine.cfg.mimi, b, dtype, device).seanet)
+        z = torch.randn(b * tpf, sc.in_ch, generator=g).to(device, dtype)
+        steps, _ = frame_steps(sc, st, z, engine.seanet_weights, b)
+        for _, _, run in steps:     # the frame once, in order
+            run()
+        rows = []
+        for name, (m, n, k), run in steps:
+            mm = None
+            if k:
+                a = torch.randn(m, k, generator=g).to(device, dtype)
+                w = torch.randn(k, n, generator=g).to(device, dtype)
+                mm = 1e3 * device_ms(lambda: a @ w, 100)[0]
+            rows.append((name, (m, n, k), 1e3 * device_ms(run, 100)[0], mm))
+        res[b] = rows
+    return res
+
+
+def time_k3_plans(engine, device, dtype):
+    """Device us of each conv-GEMM of K3's frame, solo and over 32 lanes,
+    at every tile K3 is built for and every split count of its reduction
+    (through `ptt_seanet_gemm`): the evidence behind `k3_plan`. Returns
+    {B: [(name, (M, N, K), the plan k3_plan takes, {(BM, BN, splits):
+    us})]}."""
+    import torch
+    from pocket_tts_tpu_torch.models import mimi, seanet
+    from pocket_tts_tpu_torch.ops import cuda_lib
+    from pocket_tts_tpu_torch.ops.seanet_frame import (
+        BK, MAX_SPLITS, TILES, frame_launches, gemm_args)
+    lib = cuda_lib.library()
+    g = torch.Generator(device="cpu").manual_seed(29)
+    sc, tpf = engine.cfg.mimi.seanet, engine.cfg.mimi.upsample_stride
+    code = cuda_lib.dtype_code(torch.empty(0, dtype=dtype))
+    stream = cuda_lib.stream_ptr(device)
+    res = {}
+    for b in (1, LANES):
+        st = (seanet.init_state(sc, tpf, dtype, device) if b == 1 else
+              mimi.init_state_lanes(engine.cfg.mimi, b, dtype, device).seanet)
+        z = torch.randn(b * tpf, sc.in_ch, generator=g).to(device, dtype)
+        launches, _ = frame_launches(sc, st, z, engine.seanet_weights, b)
+        rows = []
+        for name, kind, sp in launches:
+            if kind != "gemm":
+                continue
+            (m, n), k = sp["out"].shape, sp["w"].shape[0]
+            kt = -(-k // BK)
+            times = {}
+            for bm, bn in TILES:
+                if bm > 16 and bm // 2 >= m:
+                    continue
+                for sp_ in range(1, MAX_SPLITS + 1):
+                    if sp_ > kt or (sp_ - 1) * -(-kt // sp_) >= kt:
+                        continue
+                    args = gemm_args(sp, b, (bm, bn, sp_), code, stream)
+                    times[bm, bn, sp_] = 1e3 * device_ms(
+                        lambda: cuda_lib.check(lib.ptt_seanet_gemm(*args),
+                                               "ptt_seanet_gemm"), 30)[0]
+            rows.append((name, (m, n, k), tuple(sp["plan"]), times))
+        res[b] = rows
+    return res
+
+
+def kernel_times(device):
+    """Device us of K3 (bf16 and f32, solo and 32 lanes) and K7 (bf16 ring
+    and linear, B=32, S=1024; int8 ring, B=32, S=896, with and without the
+    statistics) at time_kernels' shapes, through the public wrappers only
+    (`seanet_frame`, `decode_insert_attention`): {label: us}. Run from
+    another checkout's root with this script copied there, it times that
+    checkout's kernels the same way, so that two versions compare inside
+    one call."""
+    import torch
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    from pocket_tts_tpu_torch.io.params import random_params
+    from pocket_tts_tpu_torch.models import mimi, seanet
+    from pocket_tts_tpu_torch.ops.insert_attn import decode_insert_attention
+    from pocket_tts_tpu_torch.ops.seanet_frame import (prep_weights,
+                                                       seanet_frame)
+    g = torch.Generator(device="cpu").manual_seed(28)
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        p, cfg = random_params(DEFAULT_CONFIG, seed=0, dtype=dtype,
+                               device=device)
+        dec, sc = p["mimi"]["decoder"], cfg.mimi.seanet
+        tpf, w = cfg.mimi.upsample_stride, prep_weights(dec, sc)
+        for b in (1, LANES):
+            st = (seanet.init_state(sc, tpf, dtype, device) if b == 1 else
+                  mimi.init_state_lanes(cfg.mimi, b, dtype, device).seanet)
+            z = torch.randn(*((b,) if b > 1 else ()), tpf, sc.in_ch,
+                            generator=g).to(device, dtype)
+            res[f"K3 {_dt_name(dtype)} B={b}"] = 1e3 * device_ms(
+                lambda: seanet_frame(dec, sc, st, z, w), 30)[0]
+        del p, dec, w
+    for mode in ("ring", "linear"):
+        q, kn, vn, cur, kc, vc, pos, re_, ws = k7_case(g, device,
+                                                       torch.bfloat16, mode)
+        res[f"K7 bf16 {mode} B={LANES} S=1024"] = 1e3 * device_ms(
+            lambda: decode_insert_attention(q, kn, vn, cur, kc, vc, pos, re_,
+                                            ws), 200)[0]
+    for stats in (False, True):
+        (q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn,
+         vsn) = k7_kv8_case(g, device, torch.bfloat16, "ring")
+        res[f"K7 int8{' stats' if stats else ''} ring B={LANES} S=896"] = \
+            1e3 * device_ms(lambda: decode_insert_attention(
+                q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn, vsn,
+                stats=stats), 200)[0]
+    return res
+
+
 def int8pack_ms(x, q, scale):
     """Device ms of torch._weight_int8pack_mm(x, q^T, scale), one PyTorch
     call computing K4a's function (x @ int8 W times per-channel scales; the
@@ -1786,14 +2038,16 @@ def int8pack_ms(x, q, scale):
 
 
 def time_splits(device, dtype):
-    """Device us of K1 and K2 at each split count (the number of blocks in
-    each (head, lane)'s cluster), through the C entry points, at the timing
-    rows' shapes: the evidence behind k1_split and k2_split. Returns
+    """Device us of K1, K7 and K2 at each split count (the number of blocks
+    in each (head, lane)'s cluster), through the C entry points, at the
+    timing rows' shapes: the evidence behind k1_split, k7_split and
+    k2_split. Returns
     {label: (the split count the wrapper takes, {splits: us})}."""
     import torch
     from pocket_tts_tpu_torch.ops import cuda_lib
     from pocket_tts_tpu_torch.ops.decode_attn import (K1_UNIT, MAX_SPLITS,
                                                       k1_split)
+    from pocket_tts_tpu_torch.ops.insert_attn import k7_split
     from pocket_tts_tpu_torch.ops.ring_attn import k2_split
     lib = cuda_lib.library()
     g = torch.Generator(device="cpu").manual_seed(26)
@@ -1831,6 +2085,34 @@ def time_splits(device, dtype):
                 sp: 1e3 * device_ms(lambda: k1(q, k, v, pos, e, sp, ks, vs,
                                                st), 100)[0]
                 for sp in range(1, MAX_SPLITS + 1)})
+    # K7 at the serving shapes (and solo, as `--fuse-insert` calls it)
+    for mode, b, kvq in (("ring", LANES, False), ("linear", LANES, False),
+                         ("ring", LANES, True), ("ring", 1, False)):
+        if kvq:
+            (q, kn, vn, cur, k, v, pos, e, ws, ks, vs, ksn,
+             vsn) = k7_kv8_case(g, device, dtype, mode, b)
+            st = torch.empty(2, b, q.shape[1], dtype=torch.float32,
+                             device=device)
+        else:
+            q, kn, vn, cur, k, v, pos, e, ws = k7_case(g, device, dtype,
+                                                       mode, b)
+            ks = vs = ksn = vsn = st = None
+        s = k.shape[1]
+        out = torch.empty_like(q)
+
+        def k7(sp):
+            cuda_lib.check(lib.ptt_insert_attn(
+                q.data_ptr(), kn.data_ptr(), vn.data_ptr(), cur.data_ptr(),
+                k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+                *(None if t is None else t.data_ptr()
+                  for t in (ks, vs, ksn, vsn)), out.data_ptr(),
+                None if st is None else st.data_ptr(), b, q.shape[1],
+                q.shape[2], s, e, ws, sp, code, stream), "ptt_insert_attn")
+        res[f"K7 {mode} B={b} S={s} "
+            f"{'int8 + stats' if kvq else _dt_name(dtype)}"] = (
+                k7_split(e, s, b), {
+                    sp: 1e3 * device_ms(lambda: k7(sp), 100)[0]
+                    for sp in range(1, MAX_SPLITS + 1)})
     h, d, cap, t, ctx = 8, 64, 256, 16, 250
     for b in (1, LANES):
         kc = torch.randn(b, cap, h * d, generator=g).to(device, dtype)
@@ -2189,31 +2471,38 @@ def time_slice6_kernels(engines, device, dtype, out):
 
 
 # the most kernel launches a solo frame may make (profiler, phase 8: what
-# each path launched before K1 and K2 were split over clusters); K1 and K2
-# launch once per call
+# each path launched before K1 and K2 were split over clusters, when K3
+# was 22 launches a frame; it is 14 now, K3_PER_FRAME); K1 and K2 launch
+# once per call
 FRAME_LAUNCHES = {"bf16": 647, "int8": 258, "int4": 258, "q4_0": 258,
                   KV8_PATH: 378, "int8_mega": 126, "int4_kv8_mega": 162,
                   "int4_bilayer": 253}
 K1_PER_FRAME = {"int8_mega": 0, "int4_kv8_mega": 0}   # else 6
+K3_PER_FRAME = 14   # ten conv-GEMMs, three overlap-adds, the final conv
 
 
 def check_frame_launches(label, kern):
     """The profiler's launches per frame of a solo path: 6 K1 (0 on the
-    megalayer paths) and 2 K2, each one launch a call, and no more
-    launches in all (memsets included) than FRAME_LAUNCHES."""
+    megalayer paths), 2 K2 and K3_PER_FRAME K3 launches, no memset, and no
+    more launches in all than FRAME_LAUNCHES."""
     def calls(name):
         return sum(c for key, _, c in kern if name in key)
     k1, k2 = calls("decode_attn_kernel"), calls("ring_attn_kernel")
+    k3 = sum(calls(f"seanet_{k}_kernel") for k in ("gemm", "overlap",
+                                                     "last"))
     total = sum(c for _, _, c in kern)
     memset = calls("emset")
-    log(f"    launches per frame: K1 {k1:.1f}, K2 {k2:.1f}, memset "
-        f"{memset:.1f}, all {total:.1f} (at most {FRAME_LAUNCHES[label]})")
+    log(f"    launches per frame: K1 {k1:.1f}, K2 {k2:.1f}, K3 {k3:.1f}, "
+        f"memset {memset:.1f}, all {total:.1f} (at most "
+        f"{FRAME_LAUNCHES[label]})")
     want_k1 = K1_PER_FRAME.get(label, 6)
     if not (abs(k1 - want_k1) < 1e-6 and abs(k2 - 2) < 1e-6
+            and abs(k3 - K3_PER_FRAME) < 1e-6 and memset == 0
             and total <= FRAME_LAUNCHES[label] + 1e-6):
         raise AssertionError(f"{label}: launches per frame changed: K1 {k1} "
-                             f"(want {want_k1}), K2 {k2} (want 2), memset "
-                             f"{memset}, all {total}")
+                             f"(want {want_k1}), K2 {k2} (want 2), K3 {k3} "
+                             f"(want {K3_PER_FRAME}), memset {memset} (want "
+                             f"0), all {total}")
 
 
 def profile_frames(engine, voice, path, n_frames=20):
@@ -2509,7 +2798,12 @@ def main(argv=None) -> int:
                                  "one CUDA GPU")
     ap.add_argument("--out", default=None,
                     help="directory for the nvcc report and profiler table")
-    out_dir = ap.parse_args(argv).out
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only time K3 and K7 through their public "
+                    "wrappers (kernel_times) and print them as one JSON "
+                    "line")
+    args = ap.parse_args(argv)
+    out_dir = args.out
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2520,6 +2814,12 @@ def main(argv=None) -> int:
         print("chip_smoke: pocket_tts_tpu_torch/ is not beside the script; "
               "run it from a checkout of the repository", file=sys.stderr)
         return 1
+    if args.kernel_times:
+        from pocket_tts_tpu_torch.ops import cuda_lib
+        cuda_lib.library()
+        print(json.dumps({"kernel_times_us": kernel_times(
+            torch.device("cuda:0")), "card": nvidia_smi(), "root": root}))
+        return 0
     from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
     from pocket_tts_tpu_torch.io.params import random_voice_prompt
     from pocket_tts_tpu_torch.ops import cuda_lib
@@ -2550,13 +2850,19 @@ def main(argv=None) -> int:
         for line in cuda_lib.build_log().splitlines():
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
-        k12 = kernel_ptxas(cuda_lib.build_log())
-        log("  K1 and K2 (registers, shared memory, spills):")
-        for line in k12:
-            log("    " + line)
-        if out_dir:
-            with open(os.path.join(out_dir, "ptxas_k1_k2.txt"), "w") as f:
-                f.write("\n".join(k12) + "\n")
+        for label, names, fname in (
+                ("K1 and K2", ("decode_attn_kernel", "ring_attn_kernel"),
+                 "ptxas_k1_k2.txt"),
+                ("K3 and K7", ("seanet_gemm_kernel", "seanet_overlap_kernel",
+                               "seanet_last_kernel", "insert_attn_kernel"),
+                 "ptxas_k3_k7.txt")):
+            rows = kernel_ptxas(cuda_lib.build_log(), names)
+            log(f"  {label} (registers, shared memory, spills):")
+            for line in rows:
+                log("    " + line)
+            if out_dir:
+                with open(os.path.join(out_dir, fname), "w") as f:
+                    f.write("\n".join(rows) + "\n")
 
         phase = "kernels"
         header("[3] kernels vs plain versions (3c: K7, K2 and K3 over 32 "

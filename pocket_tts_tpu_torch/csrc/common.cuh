@@ -60,15 +60,22 @@ __device__ __forceinline__ void unpack16<bf16>(const uint4& u, float* out) {
     out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+// int8: byte b + 128 (the sign bit flipped) becomes the low mantissa byte
+// of 2^23 (one byte permute), and 2^23 + 128 is subtracted: exact, and two
+// full-rate instructions a value where an int-to-float conversion is a
+// quarter-rate one
 template <>
 __device__ __forceinline__ void unpack16<int8_t>(const uint4& u,
                                                  float* out) {
-  const int w[4] = {(int)u.x, (int)u.y, (int)u.z, (int)u.w};
+  const unsigned w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u,
+                         u.z ^ 0x80808080u, u.w ^ 0x80808080u};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      out[4 * i + j] = (float)(int8_t)((w[i] >> (8 * j)) & 0xff);
+      out[4 * i + j] =
+          __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7540 + j)) -
+          8388736.f;
   }
 }
 
@@ -134,6 +141,46 @@ cudaError_t launch_clustered(void (*kern)(Params...), dim3 grid, dim3 block,
     if (rc != cudaSuccess) return rc;
   }
   return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
+// D += A.B on the tensor cores: one m16n8k16 product, bf16 operands, f32
+// accumulators (A: 4 registers, B: 2, C/D: 4, in the PTX fragment layouts)
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices from shared memory (lane L gives row L % 8 of
+// matrix L / 8): register i holds this lane's two values of matrix i, row
+// lane / 4, columns 2 (lane % 4) + 0..1; `_trans` the transposed matrices
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r,
+                                                  const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(s));
 }
 
 __device__ __forceinline__ float warp_max(float v) {

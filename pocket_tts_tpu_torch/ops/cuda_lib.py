@@ -44,22 +44,23 @@ SIGNATURES = {
     "ptt_decode_attn": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # q, k_new, v_new, cur_pos, k_cache, v_cache, pos, k_scale, v_scale,
     # ks_new, vs_new (int8 caches, else null), out, stats (or null), B, H,
-    # D, S, read_end, write_slot, dtype, stream
+    # D, S, read_end, write_slot, splits, dtype, stream
     "ptt_insert_attn": [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                        I, I, P],
+                        I, I, I, P],
     # q, k_new, v_new, k_cache, v_cache, out, starts (or null), ks_new,
     # vs_new, k_scale, v_scale (int8 rings, else null), B, T, H, D, cap,
     # offset, start, context, splits, dtype, stream
     "ptt_ring_attn": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                       I, I, I, P],
-    # x, carry, w, bias, res, out, ws, B, T, Cin, Cout, K, P(carry rows),
-    # splits, in_elu, out_elu, res_elu, dtype, stream
-    "ptt_conv_gemm": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I,
-                      P],
-    # u, carry, bias, out, B, T, s, Cout, dtype, stream
-    "ptt_convtr_overlap": [P, P, P, P, I, I, I, I, I, P],
-    # x, carry, B, T, C, P(carry rows), elu, dtype, stream
-    "ptt_carry_tail": [P, P, I, I, I, I, I, I, P],
+    # pointer array (8), dims array (15), dtype, stream: one conv-GEMM of
+    # K3's frame (csrc/seanet_frame.cu)
+    "ptt_seanet_gemm": [P, P, I, P],
+    # u, carry, bias, y, ye, B, rows of u a lane, s, C, dtype, stream: a
+    # transposed conv's overlap-add
+    "ptt_seanet_overlap": [P, P, P, P, P, I, I, I, I, I, P],
+    # h, carry, w, bias, out, B, T, C, K, P(carry rows), blocks a lane,
+    # dtype, stream: K3's final one-channel conv
+    "ptt_seanet_last": [P, P, P, P, P, I, I, I, I, I, I, I, P],
     # x, q, scale, y, M, K, N, dtype, stream
     "ptt_int8_matmul": [P, P, P, P, I, I, I, I, P],
     # x, q4, scale, y, M, K, N, group (0: per-channel), dtype, stream

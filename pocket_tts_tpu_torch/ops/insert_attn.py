@@ -26,6 +26,12 @@ batched product:
   l = 0, which merge_attn_partials turns into the other partial alone, as
   it does the TPU kernel's (-1e9, count) pair.
 
+The kernel splits the slots [0, read_end] into `k7_split(read_end, S, B)`
+chunks, one thread block each, merged on chip (one thread-block cluster
+per head and lane; ops/decode_attn.chunk_units deals the slots out). With
+many lanes the card is full already, so the split takes fewer chunks; a
+lane's result depends only on its own inputs either way.
+
 `decode_insert_attention` runs the plain version for tensors on the CPU
 and the kernel for tensors on the card; there is no other switch. Both
 write the new rows (and scales) into the caches IN PLACE (the JAX function
@@ -40,6 +46,28 @@ import torch
 from . import cuda_lib
 from .attention import NEG_INF
 from .basic import inv_sqrt
+from .decode_attn import MAX_SPLITS
+
+# K7 deals the live slots out in units of K7_UNIT (csrc/insert_attn.cu)
+# to chunks of at least K7_CHUNK slots, at most MAX_SPLITS (a cluster) and
+# at most K7_LANES_SPLITS from K7_MANY_LANES lanes on. chip_smoke.py's
+# `time_splits` times every count: solo, more chunks are faster up to 8;
+# at 32 lanes (16 heads each, the card full) two chunks ran fastest, bf16
+# and int8 (PERF.md, section 6).
+K7_UNIT = 8
+K7_CHUNK = 32
+K7_MANY_LANES = 8
+K7_LANES_SPLITS = 2
+
+
+def k7_split(read_end: int, s: int, b: int) -> int:
+    """The number of chunks K7 cuts the slots [0, read_end] of an S-slot
+    cache into at B lanes: one per K7_CHUNK slots, at most MAX_SPLITS, and
+    at most K7_LANES_SPLITS from K7_MANY_LANES lanes on."""
+    if not 0 <= read_end < s:
+        raise ValueError(f"k7_split: read_end {read_end} outside [0, {s})")
+    n = min(MAX_SPLITS, -(-(read_end + 1) // K7_CHUNK))
+    return n if b < K7_MANY_LANES else min(n, K7_LANES_SPLITS)
 
 
 def insert_slot_mask(pos, cur_pos, read_end: int, write_slot: int,
@@ -117,7 +145,8 @@ def decode_insert_attention(q, k_new, v_new, cur_pos, k_cache, v_cache, pos,
                             stats: bool = False):
     """Same contract as decode_insert_attention_plain; launches the CUDA
     kernel for CUDA tensors (q float32 or bfloat16, D = 64; caches of q's
-    dtype, or int8 with float32 scale rows), one launch for all B lanes."""
+    dtype, or int8 with float32 scale rows; caches and new rows 16-byte
+    aligned), one launch for all B lanes."""
     if q.device.type == "cpu":
         return decode_insert_attention_plain(
             q, k_new, v_new, cur_pos, k_cache, v_cache, pos, read_end,
@@ -142,6 +171,7 @@ def decode_insert_attention(q, k_new, v_new, cur_pos, k_cache, v_cache, pos,
                                and ks_new.shape == vs_new.shape == (b,)))
             and all(x.is_contiguous() and x.device == q.device
                     for x in ops + (pos, cur_pos) + scales)
+            and all(x.data_ptr() % 16 == 0 for x in ops[1:])
             and 0 <= write_slot <= read_end < s):
         raise ValueError("decode_insert_attention: bad operands "
                          f"q{tuple(q.shape)} {q.dtype} k{tuple(k_cache.shape)}"
@@ -159,7 +189,8 @@ def decode_insert_attention(q, k_new, v_new, cur_pos, k_cache, v_cache, pos,
         k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         ptr(k_scale), ptr(v_scale), ptr(ks_new), ptr(vs_new),
         out.data_ptr(), ptr(st), b, h, d, s, int(read_end), int(write_slot),
-        cuda_lib.dtype_code(q), cuda_lib.stream_ptr(q.device))
+        k7_split(int(read_end), s, b), cuda_lib.dtype_code(q),
+        cuda_lib.stream_ptr(q.device))
     cuda_lib.check(rc, "ptt_insert_attn")
     if quant:
         decode_insert_attention.launches_kv8 += 1

@@ -1,5 +1,6 @@
-"""How K1 (csrc/decode_attn.cu) and K2 (csrc/ring_attn.cu) cut their work
-over thread-block clusters, checked on the CPU, f32:
+"""How K1 (csrc/decode_attn.cu), K2 (csrc/ring_attn.cu) and K7
+(csrc/insert_attn.cu) cut their work over thread-block clusters, checked
+on the CPU, f32:
 
 - the split geometry: `k1_split` chunks [0, end] (units of 8 slots) and
   `k2_split` the cap + T keys (16-key tiles), units dealt out in turn by
@@ -17,7 +18,12 @@ over thread-block clusters, checked on the CPU, f32:
   the pre-insert ring plus the new rows by the TPU kernel's arithmetic
   (pallas_mimi.py:130-145), as the kernel does, and the plain version
   inserts first and masks with ring_cache_bias: their agreement checks the
-  kernel's mask too.
+  kernel's mask too. K7: `k7_split` (which also takes the lane count)
+  covers [0, read_end] once at every read_end, and a plain model of its
+  decomposition (the write slot's row from the new row in the chunk that
+  owns it, or, int8, merged after the cluster; the insert into the caches)
+  equals decode_insert_attention_plain, each lane of a many-lane call its
+  own solo call.
 """
 import inspect
 import math
@@ -31,6 +37,8 @@ from pocket_tts_tpu_torch.ops.decode_attn import (K1_UNIT, MAX_SPLITS,
                                                   chunk_units,
                                                   decode_attention_plain,
                                                   k1_split)
+from pocket_tts_tpu_torch.ops.insert_attn import (
+    K7_MANY_LANES, K7_UNIT, decode_insert_attention_plain, k7_split)
 from pocket_tts_tpu_torch.ops.ring_attn import (K2_TILE, k2_split,
                                                 ring_insert_attention_plain)
 
@@ -327,3 +335,147 @@ def test_k2_model_over_lanes_with_fences(int8):
                   if torch.isneginf(ms[c]).all()]
         if start >= off - 16:   # at most two tiles seen: the rest drop out
             assert len(fenced) >= n - 2
+
+
+# ---------------------------------------------------------------- K7 model --
+
+@pytest.mark.parametrize("b", [1, 2, 32, 64])
+@pytest.mark.parametrize("s", [128, 896, 1024])
+def test_k7_split_covers_slots_once(s, b):
+    for read_end in range(s):
+        n = k7_split(read_end, s, b)
+        assert 1 <= n <= MAX_SPLITS
+        assert_split(n, read_end + 1, K7_UNIT)
+    with pytest.raises(ValueError):
+        k7_split(s, s, b)
+
+
+def k7_model(q, kn, vn, cur, k, v, pos, read_end, ws, ks=None, vs=None,
+             ksn=None, vsn=None):
+    """K7's decomposition over lanes: q (B, H, D), new rows (B, 1, H*D),
+    PRE-insert caches (B, S, H*D), written in place at ws as the kernel
+    does, pos POST-insert (B, S). Working type: the chunk that owns ws
+    takes its K, V from the new row, valid iff cur >= 0; int8: ws stays out
+    of the chunks and the new row (times its scales) merges after them.
+    Returns out, m, l."""
+    b, h, d = q.shape
+    s = k.shape[1]
+    quant = ks is not None
+    kh, vh = k.float().clone(), v.float().clone()
+    ok = pos >= 0
+    ok[:, ws] = (cur >= 0) & (not quant)
+    if not quant:
+        kh[:, ws], vh[:, ws] = kn[:, 0].float(), vn[:, 0].float()
+    kh, vh = kh.view(b, s, h, d), vh.view(b, s, h, d)
+    n = k7_split(read_end, s, b)
+    parts = []
+    for c in range(n):
+        i = chunk_slots(c, n, read_end + 1, K7_UNIT)
+        lg = torch.einsum("bhd,bshd->bhs", q.float(), kh[:, i]) \
+            / math.sqrt(d)
+        vals = vh[:, i].permute(0, 2, 1, 3)
+        if quant:
+            lg = lg * ks[:, None, i]
+            vals = vals * vs[:, None, i, None]
+        lg = lg.masked_fill(~ok[:, None, i], NEG)
+        parts.append(flash_partial(lg, vals))
+    if quant:
+        knf = (kn[:, 0].float() * ksn[:, None]).view(b, h, d)
+        vnf = (vn[:, 0].float() * vsn[:, None]).view(b, h, 1, d)
+        lg = (q.float() * knf).sum(-1, keepdim=True) / math.sqrt(d)
+        lg = lg.masked_fill((cur < 0)[:, None, None], NEG)
+        parts.append(flash_partial(lg, vnf))
+    k[:, ws], v[:, ws] = kn[:, 0], vn[:, 0]
+    if quant:
+        ks[:, ws], vs[:, ws] = ksn, vsn
+    return merge_chunks(parts)
+
+
+def k7_inputs(rng, b, s, h, d, mode, ws, int8):
+    """One K7 call's inputs, as chip_smoke.py's k7_case makes them: ring
+    mode reads every slot and ws holds a stale row; linear mode reads up
+    to ws, lanes of different lengths; padding holes; lane 1 an invalid
+    new row, lane 2 idle (nothing attended) when there are lanes enough."""
+    q = torch.from_numpy(rng.randn(b, h, d).astype(np.float32))
+    _, k, v, ks, vs = k1_inputs(rng, b, s, h, d, int8)
+    _, kn, vn, ksn, vsn = k1_inputs(rng, b, 1, h, d, int8)
+    read_end = s - 1 if mode == "ring" else ws
+    pos = torch.arange(s, dtype=torch.int32).repeat(b, 1) + 500
+    if mode == "linear":
+        pos[:, ws + 1:] = -1
+        for i in range(b):
+            pos[i, : (i * 37) % max(ws, 1)] = -1
+    pos[::3, 40:60] = -1
+    cur = pos[:, ws] + 10 ** 4
+    if b > 1:
+        cur[1] = -1
+    if b > 2:
+        pos[2], cur[2] = -1, -1
+    pos[:, ws] = cur
+    if int8:
+        ks[:, ws] = vs[:, ws] = 1e3          # stale scales: never read
+        ksn, vsn = ksn[:, 0].contiguous(), vsn[:, 0].contiguous()
+    return q, kn, vn, cur, k, v, pos, read_end, ks, vs, ksn, vsn
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("mode,ws", [("ring", 0), ("ring", 64), ("ring", 255),
+                                     ("ring", 100), ("linear", 0),
+                                     ("linear", 63), ("linear", 64),
+                                     ("linear", 255), ("linear", 200)])
+def test_k7_model_equals_plain(int8, mode, ws):
+    """Solo, 3 lanes and K7_MANY_LANES + 1 lanes (the split of many lanes):
+    write slot at 0, at chunk boundaries (units of 8) and at read_end or
+    S - 1; an invalid new row (lane 1), an idle lane (lane 2: out 0, m =
+    -inf, l = 0); out, m and l, and the caches and scale rows after the
+    insert."""
+    rng = np.random.RandomState(ws + 7 * int8 + len(mode))
+    h, d, s = 2, 64, 256
+    for b in (1, 3, K7_MANY_LANES + 1):
+        q, kn, vn, cur, k, v, pos, re_, ks, vs, ksn, vsn = k7_inputs(
+            rng, b, s, h, d, mode, ws, int8)
+        k2, v2 = k.clone(), v.clone()
+        kw = {}
+        if int8:
+            kw = dict(k_scale=ks.clone(), v_scale=vs.clone(), ks_new=ksn,
+                      vs_new=vsn)
+        out, m, l = k7_model(q, kn, vn, cur, k, v, pos, re_, ws, ks, vs,
+                             ksn, vsn)
+        want, wm, wl = decode_insert_attention_plain(
+            q, kn, vn, cur, k2, v2, pos, re_, ws, stats=True, **kw)
+        plain_out = decode_insert_attention_plain(
+            q, kn, vn, cur, k2.clone(), v2.clone(), pos, re_, ws, **{
+                key: val.clone() for key, val in kw.items()})
+        assert torch.equal(k, k2) and torch.equal(v, v2)
+        if int8:
+            assert torch.equal(ks, kw["k_scale"])
+            assert torch.equal(vs, kw["v_scale"])
+        assert torch.isfinite(out).all()
+        np.testing.assert_allclose(out.numpy(), want.numpy(), atol=ATOL)
+        np.testing.assert_allclose(out.numpy(), plain_out.numpy(), atol=ATOL)
+        assert torch.equal(torch.isneginf(m), torch.isneginf(wm))
+        live = torch.isfinite(wm)
+        np.testing.assert_allclose(m[live].numpy(), wm[live].numpy(),
+                                   atol=ATOL)
+        np.testing.assert_allclose(l.numpy(), wl.numpy(), rtol=ATOL)
+        if b > 2:
+            assert (out[2] == 0).all() and (l[2] == 0).all()
+            assert torch.isneginf(m[2]).all()
+        if b > K7_MANY_LANES:
+            # each lane is its own solo call, within summation order
+            for i in (0, b - 1):
+                sl = slice(i, i + 1)
+                args = [t[sl] for t in (q, kn, vn, cur)]
+                kc, vc = k2[sl].clone(), v2[sl].clone()
+                kc[:, ws] = torch.from_numpy(rng.randn(*kc[:, ws].shape)
+                                             .astype(np.float32)).to(kc.dtype)
+                sc = {}
+                if int8:
+                    sc = dict(k_scale=kw["k_scale"][sl].clone(),
+                              v_scale=kw["v_scale"][sl].clone(),
+                              ks_new=ksn[sl], vs_new=vsn[sl])
+                solo = k7_model(*args, kc, vc, pos[sl], re_, ws,
+                                *(sc.get(x) for x in ("k_scale", "v_scale",
+                                                      "ks_new", "vs_new")))
+                np.testing.assert_allclose(solo[0].numpy(), out[sl].numpy(),
+                                           atol=ATOL)
