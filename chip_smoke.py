@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py [--out DIR]
-    python3 chip_smoke.py --kernel-times   # K3 and K7 device times only
+    python3 chip_smoke.py --kernel-times   # K3, K5a/K5b, K6, K7 times only
 
 Drives the port's solo paths (synthesis through `TTSEngine` with bf16
 weights, with `quantize="int8"`, `"int4"` and `"q4_0"`, with int4 weights
@@ -41,8 +41,10 @@ raises, names its phase and the exit code is 1:
                    bytes and scale rows) and with statistics (out, m, l;
                    an idle lane gives 0, -inf, 0);
                    K5a/K5b over 32 backbone rows and 64, 256 and 512 mimi
-                   rows and K6 over 32 (and 40) rows, int8, int4 and q4_0;
-                   f32 and bf16
+                   rows (and 15 and 16: both sides of the tensor-core
+                   route's R_min) and K6 over 32, 40 and 64 rows, int8,
+                   int4 and q4_0; the same three kernels on
+                   tiny_config(64)'s narrow widths; f32 and bf16
   3e. slice 6      K8 megalayer on every layer of the int8 and int4 trees,
                    caches of the working type and int8, S=384 with the
                    write slot at 300 and at a tile edge (y, cache rows and
@@ -57,7 +59,7 @@ raises, names its phase and the exit code is 1:
   4. end to end    synthesis of the benchmark sentence at temp 0 on each
                    path, counters set to 0 before each run and read after:
                    per decoded frame every path launches 6 K1, 2 K2 and 1
-                   K3; int8 adds 1 K4a, 8 K5a, 8 K5b, 1 K6 and 24 K4a per
+                   K3; int8 adds 1 K4a, 8 K5a, 8 K5b, 2 K6 and 24 K4a per
                    prefill call; int4 and q4_0 the same counts of K4b and
                    the int4 K5a/K5b/K6 (counted apart from int8); int4 +
                    int8 KV the int4 counts with K1's int8-KV variant in
@@ -65,6 +67,11 @@ raises, names its phase and the exit code is 1:
                    mimi layers) and no K1; int4 + int8 KV + megalayer + the
                    int8 mimi ring 6 K8 (int4, int8 KV) and K2-q in place of
                    K2; int4 + bilayer 1 + 2 K5a, 5 K5c, 1 + 2 K5b, 6 K1.
+                   Launches of the tensor-core product (rows_mma_kernel:
+                   bf16 K5a calls of MMA_ROWS rows or more, the row-block
+                   K5b launches) count once more under rows_mma: the
+                   mimi layers' K5a solo (2 a frame), every K5a / K5b
+                   launch over the lanes in the serving mode.
                    Then the q4_0 engine is built again from a params cache
                    written and read back here, and must give the same pcm,
                    bit for bit
@@ -83,7 +90,11 @@ raises, names its phase and the exit code is 1:
                    bound; K1, K7 and K2 at every split count
                    (time_splits); each of K3's conv-GEMMs at every tile
                    and split (time_k3_plans); each of K3's 14 launches solo
-                   and at 32 lanes beside torch.matmul at its (M, N, K)
+                   and at 32 lanes beside torch.matmul at its (M, N, K);
+                   each K5a / K5b product over many rows on rows_kernel and
+                   on rows_mma_kernel at every tile and split
+                   (time_rows_plans: R_min and rows_plan); K6 on clusters
+                   of 16 and 8 blocks (time_flow_clusters)
   7. serving       f32, 4 lanes, 6 requests (two admitted mid-decode), each
                    pcm vs the solo engine on the card, with bf16 weights,
                    with int8 weights + int8 KV + shared prefix, and with
@@ -93,7 +104,7 @@ raises, names its phase and the exit code is 1:
                    K7); 32 lanes, 48 requests, counters set to 0 before and
                    read after, with bf16 weights (per batch frame step 6 K7,
                    2 K2, 1 K3, no K1) and in the serving mode (per step 6
-                   K7 int8 with statistics, 2 K2, 1 K3, 0 K1, 1 K6 over
+                   K7 int8 with statistics, 2 K2, 1 K3, 0 K1, 2 K6 over
                    the 32 rows, 8 K5a and 24 K5b launches over the lanes'
                    rows, 1 K4b, and 24 K4b per admission prefill);
                    aggregate frames/s, TTFA p50/p95; CLI --serve writes one
@@ -1010,21 +1021,32 @@ def check_k7_kv8(device, dtype, results):
         results.setdefault(name, {})[_dt_name(dtype)] = err
 
 
-LANE_ROWS = ((LANES, "backbone"), (64, "mimi"), (256, "mimi"),
-             (512, "mimi"))
+def lane_rows():
+    """(rows, layers) of the K5a/K5b checks over many rows: 32 backbone
+    rows (32 lanes x 1), the backbone rows on both sides of the tensor-core
+    route's R_min (MMA_ROWS - 1 and MMA_ROWS lanes x 1), and 64, 256 and
+    512 mimi rows (4, 16 and 32 lanes x 16)."""
+    from pocket_tts_tpu_torch.ops.fused_layer import MMA_ROWS
+    return ((LANES, "backbone"), (MMA_ROWS - 1, "backbone"),
+            (MMA_ROWS, "backbone"), (64, "mimi"), (256, "mimi"),
+            (512, "mimi"))
+
+
+# K6 over many rows: 32 lanes, 40 (a row block and a part on SIMT f32, one
+# MMA row block in bf16) and 64 (a large server's lanes)
+FLOW_ROWS = (LANES, 40, 64)
 
 
 def check_quant_lanes(pq, cfg, device, dtype, results, path):
     """K5a and K5b over many rows, as the serving mode runs them at a lane
-    axis: 32 backbone rows (32 lanes x 1) and 64, 256 and 512 mimi rows (4,
-    16 and 32 lanes x 16); K6 over 32 rows (and 40: a second launch of
-    8). Each vs its plain version; inputs from numpy seed 8."""
+    axis (`lane_rows`), and K6 over FLOW_ROWS rows. Each vs its plain
+    version; inputs from numpy seed 8."""
     from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
     from pocket_tts_tpu_torch.ops.basic import slice_layer_params
     rng = np.random.RandomState(8)
     label = f" [{path}]"
     pre, post = [], []
-    for rows, which in LANE_ROWS:
+    for rows, which in lane_rows():
         if which == "backbone":
             p = slice_layer_params(pq["layers"], 1)
             t, dm, eps = 1, cfg.backbone.d_model, 1e-5
@@ -1044,13 +1066,62 @@ def check_quant_lanes(pq, cfg, device, dtype, results, path):
     _rel_check("fused_post_lanes", "quant", dtype, post, results, label)
     fp, tc = pq["flow_net"], pq["_time_cond"]
     pairs = []
-    for b in (LANES, 40):
+    for b in FLOW_ROWS:
         c = _rand(rng, device, dtype, b, cfg.backbone.d_model)
         x = _rand(rng, device, dtype, b, cfg.latent_dim)
         pairs.append((fused_flow.flow_forward(fp, c, x, tc),
                       fused_flow.flow_forward_plain(fp, c, x, tc)))
     sync(device)
     _rel_check("fused_flow_lanes", "flow", dtype, pairs, results, label)
+
+
+def check_quant_narrow(device, dtype):
+    """K5a, K5b and K6 on tiny_config(64)'s narrow widths (backbone d_model
+    256, mimi 128, flow dim 128, latent 8: a few 64-column tiles, 8 columns
+    a chain block), quantized to int8, int4 and q4_0: K5a and K5b at 1 and
+    80 backbone rows and 16 and 160 mimi rows (K5a on both routes; K5b
+    cooperative up to 64 / 128 rows at these widths, in three tensor-core
+    launches above), K6 at 1, 4, 16 and 40 rows; each vs its plain
+    version."""
+    from pocket_tts_tpu_torch.config import tiny_config
+    from pocket_tts_tpu_torch.io.params import random_params
+    from pocket_tts_tpu_torch.io.quant import quantize_params
+    from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
+    from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    p0, cfg = random_params(tiny_config(64), seed=5, dtype=dtype,
+                            device=device)
+    rng = np.random.RandomState(12)
+    for path, kw in QUANTIZE.items():
+        pq = quantize_params(p0, **kw)
+        pre, post, flow = [], [], []
+        for rows, t, layers, dm, eps in (
+                (1, 1, pq["layers"], cfg.backbone.d_model, 1e-5),
+                (80, 1, pq["layers"], cfg.backbone.d_model, 1e-5),
+                (16, 16, pq["mimi"]["decoder_transformer"]["layers"],
+                 cfg.mimi.transformer.d_model, cfg.mimi.transformer.norm_eps),
+                (160, 16, pq["mimi"]["decoder_transformer"]["layers"],
+                 cfg.mimi.transformer.d_model,
+                 cfg.mimi.transformer.norm_eps)):
+            p = slice_layer_params(layers, 1)
+            x = _rand(rng, device, dtype, rows // t, t, dm, scale=0.5)
+            attn = _rand(rng, device, dtype, rows // t, t, dm, scale=0.5)
+            pre.append((fused_layer.pre_attention(p, x, eps),
+                        fused_layer.pre_attention_plain(p, x, eps)))
+            post.append((fused_layer.post_attention(p, x, attn, eps),
+                         fused_layer.post_attention_plain(p, x, attn, eps)))
+        fp = pq["flow_net"]
+        tc = _rand(rng, device, dtype, cfg.flow.dim)
+        for b in (None, 4, 16, 40):
+            shape = () if b is None else (b,)
+            c = _rand(rng, device, dtype, *shape, cfg.backbone.d_model)
+            x = _rand(rng, device, dtype, *shape, cfg.latent_dim)
+            flow.append((fused_flow.flow_forward(fp, c, x, tc),
+                         fused_flow.flow_forward_plain(fp, c, x, tc)))
+        sync(device)
+        label = f" narrow [{path}]"
+        _rel_check("fused_pre_lanes", "quant", dtype, pre, {}, label)
+        _rel_check("fused_post_lanes", "quant", dtype, post, {}, label)
+        _rel_check("fused_flow_lanes", "flow", dtype, flow, {}, label)
 
 
 # ------------------------------------------------- phase 3e: slice 6 -------
@@ -1420,7 +1491,8 @@ def _counters():
            "decode_insert_attn_kv8": (decode_insert_attention,
                                       "launches_kv8"),
            "decode_insert_attn_stats": (decode_insert_attention,
-                                        "launches_stats")}
+                                        "launches_stats"),
+           "rows_mma": (fused_layer._rows_call, "launches_mma")}
     for name, fn in (("fused_pre", fused_layer.pre_attention),
                      ("fused_post", fused_layer.post_attention),
                      ("fused_flow", fused_flow.flow_forward)):
@@ -1477,8 +1549,14 @@ def expected_launches(cfg, path):
     if weights not in PATH_KERNELS:
         per_frame[k1] = nb
         return per_frame, per_prefill
+    from pocket_tts_tpu_torch.ops.fused_flow import LAUNCHES
+    from pocket_tts_tpu_torch.ops.fused_layer import rows_route
+    import torch
     mm, pre, post, flow = PATH_KERNELS[weights]
-    per_frame.update({mm: 1, pre: nb + nm, post: nb + nm, flow: 1})
+    per_frame.update({mm: 1, pre: nb + nm, post: nb + nm, flow: LAUNCHES})
+    # the mimi layers' K5a (T = 16 rows) on the tensor cores
+    if rows_route(torch.bfloat16, cfg.mimi.upsample_stride) == "mma":
+        per_frame["rows_mma"] = nm
     per_prefill = {mm: 4 * nb}
     if cfg.backbone.use_megalayer:
         per_frame.update({pre: nm, post: nm,
@@ -1520,7 +1598,7 @@ def end_to_end(engine, voice, counts, label, text=BENCH_TEXT):
         raise AssertionError("non-finite pcm")
     if not np.abs(pcm).max() > 0:
         raise AssertionError("silent pcm")
-    for name in KERNELS:
+    for name in list(KERNELS) + ["rows_mma"]:
         want = (per_frame.get(name, 0) * frames
                 + per_prefill.get(name, 0) * prefills)
         if launches[name] != want:
@@ -1975,10 +2053,12 @@ def time_k3_plans(engine, device, dtype):
 
 
 def kernel_times(device):
-    """Device us of K3 (bf16 and f32, solo and 32 lanes) and K7 (bf16 ring
+    """Device us of K3 (bf16 and f32, solo and 32 lanes), K7 (bf16 ring
     and linear, B=32, S=1024; int8 ring, B=32, S=896, with and without the
-    statistics) at time_kernels' shapes, through the public wrappers only
-    (`seanet_frame`, `decode_insert_attention`): {label: us}. Run from
+    statistics) at time_kernels' shapes, and of K5a, K5b and K6
+    (quant_kernel_times), through the public wrappers only
+    (`seanet_frame`, `decode_insert_attention`, `pre_attention`,
+    `post_attention`, `flow_forward`): {label: us}. Run from
     another checkout's root with this script copied there, it times that
     checkout's kernels the same way, so that two versions compare inside
     one call."""
@@ -2017,7 +2097,200 @@ def kernel_times(device):
             1e3 * device_ms(lambda: decode_insert_attention(
                 q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn, vsn,
                 stats=stats), 200)[0]
+    return quant_kernel_times(device, res)
+
+
+def _dense(lin, dtype):
+    """The dequantized (K, N) weight of a quantized linear, in dtype: the
+    operand of the dense reference (torch.matmul), never used by the
+    port."""
+    from pocket_tts_tpu_torch.ops.quant_matmul import unpack_int4
+    if "q" in lin:
+        return (lin["q"].float() * lin["scale"].float()).to(dtype)
+    w = unpack_int4(lin["q4"])
+    s = lin["scale"].float()
+    if s.dim() == w.dim():
+        s = s.repeat_interleave(w.shape[-2] // s.shape[-2], dim=-2)
+    return (w * s).to(dtype)
+
+
+def quant_kernel_times(device, res):
+    """Device us of K5a / K5b over many rows and of K6 through their public
+    wrappers, at PERF.md's shapes, on DEFAULT_CONFIG's weights quantized to
+    int8, int4 and q4_0, bf16: K5a at T = 1 (backbone) and T = 16 (mimi),
+    K5a and K5b over 32 backbone and 512 mimi rows, K6 solo and over 32
+    rows. Beside each, "dense": torch.matmul in bf16 over the dequantized
+    weights for the same products (K5b: its three; K6: every linear of the
+    net), a dense tensor-core reference, not a library yardstick (no single
+    call computes the quantized function). Added to res ({label: us})."""
+    import torch
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    from pocket_tts_tpu_torch.io.params import random_params
+    from pocket_tts_tpu_torch.io.quant import quantize_params
+    from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
+    from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    dt = torch.bfloat16
+    p0, cfg = random_params(DEFAULT_CONFIG, seed=0, dtype=dt, device=device)
+    rng = np.random.RandomState(31)
+    us = lambda fn, n=50: 1e3 * device_ms(fn, n)[0]
+    for path in QUANT_PATHS:
+        pq = quantize_params(p0, **QUANTIZE[path])
+        bb = slice_layer_params(pq["layers"], 0)
+        mt = slice_layer_params(pq["mimi"]["decoder_transformer"]["layers"],
+                                0)
+        for p, rows, t, eps, name in (
+                (bb, 1, 1, 1e-5, "backbone T=1"),
+                (mt, 16, 16, cfg.mimi.transformer.norm_eps, "mimi T=16"),
+                (bb, LANES, 1, 1e-5, f"backbone rows={LANES}"),
+                (mt, LANES * 16, 16, cfg.mimi.transformer.norm_eps,
+                 f"mimi rows={LANES * 16}")):
+            dm = p["norm1"]["scale"].shape[0]
+            lead = (rows // t, t) if rows > t else (t,)
+            x = _rand(rng, device, dt, *lead, dm, scale=0.5)
+            attn = _rand(rng, device, dt, *lead, dm, scale=0.5)
+            a2 = x.reshape(-1, dm)
+            w_in = _dense(p["in_proj"], dt)
+            res[f"K5a {path} {name}"] = us(
+                lambda: fused_layer.pre_attention(p, x, eps))
+            res[f"K5a {path} {name} dense"] = us(lambda: a2 @ w_in)
+            if rows == t:
+                continue
+            wo, w1, w2 = (_dense(p[k], dt) for k in ("out_proj", "linear1",
+                                                      "linear2"))
+            hh = _rand(rng, device, dt, rows, w1.shape[1], scale=0.5)
+            res[f"K5b {path} {name}"] = us(
+                lambda: fused_layer.post_attention(p, x, attn, eps), 20)
+            res[f"K5b {path} {name} dense"] = us(
+                lambda: (a2 @ wo, a2 @ w1, hh @ w2), 20)
+        fp, fcfg = pq["flow_net"], cfg.flow
+        tc = _rand(rng, device, dt, fcfg.dim)
+        rb = fp["res_blocks"]
+        dense = ([_dense(fp["cond_embed"], dt), _dense(fp["input_proj"], dt)
+                  if "w" not in fp["input_proj"] else fp["input_proj"]["w"]]
+                 + [_dense(slice_layer_params(rb, i)[k], dt)
+                    for i in range(fcfg.depth)
+                    for k in ("adaln", "mlp_0", "mlp_2")]
+                 + [_dense(fp["final"]["adaln"], dt),
+                    _dense(fp["final"]["linear"], dt)
+                    if "w" not in fp["final"]["linear"]
+                    else fp["final"]["linear"]["w"]])
+        for b in (None, LANES):
+            shape = () if b is None else (b,)
+            c = _rand(rng, device, dt, *shape, cfg.backbone.d_model)
+            x = _rand(rng, device, dt, *shape, cfg.latent_dim)
+            ins = [_rand(rng, device, dt, b or 1, w.shape[0]) for w in dense]
+            label = "solo" if b is None else f"rows={b}"
+            res[f"K6 {path} {label}"] = us(
+                lambda: fused_flow.flow_forward(fp, c, x, tc))
+            res[f"K6 {path} {label} dense"] = us(
+                lambda: [a @ w for a, w in zip(ins, dense)])
     return res
+
+
+def time_rows_plans(engines, device):
+    """Device us of each product of K5a and K5b over many rows, int4 and
+    int8, on both kernels: rows_kernel (SIMT) and rows_mma_kernel at every
+    tile height and reduction split that fits: the evidence behind
+    `rows_plan` and MMA_ROWS (R_min). K5a's in_proj at 1, 16 and 32
+    backbone rows and 16 and 512 mimi rows; K5b's three row-block products
+    at 32 and 512 rows. Returns [(path, linear, rows, K, N, SIMT us, the
+    plan rows_plan takes, {(bm, splits): us})]."""
+    import torch
+    from pocket_tts_tpu_torch.ops import cuda_lib
+    from pocket_tts_tpu_torch.ops import fused_layer as fl
+    from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    from pocket_tts_tpu_torch.ops.quant_matmul import kernel_operands
+    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(device)
+    rng = np.random.RandomState(33)
+    out = []
+    for path in ("int4", "int8"):
+        pq, cfg = engines[path].params, engines[path].cfg
+        for layers, dm, eps, rows_list in (
+                (pq["layers"], cfg.backbone.d_model, 1e-5, (1, 16, LANES)),
+                (pq["mimi"]["decoder_transformer"]["layers"],
+                 cfg.mimi.transformer.d_model, cfg.mimi.transformer.norm_eps,
+                 (16, LANES * 16))):
+            p = slice_layer_params(layers, 0)
+            hid = p["linear1"]["scale"].shape[-1]
+            for rows in rows_list:
+                for name, k, n, pro, epi, norm in (
+                        ("in_proj", dm, 3 * dm, fl.ROWS_LN, fl.EPI_ROUND,
+                         p["norm1"]),
+                        ("out_proj", dm, dm, fl.ROWS_LOAD, fl.EPI_RESID_F32,
+                         {}),
+                        ("linear1", dm, hid, fl.ROWS_LN_F32, fl.EPI_GELU,
+                         p["norm2"]),
+                        ("linear2", hid, dm, fl.ROWS_LOAD, fl.EPI_RESID, {})):
+                    if name != "in_proj" and fl.post_launches(rows, dm) == 1:
+                        continue
+                    a = _rand(rng, device, torch.float32 if pro ==
+                              fl.ROWS_LN_F32 else torch.bfloat16, rows, k)
+                    res_t = (_rand(rng, device, torch.bfloat16, rows, n)
+                             if epi == fl.EPI_RESID_F32 else
+                             _rand(rng, device, torch.float32, rows, n)
+                             if epi == fl.EPI_RESID else None)
+                    dst = torch.empty(rows, n, device=device, dtype=(
+                        torch.float32 if epi == fl.EPI_RESID_F32
+                        else torch.bfloat16))
+                    (w, sc, bias), (kind, group) = kernel_operands(
+                        p[name], k, n, dst if dst.dtype == torch.bfloat16
+                        else a)
+                    ptr = lambda t: 0 if t is None else t.data_ptr()
+                    args = (a.data_ptr(), ptr(norm.get("scale")),
+                            ptr(norm.get("bias")), w.data_ptr(), ptr(sc),
+                            ptr(bias), ptr(res_t), 0, dst.data_ptr(), rows,
+                            k, n, kind, group, pro, epi, 0, float(eps))
+                    simt = 1e3 * device_ms(lambda: cuda_lib.check(
+                        lib.ptt_fused_rows(*args, 1, stream),
+                        "ptt_fused_rows"), 30)[0]
+                    packed = kind != 1
+                    kt = (k // 2 if packed else k) // fl.MMA_BKS
+                    ln = {fl.ROWS_LN: 2, fl.ROWS_LN_F32: 4}.get(pro, 0)
+                    plan = fl.rows_plan(rows, k, n, packed, ln)
+                    times = {}
+                    for bm in fl.MMA_BMS:
+                        if bm > 16 and bm // 2 >= rows:
+                            continue
+                        for splits in range(1, fl.MMA_MAX_SPLITS + 1):
+                            per = -(-kt // splits)
+                            if ((splits - 1) * per >= kt or fl.rows_mma_smem(
+                                    bm, per, packed, k, ln) > fl.SMEM_MAX):
+                                continue
+                            times[bm, splits] = 1e3 * device_ms(
+                                lambda: cuda_lib.check(lib.ptt_rows_mma(
+                                    *args, bm, splits, per, stream),
+                                    "ptt_rows_mma"), 30)[0]
+                    out.append((path, name, rows, k, n, simt, plan, times))
+    return out
+
+
+def time_flow_clusters(engines, device):
+    """Device us of K6 (int4 at 1, 32 and 64 rows; int8 solo) on clusters
+    of 16 and of 8 blocks: the evidence behind `flow_cluster`. Returns
+    {label: {csize: us}}."""
+    import torch
+    from pocket_tts_tpu_torch.ops import fused_flow
+    rng = np.random.RandomState(35)
+    real = fused_flow.flow_cluster
+    out = {}
+    try:
+        for path, rows in (("int4", None), ("int4", LANES), ("int4", 64),
+                           ("int8", None)):
+            pq, cfg = engines[path].params, engines[path].cfg
+            fp, tc = pq["flow_net"], pq["_time_cond"]
+            shape = () if rows is None else (rows,)
+            c = _rand(rng, device, torch.bfloat16, *shape,
+                      cfg.backbone.d_model)
+            x = _rand(rng, device, torch.bfloat16, *shape, cfg.latent_dim)
+            row = {}
+            for csize in fused_flow.CLUSTERS:
+                fused_flow.flow_cluster = lambda *a, cs=csize: cs
+                row[csize] = 1e3 * device_ms(
+                    lambda: fused_flow.flow_forward(fp, c, x, tc), 50)[0]
+            out[f"{path} {'solo' if rows is None else f'rows={rows}'}"] = row
+    finally:
+        fused_flow.flow_cluster = real
+    return out
 
 
 def int8pack_ms(x, q, scale):
@@ -2312,16 +2585,18 @@ def time_lane_kernels(pq, cfg, device, dtype, out):
             f"int4 {name} rows={rows} ({b} lanes x {t}) dm={d}, "
             f"{fused_layer.post_launches(rows, d)} launches"))
     fp, tc = pq["flow_net"], pq["_time_cond"]
-    c = _rand(rng, device, dtype, LANES, cfg.backbone.d_model)
-    x = _rand(rng, device, dtype, LANES, cfg.latent_dim)
-    out.setdefault("fused_flow_lanes", []).append(_row(
-        device_ms(lambda: fused_flow.flow_forward(fp, c, x, tc), 100),
-        device_ms(lambda: fused_flow.flow_forward_plain(fp, c, x, tc), 20),
-        None,
-        bound_ms(_tree_bytes(fp) + _nbytes(c, tc) + 2 * _nbytes(x),
-                 _linear_flops(fp, LANES), dn),
-        f"int4 rows={LANES} c={cfg.backbone.d_model} x={cfg.latent_dim} "
-        f"dim={cfg.flow.dim} depth={cfg.flow.depth}"))
+    for b in (LANES, 64):
+        c = _rand(rng, device, dtype, b, cfg.backbone.d_model)
+        x = _rand(rng, device, dtype, b, cfg.latent_dim)
+        out.setdefault("fused_flow_lanes", []).append(_row(
+            device_ms(lambda: fused_flow.flow_forward(fp, c, x, tc), 100),
+            device_ms(lambda: fused_flow.flow_forward_plain(fp, c, x, tc),
+                      20),
+            None,
+            bound_ms(_tree_bytes(fp) + _nbytes(c, tc) + 2 * _nbytes(x),
+                     _linear_flops(fp, b), dn),
+            f"int4 rows={b} c={cfg.backbone.d_model} x={cfg.latent_dim} "
+            f"dim={cfg.flow.dim} depth={cfg.flow.depth}"))
     return out
 
 
@@ -2602,7 +2877,8 @@ def serve_vs_solo(device, voice, path="bf16", share_prefix=False,
         launches = read_counters()
         n = steps["steps"] - steps0
         want = expected_serving(engine.cfg, path, n,
-                                steps["prefills"] - prefills0, lanes=4)
+                                steps["prefills"] - prefills0, lanes=4,
+                                dtype=torch.float32)
         log(f"  {path}, 4 lanes: launches {launches}; expected {want} (per "
             f"batch frame step 6 K1 over lanes with statistics, 2 K2-q, 0 "
             f"K7)")
@@ -2636,7 +2912,7 @@ def serve_vs_solo(device, voice, path="bf16", share_prefix=False,
     return launches
 
 
-def expected_serving(cfg, mode, n, prefills, lanes=LANES):
+def expected_serving(cfg, mode, n, prefills, lanes=LANES, dtype=None):
     """Launches by kernel for n batch frame steps and `prefills` admission
     prefill calls at `lanes` lanes: "bf16" (slice 4's server), "int4_kv8"
     (int4 weights, int8 KV, shared prefix: K7's int8 variant with
@@ -2661,12 +2937,23 @@ def expected_serving(cfg, mode, n, prefills, lanes=LANES):
     tpf = cfg.mimi.upsample_stride
     mm = "int8_matmul" if ENGINE_KW[mode]["quantize"] == "int8" \
         else "int4_matmul"
+    import torch
+    from pocket_tts_tpu_torch.ops.fused_flow import LAUNCHES
+    from pocket_tts_tpu_torch.ops.fused_layer import rows_route
+    post_b = post_launches(lanes, cfg.backbone.d_model)
+    post_m = post_launches(lanes * tpf, cfg.mimi.transformer.d_model)
     want.update(
-        fused_pre_lanes=(nb + nm) * n, fused_flow_lanes=n,
-        fused_post_lanes=n * (
-            nb * post_launches(lanes, cfg.backbone.d_model)
-            + nm * post_launches(lanes * tpf, cfg.mimi.transformer.d_model)),
+        fused_pre_lanes=(nb + nm) * n, fused_flow_lanes=n * LAUNCHES,
+        fused_post_lanes=n * (nb * post_b + nm * post_m),
         **{mm: n + 4 * nb * prefills})
+    # K5a and the row-block K5b launches on the tensor cores
+    dt = torch.bfloat16 if dtype is None else dtype
+    mma = 0
+    for layers, rows, post in ((nb, lanes, post_b), (nm, lanes * tpf, post_m)):
+        if rows_route(dt, rows) == "mma":
+            mma += layers * (1 + (post if post > 1 else 0))
+    if mma:
+        want["rows_mma"] = mma * n
     return want
 
 
@@ -2897,6 +3184,7 @@ def main(argv=None) -> int:
                 check_quant_lanes(engines[path, dtype].params,
                                   engines[path, dtype].cfg, device, dtype,
                                   errs, path)
+            check_quant_narrow(device, dtype)
             # the int4 engine's weights with the int8 KV cache
             engines[KV8_PATH, dtype] = make_engine(
                 engines["int4", dtype].cfg, device, dtype, quantize_kv=True,
@@ -2972,6 +3260,20 @@ def main(argv=None) -> int:
             log(f"  {label}, device us by split count (* the wrappers'): "
                 + ", ".join(f"{sp}{'*' if sp == chosen else ''} {us:.2f}"
                             for sp, us in row.items()))
+        from pocket_tts_tpu_torch.ops.fused_layer import MMA_ROWS
+        for (path, name, rows, k, n, simt, plan, plans) in time_rows_plans(
+                bf, device):
+            best = min(plans, key=plans.get)
+            log(f"  K5 rows plans {path} {name} rows={rows} K={k} N={n}: "
+                f"rows_kernel {simt:.2f} us; rows_mma (bm, splits) "
+                + ", ".join(f"{bm}x{sp}{'*' if (bm, sp) == plan[:2] else ''}"
+                            f" {us:.2f}" for (bm, sp), us in plans.items())
+                + f"; fastest {best} {plans[best]:.2f}, the plan's "
+                f"{plan[:2]} {plans.get(plan[:2], float('nan')):.2f} "
+                f"(R_min = MMA_ROWS = {MMA_ROWS})")
+        for label, row in time_flow_clusters(bf, device).items():
+            log(f"  K6 {label} by cluster size: " + ", ".join(
+                f"{cs} blocks {us:.2f} us" for cs, us in row.items()))
         times = time_kernels(engine, device, torch.bfloat16)
         for path in QUANT_PATHS:
             time_quant_kernels(bf[path].params, bf[path].cfg, device,

@@ -89,11 +89,26 @@
 // @ W_1 + b_1)); out = round(x1 + ls2 * (h @ W_2 + b_2)). Splitting the W2
 // product by output columns once h is in HBM needs no cross-block sum, and
 // each launch spreads (column tiles) x (row blocks) over the card.
+//
+// Many rows on the tensor cores (rows_mma_kernel, ptt_rows_mma). On SIMT
+// those launches ran at ~1% of their bound: rows_kernel walks its rows 8 at
+// a time through tile_dot, one FMA per weight element and row, its row
+// blocks capped at FL_ROW_FLOATS activations (4 rows at K = 4096), so the
+// weight tile is re-read per pass and per row block (K5b over 512 rows:
+// 221 us for 2.4 GFLOP; PERF.md section 6). A bf16 call of at least
+// ops/fused_layer.py MMA_ROWS rows runs rows_mma_kernel instead: the same
+// prologues and epilogues, with m16n8k16 bf16 products, f32 accumulators,
+// weights widened to bf16 in registers (exact for int8 and for nibbles;
+// q4_0's group scales applied per k16 partial in float32: qmma.cuh), a
+// block per (64 columns) x (bm rows) x (reduction slice), the slices of a
+// tile summed through distributed shared memory in rank order.
+// ops/fused_layer.py `rows_plan` picks bm and the split.
 #include <cooperative_groups.h>
 
 #include <algorithm>
 
 #include "layer_post.cuh"
+#include "qmma.cuh"
 
 // activations a K5a block or a K5b launch holds in shared memory
 constexpr int FL_ROW_FLOATS = 16384;
@@ -176,6 +191,318 @@ __global__ void __launch_bounds__(QD_THREADS) rows_kernel(RowsArgs a) {
                   }
                 });
   }
+}
+
+struct RowsMmaArgs {
+  RowsArgs a;       // rows_kernel's function: operands, T, K, N,
+                    // prologue, epilogue (rows unused)
+  int bm;           // rows a block: 16, 32 or 64
+  int splits;       // reduction slices, the blocks of a cluster (grid.x)
+  int kt_per;       // k-tiles a slice
+};
+
+// shared memory of a block: A (bm rows of the slice's logical columns, bf16),
+// the ring of raw k-tiles, the float32 output tile
+// and, for the LayerNorm prologues, RM_LN_BUFS chunks of RM_LN_ROWS whole
+// rows of A as they are (K values of ln_size bytes; 0: no LayerNorm)
+inline size_t rows_mma_smem(int bm, int kt_per, bool packed_w, int K,
+                            int ln_size) {
+  const size_t lda = (size_t)kt_per * RM_BKS * (packed_w ? 2 : 1) + 8;
+  return 2 * (size_t)bm * lda + (size_t)RM_STAGES * RM_BKS * RM_RING_LD +
+         4 * (size_t)bm * RM_CS_LD +
+         (size_t)RM_LN_BUFS * RM_LN_ROWS * K * ln_size;
+}
+
+// Block (z, y, x): output rows [x * bm, ..) and columns [y * 64, ..) over
+// reduction slice z of `splits`, the z-th block of its cluster. The slice
+// is k-tiles [z * kt_per, ..) of 32 stored weight rows: int8 rows k.., or
+// packed int4 rows p.., which hold logical rows p.. (low nibbles) and
+// K/2 + p.. (high nibbles). The block stages the bf16 A columns its slice
+// meets once (int8: [k0, k1); int4: [p0, p1) then [K/2 + p0, K/2 + p1)),
+// applying the LayerNorm prologue from whole rows; streams its raw k-tiles
+// through a RM_STAGES-deep cp.async ring (16 bytes a thread) and runs the
+// m16n8k16 products (warp w: columns 8w.. of every m16 tile) with its B
+// fragments read from the raw k-tile and widened to bf16 in registers.
+// Split slices leave their float32 tiles in shared memory; after
+// cluster.sync() block z sums rows z, z + splits, ... over the cluster in
+// rank order (distributed shared memory) and applies the scales, bias and
+// epilogue.
+template <int BM>
+__global__ void __launch_bounds__(RM_THREADS)
+rows_mma_kernel(const RowsMmaArgs g) {
+  constexpr int NI = BM / 16;
+  const RowsArgs& a = g.a;
+  extern __shared__ __align__(16) unsigned char rm_shared[];
+  coop::cluster_group cluster = coop::this_cluster();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int z = blockIdx.x, nsplit = gridDim.x;
+  const int n0 = blockIdx.y * RM_BN, m0 = blockIdx.z * BM;
+  const int nrows = min(BM, a.T - m0);
+  const bool p4 = packed(a.w);
+  const int S = p4 ? a.K / 2 : a.K;                // stored rows
+  const int ktiles = S / RM_BKS;
+  const int kt0 = z * g.kt_per, kt1 = min(ktiles, kt0 + g.kt_per);
+  const int p0 = kt0 * RM_BKS, w = (kt1 - kt0) * RM_BKS;
+  const int aw = p4 ? 2 * w : w;                   // staged A columns
+  const int lda = g.kt_per * RM_BKS * (p4 ? 2 : 1) + 8;
+  bf16* As = reinterpret_cast<bf16*>(rm_shared);
+  int8_t* ring = reinterpret_cast<int8_t*>(As + (size_t)BM * lda);
+  float* Cs = reinterpret_cast<float*>(ring + RM_STAGES * RM_BKS * RM_RING_LD);
+  unsigned char* lnbuf = reinterpret_cast<unsigned char*>(Cs + BM * RM_CS_LD);
+  const int8_t* wq = (const int8_t*)a.w.w;
+  constexpr int RM_KS = RM_BKS / 16;   // k16 steps a stored k-tile
+
+  // the logical column of staged A column c
+  auto a_col = [&](int c) {
+    return c < w ? p0 + c : S + p0 + (c - w);
+  };
+  // raw k-tile kt (32 stored rows x 64 columns of bytes) into ring slot buf
+  auto load_tile = [&](int kt, int buf) {
+    if (tid < RM_BKS * RM_BN / 16) {
+      const int r = tid / (RM_BN / 16), c = tid % (RM_BN / 16) * 16;
+      const bool ok = n0 + c < a.N;
+      cp_async16(ring + buf * RM_BKS * RM_RING_LD + r * RM_RING_LD + c,
+                 wq + (ok ? (size_t)(kt * RM_BKS + r) * a.N + n0 + c : 0), ok);
+    }
+  };
+
+  // ---- A: rows as they are by cp.async (with the first ring group), or
+  // the LayerNorm of whole rows, rounded to bf16; rows past T are zeros ----
+  if (a.prologue == ROWS_LOAD) {
+    const bf16* x = (const bf16*)a.a;
+    for (int i = tid; i < BM * (aw / 8); i += RM_THREADS) {
+      const int r = i / (aw / 8), c = (i - r * (aw / 8)) * 8;
+      const bool ok = r < nrows;
+      cp_async16(As + (size_t)r * lda + c,
+                 x + (ok ? (size_t)(m0 + r) * a.K + a_col(c) : 0), ok);
+    }
+  }
+  for (int i = 0; i < RM_STAGES - 1; ++i) {
+    if (kt0 + i < kt1) load_tile(kt0 + i, i);
+    cp_async_commit();  // one group a stage, empty past the end
+  }
+  if (a.prologue != ROWS_LOAD) {
+    const bf16* ns = (const bf16*)a.ns;
+    const bf16* nb = (const bf16*)a.nb;
+    for (int i = tid; i < (BM - nrows) * aw; i += RM_THREADS)
+      As[(size_t)(nrows + i / aw) * lda + i % aw] = from_f<bf16>(0.f);
+    // whole rows RM_LN_ROWS at a time, as they are, by cp.async into
+    // RM_LN_BUFS buffers (the next chunks land while a warp a row
+    // normalizes this one); only the slice's columns are stored
+    const int esz = a.prologue == ROWS_LN_F32 ? 4 : 2;
+    const size_t rowb = (size_t)a.K * esz;
+    const int per = (int)(rowb / 16);
+    const unsigned char* src = (const unsigned char*)a.a + (size_t)m0 * rowb;
+    const int nch = (nrows + RM_LN_ROWS - 1) / RM_LN_ROWS;
+    auto issue = [&](int c) {
+      unsigned char* dst =
+          lnbuf + (size_t)(c % RM_LN_BUFS) * RM_LN_ROWS * rowb;
+      const int rows = min(RM_LN_ROWS, nrows - c * RM_LN_ROWS);
+      for (int e = tid; e < rows * per; e += RM_THREADS) {
+        const int r = e / per, o = (e - r * per) * 16;
+        cp_async16(dst + r * rowb + o,
+                   src + (size_t)(c * RM_LN_ROWS + r) * rowb + o, true);
+      }
+      cp_async_commit();
+    };
+    for (int c = 0; c < min(nch, RM_LN_BUFS); ++c) issue(c);
+    // A lane takes the 4-column groups lane, lane + 32, ... of a row
+    // (passes of 128 columns; K a multiple of 128, at most 1024): a group
+    // lies wholly in the slice or out of it (the slice's ranges start at
+    // multiples of 32). The norm's scale and bias of this lane's groups in
+    // the slice, in registers for every row.
+    constexpr int LNP = 8;
+    const int np = a.K / 128;
+    auto slice_col = [&](int i0) {   // staged column of group i0, or -1
+      if (i0 >= p0 && i0 < p0 + w) return i0 - p0;
+      if (p4 && i0 >= S + p0 && i0 < S + p0 + w) return w + i0 - S - p0;
+      return -1;
+    };
+    float4 gam[LNP], bet[LNP];
+#pragma unroll
+    for (int q = 0; q < LNP; ++q) {
+      const int i0 = q * 128 + lane * 4;
+      const bool in = q < np && slice_col(i0) >= 0;
+      gam[q] = in && ns ? load4(ns + i0) : make_float4(1.f, 1.f, 1.f, 1.f);
+      bet[q] = in && nb ? load4(nb + i0) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int c = 0; c < nch; ++c) {
+      // chunk c has landed: at most the chunks issued after it in flight
+      switch (min(nch, c + RM_LN_BUFS) - 1 - c) {
+        case 0: cp_async_wait<0>(); break;
+        case 1: cp_async_wait<1>(); break;
+        default: cp_async_wait<RM_LN_BUFS - 1>();
+      }
+      __syncthreads();
+      const int r = c * RM_LN_ROWS + warp;
+      if (warp < RM_LN_ROWS && r < nrows) {
+        const unsigned char* row =
+            lnbuf + (size_t)(c % RM_LN_BUFS) * RM_LN_ROWS * rowb +
+            warp * rowb;
+        float4 v[LNP];
+#pragma unroll
+        for (int q = 0; q < LNP; ++q) {
+          const int i0 = q * 128 + lane * 4;
+          if (q < np)
+            v[q] = esz == 4 ? load4(reinterpret_cast<const float*>(row) + i0)
+                            : load4(reinterpret_cast<const bf16*>(row) + i0);
+          else
+            v[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        float sum = 0.f;
+#pragma unroll
+        for (int q = 0; q < LNP; ++q)
+          sum += (v[q].x + v[q].y) + (v[q].z + v[q].w);
+        const float mean = warp_sum(sum) / (float)a.K;
+        float var = 0.f;
+#pragma unroll
+        for (int q = 0; q < LNP; ++q) {
+          if (q >= np) break;
+          const float d0 = v[q].x - mean, d1 = v[q].y - mean;
+          const float d2 = v[q].z - mean, d3 = v[q].w - mean;
+          var += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+        }
+        const float rstd = 1.0f / sqrtf(warp_sum(var) / (float)a.K + a.eps);
+#pragma unroll
+        for (int q = 0; q < LNP; ++q) {
+          const int cc = q < np ? slice_col(q * 128 + lane * 4) : -1;
+          if (cc < 0) continue;
+          const float4 g = gam[q], b = bet[q];
+          *reinterpret_cast<uint2*>(As + (size_t)r * lda + cc) = make_uint2(
+              pack_bf16x2((v[q].x - mean) * rstd * g.x + b.x,
+                          (v[q].y - mean) * rstd * g.y + b.y),
+              pack_bf16x2((v[q].z - mean) * rstd * g.z + b.z,
+                          (v[q].w - mean) * rstd * g.w + b.w));
+        }
+      }
+      __syncthreads();  // buffer c % RM_LN_BUFS is consumed
+      if (c + RM_LN_BUFS < nch) issue(c + RM_LN_BUFS);
+    }
+  }
+
+  // ---- main loop over the slice's k-tiles: B fragments straight from the
+  // raw k-tile (warp w: columns 8w..; lane: rows 2 (lane % 4) + 0, 1, 8, 9
+  // of each k16 step at column lane / 4), widened to bf16 in registers;
+  // an int4 byte feeds the low step (logical row p) and the high step
+  // (logical row K/2 + p) ----
+  float acc[NI][4];
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const bool grouped = a.w.kind == LIN_INT4_G;
+  const bf16* gs = (const bf16*)a.w.s;
+  const int fq = lane & 3, fn = warp * 8 + (lane >> 2);
+  const int cn = n0 + warp * 8 + 2 * fq;   // this thread's output columns
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int j = kt - kt0, cur = j % RM_STAGES;
+    cp_async_wait<RM_STAGES - 2>();  // k-tile kt (and A) has landed
+    __syncthreads();  // ... for every thread; slot kt - 1 consumed
+    if (kt + RM_STAGES - 1 < kt1)
+      load_tile(kt + RM_STAGES - 1, (cur + RM_STAGES - 1) % RM_STAGES);
+    cp_async_commit();
+    const uint8_t* raw = reinterpret_cast<const uint8_t*>(
+                             ring + cur * RM_BKS * RM_RING_LD) + fn;
+    const int pk = kt * RM_BKS;       // first stored row of the tile
+#pragma unroll
+    for (int ks = 0; ks < RM_KS; ++ks) {
+      const uint8_t* rb = raw + (ks * 16 + 2 * fq) * RM_RING_LD;
+      const int x[4] = {(int8_t)rb[0], (int8_t)rb[RM_RING_LD],
+                        (int8_t)rb[8 * RM_RING_LD],
+                        (int8_t)rb[9 * RM_RING_LD]};
+      for (int half = 0; half < (p4 ? 2 : 1); ++half) {
+        float f[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          f[e] = (float)(!p4 ? x[e] : half ? x[e] >> 4 : (x[e] & 15) - 8);
+        const uint32_t b0 = pack_bf16x2(f[0], f[1]);
+        const uint32_t b1 = pack_bf16x2(f[2], f[3]);
+        const int ak = (half ? w : 0) + j * RM_BKS + ks * 16;
+        float s0 = 1.f, s1 = 1.f;
+        if (grouped) {
+          const int g = ((half ? S : 0) + pk + ks * 16) / a.w.group;
+          s0 = cn < a.N ? __bfloat162float(gs[(size_t)g * a.N + cn]) : 0.f;
+          s1 = cn + 1 < a.N ? __bfloat162float(gs[(size_t)g * a.N + cn + 1])
+                            : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          uint32_t af[4];
+          ldmatrix_x4(af, As + (size_t)(i * 16 + (lane & 15)) * lda + ak +
+                              (lane >> 4) * 8);
+          if (grouped) {
+            float t[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16_16816(t, af, b0, b1);
+            acc[i][0] = fmaf(s0, t[0], acc[i][0]);
+            acc[i][1] = fmaf(s1, t[1], acc[i][1]);
+            acc[i][2] = fmaf(s0, t[2], acc[i][2]);
+            acc[i][3] = fmaf(s1, t[3], acc[i][3]);
+          } else {
+            mma_bf16_16816(acc[i], af, b0, b1);
+          }
+        }
+      }
+    }
+  }
+
+  // ---- float32 tile to shared memory; the cluster's sum in rank order ----
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int r = i * 16 + lane / 4, c = warp * 8 + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(Cs + r * RM_CS_LD + c) =
+        make_float2(acc[i][0], acc[i][1]);
+    *reinterpret_cast<float2*>(Cs + (r + 8) * RM_CS_LD + c) =
+        make_float2(acc[i][2], acc[i][3]);
+  }
+  if (nsplit > 1) cluster.sync(); else __syncthreads();
+  const float* pc = (a.w.kind == LIN_INT8 || a.w.kind == LIN_INT4)
+                        ? (const float*)a.w.s : nullptr;
+  const bf16* bias = (const bf16*)a.w.b;
+  const bf16* ls = (const bf16*)a.ls;
+  const int nr = (BM - z + nsplit - 1) / nsplit;
+  // four outputs a thread at once: every load before the first store
+  for (int e0 = tid; e0 < nr * RM_BN; e0 += 4 * RM_THREADS) {
+    float v[4], sc[4], bv[4], lv[4], rv[4];
+    bool ok[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * RM_THREADS;
+      const int row = z + nsplit * (e / RM_BN), c = e % RM_BN;
+      const int m = m0 + row, n = n0 + c;
+      ok[u] = e < nr * RM_BN && m < a.T && n < a.N;
+      v[u] = bv[u] = rv[u] = 0.f;
+      sc[u] = lv[u] = 1.f;
+      if (!ok[u]) continue;
+      for (int q = 0; q < nsplit; ++q)
+        v[u] += (nsplit > 1 ? cluster.map_shared_rank(Cs, q)
+                            : Cs)[row * RM_CS_LD + c];
+      if (pc) sc[u] = pc[n];
+      bv[u] = opt(bias, n, 0.f);
+      lv[u] = opt(ls, n, 1.f);
+      const size_t i = (size_t)m * a.N + n;
+      if (a.epilogue == EPI_RESID_F32)
+        rv[u] = to_f(((const bf16*)a.res)[i]);
+      else if (a.epilogue == EPI_RESID)
+        rv[u] = ((const float*)a.res)[i];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (!ok[u]) continue;
+      const int e = e0 + u * RM_THREADS;
+      const size_t i = (size_t)(m0 + z + nsplit * (e / RM_BN)) * a.N + n0 +
+                       e % RM_BN;
+      const float y = v[u] * sc[u] + bv[u];
+      switch (a.epilogue) {
+        case EPI_ROUND: ((bf16*)a.out)[i] = from_f<bf16>(y); break;
+        case EPI_RESID_F32: ((float*)a.out)[i] = rv[u] + lv[u] * y; break;
+        case EPI_GELU:
+          ((bf16*)a.out)[i] = from_f<bf16>(gelu_f(y, a.approx));
+          break;
+        default: ((bf16*)a.out)[i] = from_f<bf16>(rv[u] + lv[u] * y);
+      }
+    }
+  }
+  if (nsplit > 1) cluster.sync();  // no block leaves while read
 }
 
 struct PostArgs {
@@ -314,17 +641,8 @@ static int launch_rows(ptt::RowsArgs a, int dtype, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// K5a: qkv (T, N) = round(round(LN(x)) @ W_in + b_in), x (T, dm).
-extern "C" int ptt_fused_pre(const void* x, const void* ns, const void* nb,
-                             const void* w, const void* s, const void* b,
-                             void* out, int T, int dm, int N, int kind,
-                             int group, float eps, int dtype, void* stream) {
-  return launch_rows({x, ns, nb, {w, s, b, kind, group}, nullptr, nullptr,
-                      out, T, dm, N, 0, ptt::ROWS_LN, ptt::EPI_ROUND, 0, eps},
-                     dtype, (cudaStream_t)stream);
-}
-
-// One step of K5b over many rows (rows_kernel): a (T, K) (float32 when
+// K5a (ROWS_LN, EPI_ROUND) or one step of K5b over many rows
+// (rows_kernel), any dtype: a (T, K) (float32 when
 // prologue is ROWS_LN_F32), the linear (w, s, b; kind, group) of logical
 // shape (K, N), norm (ns, nb) for the LN prologues, residual `res` and
 // layer scale `ls` for the residual epilogues, out (T, N).
@@ -342,6 +660,61 @@ extern "C" int ptt_fused_rows(const void* a, const void* ns, const void* nb,
   return launch_rows({a, ns, nb, {w, s, b, kind, group}, res, ls, out, T, K,
                       N, 0, prologue, epilogue, approx, eps},
                      dtype, (cudaStream_t)stream);
+}
+
+// K5a or one step of K5b over many rows on the tensor cores
+// (rows_mma_kernel): ptt_fused_rows' operands for a bf16 working type, and
+// the plan (ops/fused_layer.py `rows_plan`): bm rows a block (16, 32 or
+// 64), `splits` reduction slices of kt_per k-tiles (32 stored weight rows)
+// over a cluster. Takes int8 and int4 weights (per-channel, or grouped
+// scales in groups of a multiple of 32 rows) whose stored rows are a whole
+// number of k-tiles, K a multiple of 32 (under a LayerNorm a multiple of
+// 128, at most 1024) and N of 16.
+extern "C" int ptt_rows_mma(const void* a, const void* ns, const void* nb,
+                            const void* w, const void* s, const void* b,
+                            const void* res, const void* ls, void* out, int T,
+                            int K, int N, int kind, int group, int prologue,
+                            int epilogue, int approx, float eps, int bm,
+                            int splits, int kt_per, void* stream) {
+  ptt::RowsMmaArgs g{{a, ns, nb, {w, s, b, kind, group}, res, ls, out, T, K,
+                      N, 0, prologue, epilogue, approx, eps},
+                     bm, splits, kt_per};
+  const bool p4 = ptt::packed(g.a.w);
+  const int stored = p4 ? K / 2 : K;
+  const int ktiles = stored / ptt::RM_BKS;
+  if (T < 1 || K < 32 || K % 32 || N < 16 || N % 16 || !lin_ok(g.a.w, K) ||
+      stored % ptt::RM_BKS || (kind == ptt::LIN_INT4_G && group % 32) ||
+      prologue < ptt::ROWS_LOAD || prologue > ptt::ROWS_LN_F32 ||
+      epilogue < ptt::EPI_ROUND || epilogue > ptt::EPI_RESID ||
+      ((epilogue == ptt::EPI_RESID_F32 || epilogue == ptt::EPI_RESID) &&
+       res == nullptr) ||
+      (prologue != ptt::ROWS_LOAD && (K > 1024 || K % 128)) ||
+      !(bm == 16 || bm == 32 || bm == 64) || splits < 1 ||
+      splits > ptt::RM_MAX_SPLITS || kt_per < 1 ||
+      (long)splits * kt_per < ktiles || (long)(splits - 1) * kt_per >= ktiles)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ptt::rows_mma_smem(
+      bm, kt_per, p4, K,
+      prologue == ptt::ROWS_LOAD ? 0 : prologue == ptt::ROWS_LN_F32 ? 4 : 2);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const dim3 grid(splits, (N + ptt::RM_BN - 1) / ptt::RM_BN,
+                  (T + bm - 1) / bm);
+  cudaStream_t st = (cudaStream_t)stream;
+  // the kernel's dynamic shared memory is set on every launch: a smaller
+  // figure left by an earlier launch would refuse this one
+  auto run = [&](auto kern) {
+    int rc = ptt::set_smem(kern, smem);
+    if (rc) return rc;
+    if (splits == 1)  // one block a reduction: an ordinary launch
+      kern<<<grid, ptt::RM_THREADS, smem, st>>>(g);
+    else
+      rc = (int)ptt::launch_clustered(kern, grid, dim3(ptt::RM_THREADS),
+                                      splits, smem, st, g);
+    return rc ? rc : (int)cudaGetLastError();
+  };
+  return bm == 16 ? run(ptt::rows_mma_kernel<16>)
+       : bm == 32 ? run(ptt::rows_mma_kernel<32>)
+                  : run(ptt::rows_mma_kernel<64>);
 }
 
 // Largest cooperative grid K5b (bilayer = 0) or K5c (bilayer = 1) can take

@@ -65,13 +65,14 @@ SIGNATURES = {
     "ptt_int8_matmul": [P, P, P, P, I, I, I, I, P],
     # x, q4, scale, y, M, K, N, group (0: per-channel), dtype, stream
     "ptt_int4_matmul": [P, P, P, P, I, I, I, I, I, P],
-    # x, norm scale, norm bias, w, scale, bias, out, T, dm, N, kind, group,
-    # eps, dtype, stream
-    "ptt_fused_pre": [P, P, P, P, P, P, P, I, I, I, I, I, F, I, P],
     # a, norm scale, norm bias, w, scale, bias, res, ls, out, T, K, N, kind,
     # group, prologue, epilogue, approx, eps, dtype, stream
     "ptt_fused_rows": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
                        I, P],
+    # ptt_fused_rows' operands without the dtype (bf16 only), then the
+    # plan: rows a block, reduction slices, k-tiles a slice; stream
+    "ptt_rows_mma": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
+                     I, I, I, P],
     # T, dm, bilayer (0: K5b, 1: K5c), dtype -> blocks
     "ptt_fused_post_max_blocks": [I, I, I, I],
     # pointer array (18), (kind, group) array (6), T, dm, H, eps, approx,
@@ -87,11 +88,12 @@ SIGNATURES = {
     # pointer array (30), weight kinds (4), dm, H (hidden), D, S, read_end,
     # write_slot, eps, approx, grid, dtype, stream
     "ptt_megalayer": [P, P, I, I, I, I, I, I, F, I, I, I, P],
-    # d_model, dim, hid, latent, rows, dtype -> blocks
-    "ptt_fused_flow_max_blocks": [I, I, I, I, I, I],
-    # pointer array (30), dims and (kind, group) array (20), grid, dtype,
+    # cluster size, chain and modulation dynamic shared memory, tensor
+    # cores (0/1), solo (0/1), dtype -> clusters the card holds at once
+    "ptt_flow_max_clusters": [I, I, I, I, I, I],
+    # pointer array (30), dims, (kind, group) and plan array (25), dtype,
     # stream
-    "ptt_fused_flow": [P, P, I, I, P],
+    "ptt_fused_flow": [P, P, I, P],
 }
 
 _state = {"lib": None, "build_seconds": None, "path": None, "log": ""}

@@ -42,6 +42,19 @@ LN + linear1 + GELU, linear2 + residual. Launches per call
 (`post_launches`): 1 at the solo shapes, 3 at 32 backbone rows (32 lanes)
 and at 64 / 256 / 512 mimi rows (4 / 16 / 32 lanes x 16).
 
+The route of a row-block product (`rows_route`): a bf16 call of at least
+MMA_ROWS rows runs `rows_mma_kernel` (csrc/fused_layer.cu, on the tensor
+cores through csrc/qmma.cuh: `mma.sync` bf16 with float32 accumulators,
+the reduction split over a thread-block cluster by `rows_plan`); a float32
+call, and a bf16 call of fewer rows, runs `rows_kernel` (SIMT, tile_dot).
+That is K5a over every call of MMA_ROWS rows or more (the mimi decoder's
+T = 16 frame solo, every lane call) and each of K5b's three launches over
+many rows. The route depends on dtype and row count only. The tensor-core
+kernel takes int8 and int4 weights (per-channel or in groups of a
+multiple of 32 rows) whose stored rows (K, or K / 2 for int4) are a
+multiple of 32, K (under a LayerNorm) a multiple of 128 up to 1024, and
+N a multiple of 16; a call on that route with other widths raises.
+
 K5c takes LN1 of layer l + 1 from the unrounded float32 x_next, as the
 TPU kernel does (`fused_layer.py:628-635`), so it equals K5b followed by
 K5a in float32 and differs from them by bf16 rounding. It takes T = 1 and
@@ -54,7 +67,8 @@ version for tensors on the CPU and the kernel for tensors on the card;
 there is no other switch. Launches with a lane axis (x of rank 3) count in
 `.launches_lanes`; without one, with int8 weights in `.launches`, with int4
 weights (either scale layout) in `.launches_int4`; K5c's launches count in
-`bilayer_post_pre.launches_bilayer`.
+`bilayer_post_pre.launches_bilayer`. Launches of `rows_mma_kernel` count
+once more in `_rows_call.launches_mma`.
 """
 from __future__ import annotations
 
@@ -65,7 +79,8 @@ import torch
 
 from . import cuda_lib
 from .basic import gelu, layer_norm
-from .quant_matmul import bits, deq_dot, kernel_operands
+from .quant_matmul import (INT4, INT4_GROUPED, bits, deq_dot,
+                           kernel_operands)
 
 _LINEARS = ("in_proj", "out_proj", "linear1", "linear2")
 
@@ -156,6 +171,110 @@ ROWS_LOAD, ROWS_LN, ROWS_LN_F32 = range(3)
 EPI_ROUND, EPI_RESID_F32, EPI_GELU, EPI_RESID = range(4)
 
 
+# rows_mma_kernel (csrc/fused_layer.cu): bf16 calls of at least MMA_ROWS
+# rows take it (R_min: chip_smoke.py `time_rows_plans` times both kernels
+# at 1, 16 and 32 rows; PERF.md section 6). Its tile: 64 output columns
+# and k-tiles of 32 stored weight rows; its plan (`rows_plan`) fills up to
+# MMA_WAVE blocks, splitting the reduction over at most MMA_MAX_SPLITS
+# blocks of a cluster (the sweep found clusters of 7 and 8 slower than 6:
+# fewer of them fit on the card at once), each at least MMA_MIN_KTILES
+# k-tiles, and holds a block's A columns within MMA_A_BYTES of shared
+# memory.
+MMA_ROWS = 16
+MMA_BN, MMA_BKS, MMA_MAX_SPLITS = 64, 32, 6
+MMA_BMS = (16, 32, 64)
+MMA_WAVE = 132
+MMA_MIN_KTILES = 1
+MMA_A_BYTES = 144 * 1024
+MMA_STAGES = 8
+MMA_LN_ROWS, MMA_LN_BUFS = 8, 2
+SMEM_MAX = 232448     # shared memory a block can use on the H100
+
+
+def rows_route(dtype, rows: int) -> str:
+    """"mma" (rows_mma_kernel, the tensor cores) for bf16 calls of at
+    least MMA_ROWS rows, else "simt" (rows_kernel)."""
+    return "mma" if dtype == torch.bfloat16 and rows >= MMA_ROWS else "simt"
+
+
+def rows_mma_smem(bm: int, kt_per: int, packed: bool, k: int = 0,
+                  ln_size: int = 0) -> int:
+    """Shared memory of a rows_mma_kernel block (csrc/fused_layer.cu
+    `rows_mma_smem`): the A columns of its slice in bf16, the k-tile ring
+    (rows padded to 80 bytes), the float32 output tile and, for the LayerNorm
+    prologues, MMA_LN_BUFS chunks of MMA_LN_ROWS whole rows of k values of
+    ln_size bytes."""
+    lda = kt_per * MMA_BKS * (2 if packed else 1) + 8
+    return (2 * bm * lda + MMA_STAGES * MMA_BKS * (MMA_BN + 16)
+            + 4 * bm * (MMA_BN + 4)
+            + MMA_LN_BUFS * MMA_LN_ROWS * k * ln_size)
+
+
+def rows_plan(rows: int, k: int, n: int, packed: bool, ln_size: int = 0):
+    """(bm, splits, k-tiles a slice) of one rows_mma_kernel call over
+    `rows` rows of a (k, n) linear: bm the fewest of 16, 32, 64 rows that
+    hold the call (64 above 32 rows); the reduction's k-tiles (32 stored
+    rows: k for int8, k / 2 for packed int4) split over as many blocks as
+    keep the grid within MMA_WAVE (one block an SM: a second wave, or a
+    second block on some SMs, doubles the call), each slice at least
+    MMA_MIN_KTILES k-tiles and its A columns (32 a k-tile for int8, 64
+    for int4) within MMA_A_BYTES and what the block's shared memory
+    leaves (ln_size: the bytes of a value of a LayerNorm prologue's rows,
+    0 without one); no slice empty."""
+    stored = k // 2 if packed else k
+    kt = stored // MMA_BKS
+    bm = next(b for b in MMA_BMS if rows <= b or b == MMA_BMS[-1])
+    tiles = -(-rows // bm) * -(-n // MMA_BN)
+    room = min(MMA_A_BYTES,
+               SMEM_MAX - rows_mma_smem(bm, 0, packed, k, ln_size))
+    cap = room // (bm * MMA_BKS * (2 if packed else 1) * 2)
+    splits = max(1, min(MMA_MAX_SPLITS, kt // MMA_MIN_KTILES,
+                        MMA_WAVE // tiles))
+    splits = max(splits, -(-kt // max(cap, 1)))
+    per = -(-kt // splits)
+    splits = -(-kt // per)
+    if splits > MMA_MAX_SPLITS or cap < 1:
+        raise ValueError(f"rows_plan: K={k} too deep for one cluster")
+    return bm, splits, per
+
+
+def _mma_check(name, k, n, kind, group, ln):
+    """The widths rows_mma_kernel takes (raises ValueError otherwise)."""
+    stored = k // 2 if kind in (INT4, INT4_GROUPED) else k
+    if (k % 32 or stored % MMA_BKS or n % 16
+            or (ln and (k > 1024 or k % 128))
+            or (kind == INT4_GROUPED and group % 32)):
+        raise ValueError(f"{name}: the tensor-core route takes K a multiple "
+                         f"of 32 with stored rows (K, or K / 2 for int4) a "
+                         f"multiple of {MMA_BKS}, K a multiple of 128 and at "
+                         f"most 1024 under a LayerNorm, N a multiple of 16 "
+                         f"and q4_0 groups of 32k rows, not K={k} N={n} "
+                         f"group={group}")
+
+
+def _rows_call(lib, dtype, a, norm, lin, layout, res, ls, out, rows, k, n,
+               pro, epi, approx, eps, stream):
+    """One row-block product, out (rows, n) = epilogue(prologue(a) @ lin),
+    on its route (`rows_route`): rows_mma_kernel with `rows_plan`, or
+    rows_kernel."""
+    (w, s, b), (kind, group) = lin, layout
+    args = (a.data_ptr(), _ptr(norm[0]), _ptr(norm[1]), w.data_ptr(),
+            _ptr(s), _ptr(b), _ptr(res), _ptr(ls), out.data_ptr(), rows, k,
+            n, kind, group, pro, epi, int(approx), float(eps))
+    if rows_route(dtype, rows) == "mma":
+        _mma_check("rows_mma", k, n, kind, group, pro != ROWS_LOAD)
+        plan = rows_plan(rows, k, n, kind in (INT4, INT4_GROUPED),
+                         {ROWS_LN: 2, ROWS_LN_F32: 4}.get(pro, 0))
+        cuda_lib.check(lib.ptt_rows_mma(*args, *plan, stream),
+                       f"ptt_rows_mma (rows {rows}, K {k}, N {n}, kind {kind},"
+                       f" group {group}, prologue {pro}, epilogue {epi}, "
+                       f"plan {plan})")
+        _rows_call.launches_mma += 1
+    else:
+        cuda_lib.check(lib.ptt_fused_rows(*args, int(dtype == torch.bfloat16),
+                                          stream), "ptt_fused_rows")
+
+
 def post_launches(rows: int, dm: int) -> int:
     """K5b launches per call of `rows` rows of width dm: one cooperative
     launch up to a row block, three row-block launches above."""
@@ -220,14 +339,12 @@ def pre_attention(p, x, eps: float = 1e-5):
     _check("pre_attention", p, x2,
            [(norm.get("scale"), dm), (norm.get("bias"), dm)])
     n = p["in_proj"]["scale"].shape[-1]
-    (w, s, b), (kind, group) = kernel_operands(p["in_proj"], dm, n, x)
+    lin, layout = kernel_operands(p["in_proj"], dm, n, x)
     out = torch.empty(t, n, dtype=x.dtype, device=x.device)
-    rc = cuda_lib.library().ptt_fused_pre(
-        x2.data_ptr(), _ptr(norm.get("scale")), _ptr(norm.get("bias")),
-        w.data_ptr(), _ptr(s), _ptr(b), out.data_ptr(), t, dm, n, kind,
-        group, float(eps), cuda_lib.dtype_code(x),
-        cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(rc, "ptt_fused_pre")
+    _rows_call(cuda_lib.library(), x.dtype, x2,
+               (norm.get("scale"), norm.get("bias")), lin, layout, None, None,
+               out, t, dm, n, ROWS_LN, EPI_ROUND, False, eps,
+               cuda_lib.stream_ptr(x.device))
     _count(pre_attention, p, x)
     return out.reshape(*x.shape[:-1], n)
 
@@ -269,14 +386,10 @@ def post_attention(p, x, attn, eps: float = 1e-5, approx: bool = False):
              (x1, (ns, nb), 1, None, None, h, dm, hid, ROWS_LN_F32, EPI_GELU),
              (h, (None, None), 2, x1, ls2, out, hid, dm, ROWS_LOAD,
               EPI_RESID))
-    for a, (s_n, b_n), i, res, ls, dst, k, n, pro, epi in steps:
-        w, s, b = lins[3 * i:3 * i + 3]
-        rc = lib.ptt_fused_rows(
-            a.data_ptr(), _ptr(s_n), _ptr(b_n), w.data_ptr(), _ptr(s),
-            _ptr(b), _ptr(res), _ptr(ls), dst.data_ptr(), rows, k, n,
-            ints[2 * i], ints[2 * i + 1], pro, epi, int(approx), float(eps),
-            code, stream)
-        cuda_lib.check(rc, "ptt_fused_rows")
+    for a, norm, i, res, ls, dst, k, n, pro, epi in steps:
+        _rows_call(lib, x.dtype, a, norm, lins[3 * i:3 * i + 3],
+                   ints[2 * i:2 * i + 2], res, ls, dst, rows, k, n, pro, epi,
+                   approx, eps, stream)
         _count(post_attention, p, x)
     return out.reshape(x.shape)
 
@@ -324,6 +437,9 @@ def bilayer_post_pre(p, p_next, x, attn, eps: float = 1e-5,
 
 
 bilayer_post_pre.launches_bilayer = 0
+# rows_mma_kernel launches (K5a and K5b calls on the tensor-core route),
+# counted besides the wrappers' own counts
+_rows_call.launches_mma = 0
 pre_attention.launches = pre_attention.launches_int4 = 0
 post_attention.launches = post_attention.launches_int4 = 0
 pre_attention.launches_lanes = post_attention.launches_lanes = 0

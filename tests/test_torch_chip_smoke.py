@@ -85,9 +85,11 @@ def test_failing_serving_phase_fails_the_run(failing, monkeypatch, capsys):
                  "check_k7_kv8", "check_quant_lanes", "time_kv8_kernels",
                  "time_lane_kernels", "check_k8", "check_k5c", "check_k2q",
                  "check_k1_lanes", "time_slice6_kernels",
-                 "check_frame_launches"):
+                 "check_frame_launches", "check_quant_narrow"):
         stubs[name] = lambda *a, **k: None
     stubs["time_splits"] = lambda *a, **k: {}
+    stubs["time_rows_plans"] = lambda *a, **k: []
+    stubs["time_flow_clusters"] = lambda *a, **k: {}
     stubs[failing] = boom
     for name, fn in stubs.items():
         monkeypatch.setattr(cs, name, fn)
@@ -126,8 +128,10 @@ def test_every_kernel_entry_has_a_counter_source_and_tpu_site():
 
 def test_expected_serving_launches_per_step():
     """The serving mode at 32 lanes of DEFAULT_CONFIG: per batch frame step
-    6 K7 (int8, with statistics), 2 K2, 1 K3, 1 K6 over the lanes, 8 K5a
-    and (6 + 2) x 3 = 24 K5b launches, 1 K4b; 24 K4b per prefill."""
+    6 K7 (int8, with statistics), 2 K2, 1 K3, 2 K6 launches over the lanes
+    (the modulations, then the chain), 8 K5a and (6 + 2) x 3 = 24 K5b
+    launches, all 32 of them on the tensor cores (rows_mma), 1 K4b; 24 K4b
+    per prefill."""
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
@@ -135,8 +139,8 @@ def test_expected_serving_launches_per_step():
     assert want == {"ring_attn": 2, "seanet_frame": 1,
                     "decode_insert_attn_kv8": 6,
                     "decode_insert_attn_stats": 6, "fused_pre_lanes": 8,
-                    "fused_flow_lanes": 1, "fused_post_lanes": 24,
-                    "int4_matmul": 1}
+                    "fused_flow_lanes": 2, "fused_post_lanes": 24,
+                    "rows_mma": 32, "int4_matmul": 1}
     assert cs.expected_serving(DEFAULT_CONFIG, "int4_kv8", 0, 2)[
         "int4_matmul"] == 48
     assert cs.expected_serving(DEFAULT_CONFIG, "bf16", 3, 1) == {
@@ -178,7 +182,9 @@ def test_expected_launches_of_the_slice6_paths():
     """Per decoded frame at DEFAULT_CONFIG: int8 + megalayer 6 K8, 2 K5a, 2
     K5b (the mimi layers), 2 K2, no K1; int4 + int8 KV + megalayer + int8
     mimi ring the same with K8's int4 and int8-KV counts and K2-q; int4 +
-    bilayer 1 + 2 K5a, 5 K5c, 1 + 2 K5b, 6 K1. Serving without the fused
+    bilayer 1 + 2 K5a, 5 K5c, 1 + 2 K5b, 6 K1. K6 is 2 launches (the
+    modulations, then the chain); the mimi layers' K5a (16 rows) run on the
+    tensor cores (2 rows_mma launches a frame). Serving without the fused
     insert, per batch frame step: 6 K1 over lanes with statistics, 2 K2-q,
     no K7."""
     sys.path.insert(0, ROOT)
@@ -191,15 +197,15 @@ def test_expected_launches_of_the_slice6_paths():
 
     assert frame("int8_mega") == {
         "megalayer": 6, "fused_pre": 2, "fused_post": 2, "ring_attn": 2,
-        "fused_flow": 1, "int8_matmul": 1, "seanet_frame": 1}
+        "fused_flow": 2, "int8_matmul": 1, "seanet_frame": 1, "rows_mma": 2}
     assert frame("int4_kv8_mega") == {
         "megalayer_int4": 6, "megalayer_kv8": 6, "fused_pre_int4": 2,
-        "fused_post_int4": 2, "ring_attn_kv8": 2, "fused_flow_int4": 1,
-        "int4_matmul": 1, "seanet_frame": 1}
+        "fused_post_int4": 2, "ring_attn_kv8": 2, "fused_flow_int4": 2,
+        "int4_matmul": 1, "seanet_frame": 1, "rows_mma": 2}
     assert frame("int4_bilayer") == {
         "fused_pre_int4": 3, "bilayer": 5, "fused_post_int4": 3,
         "decode_attn": 6, "ring_attn": 2, "seanet_frame": 1,
-        "fused_flow_int4": 1, "int4_matmul": 1}
+        "fused_flow_int4": 2, "int4_matmul": 1, "rows_mma": 2}
     want = cs.expected_serving(cs.path_cfg(DEFAULT_CONFIG, cs.K1_SERVE),
                                cs.K1_SERVE, 1, 0, lanes=4)
     assert (want["decode_attn_lanes"], want["decode_attn_stats"],
