@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py [--out DIR]
-    python3 chip_smoke.py --kernel-times   # K3, K5a/K5b, K6, K7 times only
+    python3 chip_smoke.py --kernel-times   # K3-K8 times only (two trees)
 
 Drives the port's solo paths (synthesis through `TTSEngine` with bf16
 weights, with `quantize="int8"`, `"int4"` and `"q4_0"`, with int4 weights
@@ -1076,32 +1076,39 @@ def check_quant_lanes(pq, cfg, device, dtype, results, path):
 
 
 def check_quant_narrow(device, dtype):
-    """K5a, K5b and K6 on tiny_config(64)'s narrow widths (backbone d_model
-    256, mimi 128, flow dim 128, latent 8: a few 64-column tiles, 8 columns
-    a chain block), quantized to int8, int4 and q4_0: K5a and K5b at 1 and
-    80 backbone rows and 16 and 160 mimi rows (K5a on both routes; K5b
-    cooperative up to 64 / 128 rows at these widths, in three tensor-core
-    launches above), K6 at 1, 4, 16 and 40 rows; each vs its plain
-    version."""
+    """K5a, K5b, K5c, K6 and K8 on tiny_config(64)'s narrow widths
+    (backbone d_model 256, mimi 128, flow dim 128, latent 8: a few 64-column
+    tiles, 8 columns a chain block), quantized to int8, int4 and q4_0: K5a
+    and K5b at 1 and 80 backbone rows and 16 and 160 mimi rows (K5a on both
+    routes; K5b cooperative up to 64 / 128 rows at these widths, in three
+    tensor-core launches above); the cooperative K5b solo at T = 1, 2, 15
+    and 16 backbone rows and 16 and 32 mimi rows (the ragged edges of its
+    tiles and of the tensor cores' row blocks); K6 at 1, 4, 16 and 40 rows;
+    K5c on the layer pair (0, 1) (int4, q4_0); K8 on both layers (int8,
+    int4) with caches of the working type and int8: live slots 0..100 with
+    the write slot at 100, inside a chunk (37) and at 2 (empty chunks), and
+    cur_pos < 0; each vs its plain version."""
+    import torch
     from pocket_tts_tpu_torch.config import tiny_config
     from pocket_tts_tpu_torch.io.params import random_params
     from pocket_tts_tpu_torch.io.quant import quantize_params
-    from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
+    from pocket_tts_tpu_torch.ops import fused_flow, fused_layer, fused_step
     from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    from pocket_tts_tpu_torch.ops.rope import rope_cos_sin
     p0, cfg = random_params(tiny_config(64), seed=5, dtype=dtype,
                             device=device)
     rng = np.random.RandomState(12)
+    g = torch.Generator(device="cpu").manual_seed(13)
+    bbc, mtc = cfg.backbone, cfg.mimi.transformer
     for path, kw in QUANTIZE.items():
         pq = quantize_params(p0, **kw)
-        pre, post, flow = [], [], []
+        mlayers = pq["mimi"]["decoder_transformer"]["layers"]
+        pre, post, solo, flow, bil = [], [], [], [], []
         for rows, t, layers, dm, eps in (
-                (1, 1, pq["layers"], cfg.backbone.d_model, 1e-5),
-                (80, 1, pq["layers"], cfg.backbone.d_model, 1e-5),
-                (16, 16, pq["mimi"]["decoder_transformer"]["layers"],
-                 cfg.mimi.transformer.d_model, cfg.mimi.transformer.norm_eps),
-                (160, 16, pq["mimi"]["decoder_transformer"]["layers"],
-                 cfg.mimi.transformer.d_model,
-                 cfg.mimi.transformer.norm_eps)):
+                (1, 1, pq["layers"], bbc.d_model, 1e-5),
+                (80, 1, pq["layers"], bbc.d_model, 1e-5),
+                (16, 16, mlayers, mtc.d_model, mtc.norm_eps),
+                (160, 16, mlayers, mtc.d_model, mtc.norm_eps)):
             p = slice_layer_params(layers, 1)
             x = _rand(rng, device, dtype, rows // t, t, dm, scale=0.5)
             attn = _rand(rng, device, dtype, rows // t, t, dm, scale=0.5)
@@ -1109,6 +1116,19 @@ def check_quant_narrow(device, dtype):
                         fused_layer.pre_attention_plain(p, x, eps)))
             post.append((fused_layer.post_attention(p, x, attn, eps),
                          fused_layer.post_attention_plain(p, x, attn, eps)))
+        for t, layers, dm, eps in ((1, pq["layers"], bbc.d_model, 1e-5),
+                                   (2, pq["layers"], bbc.d_model, 1e-5),
+                                   (15, pq["layers"], bbc.d_model, 1e-5),
+                                   (16, pq["layers"], bbc.d_model, 1e-5),
+                                   (16, mlayers, mtc.d_model, mtc.norm_eps),
+                                   (32, mlayers, mtc.d_model, mtc.norm_eps)):
+            p = slice_layer_params(layers, 0)
+            x = _rand(rng, device, dtype, t, dm, scale=0.5)
+            attn = _rand(rng, device, dtype, t, dm, scale=0.5)
+            solo.append((fused_layer.post_attention(p, x, attn, eps,
+                                                    approx=t % 2 == 1),
+                         fused_layer.post_attention_plain(
+                             p, x, attn, eps, approx=t % 2 == 1)))
         fp = pq["flow_net"]
         tc = _rand(rng, device, dtype, cfg.flow.dim)
         for b in (None, 4, 16, 40):
@@ -1117,11 +1137,70 @@ def check_quant_narrow(device, dtype):
             x = _rand(rng, device, dtype, *shape, cfg.latent_dim)
             flow.append((fused_flow.flow_forward(fp, c, x, tc),
                          fused_flow.flow_forward_plain(fp, c, x, tc)))
+        if path != "int8":
+            p0_, p1_ = (slice_layer_params(pq["layers"], i) for i in (0, 1))
+            x = _rand(rng, device, dtype, 1, bbc.d_model, scale=0.5)
+            a = _rand(rng, device, dtype, 1, bbc.d_model, scale=0.5)
+            bil += list(zip(fused_layer.bilayer_post_pre(p0_, p1_, x, a),
+                            fused_layer.bilayer_post_pre_plain(p0_, p1_, x,
+                                                               a)))
         sync(device)
         label = f" narrow [{path}]"
         _rel_check("fused_pre_lanes", "quant", dtype, pre, {}, label)
         _rel_check("fused_post_lanes", "quant", dtype, post, {}, label)
+        _rel_check("fused_post", "quant", dtype, solo, {},
+                   f"{label} T = 1, 2, 15, 16 / 16, 32")
         _rel_check("fused_flow_lanes", "flow", dtype, flow, {}, label)
+        if bil:
+            _rel_check("bilayer", "quant", dtype, bil, {}, label)
+        if path == "q4_0":
+            continue
+        worst_y = worst_c = 0.0
+        for kvq in (False, True):
+            for end, ws, live in ((100, 100, True), (100, 37, True),
+                                  (2, 2, True), (100, 100, False)):
+                x, k, v, ks, vs, pos, cur = k8_case(
+                    g, device, dtype, kvq, s=bbc.kv_capacity, end=end,
+                    dm=bbc.d_model)
+                if ws != end:    # a ring: the write slot inside the live ones
+                    cur = pos[ws:ws + 1].clone()
+                    if kvq:
+                        ks[end], vs[end] = ks[end - 1], vs[end - 1]
+                        ks[ws] = vs[ws] = 1e3
+                    else:
+                        k[end], v[end] = k[end - 1], v[end - 1]
+                        k[ws], v[ws] = 1e3, -1e3
+                if not live:
+                    cur = torch.full_like(cur, -1)
+                cos, sin = rope_cos_sin(cur.clamp(min=0), bbc.head_dim,
+                                        bbc.max_period)
+                for l in range(bbc.num_layers):
+                    p = slice_layer_params(pq["layers"], l)
+                    c1 = [c if c is None else c.clone() for c in (k, v, ks,
+                                                                  vs)]
+                    c2 = [c if c is None else c.clone() for c in (k, v, ks,
+                                                                  vs)]
+                    y = fused_step.megalayer(p, x, cos, sin, cur, c1[0],
+                                             c1[1], pos, end, ws, c1[2],
+                                             c1[3])
+                    want = fused_step.megalayer_plain(
+                        p, x, cos, sin, cur, c2[0], c2[1], pos, end, ws,
+                        c2[2], c2[3])
+                    sync(device)
+                    if not torch.isfinite(y.float()).all():
+                        raise AssertionError(f"K8{label}: non-finite y")
+                    scale = max(want.float().abs().max().item(), 1e-30)
+                    worst_y = max(worst_y, (y.float() - want.float()).abs()
+                                  .max().item() / scale)
+                    worst_c = max(worst_c, _cache_check(f"K8{label}", c1,
+                                                        c2))
+        tol = TOL[("mega", _dt_name(dtype))]
+        log(f"  megalayer{label} {_dt_name(dtype)}: write slot 100 / 37 / "
+            f"2, cur_pos < 0, both caches: y relative to max|plain| "
+            f"{worst_y:.3e}, cache and scale rows {worst_c:.3e} (tol {tol})")
+        if not (worst_y <= tol and worst_c <= tol):
+            raise AssertionError(f"K8{label} {_dt_name(dtype)}: y {worst_y} "
+                                 f"cache {worst_c} > {tol}")
 
 
 # ------------------------------------------------- phase 3e: slice 6 -------
@@ -2055,10 +2134,12 @@ def time_k3_plans(engine, device, dtype):
 def kernel_times(device):
     """Device us of K3 (bf16 and f32, solo and 32 lanes), K7 (bf16 ring
     and linear, B=32, S=1024; int8 ring, B=32, S=896, with and without the
-    statistics) at time_kernels' shapes, and of K5a, K5b and K6
-    (quant_kernel_times), through the public wrappers only
+    statistics) at time_kernels' shapes, of K5a, K5b and K6
+    (quant_kernel_times), and of K5b solo, K5c, K8 and K4b
+    (coop_kernel_times), through the public wrappers only
     (`seanet_frame`, `decode_insert_attention`, `pre_attention`,
-    `post_attention`, `flow_forward`): {label: us}. Run from
+    `post_attention`, `flow_forward`, `bilayer_post_pre`, `megalayer`,
+    `int4_matmul`): {label: us}. Run from
     another checkout's root with this script copied there, it times that
     checkout's kernels the same way, so that two versions compare inside
     one call."""
@@ -2097,7 +2178,7 @@ def kernel_times(device):
             1e3 * device_ms(lambda: decode_insert_attention(
                 q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn, vsn,
                 stats=stats), 200)[0]
-    return quant_kernel_times(device, res)
+    return coop_kernel_times(device, quant_kernel_times(device, res))
 
 
 def _dense(lin, dtype):
@@ -2184,6 +2265,220 @@ def quant_kernel_times(device, res):
                 lambda: fused_flow.flow_forward(fp, c, x, tc))
             res[f"K6 {path} {label} dense"] = us(
                 lambda: [a @ w for a, w in zip(ins, dense)])
+    return res
+
+
+def finish_bench(lin, h, x1, ls2, mode, ks, dtype):
+    """One launch of csrc/coop_bench.cu at T = 1: y = round(x1 + ls2 *
+    ((h @ W2) * s2 + b2)) (1, dm) in dtype; mode 0 the layer tail's own
+    way (each block's MLP tiles' rows of W2 to a partial, summed by
+    warps), 1 W2 split by output columns in ks slices of its rows. None
+    when the layout does not fit in a block's shared memory."""
+    import ctypes
+    import torch
+    from pocket_tts_tpu_torch.ops import cuda_lib
+    from pocket_tts_tpu_torch.ops import fused_layer as fl
+    from pocket_tts_tpu_torch.ops.quant_matmul import kernel_operands
+    hid, dm = h.shape[-1], x1.shape[-1]
+    y = torch.empty(1, dm, dtype=dtype, device=h.device)
+    (w, s, b), (kind, group) = kernel_operands(lin, hid, dm, y)
+    grid = min(fl.COOP_MAX_GRID, hid // fl.COOP_TILE)
+    if mode == 0:
+        units = -(-(hid // fl.COOP_TILE) // grid)
+        unit = fl.mlp_tile_bytes(kind, dm, group)[1]
+    else:
+        units = -(-(dm // fl.COOP_TILE) * ks // grid)
+        unit = fl.col_unit_bytes(kind, hid, ks, group)
+    o_act = fl.align128(units * unit)
+    smem = (o_act + 4 * (hid + fl.COOP_RED_FLOATS + fl.COOP_TILE)
+            + fl.SMEM_SLACK)
+    if smem > fl.SMEM_MAX:
+        return None
+    f32 = dict(dtype=torch.float32, device=h.device)
+    ptrs = [h, x1, ls2, w, s, b, torch.empty(grid, dm, **f32),
+            torch.empty(hid, **f32), torch.empty(ks, dm, **f32), y]
+    plan = [mode, grid, ks, fl.finish_vec(1, dm, grid), smem, o_act]
+    cuda_lib.check(cuda_lib.library().ptt_finish_bench(
+        (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr()
+                                        for t in ptrs]),
+        (ctypes.c_int * 2)(kind, group), (ctypes.c_int * 6)(*plan), dm, hid,
+        cuda_lib.dtype_code(y), cuda_lib.stream_ptr(h.device)),
+        f"ptt_finish_bench (plan {plan})")
+    return y
+
+
+def finish_times(path, bls, device, dtype, res, two_ways):
+    """The backbone's MLP down projection and cross-block sum at T = 1
+    both ways (finish_bench): mode 0 ("rows", what K5b, K5c and K8 run)
+    and mode 1 ("cols") at one slice and at the slices col_split picks,
+    each checked against the plain version (TOL quant) and timed one layer
+    repeated and in frame order (two_ways)."""
+    import torch
+    from pocket_tts_tpu_torch.ops import fused_layer as fl
+    from pocket_tts_tpu_torch.ops.quant_matmul import kernel_operands
+    rng = np.random.RandomState(45)
+    lins = [p["linear2"] for p in bls]
+    hid = bls[0]["linear1"]["scale"].shape[-1]
+    dm = lins[0]["scale"].shape[-1]
+    h = _rand(rng, device, dtype, hid, scale=0.5).float()
+    x1 = _rand(rng, device, torch.float32, 1, dm)
+    ls2 = bls[0].get("layer_scale_2", {}).get("scale")
+    plain = (x1 + (1.0 if ls2 is None else ls2.float())
+             * fl._deq(h[None], lins[0])).to(dtype)
+    scale = plain.float().abs().max().item()
+    _, (kind, group) = kernel_operands(lins[0], hid, dm, plain)
+    stored = hid // 2 if "q4" in lins[0] else hid
+    grid = min(fl.COOP_MAX_GRID, hid // fl.COOP_TILE)
+    split = fl.col_split(dm // fl.COOP_TILE, stored, grid, group)
+    for mode, ks, label in ((0, 1, "rows"), (1, 1, "cols ks=1"),
+                            (1, split, f"cols ks={split}")):
+        if label == "cols ks=1" and split == 1:
+            continue
+        y = finish_bench(lins[0], h, x1, ls2, mode, ks, dtype)
+        if y is None:
+            log(f"  finish {label} {path}: does not fit in shared memory")
+            continue
+        err = (y.float() - plain.float()).abs().max().item() / scale
+        if not err <= TOL[("quant", _dt_name(dtype))]:
+            raise AssertionError(f"finish {label} {path}: {err:.3e} of "
+                                 f"max|plain|")
+        two_ways(f"finish {label} {path} backbone T=1",
+                 [lambda l=l: finish_bench(l, h, x1, ls2, mode, ks, dtype)
+                  for l in lins],
+                 _tree_bytes(lins[0]) + _nbytes(h, x1, y), 2 * hid * dm)
+
+
+def barrier_times(device, res):
+    """What a grid barrier costs (csrc/coop_bench.cu ptt_barrier_bench):
+    one cooperative launch of 128 blocks (the backbone's grid) with 1 and
+    with 101 barriers: grid.sync(); grid.sync() in a launch with clusters
+    of 2, each followed by a cluster barrier; and a hand-written barrier
+    (one arrival counter, release / acquire). A barrier's cost is the
+    difference over 100. Added to res ({label: us})."""
+    import torch
+    from pocket_tts_tpu_torch.ops import cuda_lib
+    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(device)
+    bar = torch.zeros(2, dtype=torch.int32, device=device)
+    for kind, label in ((0, "grid barrier"),
+                        (1, "grid + cluster barrier, clusters of 2"),
+                        (2, "hand-written grid barrier")):
+        t = {}
+        for n in (1, 101):
+            t[n] = 1e3 * device_ms(lambda n=n: cuda_lib.check(
+                lib.ptt_barrier_bench(n, 128, kind, bar.data_ptr(), stream),
+                "ptt_barrier_bench"), 120)[0]
+        res[f"{label}: launch with one"] = t[1]
+        res[f"{label}: each"] = (t[101] - t[1]) / 100
+    sync(device)
+    if bar[0].item() != 0 or bar[1].item() == 0:  # every arrival matched
+        raise AssertionError(f"hand-written barrier left {bar.tolist()}")
+
+
+def coop_kernel_times(device, res):
+    """Device us of the cooperative kernels through their public wrappers
+    (`post_attention`, `bilayer_post_pre`, `megalayer`), bf16, on
+    DEFAULT_CONFIG's weights: K5b solo at T = 1 (backbone) and T = 16
+    (mimi) with int8, int4 and q4_0; K5c with int4 and q4_0; K8 with int8
+    and int4, caches of bf16 and int8 (S = 384, end = 300). Each two ways:
+    "layer", one layer repeated (its weights stay in L2), and "frame", the
+    six backbone layers (K5c: the five layer pairs; mimi: the two layers)
+    one after another, as a frame streams them; beside each, "bound": one
+    call's bytes (weights and activations once, each cache row read once)
+    at 3.35 TB/s. Also K4b at T = 1 (K = 32, N = 1024) and T = 128 (1024 x
+    3072) beside torch._weight_int4pack_mm (int4pack_ms). Where the tree
+    has csrc/coop_bench.cu, also what a grid barrier costs
+    (barrier_times) and the MLP's down projection with its cross-block
+    sum both ways (finish_times). Added to res ({label: us})."""
+    import itertools
+    import torch
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    from pocket_tts_tpu_torch.io.params import random_params
+    from pocket_tts_tpu_torch.io.quant import quantize_params
+    from pocket_tts_tpu_torch.ops import cuda_lib, fused_layer, fused_step
+    from pocket_tts_tpu_torch.ops import quant_matmul as qm
+    from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    from pocket_tts_tpu_torch.ops.rope import rope_cos_sin
+    dt = torch.bfloat16
+    p0, cfg = random_params(DEFAULT_CONFIG, seed=0, dtype=dt, device=device)
+    bb, mt = cfg.backbone, cfg.mimi.transformer
+    rng = np.random.RandomState(43)
+    g = torch.Generator(device="cpu").manual_seed(44)
+    us = lambda fn: 1e3 * device_ms(fn, 120)[0]
+    if "ptt_barrier_bench" in cuda_lib.SIGNATURES:  # not in older trees
+        barrier_times(device, res)
+
+    def two_ways(label, calls, nbytes, flops):
+        """calls: one per layer, frame order; the first repeated, then
+        all in turn."""
+        res[f"{label} layer"] = us(calls[0])
+        cyc = itertools.cycle(calls)
+        res[f"{label} frame"] = us(lambda: next(cyc)())
+        res[f"{label} bound"] = 1e3 * bound_ms(nbytes, flops)[0]
+
+    for path in QUANT_PATHS:
+        pq = quantize_params(p0, **QUANTIZE[path])
+        bls = [slice_layer_params(pq["layers"], l)
+               for l in range(bb.num_layers)]
+        mls = [slice_layer_params(pq["mimi"]["decoder_transformer"]["layers"],
+                                  l) for l in range(mt.num_layers)]
+        for ls, t, dm, eps, name in (
+                (bls, 1, bb.d_model, 1e-5, "backbone T=1"),
+                (mls, 16, mt.d_model, mt.norm_eps, "mimi T=16")):
+            x = _rand(rng, device, dt, t, dm, scale=0.5)
+            a = _rand(rng, device, dt, t, dm, scale=0.5)
+            post = {k: v for k, v in ls[0].items()
+                    if k not in ("norm1", "in_proj")}
+            two_ways(f"K5b {path} {name}",
+                     [lambda p=p: fused_layer.post_attention(p, x, a, eps)
+                      for p in ls],
+                     _tree_bytes(post) + _nbytes(x, a) * 3 // 2,
+                     _linear_flops(post, t))
+        if "ptt_finish_bench" in cuda_lib.SIGNATURES:  # not in older trees
+            finish_times(path, bls, device, dt, res, two_ways)
+        dm = bb.d_model
+        x = _rand(rng, device, dt, 1, dm, scale=0.5)
+        a = _rand(rng, device, dt, 1, dm, scale=0.5)
+        if path != "int8":
+            post = {k: v for k, v in bls[0].items()
+                    if k not in ("norm1", "in_proj")}
+            pre = {k: bls[1][k] for k in ("norm1", "in_proj")}
+            two_ways(f"K5c {path}",
+                     [lambda p0=p0_, p1=p1_: fused_layer.bilayer_post_pre(
+                         p0, p1, x, a) for p0_, p1_ in zip(bls, bls[1:])],
+                     _tree_bytes(post) + _tree_bytes(pre) + _nbytes(x) * 6,
+                     _linear_flops(post, 1) + _linear_flops(pre, 1))
+            for lin, t, kdim in ((pq["input_linear"], 1, cfg.latent_dim),
+                                 (bls[0]["in_proj"], 128, dm)):
+                xi = _rand(rng, device, dt, t, kdim)
+                y = qm.int4_matmul(xi, lin["q4"], lin["scale"])
+                shape = f"T={t} K={kdim} N={y.shape[-1]}"
+                res[f"K4b {path} {shape}"] = us(
+                    lambda: qm.int4_matmul(xi, lin["q4"], lin["scale"]))
+                lib = int4pack_ms(xi, lin, y)
+                res[f"K4b {path} {shape} library"] = (
+                    None if lib is None else 1e3 * lib)
+        if path == "q4_0":
+            continue
+        isz = 2
+        for kvq in (False, True):
+            end = 300
+            cases = [k8_case(g, device, dt, kvq, end=end, dm=dm)
+                     for _ in bls]
+            cur = cases[0][6]
+            cos, sin = rope_cos_sin(cur, bb.head_dim, bb.max_period)
+            pos = cases[0][5]
+            nread = int(((pos >= 0) & (torch.arange(pos.shape[0],
+                                                    device=device)
+                                       < end)).sum())
+            row = dm * (1 if kvq else isz) + (4 if kvq else 0)
+            two_ways(f"K8 {path} {'int8' if kvq else 'bf16'} cache S=384 "
+                     f"end={end}",
+                     [lambda p=p, c=c: fused_step.megalayer(
+                         p, c[0], cos, sin, cur, c[1], c[2], c[5], end, end,
+                         c[3], c[4]) for p, c in zip(bls, cases)],
+                     _tree_bytes(bls[0]) + 2 * nread * row + 4 * (end + 1)
+                     + 2 * dm * isz + 2 * row,
+                     _linear_flops(bls[0], 1) + 4 * nread * dm)
     return res
 
 
@@ -2310,6 +2605,46 @@ def int8pack_ms(x, q, scale):
     return device_ms(lambda: torch._weight_int8pack_mm(x, w, sc), 200)[0]
 
 
+def int4pack_ms(x, lin, want):
+    """Device ms of torch._weight_int4pack_mm, one PyTorch call computing
+    K4b's function (x @ the int4 W with its scales; the library yardstick,
+    never called by the port), or None (the reason logged) when this torch
+    has no CUDA kernel for it or its result differs from `want` (K4b's).
+    The packing is set up here, outside the timed region: the signed
+    nibbles q become u = q + 8 (PyTorch dequantizes (u - 8) * scale +
+    zero), zeros 0; per-channel scales repeated over groups of 256 rows
+    (K = 32: one group of 32), q4_0's grouped scales as groups of 32."""
+    import torch
+    from pocket_tts_tpu_torch.ops.quant_matmul import grouped, unpack_int4
+    w = unpack_int4(lin["q4"]).to(torch.int32)            # (K, N)
+    k, n = w.shape
+    u = (w + 8).t().contiguous()                           # (N, K) 0..15
+    packed = (u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8)
+    if grouped(lin):
+        gsz, sc = k // lin["scale"].shape[0], lin["scale"].float()
+    else:
+        gsz = min(256, k)
+        sc = lin["scale"].float()[None].expand(k // gsz, n)
+    sz = torch.stack([sc, torch.zeros_like(sc)], -1).to(x.dtype).contiguous()
+    inner = 8 if k % 128 == 0 else 2
+    try:
+        wp = torch._convert_weight_to_int4pack(packed, inner)
+        got = torch._weight_int4pack_mm(x, wp, gsz, sz)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"  K4b library: none (`_weight_int4pack_mm` in torch "
+            f"{torch.__version__}: {str(e).splitlines()[0][:120]})")
+        return None
+    err = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max().clamp_min(1e-30)).item()
+    if not err <= TOL[("quant", _dt_name(x.dtype))]:
+        log(f"  K4b library: none (`_weight_int4pack_mm` with this packing "
+            f"differs from K4b by {err:.3e} of max|K4b|)")
+        return None
+    return device_ms(lambda: torch._weight_int4pack_mm(x, wp, gsz, sz),
+                     200)[0]
+
+
 def time_splits(device, dtype):
     """Device us of K1, K7 and K2 at each split count (the number of blocks
     in each (head, lane)'s cluster), through the C entry points, at the
@@ -2407,6 +2742,30 @@ def time_splits(device, dtype):
     return res
 
 
+def phase_marks(name, names, call, device):
+    """One call of a cooperative kernel (K5b, K5c, K8) with its per-block
+    %globaltimer marks (`marks=`; call(marks) launches it): logs, for each
+    named point, when the last block passed it (µs after the first
+    block's entry) and, for each grid barrier, the first departure after
+    the last arrival."""
+    import torch
+    from pocket_tts_tpu_torch.ops.fused_layer import (COOP_MARKS,
+                                                      COOP_MAX_GRID)
+    mk = torch.zeros(COOP_MAX_GRID, COOP_MARKS, dtype=torch.int64,
+                     device=device)
+    call(mk)
+    sync(device)
+    m = mk.cpu().numpy()[:, :len(names)]
+    m = m[m[:, 0] > 0]                # the launch's blocks
+    t0 = m[:, 0].min()
+    at = ", ".join(f"{n} {(m[:, i].max() - t0) / 1e3:.2f}"
+                   for i, n in enumerate(names) if i)
+    bars = ", ".join(f"{(m[:, i].min() - m[:, i - 1].max()) / 1e3:.2f}"
+                     for i, n in enumerate(names) if n.startswith("sync"))
+    log(f"  {name} phases, {len(m)} blocks (µs after entry, last block): "
+        f"{at}; barriers: {bars}")
+
+
 def time_quant_kernels(pq, cfg, device, dtype, path, out):
     """Device time of the path's K4a/K4b, K5a, K5b and K6 vs their plain
     versions at the decode step's shapes, with each call's bound (no single
@@ -2429,9 +2788,10 @@ def time_quant_kernels(pq, cfg, device, dtype, path, out):
                                 (bb["in_proj"], 128, dm, "prefill in_proj")):
         x = _rand(rng, device, dtype, t, kdim)
         y = mm(x, lin[key], lin["scale"])
-        lib = None
         if path == "int8":
             lib = int8pack_ms(x, lin[key], lin["scale"])
+        else:
+            lib = int4pack_ms(x, lin, y)
         rows[mm_name].append(_row(
             device_ms(lambda: mm(x, lin[key], lin["scale"]),
                       200 if t == 1 else 20),
@@ -2462,6 +2822,9 @@ def time_quant_kernels(pq, cfg, device, dtype, path, out):
             bound_ms(_tree_bytes(post_p) + _nbytes(x, attn) * 3 // 2,
                      _linear_flops(post_p, t), dn),
             f"{path} {name} T={t} dm={d}"))
+        phase_marks(f"K5b {path} {name} T={t} {dn}", fused_layer.POST_MARKS,
+                    lambda mk: fused_layer.post_attention(p, x, attn, eps,
+                                                          marks=mk), device)
     fp, tc = pq["flow_net"], pq["_time_cond"]
     c = _rand(rng, device, dtype, dm)
     x = _rand(rng, device, dtype, cfg.latent_dim)
@@ -2655,6 +3018,11 @@ def time_slice6_kernels(engines, device, dtype, out):
             p, x, k, v, ks, vs, end, cos, sin, None, pos, bb.num_heads,
             False, cur), 200)[0]
         out.setdefault(name, []).append(r)
+        phase_marks(f"K8 {path} {'int8' if kvq else dn} cache {dn}",
+                    fused_step.MEGA_MARKS,
+                    lambda mk: fused_step.megalayer(
+                        p, x, cos, sin, cur, k, v, pos, end, end, ks, vs,
+                        marks=mk), device)
     # K5c on layers (0, 1)
     for path in ("int4", "q4_0"):
         eng = engines[path]
@@ -2679,6 +3047,10 @@ def time_slice6_kernels(engines, device, dtype, out):
         r["two"] = device_ms(lambda: fused_layer.pre_attention(
             p1, fused_layer.post_attention(p0, x, a)), 200)[0]
         out.setdefault("bilayer", []).append(r)
+        phase_marks(f"K5c {path} {dn}", fused_layer.BILAYER_MARKS,
+                    lambda mk: fused_layer.bilayer_post_pre(p0, p1, x, a,
+                                                            marks=mk),
+                    device)
     # K2-q at a wrapped ring, solo and over 32 lanes
     h, d, cap, t = 8, 64, 256, 16
     hd = h * d
@@ -3086,9 +3458,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="directory for the nvcc report and profiler table")
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only time K3 and K7 through their public "
-                    "wrappers (kernel_times) and print them as one JSON "
-                    "line")
+                    help="only time K3, K4b, K5a-K5c, K6, K7 and K8 through "
+                    "their public wrappers (kernel_times) and print them as "
+                    "one JSON line")
     args = ap.parse_args(argv)
     out_dir = args.out
     import torch

@@ -42,8 +42,8 @@
 // one multiply-add per row: 3 MB of int8 (1.5 MB of int4, plus 0.1 MB of
 // bf16 group scales under q4_0) for the backbone's in_proj, 9 MB (4.5 MB)
 // for out_proj + the MLP, i.e. ~1 us and ~3 us at full HBM bandwidth for
-// int8. What keeps them from it in this version is latency: few blocks per
-// phase and grid-wide barriers.
+// int8. What keeps the cooperative kernels from it is latency: barriers,
+// round trips to L2, and every block reading the same rows.
 //
 // Design. K5a is one ordinary launch of `rows_kernel` over (32-column
 // tiles) x (row blocks of at most FL_ROW_FLOATS activations: 16 rows at
@@ -55,35 +55,38 @@
 // K5b has two dependencies across blocks that the TPU kernel met by walking
 // its hidden tiles in order with scratch carried between grid steps: the
 // LayerNorm of x1 needs all of out_proj, and the W2 sum runs over every
-// hidden tile. Here it is one COOPERATIVE launch with two grid barriers:
-//   phase 1  out_proj column tiles -> x1 (float32 scratch in HBM)
+// hidden tile. Here it is one COOPERATIVE launch of one block per 32-unit
+// MLP tile (ops/fused_layer.py `post_plan`) with two grid barriers; at
+// entry every block asks the TMA for all the weight bytes it will read
+// (layer_post.cuh):
+//   phase 1  out_proj units (32-column tiles, at T = 1 in slices of their
+//            stored rows so every block has one) -> float32 partials
 //   sync
-//   phase 2  every block: LN(x1) into shared memory; then its hidden tiles:
-//            the h tile, then h tile @ the matching W2 rows into a
-//            per-block float32 partial of `up` (shared memory), written to
-//            HBM. A tile is 32 hidden units either way, so int4 runs as
-//            many blocks as int8. int8: W2 rows h0..h0+31. int4: packed W2
+//   phase 2  every block: x1 = x + ls1 * (the partials summed in slice
+//            order * s_o + b_o), LN(x1) into shared memory; then its MLP
+//            tile: h = round(gelu(ln @ W_1 + b_1)), its partial of up =
+//            h @ q_2 to HBM. int8: W2 rows h0..h0+31. int4: packed W2
 //            row j holds hidden units j and j + H/2, so a tile is 16
 //            packed rows and the block first computes BOTH h halves (W1
 //            columns h0.. and H/2 + h0.., 16 each) into one h tile, whose
 //            low half meets the low nibbles and high half the high ones.
 //   sync
-//   phase 3  each output element sums the blocks' partials in block order
-//            (no float atomics: the result does not depend on scheduling)
-//            and applies s_2 (per-channel), b_2, ls2 and the residual.
-// The phases are the device functions of layer_post.cuh, which K5c and K8
-// (megalayer.cu) run too. K5c is K5b's cooperative kernel with a tail: after
+//   phase 3  the grid's partials summed per element by a warp in a fixed
+//            order (no float atomics: the result does not depend on
+//            scheduling), then s_2 (per-channel), b_2, ls2 and the residual.
+// One row runs the products on SIMT from shared memory; more rows (the
+// mimi decoder's 16) in bf16 on the tensor cores (layer_post.cuh
+// `cols_mma`, `w2_mma`). K5c is K5b's cooperative kernel with a tail: after
 // the final residual (x_next written rounded, and in float32 to a scratch
 // row), a third grid barrier, then every block takes LN1 of layer l + 1 of
-// the float32 row and the in_proj(l + 1) column tiles (3072 at the
-// backbone's width) spread over the grid, as K5a's tiles. It reads layer
-// l + 1's weights from their own (stacked) layer view, like K5a.
-// Scratch (x1 and the partials) is allocated by the caller. The
-// cooperative launch holds at most FL_ROW_FLOATS activations (its two
-// T x dm buffers of shared memory), and its per-block partials of `up`
-// (grid x T x dm floats) grow with the rows. More rows (the lanes of a
-// batch: 32 backbone rows, up to 512 mimi rows) take three ordinary
-// launches of `rows_kernel`, K5a's kernel with other prologues and
+// the float32 row and its in_proj(l + 1) column tiles (3072 columns at the
+// backbone's width), whose weights it also asked for at entry. It reads
+// layer l + 1's weights from their own (stacked) layer view, like K5a.
+// Scratch (the partials, x1) is allocated by the caller. The cooperative
+// launch holds at most FL_ROW_FLOATS activations, and its per-block
+// partials of `up` (grid x T x dm floats) grow with the rows. More rows
+// (the lanes of a batch: 32 backbone rows, up to 512 mimi rows) take three
+// ordinary launches of `rows_kernel`, K5a's kernel with other prologues and
 // epilogues, with x1 (float32) and h (the working type) in HBM between
 // them: x1 = x + ls1 * (attn @ W_o + b_o); h = round(gelu(round(LN(x1))
 // @ W_1 + b_1)); out = round(x1 + ls2 * (h @ W_2 + b_2)). Splitting the W2
@@ -106,6 +109,7 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "layer_post.cuh"
 #include "qmma.cuh"
@@ -506,19 +510,16 @@ rows_mma_kernel(const RowsMmaArgs g) {
 }
 
 struct PostArgs {
-  const void *x, *attn;          // (T, dm)
-  const void *ls1, *ls2;         // (dm,) or null
-  const void *ns, *nb;           // norm2 (dm,) or null
-  Lin wo, w1, w2;                // (dm, dm), (dm, H), (H, dm)
-  float* x1;                     // scratch (T, dm)
-  float* part;                   // scratch (gridDim.x, T, dm)
+  Tail t;                        // x (T, dm), ls1, ls2, norm2, the linears,
+                                 // partial scratch, plan, offsets
+  const void* attn;              // (T, dm)
   void* out;                     // (T, dm)
-  int T, dm, H, approx;
-  float eps;
+  int o_nx, o_act;               // shared-memory offsets (bytes)
 };
 
 // K5c's tail: layer l + 1's norm1 and in_proj.
 struct NextArgs {
+  CUtensorMap tm_nx;             // layer l + 1's in_proj (whole tiles)
   const void *ns, *nb;           // norm1 of layer l + 1 (dm,) or null
   Lin win;                       // (dm, N)
   float* xn;                     // scratch (dm,): x_next in float32
@@ -526,71 +527,109 @@ struct NextArgs {
   int N;
 };
 
-// K5b (next == nullptr) and K5c: phases 1-3 of layer_post.cuh; K5c then
-// its tail.
+// K5b (next == nullptr) and K5c: the phases of layer_post.cuh with two grid
+// barriers; K5c then a third barrier and its tail. Marks (ops/fused_layer.py
+// POST_MARKS, BILAYER_MARKS): entry, issued, staged, W_o landed, out_proj,
+// sync 1, x1, ln, W1 landed, h, W2 landed, mlp, sync 2, finish (K5c: sync
+// 3, next ln, next landed, next in_proj).
 template <typename T>
 __device__ void post_phases(const PostArgs& a, const NextArgs* next) {
-  extern __shared__ float smem[];
-  const int T_ = a.T, dm = a.dm;
-  float* red = smem;                 // QD_RED
-  float* xs = red + QD_RED;          // T x dm: attn, then LN(x1)
-  float* acc = xs + T_ * dm;         // T x dm: this block's partial of up
-  float* hs = acc + T_ * dm;         // T x FL_TILE: one hidden tile
-  const T* attn = (const T*)a.attn;
+  extern __shared__ __align__(128) unsigned char post_shared[];
+  __shared__ __align__(8) uint64_t bars[4];  // W_o, W1, W2, next in_proj
+  unsigned char* smem = align128(post_shared);
+  const Tail& t = a.t;
+  const int T_ = t.T, dm = t.dm;
+  float* xs = reinterpret_cast<float*>(smem + a.o_act);  // T x dm
+  float* hs = xs + T_ * dm;                               // T x FL_TILE
+  float* outs = hs + T_ * FL_TILE;                        // T x FL_TILE
+  float* red = outs + T_ * FL_TILE;                       // CP_RED
+  // bf16 rows for the tensor cores (bf16 above one row), else null
+  float* lnv = red + CP_RED;  // a LayerNorm's scale and bias (2 x dm)
+  bf16* xb = std::is_same<T, bf16>::value && T_ > 1
+                 ? reinterpret_cast<bf16*>(lnv + 2 * dm) : nullptr;
   coop::grid_group grid = coop::this_grid();
+  mark(t.marks, 0);
 
-  // phase 1: x1 = x + ls1 * (attn @ W_o + b_o)
-  if ((int)blockIdx.x < (dm + FL_TILE - 1) / FL_TILE) {
-    for (int i = threadIdx.x; i < T_ * dm; i += QD_THREADS)
-      xs[i] = to_f(attn[i]);
-    __syncthreads();
-    out_proj_tiles<T>(xs, T_, dm, a.wo, (const T*)a.x, (const T*)a.ls1,
-                      a.x1, red);
+  // every weight byte this block reads: a TMA phase on an mbarrier each
+  // (and a cp.async group for q4_0's scales)
+  if (threadIdx.x == 0) {
+    prefetch_map(&t.tm_wo);
+    prefetch_map(&t.tm_w1);
+    if (next) prefetch_map(&next->tm_nx);
   }
-  grid.sync();
+  mbar_setup(bars, next ? 4 : 3);
+  issue_cols(t.wo, &t.tm_wo, dm, dm, t.ks_o, smem + t.o_wo, bars);
+  cp_async_commit();
+  issue_w1(t, smem, bars + 1);
+  cp_async_commit();
+  issue_w2(t, smem, bars + 2);
+  cp_async_commit();
+  const int after = next ? 1 : 0;  // groups committed after W2's
+  if (next) {
+    issue_cols(next->win, &next->tm_nx, dm, next->N, 1, smem + a.o_nx,
+               bars + 3);
+    cp_async_commit();
+  }
+  mark(t.marks, 1);
 
-  // phase 2: LN(x1), then this block's hidden tiles into its partial
-  mlp_tiles<T>(T_, dm, a.H, a.x1, (const T*)a.ns, (const T*)a.nb, a.eps,
-               a.w1, a.w2, a.approx, true, xs, acc, hs, red, a.part);
+  // phase 1: out_proj's units -> p1
+  stage_floats(xs, (const T*)a.attn, T_ * dm);
+  if (xb) to_bf16_rows(xs, dm, T_, (T_ + 15) / 16 * 16, xb, dm + 8);
+  mark(t.marks, 2);
+  wait_phase(bars, after + 2);
+  mark(t.marks, 3);
+  out_proj_phase(t, smem, xs, xb, red, outs);
+  mark(t.marks, 4);
   grid.sync();
+  mark(t.marks, 5);
 
-  // phase 3: out = round(x1 + ls2 * (sum of the partials * s_2 + b_2))
+  // phase 2: x1, LN, this block's MLP tiles -> p2
+  mlp_phase<T>(t, smem, xs, hs, red, xb, lnv, bars + 1, after, 6);
+  mark(t.marks, 11);
+  grid.sync();
+  mark(t.marks, 12);
+
+  // phase 3: out = round(x1 + ls2 * up)
   T* out = (T*)a.out;
   float* xn = next ? next->xn : nullptr;
-  mlp_finish<T>(T_, dm, a.w2, (const T*)a.ls2, a.x1, a.part,
-                [&](int i, float v) {
-                  out[i] = from_f<T>(v);
-                  if (xn) xn[i] = v;
-                });
+  mlp_finish<T>(t, [&](int i, float v) {
+    out[i] = from_f<T>(v);
+    if (xn) xn[i] = v;
+  });
+  mark(t.marks, 13);
   if (!next) return;
   grid.sync();
+  mark(t.marks, 14);
 
-  // K5c's tail: qkv = round(round(LN1(x_next)) @ W_in + b_in), layer l + 1
-  const T* ns = (const T*)next->ns;
-  const T* nb = (const T*)next->nb;
-  block_layernorm(
-      1, dm, a.eps, [&](int, int i) { return __ldcg(xn + i); },
-      [&](int, int i, float v) {
-        xs[i] = rnd<T>(v * opt(ns, i, 1.f) + opt(nb, i, 0.f));
-      });
+  // K5c's tail: qkv = round(round(LN1(x_next)) @ W_in + b_in), layer l + 1,
+  // whole column tiles (one slice): the sums are final here
+  stage_row_norm(xs, (const float*)xn, dm, (const T*)next->ns,
+                 (const T*)next->nb, lnv, dm);
+  ln_rows<T>(xs, 1, dm, t.eps, lnv, lnv + dm, red);
+  mark(t.marks, 15);
+  wait_phase(bars + 3, 0);
+  mark(t.marks, 16);
   T* qkv = (T*)next->qkv;
-  const int ntiles = (next->N + FL_TILE - 1) / FL_TILE;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int n0 = t * FL_TILE;
-    lin_tile<T>(xs, dm, 1, dm, next->win, next->N, n0,
-                min(FL_TILE, next->N - n0), FL_TILE / 4, red,
-                [&](int, int n, float v) { qkv[n] = from_f<T>(v); });
-  }
+  const Lin& w = next->win;
+  const float* pc = w.kind == LIN_INT4_G ? nullptr : (const float*)w.s;
+  const T* bias = (const T*)w.b;
+  cols_phase(w, dm, next->N, 1, smem + a.o_nx, xs, nullptr, dm, 1, red, outs,
+             [&](int, int, int n, float v) {
+               qkv[n] = from_f<T>(v * (pc ? pc[n] : 1.f) + opt(bias, n, 0.f));
+             });
+  mark(t.marks, 17);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(QD_THREADS) fused_post_kernel(PostArgs a) {
+__global__ void __launch_bounds__(QD_THREADS)
+    fused_post_kernel(const __grid_constant__ PostArgs a) {
   post_phases<T>(a, nullptr);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(QD_THREADS)
-bilayer_kernel(PostArgs a, NextArgs next) {
+    bilayer_kernel(const __grid_constant__ PostArgs a,
+                   const __grid_constant__ NextArgs next) {
   post_phases<T>(a, &next);
 }
 
@@ -601,13 +640,6 @@ static int set_smem(K kern, size_t bytes) {
 }
 
 }  // namespace ptt
-
-// Shared memory of K5b for T rows of width dm (the caller sizes its grid
-// with ptt_fused_post_max_blocks, which uses the same figure).
-static size_t post_smem(int T, int dm) {
-  return sizeof(float) *
-         (ptt::QD_RED + 2 * (size_t)T * dm + (size_t)T * ptt::FL_TILE);
-}
 
 // A linear of logical shape (K, N) the fused kernels take: quantized, with
 // its scales, and whole scale groups in each half of K for grouped int4.
@@ -717,22 +749,22 @@ extern "C" int ptt_rows_mma(const void* a, const void* ns, const void* nb,
                   : run(ptt::rows_mma_kernel<64>);
 }
 
-// Largest cooperative grid K5b (bilayer = 0) or K5c (bilayer = 1) can take
-// on this device for (T, dm): blocks resident per SM at its shared-memory
-// size times the SM count. 0 on error.
-extern "C" int ptt_fused_post_max_blocks(int T, int dm, int bilayer,
-                                         int dtype) {
+// Blocks of K5b (which 0), K5c (1) or K8 (2, megalayer.cu) the card holds
+// at once with `smem` bytes of dynamic shared memory: blocks resident per
+// SM times the SM count. 0 on error.
+int ptt_megalayer_max_blocks(int smem, int dtype);
+extern "C" int ptt_coop_max_blocks(int smem, int which, int dtype) {
+  if (which == 2) return ptt_megalayer_max_blocks(smem, dtype);
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
     return 0;
-  const size_t smem = post_smem(T, dm);
   PTT_DISPATCH(dtype, T_, {
-    const void* kern = bilayer ? (const void*)ptt::bilayer_kernel<T_>
-                               : (const void*)ptt::fused_post_kernel<T_>;
+    const void* kern = which ? (const void*)ptt::bilayer_kernel<T_>
+                             : (const void*)ptt::fused_post_kernel<T_>;
     if (cudaFuncSetAttribute(kern,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem) ||
+                             smem) ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             &per_sm, kern, ptt::QD_THREADS, smem))
       return 0;
@@ -740,85 +772,96 @@ extern "C" int ptt_fused_post_max_blocks(int T, int dm, int bilayer,
   return per_sm * sms;
 }
 
-static ptt::PostArgs post_args(void* const* p, const int* lin, int T, int dm,
-                               int H, float eps, int approx) {
-  return ptt::PostArgs{p[0],
-                       p[1],
-                       p[2],
-                       p[3],
-                       p[4],
-                       p[5],
-                       {p[6], p[7], p[8], lin[0], lin[1]},
-                       {p[9], p[10], p[11], lin[2], lin[3]},
-                       {p[12], p[13], p[14], lin[4], lin[5]},
-                       (float*)p[15],
-                       (float*)p[16],
-                       p[17],
-                       T,
-                       dm,
-                       H,
-                       approx,
-                       eps};
-}
-
-static bool post_ok(const ptt::PostArgs& a, int grid) {
-  return !(a.T < 1 || a.dm < 4 || a.dm % 4 || a.H % 8 || grid < 1 ||
-           !lin_ok(a.wo, a.dm) || !lin_ok(a.w1, a.dm) || !lin_ok(a.w2, a.H) ||
-           ptt::packed(a.wo) != ptt::packed(a.w2) ||
-           ptt::packed(a.w1) != ptt::packed(a.w2));
-}
-
 // p: x, attn, ls1, ls2, norm2 scale, norm2 bias, then (w, scale, bias) of
-//    out_proj, linear1 and linear2, then the x1 scratch, the partial
-//    scratch and out (device pointers; optional ones null).
-// lin: (kind, group) of out_proj, linear1, linear2 (one kind for all
-//    three: int8, or int4 in either scale layout).
-// grid: the cooperative grid (<= ptt_fused_post_max_blocks); the partial
-//    scratch holds grid * T * dm floats.
-extern "C" int ptt_fused_post(void* const* p, const int* lin, int T, int dm,
-                              int H, float eps, int approx, int grid,
-                              int dtype, void* stream) {
-  ptt::PostArgs a = post_args(p, lin, T, dm, H, eps, approx);
-  if (!post_ok(a, grid)) return (int)cudaErrorInvalidValue;
-  const size_t smem = post_smem(T, dm);
-  cudaStream_t st = (cudaStream_t)stream;
+// out_proj, linear1, linear2, then the out_proj partials (ks_o, T, dm), the
+// MLP partials (grid, T, dm), out and the x1 scratch (T, dm). lin: (kind,
+// group) of the three (one layout: int8, or int4 in either scale layout).
+// plan (ops/fused_layer.py post_plan, PLAN_KEYS): grid, ks_o, fin_e, the
+// shared memory in bytes and the offsets o_wo, o_w1, o_w2, o_nx, o_act of
+// its regions, which must hold what the kernel puts there.
+static bool post_args(void* const* p, const int* lin, const int* plan, int T,
+                      int dm, int H, float eps, int approx, int n_next,
+                      void* marks, ptt::PostArgs* a) {
+  using namespace ptt;
+  Tail t{{}, {}, p[0], p[2], p[3], p[4], p[5],
+         {p[6], p[7], p[8], lin[0], lin[1]},
+         {p[9], p[10], p[11], lin[2], lin[3]},
+         {p[12], p[13], p[14], lin[4], lin[5]},
+         (float*)p[15], (float*)p[16], (float*)p[18],
+         (unsigned long long*)marks, T, dm, H, plan[1], plan[2], approx, 1,
+         eps, plan[4], plan[5], plan[6]};
+  const int grid = plan[0];
+  if (T < 1 || dm < FL_TILE || dm % FL_TILE || H % FL_TILE || grid < 1 ||
+      grid > H / FL_TILE || !(plan[1] == 1 || plan[1] == 2 ||
+                              plan[1] == 4 || plan[1] == 8) ||
+      !(plan[2] == 1 || plan[2] == 2 || plan[2] == 4 || plan[2] == 8) ||
+      !lin_ok(t.wo, dm) || !lin_ok(t.w1, dm) || !lin_ok(t.w2, H) ||
+      lin[0] != lin[2] || lin[0] != lin[4] || lin[1] != lin[3] ||
+      lin[1] != lin[5] || (lin[0] == LIN_INT4_G && lin[1] % 32) ||
+      ((packed(t.wo) ? dm / 2 : dm) / plan[1]) % 32 ||
+      (lin[0] == LIN_INT4_G &&
+       ((packed(t.wo) ? dm / 2 : dm) / plan[1]) % lin[1]))
+    return false;
+  Region r[5];
+  tail_regions(t, grid, r);
+  r[3] = {plan[7], cdiv(n_next / FL_TILE, grid),
+          col_unit_bytes(lin[0], dm, 1, lin[1])};
+  r[4] = {plan[8], 1, act_bytes(T, dm)};
+  if (!regions_ok(r, 5, plan[3]) ||
+      encode_lin(&t.tm_wo, t.wo, dm, dm, t.ks_o, 32) ||
+      encode_lin(&t.tm_w1, t.w1, dm, H, 1, packed(t.w1) ? 16 : 32))
+    return false;
+  *a = PostArgs{t, p[1], p[17], plan[7], plan[8]};
+  return true;
+}
+
+template <typename K>
+static int launch_coop(K kern, int grid, void** args, int smem,
+                       void* stream) {
+  int rc = ptt::set_smem(kern, smem);
+  if (rc) return rc;
+  rc = (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(grid),
+                                        dim3(ptt::QD_THREADS), args, smem,
+                                        (cudaStream_t)stream);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+// K5b: p, lin and plan as post_args; marks: int64 (grid, CP_MARKS) or null.
+extern "C" int ptt_fused_post(void* const* p, const int* lin, const int* plan,
+                              int T, int dm, int H, float eps, int approx,
+                              void* marks, int dtype, void* stream) {
+  ptt::PostArgs a;
+  if (!post_args(p, lin, plan, T, dm, H, eps, approx, 0, marks, &a))
+    return (int)cudaErrorInvalidValue;
   void* args[] = {&a};
   PTT_DISPATCH(dtype, T_, {
-    auto kern = ptt::fused_post_kernel<T_>;
-    int rc = ptt::set_smem(kern, smem);
-    if (rc) return rc;
-    rc = (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(grid),
-                                          dim3(ptt::QD_THREADS), args, smem,
-                                          st);
-    if (rc) return rc;
+    return launch_coop(ptt::fused_post_kernel<T_>, plan[0], args, plan[3],
+                       stream);
   });
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
-// K5c, T = 1: p and lin as ptt_fused_post for layer l (p[17] = x_next out),
+// K5c, T = 1: p, lin and plan as ptt_fused_post for layer l (p[17] = x_next
+// out; the plan's shared memory holds layer l + 1's in_proj units too),
 // then q: norm1 scale, norm1 bias, (w, scale, bias) of layer l + 1's
 // in_proj, the x_next float32 scratch (dm,) and qkv out (N,); qlin: the
-// in_proj's (kind, group). grid <= ptt_fused_post_max_blocks(1, dm, 1).
+// in_proj's (kind, group), the same as layer l's.
 extern "C" int ptt_bilayer(void* const* p, const int* lin, void* const* q,
-                           const int* qlin, int dm, int H, int N, float eps,
-                           int approx, int grid, int dtype, void* stream) {
-  ptt::PostArgs a = post_args(p, lin, 1, dm, H, eps, approx);
-  ptt::NextArgs next{q[0], q[1], {q[2], q[3], q[4], qlin[0], qlin[1]},
+                           const int* qlin, const int* plan, int dm, int H,
+                           int N, float eps, int approx, void* marks,
+                           int dtype, void* stream) {
+  ptt::PostArgs a;
+  ptt::NextArgs next{{}, q[0], q[1], {q[2], q[3], q[4], qlin[0], qlin[1]},
                      (float*)q[5], q[6], N};
-  if (!post_ok(a, grid) || N < 4 || N % 4 || !lin_ok(next.win, dm) ||
-      ptt::packed(next.win) != ptt::packed(a.w2))
+  if (N < ptt::FL_TILE || N % ptt::FL_TILE || !lin_ok(next.win, dm) ||
+      qlin[0] != lin[0] || qlin[1] != lin[1] ||
+      !post_args(p, lin, plan, 1, dm, H, eps, approx, N, marks, &a) ||
+      ptt::encode_lin(&next.tm_nx, next.win, dm, N, 1, 32))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = post_smem(1, dm);
-  cudaStream_t st = (cudaStream_t)stream;
   void* args[] = {&a, &next};
   PTT_DISPATCH(dtype, T_, {
-    auto kern = ptt::bilayer_kernel<T_>;
-    int rc = ptt::set_smem(kern, smem);
-    if (rc) return rc;
-    rc = (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(grid),
-                                          dim3(ptt::QD_THREADS), args, smem,
-                                          st);
-    if (rc) return rc;
+    return launch_coop(ptt::bilayer_kernel<T_>, plan[0], args, plan[3],
+                       stream);
   });
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

@@ -73,21 +73,31 @@ SIGNATURES = {
     # plan: rows a block, reduction slices, k-tiles a slice; stream
     "ptt_rows_mma": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
                      I, I, I, P],
-    # T, dm, bilayer (0: K5b, 1: K5c), dtype -> blocks
-    "ptt_fused_post_max_blocks": [I, I, I, I],
-    # pointer array (18), (kind, group) array (6), T, dm, H, eps, approx,
-    # grid, dtype, stream
-    "ptt_fused_post": [P, P, I, I, I, F, I, I, I, P],
+    # shared memory (bytes), kernel (0: K5b, 1: K5c, 2: K8), dtype ->
+    # blocks the card holds at once
+    "ptt_coop_max_blocks": [I, I, I],
+    # pointer array (18), (kind, group) array (6), plan array (9:
+    # fused_layer.PLAN_KEYS), T, dm, H, eps, approx, marks (or null), dtype,
+    # stream
+    "ptt_fused_post": [P, P, P, I, I, I, F, I, P, I, P],
     # K5b's pointer array (18; [17] = x_next out) and (kind, group) array
     # (6), layer l+1's pointer array (7: norm1 scale, norm1 bias, in_proj
     # w, scale, bias, x_next scratch, qkv out) and (kind, group) array (2),
-    # dm, H, N, eps, approx, grid, dtype, stream
-    "ptt_bilayer": [P, P, P, P, I, I, I, F, I, I, I, P],
-    # d_model, int8 cache (0/1), dtype -> blocks
-    "ptt_megalayer_max_blocks": [I, I, I],
-    # pointer array (30), weight kinds (4), dm, H (hidden), D, S, read_end,
-    # write_slot, eps, approx, grid, dtype, stream
-    "ptt_megalayer": [P, P, I, I, I, I, I, I, F, I, I, I, P],
+    # plan array (9), dm, H, N, eps, approx, marks (or null), dtype, stream
+    "ptt_bilayer": [P, P, P, P, P, I, I, I, F, I, P, I, P],
+    # pointer array (30), weight kinds (4), plan array (11:
+    # fused_step.MEGA_PLAN_KEYS), dm, H (hidden), D, S, read_end,
+    # write_slot, eps, approx, marks (or null), dtype, stream
+    "ptt_megalayer": [P, P, P, I, I, I, I, I, I, F, I, P, I, P],
+    # pointer array (10), W2's (kind, group), plan array (6: mode, grid,
+    # ks, fin_e, shared memory, o_act), dm, H, dtype, stream: the two
+    # cross-block sums of the MLP's down projection side by side
+    # (csrc/coop_bench.cu; timed by chip_smoke.py --kernel-times)
+    "ptt_finish_bench": [P, P, P, I, I, I, P],
+    # barriers, grid blocks, kind (0 grid.sync, 1 with clusters of 2, 2
+    # hand-written), the hand-written barrier's 2 zeroed words, stream: a
+    # cooperative launch of barriers (csrc/coop_bench.cu)
+    "ptt_barrier_bench": [I, I, I, P, P],
     # cluster size, chain and modulation dynamic shared memory, tensor
     # cores (0/1), solo (0/1), dtype -> clusters the card holds at once
     "ptt_flow_max_clusters": [I, I, I, I, I, I],

@@ -290,14 +290,186 @@ def _count(fn, p, x):
         fn.launches += 1
 
 
+# ------------------------------------------------ the cooperative plan ---
+# K5b, K5c and K8 (csrc/layer_post.cuh) are one cooperative launch each. A
+# block owns fixed pieces of every weight matrix, known before the launch:
+#   column-tile phases (out_proj; K8's and K5c's in_proj): tiles of
+#     COOP_TILE columns (32 bytes a stored row), each cut into `ks` slices
+#     of its stored rows; unit u = (tile u // ks, slice u % ks) goes to
+#     block u % grid, its raw sum to the slice's float32 partial
+#   MLP tiles: COOP_TILE hidden units, tile t to block t % grid (int8: W1
+#     columns 32t.. and W2 rows 32t..; int4: W1 columns 16t.. and H/2 +
+#     16t.., W2 packed rows 16t..), the tile's partial of `up` per block
+# and copies all of it into shared memory at kernel entry (thread 0 asks the
+# TMA for 2-D boxes and 1-D runs, one mbarrier a phase; q4_0's scale rows
+# by cp.async, a commit group a phase). `post_plan` /
+# `fused_step.mega_plan` are the one source of the layout: the grid, the
+# slices, the cross-block sum's vector width, each region's offset in
+# shared memory (PLAN_KEYS / fused_step.MEGA_PLAN_KEYS, the order the
+# kernels take them in) and the total; the kernels only check that each
+# region holds what they put there, 128-byte aligned, within the total.
+COOP_TILE = 32
+COOP_MAX_GRID = 132          # one block an SM of the H100
+COOP_KSPLITS = (1, 2, 4, 8)
+COOP_RED_FLOATS = 8 * 8 * 32  # a column-tile product's cross-warp sums
+COOP_MARKS = 24              # globaltimer marks a block (`marks=`)
+SMEM_SLACK = 128             # to align the dynamic shared memory to 128
+POST_MARKS = ("entry", "issued", "staged", "W_o landed", "out_proj",
+              "sync 1", "x1", "ln", "W1 landed", "h", "W2 landed", "mlp",
+              "sync 2", "finish")
+BILAYER_MARKS = POST_MARKS + ("sync 3", "next ln", "next landed",
+                              "next in_proj")
+
+
+PLAN_KEYS = ("grid", "ks_o", "fin_e", "smem", "o_wo", "o_w1", "o_w2",
+             "o_nx", "o_act")
+
+
+def _packed(kind) -> bool:
+    return kind in (INT4, INT4_GROUPED)
+
+
+def col_split(ntiles: int, stored: int, grid: int, group: int = 0) -> int:
+    """k-slices of a column-tile phase of `ntiles` tiles over `stored`
+    stored rows on `grid` blocks: of COOP_KSPLITS whose slices are whole
+    multiples of 32 stored rows (and of q4_0's group), the fewest that
+    make the busiest block's rows fewest."""
+    step = max(32, group)
+    best = None
+    for ks in COOP_KSPLITS:
+        if stored % (ks * step):
+            continue
+        cost = -(-ntiles * ks // grid) * (stored // ks)
+        if best is None or cost < best[0]:
+            best = (cost, ks)
+    if best is None:
+        raise ValueError(f"col_split: {stored} stored rows are not a "
+                         f"multiple of {step}")
+    return best[1]
+
+
+def col_units(ntiles: int, ks: int, grid: int, b: int):
+    """Block b's units of a column-tile phase: [(tile, slice)]."""
+    return [(u // ks, u % ks) for u in range(b, ntiles * ks, grid)]
+
+
+def col_unit_bytes(kind, k: int, ks: int, group: int) -> int:
+    """Shared memory of one column unit of a (k, N) linear: its slice's
+    stored rows of 32 bytes, then (q4_0) the slice's scale rows of the low
+    and the high half, 32 bfloat16 each."""
+    srows = (k // 2 if _packed(kind) else k) // ks
+    return srows * 32 + (2 * (srows // group) * 64
+                         if kind == INT4_GROUPED else 0)
+
+
+def mlp_tile_bytes(kind, dm: int, group: int):
+    """(W1 bytes, W2 bytes) of one MLP tile in shared memory: W1's 32
+    columns over the stored rows (then q4_0's dm / group scale rows of 32
+    bfloat16); W2's 32 int8 rows or 16 packed rows of dm bytes (then q4_0's
+    two scale rows of dm bfloat16)."""
+    p, g = _packed(kind), kind == INT4_GROUPED
+    return ((dm // 2 if p else dm) * 32 + (dm // group * 64 if g else 0),
+            (16 if p else 32) * dm + (4 * dm if g else 0))
+
+
+def finish_vec(t: int, dm: int, grid: int) -> int:
+    """float4 vectors a warp's lanes cover in the cross-block sum of the
+    MLP partials (1, 2, 4 or 8; the other lane bits walk the grid's
+    partials): as many as leave every warp of the grid a chunk."""
+    ne4, e = t * dm // 4, 1
+    while e < 8 and ne4 // (2 * e) >= grid * 8:
+        e *= 2
+    return e
+
+
+def align128(n: int) -> int:
+    """n bytes rounded up to 128: where the next region of shared memory
+    may start (the TMA writes to 128-byte aligned addresses)."""
+    return -(-n // 128) * 128
+
+
+def tail_layout(dm: int, hid: int, kind, group: int, grid: int, ks_o: int,
+                o_wo: int) -> dict:
+    """Offsets (bytes) of the layer tail's weights in a block's shared
+    memory from o_wo on: its out_proj units, MLP W1 tiles, MLP W2 tiles;
+    `end` past them."""
+    nb_o = -(-(dm // COOP_TILE) * ks_o // grid)
+    nb_h = -(-(hid // COOP_TILE) // grid)
+    w1b, w2b = mlp_tile_bytes(kind, dm, group)
+    o_w1 = align128(o_wo + nb_o * col_unit_bytes(kind, dm, ks_o, group))
+    o_w2 = align128(o_w1 + nb_h * w1b)
+    return dict(o_wo=o_wo, o_w1=o_w1, o_w2=o_w2,
+                end=align128(o_w2 + nb_h * w2b))
+
+
+def act_bytes(t: int, dm: int) -> int:
+    """A block's activations: T x dm floats (attention rows, then the
+    LayerNorm), T x 32 (an h tile), T x 32 (a column unit's sums), the
+    cross-warp sums, a LayerNorm's scale and bias (2 x dm floats); above
+    one row also the tensor cores' bf16 copies of the rows and of the h
+    tile in row blocks of 16, padded by 8."""
+    mp = -(-t // 16) * 16
+    return (4 * (t * dm + 2 * t * COOP_TILE + COOP_RED_FLOATS + 2 * dm)
+            + (2 * mp * (dm + 8 + COOP_TILE + 8) if t > 1 else 0))
+
+
 @functools.lru_cache(maxsize=None)
-def _post_grid(t: int, dm: int, hid: int, code: int,
-               bilayer: bool = False) -> int:
-    """K5b's (K5c's) cooperative grid: one block per 32-unit hidden tile
-    (32 W2 rows of int8, 16 packed rows of int4), at most as many as the
-    card holds at once (0 when the query fails)."""
-    return min(-(-hid // 32), cuda_lib.library().ptt_fused_post_max_blocks(
-        t, dm, int(bilayer), code))
+def post_plan(t: int, dm: int, hid: int, kind, group: int = 0,
+              n_next: int = 0) -> dict:
+    """K5b's (n_next = 0) or K5c's (n_next: layer l + 1's in_proj width)
+    plan for T rows: grid (one block an MLP tile, at most COOP_MAX_GRID),
+    out_proj slices ks_o, the finish's vector width fin_e, shared-memory
+    offsets and the total `smem` in bytes. Cached: a call's plan is read,
+    never changed."""
+    if dm % COOP_TILE or hid % COOP_TILE or n_next % COOP_TILE:
+        raise ValueError(f"post_plan: d_model {dm}, hidden {hid} and "
+                         f"{n_next} must be multiples of {COOP_TILE}")
+    grid = min(COOP_MAX_GRID, hid // COOP_TILE)
+    stored = dm // 2 if _packed(kind) else dm
+    # above one row (the tensor cores' products) whole tiles: x1 is then
+    # one partial, which every block reads T x dm of
+    ks_o = col_split(dm // COOP_TILE, stored, grid, group) if t == 1 else 1
+    lay = tail_layout(dm, hid, kind, group, grid, ks_o, 0)
+    o_nx = lay["end"]
+    nb_n = -(-(n_next // COOP_TILE) // grid)
+    o_act = align128(o_nx + nb_n * col_unit_bytes(kind, dm, 1, group))
+    return dict(grid=grid, ks_o=ks_o, fin_e=finish_vec(t, dm, grid),
+                o_wo=0, o_w1=lay["o_w1"], o_w2=lay["o_w2"], o_nx=o_nx,
+                o_act=o_act, smem=o_act + act_bytes(t, dm) + SMEM_SLACK)
+
+
+@functools.lru_cache(maxsize=None)
+def _max_blocks(smem: int, which: int, code: int) -> int:
+    """Blocks of K5b (which 0), K5c (1) or K8 (2) the card holds at once
+    at `smem` bytes of shared memory (0 when the query fails)."""
+    return cuda_lib.library().ptt_coop_max_blocks(smem, which, code)
+
+
+def _plan_ints(plan: dict, keys):
+    """The plan's values in the order the kernel's entry point reads them."""
+    return (ctypes.c_int * len(keys))(*[plan[k] for k in keys])
+
+
+def coop_check(name: str, plan: dict, which: int, code: int) -> None:
+    """Raise unless the plan's grid fits on the card at once."""
+    if plan["smem"] > SMEM_MAX or plan["grid"] > _max_blocks(
+            plan["smem"], which, code):
+        raise ValueError(f"{name}: plan {plan} does not fit on the card")
+
+
+def _marks(name, marks, grid, device):
+    """The marks tensor's pointer (0 for none) after checking it: int64
+    (rows, COOP_MARKS) on the device, rows >= grid (COOP_MAX_GRID rows
+    always do); block b writes %globaltimer (ns) at each of its kernel's
+    mark points into row b, and rows past the grid stay as they were."""
+    if marks is None:
+        return 0
+    if not (marks.dtype == torch.int64 and marks.dim() == 2
+            and marks.shape[0] >= grid and marks.shape[1] == COOP_MARKS
+            and marks.is_contiguous() and marks.device == device):
+        raise ValueError(f"{name}: marks must be int64 (>= {grid}, "
+                         f"{COOP_MARKS}) on {device}")
+    return marks.data_ptr()
 
 
 def _post_operands(name, p, x, attn):
@@ -349,10 +521,29 @@ def pre_attention(p, x, eps: float = 1e-5):
     return out.reshape(*x.shape[:-1], n)
 
 
-def post_attention(p, x, attn, eps: float = 1e-5, approx: bool = False):
+def _layout(ints):
+    """The one (kind, group) of the fused linears' (kind, group) pairs;
+    raises when they differ."""
+    pairs = set(zip(ints[::2], ints[1::2]))
+    if len(pairs) != 1:
+        raise ValueError(f"the cooperative kernels take one weight layout "
+                         f"for all linears, not {sorted(pairs)}")
+    return pairs.pop()
+
+
+def _aligned16(name, tensors):
+    """The cooperative kernels copy weights 16 bytes at a time."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: weights must be 16-byte aligned")
+
+
+def post_attention(p, x, attn, eps: float = 1e-5, approx: bool = False,
+                   marks=None):
     """Same contract as post_attention_plain (x, attn (..., dm)); launches
     K5b for CUDA tensors (cooperative launches, `post_launches` per call;
-    x, attn float32 or bfloat16, supported(p))."""
+    x, attn float32 or bfloat16, supported(p)). marks: an int64
+    (COOP_MAX_GRID, COOP_MARKS) tensor for the cooperative launch's
+    POST_MARKS (`_marks`), or None."""
     if x.device.type == "cpu":
         return post_attention_plain(p, x, attn, eps, approx)
     if x.device.type != "cuda":
@@ -364,21 +555,30 @@ def post_attention(p, x, attn, eps: float = 1e-5, approx: bool = False):
     hid = p["linear1"]["scale"].shape[-1]
     code = cuda_lib.dtype_code(x)
     lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(x.device)
-    x1 = torch.empty(rows, dm, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x2)
     if post_launches(rows, dm) == 1:
-        grid = _post_grid(rows, dm, hid, code)
-        part = torch.empty(grid, rows, dm, dtype=torch.float32,
-                           device=x.device)
-        ptrs = [x2, a2] + vecs + [x1, part, out]
+        plan = post_plan(rows, dm, hid, *_layout(ints))
+        coop_check("post_attention", plan, 0, code)
+        _aligned16("post_attention", vecs[4:])
+        f32 = dict(dtype=torch.float32, device=x.device)
+        p1 = torch.empty(plan["ks_o"], rows, dm, **f32)
+        part = torch.empty(plan["grid"], rows, dm, **f32)
+        x1 = torch.empty(rows, dm, **f32)
+        ptrs = [x2, a2] + vecs + [p1, part, out, x1]
         rc = lib.ptt_fused_post(
             (ctypes.c_void_p * len(ptrs))(*[_ptr(v) for v in ptrs]),
-            (ctypes.c_int * len(ints))(*ints), rows, dm, hid, float(eps),
-            int(approx), grid, code, stream)
-        cuda_lib.check(rc, "ptt_fused_post")
+            (ctypes.c_int * len(ints))(*ints), _plan_ints(plan, PLAN_KEYS),
+            rows, dm, hid, float(eps), int(approx),
+            _marks("post_attention", marks, plan["grid"], x.device), code,
+            stream)
+        cuda_lib.check(rc, f"ptt_fused_post (plan {plan})")
         _count(post_attention, p, x)
         return out.reshape(x.shape)
+    if marks is not None:
+        raise ValueError("post_attention: marks are for the cooperative "
+                         "launch")
     ls1, ls2, ns, nb, *lins = vecs
+    x1 = torch.empty(rows, dm, dtype=torch.float32, device=x.device)
     h = torch.empty(rows, hid, dtype=x.dtype, device=x.device)
     # (A, norm, linear, residual, layer scale, out, K, N, prologue, epilogue)
     steps = ((a2, (None, None), 0, x2, ls1, x1, dm, dm, ROWS_LOAD,
@@ -395,10 +595,11 @@ def post_attention(p, x, attn, eps: float = 1e-5, approx: bool = False):
 
 
 def bilayer_post_pre(p, p_next, x, attn, eps: float = 1e-5,
-                     approx: bool = False):
+                     approx: bool = False, marks=None):
     """Same contract as bilayer_post_pre_plain; launches K5c once for CUDA
     tensors (x, attn (1, dm) float32 or bfloat16, bilayer_supported and
-    supported(p); one cooperative launch)."""
+    supported(p); one cooperative launch). marks: as post_attention's, for
+    BILAYER_MARKS."""
     if x.device.type == "cpu":
         return bilayer_post_pre_plain(p, p_next, x, attn, eps, approx)
     if x.device.type != "cuda":
@@ -416,22 +617,31 @@ def bilayer_post_pre(p, p_next, x, attn, eps: float = 1e-5,
     _check("bilayer_post_pre", p, x,
            [(norm.get("scale"), dm), (norm.get("bias"), dm)])
     (w, s, b), qints = kernel_operands(p_next["in_proj"], dm, n, x)
+    if qints != ints[:2]:
+        raise ValueError(f"bilayer_post_pre: layer l + 1's in_proj layout "
+                         f"{qints} differs from layer l's {ints[:2]}")
     code = cuda_lib.dtype_code(x)
-    grid = _post_grid(1, dm, hid, code, True)
-    x1 = torch.empty(1, dm, dtype=torch.float32, device=x.device)
-    xn32 = torch.empty(dm, dtype=torch.float32, device=x.device)
-    part = torch.empty(grid, 1, dm, dtype=torch.float32, device=x.device)
+    plan = post_plan(1, dm, hid, *_layout(ints), n_next=n)
+    coop_check("bilayer_post_pre", plan, 1, code)
+    _aligned16("bilayer_post_pre", vecs[4:] + [w, s])
+    f32 = dict(dtype=torch.float32, device=x.device)
+    p1 = torch.empty(plan["ks_o"], 1, dm, **f32)
+    xn32 = torch.empty(dm, **f32)
+    part = torch.empty(plan["grid"], 1, dm, **f32)
+    x1 = torch.empty(1, dm, **f32)
     out = torch.empty_like(x)
     qkv = torch.empty(1, n, dtype=x.dtype, device=x.device)
-    ptrs = [x, attn] + vecs + [x1, part, out]
+    ptrs = [x, attn] + vecs + [p1, part, out, x1]
     nptrs = [norm.get("scale"), norm.get("bias"), w, s, b, xn32, qkv]
     rc = cuda_lib.library().ptt_bilayer(
         (ctypes.c_void_p * len(ptrs))(*[_ptr(v) for v in ptrs]),
         (ctypes.c_int * len(ints))(*ints),
         (ctypes.c_void_p * len(nptrs))(*[_ptr(v) for v in nptrs]),
-        (ctypes.c_int * 2)(*qints), dm, hid, n, float(eps), int(approx),
-        grid, code, cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(rc, "ptt_bilayer")
+        (ctypes.c_int * 2)(*qints), _plan_ints(plan, PLAN_KEYS), dm, hid, n,
+        float(eps), int(approx),
+        _marks("bilayer_post_pre", marks, plan["grid"], x.device), code,
+        cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(rc, f"ptt_bilayer (plan {plan})")
     bilayer_post_pre.launches_bilayer += 1
     return out, qkv
 

@@ -122,22 +122,77 @@ def megalayer_plain(p, x, cos, sin, cur_pos, k_cache, v_cache, pos,
     return y
 
 
+# the attention phase: slots a tile, floats a partial (m, l, 2 spare, acc[D])
+K8_TILE = 64
+PART_FLOATS = 4 + 64
+MEGA_MARKS = ("entry", "issued", "ln1", "W_in landed", "in_proj", "sync A",
+              "q/k/v", "attention", "sync B", "merge", "W_o landed",
+              "out_proj", "sync C", "x1", "ln", "W1 landed", "h", "W2 landed",
+              "mlp", "sync D", "finish")
+
+
+def attend_floats(dm: int, d: int, kv_bytes: int) -> int:
+    """Shared floats of a block's attention phase (csrc/megalayer.cu) for
+    caches of kv_bytes-byte elements: the head's projected q, k, v columns
+    and q and the new K row after the rope, a tile's scores, scales and
+    positions, its K and V rows as they are (padded by 16 bytes), the PV
+    partials of 256 / d slot groups, warp maxima and scalars."""
+    return (2 * d + 3 * dm + 4 * K8_TILE
+            + 2 * K8_TILE * (d * kv_bytes + 16) // 4 + (256 // d) * d + 24)
+
+
+MEGA_PLAN_KEYS = ("grid", "ks_in", "ks_o", "nck", "fin_e", "smem", "o_win",
+                  "o_wo", "o_w1", "o_w2", "o_act")
+
+
 @functools.lru_cache(maxsize=None)
-def _grid(dm: int, hid: int, quant: bool, code: int) -> int:
-    """K8's cooperative grid: one block per 32-unit hidden tile (and at
-    least as many as the in_proj's 32-column tiles), at most as many as the
-    card holds at once (0 when the query fails)."""
-    tiles = max(-(-hid // 32), -(-3 * dm // 32))
-    return min(tiles, cuda_lib.library().ptt_megalayer_max_blocks(
-        dm, int(quant), code))
+def mega_plan(dm: int, hid: int, kind, nh: int, kv_bytes: int) -> dict:
+    """K8's plan (fused_layer's cooperative plan) for caches of kv_bytes-byte
+    elements: grid (one block an MLP tile, at most COOP_MAX_GRID); in_proj and
+    out_proj slices ks_in, ks_o; nck chunks of the live slots a head in the
+    attention phase ((head, chunk) block h * nck + c); the finish's vector
+    width; shared-memory offsets and the total `smem` in bytes (the
+    block's weights, then the larger of the attention phase's floats and
+    the product phases' activations with the staged head partials).
+    Cached: a call's plan is read, never changed."""
+    fl = fused_layer
+    if dm % 64 or dm > 2048 or hid % fl.COOP_TILE:
+        raise ValueError(f"mega_plan: d_model {dm} (at most 32 heads of 64)"
+                         f" or hidden {hid}")
+    grid = min(fl.COOP_MAX_GRID, hid // fl.COOP_TILE)
+    if grid < nh:
+        raise ValueError(f"mega_plan: {grid} blocks for {nh} heads")
+    nck = grid // nh
+    stored = dm // 2 if fl._packed(kind) else dm
+    ks_in = fl.col_split(3 * dm // fl.COOP_TILE, stored, grid)
+    ks_o = fl.col_split(dm // fl.COOP_TILE, stored, grid)
+    nb_in = -(-(3 * dm // fl.COOP_TILE) * ks_in // grid)
+    lay = fl.tail_layout(dm, hid, kind, 0, grid, ks_o, fl.align128(
+        nb_in * fl.col_unit_bytes(kind, dm, ks_in, 0)))
+    o_act = lay["end"]
+    merge = 4 * nh * (nck + 1) * PART_FLOATS
+    return dict(grid=grid, ks_in=ks_in, ks_o=ks_o, nck=nck,
+                fin_e=fl.finish_vec(1, dm, grid), o_win=0,
+                o_wo=lay["o_wo"], o_w1=lay["o_w1"], o_w2=lay["o_w2"],
+                o_act=o_act,
+                smem=o_act + max(fl.act_bytes(1, dm) + merge,
+                                 4 * attend_floats(dm, 64, kv_bytes))
+                + fl.SMEM_SLACK)
+
+
+def chunk_bounds(read_end: int, nck: int, c: int):
+    """Slots [lo, hi) of chunk c of a head's live slots 0..read_end."""
+    ln = -(-(read_end + 1) // nck)
+    return min(read_end + 1, c * ln), min(read_end + 1, (c + 1) * ln)
 
 
 def megalayer(p, x, cos, sin, cur_pos, k_cache, v_cache, pos, read_end: int,
               write_slot: int, k_scale=None, v_scale=None,
-              gelu_approx: bool = False, eps: float = 1e-5):
+              gelu_approx: bool = False, eps: float = 1e-5, marks=None):
     """Same contract as megalayer_plain; launches K8 once for CUDA tensors
     (x float32 or bfloat16, D = 64, supported(p); the caches of x's dtype,
-    or int8 with float32 scales)."""
+    or int8 with float32 scales). marks: an int64 (COOP_MAX_GRID,
+    COOP_MARKS) tensor for MEGA_MARKS (fused_layer._marks), or None."""
     if not supported(p):
         raise ValueError(
             "megalayer: takes int8 or per-channel int4 layers, not "
@@ -184,23 +239,30 @@ def megalayer(p, x, cos, sin, cur_pos, k_cache, v_cache, pos, read_end: int,
         lins.append(tensors)
         kinds.append(kind)
     code = cuda_lib.dtype_code(x)
-    grid = _grid(dm, hid, quant, code)
+    plan = mega_plan(dm, hid, kinds[0], dm // d, k_cache.element_size())
+    fused_layer.coop_check("megalayer", plan, 2, code)
+    fused_layer._aligned16("megalayer", [t for l in lins for t in l[:2]])
     f32 = dict(dtype=torch.float32, device=x.device)
-    scratch = [torch.empty(3 * dm, **f32), torch.empty(dm, **f32),
-               torch.empty(dm, **f32), torch.empty(grid, dm, **f32)]
+    scratch = [torch.empty(plan["ks_in"], 3 * dm, **f32),
+               torch.empty(dm // d, plan["nck"] + 1, PART_FLOATS, **f32),
+               torch.empty(plan["ks_o"], dm, **f32),
+               torch.empty(plan["grid"], dm, **f32)]
     y = torch.empty_like(x)
+    x1 = torch.empty(dm, **f32)
     ptrs = ([x, p["norm1"].get("scale"), p["norm1"].get("bias"), *lins[0],
              cos, sin, cur_pos, k_cache, v_cache, pos,
              k_scale if quant else None, v_scale if quant else None,
              *lins[1], p["norm2"].get("scale"), p["norm2"].get("bias"),
-             *lins[2], *lins[3]] + scratch + [y])
+             *lins[2], *lins[3]] + scratch + [y, x1])
     rc = cuda_lib.library().ptt_megalayer(
         (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr()
                                         for t in ptrs]),
-        (ctypes.c_int * 4)(*kinds), dm, hid, d, s, int(read_end),
-        int(write_slot), float(eps), int(gelu_approx), grid, code,
-        cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(rc, "ptt_megalayer")
+        (ctypes.c_int * 4)(*kinds), fused_layer._plan_ints(
+            plan, MEGA_PLAN_KEYS), dm, hid, d, s,
+        int(read_end), int(write_slot), float(eps), int(gelu_approx),
+        fused_layer._marks("megalayer", marks, plan["grid"], x.device),
+        code, cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(rc, f"ptt_megalayer (plan {plan})")
     if kinds[0] == INT8:
         megalayer.launches += 1
     else:
