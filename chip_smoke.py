@@ -25,10 +25,13 @@ raises, names its phase and the exit code is 1:
                    chunks), K3 SEANet frame (and on tiny_config's narrow
                    decoder); K4a int8 matmul, K5a/K5b
                    fused layer pre/post and K6 fused flow net on int8
-                   weights; K4b int4 matmul and the int4 K5a/K5b/K6 on
-                   per-channel int4 and on q4_0 (K-grouped) weights:
-                   each vs its plain version at main-path shapes, f32 and
-                   bf16, with the tolerances stated below
+                   weights; K4b int4 matmul (input_linear at 1, 2, 15,
+                   16 and 32 rows, the four prefill linears at 1, 2, 15,
+                   16, 128 and 256: each of its routes) and the int4
+                   K5a/K5b/K6 on per-channel int4 and on q4_0
+                   (K-grouped) weights: each vs its plain version at
+                   main-path shapes, f32 and bf16, with the tolerances
+                   stated below
   3c. at batch     K7 fused insert + decode attention at S=1024, H*D=1024,
                    B=32 and solo (linear and ring; write slot at 0, at
                    chunk boundaries and at S-1; one invalid lane, one idle
@@ -44,7 +47,9 @@ raises, names its phase and the exit code is 1:
                    rows (and 15 and 16: both sides of the tensor-core
                    route's R_min) and K6 over 32, 40 and 64 rows, int8,
                    int4 and q4_0; the same three kernels on
-                   tiny_config(64)'s narrow widths; f32 and bf16
+                   tiny_config(64)'s narrow widths, and there K5a's and
+                   K5b's four row-block products at 1, 2 and 15 rows
+                   (the skinny kernel in bf16); f32 and bf16
   3e. slice 6      K8 megalayer on every layer of the int8 and int4 trees,
                    caches of the working type and int8, S=384 with the
                    write slot at 300 and at a tile edge (y, cache rows and
@@ -71,7 +76,11 @@ raises, names its phase and the exit code is 1:
                    bf16 K5a calls of MMA_ROWS rows or more, the row-block
                    K5b launches) count once more under rows_mma: the
                    mimi layers' K5a solo (2 a frame), every K5a / K5b
-                   launch over the lanes in the serving mode.
+                   launch over the lanes in the serving mode; those of
+                   the skinny kernel (bf16 below MMA_ROWS rows) under
+                   rows_skinny: the backbone's K5a at T = 1 (6 a frame,
+                   1 on the bilayer path). K4b's launches (the same
+                   kernels) count under int4_matmul only.
                    Then the q4_0 engine is built again from a params cache
                    written and read back here, and must give the same pcm,
                    bit for bit
@@ -115,8 +124,10 @@ raises, names its phase and the exit code is 1:
                    launches a frame, no memset, no more launches than
                    FRAME_LAUNCHES) and per chunk of
                    serving with every lane busy, in both serving modes
-                   (torch.profiler; last, after every host-clock
-                   measurement)
+                   (torch.profiler after 2 warm-up steps; last, after
+                   every host-clock measurement), the launch counters over
+                   the same frames and chunks beside the profiler's
+                   records by kernel family (launch_crosscheck)
 
 The last three lines of standard output are a JSON object of the kernels
 (launches from the runs of the path that uses each: K1-K3 from bf16, the
@@ -198,8 +209,10 @@ KERNELS = {
     "fused_flow": dict(
         source="pocket_tts_tpu_torch/csrc/fused_flow.cu",
         replaces="pocket_tts_tpu/ops/fused_flow.py:188"),
+    # K4b: the row-block product of its route (rows_mma_kernel,
+    # skinny_kernel, rows_kernel) with the load prologue
     "int4_matmul": dict(
-        source="pocket_tts_tpu_torch/csrc/int4_matmul.cu",
+        source="pocket_tts_tpu_torch/csrc/fused_layer.cu",
         replaces="pocket_tts_tpu/ops/quant_matmul.py:407"),
     "fused_pre_int4": dict(
         source="pocket_tts_tpu_torch/csrc/fused_layer.cu",
@@ -820,10 +833,14 @@ def check_quant_kernels(pq, cfg, device, dtype, results, path):
         raise AssertionError("q4_0 tree lacks its mixed scale layouts")
     # K4a / K4b: input_linear each frame (T=1, K=32), and prefill buckets
     # through in_proj (K=1024, N=3072), linear1 (N=4096) and linear2
-    # (K=4096)
+    # (K=4096). K4b on each of its routes: the skinny kernel at 1, 2 and
+    # 15 rows, the tensor cores from 16 (input_linear over 32 lanes: K = 32,
+    # a k-tile of 16 packed rows), rows_kernel in float32
     pairs = []
-    cases = [(1, pq["input_linear"])]
-    for t in (16, 130):
+    k4b = key == "q4"
+    cases = [(t, pq["input_linear"]) for t in ((1, 2, 15, 16, LANES) if k4b
+                                               else (1,))]
+    for t in (1, 2, 15, 16, 128, 256) if k4b else (16, 130):
         for name in ("in_proj", "linear1", "linear2", "out_proj"):
             cases.append((t, slice_layer_params(bb, -1)[name]))
     for t, lin in cases:
@@ -1075,6 +1092,56 @@ def check_quant_lanes(pq, cfg, device, dtype, results, path):
     _rel_check("fused_flow_lanes", "flow", dtype, pairs, results, label)
 
 
+def rows_step_pairs(p, rows, eps, dtype, rng, device):
+    """K5a's product and K5b's three row-block products of layer p, each
+    one launch of the row-block route for `rows` rows (`rows_launch`:
+    the skinny kernel below MMA_ROWS bf16 rows), beside the plain
+    arithmetic of the same step, each prologue / epilogue pair once:
+    ROWS_LN + EPI_ROUND (qkv), ROWS_LOAD + EPI_RESID_F32 (x1),
+    ROWS_LN_F32 + EPI_GELU (h), ROWS_LOAD + EPI_RESID (the output).
+    Returns [(kernel out, plain out)]."""
+    import torch
+    from pocket_tts_tpu_torch.ops import cuda_lib
+    from pocket_tts_tpu_torch.ops import fused_layer as fl
+    from pocket_tts_tpu_torch.ops.basic import gelu, layer_norm
+    from pocket_tts_tpu_torch.ops.quant_matmul import kernel_operands
+    dm = p["norm1"]["scale"].shape[0]
+    hid = p["linear1"]["scale"].shape[-1]
+    ls1 = p.get("layer_scale_1", {}).get("scale")
+    ls2 = p.get("layer_scale_2", {}).get("scale")
+    x = _rand(rng, device, dtype, rows, dm, scale=0.5)
+    attn = _rand(rng, device, dtype, rows, dm, scale=0.5)
+    x1 = _rand(rng, device, torch.float32, rows, dm)
+    h = _rand(rng, device, dtype, rows, hid, scale=0.5)
+
+    def scaled(ls, v):
+        return v if ls is None else ls.float() * v
+
+    f32 = torch.float32
+    steps = (
+        ("in_proj", x, p["norm1"], None, None, dtype, fl.ROWS_LN,
+         fl.EPI_ROUND, fl.pre_attention_plain(p, x, eps)),
+        ("out_proj", attn, {}, x, ls1, f32, fl.ROWS_LOAD, fl.EPI_RESID_F32,
+         x.float() + scaled(ls1, fl._deq(attn, p["out_proj"]))),
+        ("linear1", x1, p["norm2"], None, None, dtype, fl.ROWS_LN_F32,
+         fl.EPI_GELU, gelu(fl._deq(layer_norm(p["norm2"], x1, eps)
+                                   .to(dtype), p["linear1"]), False)
+         .to(dtype)),
+        ("linear2", h, {}, x1, ls2, dtype, fl.ROWS_LOAD, fl.EPI_RESID,
+         (x1 + scaled(ls2, fl._deq(h, p["linear2"]))).to(dtype)))
+    pairs = []
+    for name, a, norm, res, ls, odt, pro, epi, want in steps:
+        k, n = a.shape[-1], want.shape[-1]
+        lin, layout = kernel_operands(p[name], k, n, x)
+        out = torch.empty(rows, n, dtype=odt, device=device)
+        fl.rows_launch(cuda_lib.library(), dtype, a,
+                       (norm.get("scale"), norm.get("bias")), lin, layout,
+                       res, ls, out, rows, k, n, pro, epi, False, eps,
+                       cuda_lib.stream_ptr(device))
+        pairs.append((out, want))
+    return pairs
+
+
 def check_quant_narrow(device, dtype):
     """K5a, K5b, K5c, K6 and K8 on tiny_config(64)'s narrow widths
     (backbone d_model 256, mimi 128, flow dim 128, latent 8: a few 64-column
@@ -1087,7 +1154,10 @@ def check_quant_narrow(device, dtype):
     K5c on the layer pair (0, 1) (int4, q4_0); K8 on both layers (int8,
     int4) with caches of the working type and int8: live slots 0..100 with
     the write slot at 100, inside a chunk (37) and at 2 (empty chunks), and
-    cur_pos < 0; each vs its plain version."""
+    cur_pos < 0; K5a's and K5b's four row-block products, each prologue /
+    epilogue pair, at 1, 2 and 15 rows (the skinny route in bf16) on a
+    backbone and a mimi layer, with and without biases (rows_step_pairs);
+    each vs its plain version."""
     import torch
     from pocket_tts_tpu_torch.config import tiny_config
     from pocket_tts_tpu_torch.io.params import random_params
@@ -1137,6 +1207,15 @@ def check_quant_narrow(device, dtype):
             x = _rand(rng, device, dtype, *shape, cfg.latent_dim)
             flow.append((fused_flow.flow_forward(fp, c, x, tc),
                          fused_flow.flow_forward_plain(fp, c, x, tc)))
+        steps = []
+        for layers, eps in ((pq["layers"], 1e-5), (mlayers, mtc.norm_eps)):
+            for bias in (False, True):
+                p = slice_layer_params(layers, 1)
+                if bias:
+                    p = _with_biases(p, rng, device, dtype)
+                for rows in (1, 2, 15):
+                    steps += rows_step_pairs(p, rows, eps, dtype, rng,
+                                             device)
         if path != "int8":
             p0_, p1_ = (slice_layer_params(pq["layers"], i) for i in (0, 1))
             x = _rand(rng, device, dtype, 1, bbc.d_model, scale=0.5)
@@ -1151,6 +1230,8 @@ def check_quant_narrow(device, dtype):
         _rel_check("fused_post", "quant", dtype, solo, {},
                    f"{label} T = 1, 2, 15, 16 / 16, 32")
         _rel_check("fused_flow_lanes", "flow", dtype, flow, {}, label)
+        _rel_check("rows steps", "quant", dtype, steps, {},
+                   f"{label} 1, 2, 15 rows (skinny in bf16)")
         if bil:
             _rel_check("bilayer", "quant", dtype, bil, {}, label)
         if path == "q4_0":
@@ -1571,7 +1652,8 @@ def _counters():
                                       "launches_kv8"),
            "decode_insert_attn_stats": (decode_insert_attention,
                                         "launches_stats"),
-           "rows_mma": (fused_layer._rows_call, "launches_mma")}
+           "rows_mma": (fused_layer._rows_call, "launches_mma"),
+           "rows_skinny": (fused_layer._rows_call, "launches_skinny")}
     for name, fn in (("fused_pre", fused_layer.pre_attention),
                      ("fused_post", fused_layer.post_attention),
                      ("fused_flow", fused_flow.flow_forward)):
@@ -1637,6 +1719,7 @@ def expected_launches(cfg, path):
     if rows_route(torch.bfloat16, cfg.mimi.upsample_stride) == "mma":
         per_frame["rows_mma"] = nm
     per_prefill = {mm: 4 * nb}
+    skinny = rows_route(torch.bfloat16, 1) == "skinny"  # K5a of a T = 1 layer
     if cfg.backbone.use_megalayer:
         per_frame.update({pre: nm, post: nm,
                           ("megalayer" if weights == "int8"
@@ -1646,8 +1729,12 @@ def expected_launches(cfg, path):
     elif cfg.backbone.use_bilayer:
         per_frame.update({pre: 1 + nm, post: 1 + nm, "bilayer": nb - 1,
                           k1: nb})
+        if skinny:
+            per_frame["rows_skinny"] = 1
     else:
         per_frame[k1] = nb
+        if skinny:
+            per_frame["rows_skinny"] = nb
     return per_frame, per_prefill
 
 
@@ -1677,7 +1764,7 @@ def end_to_end(engine, voice, counts, label, text=BENCH_TEXT):
         raise AssertionError("non-finite pcm")
     if not np.abs(pcm).max() > 0:
         raise AssertionError("silent pcm")
-    for name in list(KERNELS) + ["rows_mma"]:
+    for name in list(KERNELS) + ["rows_mma", "rows_skinny"]:
         want = (per_frame.get(name, 0) * frames
                 + per_prefill.get(name, 0) * prefills)
         if launches[name] != want:
@@ -2384,8 +2471,12 @@ def coop_kernel_times(device, res):
     six backbone layers (K5c: the five layer pairs; mimi: the two layers)
     one after another, as a frame streams them; beside each, "bound": one
     call's bytes (weights and activations once, each cache row read once)
-    at 3.35 TB/s. Also K4b at T = 1 (K = 32, N = 1024) and T = 128 (1024 x
-    3072) beside torch._weight_int4pack_mm (int4pack_ms). Where the tree
+    at 3.35 TB/s. K5a at T = 1 (backbone, int8, int4, q4_0) the same two
+    ways. Also K4b at T = 1 (K = 32, N = 1024) and at T = 128 on the four
+    prefill linears (in_proj 1024 x 3072, out_proj 1024 x 1024, linear1
+    1024 x 4096, linear2 4096 x 1024) beside torch._weight_int4pack_mm
+    (int4pack_ms) and its bound, and the device time of one prefill call
+    of 128 rows through the six layers (24 K4b launches). Where the tree
     has csrc/coop_bench.cu, also what a grid barrier costs
     (barrier_times) and the MLP's down projection with its cross-block
     sum both ways (finish_times). Added to res ({label: us})."""
@@ -2394,6 +2485,7 @@ def coop_kernel_times(device, res):
     from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
     from pocket_tts_tpu_torch.io.params import random_params
     from pocket_tts_tpu_torch.io.quant import quantize_params
+    from pocket_tts_tpu_torch.models import backbone, flow_lm
     from pocket_tts_tpu_torch.ops import cuda_lib, fused_layer, fused_step
     from pocket_tts_tpu_torch.ops import quant_matmul as qm
     from pocket_tts_tpu_torch.ops.basic import slice_layer_params
@@ -2438,6 +2530,11 @@ def coop_kernel_times(device, res):
         dm = bb.d_model
         x = _rand(rng, device, dt, 1, dm, scale=0.5)
         a = _rand(rng, device, dt, 1, dm, scale=0.5)
+        pre = {k: bls[0][k] for k in ("norm1", "in_proj")}
+        two_ways(f"K5a {path} backbone T=1",
+                 [lambda p=p: fused_layer.pre_attention(p, x)
+                  for p in bls],
+                 _tree_bytes(pre) + _nbytes(x) * 4, _linear_flops(pre, 1))
         if path != "int8":
             post = {k: v for k, v in bls[0].items()
                     if k not in ("norm1", "in_proj")}
@@ -2447,8 +2544,11 @@ def coop_kernel_times(device, res):
                          p0, p1, x, a) for p0_, p1_ in zip(bls, bls[1:])],
                      _tree_bytes(post) + _tree_bytes(pre) + _nbytes(x) * 6,
                      _linear_flops(post, 1) + _linear_flops(pre, 1))
-            for lin, t, kdim in ((pq["input_linear"], 1, cfg.latent_dim),
-                                 (bls[0]["in_proj"], 128, dm)):
+            cases = [(pq["input_linear"], 1)] + [
+                (bls[0][k], 128) for k in ("in_proj", "out_proj",
+                                           "linear1", "linear2")]
+            for lin, t in cases:
+                kdim = lin["q4"].shape[0] * 2
                 xi = _rand(rng, device, dt, t, kdim)
                 y = qm.int4_matmul(xi, lin["q4"], lin["scale"])
                 shape = f"T={t} K={kdim} N={y.shape[-1]}"
@@ -2457,6 +2557,17 @@ def coop_kernel_times(device, res):
                 lib = int4pack_ms(xi, lin, y)
                 res[f"K4b {path} {shape} library"] = (
                     None if lib is None else 1e3 * lib)
+                res[f"K4b {path} {shape} bound"] = 1e3 * bound_ms(
+                    _tree_bytes(lin) + _nbytes(xi, y),
+                    _linear_flops(lin, t))[0]
+            st = backbone.init_state(bb, dt, device)
+            emb = _rand(rng, device, dt, 128, dm, scale=0.5)
+
+            def prefill():  # the same 128 slots each call
+                st.end = st.next_pos = 0
+                flow_lm.prefill(pq, cfg, st, emb, 120)
+
+            res[f"prefill {path} T=128"] = us(prefill)
         if path == "q4_0":
             continue
         isz = 2
@@ -2483,13 +2594,17 @@ def coop_kernel_times(device, res):
 
 
 def time_rows_plans(engines, device):
-    """Device us of each product of K5a and K5b over many rows, int4 and
-    int8, on both kernels: rows_kernel (SIMT) and rows_mma_kernel at every
-    tile height and reduction split that fits: the evidence behind
-    `rows_plan` and MMA_ROWS (R_min). K5a's in_proj at 1, 16 and 32
-    backbone rows and 16 and 512 mimi rows; K5b's three row-block products
-    at 32 and 512 rows. Returns [(path, linear, rows, K, N, SIMT us, the
-    plan rows_plan takes, {(bm, splits): us})]."""
+    """Device us of each row-block product of K5a, K5b and K4b on the three
+    kernels: rows_kernel (SIMT), rows_mma_kernel at every tile height and
+    reduction split that fits, and up to 16 rows skinny_kernel at every
+    slice count it takes: the evidence behind `rows_plan`, `skinny_plan`
+    and MMA_ROWS (R_min). int4 and int8: K5a's in_proj at 1, 8, 15, 16 and
+    32 backbone rows and 16 and 512 mimi rows, K5b's three row-block
+    products at 32 and 512 rows; int4 and q4_0: K4b's input_linear at 1
+    and 32 rows and its four prefill linears at 1 and 128 rows (the load
+    prologue, the rounding epilogue). Returns [(path, linear, rows, K, N,
+    SIMT us, the plan rows_plan takes, {(bm, splits): us}, the slice count
+    skinny_plan takes (0 above 16 rows), {ks: us})]."""
     import torch
     from pocket_tts_tpu_torch.ops import cuda_lib
     from pocket_tts_tpu_torch.ops import fused_layer as fl
@@ -2497,11 +2612,13 @@ def time_rows_plans(engines, device):
     from pocket_tts_tpu_torch.ops.quant_matmul import kernel_operands
     lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(device)
     rng = np.random.RandomState(33)
-    out = []
+    # (path, name, linear, rows, K, N, prologue, epilogue, norm, eps)
+    cases = []
     for path in ("int4", "int8"):
         pq, cfg = engines[path].params, engines[path].cfg
         for layers, dm, eps, rows_list in (
-                (pq["layers"], cfg.backbone.d_model, 1e-5, (1, 16, LANES)),
+                (pq["layers"], cfg.backbone.d_model, 1e-5,
+                 (1, 8, 15, 16, LANES)),
                 (pq["mimi"]["decoder_transformer"]["layers"],
                  cfg.mimi.transformer.d_model, cfg.mimi.transformer.norm_eps,
                  (16, LANES * 16))):
@@ -2516,46 +2633,68 @@ def time_rows_plans(engines, device):
                         ("linear1", dm, hid, fl.ROWS_LN_F32, fl.EPI_GELU,
                          p["norm2"]),
                         ("linear2", hid, dm, fl.ROWS_LOAD, fl.EPI_RESID, {})):
-                    if name != "in_proj" and fl.post_launches(rows, dm) == 1:
-                        continue
-                    a = _rand(rng, device, torch.float32 if pro ==
-                              fl.ROWS_LN_F32 else torch.bfloat16, rows, k)
-                    res_t = (_rand(rng, device, torch.bfloat16, rows, n)
-                             if epi == fl.EPI_RESID_F32 else
-                             _rand(rng, device, torch.float32, rows, n)
-                             if epi == fl.EPI_RESID else None)
-                    dst = torch.empty(rows, n, device=device, dtype=(
-                        torch.float32 if epi == fl.EPI_RESID_F32
-                        else torch.bfloat16))
-                    (w, sc, bias), (kind, group) = kernel_operands(
-                        p[name], k, n, dst if dst.dtype == torch.bfloat16
-                        else a)
-                    ptr = lambda t: 0 if t is None else t.data_ptr()
-                    args = (a.data_ptr(), ptr(norm.get("scale")),
-                            ptr(norm.get("bias")), w.data_ptr(), ptr(sc),
-                            ptr(bias), ptr(res_t), 0, dst.data_ptr(), rows,
-                            k, n, kind, group, pro, epi, 0, float(eps))
-                    simt = 1e3 * device_ms(lambda: cuda_lib.check(
-                        lib.ptt_fused_rows(*args, 1, stream),
-                        "ptt_fused_rows"), 30)[0]
-                    packed = kind != 1
-                    kt = (k // 2 if packed else k) // fl.MMA_BKS
-                    ln = {fl.ROWS_LN: 2, fl.ROWS_LN_F32: 4}.get(pro, 0)
-                    plan = fl.rows_plan(rows, k, n, packed, ln)
-                    times = {}
-                    for bm in fl.MMA_BMS:
-                        if bm > 16 and bm // 2 >= rows:
-                            continue
-                        for splits in range(1, fl.MMA_MAX_SPLITS + 1):
-                            per = -(-kt // splits)
-                            if ((splits - 1) * per >= kt or fl.rows_mma_smem(
-                                    bm, per, packed, k, ln) > fl.SMEM_MAX):
-                                continue
-                            times[bm, splits] = 1e3 * device_ms(
-                                lambda: cuda_lib.check(lib.ptt_rows_mma(
-                                    *args, bm, splits, per, stream),
-                                    "ptt_rows_mma"), 30)[0]
-                    out.append((path, name, rows, k, n, simt, plan, times))
+                    if name == "in_proj" or fl.post_launches(rows, dm) > 1:
+                        cases.append((path, name, p[name], rows, k, n, pro,
+                                      epi, norm, eps))
+    for path in ("int4", "q4_0"):
+        pq = engines[path].params
+        p = slice_layer_params(pq["layers"], 0)
+        for name, lin, rows_list in (
+                [("K4b input_linear", pq["input_linear"], (1, LANES))]
+                + [(f"K4b {k}", p[k], (1, 128))
+                   for k in ("in_proj", "out_proj", "linear1", "linear2")]):
+            k, n = 2 * lin["q4"].shape[0], lin["q4"].shape[1]
+            for rows in rows_list:
+                cases.append((path, name, lin, rows, k, n, fl.ROWS_LOAD,
+                              fl.EPI_ROUND, {}, 0.0))
+    out = []
+    for path, name, lin, rows, k, n, pro, epi, norm, eps in cases:
+        a = _rand(rng, device, torch.float32 if pro == fl.ROWS_LN_F32
+                  else torch.bfloat16, rows, k)
+        res_t = (_rand(rng, device, torch.bfloat16, rows, n)
+                 if epi == fl.EPI_RESID_F32 else
+                 _rand(rng, device, torch.float32, rows, n)
+                 if epi == fl.EPI_RESID else None)
+        dst = torch.empty(rows, n, device=device, dtype=(
+            torch.float32 if epi == fl.EPI_RESID_F32 else torch.bfloat16))
+        (w, sc, bias), (kind, group) = kernel_operands(
+            lin, k, n, dst if dst.dtype == torch.bfloat16 else a)
+        ptr = lambda t: 0 if t is None else t.data_ptr()
+        args = (a.data_ptr(), ptr(norm.get("scale")), ptr(norm.get("bias")),
+                w.data_ptr(), ptr(sc), ptr(bias), ptr(res_t), 0,
+                dst.data_ptr(), rows, k, n, kind, group, pro, epi, 0,
+                float(eps))
+        simt = 1e3 * device_ms(lambda: cuda_lib.check(
+            lib.ptt_fused_rows(*args, 1, stream), "ptt_fused_rows"), 30)[0]
+        packed = kind != 1
+        stored = k // 2 if packed else k
+        kt = -(-stored // fl.MMA_BKS)
+        ln = {fl.ROWS_LN: 2, fl.ROWS_LN_F32: 4}.get(pro, 0)
+        plan = fl.rows_plan(rows, k, n, packed, ln)
+        times = {}
+        for bm in fl.MMA_BMS:
+            if bm > 16 and bm // 2 >= rows:
+                continue
+            for splits in range(1, fl.MMA_MAX_SPLITS + 1):
+                per = -(-kt // splits)
+                if ((splits - 1) * per >= kt or fl.rows_mma_smem(
+                        bm, per, packed, k, ln) > fl.SMEM_MAX):
+                    continue
+                times[bm, splits] = 1e3 * device_ms(
+                    lambda: cuda_lib.check(lib.ptt_rows_mma(
+                        *args, bm, splits, per, stream), "ptt_rows_mma"),
+                    30)[0]
+        skinny, sks = {}, 0
+        if rows <= fl.MMA_ROWS:
+            sks = fl.skinny_plan(rows, k, n, kind, group, ln > 0)["ks"]
+            for ks in fl.skinny_slices(stored, kind, group):
+                sp = fl._plan_ints(fl.skinny_plan(rows, k, n, kind, group,
+                                                  ln > 0, ks),
+                                   fl.SKINNY_PLAN_KEYS)
+                skinny[ks] = 1e3 * device_ms(lambda: cuda_lib.check(
+                    lib.ptt_rows_skinny(*args, sp, stream),
+                    "ptt_rows_skinny"), 30)[0]
+        out.append((path, name, rows, k, n, simt, plan, times, sks, skinny))
     return out
 
 
@@ -3128,10 +3267,66 @@ K1_PER_FRAME = {"int8_mega": 0, "int4_kv8_mega": 0}   # else 6
 K3_PER_FRAME = 14   # ten conv-GEMMs, three overlap-adds, the final conv
 
 
-def check_frame_launches(label, kern):
+# The port's kernels as the profiler names them, by family, beside the
+# launch counters (`_counters`) that count the family's launches, each with
+# the device launches one count stands for. A counter that counts a launch
+# once more (rows_mma, rows_skinny, the statistics, megalayer_kv8) is in no
+# family; the row-block kernels and K5b's cooperative kernel are one family
+# since K4b, K5a and K5b share them.
+LAUNCH_FAMILIES = {
+    "K1": (("decode_attn_kernel",),
+           (("decode_attn", 1), ("decode_attn_kv8", 1),
+            ("decode_attn_lanes", 1))),
+    "K2": (("ring_attn_kernel",), (("ring_attn", 1), ("ring_attn_kv8", 1))),
+    "K3": (("seanet_gemm_kernel", "seanet_overlap_kernel",
+            "seanet_last_kernel"), (("seanet_frame", K3_PER_FRAME),)),
+    "K4a": (("int8_matmul_kernel",), (("int8_matmul", 1),)),
+    "K4b/K5a/K5b": (("rows_kernel", "rows_mma_kernel", "skinny_kernel",
+                     "fused_post_kernel"),
+                    (("int4_matmul", 1), ("fused_pre", 1),
+                     ("fused_pre_int4", 1), ("fused_pre_lanes", 1),
+                     ("fused_post", 1), ("fused_post_int4", 1),
+                     ("fused_post_lanes", 1))),
+    "K5c": (("bilayer_kernel",), (("bilayer", 1),)),
+    "K6": (("flow_mods_kernel", "flow_chain_kernel"),
+           (("fused_flow", 1), ("fused_flow_int4", 1),
+            ("fused_flow_lanes", 1))),
+    "K7": (("insert_attn_kernel",), (("decode_insert_attn", 1),
+                                     ("decode_insert_attn_kv8", 1))),
+    "K8": (("megalayer_kernel",), (("megalayer", 1),
+                                   ("megalayer_int4", 1))),
+}
+
+
+def launch_crosscheck(kern, counted):
+    """The profiler's launches of each kernel family (kern: [(kernel, us,
+    calls)] per frame or step) beside the wrappers' launch counters over
+    the same window (counted: {counter: launches} per frame or step):
+    ([(family, profiler, counters)] of the families either side saw, the
+    text that names each disagreement and its side: "profiler lost" where
+    the profiler holds fewer records than the wrappers launched, "counters
+    missed" where it holds more)."""
+    rows, bad = [], []
+    for fam, (syms, ctrs) in LAUNCH_FAMILIES.items():
+        prof = sum(c for key, _, c in kern if any(s in key for s in syms))
+        cnt = sum(counted.get(name, 0) * m for name, m in ctrs)
+        if prof or cnt:
+            rows.append((fam, prof, cnt))
+            if abs(prof - cnt) > 1e-6:
+                side = "profiler lost" if prof < cnt else "counters missed"
+                bad.append(f"{fam}: {side} {abs(cnt - prof):.2f} (profiler "
+                           f"{prof:.2f}, counters {cnt:.2f})")
+    text = ("profiler and launch counters agree on every kernel" if not bad
+            else "profiler and launch counters DISAGREE: " + "; ".join(bad))
+    return rows, text
+
+
+def check_frame_launches(label, kern, counted):
     """The profiler's launches per frame of a solo path: 6 K1 (0 on the
     megalayer paths), 2 K2 and K3_PER_FRAME K3 launches, no memset, and no
-    more launches in all than FRAME_LAUNCHES."""
+    more launches in all than FRAME_LAUNCHES. Logged beside the launch
+    counters over the same frames (counted: per frame; launch_crosscheck),
+    whose verdict a failure's message carries."""
     def calls(name):
         return sum(c for key, _, c in kern if name in key)
     k1, k2 = calls("decode_attn_kernel"), calls("ring_attn_kernel")
@@ -3139,9 +3334,12 @@ def check_frame_launches(label, kern):
                                                      "last"))
     total = sum(c for _, _, c in kern)
     memset = calls("emset")
+    rows, verdict = launch_crosscheck(kern, counted)
     log(f"    launches per frame: K1 {k1:.1f}, K2 {k2:.1f}, K3 {k3:.1f}, "
         f"memset {memset:.1f}, all {total:.1f} (at most "
         f"{FRAME_LAUNCHES[label]})")
+    log("    profiler / counters per frame: " + ", ".join(
+        f"{fam} {p:.2f} / {c:.2f}" for fam, p, c in rows) + f": {verdict}")
     want_k1 = K1_PER_FRAME.get(label, 6)
     if not (abs(k1 - want_k1) < 1e-6 and abs(k2 - 2) < 1e-6
             and abs(k3 - K3_PER_FRAME) < 1e-6 and memset == 0
@@ -3149,17 +3347,60 @@ def check_frame_launches(label, kern):
         raise AssertionError(f"{label}: launches per frame changed: K1 {k1} "
                              f"(want {want_k1}), K2 {k2} (want 2), K3 {k3} "
                              f"(want {K3_PER_FRAME}), memset {memset} (want "
-                             f"0), all {total}")
+                             f"0), all {total}; {verdict}")
+
+
+# Profiled steps before the recorded window (torch.profiler's warm-up:
+# tracing on, records dropped). Without them the profiler lost the first
+# ~86 kernel records of a window while the launch counters saw every
+# launch (on the H100, the int4_kv8 frames: input_linear's, layer 0's and
+# layer 1's K5a records missing, launch_crosscheck "profiler lost"; PERF.md
+# section 5); the window starts and ends on a synchronised device, so it
+# holds whole steps. The profiler's step annotations (ProfilerStep#k, a
+# span over each step's device work) are not kernels.
+PROFILE_WARMUP = 2
+
+
+def device_kernels(ka, n):
+    """[(kernel, us per step, calls per step)] of the device events of
+    key_averages ka over n steps, largest first (the step annotations
+    left out)."""
+    from torch.autograd import DeviceType
+    out = [(e.key, e.self_device_time_total / n, e.count / n) for e in ka
+           if e.device_type == DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
+    return sorted(out, key=lambda r: -r[1])
+
+
+def profiled_steps(step, n):
+    """Run step() PROFILE_WARMUP + n times under torch.profiler, recording
+    the last n, with the launch counters set to 0 just before them and
+    read just after. Returns (key_averages of the n steps, {counter:
+    launches per step})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=PROFILE_WARMUP, active=n,
+                                   repeat=1)) as prof:
+        for i in range(PROFILE_WARMUP + n):
+            if i == PROFILE_WARMUP:
+                time.sleep(0.01)  # the first launches well inside the window
+                reset_counters()
+            step()
+            if i in (PROFILE_WARMUP - 1, PROFILE_WARMUP + n - 1):
+                torch.cuda.synchronize()
+            prof.step()
+    counted = {k: v / n for k, v in read_counters().items()}
+    return prof.key_averages(), counted
 
 
 def profile_frames(engine, voice, path, n_frames=20):
     """Device time by kernel over n_frames of the frame loop
-    (torch.profiler). Returns (device busy us per frame, [(kernel, us per
-    frame, calls per frame)] largest first); the table goes to `path`
-    when one is given."""
+    (torch.profiler, `profiled_steps`), beside the launch counters over
+    the same frames. Returns (device busy us per frame, [(kernel, us per
+    frame, calls per frame)] largest first, {counter: launches per
+    frame}); the table goes to `path` when one is given."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from pocket_tts_tpu_torch.text.preprocess import prepare_text_prompt
     from pocket_tts_tpu_torch.models import tts
     prepared, _ = prepare_text_prompt(BENCH_TEXT)
@@ -3167,22 +3408,18 @@ def profile_frames(engine, voice, path, n_frames=20):
     zero = torch.zeros(engine.cfg.latent_dim, dtype=engine.dtype,
                        device=engine.device)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def step():
         with torch.no_grad():
-            for _ in range(n_frames):
-                tts.frame_step(engine.params, engine.cfg, state, zero,
-                               10 ** 6, 10 ** 6, engine.seanet_weights)
-        torch.cuda.synchronize()
-    ka = prof.key_averages()
+            tts.frame_step(engine.params, engine.cfg, state, zero, 10 ** 6,
+                           10 ** 6, engine.seanet_weights)
+
+    ka, counted = profiled_steps(step, n_frames)
     if path:
         with open(path, "w") as f:
             f.write(ka.table(sort_by="self_cuda_time_total", row_limit=60))
-    kernels = [(e.key, e.self_device_time_total / n_frames,
-                e.count / n_frames)
-               for e in ka if e.device_type == DeviceType.CUDA]
-    kernels.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in kernels), kernels
+    kernels = device_kernels(ka, n_frames)
+    return sum(r[1] for r in kernels), kernels, counted
 
 
 # ---------------------------------------------------------------- phase 7 --
@@ -3379,13 +3616,12 @@ def profile_serving(engine, voice, path, lanes=LANES, n_steps=4,
                     share_prefix=False):
     """Device busy share of steady serving: `lanes` long requests, two
     chunks to admit them and warm up, then 2 * n_steps chunks each timed
-    on the host clock (synchronized) and n_steps more under
-    torch.profiler. Returns (busy us per chunk, [wall us of each timed
-    chunk], frames per chunk, [(kernel, us per chunk, calls per
-    chunk)])."""
+    on the host clock (synchronized) and n_steps more recorded by
+    torch.profiler (`profiled_steps`), beside the launch counters over the
+    same chunks. Returns (busy us per chunk, [wall us of each timed chunk],
+    frames per chunk, [(kernel, us per chunk, calls per chunk)],
+    {counter: launches per chunk})."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
     srv = ContinuousBatchingServer(engine, lanes=lanes,
                                    share_prefix=share_prefix)
@@ -3401,23 +3637,15 @@ def profile_serving(engine, voice, path, lanes=LANES, n_steps=4,
         srv.step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e6)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            srv.step()
-        torch.cuda.synchronize()
+    ka, counted = profiled_steps(srv.step, n_steps)
     if any(r is None for r in srv._live):
         raise AssertionError("a lane finished inside the profiled window")
-    ka = prof.key_averages()
     if path:
         with open(path, "w") as f:
             f.write(ka.table(sort_by="self_cuda_time_total", row_limit=60))
-    kernels = [(e.key, e.self_device_time_total / n_steps,
-                e.count / n_steps)
-               for e in ka if e.device_type == DeviceType.CUDA]
-    kernels.sort(key=lambda r: -r[1])
+    kernels = device_kernels(ka, n_steps)
     return (sum(r[1] for r in kernels), walls, lanes * srv.chunk_frames,
-            kernels)
+            kernels, counted)
 
 
 def serve_cli(tmp, extra=()):
@@ -3633,16 +3861,19 @@ def main(argv=None) -> int:
                 + ", ".join(f"{sp}{'*' if sp == chosen else ''} {us:.2f}"
                             for sp, us in row.items()))
         from pocket_tts_tpu_torch.ops.fused_layer import MMA_ROWS
-        for (path, name, rows, k, n, simt, plan, plans) in time_rows_plans(
-                bf, device):
+        for (path, name, rows, k, n, simt, plan, plans, sks,
+             skinny) in time_rows_plans(bf, device):
             best = min(plans, key=plans.get)
             log(f"  K5 rows plans {path} {name} rows={rows} K={k} N={n}: "
                 f"rows_kernel {simt:.2f} us; rows_mma (bm, splits) "
                 + ", ".join(f"{bm}x{sp}{'*' if (bm, sp) == plan[:2] else ''}"
                             f" {us:.2f}" for (bm, sp), us in plans.items())
                 + f"; fastest {best} {plans[best]:.2f}, the plan's "
-                f"{plan[:2]} {plans.get(plan[:2], float('nan')):.2f} "
-                f"(R_min = MMA_ROWS = {MMA_ROWS})")
+                f"{plan[:2]} {plans.get(plan[:2], float('nan')):.2f}"
+                + ("" if not skinny else "; skinny (slices) " + ", ".join(
+                    f"{ks}{'*' if ks == sks else ''} {us:.2f}"
+                    for ks, us in skinny.items()))
+                + f" (R_min = MMA_ROWS = {MMA_ROWS})")
         for label, row in time_flow_clusters(bf, device).items():
             log(f"  K6 {label} by cluster size: " + ", ".join(
                 f"{cs} blocks {us:.2f} us" for cs, us in row.items()))
@@ -3707,7 +3938,7 @@ def main(argv=None) -> int:
         header("[8] profiler (torch.profiler, device time by kernel)")
         for label, eng in bf.items():
             phase = f"profiler, {label}"
-            busy, kern = profile_frames(
+            busy, kern, counted = profile_frames(
                 eng, voice,
                 os.path.join(out_dir, f"profile_frames_{label}.txt")
                 if out_dir else None)
@@ -3716,7 +3947,7 @@ def main(argv=None) -> int:
                 f"frame in {launches:.0f} kernel "
                 f"launches, {1e3 * med[label]:.1f} us wall per frame "
                 f"(phase 6): device idle {1 - busy / (1e3 * med[label]):.1%}")
-            check_frame_launches(label, kern)
+            check_frame_launches(label, kern, counted)
             for key, us, calls in kern[:12]:
                 log(f"    {us:9.1f} us/frame  {calls:6.1f} calls/frame "
                     f" {key[:70]}")
@@ -3724,7 +3955,7 @@ def main(argv=None) -> int:
                                   (KV8_PATH, bf[KV8_PATH], True)):
             phase = ("profiler, serving" if label == "bf16"
                      else f"profiler, serving {label}")
-            busy, walls, frames, kern = profile_serving(
+            busy, walls, frames, kern, counted = profile_serving(
                 eng, voice, os.path.join(
                     out_dir, "profile_serving.txt" if label == "bf16"
                     else f"profile_serving_{label}.txt")
@@ -3737,6 +3968,10 @@ def main(argv=None) -> int:
                 f"profiler) median {wall:.1f} us, range {min(walls):.1f}-"
                 f"{max(walls):.1f}: device idle {1 - busy / wall:.1%}; "
                 f"{frames / wall * 1e6:.1f} frames/s with every lane busy")
+            rows, verdict = launch_crosscheck(kern, counted)
+            log("    profiler / counters per chunk: " + ", ".join(
+                f"{fam} {p:.2f} / {c:.2f}" for fam, p, c in rows)
+                + f": {verdict}")
             for key, us, calls in kern[:12]:
                 log(f"    {us:9.1f} us/chunk  {calls:6.1f} calls/chunk "
                     f" {key[:70]}")

@@ -20,8 +20,10 @@ one launch of kernel K8 (int8 or int4 weights; q4_0 raises).
 
 The checkpoint, tokenizer and voice embeddings are read from -m/--model,
 or else from <-r/--model-root, or $MODEL_CACHE, or .>/kyutai/
-pocket-tts-without-voice-cloning, the JAX package's CLI layout; with no
-checkpoint there the CLI exits 1 (pass --random-weights to run without).
+pocket-tts-without-voice-cloning, the JAX package's CLI layout. With no
+checkpoint there the CLI says so on stderr and runs random weights and a
+random voice, as the JAX package's CLI does (--random-weights: the same,
+without the note).
 
 Serving:
   python -m pocket_tts_tpu_torch.cli --random-weights --serve reqs.txt \
@@ -212,6 +214,7 @@ def main(argv=None):
     if args.fuse_insert or args.megalayer:
         cfg0 = dataclasses.replace(cfg0, backbone=dataclasses.replace(
             cfg0.backbone, fuse_insert=True, use_megalayer=args.megalayer))
+    model = model_dir(args)
     if args.load_cache:
         # the model directory, when given, provides tokenizer and voices
         engine = TTSEngine.from_params_cache(
@@ -223,7 +226,13 @@ def main(argv=None):
             voice = random_voice_prompt(engine.cfg)
         else:
             voice = args.voice
-    elif args.random_weights:
+    elif args.random_weights or not os.path.exists(
+            os.path.join(model, "tts_b6369a24.safetensors")):
+        # no checkpoint: random weights and a random voice, as the JAX
+        # package's CLI does
+        if not args.random_weights:
+            print(f"note: no checkpoint under {model}; using random "
+                  "weights", file=sys.stderr)
         from .io.params import random_params, random_voice_prompt
         params, cfg = random_params(cfg0, dtype=dtype, device=device)
         engine = TTSEngine(params=params, cfg=cfg, dtype=dtype,
@@ -232,12 +241,6 @@ def main(argv=None):
                            quantize_kv=args.quantize_kv)
         voice = random_voice_prompt(cfg)
     else:
-        model = model_dir(args)
-        if not os.path.exists(os.path.join(model,
-                                           "tts_b6369a24.safetensors")):
-            print(f"no checkpoint under {model}; pass -m, -r or "
-                  "--random-weights", file=sys.stderr)
-            return 1
         engine = TTSEngine(model_path=model, cfg=cfg0, dtype=dtype,
                            device=device, seed=args.seed,
                            quantize=args.quantize,

@@ -45,13 +45,23 @@
 // int8. What keeps the cooperative kernels from it is latency: barriers,
 // round trips to L2, and every block reading the same rows.
 //
-// Design. K5a is one ordinary launch of `rows_kernel` over (32-column
-// tiles) x (row blocks of at most FL_ROW_FLOATS activations: 16 rows at
-// dm 1024, 32 at dm 512):
-// each block computes the LayerNorm of its rows into shared memory, then
-// streams its tile of W_in; there is no dependency between blocks. The row
-// blocks of one tile read the same weight bytes, which stay in L2 (3 MB of
-// int8 in_proj at most), so HBM sees the weights about once per call.
+// Design. K5a is one launch of the row-block product of its route
+// (ops/fused_layer.py `rows_route`): `skinny_kernel` for a bf16 call of
+// fewer than MMA_ROWS rows (the backbone's T = 1), `rows_mma_kernel` from
+// MMA_ROWS rows (below), `rows_kernel` for float32. The skinny kernel takes
+// the layer tail's way with weights (layer_post.cuh): a block per (32-column
+// tile, slice of the stored rows; 96 blocks of 32 KB of int8 or 16 KB of
+// int4 for the backbone's in_proj), one thread asking the TMA for the
+// block's whole weight slab at entry, so the call's 3 MB are in flight at
+// once while every block takes the LayerNorm of its rows; the products
+// run on SIMT from shared memory and the slices of a tile, the blocks of
+// one cluster, sum through distributed shared memory in rank order.
+// `rows_kernel` (SIMT, float32):
+// one ordinary launch over (32-column tiles) x (row blocks of at most
+// FL_ROW_FLOATS activations: 16 rows at dm 1024, 32 at dm 512); each block
+// computes the LayerNorm of its rows into shared memory, then streams its
+// tile of W_in. K4b (ops/quant_matmul.py) is the same three kernels with the
+// plain load prologue and the rounding epilogue.
 // K5b has two dependencies across blocks that the TPU kernel met by walking
 // its hidden tiles in order with scratch carried between grid steps: the
 // LayerNorm of x1 needs all of out_proj, and the W2 sum runs over every
@@ -231,8 +241,14 @@ inline size_t rows_mma_smem(int bm, int kt_per, bool packed_w, int K,
 // cluster.sync() block z sums rows z, z + splits, ... over the cluster in
 // rank order (distributed shared memory) and applies the scales, bias and
 // epilogue.
-template <int BM>
-__global__ void __launch_bounds__(RM_THREADS)
+// GROUPED: q4_0's K-grouped scales (a separate instantiation, so that the
+// per-channel kinds carry none of their registers). Two blocks an SM (at
+// most 128 registers a thread): at 155 registers the per-channel kernel ran
+// one block an SM, and a split plan's clusters of 4 (K4b's out_proj at 128
+// rows) fell into a second wave: 15.3 us against 11.1 at 128 registers
+// (chip_smoke.py --kernel-times on the H100).
+template <int BM, bool GROUPED>
+__global__ void __launch_bounds__(RM_THREADS, 2)
 rows_mma_kernel(const RowsMmaArgs g) {
   constexpr int NI = BM / 16;
   const RowsArgs& a = g.a;
@@ -244,9 +260,11 @@ rows_mma_kernel(const RowsMmaArgs g) {
   const int nrows = min(BM, a.T - m0);
   const bool p4 = packed(a.w);
   const int S = p4 ? a.K / 2 : a.K;                // stored rows
-  const int ktiles = S / RM_BKS;
+  // k-tiles of RM_BKS stored rows; the last may hold only 16 (K4b's
+  // input_linear: K = 32, 16 packed rows)
+  const int ktiles = (S + RM_BKS - 1) / RM_BKS;
   const int kt0 = z * g.kt_per, kt1 = min(ktiles, kt0 + g.kt_per);
-  const int p0 = kt0 * RM_BKS, w = (kt1 - kt0) * RM_BKS;
+  const int p0 = kt0 * RM_BKS, w = min((kt1 - kt0) * RM_BKS, S - p0);
   const int aw = p4 ? 2 * w : w;                   // staged A columns
   const int lda = g.kt_per * RM_BKS * (p4 ? 2 : 1) + 8;
   bf16* As = reinterpret_cast<bf16*>(rm_shared);
@@ -264,7 +282,7 @@ rows_mma_kernel(const RowsMmaArgs g) {
   auto load_tile = [&](int kt, int buf) {
     if (tid < RM_BKS * RM_BN / 16) {
       const int r = tid / (RM_BN / 16), c = tid % (RM_BN / 16) * 16;
-      const bool ok = n0 + c < a.N;
+      const bool ok = n0 + c < a.N && kt * RM_BKS + r < S;
       cp_async16(ring + buf * RM_BKS * RM_RING_LD + r * RM_RING_LD + c,
                  wq + (ok ? (size_t)(kt * RM_BKS + r) * a.N + n0 + c : 0), ok);
     }
@@ -393,12 +411,32 @@ rows_mma_kernel(const RowsMmaArgs g) {
 #pragma unroll
   for (int i = 0; i < NI; ++i)
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const bool grouped = a.w.kind == LIN_INT4_G;
+  constexpr bool grouped = GROUPED;
   const bf16* gs = (const bf16*)a.w.s;
   const int fq = lane & 3, fn = warp * 8 + (lane >> 2);
   const int cn = n0 + warp * 8 + 2 * fq;   // this thread's output columns
+  // q4_0: the group scales of a k-tile's low and high half at this
+  // thread's two columns (a k-tile of 32 stored rows lies in one group of
+  // each half), asked for one k-tile ahead of their use
+  auto tile_scales = [&](int kt, float (&sc)[2][2]) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const size_t g = ((half ? S : 0) + kt * RM_BKS) / a.w.group;
+      sc[half][0] = cn < a.N ? __bfloat162float(gs[g * a.N + cn]) : 0.f;
+      sc[half][1] = cn + 1 < a.N ? __bfloat162float(gs[g * a.N + cn + 1])
+                                 : 0.f;
+    }
+  };
+  float sc[2][2] = {{1.f, 1.f}, {1.f, 1.f}};
+  if constexpr (grouped) {
+    if (kt0 < kt1) tile_scales(kt0, sc);
+  }
   for (int kt = kt0; kt < kt1; ++kt) {
     const int j = kt - kt0, cur = j % RM_STAGES;
+    float sn[2][2] = {{1.f, 1.f}, {1.f, 1.f}};
+    if constexpr (grouped) {
+      if (kt + 1 < kt1) tile_scales(kt + 1, sn);
+    }
     cp_async_wait<RM_STAGES - 2>();  // k-tile kt (and A) has landed
     __syncthreads();  // ... for every thread; slot kt - 1 consumed
     if (kt + RM_STAGES - 1 < kt1)
@@ -409,11 +447,14 @@ rows_mma_kernel(const RowsMmaArgs g) {
     const int pk = kt * RM_BKS;       // first stored row of the tile
 #pragma unroll
     for (int ks = 0; ks < RM_KS; ++ks) {
+      if (pk + ks * 16 >= S) break;   // a k-tile of 16 stored rows
       const uint8_t* rb = raw + (ks * 16 + 2 * fq) * RM_RING_LD;
       const int x[4] = {(int8_t)rb[0], (int8_t)rb[RM_RING_LD],
                         (int8_t)rb[8 * RM_RING_LD],
                         (int8_t)rb[9 * RM_RING_LD]};
-      for (int half = 0; half < (p4 ? 2 : 1); ++half) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (half && !p4) break;
         float f[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -421,19 +462,13 @@ rows_mma_kernel(const RowsMmaArgs g) {
         const uint32_t b0 = pack_bf16x2(f[0], f[1]);
         const uint32_t b1 = pack_bf16x2(f[2], f[3]);
         const int ak = (half ? w : 0) + j * RM_BKS + ks * 16;
-        float s0 = 1.f, s1 = 1.f;
-        if (grouped) {
-          const int g = ((half ? S : 0) + pk + ks * 16) / a.w.group;
-          s0 = cn < a.N ? __bfloat162float(gs[(size_t)g * a.N + cn]) : 0.f;
-          s1 = cn + 1 < a.N ? __bfloat162float(gs[(size_t)g * a.N + cn + 1])
-                            : 0.f;
-        }
+        const float s0 = sc[half][0], s1 = sc[half][1];
 #pragma unroll
         for (int i = 0; i < NI; ++i) {
           uint32_t af[4];
           ldmatrix_x4(af, As + (size_t)(i * 16 + (lane & 15)) * lda + ak +
                               (lane >> 4) * 8);
-          if (grouped) {
+          if constexpr (grouped) {
             float t[4] = {0.f, 0.f, 0.f, 0.f};
             mma_bf16_16816(t, af, b0, b1);
             acc[i][0] = fmaf(s0, t[0], acc[i][0]);
@@ -445,6 +480,11 @@ rows_mma_kernel(const RowsMmaArgs g) {
           }
         }
       }
+    }
+    if constexpr (grouped) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        sc[half][0] = sn[half][0], sc[half][1] = sn[half][1];
     }
   }
 
@@ -507,6 +547,110 @@ rows_mma_kernel(const RowsMmaArgs g) {
     }
   }
   if (nsplit > 1) cluster.sync();  // no block leaves while read
+}
+
+// A bf16 call of fewer rows than rows_mma_kernel takes (skinny_kernel,
+// ptt_rows_skinny): K5a at T = 1, K4b below 16 rows, K5b's row-block
+// launches below 16 rows. The plan (ops/fused_layer.py `skinny_plan`) cuts
+// the stored weight into units of 32 columns x a slice of its stored rows,
+// one unit a block; the ks slices of a column tile are the blocks of one
+// cluster. Its offsets place the regions of a block's shared memory.
+struct SkinnyArgs {
+  CUtensorMap tm;   // the stored (rows, N) bytes, boxes of 32 columns
+  RowsArgs a;       // rows_kernel's function (rows unused)
+  int ks;           // slices of the stored rows, the blocks of a cluster
+  int o_w, o_x, o_lnv, o_red, o_out;  // shared-memory offsets (bytes)
+};
+
+// Block u: column tile u / ks (32 stored columns from c0), slice q = u % ks
+// of the stored rows (its cluster rank). At entry thread 0 asks the TMA for
+// the unit's whole weight slab (issue_cols: q4_0's scale rows by cp.async);
+// while it is in flight the block stages its rows (ROWS_LOAD: the slice's
+// columns only, int4: [p0, p0 + srows) then [K/2 + p0, ..); the LayerNorm
+// prologues: whole rows, normalised by ln_rows and rounded to bf16 where
+// K5a rounds). Then the unit's raw sums for every row from shared memory on
+// SIMT (cols_dot: int8 and nibbles widened at full rate, q4_0 nibbles times
+// their group's scale), to a T x 32 float32 partial. After cluster.sync()
+// block q sums outputs q, q + ks, ... over the cluster's partials in rank
+// order (distributed shared memory, no float atomics) and applies the
+// per-channel scales, the bias and the epilogue.
+__global__ void __launch_bounds__(QD_THREADS)
+    skinny_kernel(const __grid_constant__ SkinnyArgs g) {
+  extern __shared__ __align__(128) unsigned char sk_shared[];
+  __shared__ __align__(8) uint64_t bar;
+  unsigned char* smem = align128(sk_shared);
+  coop::cluster_group cluster = coop::this_cluster();
+  const RowsArgs& a = g.a;
+  const int ks = g.ks, rows = a.T, K = a.K, N = a.N, tid = threadIdx.x;
+  const bool p4 = packed(a.w);
+  const int S = p4 ? K / 2 : K, srows = S / ks;
+  const int q = blockIdx.x % ks, c0 = blockIdx.x / ks * FL_TILE;
+  const int p0 = q * srows;
+  if (tid == 0) prefetch_map(&g.tm);
+  mbar_setup(&bar, 1);
+  issue_cols(a.w, &g.tm, K, N, ks, smem + g.o_w, &bar);
+  cp_async_commit();
+  // this thread's outputs e = q + ks * tid, + ks * QD_THREADS, ... all lie
+  // in column c0 + e % 32: its scale, bias and layer scale, asked for now
+  const int n = c0 + (q + ks * tid) % FL_TILE;
+  const float sc = (a.w.kind == LIN_INT8 || a.w.kind == LIN_INT4)
+                       ? ((const float*)a.w.s)[n] : 1.f;
+  const float bv = opt((const bf16*)a.w.b, n, 0.f);
+  const float lv = opt((const bf16*)a.ls, n, 1.f);
+  float* xs = reinterpret_cast<float*>(smem + g.o_x);
+  float* red = reinterpret_cast<float*>(smem + g.o_red);
+  float* out = reinterpret_cast<float*>(smem + g.o_out);
+  int ldx, xp0, half;   // cols_dot's view of xs
+  if (a.prologue == ROWS_LOAD) {
+    const int aw = p4 ? 2 * srows : srows;
+    const bf16* x = (const bf16*)a.a;
+    for (int i = tid; i < rows * aw; i += QD_THREADS) {
+      const int r = i / aw, c = i - r * aw;
+      xs[i] = to_f(x[(size_t)r * K + (c < srows ? p0 + c
+                                                : S + p0 + c - srows)]);
+    }
+    __syncthreads();
+    ldx = aw, xp0 = 0, half = srows;
+  } else {
+    float* lnv = reinterpret_cast<float*>(smem + g.o_lnv);
+    NormVecs nv;
+    load_norm(nv, (const bf16*)a.ns, (const bf16*)a.nb, K);
+    if (a.prologue == ROWS_LN_F32)
+      stage_floats(xs, (const float*)a.a, rows * K);
+    else
+      stage_floats(xs, (const bf16*)a.a, rows * K);
+    store_norm(nv, lnv, K);
+    __syncthreads();
+    ln_rows<bf16>(xs, rows, K, a.eps, lnv, lnv + K, red);
+    ldx = K, xp0 = p0, half = S;
+  }
+  wait_phase(&bar, 0);
+  if (rows == 1)
+    cols_dot<1>(xs, ldx, 1, smem + g.o_w, 32, a.w.kind, xp0, srows, half,
+                a.w.group, red, out);
+  else
+    cols_dot<CP_ROWS>(xs, ldx, rows, smem + g.o_w, 32, a.w.kind, xp0, srows,
+                      half, a.w.group, red, out);
+  if (ks > 1) cluster.sync();
+  for (int e = q + ks * tid; e < rows * FL_TILE; e += ks * QD_THREADS) {
+    float v = 0.f;
+    for (int j = 0; j < ks; ++j)
+      v += (ks > 1 ? cluster.map_shared_rank(out, j) : out)[e];
+    const size_t i = (size_t)(e / FL_TILE) * N + n;
+    const float y = v * sc + bv;
+    switch (a.epilogue) {
+      case EPI_ROUND: ((bf16*)a.out)[i] = from_f<bf16>(y); break;
+      case EPI_RESID_F32:
+        ((float*)a.out)[i] = to_f(((const bf16*)a.res)[i]) + lv * y;
+        break;
+      case EPI_GELU:
+        ((bf16*)a.out)[i] = from_f<bf16>(gelu_f(y, a.approx));
+        break;
+      default:
+        ((bf16*)a.out)[i] = from_f<bf16>(((const float*)a.res)[i] + lv * y);
+    }
+  }
+  if (ks > 1) cluster.sync();  // no block leaves while read
 }
 
 struct PostArgs {
@@ -697,11 +841,11 @@ extern "C" int ptt_fused_rows(const void* a, const void* ns, const void* nb,
 // K5a or one step of K5b over many rows on the tensor cores
 // (rows_mma_kernel): ptt_fused_rows' operands for a bf16 working type, and
 // the plan (ops/fused_layer.py `rows_plan`): bm rows a block (16, 32 or
-// 64), `splits` reduction slices of kt_per k-tiles (32 stored weight rows)
-// over a cluster. Takes int8 and int4 weights (per-channel, or grouped
-// scales in groups of a multiple of 32 rows) whose stored rows are a whole
-// number of k-tiles, K a multiple of 32 (under a LayerNorm a multiple of
-// 128, at most 1024) and N of 16.
+// 64), `splits` reduction slices of kt_per k-tiles (32 stored weight rows;
+// the last may hold 16) over a cluster. Takes int8 and int4 weights
+// (per-channel, or grouped scales in groups of a multiple of 32 rows) whose
+// stored rows are a multiple of 16, K a multiple of 16 (under a LayerNorm
+// a multiple of 128, at most 1024) and N of 16.
 extern "C" int ptt_rows_mma(const void* a, const void* ns, const void* nb,
                             const void* w, const void* s, const void* b,
                             const void* res, const void* ls, void* out, int T,
@@ -713,9 +857,9 @@ extern "C" int ptt_rows_mma(const void* a, const void* ns, const void* nb,
                      bm, splits, kt_per};
   const bool p4 = ptt::packed(g.a.w);
   const int stored = p4 ? K / 2 : K;
-  const int ktiles = stored / ptt::RM_BKS;
-  if (T < 1 || K < 32 || K % 32 || N < 16 || N % 16 || !lin_ok(g.a.w, K) ||
-      stored % ptt::RM_BKS || (kind == ptt::LIN_INT4_G && group % 32) ||
+  const int ktiles = (stored + ptt::RM_BKS - 1) / ptt::RM_BKS;
+  if (T < 1 || K < 16 || K % 16 || N < 16 || N % 16 || !lin_ok(g.a.w, K) ||
+      stored % 16 || (kind == ptt::LIN_INT4_G && group % 32) ||
       prologue < ptt::ROWS_LOAD || prologue > ptt::ROWS_LN_F32 ||
       epilogue < ptt::EPI_ROUND || epilogue > ptt::EPI_RESID ||
       ((epilogue == ptt::EPI_RESID_F32 || epilogue == ptt::EPI_RESID) &&
@@ -744,9 +888,71 @@ extern "C" int ptt_rows_mma(const void* a, const void* ns, const void* nb,
                                       splits, smem, st, g);
     return rc ? rc : (int)cudaGetLastError();
   };
-  return bm == 16 ? run(ptt::rows_mma_kernel<16>)
-       : bm == 32 ? run(ptt::rows_mma_kernel<32>)
-                  : run(ptt::rows_mma_kernel<64>);
+  if (kind == ptt::LIN_INT4_G)
+    return bm == 16 ? run(ptt::rows_mma_kernel<16, true>)
+         : bm == 32 ? run(ptt::rows_mma_kernel<32, true>)
+                    : run(ptt::rows_mma_kernel<64, true>);
+  return bm == 16 ? run(ptt::rows_mma_kernel<16, false>)
+       : bm == 32 ? run(ptt::rows_mma_kernel<32, false>)
+                  : run(ptt::rows_mma_kernel<64, false>);
+}
+
+// K5a, K4b or one step of K5b below MMA_ROWS rows (skinny_kernel):
+// ptt_fused_rows' operands for a bf16 working type, and the plan
+// (ops/fused_layer.py `skinny_plan`, SKINNY_PLAN_KEYS): ks, the shared
+// memory in bytes and the offsets o_w, o_x, o_lnv, o_red, o_out of its
+// regions, which must hold what the kernel puts there. Takes int8 and int4
+// weights (per-channel, or grouped with whole groups in a slice), N a
+// multiple of 32, slices of the stored rows in 1, 2, 4 or 8 (more than one:
+// multiples of 32 rows; above 256 rows multiples of 256, the TMA's box),
+// the weight (and q4_0's scales) 16-byte aligned; under a LayerNorm K a
+// multiple of 4 up to 4096 and `a` 8-byte (bf16) or 16-byte (float32)
+// aligned.
+extern "C" int ptt_rows_skinny(const void* a, const void* ns, const void* nb,
+                               const void* w, const void* s, const void* b,
+                               const void* res, const void* ls, void* out,
+                               int T, int K, int N, int kind, int group,
+                               int prologue, int epilogue, int approx,
+                               float eps, const int* plan, void* stream) {
+  using namespace ptt;
+  SkinnyArgs g{{}, {a, ns, nb, {w, s, b, kind, group}, res, ls, out, T, K,
+                    N, 0, prologue, epilogue, approx, eps},
+               plan[0], plan[2], plan[3], plan[4], plan[5], plan[6]};
+  const int ks = g.ks, smem = plan[1];
+  const bool p4 = packed(g.a.w), ln = prologue != ROWS_LOAD;
+  const int stored = p4 ? K / 2 : K;
+  const int srows = ks > 0 ? stored / ks : 0;
+  if (T < 1 || K < 2 || N < FL_TILE || N % FL_TILE || !lin_ok(g.a.w, K) ||
+      prologue < ROWS_LOAD || prologue > ROWS_LN_F32 ||
+      epilogue < EPI_ROUND || epilogue > EPI_RESID ||
+      ((epilogue == EPI_RESID_F32 || epilogue == EPI_RESID) &&
+       res == nullptr) ||
+      !(ks == 1 || ks == 2 || ks == 4 || ks == 8) || stored % ks ||
+      (ks > 1 && srows % 32) ||
+      (kind == LIN_INT4_G && (srows % group || (uintptr_t)s % 16)) ||
+      (srows > TMA_ROWS && srows % TMA_ROWS) ||
+      (ln && (K % 4 || K > 4096 ||
+              (uintptr_t)a % (prologue == ROWS_LN_F32 ? 16 : 8))))
+    return (int)cudaErrorInvalidValue;
+  Region r[5] = {{g.o_w, 1, col_unit_bytes(kind, K, ks, group)},
+                 {g.o_x, 1, 4 * T * (ln ? K : (p4 ? 2 : 1) * srows)},
+                 {g.o_lnv, 1, ln ? 8 * K : 0},
+                 {g.o_red, 1, 4 * CP_RED},
+                 {g.o_out, 1, 4 * T * FL_TILE}};
+  if (!regions_ok(r, 5, smem) || encode_lin(&g.tm, g.a.w, K, N, ks, 32))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(N / FL_TILE * ks);
+  cudaStream_t st = (cudaStream_t)stream;
+  // set on every launch: a smaller figure left by an earlier launch would
+  // refuse this one
+  int rc = set_smem(skinny_kernel, smem);
+  if (rc) return rc;
+  if (ks == 1)
+    skinny_kernel<<<grid, QD_THREADS, smem, st>>>(g);
+  else
+    rc = (int)launch_clustered(skinny_kernel, grid, dim3(QD_THREADS), ks,
+                               smem, st, g);
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 // Blocks of K5b (which 0), K5c (1) or K8 (2, megalayer.cu) the card holds

@@ -1,5 +1,5 @@
 // Block-level building blocks of the quantized-weight kernels K5a, K5b and
-// K6 (fused_layer.cu, fused_flow.cu; K4b, int4_matmul.cu, uses `load4`): a
+// K6 (fused_layer.cu, fused_flow.cu): a
 // row LayerNorm into shared memory
 // and a skinny product of a few activation rows with a column tile of an
 // int8, packed int4 (or plain) weight matrix streamed from HBM.

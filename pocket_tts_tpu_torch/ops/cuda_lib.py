@@ -63,8 +63,6 @@ SIGNATURES = {
     "ptt_seanet_last": [P, P, P, P, P, I, I, I, I, I, I, I, P],
     # x, q, scale, y, M, K, N, dtype, stream
     "ptt_int8_matmul": [P, P, P, P, I, I, I, I, P],
-    # x, q4, scale, y, M, K, N, group (0: per-channel), dtype, stream
-    "ptt_int4_matmul": [P, P, P, P, I, I, I, I, I, P],
     # a, norm scale, norm bias, w, scale, bias, res, ls, out, T, K, N, kind,
     # group, prologue, epilogue, approx, eps, dtype, stream
     "ptt_fused_rows": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
@@ -73,6 +71,10 @@ SIGNATURES = {
     # plan: rows a block, reduction slices, k-tiles a slice; stream
     "ptt_rows_mma": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
                      I, I, I, P],
+    # ptt_fused_rows' operands without the dtype (bf16 only), then the
+    # plan array (7: fused_layer.SKINNY_PLAN_KEYS), stream
+    "ptt_rows_skinny": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                        F, P, P],
     # shared memory (bytes), kernel (0: K5b, 1: K5c, 2: K8), dtype ->
     # blocks the card holds at once
     "ptt_coop_max_blocks": [I, I, I],

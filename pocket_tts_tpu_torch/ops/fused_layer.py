@@ -42,18 +42,22 @@ LN + linear1 + GELU, linear2 + residual. Launches per call
 (`post_launches`): 1 at the solo shapes, 3 at 32 backbone rows (32 lanes)
 and at 64 / 256 / 512 mimi rows (4 / 16 / 32 lanes x 16).
 
-The route of a row-block product (`rows_route`): a bf16 call of at least
-MMA_ROWS rows runs `rows_mma_kernel` (csrc/fused_layer.cu, on the tensor
-cores through csrc/qmma.cuh: `mma.sync` bf16 with float32 accumulators,
-the reduction split over a thread-block cluster by `rows_plan`); a float32
-call, and a bf16 call of fewer rows, runs `rows_kernel` (SIMT, tile_dot).
-That is K5a over every call of MMA_ROWS rows or more (the mimi decoder's
-T = 16 frame solo, every lane call) and each of K5b's three launches over
-many rows. The route depends on dtype and row count only. The tensor-core
-kernel takes int8 and int4 weights (per-channel or in groups of a
-multiple of 32 rows) whose stored rows (K, or K / 2 for int4) are a
-multiple of 32, K (under a LayerNorm) a multiple of 128 up to 1024, and
-N a multiple of 16; a call on that route with other widths raises.
+The route of a row-block product (`rows_route`), K5a's and each of K5b's
+three launches over many rows (and K4b's, ops/quant_matmul.py): a bf16
+call of at least MMA_ROWS rows runs `rows_mma_kernel` (csrc/fused_layer.cu,
+on the tensor cores through csrc/qmma.cuh: `mma.sync` bf16 with float32
+accumulators, the reduction split over a thread-block cluster by
+`rows_plan`); a bf16 call of fewer rows runs `skinny_kernel` (the
+backbone's T = 1: a block per 32-column tile and slice of the stored rows,
+its whole weight slab asked of the TMA at entry, the slices of a tile
+summed over a cluster; `skinny_plan`); a float32 call runs `rows_kernel`
+(SIMT, tile_dot). The route depends on dtype and row count only. The
+tensor-core kernel takes int8 and int4 weights (per-channel or in groups
+of a multiple of 32 rows) whose stored rows (K, or K / 2 for int4) are a
+multiple of 16, K (under a LayerNorm) a multiple of 128 up to 1024, and N
+a multiple of 16; the skinny kernel the widths `skinny_plan` states. A
+call on either route with other widths raises; it never takes another
+kernel.
 
 K5c takes LN1 of layer l + 1 from the unrounded float32 x_next, as the
 TPU kernel does (`fused_layer.py:628-635`), so it equals K5b followed by
@@ -67,8 +71,10 @@ version for tensors on the CPU and the kernel for tensors on the card;
 there is no other switch. Launches with a lane axis (x of rank 3) count in
 `.launches_lanes`; without one, with int8 weights in `.launches`, with int4
 weights (either scale layout) in `.launches_int4`; K5c's launches count in
-`bilayer_post_pre.launches_bilayer`. Launches of `rows_mma_kernel` count
-once more in `_rows_call.launches_mma`.
+`bilayer_post_pre.launches_bilayer`. K5a's and K5b's launches of
+`rows_mma_kernel` count once more in `_rows_call.launches_mma`, of
+`skinny_kernel` in `_rows_call.launches_skinny` (K4b's launches count in
+`quant_matmul.int4_matmul.launches` only).
 """
 from __future__ import annotations
 
@@ -172,9 +178,10 @@ EPI_ROUND, EPI_RESID_F32, EPI_GELU, EPI_RESID = range(4)
 
 
 # rows_mma_kernel (csrc/fused_layer.cu): bf16 calls of at least MMA_ROWS
-# rows take it (R_min: chip_smoke.py `time_rows_plans` times both kernels
-# at 1, 16 and 32 rows; PERF.md section 6). Its tile: 64 output columns
-# and k-tiles of 32 stored weight rows; its plan (`rows_plan`) fills up to
+# rows take it (R_min: chip_smoke.py `time_rows_plans` times the three
+# row-block kernels at 1, 8, 15, 16 and 32 rows; PERF.md section 6). Its
+# tile: 64 output columns and k-tiles of 32 stored weight rows; its plan
+# (`rows_plan`) fills up to
 # MMA_WAVE blocks, splitting the reduction over at most MMA_MAX_SPLITS
 # blocks of a cluster (the sweep found clusters of 7 and 8 slower than 6:
 # fewer of them fit on the card at once), each at least MMA_MIN_KTILES
@@ -184,6 +191,7 @@ MMA_ROWS = 16
 MMA_BN, MMA_BKS, MMA_MAX_SPLITS = 64, 32, 6
 MMA_BMS = (16, 32, 64)
 MMA_WAVE = 132
+MMA_BIG_CLUSTER = 3
 MMA_MIN_KTILES = 1
 MMA_A_BYTES = 144 * 1024
 MMA_STAGES = 8
@@ -193,8 +201,11 @@ SMEM_MAX = 232448     # shared memory a block can use on the H100
 
 def rows_route(dtype, rows: int) -> str:
     """"mma" (rows_mma_kernel, the tensor cores) for bf16 calls of at
-    least MMA_ROWS rows, else "simt" (rows_kernel)."""
-    return "mma" if dtype == torch.bfloat16 and rows >= MMA_ROWS else "simt"
+    least MMA_ROWS rows, "skinny" (skinny_kernel) for bf16 calls of fewer,
+    "simt" (rows_kernel) for float32."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "mma" if rows >= MMA_ROWS else "skinny"
 
 
 def rows_mma_smem(bm: int, kt_per: int, packed: bool, k: int = 0,
@@ -214,16 +225,30 @@ def rows_plan(rows: int, k: int, n: int, packed: bool, ln_size: int = 0):
     """(bm, splits, k-tiles a slice) of one rows_mma_kernel call over
     `rows` rows of a (k, n) linear: bm the fewest of 16, 32, 64 rows that
     hold the call (64 above 32 rows); the reduction's k-tiles (32 stored
-    rows: k for int8, k / 2 for packed int4) split over as many blocks as
+    rows: k for int8, k / 2 for packed int4; a last one of 16 where the
+    stored rows are an odd multiple of 16) split over as many blocks as
     keep the grid within MMA_WAVE (one block an SM: a second wave, or a
     second block on some SMs, doubles the call), each slice at least
     MMA_MIN_KTILES k-tiles and its A columns (32 a k-tile for int8, 64
     for int4) within MMA_A_BYTES and what the block's shared memory
     leaves (ln_size: the bytes of a value of a LayerNorm prologue's rows,
-    0 without one); no slice empty."""
+    0 without one); no slice empty. A bm of 64 whose blocks hold more
+    than half an SM's shared memory (one block an SM) in clusters of more
+    than MMA_BIG_CLUSTER takes bm 32 instead: such clusters do not fill
+    the card in one wave (chip_smoke.py `time_rows_plans`, K4b's linear2
+    at 128 rows: (64, 4) 33.8 us, (32, 2) 23.8 us; PERF.md section 6)."""
     stored = k // 2 if packed else k
-    kt = stored // MMA_BKS
+    kt = -(-stored // MMA_BKS)      # the last k-tile may hold 16 rows
     bm = next(b for b in MMA_BMS if rows <= b or b == MMA_BMS[-1])
+    plan = _rows_plan(rows, k, n, packed, ln_size, bm, kt)
+    if (bm == 64 and plan[1] > MMA_BIG_CLUSTER and rows_mma_smem(
+            64, plan[2], packed, k, ln_size) > SMEM_MAX // 2):
+        plan = _rows_plan(rows, k, n, packed, ln_size, 32, kt)
+    return plan
+
+
+def _rows_plan(rows, k, n, packed, ln_size, bm, kt):
+    """rows_plan at tile height bm over kt k-tiles."""
     tiles = -(-rows // bm) * -(-n // MMA_BN)
     room = min(MMA_A_BYTES,
                SMEM_MAX - rows_mma_smem(bm, 0, packed, k, ln_size))
@@ -241,38 +266,136 @@ def rows_plan(rows: int, k: int, n: int, packed: bool, ln_size: int = 0):
 def _mma_check(name, k, n, kind, group, ln):
     """The widths rows_mma_kernel takes (raises ValueError otherwise)."""
     stored = k // 2 if kind in (INT4, INT4_GROUPED) else k
-    if (k % 32 or stored % MMA_BKS or n % 16
+    if (k % 16 or stored % 16 or n % 16
             or (ln and (k > 1024 or k % 128))
             or (kind == INT4_GROUPED and group % 32)):
-        raise ValueError(f"{name}: the tensor-core route takes K a multiple "
-                         f"of 32 with stored rows (K, or K / 2 for int4) a "
-                         f"multiple of {MMA_BKS}, K a multiple of 128 and at "
-                         f"most 1024 under a LayerNorm, N a multiple of 16 "
-                         f"and q4_0 groups of 32k rows, not K={k} N={n} "
-                         f"group={group}")
+        raise ValueError(f"{name}: the tensor-core route takes stored rows "
+                         f"(K, or K / 2 for int4) a multiple of 16, K a "
+                         f"multiple of 128 and at most 1024 under a "
+                         f"LayerNorm, N a multiple of 16 and q4_0 groups of "
+                         f"32k rows, not K={k} N={n} group={group}")
 
 
-def _rows_call(lib, dtype, a, norm, lin, layout, res, ls, out, rows, k, n,
-               pro, epi, approx, eps, stream):
+# skinny_kernel (csrc/fused_layer.cu): bf16 calls below MMA_ROWS rows. A
+# block takes one unit of a column tile of COOP_TILE stored columns and a
+# slice of its stored rows; the ks slices of a tile are the blocks of one
+# cluster (SKINNY_KS: at most 8, the portable size). `skinny_plan` takes
+# the fewest slices that keep a block's weight slab within SKINNY_SLAB
+# bytes: chip_smoke.py `time_rows_plans` found one slice (96 blocks of
+# 32 KB of int8, no cluster) faster than 2, 4 or 8 for the backbone's
+# in_proj at T = 1 (PERF.md section 6). A slice is the whole of the stored
+# rows or a multiple of 32 of them (and of q4_0's group); above TMA_ROWS
+# rows (the TMA's largest box) a multiple of TMA_ROWS.
+SKINNY_KS = (1, 2, 4, 8)
+SKINNY_SLAB = 32 * 1024
+TMA_ROWS = 256
+SKINNY_PLAN_KEYS = ("ks", "smem", "o_w", "o_x", "o_lnv", "o_red", "o_out")
+
+
+def skinny_slices(stored: int, kind, group: int = 0):
+    """The slice counts of SKINNY_KS a weight of `stored` rows takes."""
+    out = []
+    for ks in SKINNY_KS:
+        srows = stored // ks
+        if (stored % ks or (ks > 1 and srows % 32)
+                or (kind == INT4_GROUPED and srows % group)
+                or (srows > TMA_ROWS and srows % TMA_ROWS)):
+            continue
+        out.append(ks)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def skinny_plan(rows: int, k: int, n: int, kind, group: int = 0,
+                ln: bool = False, ks: int = 0) -> dict:
+    """One skinny_kernel call over `rows` rows of a (k, n) linear (ln: a
+    LayerNorm prologue, whose rows the block holds whole): ks (the
+    fewest of `skinny_slices` whose slab of stored rows x COOP_TILE bytes
+    is within SKINNY_SLAB, else the most; ks > 0 takes that count, for the
+    sweep), grid, srows and the block's shared
+    memory: the unit's weights (col_unit_bytes), the rows as float32
+    (whole rows under a LayerNorm, else the slice's columns: srows, and
+    for int4 the high half's srows more), the LayerNorm's scale and bias
+    (2 k floats), the cross-warp sums (COOP_RED_FLOATS), the unit's
+    partial (rows x COOP_TILE floats); offsets SKINNY_PLAN_KEYS. Raises
+    ValueError on widths the kernel does not take: N a multiple of
+    COOP_TILE, a slice count in `skinny_slices`, under a LayerNorm K a
+    multiple of 4 up to 4096, all within the block's shared memory."""
+    stored = k // 2 if _packed(kind) else k
+    valid = skinny_slices(stored, kind, group)
+    ntiles = n // COOP_TILE
+    if ks == 0 and valid:
+        ks = next((q for q in valid
+                   if stored // q * COOP_TILE <= SKINNY_SLAB), valid[-1])
+    if (n % COOP_TILE or ntiles < 1 or ks not in valid
+            or (ln and (k % 4 or k > 4096))):
+        raise ValueError(f"skinny_plan: the skinny route takes N a multiple "
+                         f"of {COOP_TILE}, slices of the stored rows in "
+                         f"{SKINNY_KS} (whole, or multiples of 32 rows and "
+                         f"of q4_0's group; above {TMA_ROWS} rows multiples "
+                         f"of {TMA_ROWS}) and K a multiple of 4 up to 4096 "
+                         f"under a LayerNorm, not rows={rows} K={k} N={n} "
+                         f"group={group} ks={ks or valid}")
+    srows = stored // ks
+    o_x = align128(col_unit_bytes(kind, k, ks, group))
+    o_lnv = align128(o_x + 4 * rows * (k if ln else
+                                       srows * (2 if _packed(kind) else 1)))
+    o_red = align128(o_lnv + (8 * k if ln else 0))
+    o_out = align128(o_red + 4 * COOP_RED_FLOATS)
+    smem = o_out + 4 * rows * COOP_TILE + SMEM_SLACK
+    if smem > SMEM_MAX:
+        raise ValueError(f"skinny_plan: rows={rows} K={k} N={n} need {smem} "
+                         f"bytes of shared memory (at most {SMEM_MAX})")
+    return dict(ks=ks, grid=ntiles * ks, srows=srows, smem=smem, o_w=0,
+                o_x=o_x, o_lnv=o_lnv, o_red=o_red, o_out=o_out)
+
+
+def rows_launch(lib, dtype, a, norm, lin, layout, res, ls, out, rows, k, n,
+                pro, epi, approx, eps, stream) -> str:
     """One row-block product, out (rows, n) = epilogue(prologue(a) @ lin),
-    on its route (`rows_route`): rows_mma_kernel with `rows_plan`, or
-    rows_kernel."""
+    launched once on its route (`rows_route`): rows_mma_kernel with
+    `rows_plan`, skinny_kernel with `skinny_plan`, or rows_kernel. Returns
+    the route; counts nothing."""
     (w, s, b), (kind, group) = lin, layout
     args = (a.data_ptr(), _ptr(norm[0]), _ptr(norm[1]), w.data_ptr(),
             _ptr(s), _ptr(b), _ptr(res), _ptr(ls), out.data_ptr(), rows, k,
             n, kind, group, pro, epi, int(approx), float(eps))
-    if rows_route(dtype, rows) == "mma":
+    route = rows_route(dtype, rows)
+    what = (f"(rows {rows}, K {k}, N {n}, kind {kind}, group {group}, "
+            f"prologue {pro}, epilogue {epi}")
+    if route == "mma":
         _mma_check("rows_mma", k, n, kind, group, pro != ROWS_LOAD)
-        plan = rows_plan(rows, k, n, kind in (INT4, INT4_GROUPED),
+        plan = rows_plan(rows, k, n, _packed(kind),
                          {ROWS_LN: 2, ROWS_LN_F32: 4}.get(pro, 0))
         cuda_lib.check(lib.ptt_rows_mma(*args, *plan, stream),
-                       f"ptt_rows_mma (rows {rows}, K {k}, N {n}, kind {kind},"
-                       f" group {group}, prologue {pro}, epilogue {epi}, "
-                       f"plan {plan})")
-        _rows_call.launches_mma += 1
+                       f"ptt_rows_mma {what}, plan {plan})")
+    elif route == "skinny":
+        plan = skinny_plan(rows, k, n, kind, group, pro != ROWS_LOAD)
+        _aligned16("rows_skinny", [w, s if kind == INT4_GROUPED else None])
+        if pro != ROWS_LOAD and a.data_ptr() % (16 if pro == ROWS_LN_F32
+                                                else 8):
+            raise ValueError("rows_skinny: the LayerNorm prologue reads "
+                             "rows 8-byte (bf16) or 16-byte (float32) "
+                             "aligned")
+        cuda_lib.check(lib.ptt_rows_skinny(
+            *args, _plan_ints(plan, SKINNY_PLAN_KEYS), stream),
+            f"ptt_rows_skinny {what}, plan {plan})")
     else:
         cuda_lib.check(lib.ptt_fused_rows(*args, int(dtype == torch.bfloat16),
                                           stream), "ptt_fused_rows")
+    return route
+
+
+def _rows_call(lib, dtype, a, norm, lin, layout, res, ls, out, rows, k, n,
+               pro, epi, approx, eps, stream):
+    """K5a's or one of K5b's row-block products (`rows_launch`), counted
+    by route in `launches_mma` / `launches_skinny`."""
+    route = rows_launch(lib, dtype, a, norm, lin, layout, res, ls, out, rows,
+                        k, n, pro, epi, approx, eps, stream)
+    if route == "mma":
+        _rows_call.launches_mma += 1
+    elif route == "skinny":
+        _rows_call.launches_skinny += 1
 
 
 def post_launches(rows: int, dm: int) -> int:
@@ -647,9 +770,9 @@ def bilayer_post_pre(p, p_next, x, attn, eps: float = 1e-5,
 
 
 bilayer_post_pre.launches_bilayer = 0
-# rows_mma_kernel launches (K5a and K5b calls on the tensor-core route),
-# counted besides the wrappers' own counts
-_rows_call.launches_mma = 0
+# rows_mma_kernel and skinny_kernel launches of K5a and K5b (their
+# routes), counted besides the wrappers' own counts
+_rows_call.launches_mma = _rows_call.launches_skinny = 0
 pre_attention.launches = pre_attention.launches_int4 = 0
 post_attention.launches = post_attention.launches_int4 = 0
 pre_attention.launches_lanes = post_attention.launches_lanes = 0

@@ -2,10 +2,16 @@
 
 K4a replaces the TPU kernel `pocket_tts_tpu/ops/quant_matmul.py:
 int8_matmul_pallas`, K4b `int4_matmul_pallas` (`_int4_kernel`,
-`_int4_grouped_kernel`). The CUDA kernels are `csrc/int8_matmul.cu` and
-`csrc/int4_matmul.cu` (their headers say what bounds them on the H100 and
-what the designs do about it); the plain versions are the JAX package's
-off-TPU math (`_core`), with grouped int4 scales applied in float32.
+`_int4_grouped_kernel`). K4a's CUDA kernel is `csrc/int8_matmul.cu`. K4b
+is the row-block product of the fused layer (csrc/fused_layer.cu) with
+the plain load prologue and the rounding epilogue, on its route
+(`fused_layer.rows_route`): `rows_mma_kernel` on the tensor cores for
+bf16 calls of MMA_ROWS (16) rows or more (every prefill, the serving
+mode's input_linear over its lanes), `skinny_kernel` below (input_linear
+once a frame: T = 1, K = 32), `rows_kernel` for float32 (fused_layer.cu's
+header says what bounds them on the H100 and what the designs do about
+it). The plain versions are the JAX package's off-TPU math (`_core`),
+with grouped int4 scales applied in float32.
 
 Layouts (io/quant.py), one layer of a stacked (L, ...) weight being `q[l]`,
 a contiguous view:
@@ -121,35 +127,25 @@ def int4_matmul_plain(x, q4, scale):
 
 
 def int4_matmul(x, q4, scale):
-    """Same contract as int4_matmul_plain; launches the CUDA kernel for
-    CUDA tensors (x float32 or bfloat16, N a multiple of 4; grouped scales
-    bfloat16 with whole groups in each half of K)."""
+    """Same contract as int4_matmul_plain; for CUDA tensors (x float32 or
+    bfloat16, `kernel_operands`' layouts) launches the row-block product
+    of x's route once (`fused_layer.rows_launch`), counted here only."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, q4, scale)
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul: unsupported device {x.device}")
+    from .fused_layer import EPI_ROUND, ROWS_LOAD, rows_launch
     kh, n = q4.shape
     x2 = x.reshape(-1, x.shape[-1])
-    if scale.dim() == 2:
-        ng = scale.shape[0]
-        group = 2 * kh // max(ng, 1)
-        s_ok = (scale.dtype == torch.bfloat16 and ng * group == 2 * kh
-                and kh % group == 0 and scale.data_ptr() % 8 == 0)
-    else:
-        group = 0
-        s_ok = scale.dtype == torch.float32
-    if not (s_ok and x2.shape[1] == 2 * kh and q4.dtype == torch.int8
-            and scale.shape[-1] == n and n % 4 == 0
-            and q4.data_ptr() % 4 == 0
-            and all(t.is_contiguous() and t.device == x.device
-                    for t in (x2, q4, scale))):
+    if not (x2.shape[1] == 2 * kh and x2.shape[0] >= 1
+            and x2.is_contiguous()
+            and x.dtype in (torch.float32, torch.bfloat16)):
         raise _bad("int4_matmul", x=x, q4=q4, scale=scale)
+    lin, layout = kernel_operands({"q4": q4, "scale": scale}, 2 * kh, n, x)
     y = torch.empty(x2.shape[0], n, dtype=x.dtype, device=x.device)
-    rc = cuda_lib.library().ptt_int4_matmul(
-        x2.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        x2.shape[0], 2 * kh, n, group, cuda_lib.dtype_code(x),
-        cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(rc, "ptt_int4_matmul")
+    rows_launch(cuda_lib.library(), x.dtype, x2, (None, None), lin, layout,
+                None, None, y, x2.shape[0], 2 * kh, n, ROWS_LOAD, EPI_ROUND,
+                False, 0.0, cuda_lib.stream_ptr(x.device))
     int4_matmul.launches += 1
     return y.reshape(*x.shape[:-1], n)
 

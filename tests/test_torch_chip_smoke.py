@@ -74,10 +74,10 @@ def test_failing_serving_phase_fails_the_run(failing, monkeypatch, capsys):
         time_decode=lambda bf, voice: {k: {"sync": [1.0], "nosync": [1.0]}
                                        for k in bf},
         time_kernels=lambda *a: {},
-        profile_frames=lambda *a, **k: (1.0, []),
+        profile_frames=lambda *a, **k: (1.0, [], {}),
         serve_vs_solo=lambda *a, **k: None,
         serve_throughput=lambda *a, **k: ({}, 0, {}),
-        profile_serving=lambda *a, **k: (1.0, [2.0], 160, []),
+        profile_serving=lambda *a, **k: (1.0, [2.0], 160, [], {}),
         serve_cli=lambda *a: None)
     for name in ("check_k1", "check_k2", "check_k3", "check_k7",
                  "check_k2_lanes", "check_k3_lanes", "check_quant_kernels",
@@ -205,9 +205,80 @@ def test_expected_launches_of_the_slice6_paths():
     assert frame("int4_bilayer") == {
         "fused_pre_int4": 3, "bilayer": 5, "fused_post_int4": 3,
         "decode_attn": 6, "ring_attn": 2, "seanet_frame": 1,
-        "fused_flow_int4": 2, "int4_matmul": 1, "rows_mma": 2}
+        "fused_flow_int4": 2, "int4_matmul": 1, "rows_mma": 2,
+        "rows_skinny": 1}
     want = cs.expected_serving(cs.path_cfg(DEFAULT_CONFIG, cs.K1_SERVE),
                                cs.K1_SERVE, 1, 0, lanes=4)
     assert (want["decode_attn_lanes"], want["decode_attn_stats"],
             want["ring_attn_kv8"]) == (6, 6, 2)
     assert not any(k.startswith("decode_insert") for k in want)
+
+
+def test_expected_launches_of_the_3_call_paths():
+    """Per decoded frame on the int8, int4 and q4_0 paths: the backbone's
+    six K5a at T = 1 on the skinny kernel (rows_skinny), the mimi layers'
+    two on the tensor cores (rows_mma); K4a / K4b once (input_linear) and
+    24 times a prefill call."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    for path in cs.QUANT_PATHS + (cs.KV8_PATH,):
+        frame, prefill = cs.expected_launches(DEFAULT_CONFIG, path)
+        mm, pre, post, flow = cs.PATH_KERNELS[
+            cs.ENGINE_KW[path]["quantize"]]
+        assert (frame["rows_skinny"], frame["rows_mma"], frame[pre],
+                frame[post], frame[mm], frame[flow]) == (6, 2, 8, 8, 1, 2)
+        assert prefill == {mm: 24}
+
+
+# a frame of the int8 path as the profiler names its kernels: (kernel,
+# us, launches per frame)
+FRAME_KERNELS = [
+    ("void ptt::decode_attn_kernel<__nv_bfloat16>(ptt::K1Args)", 5.6, 6.0),
+    ("void ptt::ring_attn_kernel<__nv_bfloat16>(ptt::K2Args)", 9.0, 2.0),
+    ("void ptt::seanet_gemm_kernel<__nv_bfloat16>(ptt::K3Args)", 50., 10.),
+    ("void ptt::seanet_overlap_kernel<__nv_bfloat16>(ptt::K3Args)", 9., 3.),
+    ("void ptt::seanet_last_kernel<__nv_bfloat16>(ptt::K3Args)", 5., 1.),
+    ("void ptt::int8_matmul_kernel<__nv_bfloat16>(...)", 3.9, 1.0),
+    ("ptt::skinny_kernel(ptt::SkinnyArgs)", 5.0, 6.0),
+    ("void ptt::rows_mma_kernel<16>(ptt::RowsMmaArgs)", 9.5, 2.0),
+    ("void ptt::fused_post_kernel<__nv_bfloat16>(ptt::PostArgs)", 18., 8.),
+    ("ptt::flow_mods_kernel(ptt::FlowArgs)", 20.0, 1.0),
+    ("ptt::flow_chain_kernel(ptt::FlowArgs)", 70.0, 1.0),
+    ("void at::native::elementwise_kernel<...>", 1.0, 200.0)]
+# the wrappers' counters over the same frames, per frame
+FRAME_COUNTS = {"decode_attn": 6.0, "ring_attn": 2.0, "seanet_frame": 1.0,
+                "int8_matmul": 1.0, "fused_pre": 8.0, "fused_post": 8.0,
+                "fused_flow": 2.0, "rows_mma": 2.0, "rows_skinny": 6.0}
+
+
+def test_frame_launch_check_agrees_with_the_counters():
+    """The profiler's records and the launch counters over the same frames
+    agree family by family; the check passes and logs that they agree."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    rows, verdict = cs.launch_crosscheck(FRAME_KERNELS, FRAME_COUNTS)
+    assert dict((f, (p, c)) for f, p, c in rows) == {
+        "K1": (6.0, 6.0), "K2": (2.0, 2.0), "K3": (14.0, 14.0),
+        "K4a": (1.0, 1.0), "K4b/K5a/K5b": (16.0, 16.0), "K6": (2.0, 2.0)}
+    assert "agree" in verdict and "DISAGREE" not in verdict
+    cs.check_frame_launches("int8", FRAME_KERNELS, FRAME_COUNTS)
+
+
+def test_frame_launch_check_names_the_profiler_when_it_drops_a_record():
+    """One K1 record of 20 frames missing from the profiler (5.95 a frame)
+    while the counters saw 6: the check fails, and its message says the
+    profiler lost the launch and names K1, the one family that differs."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    kern = [(k, us, 5.95 if "decode_attn" in k else c)
+            for k, us, c in FRAME_KERNELS]
+    with pytest.raises(AssertionError) as err:
+        cs.check_frame_launches("int8", kern, FRAME_COUNTS)
+    msg = str(err.value)
+    assert "profiler lost 0.05" in msg and "K1:" in msg
+    assert "K2:" not in msg and "K3:" not in msg
+    # the other side: a launch the counters did not see
+    _, verdict = cs.launch_crosscheck(
+        FRAME_KERNELS, dict(FRAME_COUNTS, fused_pre=7.0))
+    assert "K4b/K5a/K5b: counters missed 1.00" in verdict

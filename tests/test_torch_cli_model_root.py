@@ -2,8 +2,9 @@
 `<root>/kyutai/pocket-tts-without-voice-cloning/` under `-r/--model-root`
 or `$MODEL_CACHE`, or the directory given with `-m`; the voice
 embeddings come from the same directory, for solo synthesis and for
-`--serve`. With no checkpoint there the CLI exits 1 (the port never falls
-back to random weights). The checkpoint is written by `random_flat` at a
+`--serve`. With no checkpoint there it notes so on stderr and runs random
+weights and a random voice, as the JAX package's CLI does
+(`pocket_tts_tpu/cli.py`). The checkpoint is written by `random_flat` at a
 tiny config, which the test patches in as DEFAULT_CONFIG."""
 import dataclasses
 import os
@@ -70,12 +71,24 @@ def test_cli_serve_reads_voices_from_the_model_root(tmp_path, monkeypatch):
     assert os.listdir(out) == ["req_0000.wav"]
 
 
-def test_cli_without_a_checkpoint_exits_1(tmp_path, monkeypatch, capsys):
+def test_cli_without_a_checkpoint_notes_and_uses_random_weights(
+        tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(config, "DEFAULT_CONFIG", CFG)
     monkeypatch.setenv("MODEL_CACHE", str(tmp_path / "empty"))
-    assert cli.main(["--device", "cpu", "Hello."]) == 1
+    out = str(tmp_path / "o.wav")
+    assert cli.main(["--device", "cpu", "-t", "0", "-o", out,
+                     "Hello."]) == 0
     err = capsys.readouterr().err
-    assert os.path.join(str(tmp_path / "empty"), SUB) in err
+    d = os.path.join(str(tmp_path / "empty"), SUB)
+    assert f"note: no checkpoint under {d}; using random weights" in err
+    # random weights never fire EOS: the sentence runs its whole budget,
+    # (words + 2) frames a second of audio (runtime/engine.py), one
+    # frame_size of samples a frame
+    pcm, sr = load_wav(out)
+    frames = int((1 + 2.0) * CFG.mimi.frame_rate)
+    assert sr == CFG.mimi.sample_rate
+    assert pcm.size == frames * CFG.mimi.frame_size
+    assert np.isfinite(pcm).all()
 
 
 def test_cli_megalayer_implies_fuse_insert(tmp_path, monkeypatch):

@@ -149,9 +149,10 @@ def test_flow_plan_fits_shared_memory(kind, dtype):
 def test_routes_are_what_the_docstrings_state():
     assert fused_layer.rows_route(torch.bfloat16, 16) == "mma"
     assert fused_layer.rows_route(torch.bfloat16, 512) == "mma"
-    assert fused_layer.rows_route(torch.bfloat16, 15) == "simt"
-    assert fused_layer.rows_route(torch.bfloat16, 1) == "simt"
+    assert fused_layer.rows_route(torch.bfloat16, 15) == "skinny"
+    assert fused_layer.rows_route(torch.bfloat16, 1) == "skinny"
     assert fused_layer.rows_route(torch.float32, 512) == "simt"
+    assert fused_layer.rows_route(torch.float32, 1) == "simt"
     assert fused_layer.MMA_ROWS == 16
     assert fused_flow.LAUNCHES == 2
 
