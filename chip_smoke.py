@@ -13,7 +13,7 @@ continuous-batching server (`ContinuousBatchingServer`, 32 lanes, with
 bf16 weights and in the JAX package's serving mode: int4 weights, int8
 KV cache, shared prefix; 4 lanes without the fused insert; and CLI
 `--serve`) at the full width of DEFAULT_CONFIG with random weights from
-seed 0, and checks the twenty-five hand-written CUDA kernel entries on
+seed 0, and checks the twenty-six hand-written CUDA kernel entries on
 them against their plain PyTorch versions. Phases, in order; any failure
 raises, names its phase and the exit code is 1:
 
@@ -25,9 +25,10 @@ raises, names its phase and the exit code is 1:
                    chunks), K3 SEANet frame (and on tiny_config's narrow
                    decoder); K4a int8 matmul, K5a/K5b
                    fused layer pre/post and K6 fused flow net on int8
-                   weights; K4b int4 matmul (input_linear at 1, 2, 15,
-                   16 and 32 rows, the four prefill linears at 1, 2, 15,
-                   16, 128 and 256: each of its routes) and the int4
+                   weights; K4a and K4b int4 matmul (input_linear at 1,
+                   2, 15, 16 and 32 rows, the four prefill linears at 1,
+                   2, 15, 16, 64, 128, 130 and 256: each of their routes,
+                   K4a's warpgroup kernel from 64 rows) and the int4
                    K5a/K5b/K6 on per-channel int4 and on q4_0
                    (K-grouped) weights: each vs its plain version at
                    main-path shapes, f32 and bf16, with the tolerances
@@ -65,7 +66,10 @@ raises, names its phase and the exit code is 1:
                    path, counters set to 0 before each run and read after:
                    per decoded frame every path launches 6 K1, 2 K2 and 1
                    K3; int8 adds 1 K4a, 8 K5a, 8 K5b, 2 K6 and 24 K4a per
-                   prefill call; int4 and q4_0 the same counts of K4b and
+                   prefill call (in a prefill call of 64 rows or more on
+                   the warpgroup kernel, counted once more under
+                   int8_matmul_wgmma); int4 and q4_0 the same counts of
+                   K4b and
                    the int4 K5a/K5b/K6 (counted apart from int8); int4 +
                    int8 KV the int4 counts with K1's int8-KV variant in
                    place of K1; int8 + megalayer 6 K8 and 2 K5a, 2 K5b (the
@@ -102,8 +106,13 @@ raises, names its phase and the exit code is 1:
                    and at 32 lanes beside torch.matmul at its (M, N, K);
                    each K5a / K5b product over many rows on rows_kernel and
                    on rows_mma_kernel at every tile and split
-                   (time_rows_plans: R_min and rows_plan); K6 on clusters
-                   of 16 and 8 blocks (time_flow_clusters)
+                   (time_rows_plans: R_min and rows_plan); K4a's
+                   warpgroup kernel at every tile height and split beside
+                   rows_mma_kernel, the dense bf16 product and the
+                   library call on the four prefill linears at 64, 128
+                   and 256 rows (time_k4a_plans: wgmma_plan and
+                   WGMMA_ROWS); K6 on clusters of 16 and 8 blocks
+                   (time_flow_clusters)
   7. serving       f32, 4 lanes, 6 requests (two admitted mid-decode), each
                    pcm vs the solo engine on the card, with bf16 weights,
                    with int8 weights + int8 KV + shared prefix, and with
@@ -197,8 +206,14 @@ KERNELS = {
     "seanet_frame": dict(
         source="pocket_tts_tpu_torch/csrc/seanet_frame.cu",
         replaces="pocket_tts_tpu/ops/pallas_seanet.py:258"),
+    # K4a: below WGMMA_ROWS rows and in float32 the row-block product of
+    # its route (skinny_kernel, rows_mma_kernel, rows_kernel) with the load
+    # prologue; from WGMMA_ROWS rows in bf16 the warpgroup kernel
     "int8_matmul": dict(
-        source="pocket_tts_tpu_torch/csrc/int8_matmul.cu",
+        source="pocket_tts_tpu_torch/csrc/fused_layer.cu",
+        replaces="pocket_tts_tpu/ops/quant_matmul.py:118"),
+    "int8_matmul_wgmma": dict(
+        source="pocket_tts_tpu_torch/csrc/wgmma_matmul.cu",
         replaces="pocket_tts_tpu/ops/quant_matmul.py:118"),
     "fused_pre": dict(
         source="pocket_tts_tpu_torch/csrc/fused_layer.cu",
@@ -832,15 +847,15 @@ def check_quant_kernels(pq, cfg, device, dtype, results, path):
             and bb["in_proj"]["scale"].dim() == 3):
         raise AssertionError("q4_0 tree lacks its mixed scale layouts")
     # K4a / K4b: input_linear each frame (T=1, K=32), and prefill buckets
-    # through in_proj (K=1024, N=3072), linear1 (N=4096) and linear2
-    # (K=4096). K4b on each of its routes: the skinny kernel at 1, 2 and
-    # 15 rows, the tensor cores from 16 (input_linear over 32 lanes: K = 32,
-    # a k-tile of 16 packed rows), rows_kernel in float32
-    pairs = []
-    k4b = key == "q4"
-    cases = [(t, pq["input_linear"]) for t in ((1, 2, 15, 16, LANES) if k4b
-                                               else (1,))]
-    for t in (1, 2, 15, 16, 128, 256) if k4b else (16, 130):
+    # through in_proj (K=1024, N=3072), linear1 (N=4096), linear2
+    # (K=4096) and out_proj, on each of their routes: the skinny kernel at
+    # 1, 2 and 15 rows, the tensor cores from 16 (input_linear over 32
+    # lanes: K = 32, a k-tile of 16 packed rows), K4a's warpgroup kernel
+    # from 64 (130: a ragged token tile), rows_kernel in float32
+    from pocket_tts_tpu_torch.ops.quant_matmul import int8_route
+    pairs, wide = [], []
+    cases = [(t, pq["input_linear"]) for t in (1, 2, 15, 16, LANES)]
+    for t in (1, 2, 15, 16, 64, 128, 130, 256):
         for name in ("in_proj", "linear1", "linear2", "out_proj"):
             cases.append((t, slice_layer_params(bb, -1)[name]))
     for t, lin in cases:
@@ -848,8 +863,12 @@ def check_quant_kernels(pq, cfg, device, dtype, results, path):
         x = _rand(rng, device, dtype, t, k, scale=0.5)
         pairs.append((mm(x, lin[key], lin["scale"]),
                       mm_plain(x, lin[key], lin["scale"])))
+        if key == "q" and int8_route(dtype, t) == "wgmma":
+            wide.append(pairs[-1])
     sync(device)
     _rel_check(mm_name, "quant", dtype, pairs, results, label)
+    if wide:
+        _rel_check("int8_matmul_wgmma", "quant", dtype, wide, results, label)
     # K5a / K5b: backbone T=1 (eps 1e-5; erf and tanh GELU) and mimi T=16
     # (eps 0, layer scales)
     dm, md = cfg.backbone.d_model, cfg.mimi.transformer.d_model
@@ -1599,19 +1618,22 @@ def check_k1_lanes(device, dtype, results):
 def counted_frame_steps():
     """Wrap models.tts.frame_step and models.flow_lm.prefill to count the
     frames decoded and the prefill calls (voice priming and each
-    sentence's text) made."""
+    sentence's text) made, and the prefill calls of WGMMA_ROWS rows or
+    more (K4a's warpgroup route in bf16)."""
     from pocket_tts_tpu_torch.models import flow_lm, tts
+    from pocket_tts_tpu_torch.ops.quant_matmul import WGMMA_ROWS
     real_step, real_prefill = tts.frame_step, flow_lm.prefill
-    count = {"frames": 0, "prefills": 0}
+    count = {"frames": 0, "prefills": 0, "wide_prefills": 0}
 
     def frame_step(p, cfg, state, *args, **kw):
         if not state.done:
             count["frames"] += 1
         return real_step(p, cfg, state, *args, **kw)
 
-    def prefill(*args, **kw):
+    def prefill(p, cfg, state, emb, *args, **kw):
         count["prefills"] += 1
-        return real_prefill(*args, **kw)
+        count["wide_prefills"] += emb.shape[0] >= WGMMA_ROWS
+        return real_prefill(p, cfg, state, emb, *args, **kw)
 
     tts.frame_step = frame_step
     flow_lm.prefill = prefill
@@ -1646,6 +1668,7 @@ def _counters():
            "bilayer": (fused_layer.bilayer_post_pre, "launches_bilayer"),
            "seanet_frame": (seanet_frame, "launches"),
            "int8_matmul": (int8_matmul, "launches"),
+           "int8_matmul_wgmma": (int8_matmul, "launches_wgmma"),
            "int4_matmul": (int4_matmul, "launches"),
            "decode_insert_attn": (decode_insert_attention, "launches"),
            "decode_insert_attn_kv8": (decode_insert_attention,
@@ -1694,7 +1717,8 @@ def make_engine(cfg, device, dtype, quantize=None, quantize_kv=False,
 
 def expected_launches(cfg, path):
     """(launches per decoded frame, launches per prefill call) by kernel
-    for a path: "bf16", "int8", "int4", "q4_0", "int4_kv8" (int4 weights,
+    for a path (WIDE_PREFILL's entries per prefill call of WGMMA_ROWS
+    rows or more): "bf16", "int8", "int4", "q4_0", "int4_kv8" (int4 weights,
     int8 KV cache: K1's int8-KV variant), "int8_mega" (K8 per backbone
     layer), "int4_kv8_mega" (K8's int4 and int8-KV variant, and K2-q for
     the int8 mimi ring) or "int4_bilayer" (K5a of layer 0, K5c at each
@@ -1719,6 +1743,8 @@ def expected_launches(cfg, path):
     if rows_route(torch.bfloat16, cfg.mimi.upsample_stride) == "mma":
         per_frame["rows_mma"] = nm
     per_prefill = {mm: 4 * nb}
+    if weights == "int8":   # the bf16 prefill buckets of 64 rows or more
+        per_prefill["int8_matmul_wgmma"] = 4 * nb
     skinny = rows_route(torch.bfloat16, 1) == "skinny"  # K5a of a T = 1 layer
     if cfg.backbone.use_megalayer:
         per_frame.update({pre: nm, post: nm,
@@ -1738,11 +1764,16 @@ def expected_launches(cfg, path):
     return per_frame, per_prefill
 
 
+# kernels that a prefill call launches only at WGMMA_ROWS rows or more
+WIDE_PREFILL = ("int8_matmul_wgmma",)
+
+
 def end_to_end(engine, voice, counts, label, text=BENCH_TEXT):
     """Synthesize `text` at temp 0 on path `label` with the counters set to
     0 just before and read just after; checks the pcm and the launch
     counts."""
     frames0, prefills0 = counts["frames"], counts["prefills"]
+    wide0 = counts["wide_prefills"]
     per_frame, per_prefill = expected_launches(engine.cfg, label)
     reset_counters()
     t0 = time.perf_counter()
@@ -1752,9 +1783,11 @@ def end_to_end(engine, voice, counts, label, text=BENCH_TEXT):
     launches = read_counters()
     frames = counts["frames"] - frames0
     prefills = counts["prefills"] - prefills0
+    wide = counts["wide_prefills"] - wide0
     audio_s = pcm.size / engine.sample_rate
     log(f"  {label} synthesize: {frames} frames decoded, {prefills} "
-        f"prefill calls, {pcm.size} samples ({audio_s:.2f} s of audio), "
+        f"prefill calls ({wide} of 64 rows or more), "
+        f"{pcm.size} samples ({audio_s:.2f} s of audio), "
         f"wall {wall:.3f} s (includes voice priming and prefill)")
     log(f"  launches {launches}; expected per frame {per_frame}, per "
         f"prefill call {per_prefill}")
@@ -1766,7 +1799,8 @@ def end_to_end(engine, voice, counts, label, text=BENCH_TEXT):
         raise AssertionError("silent pcm")
     for name in list(KERNELS) + ["rows_mma", "rows_skinny"]:
         want = (per_frame.get(name, 0) * frames
-                + per_prefill.get(name, 0) * prefills)
+                + per_prefill.get(name, 0) * (wide if name in WIDE_PREFILL
+                                              else prefills))
         if launches[name] != want:
             raise AssertionError(
                 f"{label} {name}: {launches[name]} launches for {frames} "
@@ -2226,7 +2260,7 @@ def kernel_times(device):
     (coop_kernel_times), through the public wrappers only
     (`seanet_frame`, `decode_insert_attention`, `pre_attention`,
     `post_attention`, `flow_forward`, `bilayer_post_pre`, `megalayer`,
-    `int4_matmul`): {label: us}. Run from
+    `int8_matmul`, `int4_matmul`): {label: us}. Run from
     another checkout's root with this script copied there, it times that
     checkout's kernels the same way, so that two versions compare inside
     one call."""
@@ -2475,8 +2509,12 @@ def coop_kernel_times(device, res):
     ways. Also K4b at T = 1 (K = 32, N = 1024) and at T = 128 on the four
     prefill linears (in_proj 1024 x 3072, out_proj 1024 x 1024, linear1
     1024 x 4096, linear2 4096 x 1024) beside torch._weight_int4pack_mm
-    (int4pack_ms) and its bound, and the device time of one prefill call
-    of 128 rows through the six layers (24 K4b launches). Where the tree
+    (int4pack_ms) and its bound; K4a (int8) the same at T = 1 and at 64,
+    128 and 256 rows beside torch._weight_int8pack_mm (int8pack_ms), its
+    bound and the dense bf16 product, and, where the tree has the
+    warpgroup kernel, its plan sweep (time_k4a_plans); and the device
+    time of one prefill call of 128 rows through the six layers (24 K4a
+    or K4b launches) for int8, int4 and q4_0. Where the tree
     has csrc/coop_bench.cu, also what a grid barrier costs
     (barrier_times) and the MLP's down projection with its cross-block
     sum both ways (finish_times). Added to res ({label: us})."""
@@ -2487,7 +2525,6 @@ def coop_kernel_times(device, res):
     from pocket_tts_tpu_torch.io.quant import quantize_params
     from pocket_tts_tpu_torch.models import backbone, flow_lm
     from pocket_tts_tpu_torch.ops import cuda_lib, fused_layer, fused_step
-    from pocket_tts_tpu_torch.ops import quant_matmul as qm
     from pocket_tts_tpu_torch.ops.basic import slice_layer_params
     from pocket_tts_tpu_torch.ops.rope import rope_cos_sin
     dt = torch.bfloat16
@@ -2544,30 +2581,48 @@ def coop_kernel_times(device, res):
                          p0, p1, x, a) for p0_, p1_ in zip(bls, bls[1:])],
                      _tree_bytes(post) + _tree_bytes(pre) + _nbytes(x) * 6,
                      _linear_flops(post, 1) + _linear_flops(pre, 1))
-            cases = [(pq["input_linear"], 1)] + [
-                (bls[0][k], 128) for k in ("in_proj", "out_proj",
-                                           "linear1", "linear2")]
-            for lin, t in cases:
-                kdim = lin["q4"].shape[0] * 2
-                xi = _rand(rng, device, dt, t, kdim)
-                y = qm.int4_matmul(xi, lin["q4"], lin["scale"])
-                shape = f"T={t} K={kdim} N={y.shape[-1]}"
-                res[f"K4b {path} {shape}"] = us(
-                    lambda: qm.int4_matmul(xi, lin["q4"], lin["scale"]))
-                lib = int4pack_ms(xi, lin, y)
-                res[f"K4b {path} {shape} library"] = (
-                    None if lib is None else 1e3 * lib)
-                res[f"K4b {path} {shape} bound"] = 1e3 * bound_ms(
-                    _tree_bytes(lin) + _nbytes(xi, y),
-                    _linear_flops(lin, t))[0]
-            st = backbone.init_state(bb, dt, device)
-            emb = _rand(rng, device, dt, 128, dm, scale=0.5)
+        # K4b (int4, q4_0) and K4a (int8, also at 64 and 256 rows, with
+        # the dense bf16 product beside it) through their wrappers
+        _, mm, _, key = quant_matmul_fns(path)
+        tag = "K4a" if path == "int8" else "K4b"
+        cases = [(pq["input_linear"], 1)] + [
+            (bls[0][k], t) for t in ((64, 128, 256) if path == "int8"
+                                     else (128,))
+            for k in ("in_proj", "out_proj", "linear1", "linear2")]
+        for lin, t in cases:
+            kdim = lin[key].shape[0] * (2 if key == "q4" else 1)
+            xi = _rand(rng, device, dt, t, kdim)
+            y = mm(xi, lin[key], lin["scale"])
+            shape = f"T={t} K={kdim} N={y.shape[-1]}"
+            res[f"{tag} {path} {shape}"] = us(
+                lambda: mm(xi, lin[key], lin["scale"]))
+            lib = (int8pack_ms(xi, lin["q"], lin["scale"]) if key == "q"
+                   else int4pack_ms(xi, lin, y))
+            res[f"{tag} {path} {shape} library"] = (
+                None if lib is None else 1e3 * lib)
+            res[f"{tag} {path} {shape} bound"] = 1e3 * bound_ms(
+                _tree_bytes(lin) + _nbytes(xi, y),
+                _linear_flops(lin, t))[0]
+            if key == "q" and t > 1:
+                w = _dense(lin, dt)
+                res[f"{tag} {path} {shape} dense"] = us(lambda: xi @ w)
+        if path == "int8" and "ptt_wgmma_int8" in cuda_lib.SIGNATURES:
+            for (name, t, kdim, n, plan, plans, mma,
+                 _, _) in time_k4a_plans(device, pq):
+                for (bt, sp), v in plans.items():
+                    res[f"K4a sweep {name} T={t} wgmma {bt}x{sp}"] = v
+                res[f"K4a sweep {name} T={t} rows_mma"] = mma
+            for name, (_, row) in k4a_marks(device, pq).items():
+                for key, v in row.items():
+                    res[f"K4a marks {name} T=128 {key}"] = v
+        st = backbone.init_state(bb, dt, device)
+        emb = _rand(rng, device, dt, 128, dm, scale=0.5)
 
-            def prefill():  # the same 128 slots each call
-                st.end = st.next_pos = 0
-                flow_lm.prefill(pq, cfg, st, emb, 120)
+        def prefill():  # the same 128 slots each call
+            st.end = st.next_pos = 0
+            flow_lm.prefill(pq, cfg, st, emb, 120)
 
-            res[f"prefill {path} T=128"] = us(prefill)
+        res[f"prefill {path} T=128"] = us(prefill)
         if path == "q4_0":
             continue
         isz = 2
@@ -2724,6 +2779,114 @@ def time_flow_clusters(engines, device):
             out[f"{path} {'solo' if rows is None else f'rows={rows}'}"] = row
     finally:
         fused_flow.flow_cluster = real
+    return out
+
+
+def time_k4a_plans(device, pq):
+    """Device us of K4a's product on the four prefill linears of the int8
+    tree pq's first backbone layer (in_proj, out_proj, linear1, linear2)
+    at 64, 128 and
+    256 rows of bf16 x (numpy seed 37), side by side: the warpgroup kernel
+    (ptt_wgmma_int8) at every tile height and split `wgmma_plan` takes (each
+    held against int8_matmul_plain at TOL quant), rows_mma_kernel at
+    rows_plan's plan (the route below WGMMA_ROWS), the dense bf16
+    torch.matmul of the same product and torch._weight_int8pack_mm: the
+    evidence behind wgmma_plan and WGMMA_ROWS. Returns [(linear, rows, K,
+    N, the plan wgmma_plan takes, {(bt, splits): us}, rows_mma us, dense
+    us, library us or None)]."""
+    import ctypes
+    import torch
+    from pocket_tts_tpu_torch.ops import cuda_lib
+    from pocket_tts_tpu_torch.ops import fused_layer as fl
+    from pocket_tts_tpu_torch.ops import quant_matmul as qm
+    from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(device)
+    p = slice_layer_params(pq["layers"], 0)
+    rng = np.random.RandomState(37)
+    tol = TOL[("quant", "bf16")]
+    out = []
+    for rows in (64, 128, 256):
+        for name in ("in_proj", "out_proj", "linear1", "linear2"):
+            q, sc = p[name]["q"], p[name]["scale"]
+            k, n = q.shape
+            x = _rand(rng, device, torch.bfloat16, rows, k)
+            want = qm.int8_matmul_plain(x, q, sc)
+            y = torch.empty(rows, n, device=device, dtype=torch.bfloat16)
+            plans = {}
+            for bt in qm.WGMMA_BTS:
+                for sp in range(1, qm.WGMMA_MAX_SPLITS + 1):
+                    if bt == 128 and rows <= 64:
+                        continue
+                    plan = qm.wgmma_plan(rows, k, n, bt, sp)
+                    if (bt, plan["splits"]) in plans:
+                        continue
+                    keys = (ctypes.c_int * len(qm.WGMMA_PLAN_KEYS))(
+                        *[plan[key] for key in qm.WGMMA_PLAN_KEYS])
+
+                    def call():
+                        cuda_lib.check(lib.ptt_wgmma_int8(
+                            x.data_ptr(), q.data_ptr(), sc.data_ptr(),
+                            y.data_ptr(), rows, k, n, keys, 0, stream),
+                            "ptt_wgmma_int8")
+                    call()
+                    sync(device)
+                    err = ((y.float() - want.float()).abs().max()
+                           / want.float().abs().max()).item()
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"K4a {name} rows={rows} plan {bt}x{sp}: rel "
+                            f"error {err} > {tol}")
+                    plans[bt, plan["splits"]] = 1e3 * device_ms(call, 30)[0]
+            lin, layout = qm.kernel_operands({"q": q, "scale": sc}, k, n, x)
+            mma = 1e3 * device_ms(lambda: fl.rows_launch(
+                lib, torch.bfloat16, x, (None, None), lin, layout, None,
+                None, y, rows, k, n, fl.ROWS_LOAD, fl.EPI_ROUND, False, 0.0,
+                stream), 30)[0]
+            w = _dense(p[name], torch.bfloat16)
+            dense = 1e3 * device_ms(lambda: x @ w, 30)[0]
+            lib_ms = int8pack_ms(x, q, sc)
+            pl = qm.wgmma_plan(rows, k, n, fits=qm.wgmma_fits(lib))
+            out.append((name, rows, k, n, (pl["bt"], pl["splits"]), plans,
+                        mma, dense, None if lib_ms is None else 1e3 * lib_ms))
+    return out
+
+
+def k4a_marks(device, pq):
+    """Where a warpgroup K4a call's time goes (`marks=` of
+    quant_matmul.wgmma_launch, %globaltimer), on the four prefill linears
+    of the int8 tree pq's first backbone layer at 128 rows (numpy seed
+    39), the plan wgmma_plan takes, the last of three calls: {linear:
+    ((bt, splits), {"span": the grid's last exit minus its first entry;
+    per block, mean over the grid: "to first landed", "products" (first
+    k-block landed to products done), "epilogue" (products done to exit),
+    and the ns each role waited: WGMMA_MARKS[4:]}), all in us}."""
+    import torch
+    from pocket_tts_tpu_torch.ops import cuda_lib
+    from pocket_tts_tpu_torch.ops import quant_matmul as qm
+    from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    p = slice_layer_params(pq["layers"], 0)
+    rng = np.random.RandomState(39)
+    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(device)
+    out = {}
+    for name in ("in_proj", "out_proj", "linear1", "linear2"):
+        q, sc = p[name]["q"], p[name]["scale"]
+        k, n = q.shape
+        x = _rand(rng, device, torch.bfloat16, 128, k)
+        y = torch.empty(128, n, device=device, dtype=torch.bfloat16)
+        plan = qm.wgmma_plan(128, k, n, fits=qm.wgmma_fits(lib))
+        mk = torch.zeros(int(np.prod(plan["grid"])), len(qm.WGMMA_MARKS),
+                         dtype=torch.int64, device=device)
+        for _ in range(3):
+            qm.wgmma_launch(lib, x, q, sc, y, 128, k, n, stream, marks=mk)
+        sync(device)
+        m = mk.cpu().numpy().astype(np.float64) / 1e3
+        row = {"span": m[:, 3].max() - m[:, 0].min(),
+               "to first landed": (m[:, 1] - m[:, 0]).mean(),
+               "products": (m[:, 2] - m[:, 1]).mean(),
+               "epilogue": (m[:, 3] - m[:, 2]).mean()}
+        for i, key in enumerate(qm.WGMMA_MARKS[4:], 4):
+            row[key] = m[:, i].mean()
+        out[name] = (plan["bt"], plan["splits"]), row
     return out
 
 
@@ -2907,12 +3070,15 @@ def phase_marks(name, names, call, device):
 
 def time_quant_kernels(pq, cfg, device, dtype, path, out):
     """Device time of the path's K4a/K4b, K5a, K5b and K6 vs their plain
-    versions at the decode step's shapes, with each call's bound (no single
-    PyTorch call computes these functions), appended to out[kernel name]
-    (the first row of each name is the one the JSON line reports)."""
+    versions at the decode step's shapes (K4a/K4b also at a 128-row
+    prefill in_proj, beside the library call), with each call's bound,
+    appended to out[kernel name] (the first row of each name is the one
+    the JSON line reports; K4a's 128-row row is also the warpgroup
+    kernel's, int8_matmul_wgmma)."""
     import torch
     from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
     from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    from pocket_tts_tpu_torch.ops.quant_matmul import int8_route
     mm_name, mm, mm_plain, key = quant_matmul_fns(path)
     _, pre, post, flow = PATH_KERNELS[path]
     dn = _dt_name(dtype)
@@ -2931,14 +3097,17 @@ def time_quant_kernels(pq, cfg, device, dtype, path, out):
             lib = int8pack_ms(x, lin[key], lin["scale"])
         else:
             lib = int4pack_ms(x, lin, y)
-        rows[mm_name].append(_row(
+        row = _row(
             device_ms(lambda: mm(x, lin[key], lin["scale"]),
                       200 if t == 1 else 20),
             device_ms(lambda: mm_plain(x, lin[key], lin["scale"]),
                       50 if t == 1 else 20), lib,
             bound_ms(_nbytes(x, y) + _tree_bytes(lin),
                      _linear_flops(lin, t), dn),
-            f"{path} {label} T={t} K={kdim} N={y.shape[-1]}"))
+            f"{path} {label} T={t} K={kdim} N={y.shape[-1]}")
+        rows[mm_name].append(row)
+        if path == "int8" and int8_route(dtype, t) == "wgmma":
+            out.setdefault("int8_matmul_wgmma", []).append(row)
     for p, t, d, eps, name in ((bb, 1, dm, 1e-5, "backbone"),
                                (mt, 16, md, eps_m, "mimi")):
         x = _rand(rng, device, dtype, t, d, scale=0.5)
@@ -3270,9 +3439,10 @@ K3_PER_FRAME = 14   # ten conv-GEMMs, three overlap-adds, the final conv
 # The port's kernels as the profiler names them, by family, beside the
 # launch counters (`_counters`) that count the family's launches, each with
 # the device launches one count stands for. A counter that counts a launch
-# once more (rows_mma, rows_skinny, the statistics, megalayer_kv8) is in no
-# family; the row-block kernels and K5b's cooperative kernel are one family
-# since K4b, K5a and K5b share them.
+# once more (rows_mma, rows_skinny, int8_matmul_wgmma, the statistics,
+# megalayer_kv8) is in no family; the row-block kernels, K4a's warpgroup
+# kernel and K5b's cooperative kernel are one family since K4a, K4b, K5a
+# and K5b share them.
 LAUNCH_FAMILIES = {
     "K1": (("decode_attn_kernel",),
            (("decode_attn", 1), ("decode_attn_kv8", 1),
@@ -3280,10 +3450,9 @@ LAUNCH_FAMILIES = {
     "K2": (("ring_attn_kernel",), (("ring_attn", 1), ("ring_attn_kv8", 1))),
     "K3": (("seanet_gemm_kernel", "seanet_overlap_kernel",
             "seanet_last_kernel"), (("seanet_frame", K3_PER_FRAME),)),
-    "K4a": (("int8_matmul_kernel",), (("int8_matmul", 1),)),
-    "K4b/K5a/K5b": (("rows_kernel", "rows_mma_kernel", "skinny_kernel",
-                     "fused_post_kernel"),
-                    (("int4_matmul", 1), ("fused_pre", 1),
+    "K4/K5a/K5b": (("rows_kernel", "rows_mma_kernel", "skinny_kernel",
+                    "fused_post_kernel", "wgmma_int8_kernel"),
+                   (("int8_matmul", 1), ("int4_matmul", 1), ("fused_pre", 1),
                      ("fused_pre_int4", 1), ("fused_pre_lanes", 1),
                      ("fused_post", 1), ("fused_post_int4", 1),
                      ("fused_post_lanes", 1))),
@@ -3874,6 +4043,24 @@ def main(argv=None) -> int:
                     f"{ks}{'*' if ks == sks else ''} {us:.2f}"
                     for ks, us in skinny.items()))
                 + f" (R_min = MMA_ROWS = {MMA_ROWS})")
+        from pocket_tts_tpu_torch.ops.quant_matmul import WGMMA_ROWS
+        for (name, rows, k, n, plan, plans, mma, dense,
+             lib_us) in time_k4a_plans(device, bf["int8"].params):
+            best = min(plans, key=plans.get)
+            log(f"  K4a plans {name} rows={rows} K={k} N={n}: wgmma (bt, "
+                f"splits) " + ", ".join(
+                    f"{bt}x{sp}{'*' if (bt, sp) == plan else ''} {us:.2f}"
+                    for (bt, sp), us in plans.items())
+                + f"; fastest {best} {plans[best]:.2f}, the plan's {plan} "
+                f"{plans[plan]:.2f}; rows_mma {mma:.2f}; dense bf16 "
+                f"{dense:.2f}; _weight_int8pack_mm "
+                + ("none" if lib_us is None else f"{lib_us:.2f}")
+                + f" us (WGMMA_ROWS = {WGMMA_ROWS})")
+        for name, (plan, row) in k4a_marks(device,
+                                           bf["int8"].params).items():
+            log(f"  K4a marks {name} rows=128 plan {plan}: " + ", ".join(
+                f"{key} {v:.2f}" for key, v in row.items())
+                + " us (per block, mean over the grid; span: the grid's)")
         for label, row in time_flow_clusters(bf, device).items():
             log(f"  K6 {label} by cluster size: " + ", ".join(
                 f"{cs} blocks {us:.2f} us" for cs, us in row.items()))
@@ -3994,6 +4181,8 @@ def main(argv=None) -> int:
             return k1_serve_launches[name]
         if name in MEGA_KERNELS:
             return runs[MEGA_KERNELS[name]][0][name]
+        if name in WIDE_PREFILL:
+            return runs["int8"][0][name]
         users = [p for p in QUANT_PATHS if name in PATH_KERNELS[p]]
         return sum(runs[p][0][name] for p in users or ["bf16"])
 

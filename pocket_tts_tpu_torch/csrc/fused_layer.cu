@@ -61,7 +61,9 @@
 // FL_ROW_FLOATS activations: 16 rows at dm 1024, 32 at dm 512); each block
 // computes the LayerNorm of its rows into shared memory, then streams its
 // tile of W_in. K4b (ops/quant_matmul.py) is the same three kernels with the
-// plain load prologue and the rounding epilogue.
+// plain load prologue and the rounding epilogue, and so is K4a below
+// WGMMA_ROWS rows and in float32 (from WGMMA_ROWS bf16 rows K4a runs
+// wgmma_matmul.cu).
 // K5b has two dependencies across blocks that the TPU kernel met by walking
 // its hidden tiles in order with scratch carried between grid steps: the
 // LayerNorm of x1 needs all of out_proj, and the W2 sum runs over every

@@ -61,8 +61,13 @@ SIGNATURES = {
     # h, carry, w, bias, out, B, T, C, K, P(carry rows), blocks a lane,
     # dtype, stream: K3's final one-channel conv
     "ptt_seanet_last": [P, P, P, P, P, I, I, I, I, I, I, I, P],
-    # x, q, scale, y, M, K, N, dtype, stream
-    "ptt_int8_matmul": [P, P, P, P, I, I, I, I, P],
+    # x (bf16), q (int8), scale, y, T, K, N, the plan array (10:
+    # quant_matmul.WGMMA_PLAN_KEYS), marks (or null), stream: K4a on the
+    # warpgroup products (csrc/wgmma_matmul.cu)
+    "ptt_wgmma_int8": [P, P, P, P, I, I, I, P, P, P],
+    # bt, splits, shared memory -> clusters of `splits` blocks the card
+    # holds at once (quant_matmul.wgmma_fits)
+    "ptt_wgmma_max_clusters": [I, I, I],
     # a, norm scale, norm bias, w, scale, bias, res, ls, out, T, K, N, kind,
     # group, prologue, epilogue, approx, eps, dtype, stream
     "ptt_fused_rows": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,

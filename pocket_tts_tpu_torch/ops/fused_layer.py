@@ -43,7 +43,8 @@ LN + linear1 + GELU, linear2 + residual. Launches per call
 and at 64 / 256 / 512 mimi rows (4 / 16 / 32 lanes x 16).
 
 The route of a row-block product (`rows_route`), K5a's and each of K5b's
-three launches over many rows (and K4b's, ops/quant_matmul.py): a bf16
+three launches over many rows (and K4b's, and K4a's below its
+WGMMA_ROWS, ops/quant_matmul.py): a bf16
 call of at least MMA_ROWS rows runs `rows_mma_kernel` (csrc/fused_layer.cu,
 on the tensor cores through csrc/qmma.cuh: `mma.sync` bf16 with float32
 accumulators, the reduction split over a thread-block cluster by
@@ -73,8 +74,9 @@ there is no other switch. Launches with a lane axis (x of rank 3) count in
 weights (either scale layout) in `.launches_int4`; K5c's launches count in
 `bilayer_post_pre.launches_bilayer`. K5a's and K5b's launches of
 `rows_mma_kernel` count once more in `_rows_call.launches_mma`, of
-`skinny_kernel` in `_rows_call.launches_skinny` (K4b's launches count in
-`quant_matmul.int4_matmul.launches` only).
+`skinny_kernel` in `_rows_call.launches_skinny` (K4b's and K4a's launches
+count in `quant_matmul.int4_matmul.launches` / `int8_matmul.launches`
+only).
 """
 from __future__ import annotations
 

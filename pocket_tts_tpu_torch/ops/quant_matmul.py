@@ -2,16 +2,20 @@
 
 K4a replaces the TPU kernel `pocket_tts_tpu/ops/quant_matmul.py:
 int8_matmul_pallas`, K4b `int4_matmul_pallas` (`_int4_kernel`,
-`_int4_grouped_kernel`). K4a's CUDA kernel is `csrc/int8_matmul.cu`. K4b
-is the row-block product of the fused layer (csrc/fused_layer.cu) with
-the plain load prologue and the rounding epilogue, on its route
-(`fused_layer.rows_route`): `rows_mma_kernel` on the tensor cores for
-bf16 calls of MMA_ROWS (16) rows or more (every prefill, the serving
-mode's input_linear over its lanes), `skinny_kernel` below (input_linear
-once a frame: T = 1, K = 32), `rows_kernel` for float32 (fused_layer.cu's
-header says what bounds them on the H100 and what the designs do about
-it). The plain versions are the JAX package's off-TPU math (`_core`),
-with grouped int4 scales applied in float32.
+`_int4_grouped_kernel`). Both run the row-block product of the fused
+layer (csrc/fused_layer.cu) with the plain load prologue and the rounding
+epilogue, on its route (`fused_layer.rows_route`): `rows_mma_kernel` on
+the tensor cores for bf16 calls of MMA_ROWS (16) rows or more,
+`skinny_kernel` below (input_linear once a frame: T = 1, K = 32),
+`rows_kernel` for float32 (fused_layer.cu's header says what bounds them
+on the H100 and what the designs do about it). K4a's route (`int8_route`)
+has a fourth kernel: bf16 calls of WGMMA_ROWS (64) rows or more (the
+prefill's 64, 128 and 256-row buckets) run `wgmma_int8_kernel`
+(csrc/wgmma_matmul.cu: a TMA ring under mbarriers kept full by a
+producer warp, a widening warpgroup writing each int8 box as a bf16 tile
+in shared memory, a consumer warpgroup on `wgmma.mma_async`;
+`wgmma_plan`). The plain versions are the JAX package's
+off-TPU math (`_core`), with grouped int4 scales applied in float32.
 
 Layouts (io/quant.py), one layer of a stacked (L, ...) weight being `q[l]`,
 a contiguous view:
@@ -23,11 +27,14 @@ a contiguous view:
         32), whose row g covers logical rows [g*group, (g+1)*group)
 
 `int8_matmul` and `int4_matmul` run the plain version for tensors on the
-CPU and the kernel for tensors on the card; there is no other switch.
-`kernel_operands` is the layout check the fused kernels (K5a, K5b, K6)
-share.
+CPU and the kernel of their route for tensors on the card; there is no
+other switch. `kernel_operands` is the layout check the fused kernels
+(K5a, K5b, K6) share.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -93,26 +100,208 @@ def int8_matmul_plain(x, q, scale):
     return y.to(x.dtype).reshape(*x.shape[:-1], q.shape[-1])
 
 
+# K4a's fourth kernel (csrc/wgmma_matmul.cu `wgmma_int8_kernel`): bf16
+# calls of WGMMA_ROWS rows or more take it (chip_smoke.py
+# `time_k4a_plans` times it beside rows_mma_kernel on the four prefill
+# linears at 64, 128 and 256 rows; PERF.md section 6). A block takes
+# WGMMA_BN output channels (two m64 tiles) by bt token rows (the wgmma's
+# N: 64 or 128) over a slice of the k-blocks of WGMMA_BK; the slices of a
+# tile are the blocks of one cluster (at most WGMMA_MAX_SPLITS, the
+# portable size); a ring of WGMMA_STAGES k-blocks, each an x box, an int8
+# weight box and the weight widened to bf16.
+WGMMA_ROWS = 64
+WGMMA_BK, WGMMA_BN = 64, 128
+WGMMA_BTS = (128, 64)
+WGMMA_MAX_SPLITS = 8
+WGMMA_WAVE = 132         # one block an SM of the H100
+# a block's fixed time (entry, the first boxes, the epilogue: ~4 us
+# against ~0.75 a k-block at 128 rows, chip_smoke.py `k4a_marks`) in
+# k-blocks
+WGMMA_FIXED_KB = 4
+WGMMA_STAGES = 4
+WGMMA_CS_LD = WGMMA_BN + 4   # a row of the float32 tile (floats)
+WGMMA_ALIGN = 1024        # the 128-byte swizzle's period
+WGMMA_PLAN_KEYS = ("bt", "splits", "kb_per", "stages", "smem", "o_x",
+                   "o_q", "o_w", "o_bar", "o_c")
+# a block's %globaltimer marks (`marks=` of wgmma_launch): instants (ns),
+# the ns each role waited on the ring's mbarriers, the ns of widening
+WGMMA_MARKS = ("entry", "first landed", "products done", "exit",
+               "consumers on full", "consumers on wide", "wideners on full",
+               "producer on empty", "widening")
+
+
+def int8_route(dtype, rows: int) -> str:
+    """K4a's kernel for a call of `rows` rows: "wgmma" (wgmma_int8_kernel)
+    for bf16 calls of at least WGMMA_ROWS rows, else the row-block
+    family's (`fused_layer.rows_route`: "mma", "skinny", "simt")."""
+    from .fused_layer import rows_route
+    if dtype == torch.bfloat16 and rows >= WGMMA_ROWS:
+        return "wgmma"
+    return rows_route(dtype, rows)
+
+
+def _wgmma_split(rows: int, k: int, n: int, bt: int, splits: int,
+                 fits) -> tuple:
+    """(cost, splits, k-blocks a slice) at token tile bt: `splits` when
+    given, else of 1..WGMMA_MAX_SPLITS (within the k-blocks) the least
+    cost, fewer splits on a tie; cost: the waves of clusters (one a
+    tile; fits[bt][splits - 1] of them at once) x the busiest block's
+    k-blocks and WGMMA_FIXED_KB."""
+    kb = -(-k // WGMMA_BK)
+    tiles = -(-rows // bt) * -(-n // WGMMA_BN)
+    best = None
+    for sp in ([splits] if splits
+               else range(1, min(WGMMA_MAX_SPLITS, kb) + 1)):
+        per = -(-kb // sp)
+        sp = -(-kb // per)
+        cap = fits[bt][sp - 1]
+        cost = (-(-tiles // cap) * (per + WGMMA_FIXED_KB) if cap > 0
+                else float("inf"))
+        if best is None or cost < best[0]:
+            best = (cost, sp, per)
+    return best
+
+
+def model_fits():
+    """The clusters of 1..WGMMA_MAX_SPLITS blocks the card holds at once,
+    for each bt, as a model: one block an SM, WGMMA_WAVE SMs
+    (`wgmma_fits` asks the card)."""
+    return {bt: tuple(WGMMA_WAVE // sp
+                      for sp in range(1, WGMMA_MAX_SPLITS + 1))
+            for bt in WGMMA_BTS}
+
+
+def wgmma_fits(lib) -> dict:
+    """{bt: (clusters of 1..WGMMA_MAX_SPLITS blocks the card holds at once
+    at that bt's shared memory)}, asked of the card once
+    (ptt_wgmma_max_clusters)."""
+    if "fits" not in _wgmma_state:
+        _wgmma_state["fits"] = {
+            bt: tuple(lib.ptt_wgmma_max_clusters(bt, sp, _wgmma_smem(bt))
+                for sp in range(1, WGMMA_MAX_SPLITS + 1))
+            for bt in WGMMA_BTS}
+    return _wgmma_state["fits"]
+
+
+_wgmma_state = {}
+
+
+def _wgmma_offsets(bt: int) -> dict:
+    """A block's shared-memory layout at tile height bt: WGMMA_STAGES of
+    each ring (x: bt rows of 128 bytes; the int8 weight box: WGMMA_BK
+    rows of WGMMA_BN bytes; the weight widened to bf16 and transposed:
+    WGMMA_BN rows of 128 bytes), the full, wide and empty mbarriers (24
+    bytes a stage), and the total with WGMMA_ALIGN to align the base; the
+    float32 output tile (bt x WGMMA_CS_LD floats) lies over the rings,
+    used once they are done."""
+    s = WGMMA_STAGES
+    o_q = s * bt * 128
+    o_w = o_q + s * WGMMA_BK * WGMMA_BN
+    o_bar = o_w + s * 2 * WGMMA_BK * WGMMA_BN
+    return dict(o_x=0, o_q=o_q, o_w=o_w, o_bar=o_bar, o_c=0,
+                smem=o_bar + 24 * s + WGMMA_ALIGN)
+
+
+def _wgmma_smem(bt: int) -> int:
+    return _wgmma_offsets(bt)["smem"]
+
+
+def wgmma_plan(rows: int, k: int, n: int, bt: int = 0, splits: int = 0,
+               fits=None) -> dict:
+    """One wgmma_int8_kernel call over `rows` rows of a (k, n) int8
+    linear: bt (of WGMMA_BTS; 128 only above 64 rows) and the split of the
+    k-blocks over a cluster, the pair of least `_wgmma_split` cost (ties
+    to the larger bt) given `fits` (`wgmma_fits`, the card's; None: the
+    model `model_fits`); bt or splits > 0 take that value, for the sweep.
+    The grid is (splits, n / WGMMA_BN, rows / bt), rounded up; the shared
+    memory `_wgmma_offsets`; WGMMA_PLAN_KEYS the order the kernel takes
+    them in. Raises ValueError on widths the kernel does not take
+    (K a multiple of 8, N of 16: the TMA's 16-byte row strides)."""
+    return _wgmma_plan(rows, k, n, bt, splits,
+                       tuple(sorted((fits or model_fits()).items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_plan(rows, k, n, bt, splits, fits):
+    from .fused_layer import SMEM_MAX
+    if rows < 1 or k < 8 or k % 8 or n < 16 or n % 16:
+        raise ValueError(f"wgmma_plan: the warpgroup route takes K a "
+                         f"multiple of 8 and N of 16, not rows={rows} "
+                         f"K={k} N={n}")
+    fits = dict(fits)
+    bts = [bt] if bt else [b for b in WGMMA_BTS if b == 64 or rows > 64]
+    cost, _, sp, per, bt = min(
+        (c, -b, sp, per, b) for b in bts
+        for c, sp, per in [_wgmma_split(rows, k, n, b, splits, fits)])
+    lay = _wgmma_offsets(bt)
+    if (cost == float("inf") or sp > WGMMA_MAX_SPLITS
+            or bt * WGMMA_CS_LD * 4 > lay["o_bar"]
+            or lay["smem"] > SMEM_MAX):
+        raise ValueError(f"wgmma_plan: no plan for rows={rows} K={k} N={n} "
+                         f"bt={bt} splits={sp}")
+    return dict(bt=bt, splits=sp, kb_per=per, stages=WGMMA_STAGES,
+                grid=(sp, -(-n // WGMMA_BN), -(-rows // bt)), **lay)
+
+
+def wgmma_launch(lib, x2, q, scale, y, rows: int, k: int, n: int, stream,
+                 marks=None) -> dict:
+    """One wgmma_int8_kernel launch, y = round((x2 @ q) * scale), with
+    `wgmma_plan` on the card's `wgmma_fits`; returns the plan, counts
+    nothing. marks: an int64
+    (blocks, len(WGMMA_MARKS)) tensor on the device (block (z, y, x) of the
+    plan's grid at row z + splits (y + grid[1] x)) for the WGMMA_MARKS, or
+    None."""
+    plan = wgmma_plan(rows, k, n, fits=wgmma_fits(lib))
+    if x2.data_ptr() % 16 or q.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("wgmma: x, q and scale must be 16-byte aligned")
+    blocks = plan["grid"][0] * plan["grid"][1] * plan["grid"][2]
+    if marks is not None and not (
+            marks.dtype == torch.int64 and marks.is_contiguous()
+            and marks.shape == (blocks, len(WGMMA_MARKS))
+            and marks.device == x2.device):
+        raise ValueError(f"wgmma: marks must be int64 ({blocks}, "
+                         f"{len(WGMMA_MARKS)}) on {x2.device}")
+    keys = (ctypes.c_int * len(WGMMA_PLAN_KEYS))(
+        *[plan[key] for key in WGMMA_PLAN_KEYS])
+    cuda_lib.check(lib.ptt_wgmma_int8(
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), rows,
+        k, n, keys, 0 if marks is None else marks.data_ptr(), stream),
+        f"ptt_wgmma_int8 (rows {rows}, K {k}, N {n}, plan {plan})")
+    return plan
+
+
 def int8_matmul(x, q, scale):
-    """Same contract as int8_matmul_plain; launches the CUDA kernel for
-    CUDA tensors (x float32 or bfloat16)."""
+    """Same contract as int8_matmul_plain; for CUDA tensors (x float32 or
+    bfloat16, `kernel_operands`' layouts) launches the kernel of x's
+    route (`int8_route`) once (`_int8_cuda`)."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, scale)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
+    return _int8_cuda(x, q, scale)
+
+
+def _int8_cuda(x, q, scale):
+    """int8_matmul on the card: one launch of wgmma_int8_kernel
+    (`wgmma_launch`) or of the row-block product (`fused_layer.
+    rows_launch`), counted in `int8_matmul.launches` only (the warpgroup
+    kernel's once more in `launches_wgmma`)."""
+    from .fused_layer import EPI_ROUND, ROWS_LOAD, rows_launch
     k, n = q.shape
     x2 = x.reshape(-1, x.shape[-1])
-    if not (x2.shape[1] == k and q.dtype == torch.int8
-            and scale.dtype == torch.float32 and scale.shape == (n,)
-            and all(t.is_contiguous() and t.device == x.device
-                    for t in (x2, q, scale))):
+    rows = x2.shape[0]
+    if not (x2.shape[1] == k and rows >= 1 and x2.is_contiguous()
+            and x.dtype in (torch.float32, torch.bfloat16)):
         raise _bad("int8_matmul", x=x, q=q, scale=scale)
-    y = torch.empty(x2.shape[0], n, dtype=x.dtype, device=x.device)
-    rc = cuda_lib.library().ptt_int8_matmul(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        x2.shape[0], k, n, cuda_lib.dtype_code(x), cuda_lib.stream_ptr(
-            x.device))
-    cuda_lib.check(rc, "ptt_int8_matmul")
+    lin, layout = kernel_operands({"q": q, "scale": scale}, k, n, x)
+    y = torch.empty(rows, n, dtype=x.dtype, device=x.device)
+    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(x.device)
+    if int8_route(x.dtype, rows) == "wgmma":
+        wgmma_launch(lib, x2, q, scale, y, rows, k, n, stream)
+        int8_matmul.launches_wgmma += 1
+    else:
+        rows_launch(lib, x.dtype, x2, (None, None), lin, layout, None, None,
+                    y, rows, k, n, ROWS_LOAD, EPI_ROUND, False, 0.0, stream)
     int8_matmul.launches += 1
     return y.reshape(*x.shape[:-1], n)
 
@@ -150,7 +339,7 @@ def int4_matmul(x, q4, scale):
     return y.reshape(*x.shape[:-1], n)
 
 
-int8_matmul.launches = 0
+int8_matmul.launches = int8_matmul.launches_wgmma = 0
 int4_matmul.launches = 0
 
 

@@ -89,6 +89,8 @@ def test_failing_serving_phase_fails_the_run(failing, monkeypatch, capsys):
         stubs[name] = lambda *a, **k: None
     stubs["time_splits"] = lambda *a, **k: {}
     stubs["time_rows_plans"] = lambda *a, **k: []
+    stubs["time_k4a_plans"] = lambda *a, **k: []
+    stubs["k4a_marks"] = lambda *a, **k: {}
     stubs["time_flow_clusters"] = lambda *a, **k: {}
     stubs[failing] = boom
     for name, fn in stubs.items():
@@ -218,7 +220,8 @@ def test_expected_launches_of_the_3_call_paths():
     """Per decoded frame on the int8, int4 and q4_0 paths: the backbone's
     six K5a at T = 1 on the skinny kernel (rows_skinny), the mimi layers'
     two on the tensor cores (rows_mma); K4a / K4b once (input_linear) and
-    24 times a prefill call."""
+    24 times a prefill call, K4a's 24 on the warpgroup kernel in a prefill
+    call of 64 rows or more (int8_matmul_wgmma, a WIDE_PREFILL entry)."""
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
@@ -228,7 +231,9 @@ def test_expected_launches_of_the_3_call_paths():
             cs.ENGINE_KW[path]["quantize"]]
         assert (frame["rows_skinny"], frame["rows_mma"], frame[pre],
                 frame[post], frame[mm], frame[flow]) == (6, 2, 8, 8, 1, 2)
-        assert prefill == {mm: 24}
+        assert prefill == ({mm: 24, "int8_matmul_wgmma": 24} if mm ==
+                           "int8_matmul" else {mm: 24})
+    assert cs.WIDE_PREFILL == ("int8_matmul_wgmma",)
 
 
 # a frame of the int8 path as the profiler names its kernels: (kernel,
@@ -239,8 +244,7 @@ FRAME_KERNELS = [
     ("void ptt::seanet_gemm_kernel<__nv_bfloat16>(ptt::K3Args)", 50., 10.),
     ("void ptt::seanet_overlap_kernel<__nv_bfloat16>(ptt::K3Args)", 9., 3.),
     ("void ptt::seanet_last_kernel<__nv_bfloat16>(ptt::K3Args)", 5., 1.),
-    ("void ptt::int8_matmul_kernel<__nv_bfloat16>(...)", 3.9, 1.0),
-    ("ptt::skinny_kernel(ptt::SkinnyArgs)", 5.0, 6.0),
+    ("ptt::skinny_kernel(ptt::SkinnyArgs)", 5.0, 7.0),
     ("void ptt::rows_mma_kernel<16>(ptt::RowsMmaArgs)", 9.5, 2.0),
     ("void ptt::fused_post_kernel<__nv_bfloat16>(ptt::PostArgs)", 18., 8.),
     ("ptt::flow_mods_kernel(ptt::FlowArgs)", 20.0, 1.0),
@@ -260,7 +264,7 @@ def test_frame_launch_check_agrees_with_the_counters():
     rows, verdict = cs.launch_crosscheck(FRAME_KERNELS, FRAME_COUNTS)
     assert dict((f, (p, c)) for f, p, c in rows) == {
         "K1": (6.0, 6.0), "K2": (2.0, 2.0), "K3": (14.0, 14.0),
-        "K4a": (1.0, 1.0), "K4b/K5a/K5b": (16.0, 16.0), "K6": (2.0, 2.0)}
+        "K4/K5a/K5b": (17.0, 17.0), "K6": (2.0, 2.0)}
     assert "agree" in verdict and "DISAGREE" not in verdict
     cs.check_frame_launches("int8", FRAME_KERNELS, FRAME_COUNTS)
 
@@ -281,4 +285,4 @@ def test_frame_launch_check_names_the_profiler_when_it_drops_a_record():
     # the other side: a launch the counters did not see
     _, verdict = cs.launch_crosscheck(
         FRAME_KERNELS, dict(FRAME_COUNTS, fused_pre=7.0))
-    assert "K4b/K5a/K5b: counters missed 1.00" in verdict
+    assert "K4/K5a/K5b: counters missed 1.00" in verdict
