@@ -11,9 +11,10 @@ and the int8 KV cache, `quantize_kv=True`, and slice 6's paths: int8 +
 `mimi.transformer.quantize_kv`; int4 + `backbone.use_bilayer`) and its
 continuous-batching server (`ContinuousBatchingServer`, 32 lanes, with
 bf16 weights and in the JAX package's serving mode: int4 weights, int8
-KV cache, shared prefix; 4 lanes without the fused insert; and CLI
-`--serve`) at the full width of DEFAULT_CONFIG with random weights from
-seed 0, and checks the twenty-six hand-written CUDA kernel entries on
+KV cache, shared prefix, also at 128 lanes; 4 lanes without the fused
+insert; and CLI `--serve`), the CLI's other entry points (--bench --json,
+--profile, --batch with FLAC output) and the reference-exact mode at the
+full width of DEFAULT_CONFIG with random weights from seed 0, and checks the twenty-six hand-written CUDA kernel entries on
 them against their plain PyTorch versions. Phases, in order; any failure
 raises, names its phase and the exit code is 1:
 
@@ -137,6 +138,24 @@ raises, names its phase and the exit code is 1:
                    every host-clock measurement), the launch counters over
                    the same frames and chunks beside the profiler's
                    records by kernel family (launch_crosscheck)
+  9. command line  the CLI in subprocesses on the card: --bench --json
+                   with bf16 and int8 weights (the JAX CLI's keys;
+                   frames/s, RTF, ttfa_ms), the CLI's stream loop on each
+                   solo path's warm engine in process (the same three
+                   numbers without the process's start-up), hbm_bw_util
+                   and mfu of each
+                   solo path's phase-6 frames/s (utils/roofline.py at the
+                   card's published peaks), --profile (the Chrome trace
+                   names K1, K2 and K3's kernels), --batch 4 --json -o
+                   .flac --out-rate 16000 (read back at 16 kHz); the
+                   reference-exact mode in process, f32 and int8 weights:
+                   18 f32 frames (past the 250-slot mimi ring's wrap) on
+                   the card vs the CPU within 1e-3, no
+                   K1/K2/K7/K8/K5 launch, one K3 sequence a frame, K4a on
+                   every linear (expected_exact); the serving mode at 128
+                   lanes: f32 vs the solo engine (launches checked), CLI
+                   --serve --lanes 128, and the wall per chunk with all 128
+                   lanes busy (reported)
 
 The last three lines of standard output are a JSON object of the kernels
 (launches from the runs of the path that uses each: K1-K3 from bf16, the
@@ -322,7 +341,15 @@ ENGINE_KW = {"bf16": dict(), "int8": dict(quantize="int8"),
              "int8_mega": dict(quantize="int8"),
              "int4_kv8_mega": dict(quantize="int4", quantize_kv=True),
              "int4_bilayer": dict(quantize="int4"),
-             K1_SERVE: dict(quantize="int8", quantize_kv=True)}
+             K1_SERVE: dict(quantize="int8", quantize_kv=True),
+             "exact": dict(), "int8_exact": dict(quantize="int8")}
+# phase 9's reference-exact paths (reference_exact_config: the plain
+# attention routes, no K1/K2/K7/K8/K5), f32 and int8 weights
+EXACT_PATHS = ("exact", "int8_exact")
+# frames of the reference-exact check: 16 mimi steps a frame, so 18 frames
+# (288 steps) run past the 250-slot ring's wrap, which falls inside frame
+# 16's block and takes the row-scatter insert
+EXACT_FRAMES = 18
 # the cfg changes of a path: backbone fields, and the mimi ring's
 # quantize_kv
 PATH_CFG = {"int8_mega": dict(use_megalayer=True, fuse_insert=True),
@@ -333,8 +360,12 @@ PATH_CFG = {"int8_mega": dict(use_megalayer=True, fuse_insert=True),
 
 
 def path_cfg(cfg, path):
-    """cfg with the options of `path` (PATH_CFG) set."""
+    """cfg with the options of `path` (PATH_CFG) set; the reference-exact
+    mode for EXACT_PATHS."""
     import dataclasses
+    if path in EXACT_PATHS:
+        from pocket_tts_tpu_torch.config import reference_exact_config
+        cfg = reference_exact_config(cfg)
     ch = dict(PATH_CFG.get(path, {}))
     mimi_kv8 = ch.pop("mimi_kv8", False)
     cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
@@ -1715,14 +1746,18 @@ def make_engine(cfg, device, dtype, quantize=None, quantize_kv=False,
                      **_engine_kw(cfg, device, dtype))
 
 
-def expected_launches(cfg, path):
+def expected_launches(cfg, path, dtype=None):
     """(launches per decoded frame, launches per prefill call) by kernel
     for a path (WIDE_PREFILL's entries per prefill call of WGMMA_ROWS
-    rows or more): "bf16", "int8", "int4", "q4_0", "int4_kv8" (int4 weights,
+    rows or more) in `dtype` (bf16 when None): "bf16", "int8", "int4",
+    "q4_0", "int4_kv8" (int4 weights,
     int8 KV cache: K1's int8-KV variant), "int8_mega" (K8 per backbone
     layer), "int4_kv8_mega" (K8's int4 and int8-KV variant, and K2-q for
-    the int8 mimi ring) or "int4_bilayer" (K5a of layer 0, K5c at each
-    layer boundary, K5b after the last, K1 per layer)."""
+    the int8 mimi ring), "int4_bilayer" (K5a of layer 0, K5c at each
+    layer boundary, K5b after the last, K1 per layer), or a
+    reference-exact path (`expected_exact`)."""
+    if path in EXACT_PATHS:
+        return expected_exact(cfg, path)
     nb, nm = cfg.backbone.num_layers, cfg.mimi.transformer.num_layers
     kv8 = ENGINE_KW[path].get("quantize_kv", False)
     k1 = "decode_attn_kv8" if kv8 else "decode_attn"
@@ -1761,6 +1796,29 @@ def expected_launches(cfg, path):
         per_frame[k1] = nb
         if skinny:
             per_frame["rows_skinny"] = nb
+    return per_frame, per_prefill
+
+
+def expected_exact(cfg, path):
+    """expected_launches of a reference-exact path, from the JAX routing
+    (`pallas_mode == "off"`, models/backbone.py:415-424, models/
+    mimi_transformer.py:205-221): no K1, K2, K7, K8 or K5a/K5b/K5c; one K3
+    sequence a frame (seanet.py reads no switch); with int8 weights every
+    linear unfused through K4a: input_linear, the backbone's four linears
+    a layer at T = 1 and the mimi's four a layer at T = 16 each frame, the
+    backbone's four a layer each prefill call, and K6's launches (the flow
+    net reads no switch). Float32 only (phase 9): K4a takes the
+    row-block routes there, never the warpgroup kernel."""
+    nb, nm = cfg.backbone.num_layers, cfg.mimi.transformer.num_layers
+    if cfg.backbone.use_pallas_attn is not False or (
+            cfg.mimi.transformer.use_pallas_attn is not False):
+        raise ValueError(f"{path}: not a reference-exact cfg")
+    per_frame, per_prefill = {"seanet_frame": 1}, {}
+    if ENGINE_KW[path].get("quantize") == "int8":
+        from pocket_tts_tpu_torch.ops.fused_flow import LAUNCHES
+        per_frame.update(int8_matmul=1 + 4 * nb + 4 * nm,
+                         fused_flow=LAUNCHES)
+        per_prefill["int8_matmul"] = 4 * nb
     return per_frame, per_prefill
 
 
@@ -3627,9 +3685,11 @@ def counted_lane_steps():
 
 
 def serve_vs_solo(device, voice, path="bf16", share_prefix=False,
-                  steps=None):
-    """f32, 4 lanes, the 6 SERVE_TEXTS at temp 0: the last two are
-    admitted mid-decode, into lanes the short ones freed. Each request's pcm
+                  steps=None, lanes=4):
+    """f32, `lanes` lanes, the 6 SERVE_TEXTS at temp 0: at 4 lanes the last
+    two are admitted mid-decode, into lanes the short ones freed; at more
+    lanes than requests all are admitted at once and the lane kernels run
+    with most lanes idle. Each request's pcm
     must match the solo engine's (the same weights and KV cache, path
     ENGINE_KW[path] with PATH_CFG[path]) on the card within TOL e2e
     (relative to max |pcm|). steps (counted_lane_steps): the counters are
@@ -3641,7 +3701,7 @@ def serve_vs_solo(device, voice, path="bf16", share_prefix=False,
     from pocket_tts_tpu_torch.text.preprocess import prepare_text_prompt
     engine = make_engine(path_cfg(DEFAULT_CONFIG, path), device,
                          torch.float32, **ENGINE_KW[path])
-    srv = ContinuousBatchingServer(engine, lanes=4,
+    srv = ContinuousBatchingServer(engine, lanes=lanes,
                                    share_prefix=share_prefix)
     srv.register_voices({"v": voice})
     reqs = [srv.submit(t, "v", temp=0.0) for t in SERVE_TEXTS]
@@ -3655,18 +3715,17 @@ def serve_vs_solo(device, voice, path="bf16", share_prefix=False,
         launches = read_counters()
         n = steps["steps"] - steps0
         want = expected_serving(engine.cfg, path, n,
-                                steps["prefills"] - prefills0, lanes=4,
+                                steps["prefills"] - prefills0, lanes=lanes,
                                 dtype=torch.float32)
-        log(f"  {path}, 4 lanes: launches {launches}; expected {want} (per "
-            f"batch frame step 6 K1 over lanes with statistics, 2 K2-q, 0 "
-            f"K7)")
+        log(f"  {path}, {lanes} lanes: launches {launches}; expected {want}"
+            f" (expected_serving, {n} batch frame steps)")
         for name in KERNELS:
             if launches[name] != want.get(name, 0):
                 raise AssertionError(
                     f"{path} serving {name}: {launches[name]} launches for "
                     f"{n} batch frame steps (want {want.get(name, 0)})")
     late = [r for r in reqs if r.admit_step]
-    if len(late) < 2:
+    if len(late) < min(2, len(reqs) - lanes):
         raise AssertionError(f"only {len(late)} requests admitted mid-decode")
     vstate = engine.prime_voice(voice)
     worst = 0.0
@@ -3680,8 +3739,8 @@ def serve_vs_solo(device, voice, path="bf16", share_prefix=False,
             float(np.abs(want).max()), 1e-30)
         worst = max(worst, rel)
     tol = TOL[("e2e", "f32")]
-    log(f"  f32 {path}{', shared prefix' if share_prefix else ''}, 4 lanes,"
-        f" {len(reqs)} requests ({len(late)} admitted "
+    log(f"  f32 {path}{', shared prefix' if share_prefix else ''}, {lanes} "
+        f"lanes, {len(reqs)} requests ({len(late)} admitted "
         f"mid-decode, at chunks {[r.admit_step for r in late]}), "
         f"{srv.steps} chunks: max |served - solo| relative to max |solo| "
         f"{worst:.3e} (tol {tol})")
@@ -3781,6 +3840,33 @@ def serve_throughput(engine, voice, steps, lanes=LANES, n_requests=48,
     return launches, n, st
 
 
+def busy_server(engine, voice, lanes, share_prefix=False):
+    """A ContinuousBatchingServer with `lanes` long requests (SERVE_TEXTS[3],
+    175 frames each), after two chunks that admit them and warm up."""
+    from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
+    srv = ContinuousBatchingServer(engine, lanes=lanes,
+                                   share_prefix=share_prefix)
+    srv.register_voices({"v": voice})
+    for _ in range(lanes):
+        srv.submit(SERVE_TEXTS[3], "v", temp=0.0)
+    srv.step()
+    srv.step()
+    return srv
+
+
+def chunk_walls(srv, n):
+    """Host wall (us) of each of n chunks, each synchronized."""
+    import torch
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    return walls
+
+
 def profile_serving(engine, voice, path, lanes=LANES, n_steps=4,
                     share_prefix=False):
     """Device busy share of steady serving: `lanes` long requests, two
@@ -3790,22 +3876,8 @@ def profile_serving(engine, voice, path, lanes=LANES, n_steps=4,
     same chunks. Returns (busy us per chunk, [wall us of each timed chunk],
     frames per chunk, [(kernel, us per chunk, calls per chunk)],
     {counter: launches per chunk})."""
-    import torch
-    from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
-    srv = ContinuousBatchingServer(engine, lanes=lanes,
-                                   share_prefix=share_prefix)
-    srv.register_voices({"v": voice})
-    for _ in range(lanes):
-        srv.submit(SERVE_TEXTS[3], "v", temp=0.0)
-    srv.step()
-    srv.step()
-    walls = []
-    for _ in range(2 * n_steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        srv.step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e6)
+    srv = busy_server(engine, voice, lanes, share_prefix)
+    walls = chunk_walls(srv, 2 * n_steps)
     ka, counted = profiled_steps(srv.step, n_steps)
     if any(r is None for r in srv._live):
         raise AssertionError("a lane finished inside the profiled window")
@@ -3815,6 +3887,23 @@ def profile_serving(engine, voice, path, lanes=LANES, n_steps=4,
     kernels = device_kernels(ka, n_steps)
     return (sum(r[1] for r in kernels), walls, lanes * srv.chunk_frames,
             kernels, counted)
+
+
+def run_cli(args, timeout=600):
+    """`python -m pocket_tts_tpu_torch.cli --random-weights ARGS` on the
+    card in a subprocess, which builds the full-width model anew and loads
+    the kernel library phase 2 built. Returns (stdout lines, wall s); a
+    non-zero exit raises."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "pocket_tts_tpu_torch.cli", "--random-weights",
+         *args], capture_output=True, text=True, timeout=timeout,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"cli {' '.join(args)} failed:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return res.stdout.strip().splitlines(), wall
 
 
 def serve_cli(tmp, extra=()):
@@ -3827,23 +3916,201 @@ def serve_cli(tmp, extra=()):
                               "sentences.", "id": "second"}) + "\n"
                 + "Third.\n")
     out = os.path.join(tmp, "wavs" + "".join(extra).replace("-", "_"))
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "pocket_tts_tpu_torch.cli", "--random-weights",
-         "-t", "0", "--lanes", "8", "--serve", reqs, "--serve-out", out,
-         *extra],
-        capture_output=True, text=True, timeout=600,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    wall = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"cli --serve failed:\n{res.stdout}\n"
-                             f"{res.stderr}")
+    lines, wall = run_cli(["-t", "0", "--lanes", "8", "--serve", reqs,
+                           "--serve-out", out, *extra])
     wavs = sorted(os.listdir(out))
     log(f"  cli --serve {' '.join(extra)}: {wavs} in {wall:.1f} s (process "
-        f"start, weights, serving); last line "
-        f"{res.stdout.strip().splitlines()[-1]}")
+        f"start, weights, serving); last line {lines[-1]}")
     if wavs != ["req_0000.wav", "req_0002.wav", "second.wav"]:
         raise AssertionError(f"cli --serve wrote {wavs}")
+
+
+# ---------------------------------------------------------------- phase 9 --
+
+# the JSON keys of the JAX package's CLI: solo (pocket_tts_tpu/cli.py:
+# 433-438) and --batch (:350-352)
+CLI_SOLO_KEYS = {"metric", "value", "unit", "frames", "total_s", "rtf",
+                 "ttfa_ms"}
+CLI_BATCH_KEYS = {"metric", "value", "unit", "batch"}
+# bench.py's backbone KV slot budget for its roofline shares
+KV_SLOTS = 384
+# the kernels a --profile trace of the bf16 stream must name (K1, K2, and
+# K3's family: seanet_gemm_kernel, seanet_overlap_kernel, ...)
+TRACE_KERNELS = ("decode_attn_kernel", "ring_attn_kernel", "seanet_")
+# the serving mode's widest lane count checked (the CLI's --lanes)
+WIDE_LANES = 128
+
+
+def cli_bench(extra=()):
+    """CLI --bench --json [extra]: the JSON line has the JAX CLI's keys and
+    frames > 0. Returns it."""
+    lines, wall = run_cli(["--bench", "--json", *extra])
+    rep = json.loads(lines[-1])
+    if not (set(rep) == CLI_SOLO_KEYS and rep["frames"] > 0
+            and rep["value"] > 0 and rep["ttfa_ms"] > 0):
+        raise AssertionError(f"cli --bench --json {extra}: {lines[-1]}")
+    log(f"  cli --bench --json {' '.join(extra)}: {rep['frames']} frames, "
+        f"frames_per_second {rep['value']}, rtf {rep['rtf']}, ttfa_ms "
+        f"{rep['ttfa_ms']} (host clock: ttfa from the stream's start to its "
+        f"first frame, prefill included), total_s {rep['total_s']}; "
+        f"process {wall:.1f} s")
+    return rep
+
+
+def stream_rows(engines, voice):
+    """Each solo path's engine (warm: phases 4-8 ran it) through the CLI's
+    own stream loop (`cli.feed`: BENCH_TEXT in 15-character chunks, each
+    `receive` a FrameMeter step) at temp 0, in process: frames/s, RTF and
+    ttfa_ms of a lone request without the process's start-up. Returns
+    {path: FrameMeter report}."""
+    from pocket_tts_tpu_torch.cli import feed
+    from pocket_tts_tpu_torch.utils.profiling import FrameMeter
+    out = {}
+    for label, eng in engines.items():
+        stream = eng.open_stream(voice, 0.0)
+        meter = FrameMeter(eng.cfg.mimi.frame_rate)
+        frames = feed(stream, meter, BENCH_TEXT)
+        rep = out[label] = meter.report()
+        log(f"  {label}, the CLI's stream loop in process (warm): {frames} "
+            f"frames, {rep['frames_per_second']} frames/s, rtf "
+            f"{rep['rtf']}, ttfa_ms {rep['ttfa_ms']}, wall_s "
+            f"{rep['wall_s']}")
+        if not (frames > 0 and rep["frames"] == frames
+                and rep["ttfa_ms"] > 0):
+            raise AssertionError(f"{label} stream loop: {rep}")
+    return out
+
+
+def roofline_rows(engines, ms_per_frame, kind):
+    """hbm_bw_util and mfu of each solo path's decode frames/s (phase 6's
+    median with the EOS sync) from decode_frame_costs on its engine's
+    params at KV_SLOTS slots and the card's published peaks
+    (device_peaks). Returns {path: (frames/s, bytes, flops, util, mfu)}."""
+    from pocket_tts_tpu_torch.utils.roofline import (decode_frame_costs,
+                                                     device_peaks)
+    peak_flops, peak_bw = device_peaks(kind)
+    out = {}
+    for label, eng in engines.items():
+        fps = 1e3 / ms_per_frame[label]
+        nbytes, flops = decode_frame_costs(eng.params, eng.cfg, KV_SLOTS)
+        out[label] = (fps, nbytes, flops, fps * nbytes / peak_bw,
+                      fps * flops / peak_flops)
+        log(f"  {label}: {fps:.1f} frames/s (phase 6), {nbytes / 1e6:.3f} "
+            f"MB and {flops / 1e9:.4f} GFLOP a frame at {KV_SLOTS} KV slots:"
+            f" hbm_bw_util {out[label][3]:.5f}, mfu {out[label][4]:.6f} "
+            f"(peaks {peak_bw / 1e12:.2f} TB/s, {peak_flops / 1e12:.0f} "
+            f"TFLOP/s bf16)")
+    return out
+
+
+def cli_profile(tmp):
+    """CLI --profile DIR on bf16: the Chrome trace exists, parses and
+    names K1, K2 and K3's kernels (by family, not by count). Returns
+    {family: records}."""
+    d = os.path.join(tmp, "trace")
+    lines, wall = run_cli(["-t", "0", "--json", "--profile", d,
+                           "Hello there, profiled."])
+    path = os.path.join(d, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {fam: sum(fam in n for n in names) for fam in TRACE_KERNELS}
+    frames = json.loads(lines[-1])["frames"]
+    log(f"  cli --profile: {os.path.getsize(path) / 2**20:.1f} MiB trace, "
+        f"{len(events)} events, {len(names)} kernel records over {frames} "
+        f"frames; records by family {found}; process {wall:.1f} s")
+    if not all(found.values()):
+        raise AssertionError(f"the --profile trace lacks kernels: {found}")
+    return found
+
+
+def cli_batch(tmp):
+    """CLI --bench --batch 4 --json -o x.flac --out-rate 16000: the JAX
+    CLI's batched JSON line, and the FLAC reads back with the port's
+    load_audio at 16 kHz, 1280 samples a frame of one stream."""
+    from pocket_tts_tpu_torch.io.audio_in import load_audio
+    path = os.path.join(tmp, "batch.flac")
+    lines, wall = run_cli(["--bench", "--batch", "4", "--json", "-o", path,
+                           "--out-rate", "16000"])
+    rep = json.loads(lines[-1])
+    line = next(x for x in lines if x.startswith("batch 4: "))
+    frames = int(line.split()[2])
+    pcm, sr = load_audio(path)
+    log(f"  cli --batch 4 --json -o .flac --out-rate 16000: {line}; "
+        f"{lines[-1]}; flac {sr} Hz, {pcm.size} samples; process "
+        f"{wall:.1f} s")
+    if not (set(rep) == CLI_BATCH_KEYS and rep["batch"] == 4
+            and rep["value"] > 0 and frames > 0 and frames % 4 == 0
+            and sr == 16000 and pcm.size == frames // 4 * 1280
+            and np.isfinite(pcm).all() and np.abs(pcm).max() > 0):
+        raise AssertionError(f"cli --batch: {rep}, {frames} frames, flac "
+                             f"{sr} Hz {pcm.size} samples")
+
+
+def check_exact(device, voice, counts, path):
+    """The reference-exact mode on `path`, as phase 5 checks a path:
+    EXACT_FRAMES f32 frames (past the mimi ring's wrap) on the card vs the
+    port on the CPU within TOL e2e, with the
+    counters set to 0 just before the card's run and read just after:
+    expected_exact (no K1, K2, K7, K8, K5; one K3 sequence a frame).
+    Returns the launches."""
+    import torch
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    cfg = path_cfg(DEFAULT_CONFIG, path)
+    steps = EXACT_FRAMES * cfg.mimi.upsample_stride
+    if steps <= cfg.mimi.transformer.capacity:
+        raise AssertionError(f"{path}: {steps} mimi steps do not wrap the "
+                             f"{cfg.mimi.transformer.capacity}-slot ring")
+    eng = make_engine(cfg, device, torch.float32, **ENGINE_KW[path])
+    frames0, prefills0 = counts["frames"], counts["prefills"]
+    reset_counters()
+    pcm_gpu = first_frames(eng, voice, EXACT_FRAMES)
+    sync(device)
+    launches = read_counters()
+    frames = counts["frames"] - frames0
+    prefills = counts["prefills"] - prefills0
+    per_frame, per_prefill = expected_launches(eng.cfg, path)
+    del eng
+    log(f"  {path}: {frames} frames, {prefills} prefill calls; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; expected per frame "
+        f"{per_frame}, per prefill call {per_prefill}")
+    for name in list(KERNELS) + ["rows_mma", "rows_skinny"]:
+        want = (per_frame.get(name, 0) * frames
+                + per_prefill.get(name, 0) * prefills)
+        if launches[name] != want:
+            raise AssertionError(f"{path} {name}: {launches[name]} launches "
+                                 f"(want {want})")
+    eng_cpu = make_engine(cfg, "cpu", torch.float32, **ENGINE_KW[path])
+    pcm_cpu = first_frames(eng_cpu, voice, EXACT_FRAMES)
+    del eng_cpu
+    scale = float(np.abs(pcm_cpu).max())
+    err = float(np.abs(pcm_gpu - pcm_cpu).max())
+    tol = TOL[("e2e", "f32")]
+    log(f"  {path} (reference-exact, f32): max |pcm card - pcm cpu| "
+        f"{err:.3e}, max |pcm| {scale:.3e}, relative "
+        f"{err / max(scale, 1e-30):.3e} (tol {tol})")
+    if not (np.isfinite(pcm_gpu).all() and scale > 0
+            and err <= tol * scale):
+        raise AssertionError(f"reference-exact card vs CPU pcm differ "
+                             f"({path})")
+    return launches
+
+
+def wide_chunk_walls(engine, voice, lanes=WIDE_LANES, n=8):
+    """The wall per chunk with all `lanes` lanes busy in the serving mode
+    (shared prefix; the engine's int4 weights and int8 KV), on the host
+    clock, each chunk synchronized: reported, not checked. Returns the
+    walls (us)."""
+    srv = busy_server(engine, voice, lanes, share_prefix=True)
+    walls = chunk_walls(srv, n)
+    wall = float(np.median(walls))
+    frames = lanes * srv.chunk_frames
+    log(f"  serving mode, {lanes} lanes busy: wall per {srv.chunk_frames}-"
+        f"frame chunk median {wall:.1f} us, range {min(walls):.1f}-"
+        f"{max(walls):.1f} over {n} chunks: {frames / wall * 1e6:.1f} "
+        f"frames/s aggregate (host clock; after phase 8's profiler "
+        f"runs)")
+    return walls
 
 
 # ------------------------------------------------------------------- main --
@@ -4162,6 +4429,32 @@ def main(argv=None) -> int:
             for key, us, calls in kern[:12]:
                 log(f"    {us:9.1f} us/chunk  {calls:6.1f} calls/chunk "
                     f" {key[:70]}")
+
+        phase = "command line"
+        header(f"[9] command line on {card} (subprocesses of the CLI), the "
+               f"reference-exact mode, {WIDE_LANES} lanes")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase = "command line: --bench"
+            for extra in ((), ("--quantize", "int8")):
+                cli_bench(extra)
+            phase = "command line: stream loop"
+            stream_rows(bf, voice)
+            phase = "command line: roofline"
+            roofline_rows(bf, med, kind)
+            phase = "command line: --profile"
+            cli_profile(tmp)
+            phase = "command line: --batch"
+            cli_batch(tmp)
+        phase = "command line: --reference-exact"
+        for path in EXACT_PATHS:
+            check_exact(device, voice, counts, path)
+        phase = f"command line: {WIDE_LANES} lanes"
+        serve_vs_solo(device, voice, KV8_PATH, share_prefix=True,
+                      steps=lane_steps, lanes=WIDE_LANES)
+        with tempfile.TemporaryDirectory() as tmp:
+            serve_cli(tmp, ("--lanes", str(WIDE_LANES), "--quantize", "int4",
+                            "--quantize-kv", "--share-prefix"))
+        wide_chunk_walls(bf[KV8_PATH], voice)
     except Exception:
         import traceback
         traceback.print_exc()

@@ -6,9 +6,9 @@ field for field, so a configuration means the same in both packages
 (tests/test_torch_config.py compares them). The comments on the fields
 describe the JAX package's switches; the port reads the model's
 dimensions, `kv_capacity`, `gelu_approx`, `eos_threshold`, the two
-`quantize_kv` fields, `backbone.fuse_insert`, `backbone.use_megalayer` and
-`backbone.use_bilayer`. It does not read `mask_value`: it masks with the
--1e9 default everywhere, and `check_supported` refuses any other value.
+`quantize_kv` fields, `backbone.fuse_insert`, `backbone.use_megalayer`,
+`backbone.use_bilayer`, the two `mask_value` fields and the two
+`use_pallas_attn` fields.
 
 `check_supported` names what this port runs: solo decode and
 continuous-batching serving (runtime/batched.py, runtime/server.py, with
@@ -24,15 +24,30 @@ paths set it unless the caller did (`runtime.batched.serving_cfg`).
 `backbone.use_megalayer` runs a solo quantized T = 1 layer as ONE launch
 of kernel K8 (ops/fused_step.py); `backbone.use_bilayer` fuses post(l)
 with pre(l+1) for solo int4 decode through kernel K5c
-(ops/fused_layer.bilayer_post_pre). Every config option outside that
-raises: a device mesh, a mimi capacity that is not a multiple of the
-upsample stride, and mask values other than -1e9 (the reference-exact
-mode, `reference_exact_config`, is not ported). So no configuration
-silently runs something other than what it asks for.
+(ops/fused_layer.bilayer_post_pre).
 
-The JAX package's backend switches (`use_pallas_attn`, `use_pallas`) are
-not read here: the port picks by device, plain PyTorch for tensors on the
-CPU and the hand-written CUDA kernels for tensors on the card.
+The reference-exact mode (`reference_exact_config`: tanh GELU, a -1e5
+mask, a 250-slot mimi ring) runs, and the model picks its route from the
+cfg as the JAX model does. `use_pallas_attn=False` (either field) is the
+JAX package's XLA route: the backbone decodes with plain attention under
+`pos_cache_bias(..., neg=mask_value)` and without K1, K7, K8 and the
+fused K5a/K5b/K5c (its linears go through K4a/K4b when quantized); the
+mimi transformer takes the plain ring path (a row-scatter insert and
+`ring_cache_bias(..., neg=mask_value)`) when its `use_pallas_attn` is
+False. None and True are the kernel routes (K1/K7/K8/K5 and K2). K3,
+K4a/K4b and K6 read no switch and run either way. On a part whose
+`use_pallas_attn` is not False, a mask other than -1e9 raises (the
+kernels mask with -1e9; the JAX kernels would ignore the value
+silently), and so does a mimi capacity that is not a multiple of the
+upsample stride (K2 inserts whole 16-step blocks; the JAX model would
+take its XLA route there instead, `models/mimi_transformer.py:205-221`).
+A device mesh raises too. So no configuration silently runs something
+other than what it asks for.
+
+The kernel wrappers keep their one rule either way: plain PyTorch for
+tensors on the CPU, the hand-written CUDA kernel (or an error) for
+tensors on the card. The model calls the plain functions by cfg, never
+because a kernel failed. `mimi.seanet.use_pallas` is not read.
 """
 from __future__ import annotations
 
@@ -64,8 +79,8 @@ class BackboneConfig:
     # (src/pocket_tts.cpp:367-368) — rounded up to 1024 here so cache reads
     # tile cleanly into 128-slot blocks (strictly more headroom).
     kv_capacity: int = 1024
-    # the JAX package's Pallas decode-attention switch (None = auto);
-    # not read by the port
+    # the JAX package's Pallas decode-attention switch: False takes the
+    # plain decode route (the reference-exact mode), None/True the kernels
     use_pallas_attn: bool = None
     # int8 KV cache with per-row absmax scales
     quantize_kv: bool = False
@@ -120,7 +135,8 @@ class MimiTransformerConfig:
     capacity: int = 256
     # int8 ring KV with per-row absmax scales (kernel K2's int8 variant)
     quantize_kv: bool = False
-    # the JAX package's Pallas ring-kernel switch; not read by the port
+    # the JAX package's Pallas ring-kernel switch: False takes the plain
+    # ring route (the reference-exact mode), None/True kernel K2
     use_pallas_attn: bool = None
     max_period: int = 10000
     # eps=0 LayerNorm (defaults.h:14,32)
@@ -266,21 +282,28 @@ DEFAULT_CONFIG = ModelConfig()
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for any option this port does not run."""
+    """Raise NotImplementedError for any option this port does not run:
+    a device mesh, and on a part whose `use_pallas_attn` is not False (the
+    kernel route) a mask value other than -1e9 or a mimi capacity that is
+    not a multiple of the upsample stride."""
     bb = cfg.backbone
     mt = cfg.mimi.transformer
     bad = []
     if bb.mesh is not None or mt.mesh is not None \
             or cfg.mimi.seanet.mesh is not None or cfg.on_mesh:
         bad.append("mesh")
-    if mt.capacity % cfg.mimi.upsample_stride:
-        bad.append(f"mimi.transformer.capacity={mt.capacity} "
-                   f"(must be a multiple of {cfg.mimi.upsample_stride})")
-    for name, value in (("backbone.mask_value", bb.mask_value),
-                        ("mimi.transformer.mask_value", mt.mask_value)):
-        if value != -1e9:
-            bad.append(f"{name}={value} (only -1e9 runs: the "
-                       "reference-exact mode is not ported)")
+    if mt.capacity % cfg.mimi.upsample_stride \
+            and mt.use_pallas_attn is not False:
+        bad.append(f"mimi.transformer.capacity={mt.capacity} with "
+                   f"use_pallas_attn={mt.use_pallas_attn} (kernel K2 needs "
+                   f"a multiple of {cfg.mimi.upsample_stride}; set "
+                   "use_pallas_attn=False, as reference_exact_config does)")
+    for name, part in (("backbone", bb), ("mimi.transformer", mt)):
+        if part.mask_value != -1e9 and part.use_pallas_attn is not False:
+            bad.append(f"{name}.mask_value={part.mask_value} with "
+                       f"use_pallas_attn={part.use_pallas_attn} (the "
+                       "kernels mask with -1e9; set use_pallas_attn=False, "
+                       "as reference_exact_config does)")
     if bad:
         raise NotImplementedError(
             "not ported yet: " + ", ".join(bad))

@@ -35,6 +35,14 @@ K5b after the last (`_forward_bilayer`). K7, K8 and K5c update the caches
 in place, as the rest of the port does, where the JAX docstrings say
 "aliased".
 
+`cfg.use_pallas_attn=False` (the reference-exact mode) is the JAX
+package's XLA route (`pallas_mode == "off"`): a decode step writes its row
+and attends with plain PyTorch under `pos_cache_bias(..., neg=
+cfg.mask_value)`, as prefill does, and runs no K1, K7, K8 or fused
+K5a/K5b/K5c, solo or over lanes; quantized linears still go through K4a /
+K4b (ops/basic.linear). Throughout, a `bias` of None marks the kernel
+route of a T = 1 step.
+
 Lanes (continuous batching): the caches are (B, S, H*D) and `pos` (B, S);
 the write slot `end` (and, in prefix+ring mode, `ring_start`) is a host
 int shared by the lanes, while each lane's `next_pos` is a (B,) device
@@ -161,8 +169,10 @@ def _attend(qkv, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
     """The attention middle of a solo layer: qkv (T, 3 dm) -> attn (T, dm),
     the new KV rows written at slot `end` in place. cur_pos: the (1,) int32
     position of a decode step's row when it goes through K7
-    (cfg.fuse_insert), else None. The JAX package's `_attend` (factored out
-    for the bilayer loop) and the middle of its `_layer`."""
+    (cfg.fuse_insert), else None. bias: None for a T = 1 step on the
+    kernels (K1), else the (T, S) bias of plain attention. The JAX
+    package's `_attend` (factored out for the bilayer loop) and the middle
+    of its `_layer`."""
     t = qkv.shape[0]
     dm = qkv.shape[-1] // 3
     d = dm // num_heads
@@ -179,7 +189,7 @@ def _attend(qkv, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
             end, end, **extra)[0]
     else:
         _write_rows(k_cache, v_cache, k_scale, v_scale, end, k, v)
-        if t == 1:
+        if bias is None:
             attn = decode_attention(q[0], k_cache, v_cache, pos_vec, end,
                                     k_scale, v_scale)
         else:
@@ -197,9 +207,10 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
     cur_pos: as in _attend. megalayer (cfg.use_megalayer): a T = 1
     quantized layer runs as ONE launch of kernel K8 (ops/fused_step), read
     end and write slot both `end`, as the JAX package's `_layer` routes
-    it; it raises for a layer K8 does not take (q4_0 scales)."""
+    it; it raises for a layer K8 does not take (q4_0 scales). A bias at
+    T = 1 (the plain route) fuses nothing."""
     t = x.shape[0]
-    fused = t == 1 and fused_layer.supported(p)
+    fused = t == 1 and bias is None and fused_layer.supported(p)
     if fused and megalayer:
         return fused_step.megalayer(
             p, x, cos, sin, pos_vec[end:end + 1], k_cache, v_cache,
@@ -246,7 +257,8 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
     over lanes (`forward_lanes`). A decode step (T = 1) with quantized
     weights runs each layer through K8 under cfg.use_megalayer, or, under
     cfg.use_bilayer without it and with int4 weights, the bilayer loop
-    (K5c), as the JAX package gates them (`backbone.py:438-452`).
+    (K5c), as the JAX package gates them (`backbone.py:438-452`); with
+    cfg.use_pallas_attn False it runs none of them (plain attention).
     """
     if state.pk is not None:
         raise ValueError("a shared-prefix state decodes over lanes "
@@ -261,11 +273,11 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
     state.pos[end:end + t] = torch.where(
         torch.arange(t, device=x.device) < n_valid, positions, -1)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.max_period)
-    bias = (None if t == 1
+    kernels = t == 1 and cfg.use_pallas_attn is not False
+    bias = (None if kernels
             else pos_cache_bias(positions, state.pos, neg=cfg.mask_value))
-    cur_pos = (state.pos[end:end + 1] if t == 1 and cfg.fuse_insert
-               else None)
-    if (t == 1 and cfg.use_bilayer and not cfg.use_megalayer
+    cur_pos = state.pos[end:end + 1] if kernels and cfg.fuse_insert else None
+    if (kernels and cfg.use_bilayer and not cfg.use_megalayer
             and cfg.num_layers > 1):
         l0 = slice_layer_params(p["layers"], 0)
         # the (0, 1) pair stands for every pair: the layers are quantized
@@ -376,10 +388,12 @@ def _layer_lanes(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos,
     at slot `end` of every lane in place. A decode step (T = 1) goes
     through K7 under fuse_insert, else writes the rows and runs K1 over the
     lanes. prefix: this layer's (pk, pv, ppos) in shared-prefix mode, else
-    None."""
+    None. bias: None for a T = 1 step on the kernels, else the (B, T, S)
+    bias of plain attention (prefill, and every step of the plain route,
+    which fuses nothing)."""
     b, t, dm = x.shape
     d = dm // num_heads
-    fused = t == 1 and fused_layer.supported(p)
+    fused = t == 1 and bias is None and fused_layer.supported(p)
     if fused:
         qkv = fused_layer.pre_attention(p, x, eps=1e-5)
     else:
@@ -390,14 +404,14 @@ def _layer_lanes(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos,
     share = prefix is not None
     if share:
         o1, m1, l1 = prefix_attn_stats(q, *prefix)
-    if t == 1 and fuse_insert:
+    if bias is None and fuse_insert:
         kn, vn, extra = _k7_rows(k, v.contiguous(), k_scale, v_scale)
         res = decode_insert_attention(
             q[:, 0].contiguous(), kn, vn, cur_pos, k_cache, v_cache, pos,
             read_end, end, stats=share, **extra)
         attn = (merge_attn_partials(o1[:, 0], m1[:, 0], l1[:, 0], *res)
                 if share else res)
-    elif t == 1:
+    elif bias is None:
         _write_rows(k_cache, v_cache, k_scale, v_scale, end, k, v)
         res = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, pos,
                                read_end, k_scale, v_scale, stats=share)
@@ -425,7 +439,8 @@ def forward_lanes(p, cfg, state: BatchedBackboneState, x, n_valid=None,
     Returns (state, y (B, T, d_model)); the caller moves the cursors with
     `advance_lanes`. A decode step (T = 1) runs K7 under cfg.fuse_insert,
     else a row write and K1 over the lanes (with statistics under a shared
-    prefix), the JAX package's vmapped `_layer`. cfg.use_bilayer and
+    prefix), the JAX package's vmapped `_layer`; with cfg.use_pallas_attn
+    False a row write and plain attention instead. cfg.use_bilayer and
     cfg.use_megalayer change nothing over lanes: the JAX package gates the
     bilayer to solo decode, and its vmap rule for K8 runs the 3-call path
     (`fused_step.py:579-587`), which the serving cfg's fused insert gives
@@ -447,7 +462,7 @@ def forward_lanes(p, cfg, state: BatchedBackboneState, x, n_valid=None,
             else torch.where(ar < n_valid[:, None], positions, -1))
     state.pos[:, end:end + t] = rows
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.max_period)
-    bias = (None if t == 1
+    bias = (None if t == 1 and cfg.use_pallas_attn is not False
             else pos_cache_bias(positions, state.pos, neg=cfg.mask_value))
     # prefix+ring mode: after warm-up every slot is live, so K7 (K1) reads
     # them all; stale and unwritten slots are masked by their positions

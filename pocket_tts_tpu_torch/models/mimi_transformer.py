@@ -24,6 +24,15 @@ offset - start[b] and its ring window is fenced at its own start, so a
 lane that joined a running batch decodes as a solo stream would. K2 runs
 all lanes in one launch per layer, and with quantized weights K5a and K5b
 take the B * T rows of all lanes in one call each (ops/fused_layer.py).
+
+When `cfg.use_pallas_attn` is False (the reference-exact mode) the model
+takes the JAX package's XLA route instead of K2 and of the fused K5a/K5b:
+K2's plain version, `ring_insert_attention_plain`, called with the cfg's
+mask. Its insert scatters by rows, so the reference-exact mode's 250-slot
+ring may wrap inside a 16-step block, and its -1e5 mask goes into
+`ring_cache_bias`. Quantized linears still go through K4a / K4b there.
+`config.check_supported` refuses a capacity that is not a multiple of T,
+or a mask other than -1e9, on the kernel route.
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ import torch
 from ..ops import fused_layer
 from ..ops.basic import (gelu, layer_norm, linear, quantize_rows,
                          slice_layer_params)
-from ..ops.ring_attn import ring_insert_attention
+from ..ops.ring_attn import ring_insert_attention, ring_insert_attention_plain
 from ..ops.rope import apply_rope_halves as apply_rope, rope_cos_sin
 
 
@@ -69,9 +78,10 @@ def init_state(cfg, dtype=torch.float32, device="cpu"):
 
 
 def _layer(p, x, k_cache, v_cache, k_scale, v_scale, offset: int, start,
-           cos, sin, cfg, gelu_approx: bool):
+           cos, sin, cfg, gelu_approx: bool, plain: bool = False):
+    """One layer; plain: the plain ring route (no K2, no K5a/K5b)."""
     *lead, t, dm = x.shape
-    fused = fused_layer.supported(p)
+    fused = not plain and fused_layer.supported(p)
     if fused:
         qkv = fused_layer.pre_attention(p, x, eps=cfg.norm_eps)
     else:
@@ -86,7 +96,9 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, offset: int, start,
     if k_scale is not None:
         (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
         extra = dict(k_scale=k_scale, v_scale=v_scale, ks_new=ks, vs_new=vs)
-    attn = ring_insert_attention(
+    if plain:
+        extra["neg"] = cfg.mask_value
+    attn = (ring_insert_attention_plain if plain else ring_insert_attention)(
         q.reshape(*lead, t, dm), k, v, k_cache, v_cache, offset, start,
         cfg.num_heads, cfg.context, **extra)
     if fused:
@@ -101,7 +113,8 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, offset: int, start,
 def forward(p, cfg, state: MimiTransformerState, x,
             gelu_approx: bool = False):
     """x: (T, d_model), or (B, T, d_model) with lanes -> (state, y);
-    advances state.offset by T."""
+    advances state.offset by T. The ring step runs K2 unless
+    cfg.use_pallas_attn is False (the plain ring route)."""
     t = x.shape[-2]
     rel = state.offset - state.start      # an int, or (B,) with lanes
     if isinstance(rel, torch.Tensor):
@@ -109,10 +122,11 @@ def forward(p, cfg, state: MimiTransformerState, x,
     positions = rel + torch.arange(t, dtype=torch.int32, device=x.device)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.max_period)
     quant = state.k_scale is not None
+    plain = cfg.use_pallas_attn is False
     for l in range(cfg.num_layers):
         x = _layer(slice_layer_params(p["layers"], l), x, state.k[l],
                    state.v[l], state.k_scale[l] if quant else None,
                    state.v_scale[l] if quant else None, state.offset,
-                   state.start, cos, sin, cfg, gelu_approx)
+                   state.start, cos, sin, cfg, gelu_approx, plain)
     state.offset += t
     return state, x

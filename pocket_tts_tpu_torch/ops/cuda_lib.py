@@ -10,7 +10,9 @@ ONE shared library with a plain C interface, loaded with ctypes:
          _build/libptt_kernels_<hash>.so *.o
 
 The build runs on first use (never at import) into the package's `_build/`
-directory, which git ignores. The file name carries a hash of the sources
+directory, which git ignores, or into the directory `set_build_dir` chose
+before the first launch (utils/profiling.enable_compile_cache, CLI
+`--compile-cache`). The file name carries a hash of the sources
 and flags, so an edited source is rebuilt. Every C entry returns
 `cudaGetLastError()` (or the launch call's own error) after its launch;
 `check` raises when it is not 0.
@@ -113,7 +115,26 @@ SIGNATURES = {
     "ptt_fused_flow": [P, P, I, P],
 }
 
-_state = {"lib": None, "build_seconds": None, "path": None, "log": ""}
+_state = {"lib": None, "build_seconds": None, "path": None, "log": "",
+          "build_dir": BUILD_DIR}
+
+
+def set_build_dir(path: str) -> None:
+    """Build (and look for) the library in `path` instead of BUILD_DIR.
+    Raises when the library is loaded already from another directory: the
+    directory must be chosen before the first launch."""
+    path = os.path.abspath(path)
+    if _state["lib"] is not None and path != _state["build_dir"]:
+        raise RuntimeError(
+            f"the kernel library is loaded already from "
+            f"{_state['build_dir']}; choose the build directory before the "
+            "first launch")
+    _state["build_dir"] = path
+
+
+def build_dir() -> str:
+    """The directory the library is built into."""
+    return _state["build_dir"]
 
 
 def _nvcc() -> str:
@@ -178,7 +199,8 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
     if _state["lib"] is not None:
         return _state["lib"]
-    path = os.path.join(BUILD_DIR, f"libptt_kernels_{_digest()}.so")
+    path = os.path.join(_state["build_dir"],
+                        f"libptt_kernels_{_digest()}.so")
     t0 = time.perf_counter()
     if not os.path.exists(path):
         _state["log"] = _build(path)

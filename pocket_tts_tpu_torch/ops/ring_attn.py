@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .attention import cache_insert_ring, ring_cache_bias, sdpa_seg
+from .attention import NEG_INF, cache_insert_ring, ring_cache_bias, sdpa_seg
 from .basic import inv_sqrt
 from .decode_attn import MAX_SPLITS
 
@@ -60,12 +60,16 @@ def k2_split(cap: int, t: int) -> int:
 def ring_insert_attention_plain(q, k_new, v_new, k_cache, v_cache,
                                 offset: int, start, num_heads: int,
                                 context: int, k_scale=None, v_scale=None,
-                                ks_new=None, vs_new=None):
+                                ks_new=None, vs_new=None,
+                                neg: float = NEG_INF):
     """q/k_new/v_new: (T, H*D) post-rope rows; k/v_cache: (cap, H*D),
-    PRE-insert, written in place; offset: timesteps written so far; start:
-    the stream's first timestep. Returns attn (T, H*D). int8 rings: k_new,
-    v_new and the caches int8, ks_new/vs_new (T,) and k_scale/v_scale
-    (cap,) float32, the latter written in place.
+    PRE-insert, written in place at slots (offset + i) % cap (any cap and
+    offset: the insert may wrap inside the T rows); offset: timesteps
+    written so far; start: the stream's first timestep. Returns attn
+    (T, H*D). int8 rings: k_new, v_new and the caches int8, ks_new/vs_new
+    (T,) and k_scale/v_scale (cap,) float32, the latter written in place.
+    neg: the mask value (the reference-exact mode's -1e5; the kernel
+    masks with -1e9).
 
     With a lane axis: q/k_new/v_new (B, T, H*D), caches (B, cap, H*D), the
     offset shared by the lanes and start a (B,) int32 tensor (each lane's
@@ -74,19 +78,20 @@ def ring_insert_attention_plain(q, k_new, v_new, k_cache, v_cache,
         if q.dim() == 3:
             return _ring_plain_q(q, k_new, v_new, k_cache, v_cache, offset,
                                  start[:, None, None], num_heads, context,
-                                 k_scale, v_scale, ks_new, vs_new)
+                                 k_scale, v_scale, ks_new, vs_new, neg)
         return _ring_plain_q(q[None], k_new[None], v_new[None],
                              k_cache[None], v_cache[None], offset, start,
                              num_heads, context, k_scale[None],
-                             v_scale[None], ks_new[None], vs_new[None])[0]
+                             v_scale[None], ks_new[None], vs_new[None],
+                             neg)[0]
     if q.dim() == 3:
         return _ring_plain_lanes(q, k_new, v_new, k_cache, v_cache, offset,
-                                 start, num_heads, context)
+                                 start, num_heads, context, neg)
     t, hd = q.shape
     cap = k_cache.shape[0]
     cache_insert_ring(k_cache, k_new, offset)
     cache_insert_ring(v_cache, v_new, offset)
-    bias = ring_cache_bias(t, cap, offset, context, start=start,
+    bias = ring_cache_bias(t, cap, offset, context, neg=neg, start=start,
                            device=q.device)
     out = sdpa_seg(q.view(t, num_heads, hd // num_heads), k_cache, v_cache,
                    bias)
@@ -94,7 +99,8 @@ def ring_insert_attention_plain(q, k_new, v_new, k_cache, v_cache,
 
 
 def _ring_plain_lanes(q, k_new, v_new, k_cache, v_cache, offset: int,
-                      starts, num_heads: int, context: int):
+                      starts, num_heads: int, context: int,
+                      neg: float = NEG_INF):
     """The plain version over B lanes: the same rows of every lane's ring
     are written, and lane b's bias fences positions below starts[b]."""
     b, t, hd = q.shape
@@ -103,7 +109,7 @@ def _ring_plain_lanes(q, k_new, v_new, k_cache, v_cache, offset: int,
     idx = (offset + torch.arange(t, device=q.device)) % cap
     k_cache[:, idx] = k_new.to(k_cache.dtype)
     v_cache[:, idx] = v_new.to(v_cache.dtype)
-    bias = ring_cache_bias(t, cap, offset, context,
+    bias = ring_cache_bias(t, cap, offset, context, neg=neg,
                            start=starts[:, None, None],
                            device=q.device)                  # (B, T, cap)
     logits = torch.einsum("bthd,bshd->bhts",
@@ -117,7 +123,7 @@ def _ring_plain_lanes(q, k_new, v_new, k_cache, v_cache, offset: int,
 
 def _ring_plain_q(q, k_new, v_new, k_cache, v_cache, offset: int, start,
                   num_heads: int, context: int, k_scale, v_scale, ks_new,
-                  vs_new):
+                  vs_new, neg: float = NEG_INF):
     """The plain version over int8 rings, with a lane axis: bytes and
     scales inserted at the ring slots, then the TPU kernel's arithmetic.
     start: an int or a (B, 1, 1) tensor."""
@@ -129,7 +135,7 @@ def _ring_plain_q(q, k_new, v_new, k_cache, v_cache, offset: int, start,
     v_cache[:, idx] = v_new
     k_scale[:, idx] = ks_new
     v_scale[:, idx] = vs_new
-    bias = ring_cache_bias(t, cap, offset, context, start=start,
+    bias = ring_cache_bias(t, cap, offset, context, neg=neg, start=start,
                            device=q.device)                  # (B, T, cap)
     logits = torch.einsum("bthd,bshd->bhts",
                           q.view(b, t, num_heads, d).float(),

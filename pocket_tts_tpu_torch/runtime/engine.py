@@ -105,7 +105,9 @@ class TTSEngine:
         the int8 mimi ring is the cfg's `mimi.transformer.quantize_kv`);
         the serving-throughput mode. quantize_convs is not ported yet and
         raises NotImplementedError, and so do q4_0 weights with
-        `backbone.use_megalayer` (kernel K8 takes no K-grouped scales)."""
+        `backbone.use_megalayer` (kernel K8 takes no K-grouped scales)
+        unless `backbone.use_pallas_attn` is False (the plain route runs
+        no K8)."""
         if quantize_convs:
             raise NotImplementedError("quantized convs are not ported yet")
         if quantize not in (None, "int8", "q8", "int4", "q4", "q4_0"):
@@ -126,7 +128,9 @@ class TTSEngine:
             params = quantize_params(params, bits=4 if "4" in quantize else 8,
                                      group=32 if quantize == "q4_0" else 0)
         layer0 = slice_layer_params(params["layers"], 0)
-        if (cfg.backbone.use_megalayer and fused_layer.supported(layer0)
+        if (cfg.backbone.use_megalayer
+                and cfg.backbone.use_pallas_attn is not False
+                and fused_layer.supported(layer0)
                 and not fused_step.supported(layer0)):
             raise NotImplementedError(
                 "q4_0 (K-grouped) weights with backbone.use_megalayer: the "

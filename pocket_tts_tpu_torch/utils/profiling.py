@@ -1,0 +1,122 @@
+"""Tracing, frame metering and structured logging.
+
+Counterpart of `pocket_tts_tpu/utils/profiling.py`: `log_event` (one JSON
+log line), `FrameMeter` (frames/s, realtime factor and time to first
+audio on the host clock, the CLI's `--bench` report, key for key; `skip`
+takes back a step that gave no frame), `device_trace` (a `torch.profiler`
+trace instead of a `jax.profiler` one) and `enable_compile_cache`, which
+here chooses the directory nvcc builds the kernel library into
+(ops/cuda_lib.py) instead of XLA's compilation cache. Unlike the JAX function it swallows no error: a directory that
+cannot be made raises, and so does a change of directory after the
+library has loaded.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import logging
+import os
+import tempfile
+import time
+from typing import Optional
+
+logger = logging.getLogger("pocket_tts_tpu_torch")
+
+TRACE_FILE = "trace.json"
+
+
+def log_event(event: str, **fields):
+    """One structured JSON log line."""
+    logger.info(json.dumps({"event": event, **fields}))
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str, device=None):
+    """Record a torch.profiler trace of the block and write it as a Chrome
+    trace, `<trace_dir>/trace.json` (chrome://tracing or Perfetto reads
+    it); yields that path. The profiler records CPU activity and, when
+    `device` is a CUDA device (None: whenever a card is present), the
+    card's kernels. The window opens on a synchronized device and 10 ms
+    before the block's first launch: without that pause the profiler lost
+    the first records of a window on the H100 (PERF.md section 5)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = (torch.cuda.is_available() if device is None
+            else torch.device(device).type == "cuda")
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, TRACE_FILE)
+    with profile(activities=activities) as prof:
+        time.sleep(0.01)
+        yield path
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+
+
+def enable_compile_cache(path: Optional[str] = None) -> str:
+    """Choose the directory the kernel library is built into and looked
+    up in, before its first launch: the analog of the JAX package's
+    persistent compilation cache (nvcc builds the library once per
+    directory and sources; a library built before loads at once). path:
+    None keeps the package's `_build/` (ops/cuda_lib BUILD_DIR), "off"
+    builds into a fresh temporary directory, anything
+    else is made if missing. Returns the directory; raises when it cannot
+    be made or when the library has loaded already from another one."""
+    from ..ops import cuda_lib
+    if path is None:
+        path = cuda_lib.BUILD_DIR
+    elif path == "off":
+        path = tempfile.mkdtemp(prefix="ptt_build_")
+    else:
+        os.makedirs(path, exist_ok=True)
+    cuda_lib.set_build_dir(path)
+    return cuda_lib.build_dir()
+
+
+class FrameMeter:
+    """Accumulates per-frame timings; reports frames/s, RTF, TTFA."""
+
+    def __init__(self, frame_rate: float = 12.5):
+        self.frame_rate = frame_rate
+        self.reset()
+
+    def reset(self):
+        self._start = time.perf_counter()
+        self._busy = 0.0
+        self._frames = 0
+        self._first_frame_at: Optional[float] = None
+
+    @contextlib.contextmanager
+    def step(self):
+        t0 = time.perf_counter()
+        yield
+        now = time.perf_counter()
+        self._busy += now - t0
+        self._frames += 1
+        if self._first_frame_at is None:
+            self._first_frame_at = now - self._start
+
+    def skip(self):
+        """The last step gave no frame (a `receive` that returned None):
+        take it back from the frame count, and from the first-frame time
+        when it was the first step. Its time stays in the busy time, as
+        the JAX CLI's `meter._frames -= 1` leaves it; unlike that, the
+        time to first audio is the first frame's, not the first step's."""
+        self._frames -= 1
+        if self._frames == 0:
+            self._first_frame_at = None
+
+    def report(self) -> dict:
+        fps = self._frames / self._busy if self._busy > 0 else 0.0
+        return {
+            "frames": self._frames,
+            "frames_per_second": round(fps, 3),
+            "rtf": round(fps / self.frame_rate, 3),
+            "ttfa_ms": (round(self._first_frame_at * 1e3, 2)
+                        if self._first_frame_at is not None else None),
+            "wall_s": round(time.perf_counter() - self._start, 3),
+        }

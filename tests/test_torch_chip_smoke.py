@@ -44,13 +44,20 @@ def test_without_cuda_exits_1_and_prints_no_result():
 
 SERVING = {"serve_vs_solo": "serving", "serve_throughput": "serving",
            "serve_cli": "serving: cli", "profile_serving": "profiler, serving"}
+# phase 9: each step of the command line phase and the phase it names
+COMMAND_LINE = {"cli_bench": "command line: --bench",
+                "stream_rows": "command line: stream loop",
+                "roofline_rows": "command line: roofline",
+                "cli_profile": "command line: --profile",
+                "cli_batch": "command line: --batch",
+                "check_exact": "command line: --reference-exact",
+                "wide_chunk_walls": "command line: 128 lanes"}
 
 
-@pytest.mark.parametrize("failing", sorted(SERVING))
-def test_failing_serving_phase_fails_the_run(failing, monkeypatch, capsys):
-    """Every other phase is stubbed to pass; the serving step that raises
-    (or the serving profiler) makes main return 1, name its phase and
-    print no result."""
+def _run_with_one_failing(failing, monkeypatch, capsys):
+    """main() with every phase stubbed to pass but `failing`, which
+    raises: it returns 1, names the phase and prints no result. Returns
+    the captured output."""
     import numpy as np
     import torch
     sys.path.insert(0, ROOT)
@@ -85,7 +92,8 @@ def test_failing_serving_phase_fails_the_run(failing, monkeypatch, capsys):
                  "check_k7_kv8", "check_quant_lanes", "time_kv8_kernels",
                  "time_lane_kernels", "check_k8", "check_k5c", "check_k2q",
                  "check_k1_lanes", "time_slice6_kernels",
-                 "check_frame_launches", "check_quant_narrow"):
+                 "check_frame_launches", "check_quant_narrow",
+                 *COMMAND_LINE):
         stubs[name] = lambda *a, **k: None
     stubs["time_splits"] = lambda *a, **k: {}
     stubs["time_rows_plans"] = lambda *a, **k: []
@@ -102,10 +110,47 @@ def test_failing_serving_phase_fails_the_run(failing, monkeypatch, capsys):
     monkeypatch.setattr(cuda_lib, "build_seconds", lambda: 0.0)
     assert cs.main([]) == 1
     out = capsys.readouterr()
-    assert f"FAILED in phase '{SERVING[failing]}'" in out.err
     assert '"ok"' not in out.out
     assert not any(line.startswith('{"kernels"')
                    for line in out.out.splitlines())
+    return out
+
+
+@pytest.mark.parametrize("failing", sorted(SERVING))
+def test_failing_serving_phase_fails_the_run(failing, monkeypatch, capsys):
+    """Every other phase is stubbed to pass; the serving step that raises
+    (or the serving profiler) makes main return 1, name its phase and
+    print no result."""
+    out = _run_with_one_failing(failing, monkeypatch, capsys)
+    assert f"FAILED in phase '{SERVING[failing]}'" in out.err
+
+
+@pytest.mark.parametrize("failing", sorted(COMMAND_LINE))
+def test_failing_command_line_phase_fails_the_run(failing, monkeypatch,
+                                                  capsys):
+    """Phase 9 ([9] command line): each of its steps that raises makes
+    main return 1, name its phase and print no result."""
+    out = _run_with_one_failing(failing, monkeypatch, capsys)
+    assert f"FAILED in phase '{COMMAND_LINE[failing]}'" in out.err
+    assert "[9] command line" in out.out
+
+
+def test_expected_exact_launches():
+    """The reference-exact paths, from the JAX routing: no K1, K2, K7, K8
+    or K5 launch, one K3 sequence a frame; with int8 weights K4a on every
+    linear (1 + 6 x 4 backbone + 2 x 4 mimi a frame, 24 a prefill call)
+    and K6's two launches."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    cfg = cs.path_cfg(DEFAULT_CONFIG, "exact")
+    assert cs.expected_launches(cfg, "exact") == ({"seanet_frame": 1}, {})
+    assert cs.expected_launches(cs.path_cfg(DEFAULT_CONFIG, "int8_exact"),
+                                "int8_exact") == (
+        {"seanet_frame": 1, "int8_matmul": 33, "fused_flow": 2},
+        {"int8_matmul": 24})
+    with pytest.raises(ValueError, match="not a reference-exact cfg"):
+        cs.expected_launches(DEFAULT_CONFIG, "exact")
 
 
 def test_every_kernel_entry_has_a_counter_source_and_tpu_site():

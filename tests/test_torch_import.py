@@ -1,7 +1,8 @@
 """The PyTorch port imports no JAX, no flax, no ml_dtypes and nothing of
 the JAX package `pocket_tts_tpu`, even transitively: the machine with the
 card has none of the first three, and the port keeps its own copies of the
-JAX package's JAX-free modules (config, text, io.wav, io.safetensors_io).
+JAX package's JAX-free modules (config, text, io.wav, io.safetensors_io,
+io.audio, io.audio_in, the PcmFifo of native, runtime.player).
 Checked in a fresh interpreter, since this test process has JAX loaded
 already."""
 import os
@@ -37,6 +38,12 @@ MODULES = [
     "pocket_tts_tpu_torch.text.preprocess",
     "pocket_tts_tpu_torch.io.wav",
     "pocket_tts_tpu_torch.io.safetensors_io",
+    "pocket_tts_tpu_torch.utils.profiling",
+    "pocket_tts_tpu_torch.utils.roofline",
+    "pocket_tts_tpu_torch.io.audio",
+    "pocket_tts_tpu_torch.io.audio_in",
+    "pocket_tts_tpu_torch.native",
+    "pocket_tts_tpu_torch.runtime.player",
     "chip_smoke",
 ]
 

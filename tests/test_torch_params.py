@@ -112,28 +112,56 @@ def test_load_checkpoint_and_voice(tmp_path):
                                   prompt)
 
 
+def _exact_masks_on_kernels(cfg):
+    """The reference-exact masks with the kernel routes switched on."""
+    cfg = reference_exact_config(cfg)
+    return dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, use_pallas_attn=None),
+        mimi=dataclasses.replace(cfg.mimi, transformer=dataclasses.replace(
+            cfg.mimi.transformer, use_pallas_attn=True)))
+
+
+def _apply(obj, ch):
+    return dataclasses.replace(obj, **{
+        k: (_apply(getattr(obj, k), v) if isinstance(v, dict) else v)
+        for k, v in ch.items()})
+
+
 @pytest.mark.parametrize("change", [
     dict(mimi=dict(seanet=dict(mesh="data"))),
     dict(backbone=dict(mesh="data")),
     dict(backbone=dict(mask_value=-1e5)),
     dict(mimi=dict(transformer=dict(mask_value=-1e5))),
     dict(on_mesh=True),
-    reference_exact_config,
+    _exact_masks_on_kernels,
     dict(mimi=dict(transformer=dict(capacity=250))),
+    dict(backbone=dict(mask_value=-1e5, use_pallas_attn=True)),
 ])
 def test_unsupported_config_raises(change):
-    """What the port refuses: a mesh, a mimi capacity off the upsample
-    stride, and mask values other than -1e9 (the reference-exact mode is
-    not ported). The megalayer, the bilayer and the int8 mimi ring run
-    (test_supported_slice6_options)."""
-    def apply(obj, ch):
-        return dataclasses.replace(obj, **{
-            k: (apply(getattr(obj, k), v) if isinstance(v, dict) else v)
-            for k, v in ch.items()})
+    """What the port refuses: a mesh, and on a part whose use_pallas_attn
+    is not False (the kernel route) mask values other than -1e9 (its
+    kernels mask with -1e9; the JAX kernels would ignore the value) and a
+    mimi capacity off the upsample stride (K2 inserts whole 16-step
+    blocks). The megalayer, the bilayer
+    and the int8 mimi ring run (test_supported_slice6_options), and so
+    does the reference-exact mode (test_reference_exact_is_supported)."""
     check_supported(CFG0)
-    cfg = change(CFG0) if callable(change) else apply(CFG0, change)
+    cfg = change(CFG0) if callable(change) else _apply(CFG0, change)
     with pytest.raises(NotImplementedError, match="not ported"):
         check_supported(cfg)
+
+
+@pytest.mark.parametrize("change", [
+    reference_exact_config,
+    dict(mimi=dict(transformer=dict(capacity=250, use_pallas_attn=False))),
+    dict(backbone=dict(mask_value=-1e5, use_pallas_attn=False)),
+])
+def test_reference_exact_is_supported(change):
+    """The reference-exact mode runs (its -1e5 masks and 250-slot ring on
+    the plain routes use_pallas_attn=False picks), and so does each of
+    those parts alone on its plain route."""
+    cfg = change(CFG0) if callable(change) else _apply(CFG0, change)
+    check_supported(cfg)
 
 
 def test_supported_slice6_options():
