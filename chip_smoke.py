@@ -8,12 +8,15 @@ Drives the port's solo paths (synthesis through `TTSEngine` with bf16
 weights, with `quantize="int8"`, `"int4"` and `"q4_0"`, with int4 weights
 and the int8 KV cache, `quantize_kv=True`, and slice 6's paths: int8 +
 `backbone.use_megalayer`; int4 + int8 KV + megalayer + the int8 mimi ring,
-`mimi.transformer.quantize_kv`; int4 + `backbone.use_bilayer`) and its
-continuous-batching server (`ContinuousBatchingServer`, 32 lanes, with
+`mimi.transformer.quantize_kv`; int4 + `backbone.use_bilayer`; int8 and
+int4 with the SEANet decoder's convs quantized too, `quantize_convs=True`,
+which runs no K3) and its continuous-batching server (`ContinuousBatchingServer`, 32 lanes, with
 bf16 weights and in the JAX package's serving mode: int4 weights, int8
-KV cache, shared prefix, also at 128 lanes; 4 lanes without the fused
-insert; and CLI `--serve`), the CLI's other entry points (--bench --json,
---profile, --batch with FLAC output) and the reference-exact mode at the
+KV cache, shared prefix, also at 128 lanes and with quantized convs; 4
+lanes without the fused insert; and CLI `--serve`), the GGUF checkpoint
+and params cache, the CLI's other entry points (--bench --json,
+--profile, --batch with FLAC output, --quantize-convs), the A/B runner
+(`python -m pocket_tts_tpu_torch.ab`) and the reference-exact mode at the
 full width of DEFAULT_CONFIG with random weights from seed 0, and checks the twenty-six hand-written CUDA kernel entries on
 them against their plain PyTorch versions. Phases, in order; any failure
 raises, names its phase and the exit code is 1:
@@ -51,7 +54,12 @@ raises, names its phase and the exit code is 1:
                    int4 and q4_0; the same three kernels on
                    tiny_config(64)'s narrow widths, and there K5a's and
                    K5b's four row-block products at 1, 2 and 15 rows
-                   (the skinny kernel in bf16); f32 and bf16
+                   (the skinny kernel in bf16); f32 and bf16. Then K4a
+                   and K4b at the seven quantized convs' shapes
+                   (conv_shapes / conv_products), solo and 32 lanes'
+                   rows, f32 and bf16: K4a's warpgroup kernel at N = 64
+                   and K = 128, K4b's tensor-core kernel at K = 3584 over
+                   512 rows, 15360 rows
   3e. slice 6      K8 megalayer on every layer of the int8 and int4 trees,
                    caches of the working type and int8, S=384 with the
                    write slot at 300 and at a tile edge (y, cache rows and
@@ -86,12 +94,21 @@ raises, names its phase and the exit code is 1:
                    rows_skinny: the backbone's K5a at T = 1 (6 a frame,
                    1 on the bilayer path). K4b's launches (the same
                    kernels) count under int4_matmul only.
+                   The quantized-convs paths (int8_convs, int4_convs)
+                   launch their counterpart's kernels but no K3, and 7
+                   more K4a / K4b a frame (for int8, 5 of them on the
+                   warpgroup kernel).
                    Then the q4_0 engine is built again from a params cache
                    written and read back here, and must give the same pcm,
                    bit for bit
+  4c. GGUF         an engine loaded from tts_b6369a24.gguf (random_flat
+                   seed 0, written by the port) gives the pcm of one
+                   loaded from tts_b6369a24.safetensors, bit for bit; CLI
+                   --quantize int8 --save-cache x.gguf --gguf-quantize
+                   q8_0, then --load-cache x.gguf synthesizes
   5. card vs CPU   12 f32 frames on the card vs the port on the CPU, on
-                   each of the eight paths
-  6. timing        decode frames/s of the eight paths in alternating rounds
+                   each of the ten paths
+  6. timing        decode frames/s of the ten paths in alternating rounds
                    (with and without the per-frame host sync; each of slice
                    6's paths beside its 3-call counterpart), each kernel's
                    device time vs its plain version's and the library
@@ -113,7 +130,11 @@ raises, names its phase and the exit code is 1:
                    library call on the four prefill linears at 64, 128
                    and 256 rows (time_k4a_plans: wgmma_plan and
                    WGMMA_ROWS); K6 on clusters of 16 and 8 blocks
-                   (time_flow_clusters)
+                   (time_flow_clusters); K4a / K4b at each quantized
+                   conv, solo and 32 lanes, beside the plain version,
+                   the library call, the dense bf16 product and the
+                   bound, and their sums over a frame
+                   (time_conv_kernels)
   7. serving       f32, 4 lanes, 6 requests (two admitted mid-decode), each
                    pcm vs the solo engine on the card, with bf16 weights,
                    with int8 weights + int8 KV + shared prefix, and with
@@ -128,12 +149,15 @@ raises, names its phase and the exit code is 1:
                    rows, 1 K4b, and 24 K4b per admission prefill);
                    aggregate frames/s, TTFA p50/p95; CLI --serve writes one
                    wav per request, and so does CLI --serve --quantize int4
-                   --quantize-kv --share-prefix
+                   --quantize-kv --share-prefix; f32, 32 lanes, the 6
+                   requests in the serving mode with quantized convs vs
+                   solo (per step 7 more K4b and no K3)
   8. profiler      device busy share and launches per frame of each solo
                    path (6 K1, 0 on the megalayer paths, 2 K2 and 14 K3
                    launches a frame, no memset, no more launches than
                    FRAME_LAUNCHES) and per chunk of
                    serving with every lane busy, in both serving modes
+                   and in the serving mode with quantized convs
                    (torch.profiler after 2 warm-up steps; last, after
                    every host-clock measurement), the launch counters over
                    the same frames and chunks beside the profiler's
@@ -147,7 +171,11 @@ raises, names its phase and the exit code is 1:
                    solo path's phase-6 frames/s (utils/roofline.py at the
                    card's published peaks), --profile (the Chrome trace
                    names K1, K2 and K3's kernels), --batch 4 --json -o
-                   .flac --out-rate 16000 (read back at 16 kHz); the
+                   .flac --out-rate 16000 (read back at 16 kHz), each
+                   with --quantize-convs once more (--bench int8,
+                   --batch int4, --serve in the serving mode); ab on a
+                   tiny release-layout fixture, card vs CPU (check_ab);
+                   the
                    reference-exact mode in process, f32 and int8 weights:
                    18 f32 frames (past the 250-slot mimi ring's wrap) on
                    the card vs the CPU within 1e-3, no
@@ -334,6 +362,14 @@ MEGA_KERNELS = {"megalayer": "int8_mega", "megalayer_int4": "int4_kv8_mega",
 # the f32 serving check of batched decode without the fused insert: int8
 # weights + int8 KV + shared prefix + the int8 mimi ring, K1 over lanes
 K1_SERVE = "int8_kv8_k1"
+# the quantized-convs solo paths: quantized linears with the SEANet
+# decoder's large convs quantized too (quantize_convs): no K3, its chain with
+# each quantized conv one launch of K4a (int8) or K4b (int4) a frame over
+# all rows, each timed beside its counterpart without quantized convs; and
+# the serving mode (int4 weights, int8 KV, shared prefix) with them
+CONV_PATHS = ("int8_convs", "int4_convs")
+CONV_COUNTERPART = {"int8_convs": "int8", "int4_convs": "int4"}
+SERVE_CONVS = "int4_kv8_convs"
 ENGINE_KW = {"bf16": dict(), "int8": dict(quantize="int8"),
              "int4": dict(quantize="int4"), "q4_0": dict(quantize="q4_0"),
              KV8_PATH: dict(quantize="int4", quantize_kv=True),
@@ -342,7 +378,11 @@ ENGINE_KW = {"bf16": dict(), "int8": dict(quantize="int8"),
              "int4_kv8_mega": dict(quantize="int4", quantize_kv=True),
              "int4_bilayer": dict(quantize="int4"),
              K1_SERVE: dict(quantize="int8", quantize_kv=True),
-             "exact": dict(), "int8_exact": dict(quantize="int8")}
+             "exact": dict(), "int8_exact": dict(quantize="int8"),
+             "int8_convs": dict(quantize="int8", quantize_convs=True),
+             "int4_convs": dict(quantize="int4", quantize_convs=True),
+             SERVE_CONVS: dict(quantize="int4", quantize_kv=True,
+                               quantize_convs=True)}
 # phase 9's reference-exact paths (reference_exact_config: the plain
 # attention routes, no K1/K2/K7/K8/K5), f32 and int8 weights
 EXACT_PATHS = ("exact", "int8_exact")
@@ -945,6 +985,94 @@ def check_quant_kernels(pq, cfg, device, dtype, results, path):
                           fused_flow.flow_forward_plain(fp, c, x, tc)))
     sync(device)
     _rel_check("fused_flow" + suffix, "flow", dtype, pairs, results, label)
+
+
+# -------------------------------------------- phase 3f: quantized convs --
+
+def conv_products(dec, cfg):
+    """[(module, key, weight, scale, rows a lane a frame)] of the quantized
+    convs of a decoder tree (qc / qc4 / qt / qt4), in the chain's order."""
+    from pocket_tts_tpu_torch.ops.seanet_frame import STAGES
+    rows = cfg.mimi.upsample_stride
+    out = []
+
+    def add(name, mod, n_rows):
+        for key in ("qc", "qc4", "qt", "qt4"):
+            if key in mod:
+                out.append((name, key, mod[key], mod["scale"], n_rows))
+
+    add("model_0", dec["model_0"], rows)
+    for (tr, rn), st in zip(STAGES, cfg.mimi.seanet.stages):
+        add(tr, dec[tr], rows)
+        rows *= st.stride
+        for blk in ("block_1", "block_3"):
+            add(f"{rn}.{blk}", dec[rn][blk], rows)
+    add("model_11", dec["model_11"], rows)
+    return out
+
+
+def conv_matmul_fns(key):
+    """(kernel name, wrapper, plain version) of a quantized conv's key."""
+    from pocket_tts_tpu_torch.ops import quant_matmul as qm
+    if key in ("qc", "qt"):
+        return "int8_matmul", qm.int8_matmul, qm.int8_matmul_plain
+    return "int4_matmul", qm.int4_matmul, qm.int4_matmul_plain
+
+
+def conv_route(key, dtype, rows):
+    """The kernel a K4a / K4b call of `rows` rows takes."""
+    from pocket_tts_tpu_torch.ops.fused_layer import rows_route
+    from pocket_tts_tpu_torch.ops.quant_matmul import int8_route
+    return (int8_route(dtype, rows) if key in ("qc", "qt")
+            else rows_route(dtype, rows))
+
+
+def check_conv_kernels(engine, device, dtype, results, path):
+    """K4a or K4b vs its plain version at each quantized conv's shape
+    (`conv_products` of the engine's decoder, which must name the
+    convs `conv_shapes` expects), solo rows and LANES lanes' rows (the
+    window-concat input of a conv1d, the carries' rows included, is the
+    product's x; here random from numpy seed 9), with the tolerances of
+    the other K4 checks. In bf16 the cases must reach the routes the
+    conv shapes reach first: K4a's warpgroup kernel at N = 64 and at
+    K = 128, K4b's tensor-core kernel at K = 3584 over 512 rows, and
+    15360 rows."""
+    import torch
+    dec, cfg = engine.params["mimi"]["decoder"], engine.cfg
+    prods = conv_products(dec, cfg)
+    want = conv_shapes(cfg)
+    got = [(name, q.shape[0] * (2 if key.endswith("4") else 1),
+            q.shape[1], rows) for name, key, q, _, rows in prods]
+    if got != want:
+        raise AssertionError(f"{path}: quantized convs {got}, expected "
+                             f"{want}")
+    rng = np.random.RandomState(9)
+    pairs, routes = [], []
+    for name, key, q, scale, rows in prods:
+        mm_name, mm, plain = conv_matmul_fns(key)
+        k = q.shape[0] * (2 if key.endswith("4") else 1)
+        for b in (1, LANES):
+            x = _rand(rng, device, dtype, b * rows, k, scale=0.5)
+            pairs.append((mm(x, q, scale), plain(x, q, scale)))
+            routes.append((name, b * rows, k, q.shape[1],
+                           conv_route(key, dtype, b * rows)))
+    sync(device)
+    _rel_check(mm_name, "quant", dtype, pairs, results, f" [{path}]")
+    log(f"    routes (conv, rows, K, N, kernel): {routes}")
+    if dtype == torch.bfloat16:
+        need = ([("wgmma", "N", 64), ("wgmma", "K", 128)]
+                if mm_name == "int8_matmul" else [("mma", "K", 3584)])
+        for route, dim, val in need:
+            if not any(r == route and (n if dim == "N" else k) == val
+                       for _, _, k, n, r in routes):
+                raise AssertionError(f"{path}: no {route} case at {dim} = "
+                                     f"{val}")
+        if mm_name == "int4_matmul" and not any(
+                r == "mma" and k == 3584 and rows == 512
+                for _, rows, k, _, r in routes):
+            raise AssertionError(f"{path}: no mma case at K 3584, 512 rows")
+        if max(rows for _, rows, _, _, _ in routes) != 15360:
+            raise AssertionError(f"{path}: no case of 15360 rows")
 
 
 # ------------------------------------------------- phase 3d: serving mode --
@@ -1734,15 +1862,17 @@ def _engine_kw(cfg, device, dtype):
 
 
 def make_engine(cfg, device, dtype, quantize=None, quantize_kv=False,
-                params=None):
+                params=None, quantize_convs=False):
     """An engine on random weights from seed 0 (or on `params`, a tree of
-    an engine made here, with its cfg)."""
+    an engine made here, with its cfg; quantized linears stay as they are,
+    so quantize_convs on an int8 or int4 engine's tree quantizes its convs
+    alone)."""
     from pocket_tts_tpu_torch.io.params import random_params
     from pocket_tts_tpu_torch.runtime.engine import TTSEngine
     if params is None:
         params, cfg = random_params(cfg, seed=0, dtype=dtype, device=device)
     return TTSEngine(params=params, quantize=quantize,
-                     quantize_kv=quantize_kv,
+                     quantize_kv=quantize_kv, quantize_convs=quantize_convs,
                      **_engine_kw(cfg, device, dtype))
 
 
@@ -1760,6 +1890,9 @@ def expected_launches(cfg, path, dtype=None):
         return expected_exact(cfg, path)
     nb, nm = cfg.backbone.num_layers, cfg.mimi.transformer.num_layers
     kv8 = ENGINE_KW[path].get("quantize_kv", False)
+    if ENGINE_KW[path].get("quantize_convs"):
+        return conv_launches(cfg, path, *expected_launches(
+            cfg, CONV_COUNTERPART[path], dtype))
     k1 = "decode_attn_kv8" if kv8 else "decode_attn"
     ring = ("ring_attn_kv8" if PATH_CFG.get(path, {}).get("mimi_kv8")
             else "ring_attn")
@@ -1819,6 +1952,53 @@ def expected_exact(cfg, path):
         per_frame.update(int8_matmul=1 + 4 * nb + 4 * nm,
                          fused_flow=LAUNCHES)
         per_prefill["int8_matmul"] = 4 * nb
+    return per_frame, per_prefill
+
+
+def conv_shapes(cfg):
+    """[(module, K, N, rows a lane a frame)] of the decoder convs that
+    quantize_params(convs=True) quantizes, from the cfg's dims alone (an
+    expectation independent of the tree, `conv_products`): every conv of
+    at least _MIN_CONV_QUANT_SIZE elements, conv1d as its window product
+    (K*Cin, Cout), the transposed convs as (Cin, K*Cout); the resnets'
+    block_1 halves the channels."""
+    from pocket_tts_tpu_torch.io.quant import _MIN_CONV_QUANT_SIZE
+    from pocket_tts_tpu_torch.ops.seanet_frame import STAGES
+    sc = cfg.mimi.seanet
+    rows = cfg.mimi.upsample_stride
+    out = []
+
+    def add(name, cin, cout, k, n_rows, tr=False):
+        if cin * cout * k >= _MIN_CONV_QUANT_SIZE:
+            out.append((name, cin, k * cout, n_rows) if tr
+                       else (name, k * cin, cout, n_rows))
+
+    add("model_0", sc.in_ch, sc.in_ch, sc.first_kernel, rows)
+    for (tr, rn), st in zip(STAGES, sc.stages):
+        add(tr, st.in_ch, st.out_ch, st.kernel, rows, tr=True)
+        rows *= st.stride
+        hid = st.out_ch // 2
+        add(f"{rn}.block_1", st.out_ch, hid, sc.resnet_kernel, rows)
+        add(f"{rn}.block_3", hid, st.out_ch, 1, rows)
+    add("model_11", sc.stages[-1].out_ch, sc.out_ch, sc.last_kernel, rows)
+    return out
+
+
+def conv_launches(cfg, path, per_frame, per_prefill):
+    """expected_launches of a CONV_PATHS path from its counterpart's: no
+    K3 sequence, and per frame one launch of the path's matmul kernel for
+    each quantized conv (`conv_shapes`, solo rows), K4a's from WGMMA_ROWS
+    rows in bf16 counted once more under int8_matmul_wgmma."""
+    from pocket_tts_tpu_torch.ops.quant_matmul import WGMMA_ROWS
+    per_frame = dict(per_frame)
+    del per_frame["seanet_frame"]
+    shapes = conv_shapes(cfg)
+    mm = PATH_KERNELS[ENGINE_KW[path]["quantize"]][0]
+    per_frame[mm] += len(shapes)
+    if mm == "int8_matmul":
+        wide = sum(rows >= WGMMA_ROWS for _, _, _, rows in shapes)
+        if wide:
+            per_frame["int8_matmul_wgmma"] = wide
     return per_frame, per_prefill
 
 
@@ -3205,6 +3385,67 @@ def time_quant_kernels(pq, cfg, device, dtype, path, out):
     return out
 
 
+def time_conv_kernels(engines, device, out):
+    """Device time of K4a / K4b at each quantized conv's shape of the
+    CONV_PATHS engines (bf16), solo rows and LANES lanes' rows, beside
+    the plain version, the library call (torch._weight_int8pack_mm /
+    _weight_int4pack_mm), the dense bf16 product on the dequantized
+    weight and the bound; each conv logged, and the sum over a frame's
+    convs appended to out[kernel name] (rows after the first, which the
+    JSON line reports). Returns {(path, lanes): per-frame sums}."""
+    import torch
+    from pocket_tts_tpu_torch.ops.quant_matmul import deq_dot
+    rng = np.random.RandomState(10)
+    sums = {}
+    for path in CONV_PATHS:
+        eng = engines[path]
+        for b in (1, LANES):
+            tot = dict(k=[0.0, 0.0], plain=[0.0, 0.0], lib=0.0, dense=0.0,
+                       bytes=0, flops=0, lib_ok=True)
+            for name, key, q, scale, rows in conv_products(
+                    eng.params["mimi"]["decoder"], eng.cfg):
+                mm_name, mm, plain = conv_matmul_fns(key)
+                k = q.shape[0] * (2 if key.endswith("4") else 1)
+                n, t = q.shape[1], b * rows
+                x = _rand(rng, device, torch.bfloat16, t, k, scale=0.5)
+                y = mm(x, q, scale)
+                kern = device_ms(lambda: mm(x, q, scale), 50)
+                pl = device_ms(lambda: plain(x, q, scale), 20)
+                lin = ({"q": q, "scale": scale} if key in ("qc", "qt")
+                       else {"q4": q, "scale": scale})
+                lib = (int8pack_ms(x, q, scale) if mm_name == "int8_matmul"
+                       else int4pack_ms(x, lin, y))
+                w = deq_dot(torch.eye(k, device=device), lin).to(x.dtype)
+                dense = device_ms(lambda: x @ w, 50)[0]
+                nbytes = _nbytes(x, y, q, scale)
+                bound = bound_ms(nbytes, 2 * t * k * n)
+                log(f"  K4 conv {path} {name} rows={t} K={k} N={n} "
+                    f"({conv_route(key, torch.bfloat16, t)}): kernel "
+                    f"{kern[0] * 1e3:.2f} us device, plain "
+                    f"{pl[0] * 1e3:.2f} us, library "
+                    + ("none" if lib is None else f"{lib * 1e3:.2f} us")
+                    + f", dense bf16 {dense * 1e3:.2f} us, bound "
+                    f"{bound[0] * 1e3:.2f} us ({bound[1]}): "
+                    f"{bound[0] / kern[0]:.1%} of it")
+                for i in (0, 1):
+                    tot["k"][i] += kern[i]
+                    tot["plain"][i] += pl[i]
+                tot["dense"] += dense
+                tot["lib_ok"] = tot["lib_ok"] and lib is not None
+                tot["lib"] += lib or 0.0
+                tot["bytes"] += nbytes
+                tot["flops"] += 2 * t * k * n
+            sums[path, b] = tot
+            out.setdefault(mm_name, []).append(_row(
+                tuple(tot["k"]), tuple(tot["plain"]),
+                tot["lib"] if tot["lib_ok"] else None,
+                bound_ms(tot["bytes"], tot["flops"]),
+                f"{path}: the {len(conv_products(eng.params['mimi']['decoder'], eng.cfg))} "
+                f"quantized convs of a frame, {b} lane(s) (sum of calls; "
+                f"dense bf16 {tot['dense'] * 1e3:.2f} us)"))
+    return sums
+
+
 def time_kv8_kernels(device, dtype, out):
     """Device time of K1 and K7 over int8 caches (K7 with and without the
     statistics) vs their plain versions at the serving mode's shapes, with
@@ -3489,9 +3730,17 @@ def time_slice6_kernels(engines, device, dtype, out):
 # once per call
 FRAME_LAUNCHES = {"bf16": 647, "int8": 258, "int4": 258, "q4_0": 258,
                   KV8_PATH: 378, "int8_mega": 126, "int4_kv8_mega": 162,
-                  "int4_bilayer": 253}
+                  "int4_bilayer": 253,
+                  # the decoder's chain with quantized convs in place of
+                  # K3's 14 launches: 7 K4 launches and the chain's torch
+                  # ops (casts, window concats, ELUs, overlap-adds, the
+                  # float convs' f32 products), 420 as first measured
+                  "int8_convs": 420, "int4_convs": 420}
 K1_PER_FRAME = {"int8_mega": 0, "int4_kv8_mega": 0}   # else 6
 K3_PER_FRAME = 14   # ten conv-GEMMs, three overlap-adds, the final conv
+# the quantized-convs paths launch no K3: the decoder's chain runs its
+# torch ops and one K4a / K4b a quantized conv
+K3_FRAMES = {path: 0 for path in CONV_PATHS}
 
 
 # The port's kernels as the profiler names them, by family, beside the
@@ -3568,12 +3817,13 @@ def check_frame_launches(label, kern, counted):
     log("    profiler / counters per frame: " + ", ".join(
         f"{fam} {p:.2f} / {c:.2f}" for fam, p, c in rows) + f": {verdict}")
     want_k1 = K1_PER_FRAME.get(label, 6)
+    want_k3 = K3_FRAMES.get(label, K3_PER_FRAME)
     if not (abs(k1 - want_k1) < 1e-6 and abs(k2 - 2) < 1e-6
-            and abs(k3 - K3_PER_FRAME) < 1e-6 and memset == 0
+            and abs(k3 - want_k3) < 1e-6 and memset == 0
             and total <= FRAME_LAUNCHES[label] + 1e-6):
         raise AssertionError(f"{label}: launches per frame changed: K1 {k1} "
                              f"(want {want_k1}), K2 {k2} (want 2), K3 {k3} "
-                             f"(want {K3_PER_FRAME}), memset {memset} (want "
+                             f"(want {want_k3}), memset {memset} (want "
                              f"0), all {total}; {verdict}")
 
 
@@ -3759,6 +4009,15 @@ def expected_serving(cfg, mode, n, prefills, lanes=LANES, dtype=None):
     with statistics, K2-q, K4a)."""
     from pocket_tts_tpu_torch.ops.fused_layer import post_launches
     nb, nm = cfg.backbone.num_layers, cfg.mimi.transformer.num_layers
+    if ENGINE_KW[mode].get("quantize_convs"):
+        # the counterpart mode's launches, with one K4 launch a quantized
+        # conv in place of the K3 sequence each batch frame step (K4b: no
+        # warpgroup route)
+        base = {SERVE_CONVS: KV8_PATH}[mode]
+        want = expected_serving(cfg, base, n, prefills, lanes, dtype)
+        del want["seanet_frame"]
+        want["int4_matmul"] += len(conv_shapes(cfg)) * n
+        return want
     want = {"seanet_frame": n}
     if mode == K1_SERVE:
         want.update(decode_attn_lanes=nb * n, decode_attn_stats=nb * n,
@@ -4024,19 +4283,20 @@ def cli_profile(tmp):
     return found
 
 
-def cli_batch(tmp):
-    """CLI --bench --batch 4 --json -o x.flac --out-rate 16000: the JAX
-    CLI's batched JSON line, and the FLAC reads back with the port's
+def cli_batch(tmp, extra=()):
+    """CLI --bench --batch 4 --json -o x.flac --out-rate 16000 [extra]: the
+    JAX CLI's batched JSON line, and the FLAC reads back with the port's
     load_audio at 16 kHz, 1280 samples a frame of one stream."""
     from pocket_tts_tpu_torch.io.audio_in import load_audio
     path = os.path.join(tmp, "batch.flac")
     lines, wall = run_cli(["--bench", "--batch", "4", "--json", "-o", path,
-                           "--out-rate", "16000"])
+                           "--out-rate", "16000", *extra])
     rep = json.loads(lines[-1])
     line = next(x for x in lines if x.startswith("batch 4: "))
     frames = int(line.split()[2])
     pcm, sr = load_audio(path)
-    log(f"  cli --batch 4 --json -o .flac --out-rate 16000: {line}; "
+    log(f"  cli --batch 4 --json -o .flac --out-rate 16000 "
+        f"{' '.join(extra)}: {line}; "
         f"{lines[-1]}; flac {sr} Hz, {pcm.size} samples; process "
         f"{wall:.1f} s")
     if not (set(rep) == CLI_BATCH_KEYS and rep["batch"] == 4
@@ -4094,6 +4354,146 @@ def check_exact(device, voice, counts, path):
         raise AssertionError(f"reference-exact card vs CPU pcm differ "
                              f"({path})")
     return launches
+
+
+def check_gguf(device, voice, tmp):
+    """Phase 4c, the GGUF container on the card: an engine (bf16) loaded
+    from a model directory holding tts_b6369a24.gguf only (written here by
+    the port's io/gguf.py from random_flat(DEFAULT_CONFIG, seed 0)) gives
+    the pcm of one loaded from tts_b6369a24.safetensors of the same flat
+    dict, bit for bit; then CLI --quantize int8 --save-cache x.gguf
+    --gguf-quantize q8_0, and CLI --load-cache x.gguf synthesizes (a wav
+    of finite, non-silent frames)."""
+    import torch
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    from pocket_tts_tpu_torch.io.gguf import write_gguf
+    from pocket_tts_tpu_torch.io.params import random_flat
+    from pocket_tts_tpu_torch.io.safetensors_io import save_safetensors
+    from pocket_tts_tpu_torch.io.wav import load_wav
+    from pocket_tts_tpu_torch.runtime.engine import TTSEngine
+    from pocket_tts_tpu_torch.text.tokenizer import MockTokenizer
+    flat = random_flat(DEFAULT_CONFIG, seed=0)
+    pcms = {}
+    for ext in ("safetensors", "gguf"):
+        d = os.path.join(tmp, "model_" + ext)
+        os.makedirs(d)
+        path = os.path.join(d, "tts_b6369a24." + ext)
+        t0 = time.perf_counter()
+        if ext == "gguf":
+            write_gguf(path, flat)
+        else:
+            save_safetensors(flat, path)
+        t1 = time.perf_counter()
+        eng = TTSEngine(model_path=d, dtype=torch.bfloat16, device=device,
+                        seed=0,
+                        tokenizer=MockTokenizer(DEFAULT_CONFIG.lut.n_bins))
+        t2 = time.perf_counter()
+        pcms[ext] = eng.synthesize(BENCH_TEXT, voice, temp=0.0)
+        del eng
+        log(f"  {ext} checkpoint: {os.path.getsize(path) / 2**20:.1f} MiB "
+            f"written in {t1 - t0:.2f} s, engine loaded in {t2 - t1:.2f} s, "
+            f"{pcms[ext].size} samples")
+    a, b = pcms["safetensors"], pcms["gguf"]
+    if not (a.size > 0 and a.shape == b.shape and np.array_equal(a, b)
+            and np.isfinite(a).all()):
+        raise AssertionError("the .gguf checkpoint's pcm differs from the "
+                             ".safetensors one's")
+    log("  the engine from tts_b6369a24.gguf gives the .safetensors "
+        "engine's pcm bit for bit")
+    cache = os.path.join(tmp, "x.gguf")
+    lines, wall = run_cli(["--quantize", "int8", "--save-cache", cache,
+                           "--gguf-quantize", "q8_0"])
+    wav = os.path.join(tmp, "gguf.wav")
+    lines2, wall2 = run_cli(["--load-cache", cache, "-t", "0", "-o", wav,
+                             "Hello from a GGUF params cache."])
+    pcm, sr = load_wav(wav)
+    log(f"  cli --save-cache x.gguf --gguf-quantize q8_0: "
+        f"{os.path.getsize(cache) / 2**20:.1f} MiB in {wall:.1f} s; cli "
+        f"--load-cache x.gguf: {pcm.size} samples at {sr} Hz in "
+        f"{wall2:.1f} s; {lines2[-1]}")
+    if not (pcm.size > 0 and pcm.size % 1920 == 0 and np.isfinite(pcm).all()
+            and np.abs(pcm).max() > 0):
+        raise AssertionError("cli --load-cache x.gguf gave no audio")
+
+
+def ab_fixture(root):
+    """A model directory in the release layout at tiny_config: random
+    weights (port's random_flat, seed 61), the voice `cosette` and an
+    ASCII SentencePiece tokenizer.model (the JAX package's test fixture's
+    pieces, built with the port's text/spm.py)."""
+    import string
+    from pocket_tts_tpu_torch.config import tiny_config
+    from pocket_tts_tpu_torch.io.params import random_flat
+    from pocket_tts_tpu_torch.io.safetensors_io import save_safetensors
+    from pocket_tts_tpu_torch.text.spm import (CONTROL, NORMAL, UNKNOWN,
+                                               SentencePieceModel)
+    cfg = tiny_config()
+    os.makedirs(os.path.join(root, "embeddings"))
+    save_safetensors(random_flat(cfg, seed=61),
+                     os.path.join(root, "tts_b6369a24.safetensors"))
+    prompt = (np.random.RandomState(0).randn(1, 14, cfg.backbone.d_model)
+              * 0.05).astype(np.float32)
+    save_safetensors({"voice.audio_prompt": prompt},
+                     os.path.join(root, "embeddings", "cosette.safetensors"))
+    m = SentencePieceModel()
+    pieces = ([("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL),
+               ("</s>", 0.0, CONTROL), ("\u2581", -3.0, NORMAL)]
+              + [(p, -3.0, NORMAL) for p in ("...", ".", "!", "?", ",",
+                                             ";", ":")]
+              + [("\u2581" + w, -4.0, NORMAL)
+                 for w in ("the", "quick", "brown", "fox", "hello")]
+              + [(c, -10.0, NORMAL)
+                 for c in string.ascii_letters + string.digits + "'\"-()"])
+    for piece, score, ptype in pieces:
+        m.pieces.append(piece)
+        m.scores.append(score)
+        m.types.append(ptype)
+    with open(os.path.join(root, "tokenizer.model"), "wb") as f:
+        f.write(m.serialize())
+    return cfg
+
+
+def check_ab(tmp):
+    """`pocket_tts_tpu_torch.ab` on `ab_fixture`'s directory, in process,
+    on the card and on the CPU (-d cpu): each exits 0 and writes its wav
+    and probes; the card's probe sums (voice and prefill KV per layer,
+    each frame's latent and pcm) are within 1e-3 of the CPU's, relative
+    to the CPU's, its EOS flags and quantization-error reports equal.
+    Without --no-verify the fixture fails the manifest check (exit 2)."""
+    from pocket_tts_tpu_torch import ab
+    root = os.path.join(tmp, "ab_model")
+    ab_fixture(root)
+    probes = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(tmp, "ab_" + dev)
+        t0 = time.perf_counter()
+        rc = ab.main(["--model-dir", root, "-o", out, "--no-verify", "-d",
+                      dev, "--text", "Hi there.", "--frames", "4"])
+        if rc != 0 or not os.path.exists(os.path.join(out, "ab_out.wav")):
+            raise AssertionError(f"ab -d {dev} exit {rc}")
+        with open(os.path.join(out, "ab_probes.json")) as f:
+            probes[dev] = json.load(f)
+        log(f"  ab -d {dev}: {time.perf_counter() - t0:.1f} s")
+    g, c = probes["cuda"], probes["cpu"]
+    pairs = (list(zip(g["voice_kv_sum"], c["voice_kv_sum"]))
+             + list(zip(g["prefill_kv_sum"], c["prefill_kv_sum"]))
+             + [(fg[k], fc[k]) for fg, fc in zip(g["frame"], c["frame"])
+                for k in ("latent_sum", "pcm_sum")])
+    worst = max(abs(a - b) / max(abs(b), 1e-30) for a, b in pairs)
+    same = (len(g["frame"]) == len(c["frame"]) == 4
+            and [f["eos"] for f in g["frame"]] == [f["eos"] for f in
+                                                   c["frame"]]
+            and all(g[k] == c[k] for k in ("quant_rel_error_int4",
+                                           "quant_rel_error_int8",
+                                           "quant_rel_error_q4_0")))
+    log(f"  ab probes, card vs CPU: {len(pairs)} sums, largest relative "
+        f"difference {worst:.3e} (tol 1e-3); EOS flags and quantization "
+        f"reports ({len(g['quant_rel_error_int4'])} weights) equal: {same}")
+    if not (worst <= 1e-3 and same):
+        raise AssertionError("ab probes differ between the card and the CPU")
+    if ab.main(["--model-dir", root, "-o", os.path.join(tmp, "ab_v"),
+                "-d", "cpu"]) != 2:
+        raise AssertionError("ab passed the manifest check on a fixture")
 
 
 def wide_chunk_walls(engine, voice, lanes=WIDE_LANES, n=8):
@@ -4194,7 +4594,8 @@ def main(argv=None) -> int:
             "over lanes)")
         errs = {}
         engines = {}   # (path, dtype) -> engine
-        paths = ("bf16",) + QUANT_PATHS + (KV8_PATH,) + MEGA_PATHS
+        paths = (("bf16",) + QUANT_PATHS + (KV8_PATH,) + MEGA_PATHS
+                 + CONV_PATHS)
         for dtype in (torch.float32, torch.bfloat16):
             check_k1(device, dtype, errs)
             check_k2(device, dtype, errs)
@@ -4213,6 +4614,14 @@ def main(argv=None) -> int:
                 engines[path, dtype] = qeng
                 check_quant_kernels(qeng.params, qeng.cfg, device, dtype,
                                     errs, path)
+            phase = "kernels, quantized convs"
+            for path in CONV_PATHS:
+                base = engines[CONV_COUNTERPART[path], dtype]
+                engines[path, dtype] = make_engine(
+                    base.cfg, device, dtype, params=base.params,
+                    **ENGINE_KW[path])
+                check_conv_kernels(engines[path, dtype], device, dtype,
+                                   errs, path)
             phase = "kernels, serving mode"
             check_k1_kv8(device, dtype, errs)
             check_k7_kv8(device, dtype, errs)
@@ -4252,6 +4661,11 @@ def main(argv=None) -> int:
         header("[4b] q4_0 engine again from a params cache")
         check_cache(engines["q4_0", torch.bfloat16], voice, runs["q4_0"][2])
 
+        phase = "gguf"
+        header("[4c] the GGUF checkpoint and params cache on the card")
+        with tempfile.TemporaryDirectory() as tmp:
+            check_gguf(device, voice, tmp)
+
         phase = "card vs cpu"
         header("[5] end to end, card vs CPU, f32, first 12 frames")
         for path in paths:
@@ -4290,6 +4704,11 @@ def main(argv=None) -> int:
         for path, other in COUNTERPART.items():
             log(f"  {path} vs its 3-call counterpart {other}, same rounds: "
                 f"{1e3 / med[path]:.1f} vs {1e3 / med[other]:.1f} frames/s "
+                "(medians with the EOS sync)")
+        for path, other in CONV_COUNTERPART.items():
+            log(f"  {path} vs {other} (float convs, K3), same rounds: "
+                f"{1e3 / med[path]:.1f} vs {1e3 / med[other]:.1f} frames/s, "
+                f"{1e3 * med[path]:.1f} vs {1e3 * med[other]:.1f} us a frame "
                 "(medians with the EOS sync)")
         for label, (chosen, row) in time_splits(device,
                                                 torch.bfloat16).items():
@@ -4339,6 +4758,13 @@ def main(argv=None) -> int:
         time_lane_kernels(bf[KV8_PATH].params, bf[KV8_PATH].cfg, device,
                           torch.bfloat16, times)
         time_slice6_kernels(bf, device, torch.bfloat16, times)
+        for (path, b), tot in time_conv_kernels(bf, device, times).items():
+            log(f"  K4 convs {path}, {b} lane(s), a frame's convs: kernels "
+                f"{tot['k'][0] * 1e3:.2f} us device, plain "
+                f"{tot['plain'][0] * 1e3:.2f} us, library "
+                + (f"{tot['lib'] * 1e3:.2f} us" if tot["lib_ok"] else "none")
+                + f", dense bf16 {tot['dense'] * 1e3:.2f} us, bound "
+                f"{bound_ms(tot['bytes'], tot['flops'])[0] * 1e3:.2f} us")
         for name, rows in times.items():
             for r in rows:
                 (ms, host), (plain_ms, plain_host) = r["k"], r["plain"]
@@ -4371,6 +4797,9 @@ def main(argv=None) -> int:
         k1_serve_launches = serve_vs_solo(device, voice, K1_SERVE,
                                           share_prefix=True,
                                           steps=lane_steps)
+        phase = "serving with quantized convs"
+        serve_vs_solo(device, voice, SERVE_CONVS, share_prefix=True,
+                      steps=lane_steps, lanes=LANES)
         phase = "serving"
         # the two modes in turns (bf16, serving mode, serving mode, bf16):
         # host timing drifts within a call; every run checks its launches
@@ -4405,8 +4834,12 @@ def main(argv=None) -> int:
             for key, us, calls in kern[:12]:
                 log(f"    {us:9.1f} us/frame  {calls:6.1f} calls/frame "
                     f" {key[:70]}")
+        serve_convs = make_engine(
+            bf["int4"].cfg, device, torch.bfloat16, params=bf["int4"].params,
+            **ENGINE_KW[SERVE_CONVS])
         for label, eng, share in (("bf16", engine, False),
-                                  (KV8_PATH, bf[KV8_PATH], True)):
+                                  (KV8_PATH, bf[KV8_PATH], True),
+                                  (SERVE_CONVS, serve_convs, True)):
             phase = ("profiler, serving" if label == "bf16"
                      else f"profiler, serving {label}")
             busy, walls, frames, kern, counted = profile_serving(
@@ -4435,7 +4868,8 @@ def main(argv=None) -> int:
                f"reference-exact mode, {WIDE_LANES} lanes")
         with tempfile.TemporaryDirectory() as tmp:
             phase = "command line: --bench"
-            for extra in ((), ("--quantize", "int8")):
+            for extra in ((), ("--quantize", "int8"),
+                          ("--quantize", "int8", "--quantize-convs")):
                 cli_bench(extra)
             phase = "command line: stream loop"
             stream_rows(bf, voice)
@@ -4445,6 +4879,9 @@ def main(argv=None) -> int:
             cli_profile(tmp)
             phase = "command line: --batch"
             cli_batch(tmp)
+            cli_batch(tmp, ("--quantize", "int4", "--quantize-convs"))
+            phase = "command line: ab"
+            check_ab(tmp)
         phase = "command line: --reference-exact"
         for path in EXACT_PATHS:
             check_exact(device, voice, counts, path)
@@ -4454,6 +4891,8 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             serve_cli(tmp, ("--lanes", str(WIDE_LANES), "--quantize", "int4",
                             "--quantize-kv", "--share-prefix"))
+            serve_cli(tmp, ("--quantize", "int4", "--quantize-kv",
+                            "--share-prefix", "--quantize-convs"))
         wide_chunk_walls(bf[KV8_PATH], voice)
     except Exception:
         import traceback
@@ -4475,8 +4914,9 @@ def main(argv=None) -> int:
         if name in MEGA_KERNELS:
             return runs[MEGA_KERNELS[name]][0][name]
         if name in WIDE_PREFILL:
-            return runs["int8"][0][name]
-        users = [p for p in QUANT_PATHS if name in PATH_KERNELS[p]]
+            return runs["int8"][0][name] + runs["int8_convs"][0][name]
+        users = [p for p in QUANT_PATHS + CONV_PATHS
+                 if name in PATH_KERNELS[ENGINE_KW[p]["quantize"]]]
         return sum(runs[p][0][name] for p in users or ["bf16"])
 
     kernels = []

@@ -6,7 +6,7 @@ Usage:
   python -m pocket_tts_tpu_torch.cli --random-weights --bench --json
 
 It takes every option of the JAX package's CLI (`pocket_tts_tpu/cli.py`)
-but --gguf-quantize and --fetch-models, with the same meaning. Text (the
+but --fetch-models, with the same meaning. Text (the
 argument, or -i FILE) streams through `Stream.send/flush/receive` in
 15-character chunks, as the JAX package's CLI feeds it; --interactive
 reads stdin lines instead. Each `receive` is timed with
@@ -30,8 +30,13 @@ hand-written kernels run there, in bf16) and fails when there is no card;
 --device cpu runs the plain versions in f32. --quantize int8 (or q8)
 quantizes the linear weights to int8 after load, int4 (or q4) to packed
 int4 with per-channel scales, q4_0 to int4 with 32-row K-grouped scales.
---save-cache writes the (quantized) params to a safetensors params cache,
---load-cache starts from one (either package's; DEFAULT_CONFIG).
+--quantize-convs (with --quantize) quantizes the SEANet decoder's large
+convs too: the decoder then runs K4a / K4b in place of kernel K3.
+--save-cache writes the (quantized) params to a params cache (safetensors,
+or GGUF for a .gguf path, whose large float tensors --gguf-quantize
+q8_0 | q4_0 | q8_k | q4_k block-quantizes), --load-cache starts from one
+(either package's; DEFAULT_CONFIG). A model directory holding
+tts_b6369a24.gguf and no .safetensors loads the GGUF checkpoint.
 --quantize-kv keeps the backbone's KV cache in int8 with per-row scales
 (solo and --serve). --fuse-insert routes each solo decode step's KV-row
 write and attention through kernel K7 instead of a row write and K1.
@@ -122,11 +127,17 @@ def build_parser():
                    help="int8 backbone KV cache (per-row scales): the "
                         "serving-throughput mode")
     p.add_argument("--quantize-convs", action="store_true",
-                   help="quantize the SEANet/mimi convs (not ported yet)")
+                   help="with --quantize: quantize the SEANet decoder's large "
+                        "convs too (K4a/K4b in place of kernel K3)")
     p.add_argument("--save-cache", default=None, metavar="PATH",
-                   help="write the params cache (.safetensors) and go on")
+                   help="write the params cache (.safetensors or .gguf) and "
+                        "go on")
     p.add_argument("--load-cache", default=None, metavar="PATH",
-                   help="load params from a params cache (.safetensors)")
+                   help="load params from a params cache (.safetensors or "
+                        ".gguf)")
+    p.add_argument("--gguf-quantize", default=None,
+                   choices=["q8_0", "q4_0", "q8_k", "q4_k"],
+                   help="ggml block quantization for --save-cache *.gguf")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="record a torch.profiler trace of the stream into "
                         "DIR/trace.json (Chrome trace format)")
@@ -347,8 +358,6 @@ def main(argv=None):
         return 1
     seed = 0 if seed is None else seed
     temp = 0.6 if temp is None else temp
-    if args.quantize_convs:  # before any weights are built
-        raise NotImplementedError("--quantize-convs is not ported yet")
     import contextlib
     import dataclasses
 
@@ -374,19 +383,21 @@ def main(argv=None):
         cfg0 = dataclasses.replace(cfg0, backbone=dataclasses.replace(
             cfg0.backbone, fuse_insert=True, use_megalayer=args.megalayer))
     model = model_dir(args)
+    qkw = dict(quantize=args.quantize, quantize_kv=args.quantize_kv,
+               quantize_convs=args.quantize_convs)
     if args.load_cache:
         # the model directory, when given, provides tokenizer and voices
         engine = TTSEngine.from_params_cache(
             args.load_cache, cfg0, model_path=args.model,
-            dtype=dtype, device=device, seed=seed,
-            quantize=args.quantize, quantize_kv=args.quantize_kv)
+            dtype=dtype, device=device, seed=seed, **qkw)
         if args.random_weights:  # no model directory: a synthetic voice
             from .io.params import random_voice_prompt
             voice = random_voice_prompt(engine.cfg)
         else:
             voice = args.voice
-    elif args.random_weights or not os.path.exists(
-            os.path.join(model, "tts_b6369a24.safetensors")):
+    elif args.random_weights or not any(
+            os.path.exists(os.path.join(model, "tts_b6369a24." + ext))
+            for ext in ("safetensors", "gguf")):
         # no checkpoint: random weights and a random voice, as the JAX
         # package's CLI does
         if not args.random_weights:
@@ -395,23 +406,22 @@ def main(argv=None):
         from .io.params import random_params, random_voice_prompt
         params, cfg = random_params(cfg0, dtype=dtype, device=device)
         engine = TTSEngine(params=params, cfg=cfg, dtype=dtype,
-                           device=device, seed=seed,
-                           quantize=args.quantize,
-                           quantize_kv=args.quantize_kv)
+                           device=device, seed=seed, **qkw)
         voice = random_voice_prompt(cfg)
     else:
         engine = TTSEngine(model_path=model, cfg=cfg0, dtype=dtype,
-                           device=device, seed=seed,
-                           quantize=args.quantize,
-                           quantize_kv=args.quantize_kv)
+                           device=device, seed=seed, **qkw)
         voice = args.voice
     if args.save_cache:
-        engine.save_params_cache(args.save_cache)
+        engine.save_params_cache(args.save_cache,
+                                 gguf_quantize=args.gguf_quantize)
         print(f"wrote params cache: {args.save_cache}")
         if text is None and not (args.interactive or args.serve):
             return 0
     weights = (f", {_WEIGHTS[args.quantize]} weights" if args.quantize
                else "") + (", int8 KV cache" if args.quantize_kv else "") \
+        + (", quantized convs" if args.quantize and args.quantize_convs
+           else "") \
         + (", reference-exact" if args.reference_exact else "")
     print(f"seed: {engine.seed}")
     print(f"device: {engine.device} ({dtype}{weights})")

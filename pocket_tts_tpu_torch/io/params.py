@@ -91,10 +91,12 @@ def _rope_permute(lin: dict, d_model: int, head_dim: int) -> dict:
 
 
 def _stack(dicts):
-    """Stack identically-structured dicts of tensors along a new axis 0."""
+    """Stack identically-structured dicts of tensors along a new axis 0,
+    keys in sorted order as `jax.tree.map` rebuilds them in the JAX
+    loader (the params cache records the tree's key order)."""
     return {k: (_stack([d[k] for d in dicts]) if isinstance(dicts[0][k], dict)
                 else torch.stack([d[k] for d in dicts], 0))
-            for k in dicts[0]}
+            for k in sorted(dicts[0])}
 
 
 def _count_layers(flat, prefix):
@@ -306,12 +308,20 @@ def from_jax_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None,
 
 def load_checkpoint(path: str, cfg: Optional[ModelConfig] = None,
                     dtype: torch.dtype = torch.float32, device="cpu"):
-    """Load a safetensors checkpoint into the port's params tree. GGUF
-    checkpoints are not ported yet."""
+    """Load a checkpoint (safetensors, or GGUF for a `.gguf` path, as the
+    JAX loader reads both) into the port's params tree. A GGUF file's BF16
+    tensors come as torch.bfloat16 and its block-quantized ones
+    dequantized to float32; both widen to float32 here, exactly, as the
+    safetensors reader gives BF16."""
     if path.endswith(".gguf"):
-        raise NotImplementedError("GGUF checkpoints are not ported yet")
-    from .safetensors_io import load_safetensors
-    return params_from_flat(load_safetensors(path), cfg, dtype, device)
+        from .gguf import read_gguf
+        flat, _ = read_gguf(path)
+        flat = {k: (v.float().numpy() if isinstance(v, torch.Tensor) else v)
+                for k, v in flat.items()}
+    else:
+        from .safetensors_io import load_safetensors
+        flat = load_safetensors(path)
+    return params_from_flat(flat, cfg, dtype, device)
 
 
 def load_voice(path: str, dtype: torch.dtype = torch.float32, device="cpu"):

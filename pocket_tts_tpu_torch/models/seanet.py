@@ -10,9 +10,14 @@ Time-major (T, C) throughout; a narrow last stage runs in the JAX package's
 BLOCKED-TIME layout (T, s*C), so the carries have the same shapes in both
 packages.
 
-`forward` runs `forward_plain` (this chain, plain PyTorch) for tensors on
-the CPU and kernel K3 (ops/seanet_frame.py) for tensors on the card. State
-is a dict of carries, updated IN PLACE by `forward`.
+`forward` picks its route from the params' layout, as the JAX package's
+does (`"w" in p["model_0"]`): a float decoder runs kernel K3
+(ops/seanet_frame.py; its plain version, `forward_plain`, for tensors on
+the CPU); a decoder whose convs are quantized (io/quant.py, convs=True)
+runs the chain of `forward_plain` itself, each quantized conv one launch
+of K4a or K4b over all rows (ops/conv.py) and the small float convs,
+ELUs and overlap-adds as torch ops. K3 is never launched for it. State is
+a dict of carries, updated IN PLACE by `forward`.
 """
 from __future__ import annotations
 
@@ -105,10 +110,21 @@ def forward_plain(p, cfg, state: dict, x):
     return new_state, x
 
 
+def quantized(p) -> bool:
+    """True when the decoder's convs are quantized: the route without K3
+    (the JAX package's condition, `"w" not in p["model_0"]`)."""
+    return "w" not in p["model_0"]
+
+
 def forward(p, cfg, state: dict, x, weights: dict = None):
     """x: (T, in_ch) -> (state, pcm (T * total_stride, out_ch)), the
     carries updated in place; with a lane axis x (B, T, in_ch), carries
     (B, ...) and pcm (B, T * total_stride, out_ch). weights:
-    `ops.seanet_frame.prep_weights(p, cfg)`, built once at load for the
-    card."""
-    return state, seanet_frame(p, cfg, state, x, weights)
+    `ops.seanet_frame.prep_weights(p, cfg)` of a float decoder, built once
+    at load for the card (None with quantized convs)."""
+    if not quantized(p):
+        return state, seanet_frame(p, cfg, state, x, weights)
+    new, pcm = forward_plain(p, cfg, state, x)
+    for key in state:
+        state[key].copy_(new[key])
+    return state, pcm

@@ -13,6 +13,15 @@ Weight layouts follow the torch checkpoint:
 The streaming functions return fresh carries, like the JAX ones; the
 SEANet model writes them back into its state dict. With models/seanet.py
 these are the plain version of kernel K3 (ops/seanet_frame.py).
+
+Quantized convs (io/quant.py, convs=True) hold the 2-D weight the product
+takes: conv1d {"qc"/"qc4", "scale"} over wf (K*Cin, Cout), transposed conv
+{"qt"/"qt4", "scale"} over the j-major w2 (Cin, K*Cout) of a K == 2*stride
+conv. A quantized conv1d concatenates its K strided views of x along the
+features (one activation copy, contiguous) and runs ONE int8_matmul (K4a)
+or int4_matmul (K4b) over every row, the lanes' rows included; a quantized
+transposed conv runs one over x. Those wrappers run their plain versions
+for tensors on the CPU and their kernels for tensors on the card.
 """
 from __future__ import annotations
 
@@ -23,8 +32,48 @@ def _dot32(a, b):
     return a.float() @ b.float()
 
 
+def _conv_kernel_size(p, cin: int) -> int:
+    """K of a conv1d from its "w" (Cout, Cin, K) or its quantized layout
+    (qc (K*Cin, Cout); qc4 packs K*Cin / 2 rows)."""
+    if "w" in p:
+        return p["w"].shape[-1]
+    if "qc" in p:
+        return p["qc"].shape[0] // cin
+    return 2 * p["qc4"].shape[0] // cin
+
+
+def _quant_matmul(p, x, key: str):
+    """x (..., K) @ the quantized 2-D weight p[key] (int8) or p[key + "4"]
+    (packed int4) with p["scale"]: one launch of K4a or K4b over all of
+    x's rows, rounded to x's dtype."""
+    from .quant_matmul import int4_matmul, int8_matmul
+    x = x.contiguous()
+    if key in p:
+        return int8_matmul(x, p[key], p["scale"])
+    return int4_matmul(x, p[key + "4"], p["scale"])
+
+
+def _conv1d_quant(p, x, stride: int):
+    """conv1d against a quantized layout: the K strided views of x side by
+    side along the features ((..., Tout, K*Cin), so row t holds x_t,
+    x_{t+1}, ...: wf's row order), one quantized product, then the bias."""
+    k = _conv_kernel_size(p, x.shape[-1])
+    tout = (x.shape[-2] - k) // stride + 1
+    if k == 1 and stride == 1:
+        xw = x
+    else:
+        xw = torch.cat([x[..., j: j + stride * (tout - 1) + 1: stride, :]
+                        for j in range(k)], -1)
+    y = _quant_matmul(p, xw, "qc")
+    if p.get("b") is not None:
+        y = y + p["b"][None, :]
+    return y.to(x.dtype)
+
+
 def conv1d(p, x, stride: int = 1):
     """VALID conv1d. x: (..., T, Cin) -> (..., (T-K)//stride + 1, Cout)."""
+    if "qc" in p or "qc4" in p:
+        return _conv1d_quant(p, x, stride)
     w = p["w"]
     cout, cin, k = w.shape
     tout = (x.shape[-2] - k) // stride + 1
@@ -43,7 +92,7 @@ def conv1d(p, x, stride: int = 1):
 def streaming_conv1d(p, prev, x, stride: int = 1):
     """Causal streaming conv: prepend the cached tail, conv, save the new
     tail. prev: (K - stride, Cin). Returns (new_prev, y)."""
-    tp = p["w"].shape[-1] - stride
+    tp = _conv_kernel_size(p, x.shape[-1]) - stride
     xc = torch.cat([prev, x], -2) if tp > 0 else x
     new_prev = xc[..., xc.shape[-2] - tp:, :] if tp > 0 else prev
     return new_prev, conv1d(p, xc, stride)
@@ -54,9 +103,20 @@ def conv1d_init_state(in_ch: int, kernel: int, stride: int = 1,
     return torch.zeros(kernel - stride, in_ch, dtype=dtype, device=device)
 
 
-def _convtr_matmul(p, x):
-    """u = x @ w2 against the j-major flattened (Cin, K*Cout) weight;
-    returns (u (T, K*Cout) rounded to x's dtype, cout, k)."""
+def _convtr_kernel_size(p, stride: int) -> int:
+    """K of a transposed conv: its "w" (Cin, Cout, K), or 2*stride for a
+    quantized layout (which exists only for K == 2*stride)."""
+    return p["w"].shape[-1] if "w" in p else 2 * stride
+
+
+def _convtr_matmul(p, x, stride: int):
+    """u = x @ w2 against the j-major flattened (Cin, K*Cout) weight, full
+    or quantized (qt / qt4); returns (u (T, K*Cout) rounded to x's dtype,
+    cout, k)."""
+    if "w" not in p:
+        k = 2 * stride
+        u = _quant_matmul(p, x, "qt")
+        return u, u.shape[-1] // k, k
     w = p["w"]
     cin, cout, k = w.shape
     w2 = w.permute(0, 2, 1).reshape(cin, k * cout)
@@ -69,7 +129,7 @@ def conv_transpose1d(p, x, stride: int, include_bias: bool = True):
     u[i, j] + u[i-1, j+s]."""
     lead, t = x.shape[:-2], x.shape[-2]
     s = stride
-    u, cout, k = _convtr_matmul(p, x)
+    u, cout, k = _convtr_matmul(p, x, stride)
     if k != 2 * s:
         raise NotImplementedError("conv_transpose1d needs K == 2*stride")
     a = u[..., : s * cout].reshape(*lead, t * s, cout)
@@ -85,7 +145,7 @@ def streaming_conv_transpose1d(p, prev_y, x, stride: int):
     """Streaming transposed conv with an overlap-add carry holding the
     previous step's trailing PT = K - stride PRE-BIAS output rows.
     Returns (new_prev, out (T*stride, Cout))."""
-    pt = p["w"].shape[-1] - stride
+    pt = _convtr_kernel_size(p, stride) - stride
     y = conv_transpose1d(p, x, stride, include_bias=False)
     y = torch.cat([y[..., :pt, :] + prev_y, y[..., pt:, :]], -2)
     new_prev = y[..., y.shape[-2] - pt:, :]
@@ -142,7 +202,7 @@ def streaming_conv_transpose1d_blocked(p, prev_row, x, stride: int):
     x: (T, Cin); prev_row: (1, s*Cout) pre-bias overlap row. Returns
     (new_prev_row, yb (T, s*Cout))."""
     s = stride
-    u, cout, k = _convtr_matmul(p, x)
+    u, cout, k = _convtr_matmul(p, x, stride)
     if k != 2 * s:
         raise NotImplementedError("blocked convtr needs K == 2*stride")
     a = u[..., : s * cout]

@@ -238,8 +238,10 @@ def batched_decode_sentence(p, cfg, states, noise, frames_after_eos,
     sequences; frame i uses noise[:, frame_offset + i], so chunked decoding
     (scan_len frames at a time) gives the same audio as one long run.
     Returns (states, pcm (B, scan_len, frame), valid (B, scan_len))."""
+    # a contiguous (B, latent) copy: the kernels (K6 over the lanes) read
+    # row-major rows, and noise[:, i] is a strided view
     return _run_frames(p, cfg, states, scan_len,
-                       lambda i: noise[:, frame_offset + i],
+                       lambda i: noise[:, frame_offset + i].contiguous(),
                        frames_after_eos, max_steps, seanet_weights)
 
 

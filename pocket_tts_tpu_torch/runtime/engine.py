@@ -39,9 +39,9 @@ import torch
 
 from ..config import check_supported
 from ..io import params as params_io
-from ..io.quant import (load_params_cache, quantize_params,
+from ..io.quant import (cast_floats, load_params_cache, quantize_params,
                         save_params_cache)
-from ..models import backbone, tts
+from ..models import backbone, seanet, tts
 from ..ops import fused_layer, fused_step
 from ..ops.basic import slice_layer_params
 from ..ops.seanet_frame import prep_weights
@@ -100,22 +100,27 @@ class TTSEngine:
         "int8" or "q8" (per-channel int8 linear weights), "int4" or "q4"
         (per-channel int4), "q4_0" (int4 with 32-row K-grouped scales),
         quantized after load (a tree that is quantized already keeps its
-        quantized leaves). quantize_kv: the backbone's KV cache in int8
+        quantized leaves). quantize_convs (with quantize): the SEANet
+        decoder's large convs quantized too, per output channel whatever
+        the mode; the decoder then runs its chain with K4a / K4b in place
+        of K3. quantize_kv: the backbone's KV cache in int8
         with per-row scales, as the JAX engine applies it (backbone only:
         the int8 mimi ring is the cfg's `mimi.transformer.quantize_kv`);
-        the serving-throughput mode. quantize_convs is not ported yet and
-        raises NotImplementedError, and so do q4_0 weights with
-        `backbone.use_megalayer` (kernel K8 takes no K-grouped scales)
-        unless `backbone.use_pallas_attn` is False (the plain route runs
-        no K8)."""
-        if quantize_convs:
-            raise NotImplementedError("quantized convs are not ported yet")
+        the serving-throughput mode. q4_0 weights with
+        `backbone.use_megalayer` raise NotImplementedError (kernel K8
+        takes no K-grouped scales) unless `backbone.use_pallas_attn` is
+        False (the plain route runs no K8). Without params it loads
+        `tts_b6369a24.safetensors` under model_path, or
+        `tts_b6369a24.gguf` when there is no safetensors file."""
         if quantize not in (None, "int8", "q8", "int4", "q4", "q4_0"):
             raise ValueError(f"unknown quantization: {quantize}")
         self.device = _device(device)
         self.model_path = model_path
         if params is None:
             ckpt = os.path.join(model_path or ".", "tts_b6369a24.safetensors")
+            gguf = os.path.join(model_path or ".", "tts_b6369a24.gguf")
+            if not os.path.exists(ckpt) and os.path.exists(gguf):
+                ckpt = gguf
             params, cfg = params_io.load_checkpoint(ckpt, cfg, dtype,
                                                     self.device)
         if cfg is None:
@@ -126,6 +131,7 @@ class TTSEngine:
         check_supported(cfg)
         if quantize:
             params = quantize_params(params, bits=4 if "4" in quantize else 8,
+                                     convs=quantize_convs,
                                      group=32 if quantize == "q4_0" else 0)
         layer0 = slice_layer_params(params["layers"], 0)
         if (cfg.backbone.use_megalayer
@@ -141,10 +147,13 @@ class TTSEngine:
         self.cfg = cfg
         self.dtype = dtype
         self.quantized = _has_quantized_leaves(params)
-        # K3's weight layouts, built once (the card path reads them)
-        self.seanet_weights = (prep_weights(params["mimi"]["decoder"],
-                                            cfg.mimi.seanet)
-                               if self.device.type == "cuda" else None)
+        # K3's weight layouts, built once (the card path reads them); a
+        # decoder with quantized convs runs no K3
+        decoder = params["mimi"]["decoder"]
+        self.seanet_weights = (
+            prep_weights(decoder, cfg.mimi.seanet)
+            if self.device.type == "cuda" and not seanet.quantized(decoder)
+            else None)
         self.set_seed(seed)
         if tokenizer is None:
             tok_path = (os.path.join(model_path, cfg.lut.tokenizer_path)
@@ -163,16 +172,20 @@ class TTSEngine:
     def frame_size(self) -> int:
         return self.cfg.mimi.frame_size
 
-    def save_params_cache(self, path: str):
-        """Write the (possibly quantized) params tree to a safetensors
-        params cache that either package loads."""
-        save_params_cache(self.params, path)
+    def save_params_cache(self, path: str, gguf_quantize=None):
+        """Write the (possibly quantized) params tree to a params cache
+        that either package loads: safetensors, or GGUF for a `.gguf` path
+        (gguf_quantize: None, "q8_0", "q4_0", "q8_k" or "q4_k" block
+        quantization of its large float tensors)."""
+        save_params_cache(self.params, path, gguf_quantize=gguf_quantize)
 
     @classmethod
     def from_params_cache(cls, path: str, cfg, **kw):
         """An engine on the params of a cache file written by either
-        package (kw as for the constructor: device, dtype, seed, ...)."""
-        return cls(params=load_params_cache(path, _device(kw.get("device"))),
+        package (kw as for the constructor: device, dtype, seed, ...); the
+        float leaves take the engine's dtype (`io.quant.cast_floats`)."""
+        params = load_params_cache(path, _device(kw.get("device")))
+        return cls(params=cast_floats(params, kw.get("dtype", torch.float32)),
                    cfg=cfg, **kw)
 
     def set_seed(self, seed: int):

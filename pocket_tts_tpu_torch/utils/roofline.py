@@ -11,8 +11,9 @@ JAX package's bench.py keys).
 
 All numbers are algorithmic estimates (standard 2*N matmul FLOPs; conv
 FLOPs = 2 * in*out*k * L_in): MFU counts useful FLOPs. They are counted
-from each linear's logical shape, so int8, int4 and q4_0 weights give the
-float tree's FLOPs (the JAX package counts the elements of the packed
+from each linear's and each quantized conv's logical shape, so int8, int4
+and q4_0 weights, with or without quantized convs, give the float tree's
+FLOPs (the JAX package counts the elements of the packed
 int4 leaves and of 2-D scales, so its int4 count is ~26% low at full
 width); the bytes are the JAX package's, leaf dtypes as stored.
 
@@ -58,17 +59,22 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
+# a quantized weight's key, and the weights a stored element holds: int8
+# linears and convs (q, qc, qt) one, packed int4 (q4, qc4, qt4) two
+_QUANT = {"q": 1, "qc": 1, "qt": 1, "q4": 2, "qc4": 2, "qt4": 2}
+
+
 def _tree_numel(tree) -> int:
     """Weight elements of the leaves with 2 or more dims, by the logical
-    shape of a quantized linear: its packed int4 `q4` holds two weights a
-    byte and its `scale` is no weight, so every weight format counts what
+    shape of a quantized linear or conv: packed int4 holds two weights a
+    byte and a `scale` is no weight, so every weight format counts what
     the float tree counts."""
     if isinstance(tree, dict):
-        n = 0
-        if "q" in tree or "q4" in tree:
-            n = tree["q"].numel() if "q" in tree else 2 * tree["q4"].numel()
+        keys = [k for k in tree if k in _QUANT]
+        n = sum(_QUANT[k] * tree[k].numel() for k in keys)
+        if keys:
             tree = {k: v for k, v in tree.items()
-                    if k not in ("q", "q4", "scale")}
+                    if k not in keys and k != "scale"}
         return n + sum(_tree_numel(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
         return sum(_tree_numel(v) for v in tree)

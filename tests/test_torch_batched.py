@@ -283,3 +283,27 @@ def test_serving_cfg_sets_fuse_insert_and_refuses_a_mesh():
     assert tb.serving_cfg(off).backbone.fuse_insert is False
     with pytest.raises(NotImplementedError):
         tb.serving_cfg(CFG, mesh=object())
+
+
+def test_batched_decode_sentence_hands_the_step_contiguous_noise(
+        monkeypatch):
+    """batched_decode_sentence takes frame i's noise as noise[:, i] of a
+    (B, N, latent) buffer, a strided view; the frame step gets a
+    contiguous copy (the kernels, K6 over the lanes among them, read
+    row-major rows and refuse a strided x on the card)."""
+    from pocket_tts_tpu_torch.models import tts
+    seen = []
+    real = tts.frame_step_lanes
+
+    def step(p, cfg, states, noise, *a, **k):
+        seen.append(noise.is_contiguous())
+        return real(p, cfg, states, noise, *a, **k)
+
+    monkeypatch.setattr(tts, "frame_step_lanes", step)
+    ts = _port_states()
+    b = ts.lanes
+    noise = torch.zeros(b, 6, CFG.latent_dim)
+    tb.batched_decode_sentence(
+        PT, TCFG, ts, noise, torch.full((b,), 2, dtype=torch.int32),
+        torch.full((b,), 6, dtype=torch.int32), 3, frame_offset=1)
+    assert seen == [True] * 3

@@ -7,7 +7,8 @@ backbone, mimi and flow linear has K-grouped bf16 scales:
 - a port-written cache loads in the JAX package with equal tensors, and
   the JAX engine on it matches the port's audio (f32, temp 0, atol 1e-4 as
   the other end-to-end tests);
-- a cache with another layout stamp, or none, is refused;
+- a cache with another layout stamp, or none, is refused, in either
+  container (tests/test_torch_gguf.py holds the GGUF cache otherwise);
 - the port reads bf16 scales without ml_dtypes (absent on the card's
   machine);
 - the CLI writes a cache and starts from one."""
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from pocket_tts_tpu.config import tiny_config
+from pocket_tts_tpu.io import gguf as j_gguf
 from pocket_tts_tpu.io import quant as j_quant
 from pocket_tts_tpu.io.params import params_from_flat, random_flat
 from pocket_tts_tpu.io.safetensors_io import save_safetensors
@@ -114,10 +116,23 @@ def test_cache_with_another_stamp_is_refused(tmp_path, layout):
     save_safetensors({"['a']": np.zeros(3, np.float32)}, path, metadata=meta)
     with pytest.raises(ValueError, match="layout"):
         load_params_cache(path)
-    with pytest.raises(NotImplementedError):
-        load_params_cache(str(tmp_path / "x.gguf"))
-    with pytest.raises(NotImplementedError):
-        save_params_cache({"a": torch.zeros(3)}, str(tmp_path / "x.gguf"))
+    # the GGUF container (once refused) reads the stamp from
+    # `pocket_tts.layout` and refuses the same caches
+    gmeta = {k.replace("pocket_tts_", "pocket_tts."): v
+             for k, v in meta.items()}
+    gpath = str(tmp_path / "old.gguf")
+    j_gguf.write_gguf(gpath, {"['a']": np.zeros(3, np.float32)},
+                      metadata=gmeta)
+    with pytest.raises(ValueError, match="layout"):
+        load_params_cache(gpath)
+    # and writes a cache this build reads back; gguf_quantize needs .gguf
+    save_params_cache({"a": torch.arange(3.0)}, str(tmp_path / "x.gguf"))
+    back = load_params_cache(str(tmp_path / "x.gguf"))
+    assert torch.equal(back["a"], torch.arange(3.0))
+    with pytest.raises(ValueError, match="gguf"):
+        save_params_cache({"a": torch.zeros(3)},
+                          str(tmp_path / "x.safetensors"),
+                          gguf_quantize="q8_0")
 
 
 def test_port_reads_bf16_without_ml_dtypes(tmp_path):

@@ -51,6 +51,7 @@ COMMAND_LINE = {"cli_bench": "command line: --bench",
                 "cli_profile": "command line: --profile",
                 "cli_batch": "command line: --batch",
                 "check_exact": "command line: --reference-exact",
+                "check_ab": "command line: ab",
                 "wide_chunk_walls": "command line: 128 lanes"}
 
 
@@ -93,13 +94,14 @@ def _run_with_one_failing(failing, monkeypatch, capsys):
                  "time_lane_kernels", "check_k8", "check_k5c", "check_k2q",
                  "check_k1_lanes", "time_slice6_kernels",
                  "check_frame_launches", "check_quant_narrow",
-                 *COMMAND_LINE):
+                 "check_conv_kernels", "check_gguf", *COMMAND_LINE):
         stubs[name] = lambda *a, **k: None
     stubs["time_splits"] = lambda *a, **k: {}
     stubs["time_rows_plans"] = lambda *a, **k: []
     stubs["time_k4a_plans"] = lambda *a, **k: []
     stubs["k4a_marks"] = lambda *a, **k: {}
     stubs["time_flow_clusters"] = lambda *a, **k: {}
+    stubs["time_conv_kernels"] = lambda *a, **k: {}
     stubs[failing] = boom
     for name, fn in stubs.items():
         monkeypatch.setattr(cs, name, fn)
@@ -331,3 +333,44 @@ def test_frame_launch_check_names_the_profiler_when_it_drops_a_record():
     _, verdict = cs.launch_crosscheck(
         FRAME_KERNELS, dict(FRAME_COUNTS, fused_pre=7.0))
     assert "K4/K5a/K5b: counters missed 1.00" in verdict
+
+
+@pytest.mark.parametrize("failing,phase", [
+    ("check_conv_kernels", "kernels, quantized convs"),
+    ("check_gguf", "gguf"), ("time_conv_kernels", "timing")])
+def test_failing_convs_or_gguf_phase_fails_the_run(failing, phase,
+                                                   monkeypatch, capsys):
+    """The quantized-convs kernel checks (phase 3), the GGUF phase (4c)
+    and the convs' kernel times (phase 6): each that raises makes main
+    return 1 and name its phase."""
+    out = _run_with_one_failing(failing, monkeypatch, capsys)
+    assert f"FAILED in phase '{phase}'" in out.err
+
+
+def test_expected_conv_launches():
+    """The quantized-convs paths at DEFAULT_CONFIG: their counterparts'
+    launches without the K3 sequence, and per frame 7 more K4a (int8; 5
+    of them, of 96 and 480 rows, on the warpgroup kernel) or K4b (int4)
+    launches; the serving mode with quantized convs: 7 more K4b and no K3
+    a batch frame step."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    for path, mm in (("int8_convs", "int8_matmul"),
+                     ("int4_convs", "int4_matmul")):
+        frame, prefill = cs.expected_launches(DEFAULT_CONFIG, path)
+        base, base_prefill = cs.expected_launches(
+            DEFAULT_CONFIG, cs.CONV_COUNTERPART[path])
+        assert prefill == base_prefill and "seanet_frame" not in frame
+        want = {k: v for k, v in base.items() if k != "seanet_frame"}
+        want[mm] += 7
+        if mm == "int8_matmul":
+            want["int8_matmul_wgmma"] = 5
+        assert frame == want
+    serve = cs.expected_serving(DEFAULT_CONFIG, cs.SERVE_CONVS, 2, 1)
+    base = cs.expected_serving(DEFAULT_CONFIG, cs.KV8_PATH, 2, 1)
+    assert "seanet_frame" not in serve
+    assert serve["int4_matmul"] == base["int4_matmul"] + 14
+    assert {k: v for k, v in serve.items() if k != "int4_matmul"} == {
+        k: v for k, v in base.items()
+        if k not in ("int4_matmul", "seanet_frame")}

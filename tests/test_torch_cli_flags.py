@@ -1,5 +1,5 @@
 """The port's CLI (pocket_tts_tpu_torch/cli.py) takes every option of the
-JAX package's CLI but --gguf-quantize and --fetch-models, and each behaves
+JAX package's CLI but --fetch-models, and each behaves
 as there: --bench (fixed text, seed 0, temp 0), --json (the JAX CLI's keys,
 solo and batched), -i, --interactive, --batch, -o .flac with --out-rate,
 --profile, --play, --reference-exact, --compile-cache, --threads, -l and
@@ -49,7 +49,7 @@ def _options(parser):
 
 def test_parser_has_every_jax_option_but_two():
     port, jax_ = _options(cli.build_parser()), _options(jax_parser())
-    assert jax_ - port == {"--gguf-quantize", "--fetch-models"}
+    assert jax_ - port == {"--fetch-models"}
     assert port - jax_ == set()
     for argv in (["--bench"], ["-l"], ["--threads", "3", "x"]):
         jargs = vars(jax_parser().parse_args(argv))
@@ -58,9 +58,17 @@ def test_parser_has_every_jax_option_but_two():
             assert targs[key] == jargs[key], key
 
 
-def test_quantize_convs_still_raises():
-    with pytest.raises(NotImplementedError, match="quantize-convs"):
-        cli.main(["-d", "cpu", "--random-weights", "--quantize-convs", "x"])
+def test_quantize_convs_still_raises(capsys, tmp_path):
+    """--quantize-convs, once refused, runs: with --quantize int8 the
+    decoder's large convs quantize too (none does at this tiny width, so
+    the audio is --quantize int8's), and the run says so."""
+    a, b = str(tmp_path / "a.wav"), str(tmp_path / "b.wav")
+    out = run(capsys, "-t", "0", "--quantize", "int8", "--quantize-convs",
+              "-o", a, "Hello there.")
+    assert any("int8 weights, quantized convs" in line for line in out)
+    run(capsys, "-t", "0", "--quantize", "int8", "-o", b, "Hello there.")
+    pa, pb = load_wav(a)[0], load_wav(b)[0]
+    assert pa.size > 0 and np.array_equal(pa, pb)
 
 
 def test_bench_json_gives_the_jax_keys(capsys, tmp_path):

@@ -121,10 +121,17 @@ def test_same_seed_same_audio_and_wav(tmp_path):
                                          quantize_convs=True),
                                     dict(quantize_convs=True)])
 def test_quantize_options_not_ported_raise(option):
-    """Quantized convs are not ported yet (quantize_kv runs: see
-    tests/test_torch_share_prefix.py)."""
-    with pytest.raises(NotImplementedError):
-        tengine(**option)
+    """quantize_convs, once refused, builds and synthesizes the JAX
+    engine's audio at temp 0 under the same options (at this width no conv
+    reaches the quantization floor, and without `quantize` nothing is
+    quantized, as in the JAX engine; tests/test_torch_conv_quant.py runs
+    a decoder whose convs quantize)."""
+    want = JEngine(params=PJ, cfg=CFG, seed=0,
+                   tokenizer=MockTokenizer(CFG.lut.n_bins),
+                   **option).synthesize(TEXT, VOICE, temp=0.0)
+    got = tengine(**option).synthesize(TEXT, VOICE, temp=0.0)
+    assert got.shape == want.shape and got.size > 0
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
 def test_no_card_raises_instead_of_running_on_cpu(monkeypatch):

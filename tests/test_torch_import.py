@@ -2,7 +2,8 @@
 the JAX package `pocket_tts_tpu`, even transitively: the machine with the
 card has none of the first three, and the port keeps its own copies of the
 JAX package's JAX-free modules (config, text, io.wav, io.safetensors_io,
-io.audio, io.audio_in, the PcmFifo of native, runtime.player).
+io.audio, io.audio_in, io.gguf, the manifest half of io.fetch, the
+PcmFifo of native, runtime.player) and runs ab without them.
 Checked in a fresh interpreter, since this test process has JAX loaded
 already."""
 import os
@@ -44,6 +45,9 @@ MODULES = [
     "pocket_tts_tpu_torch.io.audio_in",
     "pocket_tts_tpu_torch.native",
     "pocket_tts_tpu_torch.runtime.player",
+    "pocket_tts_tpu_torch.ab",
+    "pocket_tts_tpu_torch.io.gguf",
+    "pocket_tts_tpu_torch.io.fetch",
     "chip_smoke",
 ]
 

@@ -1,9 +1,9 @@
 """The port's int8 quantization against the JAX package's: the same
 quantized leaves, bit for bit (q bytes and scale bits), on one random
 checkpoint at tiny_config(64), where every backbone, mimi and flow linear
-is large enough to quantize; the leaves that must stay plain; the option
-not ported yet (quantized convs; int4 is in tests/test_torch_int4.py);
-and from_jax_numpy keeping int8 and float32 scale leaves in their own
+is large enough to quantize; the leaves that must stay plain; quantized
+convs, bit for bit too (int4 is in tests/test_torch_int4.py); and
+from_jax_numpy keeping int8 and float32 scale leaves in their own
 type under a dtype cast."""
 import numpy as np
 import jax
@@ -23,6 +23,17 @@ CFG0 = tiny_config(64)
 FLAT = random_flat(CFG0, seed=21)
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _flat(tree, prefix=""):
+    """[(keystr path, leaf)] of a port tree, as jax.tree_util spells it."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in _flat(v, f"{prefix}['{k}']")]
+    if isinstance(tree, (tuple, list)):
+        return [kv for i, v in enumerate(tree)
+                for kv in _flat(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
 
 
 def _quantized(tree, prefix=""):
@@ -80,9 +91,26 @@ def test_small_weights_stay_plain():
 
 @pytest.mark.parametrize("kw", [dict(convs=True)])
 def test_options_not_ported_raise(kw):
-    pt, _ = params_from_flat(FLAT, CFG0)
-    with pytest.raises(NotImplementedError):
-        quantize_params(pt, **kw)
+    """Quantized convs, the option once refused here: quantize_params(
+    convs=True) gives the JAX package's tree leaf for leaf and bit for bit,
+    the conv layouts (model_0 qc, the transposed convs' qt) included;
+    tests/test_torch_conv_quant.py covers int4 and q4_0."""
+    pj, _ = j_params_from_flat(FLAT, CFG0)
+    want = jax.tree.map(np.asarray, j_quantize(pj, **kw))
+    got = quantize_params(from_jax_numpy(jax.tree.map(np.asarray, pj)),
+                          **kw)
+    flat_w = {jax.tree_util.keystr(k): v for k, v in
+              jax.tree_util.tree_flatten_with_path(want)[0]}
+    flat_g = dict(_flat(got))
+    assert sorted(flat_g) == sorted(flat_w)
+    for path, w in flat_w.items():
+        g = flat_g[path]
+        assert g.is_contiguous() and g.numpy().dtype == w.dtype, path
+        assert g.numpy().tobytes() == w.tobytes(), path
+    dec = got["mimi"]["decoder"]
+    assert set(dec["model_0"]) == {"qc", "scale", "b"}
+    assert "qt" in dec["model_2"] and "qt" in dec["model_5"]
+    assert "w" in dec["model_8"] and "w" in dec["model_11"]
 
 
 def test_from_jax_numpy_keeps_int8_and_f32_scales():

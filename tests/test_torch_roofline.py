@@ -89,3 +89,22 @@ def test_device_peaks_h100_only():
         with pytest.raises(ValueError, match="no published peaks"):
             troof.device_peaks(name)
 
+
+
+@pytest.mark.parametrize("weights", ["bf16", "int8", "int4", "q4_0"])
+def test_quantized_convs_count_their_logical_flops(weights):
+    """With quantized convs (qc / qc4 / qt / qt4, whose packed int4 rows
+    hold two weights and whose scales are none) decode_frame_costs gives
+    the float tree's FLOPs, and the bytes of the JAX package's count (the
+    leaves as stored)."""
+    flops = troof.decode_frame_costs(_bf16(PJ, PT)[1], CFG, 384)[1]
+    if weights == "bf16":
+        pj, pt = _bf16(PJ, PT)
+    else:
+        pj = jquant(PJ, convs=True, **WEIGHTS[weights])
+        pt = tquant(PT, convs=True, **WEIGHTS[weights])
+        assert any(k in pt["mimi"]["decoder"]["model_0"]
+                   for k in ("qc", "qc4"))
+    got = troof.decode_frame_costs(pt, CFG, 384)
+    assert got[1] == flops
+    assert got[0] == float(jroof.decode_frame_costs(pj, CFG, 384)[0])

@@ -207,15 +207,21 @@ def test_unseeded_requests_draw_engine_seeds():
 
 @pytest.mark.parametrize("what", ["share_prefix", "quantize", "mesh"])
 def test_unported_serving_options_raise(what):
-    """What serving still refuses: shared-prefix tables outside the
-    prefix+ring mode (as the JAX server does), quantized convs (not
-    ported yet; quantized weights and the int8 KV cache serve, see
-    tests/test_torch_share_prefix.py) and a device mesh."""
+    """What serving refuses: shared-prefix tables outside the prefix+ring
+    mode (as the JAX server does) and a device mesh. Quantized convs, once
+    refused, serve: with int8 weights and quantized convs both servers
+    give the solo engine's audio (tests/test_torch_conv_quant.py serves a
+    decoder whose convs quantize, in the serving mode)."""
     if what == "quantize":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            engine(quantize="int8", quantize_convs=True)
-        for cls in (ContinuousBatchingServer, MultiStreamServer):
-            assert cls(engine(quantize="int8", quantize_kv=True)) is not None
+        eng = engine(quantize="int8", quantize_convs=True)
+        want = solo(eng, TEXT_B, "vb")
+        for srv in (server(eng),
+                    MultiStreamServer(eng, max_batch=2, chunk_frames=10)):
+            srv.register_voices(VOICES)
+            r = srv.submit(TEXT_B, "vb", temp=0.0)
+            srv.run_pending()
+            assert r.pcm.shape == want.shape
+            np.testing.assert_allclose(r.pcm, want, atol=SOLO_ATOL, rtol=0)
         return
     if what == "share_prefix":
         with pytest.raises(ValueError, match="ring"):
@@ -247,12 +253,21 @@ def test_cli_serve_writes_one_wav_per_request(tmp_path, monkeypatch,
     assert stats["requests"] == 2 and stats["chunks"] >= 2
 
 
-def test_cli_without_card_needs_device_cpu(capsys):
-    from pocket_tts_tpu_torch import cli
+def test_cli_without_card_needs_device_cpu(capsys, tmp_path, monkeypatch):
+    """Without a card the CLI needs --device cpu; with it --serve runs
+    --quantize int8 --quantize-convs (once refused), one wav per
+    request."""
+    from pocket_tts_tpu_torch import cli, config
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert cli.main(["--random-weights", "--serve", "-"]) == 1
     assert "--device cpu" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError):
-        cli.main(["--random-weights", "--device", "cpu", "--serve", "-",
-                  "--quantize-convs"])
+    monkeypatch.setattr(config, "DEFAULT_CONFIG", CFG)
+    reqs = tmp_path / "reqs.txt"
+    reqs.write_text("Hello world.\n")
+    out = tmp_path / "out"
+    assert cli.main(["--random-weights", "--device", "cpu", "-t", "0",
+                     "--lanes", "2", "--serve", str(reqs), "--serve-out",
+                     str(out), "--quantize", "int8",
+                     "--quantize-convs"]) == 0
+    assert os.listdir(out) == ["req_0000.wav"]
