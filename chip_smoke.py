@@ -184,6 +184,28 @@ raises, names its phase and the exit code is 1:
                    lanes: f32 vs the solo engine (launches checked), CLI
                    --serve --lanes 128, and the wall per chunk with all 128
                    lanes busy (reported)
+ 10. dormant       the modules a checkpoint switches on (random weights,
+     modules       seed 0, the extra weights from RandomState(0)): the
+                   native library built from the repo's source (its
+                   splitter equals StrProcessor on BENCH_TEXT in
+                   15-character chunks; a FIFO round trip); K4a / K4b at
+                   the SEANet encoder's four quantized convs
+                   (encoder_conv_shapes) and the gating linears, f32 and
+                   bf16, vs plain, routes logged; "gated_rms" (SwiGLU
+                   gating of hidden 1024 and RMSNorm alphas in the mimi
+                   layers) through TTSEngine.synthesize and "cross"
+                   (cross-attention in the backbone and mimi layers over a
+                   64-row conditioning, driven frame by frame), bf16 and
+                   int8, launches checked per frame (gated_rms: 2 K2 and
+                   no K5a/K5b in mimi; cross: 6 K1 and no K7, K8, K5a,
+                   K5b, K5c); both paths card f32 vs CPU f32 over 12
+                   frames within 1e-3; one weights-per-step gating (M = 4,
+                   a schedule) card vs CPU; the encoder over 48 000
+                   samples: 25 calls of 1920 vs one call, card vs CPU,
+                   bf16 vs f32, int8 and int4 (convs) vs CPU; frames/s,
+                   launches and device busy a frame of the four paths
+                   beside bf16 (reported, not claimed), and K4's times at
+                   the encoder shapes beside plain, library and bound
 
 The last three lines of standard output are a JSON object of the kernels
 (launches from the runs of the path that uses each: K1-K3 from bf16, the
@@ -2006,13 +2028,16 @@ def conv_launches(cfg, path, per_frame, per_prefill):
 WIDE_PREFILL = ("int8_matmul_wgmma",)
 
 
-def end_to_end(engine, voice, counts, label, text=BENCH_TEXT):
+def end_to_end(engine, voice, counts, label, text=BENCH_TEXT,
+               expected=None):
     """Synthesize `text` at temp 0 on path `label` with the counters set to
     0 just before and read just after; checks the pcm and the launch
-    counts."""
+    counts (`expected`: (per frame, per prefill call), else
+    expected_launches of the label)."""
     frames0, prefills0 = counts["frames"], counts["prefills"]
     wide0 = counts["wide_prefills"]
-    per_frame, per_prefill = expected_launches(engine.cfg, label)
+    per_frame, per_prefill = expected or expected_launches(engine.cfg,
+                                                           label)
     reset_counters()
     t0 = time.perf_counter()
     pcm = engine.synthesize(text, voice, temp=0.0)
@@ -2099,21 +2124,10 @@ def check_cache(engine, voice, pcm):
 
 def first_frames(engine, voice, n_frames, text=BENCH_TEXT):
     """pcm of the first n_frames of `text` at temp 0, (n, frame)."""
-    import torch
     from pocket_tts_tpu_torch.text.preprocess import prepare_text_prompt
-    from pocket_tts_tpu_torch.models import tts
     prepared, _ = prepare_text_prompt(text)
-    vstate = engine.prime_voice(voice)
-    state, max_steps = engine._prefill_sentence(vstate, prepared)
-    zero = torch.zeros(engine.cfg.latent_dim, dtype=engine.dtype,
-                       device=engine.device)
-    out = []
-    with torch.no_grad():
-        for _ in range(n_frames):
-            pcm, _ = tts.frame_step(engine.params, engine.cfg, state, zero,
-                                    10 ** 6, max_steps, engine.seanet_weights)
-            out.append(pcm.cpu())
-    return torch.stack(out).numpy()
+    state, _ = engine._prefill_sentence(engine.prime_voice(voice), prepared)
+    return stream_frames(engine, state, n_frames)
 
 
 # ---------------------------------------------------------------- phase 6 --
@@ -4515,6 +4529,602 @@ def wide_chunk_walls(engine, voice, lanes=WIDE_LANES, n=8):
 
 # ------------------------------------------------------------------- main --
 
+# ------------------------------------------------ phase 10: dormant modules --
+
+# the modules a checkpoint switches on (the shipped checkpoints carry
+# none): SwiGLU gating in the mimi layers with RMSNorm alphas
+# ("gated_rms"; hidden GATING_HIDDEN, linear_in 512 -> 2048 and linear_out
+# 1024 -> 512 at full width, a width K4's layouts take), and
+# cross-attention in the backbone and mimi layers over a COND_ROWS-row
+# conditioning ("cross")
+GATING_HIDDEN = 1024
+COND_ROWS = 64
+DORMANT_PATHS = ("gated_rms", "cross")
+# frames a cross run decodes (no engine entry point: frame by frame)
+CROSS_FRAMES = 40
+# the encoder check: 25 calls of one frame's samples
+ENCODER_FRAMES = 25
+
+
+def dormant_extras(cfg, seed=0):
+    """numpy weights of the dormant modules at cfg's widths from
+    RandomState(seed), stacked over the layers in the loader's layouts
+    (linear w as (in, out)): the mimi norms' alphas, the gating, the
+    backbone's and the mimi's cross sub-blocks, and the two conditioning
+    sequences."""
+    rng = np.random.RandomState(seed)
+    bb, mt = cfg.backbone, cfg.mimi.transformer
+    lm, md, h = mt.num_layers, mt.d_model, GATING_HIDDEN
+
+    def w(*shape):
+        return (rng.randn(*shape) / np.sqrt(shape[-2])).astype(np.float32)
+
+    def cross(n, d):
+        return {"norm_cross": {
+                    "scale": (1 + 0.1 * rng.randn(n, d)).astype(np.float32),
+                    "bias": (0.1 * rng.randn(n, d)).astype(np.float32)},
+                "cross_attention": {"in_proj": {"w": w(n, d, 3 * d)},
+                                    "out_proj": {"w": w(n, d, d)}}}
+
+    return {"alpha": [(1 + 0.1 * rng.randn(lm, md)).astype(np.float32)
+                      for _ in range(2)],
+            "gating": {"linear_in": {"w": w(lm, md, 2 * h)},
+                       "linear_out": {"w": w(lm, h, md)}},
+            "bb_cross": cross(bb.num_layers, bb.d_model),
+            "mimi_cross": cross(lm, md),
+            "cond_bb": (0.5 * rng.randn(COND_ROWS, bb.d_model)).astype(
+                np.float32),
+            "cond_mimi": (0.5 * rng.randn(COND_ROWS, md)).astype(
+                np.float32)}
+
+
+def dormant_params(params, path, ex, quantize=None):
+    """A copy of an engine's params tree with the modules of `path` added
+    from `dormant_extras` ex, in the tree's float type and on its device:
+    "gated_rms" (the mimi norms as alphas, and gating), "cross" (the
+    backbone's and the mimi's cross sub-blocks); the new linears quantized
+    as quantize_params quantizes them (QUANTIZE[quantize]) when quantize
+    is given (the tree's own linears are left as they are)."""
+    import torch
+    from pocket_tts_tpu_torch.io.quant import quantize_params
+    ref = params["bos_emb"]
+
+    def put(tree):
+        if isinstance(tree, dict):
+            return {k: put(v) for k, v in tree.items()}
+        return torch.from_numpy(tree).to(ref.device, ref.dtype)
+
+    def lin(tree):
+        tree = put(tree)
+        return (quantize_params(tree, **QUANTIZE[quantize]) if quantize
+                else tree)
+
+    p = dict(params)
+    mimi = dict(p["mimi"])
+    lay = dict(mimi["decoder_transformer"]["layers"])
+    if path == "gated_rms":
+        lay["norm1"], lay["norm2"] = ({"alpha": put(a)} for a in ex["alpha"])
+        lay["gating"] = lin(ex["gating"])
+    else:
+        bbl = dict(p["layers"])
+        for layers, key in ((bbl, "bb_cross"), (lay, "mimi_cross")):
+            layers["norm_cross"] = put(ex[key]["norm_cross"])
+            layers["cross_attention"] = lin(ex[key]["cross_attention"])
+        p["layers"] = bbl
+    mimi["decoder_transformer"] = {"layers": lay}
+    p["mimi"] = mimi
+    return p
+
+
+def dormant_launches(cfg, path, quantize=None):
+    """Launches per decoded frame of a dormant path (bf16 or int8
+    weights): K1 on every backbone layer (a cross state runs no K7, K8 or
+    bilayer loop), K2 on every mimi layer, one K3 sequence. With int8
+    weights gated_rms adds the int8 path's backbone kernels (K5a/K5b on
+    the backbone layers only, K5a of T = 1 on the skinny kernel), K6, and
+    K4a for input_linear and the four linears of each mimi layer (in_proj,
+    out_proj, gating's two); cross fuses no layer: K4a on input_linear
+    and the six linears of each backbone and mimi layer."""
+    import torch
+    from pocket_tts_tpu_torch.ops.fused_flow import LAUNCHES
+    from pocket_tts_tpu_torch.ops.fused_layer import rows_route
+    nb, nm = cfg.backbone.num_layers, cfg.mimi.transformer.num_layers
+    per = {"decode_attn": nb, "ring_attn": nm, "seanet_frame": 1}
+    if quantize is None:
+        return per
+    if quantize != "int8":
+        raise ValueError(f"dormant paths run bf16 or int8, not {quantize}")
+    per["fused_flow"] = LAUNCHES
+    if path == "gated_rms":
+        per.update(int8_matmul=1 + 4 * nm, fused_pre=nb, fused_post=nb)
+        if rows_route(torch.bfloat16, 1) == "skinny":
+            per["rows_skinny"] = nb
+    else:
+        per["int8_matmul"] = 1 + 6 * nb + 6 * nm
+    return per
+
+
+def cross_stream(engine, voice, ex, text=BENCH_TEXT):
+    """A StreamState of `text` (temp 0) whose backbone and mimi states hold
+    cross KV: backbone.init_cross on a full-capacity state, the voice
+    prompt primed through it, the sentence prefilled with the mimi's
+    conditioning (tts.sentence_prefill(mimi_cond=)). Returns (state,
+    max_steps)."""
+    import torch
+    from pocket_tts_tpu_torch.models import backbone, tts
+    from pocket_tts_tpu_torch.runtime.engine import _bucket
+    from pocket_tts_tpu_torch.text.preprocess import (count_words,
+                                                      prepare_text_prompt)
+    p, cfg, dev, dt = engine.params, engine.cfg, engine.device, engine.dtype
+    prepared, _ = prepare_text_prompt(text)
+    ids = engine.tokenizer.encode(prepared)
+    tokens = torch.zeros(_bucket(len(ids)), dtype=torch.long, device=dev)
+    tokens[:len(ids)] = torch.as_tensor(ids, dtype=torch.long)
+    prompt = torch.from_numpy(np.asarray(voice, np.float32)).to(dev, dt)
+    n = prompt.shape[0]
+    prompt = torch.cat([prompt, prompt.new_zeros(-n % 16, prompt.shape[1])])
+    with torch.no_grad():
+        state = backbone.init_cross(
+            p, cfg.backbone, backbone.init_state(cfg.backbone, dt, dev),
+            torch.from_numpy(ex["cond_bb"]).to(dev, dt))
+        tts.prime_voice(p, cfg, state, prompt, n)
+        st = tts.sentence_prefill(
+            p, cfg, state, tokens, len(ids),
+            mimi_cond=torch.from_numpy(ex["cond_mimi"]).to(dev, dt))
+    if st.flow.xk is None or st.mimi.transformer.xk is None:
+        raise AssertionError("cross stream without cross KV")
+    return st, int((count_words(prepared) + 2.0) * cfg.mimi.frame_rate)
+
+
+def dormant_stream(engine, voice, path, ex):
+    """(StreamState, max_steps) of BENCH_TEXT at temp 0 on a dormant path:
+    the engine's own prefill for gated_rms, `cross_stream` for cross."""
+    if path == "cross":
+        return cross_stream(engine, voice, ex)
+    from pocket_tts_tpu_torch.text.preprocess import prepare_text_prompt
+    prepared, _ = prepare_text_prompt(BENCH_TEXT)
+    return engine._prefill_sentence(engine.prime_voice(voice), prepared)
+
+
+def stream_frames(engine, state, n):
+    """pcm of n frames of `state` at temp 0 (zero noise), (n, frame) on
+    the host."""
+    import torch
+    from pocket_tts_tpu_torch.models import tts
+    zero = torch.zeros(engine.cfg.latent_dim, dtype=engine.dtype,
+                       device=engine.device)
+    out = []
+    with torch.no_grad():
+        for _ in range(n):
+            pcm, _ = tts.frame_step(engine.params, engine.cfg, state, zero,
+                                    10 ** 6, 10 ** 6, engine.seanet_weights)
+            out.append(pcm.cpu())
+    return torch.stack(out).numpy()
+
+
+def check_cross_run(engine, voice, ex, label, quantize=None):
+    """CROSS_FRAMES frames of a cross stream with the counters set to 0
+    just before and read just after: finite, audible pcm and the launches
+    of `dormant_launches` per frame (so 0 K7, K8, K5a, K5b, K5c). Returns
+    the counters."""
+    state, _ = cross_stream(engine, voice, ex)
+    sync(engine.device)
+    reset_counters()
+    t0 = time.perf_counter()
+    pcm = stream_frames(engine, state, CROSS_FRAMES)
+    sync(engine.device)
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    per = dormant_launches(engine.cfg, "cross", quantize)
+    log(f"  {label}: {CROSS_FRAMES} frames in {wall:.3f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; expected per frame "
+        f"{per}")
+    if not (np.isfinite(pcm).all() and np.abs(pcm).max() > 0):
+        raise AssertionError(f"{label}: non-finite or silent pcm")
+    for name in list(KERNELS) + ["rows_mma", "rows_skinny"]:
+        if launches[name] != per.get(name, 0) * CROSS_FRAMES:
+            raise AssertionError(f"{label} {name}: {launches[name]} "
+                                 f"launches for {CROSS_FRAMES} frames")
+    return launches
+
+
+def check_native():
+    """The native library built from the repo's source on this machine:
+    the splitter equals StrProcessor on BENCH_TEXT (twice, so it splits)
+    fed in 15-character chunks, and a FIFO round trip returns its
+    samples."""
+    from pocket_tts_tpu_torch import native
+    from pocket_tts_tpu_torch.text.preprocess import StrProcessor
+    t0 = time.perf_counter()
+    native.library()
+    built = time.perf_counter() - t0
+    text = BENCH_TEXT + " " + BENCH_TEXT.lower() + " and more"
+    py, nat = StrProcessor(), native.make_str_processor()
+    for i in range(0, len(text), 15):
+        py.ingest(text[i:i + 15])
+        nat.ingest(text[i:i + 15])
+    py.flush()
+    nat.flush()
+    a, b = list(nat.sentences), list(py.sentences)
+    if a != b or len(a) < 2:
+        raise AssertionError(f"native splitter {a} vs StrProcessor {b}")
+    fifo = native.PcmFifo(3 * 1920)
+    pcm = np.random.RandomState(0).randn(4 * 1920).astype(np.float32)
+    took = fifo.push(pcm)
+    back = fifo.pop(4 * 1920)
+    if took != 3 * 1920 or not np.array_equal(back, pcm[:took]) or len(fifo):
+        raise AssertionError("native PcmFifo round trip")
+    log(f"  native library {native._state['path']}: built and loaded in "
+        f"{built:.2f} s; splitter == StrProcessor on {len(a)} sentences; "
+        f"FIFO round trip of {took} samples")
+
+
+def encoder_weights(cfg, seed=0):
+    """numpy SEANet encoder convs at cfg's widths from RandomState(seed),
+    in the loader's tree (`io.params._encoder`)."""
+    sc = cfg.mimi.seanet
+    rng = np.random.RandomState(seed)
+
+    def conv(cout, cin, k):
+        return {"w": (rng.randn(cout, cin, k) / np.sqrt(cin * k)).astype(
+                    np.float32),
+                "b": (0.05 * rng.randn(cout)).astype(np.float32)}
+
+    n = len(sc.stages)
+    enc = {"model_0": conv(sc.stages[-1].out_ch, sc.out_ch,
+                           sc.first_kernel)}
+    for gi, st in enumerate(reversed(sc.stages)):
+        c = st.out_ch
+        enc[f"model_{3 * gi + 1}"] = {
+            "block_1": conv(c // 2, c, sc.resnet_kernel),
+            "block_3": conv(c, c // 2, 1)}
+        enc[f"model_{3 * gi + 3}"] = conv(st.in_ch, st.out_ch, st.kernel)
+    enc[f"model_{3 * n + 2}"] = conv(sc.in_ch, sc.stages[0].in_ch,
+                                     sc.last_kernel)
+    return enc
+
+
+def encoder_conv_shapes(cfg):
+    """[(module, K, N, rows a call)] of the encoder convs that
+    quantize_params(convs=True) quantizes, from the cfg's dims alone, for
+    one call of frame_size samples: a conv1d named as a conv module
+    (model_0, the resnets' block_1 / block_3, the final conv) of at least
+    _MIN_CONV_QUANT_SIZE elements, as its window product (K*Cin, Cout)
+    over the rows the strides before it leave."""
+    from pocket_tts_tpu_torch.io.quant import _MIN_CONV_QUANT_SIZE
+    sc = cfg.mimi.seanet
+    rows = cfg.mimi.frame_size
+    out = []
+
+    def add(name, cin, cout, k, n_rows):
+        if cin * cout * k >= _MIN_CONV_QUANT_SIZE:
+            out.append((name, k * cin, cout, n_rows))
+
+    add("model_0", sc.out_ch, sc.stages[-1].out_ch, sc.first_kernel, rows)
+    for gi, st in enumerate(reversed(sc.stages)):
+        c, ri = st.out_ch, f"model_{3 * gi + 1}"
+        add(f"{ri}.block_1", c, c // 2, sc.resnet_kernel, rows)
+        add(f"{ri}.block_3", c // 2, c, 1, rows)
+        rows //= st.stride
+    add(f"model_{3 * len(sc.stages) + 2}", sc.stages[0].in_ch, sc.in_ch,
+        sc.last_kernel, rows)
+    return out
+
+
+def encoder_products(enc, cfg):
+    """[(module, key, weight, scale, rows a call)] of the quantized convs
+    (qc / qc4) of an encoder tree, in the chain's order, for one call of
+    frame_size samples."""
+    sc = cfg.mimi.seanet
+    rows = cfg.mimi.frame_size
+    out = []
+
+    def add(name, mod, n_rows):
+        for key in ("qc", "qc4"):
+            if key in mod:
+                out.append((name, key, mod[key], mod["scale"], n_rows))
+
+    add("model_0", enc["model_0"], rows)
+    for gi, st in enumerate(reversed(sc.stages)):
+        ri = f"model_{3 * gi + 1}"
+        for blk in ("block_1", "block_3"):
+            add(f"{ri}.{blk}", enc[ri][blk], rows)
+        add(f"model_{3 * gi + 3}", enc[f"model_{3 * gi + 3}"], rows)
+        rows //= st.stride
+    fi = f"model_{3 * len(sc.stages) + 2}"
+    add(fi, enc[fi], rows)
+    return out
+
+
+def gating_products(gating):
+    """[(name, key, weight, scale, rows)] of one mimi layer's quantized
+    gating linears (q / q4) at 16 rows (solo) and LANES x 16 (lanes)."""
+    from pocket_tts_tpu_torch.ops.basic import slice_layer_params
+    g = slice_layer_params(gating, 0)
+    return [(f"gating.{name}", key, g[name][key], g[name]["scale"], rows)
+            for name in ("linear_in", "linear_out")
+            for key in ("q", "q4") if key in g[name]
+            for rows in (16, LANES * 16)]
+
+
+def check_dormant_kernels(cfg, device, results):
+    """K4a and K4b vs their plain versions at the encoder's quantized
+    convs (`encoder_products` of int8 and int4 trees quantized with
+    convs, which must be `encoder_conv_shapes`) and at the gating linears,
+    f32 and bf16, inputs from RandomState(12); the route of each shape
+    logged. Returns {bits: the quantized encoder tree (f32 on the
+    card)}."""
+    import torch
+    from pocket_tts_tpu_torch.io.quant import quantize_params
+    ex = dormant_extras(cfg)
+    enc32 = _to_tree(encoder_weights(cfg), device, torch.float32)
+    want = encoder_conv_shapes(cfg)
+    rng = np.random.RandomState(12)
+    trees = {}
+    for bits in (8, 4):
+        q = quantize_params(enc32, bits=bits, convs=True)
+        trees[bits] = q
+        prods = encoder_products(q, cfg)
+        got = [(name, w.shape[0] * (2 if key.endswith("4") else 1),
+                w.shape[1], rows) for name, key, w, _, rows in prods]
+        if got != want:
+            raise AssertionError(f"encoder convs {got}, expected {want}")
+        gq = quantize_params(_to_tree(ex["gating"], device,
+                                      torch.float32), bits=bits)
+        prods += gating_products(gq)
+        for dtype in (torch.float32, torch.bfloat16):
+            pairs, routes = [], []
+            for name, key, w, scale, rows in prods:
+                mm_name, mm, plain = conv_matmul_fns(
+                    "qc" if key in ("q", "qc") else "qc4")
+                k = w.shape[0] * (2 if key.endswith("4") else 1)
+                x = _rand(rng, device, dtype, rows, k, scale=0.5)
+                sc = scale.to(device)
+                pairs.append((mm(x, w, sc), plain(x, w, sc)))
+                routes.append((name, rows, k, w.shape[1],
+                               conv_route(key if key != "q" else "qc",
+                                          dtype, rows)))
+            sync(device)
+            _rel_check(mm_name, "quant", dtype, pairs, results,
+                       " [encoder convs, gating]")
+            log(f"    routes (module, rows, K, N, kernel): {routes}")
+    return trees
+
+
+def _to_tree(tree, device, dtype):
+    import torch
+    if isinstance(tree, dict):
+        return {k: _to_tree(v, device, dtype) for k, v in tree.items()}
+    return torch.from_numpy(np.asarray(tree)).to(device, dtype)
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        return float("inf")
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def check_encoder(cfg, device, qtrees):
+    """The SEANet encoder on ENCODER_FRAMES frames of samples
+    (RandomState(13)): on the card in f32 the frame-sized calls equal one
+    call over all samples within 1e-5 (relative to the largest latent),
+    the card equals the CPU within 1e-4, bf16 equals f32 within SEANet's
+    bf16 tolerance, and the int8 and int4 encoders (quantized convs, one
+    K4a / K4b launch a quantized conv a call, counted) equal their CPU
+    runs within the f32 quant tolerance."""
+    import torch
+    from pocket_tts_tpu_torch.models import seanet
+    sc, fs = cfg.mimi.seanet, cfg.mimi.frame_size
+    x = (0.3 * np.random.RandomState(13).randn(ENCODER_FRAMES * fs, 1)
+         ).astype(np.float32)
+
+    def run(enc, dev, dtype, chunk):
+        st = seanet.encoder_init_state(sc, dtype, dev)
+        xt = torch.from_numpy(x).to(dev, dtype)
+        with torch.no_grad():
+            ys = [seanet.encoder_forward(enc, sc, st, xt[i:i + chunk])[1]
+                  for i in range(0, xt.shape[0], chunk)]
+        return torch.cat(ys).float().cpu().numpy()
+
+    enc_np = encoder_weights(cfg)
+    e32 = _to_tree(enc_np, device, torch.float32)
+    streamed = run(e32, device, torch.float32, fs)
+    checks = [("streamed vs one call, card f32", _rel_err(
+                   streamed, run(e32, device, torch.float32, x.shape[0])),
+               1e-5),
+              ("card vs CPU, f32", _rel_err(streamed, run(
+                   _to_tree(enc_np, "cpu", torch.float32), "cpu",
+                   torch.float32, fs)), 1e-4),
+              ("bf16 vs f32, card", _rel_err(run(
+                   _to_tree(enc_np, device, torch.bfloat16), device,
+                   torch.bfloat16, fs), streamed), TOL[("seanet", "bf16")])]
+    for bits, q in qtrees.items():
+        mm = "int8_matmul" if bits == 8 else "int4_matmul"
+        reset_counters()
+        got = run(q, device, torch.float32, fs)
+        launches = read_counters()[mm]
+        n_q = len(encoder_products(q, cfg))
+        if launches != n_q * ENCODER_FRAMES:
+            raise AssertionError(f"int{bits} encoder: {launches} {mm} "
+                                 f"launches for {ENCODER_FRAMES} calls")
+        checks.append((f"int{bits} convs, card vs CPU, f32", _rel_err(
+            got, run(_tree_cpu(q), "cpu", torch.float32, fs)),
+            TOL[("quant", "f32")]))
+    for label, err, tol in checks:
+        log(f"  encoder {label}: {ENCODER_FRAMES * fs} samples -> "
+            f"{streamed.shape} latents, max error relative to max|ref| "
+            f"{err:.3e} (tol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"encoder {label}: {err} > {tol}")
+
+
+def _tree_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_cpu(v) for v in tree)
+    return tree.cpu()
+
+
+def check_weights_per_step(cfg, device):
+    """weights_per_step_gating with M = 4 stacked modules and a schedule at
+    the mimi's widths (GATING_HIDDEN, 16 rows, offset 3), f32, card vs
+    CPU within 1e-4 of the largest output."""
+    import torch
+    from pocket_tts_tpu_torch.ops.gating import weights_per_step_gating
+    md = cfg.mimi.transformer.d_model
+    rng = np.random.RandomState(14)
+    g = {"linear_in": {"w": (rng.randn(4, md, 2 * GATING_HIDDEN)
+                             / np.sqrt(md)).astype(np.float32),
+                       "b": (0.1 * rng.randn(4, 2 * GATING_HIDDEN)).astype(
+                           np.float32)},
+         "linear_out": {"w": (rng.randn(4, GATING_HIDDEN, md)
+                              / np.sqrt(GATING_HIDDEN)).astype(np.float32)}}
+    x = (0.5 * rng.randn(16, md)).astype(np.float32)
+    schedule = (3, 0, 1, 1, 2, 3, 0, 2, 1, 3, 3, 0, 2, 2, 1, 0, 3, 1, 2, 0)
+    got, want = (weights_per_step_gating(
+        _to_tree(g, dev, torch.float32), torch.from_numpy(x).to(dev),
+        offset=3, schedule=schedule).cpu().numpy() for dev in (device, "cpu"))
+    err = _rel_err(got, want)
+    log(f"  weights-per-step gating, M = 4, schedule, 16 rows: card vs CPU "
+        f"f32, max error relative to max|CPU| {err:.3e} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"weights-per-step gating card vs CPU {err}")
+
+
+def dormant_engines(engines, cfg, device, dtype):
+    """{label: engine} of the dormant paths in `dtype` on the card:
+    gated_rms and cross on the bf16 engine's weights, gated_rms_int8 and
+    cross_int8 on the int8 engine's (engines: phase 3's, keyed (path,
+    dtype)); the extras from `dormant_extras`."""
+    ex = dormant_extras(cfg)
+    out = {}
+    for path in DORMANT_PATHS:
+        for quant in (None, "int8"):
+            base = engines["bf16" if quant is None else quant, dtype]
+            label = path if quant is None else f"{path}_{quant}"
+            out[label] = make_engine(base.cfg, device, dtype,
+                                     params=dormant_params(
+                                         base.params, path, ex, quant))
+    return out, ex
+
+
+def check_dormant_card_vs_cpu(cfg, device, voice, ex):
+    """Both dormant paths with float weights: 12 frames of f32 on the card
+    vs the CPU (the CPU engine's tree a copy of the card's) within
+    TOL e2e f32 of the largest |pcm|."""
+    import torch
+    from pocket_tts_tpu_torch.io.params import random_params
+    base, cfg = random_params(cfg, seed=0, dtype=torch.float32,
+                              device=device)
+    for path in DORMANT_PATHS:
+        p = dormant_params(base, path, ex)
+        pcm = []
+        for dev, tree in ((device, p), ("cpu", _tree_cpu(p))):
+            eng = make_engine(cfg, dev, torch.float32, params=tree)
+            state, _ = dormant_stream(eng, voice, path, ex)
+            pcm.append(stream_frames(eng, state, 12))
+            del eng
+        err = _rel_err(*pcm)
+        tol = TOL[("e2e", "f32")]
+        log(f"  {path}: 12 f32 frames card vs CPU, max error relative to "
+            f"max|pcm cpu| {err:.3e} (tol {tol})")
+        if not (err <= tol and np.abs(pcm[1]).max() > 0):
+            raise AssertionError(f"{path}: card vs CPU {err}")
+
+
+def time_dormant(engines, voice, ex, n_frames=40, rounds=2, n_prof=10):
+    """Frames/s of each of `engines` ({label: engine}; "cross" labels on
+    cross streams) with the per-frame EOS sync, in rounds whose order
+    flips; then under torch.profiler (`profiled_steps`, n_prof frames)
+    the device busy us a frame, the kernel launches a frame and the launch
+    counters a frame. Returns {label: (median frames/s, busy us,
+    launches, counted)}."""
+    import torch
+    from pocket_tts_tpu_torch.models import tts
+    labels = list(engines)
+    fps = {k: [] for k in labels}
+
+    def fresh(label):
+        eng = engines[label]
+        path = "cross" if label.startswith("cross") else "gated_rms"
+        return dormant_stream(eng, voice, path, ex)[0]
+
+    for r in range(rounds):
+        for label in (labels if r % 2 == 0 else labels[::-1]):
+            eng = engines[label]
+            state = fresh(label)
+            zero = torch.zeros(eng.cfg.latent_dim, dtype=eng.dtype,
+                               device=eng.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for _ in range(n_frames):
+                    tts.frame_step(eng.params, eng.cfg, state, zero,
+                                   10 ** 6, 10 ** 6, eng.seanet_weights)
+            torch.cuda.synchronize()
+            fps[label].append(n_frames / (time.perf_counter() - t0))
+    out = {}
+    for label in labels:
+        eng = engines[label]
+        state = fresh(label)
+        zero = torch.zeros(eng.cfg.latent_dim, dtype=eng.dtype,
+                           device=eng.device)
+
+        def step():
+            with torch.no_grad():
+                tts.frame_step(eng.params, eng.cfg, state, zero, 10 ** 6,
+                               10 ** 6, eng.seanet_weights)
+
+        torch.cuda.synchronize()
+        ka, counted = profiled_steps(step, n_prof)
+        kern = device_kernels(ka, n_prof)
+        out[label] = (float(np.median(fps[label])), sum(r[1] for r in kern),
+                      sum(r[2] for r in kern),
+                      {k: v for k, v in counted.items() if v})
+        wall = 1e6 / out[label][0]
+        log(f"  {label}: frames/s ({n_frames}-frame rounds, EOS sync) "
+            + ", ".join(f"{f:.1f}" for f in fps[label])
+            + f"; device busy {out[label][1]:.1f} us a frame in "
+            f"{out[label][2]:.0f} kernel launches (device idle "
+            f"{1 - out[label][1] / wall:.1%} of the median wall "
+            f"{wall:.1f} us), counters a frame {out[label][3]}")
+    return out
+
+
+def time_encoder_kernels(qtrees, cfg, device):
+    """Device time of K4a / K4b at each quantized encoder conv (bf16 x,
+    one call's rows) beside the plain version, the library call and the
+    bound, logged."""
+    import torch
+    from pocket_tts_tpu_torch.ops.quant_matmul import deq_dot
+    rng = np.random.RandomState(15)
+    for bits, q in qtrees.items():
+        for name, key, w, scale, rows in encoder_products(q, cfg):
+            mm_name, mm, plain = conv_matmul_fns(key)
+            k, n = w.shape[0] * (2 if key.endswith("4") else 1), w.shape[1]
+            x = _rand(rng, device, torch.bfloat16, rows, k, scale=0.5)
+            y = mm(x, w, scale)
+            kern = device_ms(lambda: mm(x, w, scale), 50)
+            pl = device_ms(lambda: plain(x, w, scale), 20)
+            lin = ({"q": w, "scale": scale} if key == "qc"
+                   else {"q4": w, "scale": scale})
+            lib = (int8pack_ms(x, w, scale) if key == "qc"
+                   else int4pack_ms(x, lin, y))
+            wd = deq_dot(torch.eye(k, device=device), lin).to(x.dtype)
+            dense = device_ms(lambda: x @ wd, 50)[0]
+            bound = bound_ms(_nbytes(x, y, w, scale), 2 * rows * k * n)
+            log(f"  K4 encoder int{bits} {name} rows={rows} K={k} N={n} "
+                f"({conv_route(key, torch.bfloat16, rows)}): kernel "
+                f"{kern[0] * 1e3:.2f} us device, {kern[1] * 1e3:.2f} us "
+                f"host; plain {pl[0] * 1e3:.2f} us; library "
+                + ("none" if lib is None else f"{lib * 1e3:.2f} us")
+                + f"; dense bf16 {dense * 1e3:.2f} us; bound "
+                f"{bound[0] * 1e3:.2f} us ({bound[1]}): "
+                f"{bound[0] / kern[0]:.1%} of it")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="PyTorch port smoke test on "
@@ -4894,6 +5504,35 @@ def main(argv=None) -> int:
             serve_cli(tmp, ("--quantize", "int4", "--quantize-kv",
                             "--share-prefix", "--quantize-convs"))
         wide_chunk_walls(bf[KV8_PATH], voice)
+
+        header("[10] dormant modules: the native library, gating + RMSNorm "
+               "alphas, cross-attention, the SEANet encoder")
+        t10 = time.perf_counter()
+        phase = "dormant modules: native library"
+        check_native()
+        phase = "dormant modules: kernels"
+        qenc = check_dormant_kernels(DEFAULT_CONFIG, device, errs)
+        phase = "dormant modules: paths"
+        dormant, ex = dormant_engines(engines, DEFAULT_CONFIG, device,
+                                      torch.bfloat16)
+        for label, eng in dormant.items():
+            quant = "int8" if label.endswith("_int8") else None
+            if label.startswith("cross"):
+                check_cross_run(eng, voice, ex, label, quant)
+            else:
+                end_to_end(eng, voice, counts, label, expected=(
+                    dormant_launches(eng.cfg, "gated_rms", quant),
+                    expected_launches(eng.cfg, quant or "bf16")[1]))
+        phase = "dormant modules: card vs cpu"
+        check_dormant_card_vs_cpu(DEFAULT_CONFIG, device, voice, ex)
+        check_weights_per_step(DEFAULT_CONFIG, device)
+        phase = "dormant modules: encoder"
+        check_encoder(DEFAULT_CONFIG, device, qenc)
+        phase = "dormant modules: timing"
+        time_dormant(dict(bf16=bf["bf16"], int8=bf["int8"], **dormant),
+                     voice, ex)
+        time_encoder_kernels(qenc, DEFAULT_CONFIG, device)
+        log(f"  phase 10: {time.perf_counter() - t10:.1f} s")
     except Exception:
         import traceback
         traceback.print_exc()

@@ -19,9 +19,12 @@ and K7 int8 caches, K7 returns flash statistics, and K5a/K5b/K6 take the
 rows of all lanes. Each
 runs its plain PyTorch version for tensors on the CPU. The kernels build
 with nvcc at first use (ops/cuda_lib.py). `io.quant` also reads and
-writes the JAX package's params cache. This package imports nothing of
-JAX, ml_dtypes or the JAX package: it keeps its own copies of the
-configuration (config.py), the text front end (text/), the WAV and
-safetensors readers (io/).
+writes the JAX package's params cache. The modules a checkpoint switches
+on load and run as in the JAX package: SwiGLU gating (ops/gating.py),
+RMSNorm alphas, cross-attention and the SEANet encoder. `native` builds
+the runtime library (csrc/native/) with the host compiler at first use.
+This package imports nothing of JAX, ml_dtypes or the JAX package: it
+keeps its own copies of the configuration (config.py), the text front end
+(text/), the WAV and safetensors readers (io/).
 """
 __version__ = "0.1.0"

@@ -12,6 +12,17 @@ leaf:
   per-layer modules              -> stacked along a new axis 0
   in_proj q/k columns            -> rope-permuted (see `_rope_permute`)
 
+The modules a checkpoint switches on by shipping their weights load as
+the JAX loader loads them: a mimi layer's `norm1` / `norm2` as
+{"alpha"} (RMSNorm) when the checkpoint ships `norm*.alpha`; an optional
+`norm_cross` + `cross_attention.{in_proj, out_proj}` sub-block in
+backbone and mimi layers (its in_proj is not rope-permuted: the cross
+path applies no RoPE); and the SEANet encoder, `mimi.encoder.model.N.*`,
+under p["mimi"]["encoder"] (indices as models/seanet.encoder_forward
+reads them). Flat `.gating.` keys are ignored, as the JAX loader ignores
+them: gating reaches a model only through a params tree or a params
+cache (io/quant.py).
+
 `random_flat` and `random_voice_prompt` are numpy and draw in the JAX
 package's order, so both packages build bit-identical checkpoints from one
 seed. Nothing here imports jax.
@@ -49,9 +60,6 @@ def _lin(flat, name, dtype, device, required=True):
 
 
 def _norm(flat, name, dtype, device, required=True):
-    if name + ".alpha" in flat:
-        raise NotImplementedError(
-            f"{name}: RMSNorm `alpha` layers are not ported yet")
     out = {}
     w = flat.get(name + ".weight")
     if w is not None:
@@ -62,6 +70,29 @@ def _norm(flat, name, dtype, device, required=True):
     if required and not out:
         raise KeyError(f"missing norm params: {name}")
     return out
+
+
+def _norm_or_rms(flat, name, dtype, device):
+    """LayerNorm params, or {"alpha": (d,)} when the checkpoint ships the
+    RMSNorm variant (`name.alpha`); consumers route on the "alpha" key."""
+    a = flat.get(name + ".alpha")
+    if a is not None:
+        return {"alpha": _t(a, dtype, device).reshape(-1)}
+    return _norm(flat, name, dtype, device)
+
+
+def _cross(flat, pre, layer, dtype, device):
+    """Add the optional `norm_cross` + `cross_attention` sub-block of the
+    layer at prefix `pre` to `layer` when the checkpoint ships it."""
+    x_in = _lin(flat, pre + "cross_attention.in_proj", dtype, device,
+                required=False)
+    if x_in is not None:
+        layer["norm_cross"] = _norm(flat, pre + "norm_cross", dtype, device)
+        layer["cross_attention"] = {
+            "in_proj": x_in,
+            "out_proj": _lin(flat, pre + "cross_attention.out_proj", dtype,
+                             device)}
+    return layer
 
 
 def _conv(flat, name, dtype, device):
@@ -114,15 +145,8 @@ def params_from_flat(flat: Dict[str, np.ndarray],
                      dtype: torch.dtype = torch.float32,
                      device="cpu") -> Tuple[dict, ModelConfig]:
     """Build the params tree from a flat name->array dict, inferring the
-    dims the checkpoint fixes (as the JAX loader does). Raises
-    NotImplementedError for modules the port does not cover yet:
-    cross-attention, gating, RMSNorm `alpha` layers, the SEANet encoder."""
+    dims the checkpoint fixes (as the JAX loader does)."""
     cfg = cfg or DEFAULT_CONFIG
-    for k in flat:
-        if ".cross_attention." in k or ".gating." in k:
-            raise NotImplementedError(f"{k}: module not ported yet")
-        if k.startswith("mimi.encoder."):
-            raise NotImplementedError(f"{k}: SEANet encoder not ported yet")
 
     inp_w = flat["flow_lm.input_linear.weight"]
     d_model, latent = inp_w.shape
@@ -187,7 +211,7 @@ def params_from_flat(flat: Dict[str, np.ndarray],
     layers = []
     for i in range(bb_layers):
         pre = f"flow_lm.transformer.layers.{i}."
-        layers.append({
+        layers.append(_cross(flat, pre, {
             "norm1": _norm(flat, pre + "norm1", **dd),
             "in_proj": _rope_permute(
                 _lin(flat, pre + "self_attn.in_proj", **dd),
@@ -196,7 +220,7 @@ def params_from_flat(flat: Dict[str, np.ndarray],
             "norm2": _norm(flat, pre + "norm2", **dd),
             "linear1": _lin(flat, pre + "linear1", **dd),
             "linear2": _lin(flat, pre + "linear2", **dd),
-        })
+        }, **dd))
     p["layers"] = _stack(layers)
 
     tes = []
@@ -237,20 +261,20 @@ def params_from_flat(flat: Dict[str, np.ndarray],
     mlayers = []
     for i in range(mimi_layers):
         pre = f"mimi.decoder_transformer.transformer.layers.{i}."
-        mlayers.append({
-            "norm1": _norm(flat, pre + "norm1", **dd),
+        mlayers.append(_cross(flat, pre, {
+            "norm1": _norm_or_rms(flat, pre + "norm1", **dd),
             "in_proj": _rope_permute(
                 _lin(flat, pre + "self_attn.in_proj", **dd),
                 mimi_dim, cfg.mimi.transformer.head_dim),
             "out_proj": _lin(flat, pre + "self_attn.out_proj", **dd),
             "layer_scale_1": {
                 "scale": _t(flat[pre + "layer_scale_1.scale"], **dd)},
-            "norm2": _norm(flat, pre + "norm2", **dd),
+            "norm2": _norm_or_rms(flat, pre + "norm2", **dd),
             "linear1": _lin(flat, pre + "linear1", **dd),
             "linear2": _lin(flat, pre + "linear2", **dd),
             "layer_scale_2": {
                 "scale": _t(flat[pre + "layer_scale_2.scale"], **dd)},
-        })
+        }, **dd))
 
     dec = {}
     for name in ["model_0", "model_11"]:
@@ -272,11 +296,31 @@ def params_from_flat(flat: Dict[str, np.ndarray],
         "decoder_transformer": {"layers": _stack(mlayers)},
         "decoder": dec,
     }
+    if "mimi.encoder.model.0.conv.weight" in flat:
+        p["mimi"]["encoder"] = _encoder(flat, len(stages), **dd)
 
     # derived: constant time conditioning (s=0, t=1 always at inference)
     from ..models.flow_mlp import time_cond
     p["_time_cond"] = time_cond(p["flow_net"])
     return p, cfg
+
+
+def _encoder(flat, n: int, dtype, device) -> dict:
+    """The SEANet encoder's convs, `mimi.encoder.model.N.*`: model_0, per
+    stage i a resnet at 3i+1 and a strided conv at 3i+3, the final conv at
+    3n+2 (models/seanet.encoder_init_state)."""
+    dd = dict(dtype=dtype, device=device)
+    enc = {"model_0": _conv(flat, "mimi.encoder.model.0.conv", **dd)}
+    for gi in range(n):
+        ri, ci = 3 * gi + 1, 3 * gi + 3
+        enc[f"model_{ri}"] = {
+            blk: _conv(flat, f"mimi.encoder.model.{ri}.block.{j}.conv", **dd)
+            for blk, j in (("block_1", 1), ("block_3", 3))}
+        enc[f"model_{ci}"] = _conv(flat, f"mimi.encoder.model.{ci}.conv",
+                                   **dd)
+    fi = 3 * n + 2
+    enc[f"model_{fi}"] = _conv(flat, f"mimi.encoder.model.{fi}.conv", **dd)
+    return enc
 
 
 def from_jax_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None,

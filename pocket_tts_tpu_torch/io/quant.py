@@ -30,7 +30,14 @@ channel in every mode (q4_0's group is never applied to a conv), over the
 
 A conv of fewer than _MIN_CONV_QUANT_SIZE elements stays as it is (at
 full width: model_6's 1x1, model_9's blocked resnet, model_11), and so do
-the depthwise upsample and the quantizer projection.
+the depthwise upsample and the quantizer projection. The rule goes by the
+module's name, as the JAX package's does, so the SEANet encoder of a
+checkpoint that ships one (p["mimi"]["encoder"]) has its large `block_1`
+/ `block_3` and its final conv quantized too (at full width model_4's and
+model_7's block_1, model_7's block_3 and model_11), its strided convs
+never. The modules a checkpoint switches on quantize like any other
+linear: gating stacks (L, d, 2h), the cross projections; RMSNorm alphas
+stay float.
 `quantization_error_report` gives each quantized weight's largest error
 relative to its column's largest magnitude, keyed by the JAX package's
 `keystr` paths.

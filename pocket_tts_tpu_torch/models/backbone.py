@@ -54,6 +54,16 @@ weights K5a and K5b over the B rows; a prefill (T > 1) attends
 with plain PyTorch under a (B, T, S) position bias, as the JAX package
 runs it on XLA.
 
+Cross-attention (a checkpoint that ships `cross_attention` weights;
+`init_cross` fills `xk`/`xv` from a conditioning sequence once a stream):
+each layer's tail takes the sub-block `norm_cross` (eps 1e-5) ->
+`ops.attention.cross_attention` -> residual, with no layer scale, between
+the attention residual and the MLP (`_post`). A state with cross KV takes
+the JAX package's routes (`backbone.py:433-466`): no fused K5a/K5b, no K7,
+K8 or bilayer loop; a decode step writes its rows and attends through K1
+(K1-q on an int8 cache), a prefill through plain `sdpa`. Such a state is
+solo: `shrink_state`, `split_prefix` and the lane stacking refuse it.
+
 Shared prefix (`split_prefix`; runtime/server.py share_prefix=True): each
 voice's prompt KV moves out of the lane caches into per-layer head-major
 (H, P, D) tables `pk`/`pv` of the working type, shared by every lane and
@@ -72,7 +82,8 @@ from typing import Optional
 import torch
 
 from ..ops import fused_layer, fused_step
-from ..ops.attention import (merge_attn_partials, pos_cache_bias,
+from ..ops.attention import (cross_attention, cross_attn_kv,
+                             merge_attn_partials, pos_cache_bias,
                              prefix_attn_stats, sdpa, sdpa_seg_stats)
 from ..ops.basic import (gelu, layer_norm, linear, quantize_rows,
                          slice_layer_params)
@@ -96,6 +107,10 @@ class BackboneState:
     pk: Optional[list] = None
     pv: Optional[list] = None
     ppos: Optional[torch.Tensor] = None
+    # cross-attention KV of a conditioning sequence (init_cross): L x
+    # (S_c, H, D), read every step (None: no cross-attention)
+    xk: Optional[list] = None
+    xv: Optional[list] = None
 
 
 def init_state(cfg, dtype=torch.float32, device="cpu") -> BackboneState:
@@ -115,6 +130,29 @@ def init_state(cfg, dtype=torch.float32, device="cpu") -> BackboneState:
         pos=torch.full((cfg.kv_capacity,), -1, dtype=torch.int32,
                        device=device),
         end=0, next_pos=0, k_scale=scales(), v_scale=scales())
+
+
+def init_cross(p, cfg, state: BackboneState, cond) -> BackboneState:
+    """Fill the state's cross-attention KV from a conditioning sequence
+    cond (S_c, d_model): each layer's `cross_attention.in_proj` applied
+    once (`cross_attn_kv`). Needs a checkpoint with cross weights."""
+    xk, xv = [], []
+    for l in range(cfg.num_layers):
+        k, v = cross_attn_kv(slice_layer_params(
+            p["layers"], l)["cross_attention"]["in_proj"], cond,
+            cfg.num_heads)
+        xk.append(k)
+        xv.append(v)
+    state.xk, state.xv = xk, xv
+    return state
+
+
+def refuse_cross(state, what: str) -> None:
+    """Raise for a state holding cross-attention KV: `what` serves solo
+    states without it only (no JAX entry point builds one for serving)."""
+    if state.xk is not None:
+        raise ValueError(f"{what}: a cross-attention state (init_cross) "
+                         "decodes solo, through `forward` only")
 
 
 def _write_rows(k_cache, v_cache, k_scale, v_scale, end: int, k_rows,
@@ -153,12 +191,19 @@ def _k7_rows(kn, vn, k_scale, v_scale):
                         vs_new=vs[:, 0])
 
 
-def _post(p, x, attn, fused: bool, gelu_approx: bool):
-    """out_proj + residual + norm2 + MLP + residual: K5b when fused."""
+def _post(p, x, attn, fused: bool, gelu_approx: bool, cross=None,
+          num_heads: int = 0):
+    """out_proj + residual + norm2 + MLP + residual: K5b when fused.
+    cross: this layer's (xk, xv) when the state holds cross KV (never
+    fused): the cross sub-block runs between the residual and the MLP."""
     if fused:
         return fused_layer.post_attention(p, x, attn, eps=1e-5,
                                           approx=gelu_approx)
     x = x + linear(p["out_proj"], attn)
+    if cross is not None:
+        x = x + cross_attention(p["cross_attention"],
+                                layer_norm(p["norm_cross"], x, eps=1e-5),
+                                cross[0], cross[1], num_heads)
     h = layer_norm(p["norm2"], x, eps=1e-5)
     return x + linear(p["linear2"],
                       gelu(linear(p["linear1"], h), gelu_approx))
@@ -202,15 +247,18 @@ def _attend(qkv, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
 
 def _layer(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
            bias, pos_vec, num_heads: int, gelu_approx: bool, cur_pos=None,
-           megalayer: bool = False):
+           megalayer: bool = False, cross=None):
     """One pre-LN layer; writes its KV rows at slot `end` in place.
     cur_pos: as in _attend. megalayer (cfg.use_megalayer): a T = 1
     quantized layer runs as ONE launch of kernel K8 (ops/fused_step), read
     end and write slot both `end`, as the JAX package's `_layer` routes
     it; it raises for a layer K8 does not take (q4_0 scales). A bias at
-    T = 1 (the plain route) fuses nothing."""
+    T = 1 (the plain route) fuses nothing, and neither does a layer with
+    cross KV (`cross`: its (xk, xv); the caller passes no cur_pos and no
+    megalayer with it)."""
     t = x.shape[0]
-    fused = t == 1 and bias is None and fused_layer.supported(p)
+    fused = (t == 1 and bias is None and cross is None
+             and fused_layer.supported(p))
     if fused and megalayer:
         return fused_step.megalayer(
             p, x, cos, sin, pos_vec[end:end + 1], k_cache, v_cache,
@@ -221,7 +269,7 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
         qkv = linear(p["in_proj"], layer_norm(p["norm1"], x, eps=1e-5))
     attn = _attend(qkv, k_cache, v_cache, k_scale, v_scale, end, cos, sin,
                    bias, pos_vec, num_heads, cur_pos)
-    return _post(p, x, attn, fused, gelu_approx)
+    return _post(p, x, attn, fused, gelu_approx, cross, num_heads)
 
 
 def _forward_bilayer(p, cfg, state: BackboneState, x, cos, sin, cur_pos,
@@ -258,7 +306,9 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
     weights runs each layer through K8 under cfg.use_megalayer, or, under
     cfg.use_bilayer without it and with int4 weights, the bilayer loop
     (K5c), as the JAX package gates them (`backbone.py:438-452`); with
-    cfg.use_pallas_attn False it runs none of them (plain attention).
+    cfg.use_pallas_attn False it runs none of them (plain attention). A
+    state with cross KV runs none of them either, nor K7: its decode step
+    writes the rows and runs K1 (`backbone.py:455-463`).
     """
     if state.pk is not None:
         raise ValueError("a shared-prefix state decodes over lanes "
@@ -276,9 +326,11 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
     kernels = t == 1 and cfg.use_pallas_attn is not False
     bias = (None if kernels
             else pos_cache_bias(positions, state.pos, neg=cfg.mask_value))
-    cur_pos = state.pos[end:end + 1] if kernels and cfg.fuse_insert else None
+    cross = state.xk is not None
+    cur_pos = (state.pos[end:end + 1]
+               if kernels and cfg.fuse_insert and not cross else None)
     if (kernels and cfg.use_bilayer and not cfg.use_megalayer
-            and cfg.num_layers > 1):
+            and cfg.num_layers > 1 and not cross):
         l0 = slice_layer_params(p["layers"], 0)
         # the (0, 1) pair stands for every pair: the layers are quantized
         # as one stacked array (io/quant.py), one layout for all
@@ -292,7 +344,8 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
                    state.v[l], state.k_scale[l] if quant else None,
                    state.v_scale[l] if quant else None, end, cos, sin, bias,
                    state.pos, cfg.num_heads, gelu_approx, cur_pos,
-                   cfg.use_megalayer)
+                   cfg.use_megalayer and not cross,
+                   (state.xk[l], state.xv[l]) if cross else None)
     return state, x
 
 
@@ -300,7 +353,9 @@ def shrink_state(state: BackboneState, capacity: int) -> BackboneState:
     """A COPY of the first `capacity` slots (cursors unchanged): bounds the
     attention reads of a sentence to the slots it can use, and leaves the
     source (a reusable voice prefix) untouched by the in-place decode. The
-    shared-prefix tables are read-only and stay shared."""
+    shared-prefix tables are read-only and stay shared. Raises ValueError
+    for a cross-attention state."""
+    refuse_cross(state, "shrink_state")
     return dataclasses.replace(
         state, k=[k[:capacity].clone() for k in state.k],
         v=[v[:capacity].clone() for v in state.v],
@@ -319,7 +374,9 @@ def split_prefix(state: BackboneState, p: int, num_heads: int,
     (H, p, D) tables of `dtype` (int8 rows are dequantized: the tables are
     read once per frame for the whole batch), ppos the (p,) positions; the
     residual state (a copy) keeps slots [p:] with the slot cursor rebased,
-    ready for text prefill. The JAX package's `split_prefix`."""
+    ready for text prefill. The JAX package's `split_prefix`. Raises
+    ValueError for a cross-attention state."""
+    refuse_cross(state, "split_prefix")
     quant = state.k_scale is not None
     d = state.k[0].shape[-1] // num_heads
 

@@ -8,7 +8,10 @@ Counterpart of `pocket_tts_tpu/models/mimi.py`:
 The state is updated in place. With lanes (continuous batching) every
 tensor of the state has a leading (B,) axis (the int8 ring's scale rows
 too), except the transformer's shared ring `offset`, and `decode_frame`
-takes latents (B, latent_dim).
+takes latents (B, latent_dim). The checkpoint-driven variants of the
+transformer's layers (RMSNorm `alpha`, gating) run over lanes as they do
+solo; a cross-attention state (mimi_transformer.init_cross) decodes solo
+only, and the lane entry points refuse it.
 """
 from __future__ import annotations
 

@@ -25,6 +25,21 @@ lane that joined a running batch decodes as a solo stream would. K2 runs
 all lanes in one launch per layer, and with quantized weights K5a and K5b
 take the B * T rows of all lanes in one call each (ops/fused_layer.py).
 
+The variants a checkpoint switches on (the JAX package's `_layer`):
+`norm1` / `norm2` as RMSNorm when they carry "alpha" (`_norm_any`, eps
+1e-8 as there); a cross-attention sub-block when the layer ships
+`cross_attention` weights and the state holds their KV (`init_cross`):
+`norm_cross` at cfg.norm_eps (0 in mimi), `ops.attention.
+cross_attention`, a residual with no layer scale, between the attention
+residual and the MLP; and SwiGLU gating (ops/gating.py) in place of the
+linear1/GELU/linear2 MLP when the layer carries "gating", given the
+shared ring `offset` as its step (as the JAX package passes it under
+vmap; the same for every lane). Such a layer never takes the fused
+K5a/K5b route: that is taken only for a layer without "gating" that
+`fused_layer.supported` accepts (which refuses "alpha" and cross
+layers). K2 (K2-q) stays on every variant's path; quantized linears of
+the variants go through K4a / K4b.
+
 When `cfg.use_pallas_attn` is False (the reference-exact mode) the model
 takes the JAX package's XLA route instead of K2 and of the fused K5a/K5b:
 K2's plain version, `ring_insert_attention_plain`, called with the cfg's
@@ -42,8 +57,10 @@ from typing import Optional
 import torch
 
 from ..ops import fused_layer
-from ..ops.basic import (gelu, layer_norm, linear, quantize_rows,
+from ..ops.attention import cross_attention, cross_attn_kv
+from ..ops.basic import (gelu, layer_norm, linear, quantize_rows, rms_norm,
                          slice_layer_params)
+from ..ops.gating import weights_per_step_gating
 from ..ops.ring_attn import ring_insert_attention, ring_insert_attention_plain
 from ..ops.rope import apply_rope_halves as apply_rope, rope_cos_sin
 
@@ -58,6 +75,10 @@ class MimiTransformerState:
     # int8 ring: L x (cap,) float32 per-row scales, (B, cap) with lanes
     k_scale: Optional[list] = None
     v_scale: Optional[list] = None
+    # cross-attention KV of a conditioning sequence (init_cross): L x
+    # (S_c, H, D) (None: no cross-attention)
+    xk: Optional[list] = None
+    xv: Optional[list] = None
 
 
 def init_state(cfg, dtype=torch.float32, device="cpu"):
@@ -77,16 +98,42 @@ def init_state(cfg, dtype=torch.float32, device="cpu"):
         k_scale=scales(), v_scale=scales())
 
 
+def init_cross(p, cfg, state: MimiTransformerState, cond):
+    """Fill the state's cross-attention KV from a conditioning sequence
+    cond (S_c, d_model); returns the state unchanged when the layers ship
+    no cross weights."""
+    xk, xv = [], []
+    for l in range(cfg.num_layers):
+        lp = slice_layer_params(p["layers"], l)
+        if "cross_attention" not in lp:
+            return state
+        k, v = cross_attn_kv(lp["cross_attention"]["in_proj"], cond,
+                             cfg.num_heads)
+        xk.append(k)
+        xv.append(v)
+    state.xk, state.xv = xk, xv
+    return state
+
+
+def _norm_any(p, x, eps: float):
+    """LayerNorm at eps, or RMSNorm at its default eps when the params
+    carry "alpha"."""
+    if "alpha" in p:
+        return rms_norm(p, x)
+    return layer_norm(p, x, eps=eps)
+
+
 def _layer(p, x, k_cache, v_cache, k_scale, v_scale, offset: int, start,
-           cos, sin, cfg, gelu_approx: bool, plain: bool = False):
-    """One layer; plain: the plain ring route (no K2, no K5a/K5b)."""
+           cos, sin, cfg, gelu_approx: bool, plain: bool = False, xk=None,
+           xv=None):
+    """One layer; plain: the plain ring route (no K2, no K5a/K5b); xk/xv:
+    this layer's cross-attention KV, or None."""
     *lead, t, dm = x.shape
-    fused = not plain and fused_layer.supported(p)
+    fused = not plain and "gating" not in p and fused_layer.supported(p)
     if fused:
         qkv = fused_layer.pre_attention(p, x, eps=cfg.norm_eps)
     else:
-        qkv = linear(p["in_proj"], layer_norm(p["norm1"], x,
-                                              eps=cfg.norm_eps))
+        qkv = linear(p["in_proj"], _norm_any(p["norm1"], x, cfg.norm_eps))
     q, k, v = qkv.split(dm, -1)
     heads = (*lead, t, cfg.num_heads, cfg.head_dim)
     q = apply_rope(q.reshape(heads), cos, sin)
@@ -105,8 +152,17 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, offset: int, start,
         return fused_layer.post_attention(p, x, attn, eps=cfg.norm_eps,
                                           approx=gelu_approx)
     x = x + p["layer_scale_1"]["scale"] * linear(p["out_proj"], attn)
-    h = layer_norm(p["norm2"], x, eps=cfg.norm_eps)
-    up = linear(p["linear2"], gelu(linear(p["linear1"], h), gelu_approx))
+    if "cross_attention" in p and xk is not None:
+        x = x + cross_attention(
+            p["cross_attention"], layer_norm(p["norm_cross"], x,
+                                             eps=cfg.norm_eps),
+            xk, xv, cfg.num_heads)
+    h = _norm_any(p["norm2"], x, cfg.norm_eps)
+    if "gating" in p:
+        up = weights_per_step_gating(p["gating"], h, offset=offset)
+    else:
+        up = linear(p["linear2"], gelu(linear(p["linear1"], h),
+                                       gelu_approx))
     return x + p["layer_scale_2"]["scale"] * up
 
 
@@ -123,10 +179,16 @@ def forward(p, cfg, state: MimiTransformerState, x,
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.max_period)
     quant = state.k_scale is not None
     plain = cfg.use_pallas_attn is False
+    cross = state.xk is not None
+    if cross and x.dim() == 3:
+        raise ValueError("mimi_transformer.forward: a cross-attention "
+                         "state (init_cross) decodes solo, not over lanes")
     for l in range(cfg.num_layers):
         x = _layer(slice_layer_params(p["layers"], l), x, state.k[l],
                    state.v[l], state.k_scale[l] if quant else None,
                    state.v_scale[l] if quant else None, state.offset,
-                   state.start, cos, sin, cfg, gelu_approx, plain)
+                   state.start, cos, sin, cfg, gelu_approx, plain,
+                   state.xk[l] if cross else None,
+                   state.xv[l] if cross else None)
     state.offset += t
     return state, x

@@ -18,6 +18,15 @@ runs the chain of `forward_plain` itself, each quantized conv one launch
 of K4a or K4b over all rows (ops/conv.py) and the small float convs,
 ELUs and overlap-adds as torch ops. K3 is never launched for it. State is
 a dict of carries, updated IN PLACE by `forward`.
+
+The ENCODER (`encoder_init_state`, `encoder_forward`; a checkpoint that
+ships `mimi.encoder.*`) is the decoder mirrored, as the JAX package
+builds it: model_0 (k7), then per reversed stage a resnet at 3i+1, ELU
+and a strided conv at 3i+3 (the decoder's kernel and stride), ELU, and
+the final conv at 3N+2, each a causal streaming conv (ops/conv.py). Its
+quantized convs (io/quant.py convs=True: the large `block_1` / `block_3`
+and the final model_{3N+2}) run one K4a or K4b launch over all rows;
+the rest are plain PyTorch, as the JAX package runs them in XLA.
 """
 from __future__ import annotations
 
@@ -61,6 +70,48 @@ def init_state(cfg, t_in: int, dtype=torch.float32, device="cpu") -> dict:
         state["model_11"] = conv1d_init_state(last.out_ch, cfg.last_kernel,
                                               1, **dd)
     return state
+
+
+def encoder_init_state(cfg, dtype=torch.float32, device="cpu") -> dict:
+    """Zeroed causal-conv tails of the streaming encoder (the decoder's
+    module indices transposed: model_0, (3i+1, 3i+3) per reversed stage,
+    3N+2)."""
+    dd = dict(dtype=dtype, device=device)
+    n = len(cfg.stages)
+    state = {"model_0": conv1d_init_state(cfg.out_ch, cfg.first_kernel, 1,
+                                          **dd)}
+    for gi, st in enumerate(reversed(cfg.stages)):
+        state[f"model_{3 * gi + 1}"] = conv1d_init_state(
+            st.out_ch, cfg.resnet_kernel, 1, **dd)
+        state[f"model_{3 * gi + 3}"] = conv1d_init_state(
+            st.out_ch, st.kernel, st.stride, **dd)
+    state[f"model_{3 * n + 2}"] = conv1d_init_state(
+        cfg.stages[0].in_ch, cfg.last_kernel, 1, **dd)
+    return state
+
+
+def encoder_forward(p, cfg, state: dict, x):
+    """Streaming encode: pcm x (T, out_ch) -> (state, latents
+    (T // total_stride, in_ch)), the carries updated IN PLACE. T must be
+    a multiple of cfg.total_stride (1920 samples: 16 latent steps at full
+    width)."""
+    if x.shape[-2] % cfg.total_stride:
+        raise ValueError(f"encoder_forward: {x.shape[-2]} samples is not a "
+                         f"multiple of {cfg.total_stride}")
+    new = {}
+    new["model_0"], x = streaming_conv1d(p["model_0"], state["model_0"], x,
+                                         stride=1)
+    n = len(cfg.stages)
+    for gi, st in enumerate(reversed(cfg.stages)):
+        ri, ci = f"model_{3 * gi + 1}", f"model_{3 * gi + 3}"
+        new[ri], x = _resnet(p[ri], state[ri], x)
+        new[ci], x = streaming_conv1d(p[ci], state[ci], elu(x),
+                                      stride=st.stride)
+    fi = f"model_{3 * n + 2}"
+    new[fi], x = streaming_conv1d(p[fi], state[fi], elu(x), stride=1)
+    for key in state:
+        state[key] = new[key]
+    return state, x
 
 
 def _resnet(p, prev, x):

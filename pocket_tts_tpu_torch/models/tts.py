@@ -21,7 +21,7 @@ import dataclasses
 
 import torch
 
-from . import backbone, flow_lm, mimi
+from . import backbone, flow_lm, mimi, mimi_transformer
 
 
 @dataclasses.dataclass
@@ -42,16 +42,24 @@ def prime_voice(p, cfg, flow_state, prompt, n_valid: int):
 
 
 def sentence_prefill(p, cfg, voice_state: backbone.BackboneState, tokens,
-                     n_valid: int) -> StreamState:
+                     n_valid: int, mimi_cond=None) -> StreamState:
     """Start a sentence from a COPY of the voice prefix (`shrink_state` it
     first: the prefill writes in place), with fresh mimi state.
-    tokens: (Tt,) int padded; n_valid real tokens."""
+    tokens: (Tt,) int padded; n_valid real tokens. A voice prefix with
+    cross-attention KV (backbone.init_cross before prime_voice) is used
+    as it is, and is written in place; mimi_cond (S_c, mimi d_model), when
+    given, fills the mimi transformer's cross-attention KV
+    (mimi_transformer.init_cross). frame_step then decodes the stream
+    unchanged."""
     emb = flow_lm.embed_tokens(p, tokens)
     flow_state = flow_lm.prefill(p, cfg, voice_state, emb, n_valid)
-    return StreamState(
-        flow=flow_state,
-        mimi=mimi.init_state(cfg.mimi, emb.dtype, emb.device),
-        prev_latent=p["bos_emb"].to(emb.dtype))
+    mstate = mimi.init_state(cfg.mimi, emb.dtype, emb.device)
+    if mimi_cond is not None:
+        mimi_transformer.init_cross(p["mimi"]["decoder_transformer"],
+                                    cfg.mimi.transformer, mstate.transformer,
+                                    mimi_cond)
+    return StreamState(flow=flow_state, mimi=mstate,
+                       prev_latent=p["bos_emb"].to(emb.dtype))
 
 
 def frame_step(p, cfg, state: StreamState, noise, frames_after_eos: int,

@@ -8,6 +8,10 @@ computes in XLA too). Caches keep the JAX package's FLAT (S, H*D) row
 layout. Logits and softmax are float32; the softmax weights are rounded to
 the value dtype before the PV product, as in the JAX functions.
 
+`cross_attn_kv` and `cross_attention` are the cross-attention of a
+checkpoint that ships `cross_attention` weights (the JAX package's, plain
+PyTorch there as it is XLA there).
+
 `cache_insert_ring` + `ring_cache_bias` + `sdpa_seg` are also the plain
 version of kernel K2 (ops/ring_attn.py); K1's (ops/decode_attn.py) is
 `sdpa_decode_seg`'s softmax over the live slots.
@@ -100,6 +104,31 @@ def prefix_attn_stats(q, pk, pv, ppos):
     wn = (w / l.clamp_min(1e-30)[..., None]).to(pv.dtype).float()
     out = torch.einsum("...htp,hpd->...thd", wn, pv.float())
     return out, m.transpose(-1, -2), l.transpose(-1, -2)
+
+
+def cross_attn_kv(in_proj, cond, num_heads: int):
+    """The cross-attention KV of a conditioning sequence, computed once a
+    stream: the whole in_proj runs on cond (S, d_model) and its q third is
+    dropped, so every quantized layout of in_proj works unchanged (through
+    K4a / K4b). Returns (k, v), each (S, H, D); no RoPE."""
+    from .basic import linear
+    s = cond.shape[0]
+    qkv = linear(in_proj, cond)                        # (S, 3 d_model)
+    dm = qkv.shape[-1] // 3
+    return (qkv[:, dm:2 * dm].reshape(s, num_heads, dm // num_heads),
+            qkv[:, 2 * dm:].reshape(s, num_heads, dm // num_heads))
+
+
+def cross_attention(p, x, xk, xv, num_heads: int):
+    """Cross-attention over a precomputed conditioning KV: q is the first
+    third of in_proj applied to x (T, d_model); non-causal, unmasked
+    attention against xk/xv (S, H, D) without RoPE; then out_proj.
+    Returns (T, d_model)."""
+    from .basic import linear
+    t, dm = x.shape
+    q = linear(p["in_proj"], x)[:, :dm].reshape(t, num_heads,
+                                                dm // num_heads)
+    return linear(p["out_proj"], sdpa(q, xk, xv).reshape(t, dm))
 
 
 def merge_attn_partials(o1, m1, l1, o2, m2, l2):

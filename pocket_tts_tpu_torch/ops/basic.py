@@ -5,7 +5,8 @@ Counterpart of `pocket_tts_tpu/ops/basic.py`. Parameters are dicts:
           {"q": (in, out) int8, "scale": (out,) float32, "b" optional} or
           int4-quantized {"q4": (in/2, out) int8 packed, "scale": (out,)
           float32 or (in/32, out) bfloat16, "b" optional}
-  norm:   {"scale": (d,), "bias": (d,) optional}
+  norm:   {"scale": (d,), "bias": (d,) optional}, or {"alpha": (d,)} for
+          the RMSNorm of a checkpoint that ships `norm*.alpha`
 Norms compute in float32 and round once to the input dtype, as the JAX
 package does.
 """
@@ -58,6 +59,15 @@ def layer_norm(p, x, eps: float = 1e-5):
         if bias is not None:
             y = y + bias.float()
     return y.to(x.dtype)
+
+
+def rms_norm(p, x, eps: float = 1e-8):
+    """RMSNorm: x times rsqrt(mean(x^2) + eps), times alpha, in float32
+    and rounded once to x's dtype. eps 1e-8 is moshi's default and the
+    JAX package's (the mimi layers call it with that default)."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (y * p["alpha"].float()).to(x.dtype)
 
 
 def quantize_rows(x):

@@ -84,8 +84,15 @@ def _i32(vals, device):
 
 def stack_states(states: Sequence):
     """Stack solo BackboneStates or StreamStates into one lane-axis state
-    (copies). The shared cursors must be equal across the streams."""
+    (copies). The shared cursors must be equal across the streams. Raises
+    ValueError for a state holding cross-attention KV (init_cross): such
+    a state decodes solo."""
     s0 = states[0]
+    for s in states:
+        if isinstance(s, tts.StreamState):
+            backbone.refuse_cross(s.mimi.transformer, "stack_states")
+            s = s.flow
+        backbone.refuse_cross(s, "stack_states")
     if isinstance(s0, backbone.BackboneState):
         def layers(name):
             if getattr(s0, name) is None:

@@ -25,7 +25,9 @@ torch.Generator on that device, seeded from the engine seed: it does not
 reproduce jax.random, so the two packages agree only at temp 0 or when the
 same noise is fed to both (`_draw_noise` is the single place it is drawn).
 The batched paths (runtime/batched.py, runtime/server.py) draw each
-request's noise from a seed of its own (`request_seed`).
+request's noise from a seed of its own (`request_seed`). A `Stream` splits
+its text with the native library's sentence splitter
+(native.make_str_processor, built on first use), as the JAX engine's does.
 """
 from __future__ import annotations
 
@@ -44,9 +46,10 @@ from ..io.quant import (cast_floats, load_params_cache, quantize_params,
 from ..models import backbone, seanet, tts
 from ..ops import fused_layer, fused_step
 from ..ops.basic import slice_layer_params
+from ..native import make_str_processor
 from ..ops.seanet_frame import prep_weights
-from ..text.preprocess import (StrProcessor, count_words,
-                               prepare_text_prompt, split_into_best_sentences)
+from ..text.preprocess import (count_words, prepare_text_prompt,
+                               split_into_best_sentences)
 from ..text.tokenizer import load_tokenizer
 
 DEFAULT_VOICES = ["alba", "azelma", "cosette", "eponine", "fantine",
@@ -302,7 +305,7 @@ class Stream:
         self.engine = engine
         self.voice_state = voice_state
         self.temp = temp
-        self.sproc = StrProcessor()
+        self.sproc = make_str_processor()
         self.reset()
 
     def reset(self):

@@ -4,9 +4,9 @@ The port's own copy of `pocket_tts_tpu/runtime/player.py`: the analog of
 the reference's SDL playback helper (a mutex/cond FIFO of audio frames
 drained by the audio callback, 3-frame ring — demos/sdl_helper.h,
 demos/pocket-tts.cpp:444). Generation pushes frames into a bounded
-PcmFifo (native.py); a writer thread drains it into an audio player
-subprocess (aplay / pw-play / ffplay, whichever exists) or any writable
-binary file object. The bounded FIFO gives the same backpressure
+PcmFifo (native.py: the native library's ring, built on first use); a
+writer thread drains it into an audio player subprocess (aplay / pw-play
+/ ffplay, whichever exists) or any writable binary file object. The bounded FIFO gives the same backpressure
 semantics as the SDL ring: `play` blocks while the buffer is full.
 """
 from __future__ import annotations

@@ -374,3 +374,134 @@ def test_expected_conv_launches():
     assert {k: v for k, v in serve.items() if k != "int4_matmul"} == {
         k: v for k, v in base.items()
         if k not in ("int4_matmul", "seanet_frame")}
+
+
+# phase 10 (dormant modules): each step and the phase it names
+DORMANT = {"check_native": "dormant modules: native library",
+           "check_dormant_kernels": "dormant modules: kernels",
+           "dormant_engines": "dormant modules: paths",
+           "check_cross_run": "dormant modules: paths",
+           "check_dormant_card_vs_cpu": "dormant modules: card vs cpu",
+           "check_weights_per_step": "dormant modules: card vs cpu",
+           "check_encoder": "dormant modules: encoder",
+           "time_dormant": "dormant modules: timing",
+           "time_encoder_kernels": "dormant modules: timing"}
+
+
+@pytest.mark.parametrize("failing", sorted(DORMANT))
+def test_failing_dormant_phase_fails_the_run(failing, monkeypatch, capsys):
+    """Phase 10: each step that raises makes main return 1, name its phase
+    and print no result (the steps before it stubbed to pass)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    class Engine:
+        cfg = None
+
+    for name in DORMANT:
+        monkeypatch.setattr(cs, name, lambda *a, **k: None)
+    monkeypatch.setattr(cs, "dormant_engines", lambda *a, **k: (
+        {"cross": Engine(), "gated_rms": Engine()}, {}))
+    monkeypatch.setattr(cs, "dormant_launches", lambda *a, **k: {})
+    monkeypatch.setattr(cs, "expected_launches", lambda *a, **k: ({}, {}))
+    out = _run_with_one_failing(failing, monkeypatch, capsys)
+    assert f"FAILED in phase '{DORMANT[failing]}'" in out.err
+    assert "[10] dormant modules" in out.out
+
+
+def _quantized_encoder(cfg, bits):
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.io.quant import quantize_params
+    enc = cs._to_tree(cs.encoder_weights(cfg), "cpu", torch.float32)
+    return quantize_params(enc, bits=bits, convs=True)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("width", ["tiny64", "default"])
+def test_encoder_conv_shapes_agree_with_the_tree(width, bits):
+    """encoder_conv_shapes (from the cfg's dims) names exactly the convs
+    quantize_params(convs=True) quantizes in an encoder tree, with their
+    products and rows: at DEFAULT_CONFIG's dims model_4's and model_7's
+    block_1, model_7's block_3 and model_11, at tiny_config(64) the final
+    conv alone."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG, tiny_config
+    cfg = tiny_config(64) if width == "tiny64" else DEFAULT_CONFIG
+    prods = cs.encoder_products(_quantized_encoder(cfg, bits), cfg)
+    got = [(name, w.shape[0] * (2 if key.endswith("4") else 1), w.shape[1],
+            rows) for name, key, w, _, rows in prods]
+    assert got == cs.encoder_conv_shapes(cfg)
+    assert all(key == ("qc" if bits == 8 else "qc4")
+               for _, key, *_ in prods)
+    if width == "default":
+        assert got == [("model_4.block_1", 384, 64, 480),
+                       ("model_7.block_1", 768, 128, 96),
+                       ("model_7.block_3", 128, 256, 96),
+                       ("model_11", 1536, 512, 16)]
+    else:
+        assert [g[0] for g in got] == ["model_11"]
+
+
+def test_dormant_launches_per_frame():
+    """DEFAULT_CONFIG: both dormant paths run 6 K1, 2 K2 and one K3
+    sequence a frame in bf16; with int8 weights gated_rms adds the
+    backbone's 6 K5a (skinny) + 6 K5b, K6 and 1 + 2 x 4 K4a (no K5 in the
+    mimi), cross 1 + 6 x 6 + 2 x 6 K4a and K6, no K5 at all."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    base = {"decode_attn": 6, "ring_attn": 2, "seanet_frame": 1}
+    for path in cs.DORMANT_PATHS:
+        assert cs.dormant_launches(DEFAULT_CONFIG, path) == base
+    assert cs.dormant_launches(DEFAULT_CONFIG, "gated_rms", "int8") == dict(
+        base, fused_flow=2, int8_matmul=9, fused_pre=6, fused_post=6,
+        rows_skinny=6)
+    assert cs.dormant_launches(DEFAULT_CONFIG, "cross", "int8") == dict(
+        base, fused_flow=2, int8_matmul=49)
+
+
+def test_dormant_helpers_on_the_cpu(monkeypatch):
+    """The phase's helpers at tiny_config(64) on the CPU: the dormant
+    trees (alphas, gating, cross sub-blocks; int8 layouts where they
+    quantize), a cross stream holding cross KV that decodes finite
+    frames, the card-vs-CPU, weights-per-step, native and kernel checks
+    run through (the CPU standing in for the card), and the encoder
+    checks without the quantized trees (their launch counts need the
+    card)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.config import tiny_config
+    from pocket_tts_tpu_torch.io.params import (random_params,
+                                                random_voice_prompt)
+    torch.set_num_threads(1)
+    cpu = torch.device("cpu")
+    cfg0 = tiny_config(64)
+    p, cfg = random_params(cfg0, seed=0)
+    ex = cs.dormant_extras(cfg)
+    g = cs.dormant_params(p, "gated_rms", ex, "int8")
+    lay = g["mimi"]["decoder_transformer"]["layers"]
+    assert set(lay["norm1"]) == {"alpha"} and "q" in lay["gating"][
+        "linear_in"]
+    c = cs.dormant_params(p, "cross", ex)
+    assert "cross_attention" in c["layers"] and "norm_cross" in c["mimi"][
+        "decoder_transformer"]["layers"]
+    assert "cross_attention" not in p["layers"]
+    eng = cs.make_engine(cfg, cpu, torch.float32, params=c)
+    voice = random_voice_prompt(cfg, 20)
+    state, steps = cs.cross_stream(eng, voice, ex)
+    assert state.flow.xk is not None and steps > 0
+    pcm = cs.stream_frames(eng, state, 3)
+    assert pcm.shape == (3, cfg.mimi.frame_size) and np.isfinite(pcm).all()
+    monkeypatch.setattr(cs, "_LOG", [])
+    cs.check_dormant_card_vs_cpu(cfg0, cpu, voice, ex)
+    cs.check_weights_per_step(cfg, cpu)
+    cs.check_native()
+    trees = cs.check_dormant_kernels(cfg, cpu, {})
+    assert set(trees) == {8, 4}
+    monkeypatch.setattr(cs, "ENCODER_FRAMES", 2)
+    cs.check_encoder(cfg, cpu, {})

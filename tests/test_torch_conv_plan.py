@@ -1,7 +1,8 @@
 """The plans K4a and K4b take at the seven quantized SEANet convs of
 DEFAULT_CONFIG (quantize_params(convs=True): window products K*Cin x Cout,
-transposed convs Cin x K*Cout), solo rows and 32 lanes' rows, checked on
-the CPU:
+transposed convs Cin x K*Cout), solo rows and 32 lanes' rows, and at the
+four quantized convs of the SEANet encoder (one call of 1920 samples) and
+the mimi gating linears (16 rows and 32 lanes' rows), checked on the CPU:
 
 - chip_smoke.conv_shapes(DEFAULT_CONFIG) names exactly these seven;
 - K4a (int8): bf16 calls of 64 rows or more take the warpgroup kernel,
@@ -33,13 +34,27 @@ CONVS = [("model_0", 3584, 512, 16), ("model_2", 512, 3072, 16),
          ("model_3.block_1", 768, 128, 96), ("model_3.block_3", 128, 256, 96),
          ("model_5", 256, 1280, 96), ("model_6.block_1", 384, 64, 480),
          ("model_8", 128, 512, 480)]
-CASES = [(name, k, n, rows * lanes) for name, k, n, rows in CONVS
-         for lanes in (1, 32)]
+# the SEANet encoder's four quantized convs at 1920 samples a call
+# (chip_smoke.encoder_conv_shapes), solo only: no path runs it over lanes
+ENCODER = [("model_4.block_1", 384, 64, 480),
+           ("model_7.block_1", 768, 128, 96),
+           ("model_7.block_3", 128, 256, 96), ("model_11", 1536, 512, 16)]
+# the mimi layers' SwiGLU gating linears at hidden 1024 (chip_smoke
+# GATING_HIDDEN), 16 rows a frame solo and 32 lanes' rows
+GATING = [("gating.linear_in", 512, 2048, 16),
+          ("gating.linear_out", 1024, 512, 16)]
+CASES = ([(name, k, n, rows * lanes) for name, k, n, rows in CONVS + GATING
+          for lanes in (1, 32)]
+         + [("encoder." + c[0], *c[1:]) for c in ENCODER])
 IDS = [f"{c[0]}-{c[3]}" for c in CASES]
 
 
 def test_conv_shapes_are_the_seven():
     assert chip_smoke.conv_shapes(DEFAULT_CONFIG) == CONVS
+
+
+def test_encoder_conv_shapes_are_the_four():
+    assert chip_smoke.encoder_conv_shapes(DEFAULT_CONFIG) == ENCODER
 
 
 @pytest.mark.parametrize("name,k,n,rows", CASES, ids=IDS)

@@ -2,8 +2,9 @@
 the JAX package `pocket_tts_tpu`, even transitively: the machine with the
 card has none of the first three, and the port keeps its own copies of the
 JAX package's JAX-free modules (config, text, io.wav, io.safetensors_io,
-io.audio, io.audio_in, io.gguf, the manifest half of io.fetch, the
-PcmFifo of native, runtime.player) and runs ab without them.
+io.audio, io.audio_in, io.gguf, the manifest half of io.fetch, native
+with its own copy of the C++ source, runtime.player) and runs ab without
+them.
 Checked in a fresh interpreter, since this test process has JAX loaded
 already."""
 import os
@@ -48,6 +49,9 @@ MODULES = [
     "pocket_tts_tpu_torch.ab",
     "pocket_tts_tpu_torch.io.gguf",
     "pocket_tts_tpu_torch.io.fetch",
+    "pocket_tts_tpu_torch.ops.gating",
+    "pocket_tts_tpu_torch.ops.attention",
+    "pocket_tts_tpu_torch.models.seanet",
     "chip_smoke",
 ]
 
@@ -83,9 +87,9 @@ def test_every_module_and_chip_smoke_together():
 
 def test_import_builds_nothing():
     """Importing the kernel modules (K4b's int4_matmul and K8's fused_step
-    among them) neither
-    compiles nor loads the CUDA library (the build happens at first
-    launch, on the card)."""
+    among them) neither compiles nor loads the CUDA library (the build
+    happens at first launch, on the card), and importing native, the
+    engine and the player does not build the native library."""
     code = ("import pocket_tts_tpu_torch.ops.seanet_frame, "
             "pocket_tts_tpu_torch.ops.decode_attn, "
             "pocket_tts_tpu_torch.ops.ring_attn, "
@@ -95,7 +99,11 @@ def test_import_builds_nothing():
             "pocket_tts_tpu_torch.ops.insert_attn, "
             "pocket_tts_tpu_torch.ops.fused_step; "
             "from pocket_tts_tpu_torch.ops import cuda_lib; "
+            "from pocket_tts_tpu_torch import native; "
+            "import pocket_tts_tpu_torch.runtime.engine, "
+            "pocket_tts_tpu_torch.runtime.player; "
             "import sys; sys.exit(0 if cuda_lib._state['lib'] is None "
+            "and native._state['lib'] is None "
             "and 'triton' not in sys.modules else 1)")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

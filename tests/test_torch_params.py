@@ -173,13 +173,88 @@ def test_supported_slice6_options():
     check_supported(cfg)
 
 
+def _module_keys(flat, key):
+    """Give `flat` the whole module that `key` names, in every layer
+    (the layers stack), with well-shaped weights from a seeded numpy
+    RandomState: a backbone layer's cross sub-block, a mimi layer's
+    gating, a mimi norm as an RMSNorm alpha (its weight/bias dropped), or
+    the SEANet encoder."""
+    if ".layers.0." in key:
+        for i in range(CFG0.backbone.num_layers):
+            flat = _module_keys(flat, key.replace(".layers.0.",
+                                                  f".layers#{i}."))
+        return {k.replace("#", "."): v for k, v in flat.items()}
+    key = key.replace("#", ".")
+    rng = np.random.RandomState(2)
+    if ".cross_attention." in key:
+        d = CFG0.backbone.d_model
+        pre = key[:key.index("cross_attention.")]
+        flat[pre + "norm_cross.weight"] = rng.randn(d).astype(np.float32)
+        flat[pre + "norm_cross.bias"] = rng.randn(d).astype(np.float32)
+        flat[key] = rng.randn(3 * d, d).astype(np.float32)
+        flat[pre + "cross_attention.out_proj.weight"] = rng.randn(
+            d, d).astype(np.float32)
+    elif ".gating." in key:
+        d = CFG0.mimi.transformer.d_model
+        flat[key] = rng.randn(4 * d, d).astype(np.float32)
+    elif key.endswith(".alpha"):
+        del flat[key[:-6] + ".weight"], flat[key[:-6] + ".bias"]
+        flat[key] = rng.randn(CFG0.mimi.transformer.d_model).astype(
+            np.float32)
+    else:
+        sc = CFG0.mimi.seanet
+        n = len(sc.stages)
+        shapes = {"0.conv": (sc.stages[-1].out_ch, sc.out_ch,
+                             sc.first_kernel),
+                  f"{3 * n + 2}.conv": (sc.in_ch, sc.stages[0].in_ch,
+                                        sc.last_kernel)}
+        for gi, st in enumerate(reversed(sc.stages)):
+            c = st.out_ch
+            shapes[f"{3 * gi + 1}.block.1.conv"] = (c // 2, c,
+                                                    sc.resnet_kernel)
+            shapes[f"{3 * gi + 1}.block.3.conv"] = (c, c // 2, 1)
+            shapes[f"{3 * gi + 3}.conv"] = (st.in_ch, st.out_ch, st.kernel)
+        for name, shape in shapes.items():
+            flat[f"mimi.encoder.model.{name}.weight"] = rng.randn(
+                *shape).astype(np.float32)
+            flat[f"mimi.encoder.model.{name}.bias"] = rng.randn(
+                shape[0]).astype(np.float32)
+    return flat
+
+
 @pytest.mark.parametrize("key", [
     "flow_lm.transformer.layers.0.cross_attention.in_proj.weight",
     "mimi.decoder_transformer.transformer.layers.0.gating.linear_in.weight",
     "mimi.decoder_transformer.transformer.layers.0.norm1.alpha",
+    "mimi.encoder.model.0.conv.weight",
 ])
 def test_unported_checkpoint_modules_raise(key):
-    flat = tparams.random_flat(CFG0, 1)
-    flat[key] = np.zeros((4,), np.float32)
-    with pytest.raises(NotImplementedError):
-        tparams.params_from_flat(flat, CFG0)
+    """The modules a checkpoint switches on, once refused, now load as the
+    JAX loader loads them, leaf for leaf; a `.gating.` key is ignored, as
+    the JAX loader ignores it."""
+    flat = _module_keys(tparams.random_flat(CFG0, 1), key)
+    pt, _ = tparams.params_from_flat(flat, CFG0)
+    pj, _ = jparams.params_from_flat(flat, CFG0)
+    got, want = dict(_leaves(pt)), dict(_leaves(
+        jax.tree.map(np.asarray, pj)))
+    assert sorted(got) == sorted(want)
+    for path, leaf in want.items():
+        if path == "/_time_cond":     # computed, not loaded: float32 ulps
+            np.testing.assert_allclose(got[path].numpy(), leaf, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(got[path].numpy(), leaf,
+                                          err_msg=path)
+    plain = dict(_leaves(tparams.params_from_flat(
+        tparams.random_flat(CFG0, 1), CFG0)[0]))
+    if ".gating." in key:
+        assert sorted(got) == sorted(plain)
+    elif ".cross_attention." in key:
+        assert got["/layers/cross_attention/in_proj/w"].shape == (
+            CFG0.backbone.num_layers, CFG0.backbone.d_model,
+            3 * CFG0.backbone.d_model)
+        assert "/layers/norm_cross/scale" in got
+    elif key.endswith(".alpha"):
+        lay = pt["mimi"]["decoder_transformer"]["layers"]
+        assert set(lay["norm1"]) == {"alpha"} and "scale" in lay["norm2"]
+    else:
+        assert "/mimi/encoder/model_11/w" in got
