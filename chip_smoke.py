@@ -206,6 +206,27 @@ raises, names its phase and the exit code is 1:
                    launches and device busy a frame of the four paths
                    beside bf16 (reported, not claimed), and K4's times at
                    the encoder shapes beside plain, library and bound
+ 11. mesh          sharded serving on 4 ranks (data 2 x model 2) that
+                   share the one card over gloo (parallel.launch; NCCL
+                   refuses two ranks on one device), loading the library
+                   phase 2 built: K1 over lanes with statistics (working
+                   type and int8), K7 int8 with statistics, K2 and K2-q
+                   at one rank's shapes (8 backbone heads, 4 mimi heads,
+                   16 lanes) vs plain, f32 and bf16, and their times
+                   beside plain, library and bound; at DEFAULT_CONFIG,
+                   temp 0: (a) BatchedEngine(mesh=) over 4 streams, f32,
+                   each to its sentence's frame budget, vs the unsharded
+                   port on the card within 1e-3 of max |pcm|; (b) ContinuousBatchingServer(mesh=)
+                   with 4 lanes, the int8 KV cache, the int8 mimi ring and
+                   the shared prefix, 6 requests (two admitted
+                   mid-decode) vs the unsharded server, f32 within 2e-3;
+                   (c) the same in bf16 within 2^-6 of the peak, two to
+                   four bf16 ulps there (MESH_BF16_TOL); (e) each rank's counters per batch
+                   frame step: 6 K7-q with statistics, 2 K2-q, 1 K3, no
+                   K1, and without the fused insert 6 K1 over lanes with
+                   statistics; 3 all-reduces a layer; (f) every rank's
+                   audio equal bit for bit; (g) dryrun_multichip(4,
+                   "cuda"); wall per step beside the unsharded server's
 
 The last three lines of standard output are a JSON object of the kernels
 (launches from the runs of the path that uses each: K1-K3 from bf16, the
@@ -1140,14 +1161,14 @@ def check_k1_kv8(device, dtype, results):
     results.setdefault("decode_attn_kv8", {})[_dt_name(dtype)] = worst
 
 
-def k7_kv8_case(g, device, dtype, mode, b=LANES, s=896, ws=None):
+def k7_kv8_case(g, device, dtype, mode, b=LANES, s=896, ws=None, h=16):
     """k7_case with int8 caches and scale rows (the ring is the serving
     mode's 896 slots: kv_capacity - the prompt bucket), the new rows
     quantized: (q, k_new, v_new, cur_pos, k, v, pos, read_end, ws, ks, vs,
     ks_new, vs_new); the write slot holds stale bytes and scales."""
     import torch
     q, _, _, cur, _, _, pos, re_, ws = k7_case(g, device, dtype, mode, b, s,
-                                               ws=ws)
+                                               h=h, ws=ws)
     h, d = q.shape[1:]
     k, ks = kv8_rows(g, device, dtype, b, s, h * d)
     v, vs = kv8_rows(g, device, dtype, b, s, h * d)
@@ -5125,6 +5146,430 @@ def time_encoder_kernels(qtrees, cfg, device):
                 f"{bound[0] / kern[0]:.1%} of it")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: sharded serving over a ("data", "model") mesh of gloo ranks
+# ---------------------------------------------------------------------------
+
+# data x model of phase 11's mesh: four ranks share the one card over gloo
+# (NCCL refuses two ranks on one device)
+MESH_SHAPE = (2, 2)
+# one rank's kernel shapes at model 2: backbone and mimi heads, and the
+# lanes a rank holds of a 32-lane server at data 2
+MESH_HEADS = (8, 4)
+MESH_RANK_LANES = LANES // 2
+# phases 11b/c/e: six short requests on 4 lanes (at temp 0 the random
+# weights never fire EOS, so each runs its (words + 2) * 12.5 frames: the
+# last two are admitted mid-decode at step 50, the run ends near step
+# 115); gloo's all-reduces make a sharded step ~100 ms on one card
+MESH_TEXTS = ("Hello there.", "Short one here.", "Two words.",
+              "Serving many streams.", "A fifth one.", "And a sixth.")
+_MESH = {}   # a rank's engines and step counter, kept across its jobs
+# sharded vs unsharded bf16 serving, relative to max |pcm|. The pcm of a
+# bf16 engine is rounded to bf16, so one ulp at the peak is already 2^-8 to
+# 2^-7 of max |pcm|, above the f32 bound of phase 7 (1e-3); the sharded run
+# rounds at the same points, but cuBLAS picks other kernels for the halved
+# widths, and a sum can round one ulp apart. 2^-6 is two to four ulps at
+# the peak, by where the peak lies in its binade (about 2.2 at the peak
+# these weights give, where one ulp is 7.246e-3 of it)
+MESH_BF16_TOL = 2.0 ** -6
+
+
+def check_mesh_kernels(device, dtype, results):
+    """K1 over lanes with statistics (caches of the working type and
+    int8), K7 over int8 caches with statistics and K2 (rings of the working
+    type and int8) at one rank's shapes on a model-2 mesh (MESH_HEADS,
+    MESH_RANK_LANES lanes) vs their plain versions; the caches (and scale
+    rows) after each insert equal."""
+    import torch
+    from pocket_tts_tpu_torch.ops.decode_attn import (decode_attention,
+                                                      decode_attention_plain)
+    from pocket_tts_tpu_torch.ops.insert_attn import (
+        decode_insert_attention, decode_insert_attention_plain)
+    from pocket_tts_tpu_torch.ops.ring_attn import (
+        ring_insert_attention, ring_insert_attention_plain)
+    hb, hm = MESH_HEADS
+    b = MESH_RANK_LANES
+    g = torch.Generator(device="cpu").manual_seed(31)
+    worst = {}
+
+    def stats_err(got, want):
+        live = torch.isfinite(want[1])
+        if not torch.equal(live, torch.isfinite(got[1])):
+            raise AssertionError("mesh kernels: m masks differ")
+        return max((got[0].float() - want[0].float()).abs().max().item(),
+                   (got[1][live] - want[1][live]).abs().max().item(),
+                   ((got[2][live] - want[2][live]).abs()
+                    / want[2][live]).max().item())
+
+    for kvq in (False, True):
+        name = f"K1 lanes + stats{' int8' if kvq else ''}, H={hb}"
+        for s, end in ((1024, None), (896, 700)):
+            q, k, v, ks, vs, pos, end = k1_lanes_case(g, device, dtype, kvq,
+                                                      s, b, end, h=hb)
+            got = decode_attention(q, k, v, pos, end, ks, vs, stats=True)
+            want = decode_attention_plain(q, k, v, pos, end, ks, vs,
+                                          stats=True)
+            sync(device)
+            worst[name] = max(worst.get(name, 0.0), stats_err(got, want))
+    name = f"K7 int8 + stats, H={hb}"
+    for mode in ("ring", "linear"):
+        (q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn,
+         vsn) = k7_kv8_case(g, device, dtype, mode, b, h=hb)
+        runs = []
+        for fn in (decode_insert_attention, decode_insert_attention_plain):
+            c = [k.clone(), v.clone(), ks.clone(), vs.clone()]
+            runs.append((fn(q, kn, vn, cur, c[0], c[1], pos, re_, ws,
+                            k_scale=c[2], v_scale=c[3], ks_new=ksn,
+                            vs_new=vsn, stats=True), c))
+        sync(device)
+        (got, c1), (want, c2) = runs
+        if not all(torch.equal(x, y) for x, y in zip(c1, c2)):
+            raise AssertionError(f"{name}: caches differ ({mode})")
+        worst[name] = max(worst.get(name, 0.0), stats_err(got, want))
+    cap, t, ctx, hd = 256, 16, 250, hm * 64
+    for kvq in (False, True):
+        name = f"K2{'-q' if kvq else ''} lanes, H={hm}"
+        for off in (240, 4096):
+            starts = torch.tensor([(i * 97) % (off + 1) // t * t
+                                   for i in range(b)], dtype=torch.int32)
+            starts[0], starts[1] = 0, off
+            st = starts.to(device)
+            q = torch.randn(b, t, hd, generator=g).to(device, dtype)
+            if kvq:
+                (kn, ksn), (vn, vsn) = (kv8_rows(g, device, dtype, b, t, hd)
+                                        for _ in range(2))
+                (k, ks), (v, vs) = (kv8_rows(g, device, dtype, b, cap, hd)
+                                    for _ in range(2))
+            else:
+                kn, vn, k, v = (torch.randn(b, n, hd, generator=g).to(
+                    device, dtype) for n in (t, t, cap, cap))
+            runs = []
+            for fn in (ring_insert_attention, ring_insert_attention_plain):
+                c = [k.clone(), v.clone()] + ([ks.clone(), vs.clone()]
+                                              if kvq else [])
+                kw = (dict(k_scale=c[2], v_scale=c[3], ks_new=ksn,
+                           vs_new=vsn) if kvq else {})
+                runs.append((fn(q, kn, vn, c[0], c[1], off, st, hm, ctx,
+                                **kw), c))
+            sync(device)
+            (got, c1), (want, c2) = runs
+            if not all(torch.equal(x, y) for x, y in zip(c1, c2)):
+                raise AssertionError(f"{name}: rings differ at {off}")
+            worst[name] = max(worst.get(name, 0.0), (
+                got.float() - want.float()).abs().max().item())
+    tol = TOL[("attn", _dt_name(dtype))]
+    for name, err in worst.items():
+        log(f"  {name}, {b} lanes, {_dt_name(dtype)}: max_abs_err "
+            f"{err:.3e} (tol {tol}; m absolute, l relative)")
+        if not err <= tol:
+            raise AssertionError(f"{name} {_dt_name(dtype)} error {err}")
+        results.setdefault(name, {})[_dt_name(dtype)] = err
+
+
+def time_mesh_kernels(device, dtype):
+    """Device time of K1 over lanes with statistics, K7 int8 with
+    statistics, K2 and K2-q at one rank's shapes on a model-2 mesh
+    (MESH_HEADS, MESH_RANK_LANES lanes) vs their plain versions, the
+    library call (SDPA with the kernel's mask; none for int8 caches, for
+    which SDPA over bf16 caches of the same shape is timed for comparison)
+    and each call's bound: [(name, row)]."""
+    import torch
+    from pocket_tts_tpu_torch.ops.attention import ring_cache_bias
+    from pocket_tts_tpu_torch.ops.decode_attn import (decode_attention,
+                                                      decode_attention_plain)
+    from pocket_tts_tpu_torch.ops.insert_attn import (
+        decode_insert_attention, decode_insert_attention_plain)
+    from pocket_tts_tpu_torch.ops.ring_attn import (
+        ring_insert_attention, ring_insert_attention_plain)
+    g = torch.Generator(device="cpu").manual_seed(37)
+    dn = _dt_name(dtype)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    hb, hm = MESH_HEADS
+    b = MESH_RANK_LANES
+    rows = []
+    # K1 over lanes with statistics, every slot read (ring mode), S = 1024
+    q, k, v, _, _, pos, end = k1_lanes_case(g, device, dtype, False, 1024, b,
+                                            h=hb)
+    hd = hb * 64
+    mask = (torch.arange(pos.shape[1], device=device) <= end) & (pos >= 0)
+    nread = int(mask.sum())
+    rows.append((f"K1 lanes + stats H={hb}", _row(
+        device_ms(lambda: decode_attention(q, k, v, pos, end, stats=True),
+                  200),
+        device_ms(lambda: decode_attention_plain(q, k, v, pos, end,
+                                                 stats=True), 20),
+        device_ms(lambda: sdpa_call(q[:, :, None], _heads(k, hb),
+                                    _heads(v, hb), mask[:, None, None, :]),
+                  200)[0],
+        # the live slots' K and V rows and all positions read, q in, the
+        # output and the statistics out
+        bound_ms(2 * nread * hd * isz + 4 * b * pos.shape[1]
+                 + 2 * b * hd * isz + 2 * b * hb * 4, 4 * nread * hd, dn),
+        f"B={b} S={pos.shape[1]} end={end} H={hb} D=64")))
+    # K7 int8 with statistics, ring mode, S = 896
+    (q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn,
+     vsn) = k7_kv8_case(g, device, dtype, "ring", b, h=hb)
+    mask = (torch.arange(pos.shape[1], device=device) <= re_) & (pos >= 0)
+    nread = int(mask.sum())
+    kw = dict(k_scale=ks, v_scale=vs, ks_new=ksn, vs_new=vsn, stats=True)
+    kb = (k.float() * ks[..., None]).to(torch.bfloat16)
+    vb = (v.float() * vs[..., None]).to(torch.bfloat16)
+    row = _row(
+        device_ms(lambda: decode_insert_attention(
+            q, kn, vn, cur, k, v, pos, re_, ws, **kw), 200),
+        device_ms(lambda: decode_insert_attention_plain(
+            q, kn, vn, cur, k, v, pos, re_, ws, **kw), 20), None,
+        bound_ms(2 * nread * (hd + 4) + 4 * b * (re_ + 1) + 2 * b * hd * isz
+                 + 4 * b * (hd + 4) + 2 * b * hb * 4, 4 * nread * hd, dn),
+        f"ring B={b} S={pos.shape[1]} H={hb} D=64")
+    row["cmp"] = device_ms(lambda: sdpa_call(
+        q.to(torch.bfloat16)[:, :, None], _heads(kb, hb), _heads(vb, hb),
+        mask[:, None, None, :]), 200)[0]
+    rows.append((f"K7 int8 + stats H={hb}", row))
+    # K2 and K2-q over the lanes at a wrapped ring
+    cap, t, ctx, hd = 256, 16, 250, hm * 64
+    st = (torch.arange(b, dtype=torch.int32) * 64).to(device)
+    bias = ring_cache_bias(t, cap, 4096, ctx, start=st[:, None, None],
+                           device=device)[:, None]
+    mask = bias == 0
+    for kvq in (False, True):
+        q = torch.randn(b, t, hd, generator=g).to(device, dtype)
+        if kvq:
+            (kn, ksn), (vn, vsn) = (kv8_rows(g, device, dtype, b, t, hd)
+                                    for _ in range(2))
+            (kc, ks), (vc, vs) = (kv8_rows(g, device, dtype, b, cap, hd)
+                                  for _ in range(2))
+            kw = dict(k_scale=ks, v_scale=vs, ks_new=ksn, vs_new=vsn)
+            # int8 ring and new rows with their scales read, the new rows
+            # and scales written, q in, the output out
+            nb = b * (2 * (cap + t) * (hd + 4) + 2 * t * (hd + 4)
+                      + 2 * t * hd * isz)
+        else:
+            kn, vn, kc, vc = (torch.randn(b, n, hd, generator=g).to(
+                device, dtype) for n in (t, t, cap, cap))
+            kw = {}
+            nb = b * (2 * (cap + t) + 2 * t + 2 * t) * hd * isz
+        lib = (None if kvq else device_ms(lambda: sdpa_call(
+            _heads(q, hm), _heads(kc, hm), _heads(vc, hm), mask), 200)[0])
+        row = _row(
+            device_ms(lambda: ring_insert_attention(
+                q, kn, vn, kc, vc, 4096, st, hm, ctx, **kw), 200),
+            device_ms(lambda: ring_insert_attention_plain(
+                q, kn, vn, kc, vc, 4096, st, hm, ctx, **kw), 20), lib,
+            bound_ms(nb, 4 * b * t * (cap + t) * hd, dn),
+            f"B={b} cap={cap} T={t} H={hm} D=64 offset=4096")
+        if kvq:
+            kb = (kc.float() * ks[..., None]).to(torch.bfloat16)
+            vb = (vc.float() * vs[..., None]).to(torch.bfloat16)
+            row["cmp"] = device_ms(lambda: sdpa_call(
+                _heads(q.to(torch.bfloat16), hm), _heads(kb, hm),
+                _heads(vb, hm), mask), 200)[0]
+        rows.append((f"K2{'-q' if kvq else ''} lanes H={hm}", row))
+    return rows
+
+
+def _mesh_engine(dtype, fuse_insert=None, kv8=True):
+    """The engine of a phase-11 run, made once per process: DEFAULT_CONFIG
+    on random weights from seed 0; kv8: the int8 backbone KV cache and the
+    int8 mimi ring; fuse_insert: the backbone's (None: the serving
+    default, K7)."""
+    import dataclasses
+    import torch
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    key = (dtype, fuse_insert, kv8)
+    if key not in _MESH:
+        device = torch.device("cuda", torch.cuda.current_device())
+        cfg = DEFAULT_CONFIG
+        if kv8:
+            cfg = dataclasses.replace(cfg, mimi=dataclasses.replace(
+                cfg.mimi, transformer=dataclasses.replace(
+                    cfg.mimi.transformer, quantize_kv=True)))
+        cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+            cfg.backbone, fuse_insert=fuse_insert))
+        base = _MESH.get(("params", dtype))
+        eng = make_engine(cfg, device, dtype, quantize_kv=kv8,
+                          params=None if base is None else base[0])
+        _MESH.setdefault(("params", dtype), (eng.params,))
+        _MESH[key] = eng
+    return _MESH[key]
+
+
+def mesh_batched_run(mesh, texts):
+    """Phase 11a: BatchedEngine over len(texts) streams, f32, at temp 0 to
+    each sentence's frame budget, on `mesh` (None: one process): each
+    stream's pcm."""
+    import torch
+    from pocket_tts_tpu_torch.io.params import random_voice_prompt
+    from pocket_tts_tpu_torch.runtime.batched import BatchedEngine
+    eng = _mesh_engine(torch.float32, kv8=False)
+    be = BatchedEngine(eng, mesh)
+    prompts = [random_voice_prompt(eng.cfg, 40 + 16 * i, seed=10 + i)
+               for i in range(len(texts))]
+    return be.synthesize_batch(texts, be.prime_voices(prompts), temp=0.0)
+
+
+def mesh_serve_run(mesh, dtype_name, fuse_insert, voice):
+    """Phases 11b, 11c, 11e: a ContinuousBatchingServer with 4 lanes, the
+    int8 KV cache, the int8 mimi ring and the shared prefix on `mesh`
+    (None: one process), the MESH_TEXTS at temp 0 (two admitted
+    mid-decode), counters and collectives set to 0 just before the run
+    and read just after. Returns each request's pcm and admission chunk,
+    the launches, batch frame steps, prefill calls, all-reduces,
+    all-gathers and the wall seconds."""
+    import torch
+    from pocket_tts_tpu_torch.parallel import sharding
+    from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    if "steps" not in _MESH:
+        _MESH["steps"] = counted_lane_steps()
+    steps = _MESH["steps"]
+    srv = ContinuousBatchingServer(_mesh_engine(dtype, fuse_insert), lanes=4,
+                                   share_prefix=True, mesh=mesh)
+    srv.register_voices({"v": voice})
+    reqs = [srv.submit(t, "v", temp=0.0) for t in MESH_TEXTS]
+    steps0, prefills0 = steps["steps"], steps["prefills"]
+    torch.cuda.synchronize()
+    reset_counters()
+    sharding.collectives.update(all_reduce=0, all_gather=0)
+    t0 = time.perf_counter()
+    srv.run_pending()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(pcm=[r.pcm for r in reqs], admit=[r.admit_step for r in reqs],
+                launches=read_counters(), steps=steps["steps"] - steps0,
+                prefills=steps["prefills"] - prefills0,
+                reduces=sharding.collectives["all_reduce"],
+                gathers=sharding.collectives["all_gather"], wall=wall,
+                chunks=srv.steps)
+
+
+def _mesh_rel(got, want, what):
+    """max |got - want| / max |want| over the streams; shapes must match."""
+    worst = 0.0
+    for i, (a, w) in enumerate(zip(got, want)):
+        if a.shape != w.shape or not np.isfinite(a).all():
+            raise AssertionError(f"{what}: stream {i} has {a.shape} samples "
+                                 f"(want {w.shape}), finite "
+                                 f"{bool(np.isfinite(a).all())}")
+        worst = max(worst, float(np.abs(a - w).max())
+                    / max(float(np.abs(w).max()), 1e-30))
+    return worst
+
+
+def _mesh_same_bits(outs, what):
+    """Phase 11f: every rank returned the same audio bit for bit (each
+    gathers its "data" column's lanes, so this holds the ranks of each
+    "model" group to one another)."""
+    for r, o in enumerate(outs[1:], 1):
+        for a, b in zip(o, outs[0]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{what}: rank {r}'s pcm differs from "
+                                     "rank 0's")
+
+
+def mesh_expected(fuse_insert, n, prefills):
+    """A rank's launches for n batch frame steps of a phase-11 server:
+    6 K7 int8 with statistics (without the fused insert 6 K1 over lanes
+    with statistics), 2 K2-q, one K3 sequence a step, nothing else; and
+    its all-reduces."""
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    nb = DEFAULT_CONFIG.backbone.num_layers
+    nm = DEFAULT_CONFIG.mimi.transformer.num_layers
+    want = {"ring_attn_kv8": nm * n, "seanet_frame": n}
+    if fuse_insert is False:
+        want.update(decode_attn_lanes=nb * n, decode_attn_stats=nb * n)
+    else:
+        want.update(decode_insert_attn_kv8=nb * n,
+                    decode_insert_attn_stats=nb * n)
+    # every layer: two sums (out_proj, linear2) and one max (the new int8
+    # rows' absmax); an admission prefill call runs the backbone's layers
+    return want, 3 * (nb + nm) * n + 3 * nb * prefills
+
+
+def run_mesh_phase(voice, device, errs):
+    """Phase 11 (see the module docstring)."""
+    import torch
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    from pocket_tts_tpu_torch.parallel.dryrun import dryrun_multichip
+    from pocket_tts_tpu_torch.parallel.launch import RankGroup
+    t11 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        check_mesh_kernels(device, dtype, errs)
+    for name, r in time_mesh_kernels(device, torch.bfloat16):
+        (ms, host), (plain_ms, _) = r["k"], r["plain"]
+        lib = "none" if r["lib"] is None else f"{r['lib'] * 1e3:.2f} us"
+        cmp = ("" if "cmp" not in r else f" (SDPA over bf16 caches of the "
+               f"same shape, for comparison: {r['cmp'] * 1e3:.2f} us)")
+        log(f"  {name} ({r['shape']}), bf16: kernel {ms * 1e3:.2f} us "
+            f"device, {host * 1e3:.2f} us host; plain {plain_ms * 1e3:.2f} "
+            f"us; library {lib}{cmp}; bound {r['bound'][0] * 1e3:.2f} us "
+            f"({r['bound'][1]}): {r['bound'][0] / ms:.1%} of it")
+    texts = list(MESH_TEXTS[:4])
+    runs = (("f32", None), ("bf16", None), ("f32", False))
+    ref_a = mesh_batched_run(None, texts)
+    refs = {key: mesh_serve_run(None, *key, voice) for key in runs}
+    t_ranks = time.perf_counter()
+    # gloo, named here: NCCL refuses two ranks on one device
+    with RankGroup(*MESH_SHAPE, backend="gloo", device="cuda", threads=2,
+                   timeout=900) as grp:
+        log(f"  {grp.world} ranks (data {MESH_SHAPE[0]} x model "
+            f"{MESH_SHAPE[1]}, gloo) up in "
+            f"{time.perf_counter() - t_ranks:.1f} s")
+        outs = grp.run(mesh_batched_run, texts)
+        _mesh_same_bits(outs, "BatchedEngine")
+        err = _mesh_rel(outs[0], ref_a, "BatchedEngine")
+        tol = TOL[("e2e", "f32")]
+        frames = [a.size // DEFAULT_CONFIG.mimi.frame_size for a in ref_a]
+        log(f"  11a BatchedEngine on the mesh, 4 streams, f32, frames "
+            f"{frames}: max |sharded - unsharded| relative to max |pcm| "
+            f"{err:.3e} (tol {tol}); ranks equal bit for bit")
+        if not err <= tol:
+            raise AssertionError(f"11a sharded BatchedEngine differs: {err}")
+        for dtype_name, fuse in runs:
+            ref = refs[dtype_name, fuse]
+            outs = grp.run(mesh_serve_run, dtype_name, fuse, voice)
+            label = (f"11{'b' if dtype_name == 'f32' else 'c'} server "
+                     f"{dtype_name}, int8 KV + int8 ring + shared prefix"
+                     + (", no fused insert" if fuse is False else ""))
+            _mesh_same_bits([o["pcm"] for o in outs], label)
+            tol = 2e-3 if dtype_name == "f32" else MESH_BF16_TOL
+            err = _mesh_rel(outs[0]["pcm"], ref["pcm"], label)
+            late = [a for a in outs[0]["admit"] if a]
+            diff = np.concatenate([np.abs(a - w).ravel() for a, w in
+                                   zip(outs[0]["pcm"], ref["pcm"])])
+            log(f"  {label}: {len(MESH_TEXTS)} requests ({len(late)} "
+                f"admitted mid-decode), max |sharded - unsharded| relative "
+                f"to max |pcm| {err:.3e} (tol {tol:.3e}); samples that "
+                f"differ {np.mean(diff > 0):.3%}; ranks equal bit for bit")
+            if outs[0]["admit"] != ref["admit"] or len(late) < 2:
+                raise AssertionError(f"{label}: admissions {outs[0]['admit']}"
+                                     f" vs unsharded {ref['admit']}")
+            if not err <= tol:
+                raise AssertionError(f"{label}: sharded pcm differs: {err}")
+            for r, o in enumerate(outs):
+                n, pf = o["steps"], o["prefills"]
+                want, reduces = mesh_expected(fuse, n, pf)
+                got = {k: v for k, v in o["launches"].items() if v}
+                log(f"    rank {r}: {n} batch frame steps, {pf} admission "
+                    f"prefills, launches {got} (want {want}); "
+                    f"{o['reduces']} all-reduces (want {reduces}), "
+                    f"{o['gathers']} all-gathers; wall "
+                    f"{1e3 * o['wall'] / max(n, 1):.2f} ms a step (unsharded "
+                    f"{1e3 * ref['wall'] / max(ref['steps'], 1):.2f})")
+                for name in set(o["launches"]) | set(want):
+                    if o["launches"].get(name, 0) != want.get(name, 0):
+                        raise AssertionError(
+                            f"{label} rank {r} {name}: "
+                            f"{o['launches'].get(name, 0)} launches for {n} "
+                            f"steps (want {want.get(name, 0)})")
+                if o["reduces"] != reduces:
+                    raise AssertionError(f"{label} rank {r}: {o['reduces']} "
+                                         f"all-reduces (want {reduces})")
+    log(f"  11g dryrun_multichip(4, 'cuda'): "
+        f"{dryrun_multichip(4, 'cuda')}")
+    log(f"  phase 11: {time.perf_counter() - t11:.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="PyTorch port smoke test on "
@@ -5533,6 +5978,11 @@ def main(argv=None) -> int:
                      voice, ex)
         time_encoder_kernels(qenc, DEFAULT_CONFIG, device)
         log(f"  phase 10: {time.perf_counter() - t10:.1f} s")
+
+        phase = "mesh"
+        header("[11] sharded serving: 4 gloo ranks (data 2 x model 2) on "
+               "the one card")
+        run_mesh_phase(voice, device, {})
     except Exception:
         import traceback
         traceback.print_exc()

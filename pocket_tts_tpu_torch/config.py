@@ -12,7 +12,8 @@ dimensions, `kv_capacity`, `gelu_approx`, `eos_threshold`, the two
 
 `check_supported` names what this port runs: solo decode and
 continuous-batching serving (runtime/batched.py, runtime/server.py, with
-shared-prefix serving) with bf16/f32, int8, int4 or q4_0 weights
+shared-prefix serving; sharded over a mesh with float weights) with
+bf16/f32, int8, int4 or q4_0 weights
 (quantization is an engine option, not a config field), with the
 backbone's KV cache in the working type or in int8 with per-row scales
 (`backbone.quantize_kv`; the engine's `quantize_kv=True` sets it), and the
@@ -20,7 +21,7 @@ mimi ring in int8 with per-row scales (`mimi.transformer.quantize_kv`, a
 config-only option, kernel K2's int8 variant).
 `backbone.fuse_insert` routes each T = 1 decode step through kernel K7
 (ops/insert_attn.py) instead of a row write and kernel K1; the serving
-paths set it unless the caller did (`runtime.batched.serving_cfg`).
+paths set it unless the caller did (`runtime.batched.mesh_cfg`).
 `backbone.use_megalayer` runs a solo quantized T = 1 layer as ONE launch
 of kernel K8 (ops/fused_step.py); `backbone.use_bilayer` fuses post(l)
 with pre(l+1) for solo int4 decode through kernel K5c
@@ -41,8 +42,12 @@ kernels mask with -1e9; the JAX kernels would ignore the value
 silently), and so does a mimi capacity that is not a multiple of the
 upsample stride (K2 inserts whole 16-step blocks; the JAX model would
 take its XLA route there instead, `models/mimi_transformer.py:205-221`).
-A device mesh raises too. So no configuration silently runs something
-other than what it asks for.
+The mesh fields (`backbone.mesh`, `mimi.transformer.mesh`,
+`mimi.seanet.mesh`, `on_mesh`) carry a torch DeviceMesh with dims
+("data", "model") (parallel/sharding.make_mesh) into the decode of a
+sharded serving run; `runtime.batched.mesh_cfg` sets them, and a mesh of
+another kind, or `on_mesh` without the SEANet's mesh, raises. So no
+configuration silently runs something other than what it asks for.
 
 The kernel wrappers keep their one rule either way: plain PyTorch for
 tensors on the CPU, the hand-written CUDA kernel (or an error) for
@@ -96,7 +101,8 @@ class BackboneConfig:
     # softmax) vs the reference's -1e5 "can't use infinity" hack
     # (torch.h:124-143). A/B switch for real-weights bit comparison.
     mask_value: float = -1e9
-    # the JAX package's device mesh for sharded decode (not ported yet)
+    # the ("data", "model") DeviceMesh of a sharded decode: heads and MLP
+    # width split over "model" (runtime.batched.mesh_cfg sets it)
     mesh: object = None
 
     @property
@@ -143,7 +149,8 @@ class MimiTransformerConfig:
     norm_eps: float = 0.0
     # masked-slot bias; -1e5 in reference-exact mode (torch.h:141)
     mask_value: float = -1e9
-    # device mesh (not ported yet)
+    # the ("data", "model") DeviceMesh of a sharded decode: heads and MLP
+    # width split over "model" (runtime.batched.mesh_cfg sets it)
     mesh: object = None
 
     @property
@@ -175,7 +182,8 @@ class SeanetConfig:
     out_ch: int = 1
     # the JAX package's Pallas SEANet switch; not read by the port
     use_pallas: bool = None
-    # device mesh (not ported yet)
+    # the DeviceMesh of a sharded decode (each rank decodes its own
+    # lanes, weights whole)
     mesh: object = None
 
     @property
@@ -218,7 +226,8 @@ class ModelConfig:
     # default); the ggml reference uses the tanh approximation
     # (torch.h / ggml_gelu). Configurable for A/B numerics.
     gelu_approx: bool = False
-    # True when the decode program runs on a device mesh (not ported yet)
+    # True when the decode runs on a mesh (runtime.batched.mesh_cfg): the
+    # flow net then never takes kernel K6, as the JAX package gates it
     on_mesh: bool = False
 
 
@@ -282,16 +291,27 @@ DEFAULT_CONFIG = ModelConfig()
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for any option this port does not run:
-    a device mesh, and on a part whose `use_pallas_attn` is not False (the
-    kernel route) a mask value other than -1e9 or a mimi capacity that is
-    not a multiple of the upsample stride."""
+    """Raise NotImplementedError for any option this port does not run: a
+    mesh that is not a torch DeviceMesh with dims ("data", "model") (a JAX
+    Mesh, say), `on_mesh` without `mimi.seanet.mesh` or the reverse (a mesh
+    cfg comes from runtime.batched.mesh_cfg, which sets both), and on a
+    part whose `use_pallas_attn` is not False (the kernel route) a mask
+    value other than -1e9 or a mimi capacity that is not a multiple of the
+    upsample stride."""
     bb = cfg.backbone
     mt = cfg.mimi.transformer
     bad = []
-    if bb.mesh is not None or mt.mesh is not None \
-            or cfg.mimi.seanet.mesh is not None or cfg.on_mesh:
-        bad.append("mesh")
+    for name, mesh in (("backbone", bb.mesh), ("mimi.transformer", mt.mesh),
+                       ("mimi.seanet", cfg.mimi.seanet.mesh)):
+        dims = getattr(mesh, "mesh_dim_names", None) or ()
+        if mesh is not None and not {"data", "model"} <= set(dims):
+            bad.append(f"{name}.mesh={mesh!r} (the port runs a torch "
+                       "DeviceMesh with dims ('data', 'model'): "
+                       "parallel.sharding.make_mesh)")
+    if cfg.on_mesh != (cfg.mimi.seanet.mesh is not None):
+        bad.append(f"on_mesh={cfg.on_mesh} with mimi.seanet.mesh="
+                   f"{cfg.mimi.seanet.mesh!r} (build a mesh cfg with "
+                   "runtime.batched.mesh_cfg, which sets both)")
     if mt.capacity % cfg.mimi.upsample_stride \
             and mt.use_pallas_attn is not False:
         bad.append(f"mimi.transformer.capacity={mt.capacity} with "

@@ -73,6 +73,17 @@ unmasks each lane's own voice segment. Each layer attends the tables
 its own cache (K7 or K1 with statistics at T = 1, `sdpa_seg_stats` in
 prefill),
 and merges the two partials exactly (`merge_attn_partials`).
+
+On a ("data", "model") mesh (`cfg.mesh`, set by runtime.batched.mesh_cfg
+when "model" divides the heads; parallel/sharding.py) a rank holds its
+heads: its columns of q, k, v and of the caches (`init_state` sizes them),
+its block of the MLP width, its heads of the prefix tables. K1 and K7 run
+on the local heads unchanged; out_proj and linear2 are summed over the
+"model" group before their residual adds (`_post`); an int8 cache's new
+rows are scaled by the WHOLE row's absmax, maxed over the group
+(`_quantize_kv`, prefill and decode), as the JAX package hands the
+full-row scales to its head shards. Float weights only (a mesh refuses
+quantized ones), so no fused layer runs there.
 """
 from __future__ import annotations
 
@@ -90,6 +101,8 @@ from ..ops.basic import (gelu, layer_norm, linear, quantize_rows,
 from ..ops.decode_attn import decode_attention
 from ..ops.insert_attn import decode_insert_attention
 from ..ops.rope import apply_rope_halves as apply_rope, rope_cos_sin
+from ..parallel.sharding import (local_heads, model_group, reduce_absmax,
+                                 row_linear)
 
 
 @dataclasses.dataclass
@@ -114,7 +127,9 @@ class BackboneState:
 
 
 def init_state(cfg, dtype=torch.float32, device="cpu") -> BackboneState:
-    shape = (cfg.kv_capacity, cfg.num_heads * cfg.head_dim)
+    """An empty solo state; on a mesh (cfg.mesh) its caches hold this
+    rank's heads."""
+    shape = (cfg.kv_capacity, local_heads(cfg) * cfg.head_dim)
     cache = torch.int8 if cfg.quantize_kv else dtype
 
     def scales():
@@ -155,19 +170,30 @@ def refuse_cross(state, what: str) -> None:
                          "decodes solo, through `forward` only")
 
 
+def _quantize_kv(k_rows, v_rows, group):
+    """The int8 K and V rows with their scales, (kq, ks), (vq, vs). On a
+    mesh (group: the "model" group) the rows hold this rank's heads only,
+    and each row's absmax is maxed over the group first (one reduce for K
+    and V), so that every shard scales by the WHOLE row's absmax, as the
+    JAX package does."""
+    amax = (None, None) if group is None else reduce_absmax(
+        torch.stack([k_rows, v_rows]), group)
+    return quantize_rows(k_rows, amax[0]), quantize_rows(v_rows, amax[1])
+
+
 def _write_rows(k_cache, v_cache, k_scale, v_scale, end: int, k_rows,
-                v_rows):
+                v_rows, group=None):
     """Write (..., T, H*D) rows at slots [end, end + T) of (..., S, H*D)
-    caches in place; int8 caches get the quantized rows and their
-    scales."""
+    caches in place; int8 caches get the quantized rows and their scales
+    (group: as in _quantize_kv)."""
     t = k_rows.shape[-2]
     if k_scale is None:
         k_cache.narrow(-2, end, t).copy_(k_rows)
         v_cache.narrow(-2, end, t).copy_(v_rows)
         return
-    for cache, scale, rows in ((k_cache, k_scale, k_rows),
-                               (v_cache, v_scale, v_rows)):
-        q, s = quantize_rows(rows)
+    for cache, scale, (q, s) in zip(
+            (k_cache, v_cache), (k_scale, v_scale),
+            _quantize_kv(k_rows, v_rows, group)):
         cache.narrow(-2, end, t).copy_(q)
         scale.narrow(-1, end, t).copy_(s)
 
@@ -180,44 +206,49 @@ def _deq(cache, scale, dtype):
     return (cache.float() * scale[..., None]).to(dtype)
 
 
-def _k7_rows(kn, vn, k_scale, v_scale):
+def _k7_rows(kn, vn, k_scale, v_scale, group=None):
     """K7's new (B, 1, H*D) rows and keyword arguments: for int8 caches
     the rows quantized here (as the JAX package's caller does), with their
-    scales and the (B, S) scale rows."""
+    scales and the (B, S) scale rows (group: as in _quantize_kv)."""
     if k_scale is None:
         return kn, vn, {}
-    (kq, ks), (vq, vs) = quantize_rows(kn), quantize_rows(vn)
+    (kq, ks), (vq, vs) = _quantize_kv(kn, vn, group)
     return kq, vq, dict(k_scale=k_scale, v_scale=v_scale, ks_new=ks[:, 0],
                         vs_new=vs[:, 0])
 
 
 def _post(p, x, attn, fused: bool, gelu_approx: bool, cross=None,
-          num_heads: int = 0):
+          num_heads: int = 0, group=None):
     """out_proj + residual + norm2 + MLP + residual: K5b when fused.
     cross: this layer's (xk, xv) when the state holds cross KV (never
-    fused): the cross sub-block runs between the residual and the MLP."""
+    fused): the cross sub-block runs between the residual and the MLP.
+    group: the "model" group of a mesh: attn holds this rank's heads and
+    the MLP's hidden width its block, and out_proj and linear2 are summed
+    over the group before their residual adds (parallel.sharding.
+    row_linear)."""
     if fused:
         return fused_layer.post_attention(p, x, attn, eps=1e-5,
                                           approx=gelu_approx)
-    x = x + linear(p["out_proj"], attn)
+    x = x + row_linear(p["out_proj"], attn, group)
     if cross is not None:
         x = x + cross_attention(p["cross_attention"],
                                 layer_norm(p["norm_cross"], x, eps=1e-5),
                                 cross[0], cross[1], num_heads)
     h = layer_norm(p["norm2"], x, eps=1e-5)
-    return x + linear(p["linear2"],
-                      gelu(linear(p["linear1"], h), gelu_approx))
+    return x + row_linear(p["linear2"],
+                          gelu(linear(p["linear1"], h), gelu_approx), group)
 
 
 def _attend(qkv, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
-            bias, pos_vec, num_heads: int, cur_pos=None):
+            bias, pos_vec, num_heads: int, cur_pos=None, group=None):
     """The attention middle of a solo layer: qkv (T, 3 dm) -> attn (T, dm),
     the new KV rows written at slot `end` in place. cur_pos: the (1,) int32
     position of a decode step's row when it goes through K7
     (cfg.fuse_insert), else None. bias: None for a T = 1 step on the
-    kernels (K1), else the (T, S) bias of plain attention. The JAX
-    package's `_attend` (factored out for the bilayer loop) and the middle
-    of its `_layer`."""
+    kernels (K1), else the (T, S) bias of plain attention. On a mesh,
+    num_heads is this rank's and group its "model" group (int8 scales).
+    The JAX package's `_attend` (factored out for the bilayer loop) and
+    the middle of its `_layer`."""
     t = qkv.shape[0]
     dm = qkv.shape[-1] // 3
     d = dm // num_heads
@@ -228,12 +259,12 @@ def _attend(qkv, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
         kn, vn, extra = _k7_rows(
             k.reshape(1, 1, dm), v.reshape(1, 1, dm),
             None if k_scale is None else k_scale[None],
-            None if v_scale is None else v_scale[None])
+            None if v_scale is None else v_scale[None], group)
         attn = decode_insert_attention(
             q, kn, vn, cur_pos, k_cache[None], v_cache[None], pos_vec[None],
             end, end, **extra)[0]
     else:
-        _write_rows(k_cache, v_cache, k_scale, v_scale, end, k, v)
+        _write_rows(k_cache, v_cache, k_scale, v_scale, end, k, v, group)
         if bias is None:
             attn = decode_attention(q[0], k_cache, v_cache, pos_vec, end,
                                     k_scale, v_scale)
@@ -247,7 +278,7 @@ def _attend(qkv, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
 
 def _layer(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
            bias, pos_vec, num_heads: int, gelu_approx: bool, cur_pos=None,
-           megalayer: bool = False, cross=None):
+           megalayer: bool = False, cross=None, group=None):
     """One pre-LN layer; writes its KV rows at slot `end` in place.
     cur_pos: as in _attend. megalayer (cfg.use_megalayer): a T = 1
     quantized layer runs as ONE launch of kernel K8 (ops/fused_step), read
@@ -255,7 +286,8 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
     it; it raises for a layer K8 does not take (q4_0 scales). A bias at
     T = 1 (the plain route) fuses nothing, and neither does a layer with
     cross KV (`cross`: its (xk, xv); the caller passes no cur_pos and no
-    megalayer with it)."""
+    megalayer with it). group: the "model" group of a mesh (num_heads is
+    then this rank's; float weights only, so nothing fuses)."""
     t = x.shape[0]
     fused = (t == 1 and bias is None and cross is None
              and fused_layer.supported(p))
@@ -268,8 +300,8 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
     else:
         qkv = linear(p["in_proj"], layer_norm(p["norm1"], x, eps=1e-5))
     attn = _attend(qkv, k_cache, v_cache, k_scale, v_scale, end, cos, sin,
-                   bias, pos_vec, num_heads, cur_pos)
-    return _post(p, x, attn, fused, gelu_approx, cross, num_heads)
+                   bias, pos_vec, num_heads, cur_pos, group)
+    return _post(p, x, attn, fused, gelu_approx, cross, num_heads, group)
 
 
 def _forward_bilayer(p, cfg, state: BackboneState, x, cos, sin, cur_pos,
@@ -308,7 +340,9 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
     (K5c), as the JAX package gates them (`backbone.py:438-452`); with
     cfg.use_pallas_attn False it runs none of them (plain attention). A
     state with cross KV runs none of them either, nor K7: its decode step
-    writes the rows and runs K1 (`backbone.py:455-463`).
+    writes the rows and runs K1 (`backbone.py:455-463`). On a mesh
+    (cfg.mesh) the layers run on this rank's heads (parallel/sharding.py);
+    a cross state is refused there.
     """
     if state.pk is not None:
         raise ValueError("a shared-prefix state decodes over lanes "
@@ -327,6 +361,10 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
     bias = (None if kernels
             else pos_cache_bias(positions, state.pos, neg=cfg.mask_value))
     cross = state.xk is not None
+    group = model_group(cfg)
+    if cross and cfg.mesh is not None:
+        raise ValueError("a cross-attention state (init_cross) decodes "
+                         "solo, without a mesh")
     cur_pos = (state.pos[end:end + 1]
                if kernels and cfg.fuse_insert and not cross else None)
     if (kernels and cfg.use_bilayer and not cfg.use_megalayer
@@ -343,9 +381,9 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
         x = _layer(slice_layer_params(p["layers"], l), x, state.k[l],
                    state.v[l], state.k_scale[l] if quant else None,
                    state.v_scale[l] if quant else None, end, cos, sin, bias,
-                   state.pos, cfg.num_heads, gelu_approx, cur_pos,
+                   state.pos, local_heads(cfg), gelu_approx, cur_pos,
                    cfg.use_megalayer and not cross,
-                   (state.xk[l], state.xv[l]) if cross else None)
+                   (state.xk[l], state.xv[l]) if cross else None, group)
     return state, x
 
 
@@ -374,8 +412,10 @@ def split_prefix(state: BackboneState, p: int, num_heads: int,
     (H, p, D) tables of `dtype` (int8 rows are dequantized: the tables are
     read once per frame for the whole batch), ppos the (p,) positions; the
     residual state (a copy) keeps slots [p:] with the slot cursor rebased,
-    ready for text prefill. The JAX package's `split_prefix`. Raises
-    ValueError for a cross-attention state."""
+    ready for text prefill. The JAX package's `split_prefix`. On a mesh
+    the state holds this rank's heads (num_heads: its local count), so the
+    tables come out head-sliced, the layout parallel/sharding.py gives
+    them. Raises ValueError for a cross-attention state."""
     refuse_cross(state, "split_prefix")
     quant = state.k_scale is not None
     d = state.k[0].shape[-1] // num_heads
@@ -440,21 +480,25 @@ class BatchedBackboneState:
 
 def _layer_lanes(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos,
                  sin, bias, pos, cur_pos, read_end: int, num_heads: int,
-                 gelu_approx: bool, prefix=None, fuse_insert: bool = True):
+                 gelu_approx: bool, prefix=None, fuse_insert: bool = True,
+                 group=None):
     """One pre-LN layer over B lanes, x (B, T, d_model); writes the KV rows
     at slot `end` of every lane in place. A decode step (T = 1) goes
     through K7 under fuse_insert, else writes the rows and runs K1 over the
     lanes. prefix: this layer's (pk, pv, ppos) in shared-prefix mode, else
     None. bias: None for a T = 1 step on the kernels, else the (B, T, S)
     bias of plain attention (prefill, and every step of the plain route,
-    which fuses nothing)."""
-    b, t, dm = x.shape
-    d = dm // num_heads
+    which fuses nothing). group: the "model" group of a mesh, num_heads
+    then this rank's (its heads' columns of q, k, v and of the caches;
+    out_proj and linear2 summed over the group)."""
+    b, t, _ = x.shape
     fused = t == 1 and bias is None and fused_layer.supported(p)
     if fused:
         qkv = fused_layer.pre_attention(p, x, eps=1e-5)
     else:
         qkv = linear(p["in_proj"], layer_norm(p["norm1"], x, eps=1e-5))
+    dm = qkv.shape[-1] // 3
+    d = dm // num_heads
     q, k, v = qkv.split(dm, -1)
     q = apply_rope(q.reshape(b, t, num_heads, d), cos, sin)
     k = apply_rope(k.reshape(b, t, num_heads, d), cos, sin).reshape(b, t, dm)
@@ -462,20 +506,20 @@ def _layer_lanes(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos,
     if share:
         o1, m1, l1 = prefix_attn_stats(q, *prefix)
     if bias is None and fuse_insert:
-        kn, vn, extra = _k7_rows(k, v.contiguous(), k_scale, v_scale)
+        kn, vn, extra = _k7_rows(k, v.contiguous(), k_scale, v_scale, group)
         res = decode_insert_attention(
             q[:, 0].contiguous(), kn, vn, cur_pos, k_cache, v_cache, pos,
             read_end, end, stats=share, **extra)
         attn = (merge_attn_partials(o1[:, 0], m1[:, 0], l1[:, 0], *res)
                 if share else res)
     elif bias is None:
-        _write_rows(k_cache, v_cache, k_scale, v_scale, end, k, v)
+        _write_rows(k_cache, v_cache, k_scale, v_scale, end, k, v, group)
         res = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, pos,
                                read_end, k_scale, v_scale, stats=share)
         attn = (merge_attn_partials(o1[:, 0], m1[:, 0], l1[:, 0], *res)
                 if share else res)
     else:
-        _write_rows(k_cache, v_cache, k_scale, v_scale, end, k, v)
+        _write_rows(k_cache, v_cache, k_scale, v_scale, end, k, v, group)
         kd = _deq(k_cache, k_scale, q.dtype)
         vd = _deq(v_cache, v_scale, q.dtype)
         if share:
@@ -485,7 +529,8 @@ def _layer_lanes(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos,
             s = k_cache.shape[1]
             attn = sdpa(q, kd.view(b, s, num_heads, d),
                         vd.view(b, s, num_heads, d), bias)
-    return _post(p, x, attn.reshape(b, t, dm), fused, gelu_approx)
+    return _post(p, x, attn.reshape(b, t, dm), fused, gelu_approx,
+                 group=group)
 
 
 def forward_lanes(p, cfg, state: BatchedBackboneState, x, n_valid=None,
@@ -501,7 +546,10 @@ def forward_lanes(p, cfg, state: BatchedBackboneState, x, n_valid=None,
     cfg.use_megalayer change nothing over lanes: the JAX package gates the
     bilayer to solo decode, and its vmap rule for K8 runs the 3-call path
     (`fused_step.py:579-587`), which the serving cfg's fused insert gives
-    here; both compute the function of the unfused layer."""
+    here; both compute the function of the unfused layer. On a mesh
+    (cfg.mesh) every layer runs on this rank's heads: its block of the
+    params and of the caches (parallel/sharding.py), with the sums over
+    the "model" group in `_post`."""
     b, t, _ = x.shape
     s = state.pos.shape[1]
     end = state.end
@@ -527,14 +575,15 @@ def forward_lanes(p, cfg, state: BatchedBackboneState, x, n_valid=None,
     cur_pos = rows[:, 0].contiguous()
     quant = state.k_scale is not None
     share = state.pk is not None
+    heads, group = local_heads(cfg), model_group(cfg)
     for l in range(cfg.num_layers):
         x = _layer_lanes(
             slice_layer_params(p["layers"], l), x, state.k[l], state.v[l],
             state.k_scale[l] if quant else None,
             state.v_scale[l] if quant else None, end, cos, sin, bias,
-            state.pos, cur_pos, read_end, cfg.num_heads, gelu_approx,
+            state.pos, cur_pos, read_end, heads, gelu_approx,
             (state.pk[l], state.pv[l], state.ppos) if share else None,
-            bool(cfg.fuse_insert))
+            bool(cfg.fuse_insert), group)
     return state, x
 
 

@@ -10,7 +10,9 @@ The backbone state is updated in place (see models/backbone.py).
 (continuous batching): the rows of all lanes go through each linear as one
 matrix; with int8 or int4 weights the decode step's flow net runs as ONE
 launch of kernel K6 over the B rows (ops/fused_flow.py), as the JAX
-package's vmap rule runs it.
+package's vmap rule runs it. On a mesh (`cfg.on_mesh`) the flow net
+never takes K6, as the JAX package pins it off there (K6 has no sharded
+form; quantized weights on a mesh are refused anyway).
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ def decode_step(p, cfg, state: backbone.BackboneState, prev_latent, noise):
     h = layer_norm(p["out_norm"], h, eps=1e-5)[-1]
     is_eos = linear(p["out_eos"], h)[0] > cfg.eos_threshold
     latent = flow_mlp.sample_latent(p["flow_net"], h, noise,
-                                    p.get("_time_cond"))
+                                    p.get("_time_cond"), not cfg.on_mesh)
     return state, latent, is_eos
 
 
@@ -72,5 +74,5 @@ def decode_step_lanes(p, cfg, state: backbone.BatchedBackboneState,
     h = layer_norm(p["out_norm"], h, eps=1e-5)[:, -1]
     is_eos = linear(p["out_eos"], h)[:, 0] > cfg.eos_threshold
     latent = flow_mlp.sample_latent(p["flow_net"], h, noise,
-                                    p.get("_time_cond"))
+                                    p.get("_time_cond"), not cfg.on_mesh)
     return state, latent, is_eos

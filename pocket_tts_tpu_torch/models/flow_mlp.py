@@ -50,12 +50,14 @@ def final_layer(p, x, y):
     return linear(p["linear"], x)
 
 
-def forward(p, c, x, t_combined=None):
+def forward(p, c, x, t_combined=None, fused: bool = True):
     """Flow direction for one step. c: (d_model,) conditioning; x:
-    (latent,) noise; t_combined: precomputed `time_cond(p)`."""
+    (latent,) noise; t_combined: precomputed `time_cond(p)`. fused=False
+    keeps quantized weights off kernel K6 (the JAX package's use_pallas=
+    False, which a mesh sets)."""
     if t_combined is None:
         t_combined = time_cond(p)
-    if fused_flow.supported(p):
+    if fused and fused_flow.supported(p):
         return fused_flow.flow_forward(p, c, x, t_combined)
     h = linear(p["input_proj"], x)
     y = t_combined + linear(p["cond_embed"], c)
@@ -65,6 +67,6 @@ def forward(p, c, x, t_combined=None):
     return final_layer(p["final"], h, y)
 
 
-def sample_latent(p, c, noise, t_combined=None):
+def sample_latent(p, c, noise, t_combined=None, fused: bool = True):
     """latent = noise + flow_net(c, s=0, t=1, noise)."""
-    return noise + forward(p, c, noise, t_combined)
+    return noise + forward(p, c, noise, t_combined, fused)

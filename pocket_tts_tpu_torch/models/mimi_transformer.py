@@ -48,6 +48,15 @@ ring may wrap inside a 16-step block, and its -1e5 mask goes into
 `ring_cache_bias`. Quantized linears still go through K4a / K4b there.
 `config.check_supported` refuses a capacity that is not a multiple of T,
 or a mask other than -1e9, on the kernel route.
+
+On a mesh (`cfg.mesh`, set by runtime.batched.mesh_cfg when "model"
+divides the heads) each rank holds its heads: its columns of q, k, v and
+of the ring, its block of the MLP's hidden width (parallel/sharding.py).
+K2 runs on the local heads; out_proj and linear2 are summed over the
+"model" group before their layer scales and residual adds; an int8 ring's
+new rows are scaled by the whole row's absmax (maxed over the group); a
+gated layer's MLP stays whole on every rank. A cross state is refused
+there.
 """
 from __future__ import annotations
 
@@ -63,6 +72,8 @@ from ..ops.basic import (gelu, layer_norm, linear, quantize_rows, rms_norm,
 from ..ops.gating import weights_per_step_gating
 from ..ops.ring_attn import ring_insert_attention, ring_insert_attention_plain
 from ..ops.rope import apply_rope_halves as apply_rope, rope_cos_sin
+from ..parallel.sharding import (local_heads, model_group, reduce_absmax,
+                                 row_linear)
 
 
 @dataclasses.dataclass
@@ -82,7 +93,8 @@ class MimiTransformerState:
 
 
 def init_state(cfg, dtype=torch.float32, device="cpu"):
-    shape = (cfg.capacity, cfg.num_heads * cfg.head_dim)
+    """An empty solo ring; on a mesh it holds this rank's heads."""
+    shape = (cfg.capacity, local_heads(cfg) * cfg.head_dim)
     cache = torch.int8 if cfg.quantize_kv else dtype
 
     def scales():
@@ -127,31 +139,38 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, offset: int, start,
            cos, sin, cfg, gelu_approx: bool, plain: bool = False, xk=None,
            xv=None):
     """One layer; plain: the plain ring route (no K2, no K5a/K5b); xk/xv:
-    this layer's cross-attention KV, or None."""
-    *lead, t, dm = x.shape
+    this layer's cross-attention KV, or None. On a mesh the layer runs on
+    this rank's heads (see the module docstring)."""
+    *lead, t, _ = x.shape
+    group, nh = model_group(cfg), local_heads(cfg)
     fused = not plain and "gating" not in p and fused_layer.supported(p)
     if fused:
         qkv = fused_layer.pre_attention(p, x, eps=cfg.norm_eps)
     else:
         qkv = linear(p["in_proj"], _norm_any(p["norm1"], x, cfg.norm_eps))
+    dm = qkv.shape[-1] // 3
     q, k, v = qkv.split(dm, -1)
-    heads = (*lead, t, cfg.num_heads, cfg.head_dim)
+    heads = (*lead, t, nh, cfg.head_dim)
     q = apply_rope(q.reshape(heads), cos, sin)
     k = apply_rope(k.reshape(heads), cos, sin).reshape(*lead, t, dm)
     v = v.contiguous()
     extra = {}
     if k_scale is not None:
-        (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+        amax = (None, None) if group is None else reduce_absmax(
+            torch.stack([k, v]), group)
+        (k, ks), (v, vs) = quantize_rows(k, amax[0]), quantize_rows(
+            v, amax[1])
         extra = dict(k_scale=k_scale, v_scale=v_scale, ks_new=ks, vs_new=vs)
     if plain:
         extra["neg"] = cfg.mask_value
     attn = (ring_insert_attention_plain if plain else ring_insert_attention)(
         q.reshape(*lead, t, dm), k, v, k_cache, v_cache, offset, start,
-        cfg.num_heads, cfg.context, **extra)
+        nh, cfg.context, **extra)
     if fused:
         return fused_layer.post_attention(p, x, attn, eps=cfg.norm_eps,
                                           approx=gelu_approx)
-    x = x + p["layer_scale_1"]["scale"] * linear(p["out_proj"], attn)
+    x = x + p["layer_scale_1"]["scale"] * row_linear(p["out_proj"], attn,
+                                                     group)
     if "cross_attention" in p and xk is not None:
         x = x + cross_attention(
             p["cross_attention"], layer_norm(p["norm_cross"], x,
@@ -161,8 +180,8 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, offset: int, start,
     if "gating" in p:
         up = weights_per_step_gating(p["gating"], h, offset=offset)
     else:
-        up = linear(p["linear2"], gelu(linear(p["linear1"], h),
-                                       gelu_approx))
+        up = row_linear(p["linear2"], gelu(linear(p["linear1"], h),
+                                           gelu_approx), group)
     return x + p["layer_scale_2"]["scale"] * up
 
 
@@ -180,9 +199,10 @@ def forward(p, cfg, state: MimiTransformerState, x,
     quant = state.k_scale is not None
     plain = cfg.use_pallas_attn is False
     cross = state.xk is not None
-    if cross and x.dim() == 3:
+    if cross and (x.dim() == 3 or cfg.mesh is not None):
         raise ValueError("mimi_transformer.forward: a cross-attention "
-                         "state (init_cross) decodes solo, not over lanes")
+                         "state (init_cross) decodes solo, not over lanes "
+                         "and not on a mesh")
     for l in range(cfg.num_layers):
         x = _layer(slice_layer_params(p["layers"], l), x, state.k[l],
                    state.v[l], state.k_scale[l] if quant else None,

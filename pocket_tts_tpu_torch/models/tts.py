@@ -14,6 +14,9 @@ computed unconditionally (a finished lane runs on garbage and its frame is
 masked, so the shared slot cursor stays uniform), and eos_step, step and
 done are updated on the device with no host read: the caller reads pcm,
 valid and done when it chooses (the servers once per chunk).
+
+`init_stream_state` and the fixed-length `decode_sentence` are the JAX
+package's names; the engine decodes with `decode_sentence_early_exit`.
 """
 from __future__ import annotations
 
@@ -33,6 +36,17 @@ class StreamState:
     eos_step: int = -1         # frame at which EOS fired, -1 until then
     step: int = 0              # frames generated this sentence
     done: bool = False
+
+
+def init_stream_state(p, cfg, dtype=torch.float32, device=None
+                      ) -> StreamState:
+    """An empty stream: empty backbone cache and mimi state, bos_emb as the
+    first latent. device: the params' when None."""
+    device = p["bos_emb"].device if device is None else device
+    return StreamState(
+        flow=backbone.init_state(cfg.backbone, dtype, device),
+        mimi=mimi.init_state(cfg.mimi, dtype, device),
+        prev_latent=p["bos_emb"].to(device=device, dtype=dtype))
 
 
 def prime_voice(p, cfg, flow_state, prompt, n_valid: int):
@@ -93,6 +107,28 @@ def frame_step(p, cfg, state: StreamState, noise, frames_after_eos: int,
     state.done = stop or state.flow.end >= capacity
     pcm = pcm.float()
     return (pcm * 0.0 if stop else pcm), not stop
+
+
+def decode_sentence(p, cfg, state: StreamState, noise_fn,
+                    frames_after_eos: int, max_steps: int, scan_len: int,
+                    seanet_weights: dict = None):
+    """Exactly scan_len frames (the JAX package's fixed-length scan): frame
+    i takes noise_fn(i). Returns (state, pcm (scan_len, frame_size)
+    float32, valid (scan_len,) bool), both on the device: frames after the
+    stop are zeros with valid False. The JAX scan steps a finished stream
+    on in the background; here a done stream computes nothing (frame_step),
+    so its state stays where the stream stopped."""
+    pcms, valids = [], []
+    for i in range(scan_len):
+        pcm, valid = frame_step(p, cfg, state, noise_fn(i), frames_after_eos,
+                                max_steps, seanet_weights)
+        pcms.append(pcm)
+        valids.append(valid)
+    dev = state.prev_latent.device
+    if not pcms:
+        return (state, torch.zeros(0, cfg.mimi.frame_size, device=dev),
+                torch.zeros(0, dtype=torch.bool, device=dev))
+    return state, torch.stack(pcms), torch.tensor(valids, device=dev)
 
 
 def decode_sentence_early_exit(p, cfg, state: StreamState, noise_fn,
@@ -156,7 +192,11 @@ def frame_step_lanes(p, cfg, state: BatchedStreamState, noise,
     """One frame of every lane, in place. noise (B, latent); frames_after_eos
     and max_steps (B,) int tensors. Returns (pcm (B, frame_size) float32,
     valid (B,) bool), both on the device. The EOS protocol is frame_step's;
-    a lane done before this step emits nothing but is still computed."""
+    a lane done before this step emits nothing but is still computed. On a
+    mesh the ranks of a "model" group read the same EOS: the hidden state
+    after each all-reduce is the same bits on all of them, and what
+    follows runs whole on each (tests/test_torch_sharding.py and
+    chip_smoke.py phase 11 hold the ranks' audio equal bit for bit)."""
     _, latent, is_eos = flow_lm.decode_step_lanes(p, cfg, state.flow,
                                                   state.prev_latent, noise)
     step, done = state.step, state.done

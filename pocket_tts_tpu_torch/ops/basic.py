@@ -70,12 +70,16 @@ def rms_norm(p, x, eps: float = 1e-8):
     return (y * p["alpha"].float()).to(x.dtype)
 
 
-def quantize_rows(x):
+def quantize_rows(x, amax=None):
     """(..., H*D) -> (int8 rows, (...,) float32 absmax scales): the JAX
     package's `models.backbone.quantize_rows`, bit for bit (the int8 KV
-    caches of the backbone and of the mimi ring)."""
+    caches of the backbone and of the mimi ring). amax: the rows' (...,)
+    absmax when x holds only some columns of each row (a head shard on a
+    mesh: parallel.sharding.reduce_absmax), else taken from x."""
     x32 = x.float()
-    s = (x32.abs().amax(-1) / 127.0).clamp_min(1e-12)
+    if amax is None:
+        amax = x32.abs().amax(-1)
+    s = (amax / 127.0).clamp_min(1e-12)
     q = torch.clamp(torch.round(x32 / s[..., None]), -127, 127)
     return q.to(torch.int8), s
 

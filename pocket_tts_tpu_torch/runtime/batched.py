@@ -24,7 +24,13 @@ Quantized weights (the decode step's K5a/K5b over the B rows, K6 over the
 lanes), the int8 backbone KV cache and the int8 mimi ring (their per-row
 scales ride along with the rows) and shared-prefix tables (`pk`/`pv`
 shared by the lanes, `ppos` per lane) go through every function here.
-Sharding over a mesh is not ported yet.
+
+On a ("data", "model") mesh (parallel/sharding.py; `BatchedEngine(mesh=)`
+and both servers) each rank holds its block of the lanes and of the
+heads: the cfg comes from `mesh_cfg`, the params from `shard_params`, and
+the functions here run unchanged on the rank's block; `compact_batch`
+takes the new cursor over every rank's lanes, and the engine gathers the
+audio over "data" where the host reads it.
 """
 from __future__ import annotations
 
@@ -35,22 +41,76 @@ import numpy as np
 import torch
 
 from ..models import backbone, flow_lm, mimi, mimi_transformer, tts
+from ..parallel.sharding import (axis_rank, axis_size, gather_lanes,
+                                 local_heads, max_over_data, refuse_quantized,
+                                 shard_params)
 from ..text.preprocess import count_words, prepare_text_prompt
 from .engine import _SCAN_BUCKET, _bucket
 
 _PROMPT_BUCKETS = (32, 64, 128, 256)
 
 
-def serving_cfg(cfg, mesh=None):
-    """The cfg every batched decode runs with: `fuse_insert` on (K7) unless
-    the caller set it. A mesh (sharded serving) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded serving over a device mesh is not ported yet")
+def mesh_cfg(cfg, mesh=None):
+    """The cfg every batched decode runs with, the JAX package's rule:
+    `fuse_insert` on (K7) unless the caller set it; without a mesh nothing
+    else changes. On a mesh (parallel.sharding.make_mesh): `on_mesh` set
+    (the flow net then never takes K6), `mimi.seanet.mesh` set (each rank
+    runs K3 over its own lanes), and each transformer part whose head
+    count "model" divides gets the mesh: its heads, q/k/v columns, caches
+    and MLP width split over "model", its kernels (K1 / K7, K2) on the
+    local heads. A part "model" does not divide takes the plain route
+    (`use_pallas_attn=False`), as the JAX package pins its kernels off
+    there, and keeps its params and state whole on every rank (a split by
+    whole heads is impossible), which computes what GSPMD computes.
+
+    K1, K2 and K7 launch any local head count of at least one (K7's grid
+    takes heads four at a time and masks the heads past the last), at the
+    head dim of 64 they take with or without a mesh: divisibility is the
+    only condition a mesh adds (tests/test_torch_sharding.py runs one head
+    a rank).
+
+    Every consumer of a mesh (BatchedEngine, MultiStreamServer,
+    ContinuousBatchingServer) builds its cfg through this one helper."""
     if cfg.backbone.fuse_insert is None:
         cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
             cfg.backbone, fuse_insert=True))
-    return cfg
+    if mesh is None:
+        return cfg
+    model = axis_size(mesh, "model")
+
+    def sub(c):
+        if c.num_heads % model == 0:
+            return dataclasses.replace(c, mesh=mesh)
+        return dataclasses.replace(c, use_pallas_attn=False)
+
+    return dataclasses.replace(
+        cfg, on_mesh=True, backbone=sub(cfg.backbone),
+        mimi=dataclasses.replace(
+            cfg.mimi, transformer=sub(cfg.mimi.transformer),
+            seanet=dataclasses.replace(cfg.mimi.seanet, mesh=mesh)))
+
+
+def lane_block(n: int, mesh) -> range:
+    """The lanes of n that this rank holds: its contiguous block of
+    n / data (all n without a mesh)."""
+    data = axis_size(mesh, "data")
+    if n % data:
+        raise ValueError(f"{n} lanes do not split over data {data}")
+    c = n // data
+    r = axis_rank(mesh, "data")
+    return range(r * c, (r + 1) * c)
+
+
+def mesh_setup(engine, mesh):
+    """(cfg, params) of a batched decode: mesh_cfg of the engine's cfg, and
+    this rank's block of its params (shard_params) on a mesh, else the
+    engine's own. Quantized weights with a mesh raise NotImplementedError
+    before the mesh is read."""
+    if mesh is None:
+        return mesh_cfg(engine.cfg), engine.params
+    refuse_quantized(engine.params)
+    cfg = mesh_cfg(engine.cfg, mesh)
+    return cfg, shard_params(engine.params, mesh, cfg)
 
 
 def draw_noise(seed: int, n: int, latent_dim: int, temp: float, dtype,
@@ -283,7 +343,7 @@ def empty_batch_state(p, cfg, b: int, capacity: int, prefix_slots: int,
     (pk, pv) shared-prefix tables (prefix_slots then budgets the text
     only); each lane's ppos row arrives with its admission."""
     bb = cfg.backbone
-    shape = (b, capacity, bb.num_heads * bb.head_dim)
+    shape = (b, capacity, local_heads(bb) * bb.head_dim)
     dd = dict(dtype=torch.int8 if bb.quantize_kv else dtype, device=device)
 
     def scales():
@@ -306,6 +366,42 @@ def empty_batch_state(p, cfg, b: int, capacity: int, prefix_slots: int,
         eos_step=torch.full((b,), -1, dtype=torch.int32, device=device),
         step=torch.zeros(b, dtype=torch.int32, device=device),
         done=torch.ones(b, dtype=torch.bool, device=device))
+
+
+def admit_stream(batch: tts.BatchedStreamState, lane: int,
+                 fresh: tts.StreamState) -> tts.BatchedStreamState:
+    """Insert one freshly prefilled SOLO stream into lane `lane` of a
+    RUNNING batch, in place: the lane's backbone cache, positions and
+    next_pos (and int8 scale rows) are replaced wholesale, its mimi state
+    zeroed with its `start` at the ring offset now (so its RoPE phases and
+    ring window are its own), its latent and counters reset; the shared
+    slot cursor and ring offset stay. The JAX package's `admit_stream`;
+    `admit_group` admits many prefilled lanes at once. The fresh cache
+    must have the batch's slot count."""
+    if fresh.flow.pk is not None or batch.flow.pk is not None:
+        raise ValueError("admit_stream: shared-prefix lanes are admitted "
+                         "with admit_group")
+    bf, ff = batch.flow, fresh.flow
+    for dst, src in zip(bf.k + bf.v + (bf.k_scale or [])
+                        + (bf.v_scale or []),
+                        ff.k + ff.v + (ff.k_scale or [])
+                        + (ff.v_scale or [])):
+        dst[lane].copy_(src)
+    bf.pos[lane].copy_(ff.pos)
+    bf.next_pos[lane] = ff.next_pos
+    bm = batch.mimi
+    bt = bm.transformer
+    bm.upsample_prev[lane].zero_()
+    for c in bt.k + bt.v + (bt.k_scale or []) + (bt.v_scale or []):
+        c[lane].zero_()
+    for c in bm.seanet.values():
+        c[lane].zero_()
+    bt.start[lane] = bt.offset
+    batch.prev_latent[lane].copy_(fresh.prev_latent)
+    batch.eos_step[lane] = -1
+    batch.step[lane] = 0
+    batch.done[lane] = False
+    return batch
 
 
 def admit_group(batch: tts.BatchedStreamState, lanes: Sequence[int],
@@ -360,7 +456,7 @@ def admit_group(batch: tts.BatchedStreamState, lanes: Sequence[int],
 
 
 def compact_batch(batch: tts.BatchedStreamState, live,
-                  prefix_slots: int) -> tts.BatchedStreamState:
+                  prefix_slots: int, mesh=None) -> tts.BatchedStreamState:
     """Compact every live lane's KV rows to the front of the cache and pull
     the shared slot cursor back, in place: the linear-cursor server's
     answer to exhaustion without draining. Rows move with their positions
@@ -368,7 +464,9 @@ def compact_batch(batch: tts.BatchedStreamState, live,
     pure slot permutation: each lane's valid rows (pos >= 0, lane live)
     keep their order at the front, dead lanes compact to nothing, and the
     cursor restarts at the longest live lane's row count. live: (B,) bool
-    tensor."""
+    tensor. mesh: on a mesh the batch holds this rank's lanes, and the
+    longest live lane is taken over every "data" rank's, so that the
+    shared cursor stays the same on all ranks."""
     bf = batch.flow
     if bf.ring_start is not None:
         raise ValueError("compact_batch is the linear-cursor (epoch) "
@@ -383,7 +481,8 @@ def compact_batch(batch: tts.BatchedStreamState, live,
     for c in (bf.k_scale or []) + (bf.v_scale or []):
         c.copy_(c.gather(1, idx))
     pos.copy_(torch.where(valid.gather(1, idx), pos.gather(1, idx), -1))
-    bf.end = max(prefix_slots, int(valid.sum(-1).max()))
+    bf.end = max(prefix_slots,
+                 max_over_data(int(valid.sum(-1).max()), mesh))
     return batch
 
 
@@ -392,28 +491,39 @@ def compact_batch(batch: tts.BatchedStreamState, live,
 # ---------------------------------------------------------------------------
 
 class BatchedEngine:
-    """Synthesize many sentences concurrently on one card."""
+    """Synthesize many sentences concurrently on one card, or on a mesh.
+
+    mesh (parallel.sharding.make_mesh, one process per rank, every rank
+    making the same calls): the params are sharded once (`shard_params`;
+    quantized weights raise NotImplementedError), each rank primes,
+    prefills and decodes only its own block of the lanes (`lane_block`)
+    at its own heads, which is the layout `shard_batched_state` gives a
+    whole batch state, and the audio is gathered over "data" where the
+    host reads it, so `synthesize_batch` returns every stream's audio on
+    every rank, as the JAX package's single-controller call does."""
 
     def __init__(self, engine, mesh=None):
         self.engine = engine
+        self.mesh = mesh
         # kept local: mutating engine.cfg would change the solo engine too
-        self.cfg = serving_cfg(engine.cfg, mesh)
+        self.cfg, self.params = mesh_setup(engine, mesh)
 
     def prime_voices(self, prompts: Sequence[np.ndarray]):
         """prompts: list of (Tp_i, d_model) arrays -> one lane-axis voice
-        state; all prompts pad to one bucket so the slot cursor is
-        uniform."""
+        state (this rank's lanes on a mesh); all prompts pad to one bucket
+        so the slot cursor is uniform."""
         eng = self.engine
         tp = max(_bucket(p.shape[0], _PROMPT_BUCKETS) for p in prompts)
+        own = [prompts[i] for i in lane_block(len(prompts), self.mesh)]
         padded = np.stack([
             np.pad(np.asarray(p, np.float32), ((0, tp - p.shape[0]), (0, 0)))
-            for p in prompts])
-        n_valid = torch.tensor([p.shape[0] for p in prompts],
+            for p in own])
+        n_valid = torch.tensor([p.shape[0] for p in own],
                                dtype=torch.int32, device=eng.device)
         states = stack_states([backbone.init_state(
-            self.cfg.backbone, eng.dtype, eng.device) for _ in prompts])
+            self.cfg.backbone, eng.dtype, eng.device) for _ in own])
         return batched_prime_voice(
-            eng.params, self.cfg, states,
+            self.params, self.cfg, states,
             torch.from_numpy(padded).to(eng.device, eng.dtype), n_valid)
 
     def synthesize_batch(self, texts: List[str], voice_states,
@@ -422,32 +532,37 @@ class BatchedEngine:
         one noise seed per stream (drawn from the engine when None)."""
         eng = self.engine
         b = len(texts)
+        own = lane_block(b, self.mesh)
         prepared = [prepare_text_prompt(t) for t in texts]
         ids = [eng.tokenizer.encode(t) for t, _ in prepared]
+        # buckets and budgets over every stream, so that each rank's lanes
+        # decode as in the whole batch
         tp = max(_bucket(len(i)) for i in ids)
-        tokens = torch.from_numpy(np.stack([
-            np.pad(np.asarray(i, np.int64), (0, tp - len(i)))
-            for i in ids])).to(eng.device)
         dev = eng.device
-        n_valid = torch.tensor([len(i) for i in ids], dtype=torch.int32,
+        tokens = torch.from_numpy(np.stack([
+            np.pad(np.asarray(ids[i], np.int64), (0, tp - len(ids[i])))
+            for i in own])).to(dev)
+        n_valid = torch.tensor([len(ids[i]) for i in own], dtype=torch.int32,
                                device=dev)
         max_steps = [int((count_words(t) + 2.0) * eng.cfg.mimi.frame_rate)
                      for t, _ in prepared]
         cap = eng._sentence_capacity(tp, max(max_steps),
                                      prompt_slots=voice_states.end)
         states = batched_sentence_prefill(
-            eng.params, self.cfg, shrink_lanes(voice_states, cap), tokens,
+            self.params, self.cfg, shrink_lanes(voice_states, cap), tokens,
             n_valid)
         scan_len = -(-max(max_steps) // _SCAN_BUCKET) * _SCAN_BUCKET
         seeds = seeds or [eng.request_seed() for _ in range(b)]
-        noise = torch.stack([draw_noise(s, scan_len, eng.cfg.latent_dim,
-                                        temp, eng.dtype, dev)
-                             for s in seeds])
+        noise = torch.stack([draw_noise(seeds[i], scan_len,
+                                        eng.cfg.latent_dim, temp, eng.dtype,
+                                        dev) for i in own])
         _, pcm, valid = batched_decode_sentence(
-            eng.params, self.cfg, states, noise,
-            torch.tensor([g + 2 for _, g in prepared], dtype=torch.int32,
-                         device=dev),
-            torch.tensor(max_steps, dtype=torch.int32, device=dev), scan_len,
+            self.params, self.cfg, states, noise,
+            torch.tensor([prepared[i][1] + 2 for i in own],
+                         dtype=torch.int32, device=dev),
+            torch.tensor([max_steps[i] for i in own], dtype=torch.int32,
+                         device=dev), scan_len,
             seanet_weights=eng.seanet_weights)
-        pcm, valid = pcm.cpu().numpy(), valid.cpu().numpy()
+        pcm = gather_lanes(pcm, self.mesh).numpy()
+        valid = gather_lanes(valid, self.mesh).numpy()
         return [pcm[i, valid[i]].reshape(-1) for i in range(b)]

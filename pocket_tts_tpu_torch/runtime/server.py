@@ -31,6 +31,22 @@ voice's segment. The lane caches then hold text and decode rows only:
 residual holds (kv_capacity - prompt bucket). `register_voices` may add
 voices to an idle server. The JAX package's serving bench runs this mode
 with int4 weights and the int8 KV cache at 32 lanes.
+
+On a ("data", "model") mesh (`mesh=`; parallel/sharding.py, one process
+per rank) the scheduler is replicated: every rank is given the same
+`register_voices` and `submit` calls, and admission, compaction and
+epochs are decided from the same host state everywhere. The decode cfg
+comes from `mesh_cfg` and the params from `shard_params` (float weights
+only). Each rank prefills and decodes its own block of the lanes
+(`batched.lane_block`) at its own heads, and the one host read of a chunk
+gathers pcm, valid and done over "data" before any scheduling decision
+reads them. A rank prefills only its own lanes of an admission group: the
+others' prefill would be computed and thrown away, and a group's
+collectives stay inside the "model" group, whose ranks hold the same
+lanes. The ranks of a "model" group compute the same reduced hidden state
+bit for bit (the all-reduce hands every rank the same sum), so their EOS
+decisions agree without a broadcast (tests/test_torch_sharding.py holds
+it; chip_smoke.py phase 11 on the card).
 """
 from __future__ import annotations
 
@@ -43,11 +59,12 @@ import torch
 
 from ..models import backbone, tts
 from ..text.preprocess import count_words, prepare_text_prompt
+from ..parallel.sharding import gather_lanes, local_heads
 from .batched import (_PROMPT_BUCKETS, admit_group, batched_decode_sentence,
                       batched_prime_voice, batched_sentence_prefill,
                       compact_batch, continuous_decode_chunk, draw_noise,
-                      empty_batch_state, serving_cfg, shrink_lanes,
-                      stack_states)
+                      empty_batch_state, lane_block, mesh_setup,
+                      shrink_lanes, stack_states)
 from .engine import _SCAN_BUCKET, _bucket
 
 
@@ -92,7 +109,8 @@ class MultiStreamServer:
                  chunk_frames: int = _SCAN_BUCKET):
         self.engine = engine
         self.max_batch = max_batch
-        self.cfg = serving_cfg(engine.cfg, mesh)
+        self.mesh = mesh
+        self.cfg, self.params = mesh_setup(engine, mesh)
         self.chunk_frames = chunk_frames
         self._voices: Dict[str, int] = {}
         self._voice_states = None
@@ -114,7 +132,7 @@ class MultiStreamServer:
                                device=eng.device)
         states = stack_states([backbone.init_state(
             self.cfg.backbone, eng.dtype, eng.device) for _ in arrs])
-        self._voice_states = batched_prime_voice(eng.params, self.cfg,
+        self._voice_states = batched_prime_voice(self.params, self.cfg,
                                                  states, padded, n_valid)
         self._voices = {n: i for i, n in enumerate(names)}
 
@@ -153,13 +171,15 @@ class MultiStreamServer:
         dev = eng.device
         # pad the cohort to a fixed batch
         reqs = list(cohort) + [cohort[-1]] * (self.max_batch - len(cohort))
-        b = len(reqs)
+        # this rank's lanes (all without a mesh); buckets and budgets are
+        # taken over the whole cohort
+        own = lane_block(len(reqs), self.mesh)
         preps = [_prep(eng, r) for r in reqs]
         tp = max(_bucket(len(ids)) for _, _, ids in preps)
         tokens = torch.from_numpy(np.stack(
-            [np.pad(np.asarray(ids, np.int64), (0, tp - len(ids)))
-             for _, _, ids in preps])).to(dev)
-        n_valid = torch.tensor([len(ids) for _, _, ids in preps],
+            [np.pad(np.asarray(preps[i][2], np.int64),
+                    (0, tp - len(preps[i][2]))) for i in own])).to(dev)
+        n_valid = torch.tensor([len(preps[i][2]) for i in own],
                                dtype=torch.int32, device=dev)
         max_steps = np.asarray([_max_steps(eng, t) for t, _, _ in preps],
                                np.int32)
@@ -167,30 +187,33 @@ class MultiStreamServer:
         cap = eng._sentence_capacity(tp, int(max_steps.max()),
                                      prompt_slots=self._voice_states.end)
         vstates = shrink_lanes(self._voice_states, cap,
-                               [self._voices[r.voice] for r in reqs])
-        states = batched_sentence_prefill(eng.params, self.cfg, vstates,
+                               [self._voices[reqs[i].voice] for i in own])
+        states = batched_sentence_prefill(self.params, self.cfg, vstates,
                                           tokens, n_valid)
         total = int(max_steps.max())
         n_noise = -(-total // self.chunk_frames) * self.chunk_frames
         lat = eng.cfg.latent_dim
-        noise = torch.stack(
-            [draw_noise(r.seed if r.seed is not None else eng.request_seed(),
-                        n_noise, lat, r.temp, eng.dtype, dev)
-             for r in cohort]
-            + [torch.zeros(n_noise, lat, dtype=eng.dtype, device=dev)]
-            * (b - len(cohort)))
-        fae = torch.tensor([g + 2 for _, g, _ in preps], dtype=torch.int32,
+        # every rank draws every request's seed, in order
+        seeds = [r.seed if r.seed is not None else eng.request_seed()
+                 for r in cohort]
+        noise = torch.stack([
+            draw_noise(seeds[i], n_noise, lat, cohort[i].temp, eng.dtype,
+                       dev) if i < len(cohort)
+            else torch.zeros(n_noise, lat, dtype=eng.dtype, device=dev)
+            for i in own])
+        fae = torch.tensor([preps[i][1] + 2 for i in own], dtype=torch.int32,
                            device=dev)
-        max_steps_t = torch.from_numpy(max_steps).to(dev)
+        max_steps_t = torch.from_numpy(max_steps[own.start:own.stop]).to(dev)
 
         chunks: List[List[np.ndarray]] = [[] for _ in cohort]
         offset = 0
         while offset < total:
             states, pcm, valid = batched_decode_sentence(
-                eng.params, self.cfg, states, noise, fae, max_steps_t,
+                self.params, self.cfg, states, noise, fae, max_steps_t,
                 self.chunk_frames, frame_offset=offset,
                 seanet_weights=eng.seanet_weights)
-            pcm, valid = pcm.cpu().numpy(), valid.cpu().numpy()
+            pcm = gather_lanes(pcm, self.mesh).numpy()
+            valid = gather_lanes(valid, self.mesh).numpy()
             now = time.perf_counter()
             for i, req in enumerate(cohort):
                 nv = int(valid[i].sum())
@@ -279,7 +302,10 @@ class ContinuousBatchingServer:
         # compact_margin, one compact_batch pulls the cursor back down.
         # None disables (exhaustion-only compaction).
         self.compact_margin = compact_margin
-        self.cfg = serving_cfg(engine.cfg, mesh)
+        self.mesh = mesh
+        self.cfg, self.params = mesh_setup(engine, mesh)
+        # this rank's lanes (all without a mesh)
+        self._own = lane_block(lanes, mesh)
         self.share_prefix = share_prefix
         # share_prefix: per-voice (pk, pv, ppos) from split_prefix, kept so
         # that a later register_voices rebuilds the tables over every voice
@@ -298,10 +324,11 @@ class ContinuousBatchingServer:
         self._compact_useful = True
         self.batch: Optional[tts.BatchedStreamState] = None
         dev = engine.device
-        # per-lane noise (lanes, capacity, latent): a request runs at most
-        # capacity - prefix_slots frames
-        self._noise = torch.zeros(lanes, self.capacity, engine.cfg.latent_dim,
-                                  dtype=engine.dtype, device=dev)
+        # per-lane noise (own lanes, capacity, latent): a request runs at
+        # most capacity - prefix_slots frames
+        self._noise = torch.zeros(len(self._own), self.capacity,
+                                  engine.cfg.latent_dim, dtype=engine.dtype,
+                                  device=dev)
         self._fae = np.ones((lanes,), np.int32)
         self._max_steps = np.zeros((lanes,), np.int32)
         self._fae_t = self._max_steps_t = None
@@ -339,11 +366,12 @@ class ContinuousBatchingServer:
                     eng.device, eng.dtype)
                 state = backbone.init_state(self.cfg.backbone, eng.dtype,
                                             eng.device)
-                vstate = tts.prime_voice(eng.params, self.cfg, state, padded,
-                                         a.shape[0])
+                vstate = tts.prime_voice(self.params, self.cfg, state,
+                                         padded, a.shape[0])
                 if self.share_prefix:
                     self._voice_tables[name], vstate = backbone.split_prefix(
-                        vstate, tp, self.cfg.backbone.num_heads, eng.dtype)
+                        vstate, tp, local_heads(self.cfg.backbone),
+                        eng.dtype)
                 residuals[name] = vstate
                 self._voice_rows[name] = a.shape[0]
         # lane caches must match the voice caches exactly (admission copies
@@ -416,16 +444,17 @@ class ContinuousBatchingServer:
                 "re-chunks)")
         return _max_steps(self.engine, text) + 8
 
+    def _meta(self, req: Request):
+        """(max_steps, frames_after_eos, n_tokens) of a validated
+        request."""
+        text, guess, ids = req._prep  # cached by _validate
+        return _max_steps(self.engine, text), guess + 2, len(ids)
+
     def _prefill_many(self, reqs: Sequence[Request]):
-        """ONE batched prefill for a whole admission group, padded to a
-        power-of-two lane count. Returns (BatchedStreamState,
-        [(max_steps, frames_after_eos, n_tokens)])."""
+        """ONE batched prefill for an admission group (this rank's part of
+        it on a mesh), padded to a power-of-two lane count."""
         eng = self.engine
-        metas, ids_list = [], []
-        for req in reqs:
-            text, guess, ids = req._prep  # cached by _validate
-            ids_list.append(ids)
-            metas.append((_max_steps(eng, text), guess + 2, len(ids)))
+        ids_list = [req._prep[2] for req in reqs]
         k = 1
         while k < len(reqs):
             k *= 2
@@ -437,24 +466,24 @@ class ContinuousBatchingServer:
         vstates = stack_states(
             [self._voice_states[req.voice] for req in reqs]
             + [self._voice_states[reqs[-1].voice]] * (k - len(reqs)))
-        batch = batched_sentence_prefill(
-            eng.params, self.cfg, vstates,
+        return batched_sentence_prefill(
+            self.params, self.cfg, vstates,
             torch.from_numpy(tokens).to(eng.device),
             torch.from_numpy(n_valid).to(eng.device))
-        return batch, metas
 
     def _reset_epoch(self):
         eng = self.engine
         self._compact_useful = True
-        self.batch = empty_batch_state(eng.params, self.cfg, self.lanes,
+        self.batch = empty_batch_state(eng.params, self.cfg, len(self._own),
                                        self.capacity, self.prefix_slots,
                                        eng.dtype, eng.device, ring=self.ring,
                                        prefix_tables=self._prefix_tables)
 
     def _compact(self, live):
+        own = live[self._own.start:self._own.stop]
         self.batch = compact_batch(
-            self.batch, torch.tensor(live, device=self.engine.device),
-            self.prefix_slots)
+            self.batch, torch.tensor(own, device=self.engine.device),
+            self.prefix_slots, self.mesh)
         self.compactions += 1
         self._compact_useful = False
 
@@ -562,33 +591,41 @@ class ContinuousBatchingServer:
         if not group:
             return
         eng = self.engine
-        fresh, metas = self._prefill_many([r for _, r in group])
-        # the prefill's power-of-two padding lanes get out-of-range lane
-        # indices, so their writes are dropped
-        k = fresh.lanes
-        lane_idx = ([lane for lane, _ in group]
-                    + list(range(self.lanes, self.lanes + k - len(group))))
-        try:
-            self.batch = admit_group(self.batch, lane_idx, fresh)
-        except Exception:
-            # the lane writes are in place: a failure part-way leaves the
-            # batch half-written
-            self._drop_epoch(extra_requeue=[r for _, r in group])
-            raise
+        metas = [self._meta(r) for _, r in group]
+        lo, b = self._own.start, len(self._own)
+        # this rank's members of the group, at their local lanes
+        own = [(lane - lo, req) for lane, req in group if lane in self._own]
+        if own:
+            fresh = self._prefill_many([r for _, r in own])
+            # the prefill's power-of-two padding lanes get out-of-range
+            # lane indices, so their writes are dropped
+            lane_idx = ([lane for lane, _ in own]
+                        + list(range(b, b + fresh.lanes - len(own))))
+            try:
+                self.batch = admit_group(self.batch, lane_idx, fresh)
+            except Exception:
+                # the lane writes are in place: a failure part-way leaves
+                # the batch half-written
+                self._drop_epoch(extra_requeue=[r for _, r in group])
+                raise
         n = self._noise.shape[1]
         for (lane, req), (max_steps, fae, n_tok) in zip(group, metas):
-            if req.seed is None:
+            if req.seed is None:   # drawn in order on every rank
                 req.seed = eng.request_seed()
-            self._noise[lane] = draw_noise(req.seed, n, eng.cfg.latent_dim,
-                                           req.temp, eng.dtype, eng.device)
+            if lane in self._own:
+                self._noise[lane - lo] = draw_noise(
+                    req.seed, n, eng.cfg.latent_dim, req.temp, eng.dtype,
+                    eng.device)
             self._fae[lane] = fae
             self._max_steps[lane] = max_steps
             self._rows0[lane] = self._voice_rows[req.voice] + n_tok
             self._live[lane] = req
             self._chunks[lane] = []
             req.admit_step = self.steps
-        self._fae_t = torch.from_numpy(self._fae).to(eng.device)
-        self._max_steps_t = torch.from_numpy(self._max_steps).to(eng.device)
+        own = slice(self._own.start, self._own.stop)
+        self._fae_t = torch.from_numpy(self._fae[own]).to(eng.device)
+        self._max_steps_t = torch.from_numpy(self._max_steps[own]).to(
+            eng.device)
 
     def step(self) -> int:
         """One admission + one decode chunk. Returns frames emitted."""
@@ -598,7 +635,7 @@ class ContinuousBatchingServer:
         eng = self.engine
         try:
             self.batch, pcm, valid = continuous_decode_chunk(
-                eng.params, self.cfg, self.chunk_frames, self.batch,
+                self.params, self.cfg, self.chunk_frames, self.batch,
                 self._noise, self._fae_t, self._max_steps_t,
                 eng.seanet_weights)
         except Exception:
@@ -607,10 +644,10 @@ class ContinuousBatchingServer:
             # from scratch (their seeds reproduce their audio)
             self._drop_epoch()
             raise
-        # the one host read of the chunk
-        pcm = pcm.cpu().numpy()
-        valid = valid.cpu().numpy()
-        done = self.batch.done.cpu().numpy()
+        # the one host read of the chunk (every rank's lanes on a mesh)
+        pcm = gather_lanes(pcm, self.mesh).numpy()
+        valid = gather_lanes(valid, self.mesh).numpy()
+        done = gather_lanes(self.batch.done, self.mesh).numpy()
         now = time.perf_counter()
         self.steps += 1
         emitted = 0

@@ -31,7 +31,7 @@ CFG0 = tiny_config()
 PJ, CFG = params_from_flat(random_flat(CFG0, seed=23), CFG0)
 PT = from_jax_numpy(jax.tree.map(np.asarray, PJ))
 JCFG = jb.mesh_cfg(CFG, None)
-TCFG = tb.serving_cfg(CFG)
+TCFG = tb.mesh_cfg(CFG)
 
 
 def rnd(rng, *shape, scale=1.0):
@@ -276,13 +276,17 @@ def test_draw_noise_depends_on_seed_only():
 
 
 def test_serving_cfg_sets_fuse_insert_and_refuses_a_mesh():
+    """The serving cfg (mesh_cfg, which took over the old serving_cfg's
+    rule) sets fuse_insert unless the caller did, and refuses a mesh
+    without the ("data", "model") dims; real meshes are held in
+    tests/test_torch_sharding.py."""
     assert TCFG.backbone.fuse_insert is True
     assert CFG.backbone.fuse_insert is None       # the caller's is kept
     off = dataclasses.replace(CFG, backbone=dataclasses.replace(
         CFG.backbone, fuse_insert=False))
-    assert tb.serving_cfg(off).backbone.fuse_insert is False
-    with pytest.raises(NotImplementedError):
-        tb.serving_cfg(CFG, mesh=object())
+    assert tb.mesh_cfg(off).backbone.fuse_insert is False
+    with pytest.raises(ValueError, match="dims"):
+        tb.mesh_cfg(CFG, mesh=object())
 
 
 def test_batched_decode_sentence_hands_the_step_contiguous_noise(

@@ -505,3 +505,39 @@ def test_dormant_helpers_on_the_cpu(monkeypatch):
     assert set(trees) == {8, 4}
     monkeypatch.setattr(cs, "ENCODER_FRAMES", 2)
     cs.check_encoder(cfg, cpu, {})
+
+
+def test_failing_mesh_phase_fails_the_run(monkeypatch, capsys):
+    """Phase 11 (sharded serving on a mesh of gloo ranks): a failure there
+    (a rank's, raised by parallel.launch) makes main return 1, name the
+    phase and print no result, every earlier phase stubbed to pass."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    class Engine:
+        cfg = None
+
+    for name in DORMANT:
+        monkeypatch.setattr(cs, name, lambda *a, **k: None)
+    monkeypatch.setattr(cs, "dormant_engines", lambda *a, **k: ({}, {}))
+    out = _run_with_one_failing("run_mesh_phase", monkeypatch, capsys)
+    assert "FAILED in phase 'mesh'" in out.err
+    assert "[11] sharded serving" in out.out
+
+
+@pytest.mark.parametrize("fuse_insert", [None, False])
+def test_mesh_expected_launches_per_step(fuse_insert):
+    """A rank's launches per batch frame step on phase 11's server: 6 K7
+    int8 with statistics (6 K1 over lanes with statistics without the fused
+    insert), 2 K2-q, one K3 sequence; 3 all-reduces a layer a step and 3 a
+    backbone layer an admission prefill."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    want, reduces = cs.mesh_expected(fuse_insert, 10, 2)
+    k1 = fuse_insert is False
+    assert want == {
+        "ring_attn_kv8": 20, "seanet_frame": 10,
+        "decode_attn_lanes" if k1 else "decode_insert_attn_kv8": 60,
+        "decode_attn_stats" if k1 else "decode_insert_attn_stats": 60}
+    assert reduces == 3 * 8 * 10 + 3 * 6 * 2
+    assert all(name in cs.KERNELS for name in want)

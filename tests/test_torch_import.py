@@ -4,7 +4,7 @@ card has none of the first three, and the port keeps its own copies of the
 JAX package's JAX-free modules (config, text, io.wav, io.safetensors_io,
 io.audio, io.audio_in, io.gguf, the manifest half of io.fetch, native
 with its own copy of the C++ source, runtime.player) and runs ab without
-them.
+them; the mesh modules (parallel.*) included.
 Checked in a fresh interpreter, since this test process has JAX loaded
 already."""
 import os
@@ -52,6 +52,10 @@ MODULES = [
     "pocket_tts_tpu_torch.ops.gating",
     "pocket_tts_tpu_torch.ops.attention",
     "pocket_tts_tpu_torch.models.seanet",
+    "pocket_tts_tpu_torch.parallel",
+    "pocket_tts_tpu_torch.parallel.sharding",
+    "pocket_tts_tpu_torch.parallel.launch",
+    "pocket_tts_tpu_torch.parallel.dryrun",
     "chip_smoke",
 ]
 

@@ -138,8 +138,10 @@ def _apply(obj, ch):
     dict(backbone=dict(mask_value=-1e5, use_pallas_attn=True)),
 ])
 def test_unsupported_config_raises(change):
-    """What the port refuses: a mesh, and on a part whose use_pallas_attn
-    is not False (the kernel route) mask values other than -1e9 (its
+    """What the port refuses: a mesh that is not a ("data", "model")
+    DeviceMesh (a name here), on_mesh without the SEANet's mesh (a mesh
+    cfg comes from runtime.batched.mesh_cfg; real ones pass, test_torch_
+    sharding.py), and on a part whose use_pallas_attn is not False (the kernel route) mask values other than -1e9 (its
     kernels mask with -1e9; the JAX kernels would ignore the value) and a
     mimi capacity off the upsample stride (K2 inserts whole 16-step
     blocks). The megalayer, the bilayer

@@ -208,8 +208,9 @@ def test_unseeded_requests_draw_engine_seeds():
 @pytest.mark.parametrize("what", ["share_prefix", "quantize", "mesh"])
 def test_unported_serving_options_raise(what):
     """What serving refuses: shared-prefix tables outside the prefix+ring
-    mode (as the JAX server does) and a device mesh. Quantized convs, once
-    refused, serve: with int8 weights and quantized convs both servers
+    mode (as the JAX server does) and quantized weights on a device mesh
+    (a float mesh serves: tests/test_torch_sharding.py). Quantized convs,
+    once refused, serve: with int8 weights and quantized convs both servers
     give the solo engine's audio (tests/test_torch_conv_quant.py serves a
     decoder whose convs quantize, in the serving mode)."""
     if what == "quantize":
@@ -228,8 +229,9 @@ def test_unported_serving_options_raise(what):
             ContinuousBatchingServer(engine(), share_prefix=True,
                                      ring=False)
         return
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingServer(engine(), mesh=object())
+    for cls in (ContinuousBatchingServer, MultiStreamServer):
+        with pytest.raises(NotImplementedError, match="quantized"):
+            cls(engine(quantize="int8"), mesh=object())
 
 
 def test_cli_serve_writes_one_wav_per_request(tmp_path, monkeypatch,
