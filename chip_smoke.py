@@ -213,7 +213,13 @@ raises, names its phase and the exit code is 1:
                    type and int8), K7 int8 with statistics, K2 and K2-q
                    at one rank's shapes (8 backbone heads, 4 mimi heads,
                    16 lanes) vs plain, f32 and bf16, and their times
-                   beside plain, library and bound; at DEFAULT_CONFIG,
+                   beside plain, library and bound; (f) K4a (int8) and
+                   K4b (int4, q4_0) at one rank's shapes
+                   (mesh_k4_shapes: in_proj / linear1 column shards,
+                   the whole out_proj / linear2, the flow net's linears)
+                   over 2, 16 and 256 rows vs plain, f32 and bf16, and
+                   their bf16 times beside plain, library and bound; at
+                   DEFAULT_CONFIG,
                    temp 0: (a) BatchedEngine(mesh=) over 4 streams, f32,
                    each to its sentence's frame budget, vs the unsharded
                    port on the card within 1e-3 of max |pcm|; (b) ContinuousBatchingServer(mesh=)
@@ -224,9 +230,15 @@ raises, names its phase and the exit code is 1:
                    four bf16 ulps there (MESH_BF16_TOL); (e) each rank's counters per batch
                    frame step: 6 K7-q with statistics, 2 K2-q, 1 K3, no
                    K1, and without the fused insert 6 K1 over lanes with
-                   statistics; 3 all-reduces a layer; (f) every rank's
-                   audio equal bit for bit; (g) dryrun_multichip(4,
-                   "cuda"); wall per step beside the unsharded server's
+                   statistics; 3 all-reduces a layer, 3 all-gathers a
+                   chunk; (g) the serving mode on the mesh: (c) with
+                   int4 weights, each rank's K4b calls derived from the
+                   tree (mesh_k4_calls), no K5a / K5b / K5c / K8 / K6, a
+                   max and two gathers a layer; (h) BatchedEngine(mesh=)
+                   with int8 weights, f32, within 1e-3 of max |pcm|, its
+                   K4a calls as derived; every rank's audio equal bit for
+                   bit; (i) dryrun_multichip(4, "cuda"); wall per step
+                   beside the unsharded server's
 
 The last three lines of standard output are a JSON object of the kernels
 (launches from the runs of the path that uses each: K1-K3 from bf16, the
@@ -5368,15 +5380,95 @@ def time_mesh_kernels(device, dtype):
     return rows
 
 
-def _mesh_engine(dtype, fuse_insert=None, kv8=True):
+# phase 11f: the rows a rank's K4a / K4b calls take: 2 (the 4-lane
+# server's backbone and flow net rows at data 2), 16 (32 lanes' at data 2,
+# and one lane's mimi rows) and 256 (16 lanes' mimi rows; a prefill's)
+MESH_K4_ROWS = (2, 16, 256)
+
+
+def mesh_k4_cases(device, rng):
+    """[(kind, name, K, N, weight tree)] of phase 11f: each of
+    `mesh_k4_shapes` quantized for int8, int4 and q4_0 from random
+    weights (io/quant.py's rule: q4_0 keeps per-channel scales at K =
+    32), on the card."""
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    from pocket_tts_tpu_torch.io.quant import _quantize_weight
+    out = []
+    for kind, kw in QUANTIZE.items():
+        for name, k, n in mesh_k4_shapes(DEFAULT_CONFIG):
+            w = (rng.randn(k, n) * 0.05).astype(np.float32)
+            lin = _quantize_weight(w, kw["bits"], kw.get("group", 0))
+            out.append((kind, name, k, n,
+                        {key: t.to(device) for key, t in lin.items()}))
+    return out
+
+
+def check_mesh_k4(device, results):
+    """Phase 11f: K4a (int8) and K4b (int4, q4_0) vs their plain versions
+    at one rank's shapes (`mesh_k4_shapes`, model 2) over MESH_K4_ROWS
+    rows, f32 and bf16, inputs from RandomState(41); the route each call
+    took logged. Returns the cases (for `time_mesh_k4`)."""
+    import torch
+    from pocket_tts_tpu_torch.ops.quant_matmul import int8_route
+    from pocket_tts_tpu_torch.ops.fused_layer import rows_route
+    rng = np.random.RandomState(41)
+    cases = mesh_k4_cases(device, rng)
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in QUANTIZE:
+            mm_name, mm, plain, key = quant_matmul_fns(kind)
+            pairs, routes = [], set()
+            for _, name, k, n, lin in (c for c in cases if c[0] == kind):
+                for rows in MESH_K4_ROWS:
+                    x = _rand(rng, device, dtype, rows, k, scale=0.5)
+                    pairs.append((mm(x, lin[key], lin["scale"]),
+                                  plain(x, lin[key], lin["scale"])))
+                    routes.add((rows, int8_route(dtype, rows)
+                                if kind == "int8" else rows_route(dtype,
+                                                                  rows)))
+            sync(device)
+            _rel_check(mm_name, "quant", dtype, pairs, results,
+                       f" [mesh rank, {kind}]")
+            log(f"    routes (rows, kernel): {sorted(routes)}")
+    return cases
+
+
+def time_mesh_k4(cases, device):
+    """Phase 11f: device time of each K4a / K4b case at MESH_K4_ROWS rows,
+    bf16, beside the plain version, the library call
+    (`_weight_int8pack_mm` / `_weight_int4pack_mm`, where one takes the
+    shape) and the bound; [(label, row)]."""
+    import torch
+    rng = np.random.RandomState(43)
+    rows_out, int8_lib = [], [True]
+    for kind, name, k, n, lin in cases:
+        _, mm, plain, key = quant_matmul_fns(kind)
+        for rows in MESH_K4_ROWS:
+            x = _rand(rng, device, torch.bfloat16, rows, k, scale=0.5)
+            y = mm(x, lin[key], lin["scale"])
+            lib = None
+            if kind != "int8":
+                lib = int4pack_ms(x, lin, y)
+            elif int8_lib[0]:
+                lib = int8pack_ms(x, lin[key], lin["scale"])
+                int8_lib[0] = lib is not None
+            rows_out.append((f"K4 mesh {kind} {name}", _row(
+                device_ms(lambda: mm(x, lin[key], lin["scale"]), 50),
+                device_ms(lambda: plain(x, lin[key], lin["scale"]), 10),
+                lib, bound_ms(_nbytes(x, y) + _tree_bytes(lin),
+                              2 * rows * k * n),
+                f"rows={rows} K={k} N={n}")))
+    return rows_out
+
+
+def _mesh_engine(dtype, fuse_insert=None, kv8=True, quantize=None):
     """The engine of a phase-11 run, made once per process: DEFAULT_CONFIG
     on random weights from seed 0; kv8: the int8 backbone KV cache and the
     int8 mimi ring; fuse_insert: the backbone's (None: the serving
-    default, K7)."""
+    default, K7); quantize: the weights' (TTSEngine's option)."""
     import dataclasses
     import torch
     from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
-    key = (dtype, fuse_insert, kv8)
+    key = (dtype, fuse_insert, kv8, quantize)
     if key not in _MESH:
         device = torch.device("cuda", torch.cuda.current_device())
         cfg = DEFAULT_CONFIG
@@ -5386,36 +5478,55 @@ def _mesh_engine(dtype, fuse_insert=None, kv8=True):
                     cfg.mimi.transformer, quantize_kv=True)))
         cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
             cfg.backbone, fuse_insert=fuse_insert))
-        base = _MESH.get(("params", dtype))
-        eng = make_engine(cfg, device, dtype, quantize_kv=kv8,
-                          params=None if base is None else base[0])
-        _MESH.setdefault(("params", dtype), (eng.params,))
-        _MESH[key] = eng
+        if ("params", dtype) not in _MESH:
+            from pocket_tts_tpu_torch.io.params import random_params
+            _MESH["params", dtype] = random_params(
+                cfg, seed=0, dtype=dtype, device=device)[0]
+        _MESH[key] = make_engine(cfg, device, dtype, quantize,
+                                 quantize_kv=kv8,
+                                 params=_MESH["params", dtype])
     return _MESH[key]
 
 
-def mesh_batched_run(mesh, texts):
-    """Phase 11a: BatchedEngine over len(texts) streams, f32, at temp 0 to
-    each sentence's frame budget, on `mesh` (None: one process): each
-    stream's pcm."""
+def mesh_batched_run(mesh, texts, quantize=None):
+    """Phases 11a and 11h: BatchedEngine over len(texts) streams, f32, at
+    temp 0 to each sentence's frame budget, on `mesh` (None: one process),
+    float weights or `quantize`'s: each stream's pcm, and the launches,
+    batch frame steps and prefill calls of the run (counters set to 0
+    just before it) with the K4 calls a step and a prefill
+    (`mesh_k4_calls`, None with float weights)."""
     import torch
     from pocket_tts_tpu_torch.io.params import random_voice_prompt
     from pocket_tts_tpu_torch.runtime.batched import BatchedEngine
-    eng = _mesh_engine(torch.float32, kv8=False)
+    if "steps" not in _MESH:
+        _MESH["steps"] = counted_lane_steps()
+    steps = _MESH["steps"]
+    eng = _mesh_engine(torch.float32, kv8=False, quantize=quantize)
     be = BatchedEngine(eng, mesh)
     prompts = [random_voice_prompt(eng.cfg, 40 + 16 * i, seed=10 + i)
                for i in range(len(texts))]
-    return be.synthesize_batch(texts, be.prime_voices(prompts), temp=0.0)
+    voices = be.prime_voices(prompts)
+    torch.cuda.synchronize()
+    steps0, prefills0 = steps["steps"], steps["prefills"]
+    reset_counters()
+    pcm = be.synthesize_batch(texts, voices, temp=0.0)
+    return dict(pcm=pcm, launches={k: v for k, v in read_counters().items()
+                                   if v},
+                steps=steps["steps"] - steps0,
+                prefills=steps["prefills"] - prefills0,
+                k4=None if quantize is None else mesh_k4_calls(eng.params))
 
 
-def mesh_serve_run(mesh, dtype_name, fuse_insert, voice):
-    """Phases 11b, 11c, 11e: a ContinuousBatchingServer with 4 lanes, the
-    int8 KV cache, the int8 mimi ring and the shared prefix on `mesh`
-    (None: one process), the MESH_TEXTS at temp 0 (two admitted
-    mid-decode), counters and collectives set to 0 just before the run
-    and read just after. Returns each request's pcm and admission chunk,
-    the launches, batch frame steps, prefill calls, all-reduces,
-    all-gathers and the wall seconds."""
+def mesh_serve_run(mesh, dtype_name, fuse_insert, voice, quantize=None):
+    """Phases 11b, 11c, 11e and 11g: a ContinuousBatchingServer with 4
+    lanes, the int8 KV cache, the int8 mimi ring and the shared prefix on
+    `mesh` (None: one process), float weights or `quantize`'s (11g: int4,
+    the serving mode), the MESH_TEXTS at temp 0 (two admitted mid-decode),
+    counters and collectives set to 0 just before the run and read just
+    after. Returns each request's pcm and admission chunk, the launches,
+    batch frame steps, prefill calls, chunks, all-reduces, all-gathers,
+    the K4 calls a step and a prefill (`mesh_k4_calls` of the engine's
+    tree) and the wall seconds."""
     import torch
     from pocket_tts_tpu_torch.parallel import sharding
     from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
@@ -5423,8 +5534,9 @@ def mesh_serve_run(mesh, dtype_name, fuse_insert, voice):
     if "steps" not in _MESH:
         _MESH["steps"] = counted_lane_steps()
     steps = _MESH["steps"]
-    srv = ContinuousBatchingServer(_mesh_engine(dtype, fuse_insert), lanes=4,
-                                   share_prefix=True, mesh=mesh)
+    eng = _mesh_engine(dtype, fuse_insert, quantize=quantize)
+    srv = ContinuousBatchingServer(eng, lanes=4, share_prefix=True,
+                                   mesh=mesh)
     srv.register_voices({"v": voice})
     reqs = [srv.submit(t, "v", temp=0.0) for t in MESH_TEXTS]
     steps0, prefills0 = steps["steps"], steps["prefills"]
@@ -5440,7 +5552,8 @@ def mesh_serve_run(mesh, dtype_name, fuse_insert, voice):
                 prefills=steps["prefills"] - prefills0,
                 reduces=sharding.collectives["all_reduce"],
                 gathers=sharding.collectives["all_gather"], wall=wall,
-                chunks=srv.steps)
+                chunks=srv.steps,
+                k4=None if quantize is None else mesh_k4_calls(eng.params))
 
 
 def _mesh_rel(got, want, what):
@@ -5457,7 +5570,7 @@ def _mesh_rel(got, want, what):
 
 
 def _mesh_same_bits(outs, what):
-    """Phase 11f: every rank returned the same audio bit for bit (each
+    """Every rank returned the same audio bit for bit (each
     gathers its "data" column's lanes, so this holds the ranks of each
     "model" group to one another)."""
     for r, o in enumerate(outs[1:], 1):
@@ -5467,11 +5580,13 @@ def _mesh_same_bits(outs, what):
                                      "rank 0's")
 
 
-def mesh_expected(fuse_insert, n, prefills):
+def mesh_expected(fuse_insert, n, prefills, chunks, k4=None):
     """A rank's launches for n batch frame steps of a phase-11 server:
     6 K7 int8 with statistics (without the fused insert 6 K1 over lanes
-    with statistics), 2 K2-q, one K3 sequence a step, nothing else; and
-    its all-reduces."""
+    with statistics), 2 K2-q, one K3 sequence a step; with quantized
+    weights (k4: (counter, (calls a step, calls a prefill)), 11g) the K4
+    calls `mesh_k4_calls` derives from the tree, and no fused kernel;
+    nothing else. And its all-reduces and all-gathers."""
     from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
     nb = DEFAULT_CONFIG.backbone.num_layers
     nm = DEFAULT_CONFIG.mimi.transformer.num_layers
@@ -5481,9 +5596,96 @@ def mesh_expected(fuse_insert, n, prefills):
     else:
         want.update(decode_insert_attn_kv8=nb * n,
                     decode_insert_attn_stats=nb * n)
-    # every layer: two sums (out_proj, linear2) and one max (the new int8
-    # rows' absmax); an admission prefill call runs the backbone's layers
-    return want, 3 * (nb + nm) * n + 3 * nb * prefills
+    # every layer: one max (the new int8 rows' absmax) and, for out_proj
+    # and linear2, two sums (float weights) or two gathers of the input
+    # (quantized weights, whole on every rank); an admission prefill call
+    # runs the backbone's layers. Each chunk's host read gathers pcm,
+    # valid and done over "data".
+    layers = (nb + nm) * n + nb * prefills
+    gathers = 3 * chunks
+    if k4 is None:
+        return want, 3 * layers, gathers
+    name, (step, prefill) = k4
+    want[name] = step * n + prefill * prefills
+    return want, layers, gathers + 2 * layers
+
+
+def mesh_k4_shapes(cfg, model=MESH_SHAPE[1]):
+    """[(name, K, N)] of the linears a rank of a mesh with "model" of
+    `model` runs through K4a / K4b: the column shards of in_proj (its
+    heads' q | k | v) and linear1 (N / model), the whole out_proj and
+    linear2 on the gathered input, and the flow net's linears, whole and
+    one call each (no K6 on a mesh); input_linear is K4 without a mesh
+    too."""
+    out = []
+    for part, c in (("backbone", cfg.backbone),
+                    ("mimi", cfg.mimi.transformer)):
+        dm, hid = c.d_model, c.hidden_dim
+        out += [(f"{part} in_proj/{model}", dm, 3 * dm // model),
+                (f"{part} linear1/{model}", dm, hid // model),
+                (f"{part} out_proj", dm, dm), (f"{part} linear2", hid, dm)]
+    f = cfg.flow.dim
+    return out + [("flow input_proj", cfg.latent_dim, f),
+                  ("flow cond_embed", cfg.backbone.d_model, f),
+                  ("flow adaln", f, 3 * f), ("flow mlp", f, f),
+                  ("flow final adaln", f, 2 * f),
+                  ("flow final linear", f, cfg.latent_dim)]
+
+
+def mesh_k4_calls(params):
+    """(per batch frame step, per backbone prefill call) the K4a / K4b
+    calls of a rank on a mesh, derived from a quantized tree: on a mesh no
+    fused kernel runs (K5a / K5b, K6), so every quantized linear (a dict
+    holding "q" or "q4") that a step runs is one call, times the layers of
+    a stacked (L, K, N) leaf. A step runs input_linear, the backbone's
+    layers, out_eos, the flow net but its time_embed (folded into
+    _time_cond at load) and the mimi transformer's layers; a prefill call
+    the backbone's layers."""
+    def count(tree):
+        if isinstance(tree, dict):
+            for key in ("q", "q4"):
+                if key in tree:
+                    return tree[key].shape[0] if tree[key].dim() == 3 else 1
+            return sum(count(v) for k, v in tree.items()
+                       if k != "time_embed")
+        if isinstance(tree, (list, tuple)):
+            return sum(count(v) for v in tree)
+        return 0
+
+    step = (count(params["input_linear"]) + count(params["layers"])
+            + count(params["out_eos"]) + count(params["flow_net"])
+            + count(params["mimi"]["decoder_transformer"]["layers"]))
+    return step, count(params["layers"])
+
+
+# phase 11's server runs: (dtype, backbone fuse_insert, weights) -> label
+MESH_SERVE_RUNS = {("f32", None, None): "11b", ("bf16", None, None): "11c",
+                   ("f32", False, None): "11e", ("bf16", None, "int4"): "11g"}
+# the kernels a mesh never launches: the fused layer kernels (K5a / K5b,
+# K5c, K8) and K6, counted by any of their counters
+MESH_NEVER = ("fused_pre", "fused_post", "fused_flow", "megalayer",
+              "bilayer", "rows_mma", "rows_skinny")
+
+
+def _log_mesh_row(name, r):
+    (ms, host), (plain_ms, _) = r["k"], r["plain"]
+    lib = "none" if r["lib"] is None else f"{r['lib'] * 1e3:.2f} us"
+    cmp = ("" if "cmp" not in r else f" (SDPA over bf16 caches of the "
+           f"same shape, for comparison: {r['cmp'] * 1e3:.2f} us)")
+    log(f"  {name} ({r['shape']}), bf16: kernel {ms * 1e3:.2f} us "
+        f"device, {host * 1e3:.2f} us host; plain {plain_ms * 1e3:.2f} "
+        f"us; library {lib}{cmp}; bound {r['bound'][0] * 1e3:.2f} us "
+        f"({r['bound'][1]}): {r['bound'][0] / ms:.1%} of it")
+
+
+def _check_mesh_launches(label, r, o, want):
+    """A rank's launches equal `want` by name, every other counter 0."""
+    for name in set(o["launches"]) | set(want):
+        if o["launches"].get(name, 0) != want.get(name, 0):
+            raise AssertionError(
+                f"{label} rank {r} {name}: {o['launches'].get(name, 0)} "
+                f"launches for {o['steps']} steps (want "
+                f"{want.get(name, 0)})")
 
 
 def run_mesh_phase(voice, device, errs):
@@ -5496,18 +5698,18 @@ def run_mesh_phase(voice, device, errs):
     for dtype in (torch.float32, torch.bfloat16):
         check_mesh_kernels(device, dtype, errs)
     for name, r in time_mesh_kernels(device, torch.bfloat16):
-        (ms, host), (plain_ms, _) = r["k"], r["plain"]
-        lib = "none" if r["lib"] is None else f"{r['lib'] * 1e3:.2f} us"
-        cmp = ("" if "cmp" not in r else f" (SDPA over bf16 caches of the "
-               f"same shape, for comparison: {r['cmp'] * 1e3:.2f} us)")
-        log(f"  {name} ({r['shape']}), bf16: kernel {ms * 1e3:.2f} us "
-            f"device, {host * 1e3:.2f} us host; plain {plain_ms * 1e3:.2f} "
-            f"us; library {lib}{cmp}; bound {r['bound'][0] * 1e3:.2f} us "
-            f"({r['bound'][1]}): {r['bound'][0] / ms:.1%} of it")
+        _log_mesh_row(name, r)
+    log("  11f K4a / K4b at one rank's shapes (model 2), rows "
+        f"{MESH_K4_ROWS}:")
+    k4_cases = check_mesh_k4(device, errs)
+    for name, r in time_mesh_k4(k4_cases, device):
+        _log_mesh_row(name, r)
+    log(f"  11f: {time.perf_counter() - t11:.1f} s into phase 11")
     texts = list(MESH_TEXTS[:4])
-    runs = (("f32", None), ("bf16", None), ("f32", False))
-    ref_a = mesh_batched_run(None, texts)
-    refs = {key: mesh_serve_run(None, *key, voice) for key in runs}
+    ref_a = mesh_batched_run(None, texts)["pcm"]
+    ref_h = mesh_batched_run(None, texts, "int8")["pcm"]
+    refs = {key: mesh_serve_run(None, *key[:2], voice, key[2])
+            for key in MESH_SERVE_RUNS}
     t_ranks = time.perf_counter()
     # gloo, named here: NCCL refuses two ranks on one device
     with RankGroup(*MESH_SHAPE, backend="gloo", device="cuda", threads=2,
@@ -5515,7 +5717,7 @@ def run_mesh_phase(voice, device, errs):
         log(f"  {grp.world} ranks (data {MESH_SHAPE[0]} x model "
             f"{MESH_SHAPE[1]}, gloo) up in "
             f"{time.perf_counter() - t_ranks:.1f} s")
-        outs = grp.run(mesh_batched_run, texts)
+        outs = [o["pcm"] for o in grp.run(mesh_batched_run, texts)]
         _mesh_same_bits(outs, "BatchedEngine")
         err = _mesh_rel(outs[0], ref_a, "BatchedEngine")
         tol = TOL[("e2e", "f32")]
@@ -5525,11 +5727,13 @@ def run_mesh_phase(voice, device, errs):
             f"{err:.3e} (tol {tol}); ranks equal bit for bit")
         if not err <= tol:
             raise AssertionError(f"11a sharded BatchedEngine differs: {err}")
-        for dtype_name, fuse in runs:
-            ref = refs[dtype_name, fuse]
-            outs = grp.run(mesh_serve_run, dtype_name, fuse, voice)
-            label = (f"11{'b' if dtype_name == 'f32' else 'c'} server "
-                     f"{dtype_name}, int8 KV + int8 ring + shared prefix"
+        for key, tag in MESH_SERVE_RUNS.items():
+            dtype_name, fuse, quant = key
+            ref = refs[key]
+            outs = grp.run(mesh_serve_run, dtype_name, fuse, voice, quant)
+            label = (f"{tag} server {dtype_name}"
+                     + (f", {quant} weights" if quant else "")
+                     + ", int8 KV + int8 ring + shared prefix"
                      + (", no fused insert" if fuse is False else ""))
             _mesh_same_bits([o["pcm"] for o in outs], label)
             tol = 2e-3 if dtype_name == "f32" else MESH_BF16_TOL
@@ -5548,24 +5752,46 @@ def run_mesh_phase(voice, device, errs):
                 raise AssertionError(f"{label}: sharded pcm differs: {err}")
             for r, o in enumerate(outs):
                 n, pf = o["steps"], o["prefills"]
-                want, reduces = mesh_expected(fuse, n, pf)
+                k4 = (None if quant is None
+                      else (quant_matmul_fns(quant)[0], o["k4"]))
+                want, reduces, gathers = mesh_expected(fuse, n, pf,
+                                                       o["chunks"], k4)
                 got = {k: v for k, v in o["launches"].items() if v}
                 log(f"    rank {r}: {n} batch frame steps, {pf} admission "
-                    f"prefills, launches {got} (want {want}); "
-                    f"{o['reduces']} all-reduces (want {reduces}), "
-                    f"{o['gathers']} all-gathers; wall "
-                    f"{1e3 * o['wall'] / max(n, 1):.2f} ms a step (unsharded "
+                    f"prefills, {o['chunks']} chunks, launches {got} (want "
+                    f"{want}); {o['reduces']} all-reduces (want "
+                    f"{reduces}), {o['gathers']} all-gathers (want "
+                    f"{gathers}); wall {1e3 * o['wall'] / max(n, 1):.2f} "
+                    f"ms a step (unsharded "
                     f"{1e3 * ref['wall'] / max(ref['steps'], 1):.2f})")
-                for name in set(o["launches"]) | set(want):
-                    if o["launches"].get(name, 0) != want.get(name, 0):
-                        raise AssertionError(
-                            f"{label} rank {r} {name}: "
-                            f"{o['launches'].get(name, 0)} launches for {n} "
-                            f"steps (want {want.get(name, 0)})")
-                if o["reduces"] != reduces:
-                    raise AssertionError(f"{label} rank {r}: {o['reduces']} "
-                                         f"all-reduces (want {reduces})")
-    log(f"  11g dryrun_multichip(4, 'cuda'): "
+                _check_mesh_launches(label, r, o, want)
+                if (o["reduces"], o["gathers"]) != (reduces, gathers):
+                    raise AssertionError(
+                        f"{label} rank {r}: {o['reduces']} all-reduces, "
+                        f"{o['gathers']} all-gathers (want {reduces}, "
+                        f"{gathers})")
+        outs = grp.run(mesh_batched_run, texts, "int8")
+        _mesh_same_bits([o["pcm"] for o in outs], "11h")
+        err = _mesh_rel(outs[0]["pcm"], ref_h, "11h")
+        tol = TOL[("e2e", "f32")]
+        log(f"  11h BatchedEngine on the mesh, int8 weights, 4 streams, "
+            f"f32: max |sharded - unsharded| relative to max |pcm| "
+            f"{err:.3e} (tol {tol}); ranks equal bit for bit")
+        if not err <= tol:
+            raise AssertionError(f"11h sharded int8 BatchedEngine differs: "
+                                 f"{err}")
+        for r, o in enumerate(outs):
+            step, prefill = o["k4"]
+            k4 = step * o["steps"] + prefill * o["prefills"]
+            log(f"    rank {r}: {o['steps']} batch frame steps, "
+                f"{o['prefills']} prefill calls, launches {o['launches']} "
+                f"(int8_matmul want {k4})")
+            never = {k: v for k, v in o["launches"].items()
+                     if k.startswith(MESH_NEVER)}
+            if o["launches"].get("int8_matmul", 0) != k4 or never:
+                raise AssertionError(f"11h rank {r}: {o['launches']}, "
+                                     f"int8_matmul want {k4}")
+    log(f"  11i dryrun_multichip(4, 'cuda'): "
         f"{dryrun_multichip(4, 'cuda')}")
     log(f"  phase 11: {time.perf_counter() - t11:.1f} s")
 

@@ -5,8 +5,8 @@ Usage:
       -o out.wav "Hello world."
   python -m pocket_tts_tpu_torch.cli --random-weights --bench --json
 
-It takes every option of the JAX package's CLI (`pocket_tts_tpu/cli.py`)
-but --fetch-models, with the same meaning. Text (the
+It takes every option of the JAX package's CLI (`pocket_tts_tpu/cli.py`),
+with the same meaning. Text (the
 argument, or -i FILE) streams through `Stream.send/flush/receive` in
 15-character chunks, as the JAX package's CLI feeds it; --interactive
 reads stdin lines instead. Each `receive` is timed with
@@ -45,7 +45,10 @@ one launch of kernel K8 (int8 or int4 weights; q4_0 raises).
 
 The checkpoint, tokenizer and voice embeddings are read from -m/--model,
 or else from <-r/--model-root, or $MODEL_CACHE, or .>/kyutai/
-pocket-tts-without-voice-cloning, the JAX package's CLI layout. With no
+pocket-tts-without-voice-cloning, the JAX package's CLI layout;
+--fetch-models downloads them there (io/fetch.download_models: the
+release manifest's URLs, each file checked against its sha256 pin),
+prints "fetched N files into ROOT" and exits. With no
 checkpoint there the CLI says so on stderr and runs random weights and a
 random voice, as the JAX package's CLI does (--random-weights: the same,
 without the note).
@@ -144,6 +147,9 @@ def build_parser():
     p.add_argument("--play", action="store_true",
                    help="play audio while generating (aplay/pw-play/"
                         "ffplay through a 3-frame PcmFifo ring)")
+    p.add_argument("--fetch-models", action="store_true",
+                   help="download the release files (weights, tokenizer,"
+                        " voices) into the model root and exit")
     p.add_argument("--reference-exact", action="store_true",
                    help="ggml-reference-exact numerics (tanh GELU, -1e5 "
                         "mask, 250-slot mimi ring; plain attention instead "
@@ -353,11 +359,17 @@ def main(argv=None):
         if temp is None:
             temp = 0.0
     if text is None and not (args.interactive or args.save_cache
-                             or args.serve):
+                             or args.fetch_models or args.serve):
         build_parser().print_help()
         return 1
     seed = 0 if seed is None else seed
     temp = 0.6 if temp is None else temp
+    if args.fetch_models:
+        from .io.fetch import download_models
+        root = args.model_root or os.environ.get("MODEL_CACHE", ".")
+        written = download_models(root)
+        print(f"fetched {len(written)} files into {root}")
+        return 0
     import contextlib
     import dataclasses
 

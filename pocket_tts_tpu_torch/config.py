@@ -12,7 +12,7 @@ dimensions, `kv_capacity`, `gelu_approx`, `eos_threshold`, the two
 
 `check_supported` names what this port runs: solo decode and
 continuous-batching serving (runtime/batched.py, runtime/server.py, with
-shared-prefix serving; sharded over a mesh with float weights) with
+shared-prefix serving; sharded over a mesh) with
 bf16/f32, int8, int4 or q4_0 weights
 (quantization is an engine option, not a config field), with the
 backbone's KV cache in the working type or in int8 with per-row scales

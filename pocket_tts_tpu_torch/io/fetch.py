@@ -1,10 +1,15 @@
-"""The release manifest and the check of a model directory against it.
+"""The release manifest, the check of a model directory against it, and
+the downloader.
 
-Counterpart of the manifest half of `pocket_tts_tpu/io/fetch.py`: the
-release's files with their sha256 pins (the port's own copy of the JSON,
-`pocket_tts_tpu_torch/data/manifest.json`), the sha256 of a file, and
+Counterpart of `pocket_tts_tpu/io/fetch.py`: the release's files with
+their sha256 pins (the port's own copy of the JSON,
+`pocket_tts_tpu_torch/data/manifest.json`), the sha256 of a file,
 `verify_model_dir`, which says of each manifest file under a directory
-whether it is there and matches its pin. The downloader is not ported.
+whether it is there and matches its pin, and `download_models`, which
+fetches the files with the standard library's urllib (any URL it opens:
+https, or file:// for a local mirror), each into `<path>.part`, checks
+its pin and only then moves it into place. A failed fetch or a wrong pin
+raises RuntimeError and leaves nothing behind.
 """
 from __future__ import annotations
 
@@ -47,3 +52,44 @@ def verify_model_dir(root: str, manifest: Optional[dict] = None) -> dict:
         else:
             status[rel] = "ok"
     return status
+
+
+def download_models(dest_root: str, manifest: Optional[dict] = None,
+                    skip_existing: bool = True) -> list:
+    """Fetch every manifest file into dest_root (MODEL_CACHE layout:
+    dest_root/kyutai/pocket-tts-without-voice-cloning/...), verifying
+    sha256; a file already there with a matching pin is skipped under
+    skip_existing. Raises RuntimeError naming the URL when a fetch fails,
+    or both digests when a pin does not match (the partial file removed).
+    Returns the list of files written."""
+    import urllib.request
+    manifest = manifest or load_manifest()
+    written = []
+    for entry in manifest["files"]:
+        path = os.path.join(dest_root, entry["path"])
+        pin = entry.get("sha256")
+        if skip_existing and os.path.exists(path) \
+                and (pin is None or sha256_file(path) == pin):
+            continue
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".part"
+        try:
+            urllib.request.urlretrieve(entry["url"], tmp)
+        except Exception as e:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise RuntimeError(
+                f"download failed for {entry['url']}: {e}. This "
+                "environment may have no network egress; fetch the files "
+                "listed in pocket_tts_tpu_torch/data/manifest.json manually "
+                f"into {dest_root}.") from e
+        if pin is not None:
+            got = sha256_file(tmp)
+            if got != pin:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"sha256 mismatch for {entry['path']}: expected "
+                    f"{pin}, got {got}")
+        os.replace(tmp, path)
+        written.append(path)
+    return written

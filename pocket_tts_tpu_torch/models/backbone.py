@@ -79,11 +79,14 @@ when "model" divides the heads; parallel/sharding.py) a rank holds its
 heads: its columns of q, k, v and of the caches (`init_state` sizes them),
 its block of the MLP width, its heads of the prefix tables. K1 and K7 run
 on the local heads unchanged; out_proj and linear2 are summed over the
-"model" group before their residual adds (`_post`); an int8 cache's new
-rows are scaled by the WHOLE row's absmax, maxed over the group
-(`_quantize_kv`, prefill and decode), as the JAX package hands the
-full-row scales to its head shards. Float weights only (a mesh refuses
-quantized ones), so no fused layer runs there.
+"model" group before their residual adds (`_post`; a quantized one is
+whole, on the input gathered over the group: parallel.sharding.
+row_linear); an int8 cache's new rows are scaled by the WHOLE row's
+absmax, maxed over the group (`_quantize_kv`, prefill and decode), as the
+JAX package hands the full-row scales to its head shards. No fused layer
+kernel (K5a / K5b, K5c, K8) runs on a mesh (`sharding.fusable`): a
+quantized layer's linears go through K4a / K4b there, each on the block
+the rank holds.
 """
 from __future__ import annotations
 
@@ -101,8 +104,8 @@ from ..ops.basic import (gelu, layer_norm, linear, quantize_rows,
 from ..ops.decode_attn import decode_attention
 from ..ops.insert_attn import decode_insert_attention
 from ..ops.rope import apply_rope_halves as apply_rope, rope_cos_sin
-from ..parallel.sharding import (local_heads, model_group, reduce_absmax,
-                                 row_linear)
+from ..parallel.sharding import (fusable, local_heads, model_group,
+                                 reduce_absmax, row_linear)
 
 
 @dataclasses.dataclass
@@ -278,7 +281,7 @@ def _attend(qkv, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
 
 def _layer(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
            bias, pos_vec, num_heads: int, gelu_approx: bool, cur_pos=None,
-           megalayer: bool = False, cross=None, group=None):
+           megalayer: bool = False, cross=None, group=None, mesh=None):
     """One pre-LN layer; writes its KV rows at slot `end` in place.
     cur_pos: as in _attend. megalayer (cfg.use_megalayer): a T = 1
     quantized layer runs as ONE launch of kernel K8 (ops/fused_step), read
@@ -287,10 +290,11 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos, sin,
     T = 1 (the plain route) fuses nothing, and neither does a layer with
     cross KV (`cross`: its (xk, xv); the caller passes no cur_pos and no
     megalayer with it). group: the "model" group of a mesh (num_heads is
-    then this rank's; float weights only, so nothing fuses)."""
+    then this rank's); mesh: the layer's cfg.mesh, under which nothing
+    fuses (`sharding.fusable`)."""
     t = x.shape[0]
     fused = (t == 1 and bias is None and cross is None
-             and fused_layer.supported(p))
+             and fusable(p, mesh))
     if fused and megalayer:
         return fused_step.megalayer(
             p, x, cos, sin, pos_vec[end:end + 1], k_cache, v_cache,
@@ -341,8 +345,9 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
     cfg.use_pallas_attn False it runs none of them (plain attention). A
     state with cross KV runs none of them either, nor K7: its decode step
     writes the rows and runs K1 (`backbone.py:455-463`). On a mesh
-    (cfg.mesh) the layers run on this rank's heads (parallel/sharding.py);
-    a cross state is refused there.
+    (cfg.mesh) the layers run on this rank's heads (parallel/sharding.py)
+    and none of K8, K5c or K5a / K5b runs; a cross state is refused
+    there.
     """
     if state.pk is not None:
         raise ValueError("a shared-prefix state decodes over lanes "
@@ -372,7 +377,7 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
         l0 = slice_layer_params(p["layers"], 0)
         # the (0, 1) pair stands for every pair: the layers are quantized
         # as one stacked array (io/quant.py), one layout for all
-        if (fused_layer.supported(l0) and fused_layer.bilayer_supported(
+        if (fusable(l0, cfg.mesh) and fused_layer.bilayer_supported(
                 l0, slice_layer_params(p["layers"], 1))):
             return _forward_bilayer(p, cfg, state, x, cos, sin, cur_pos,
                                     gelu_approx)
@@ -383,7 +388,8 @@ def forward(p, cfg, state: BackboneState, x, n_valid: int = None,
                    state.v_scale[l] if quant else None, end, cos, sin, bias,
                    state.pos, local_heads(cfg), gelu_approx, cur_pos,
                    cfg.use_megalayer and not cross,
-                   (state.xk[l], state.xv[l]) if cross else None, group)
+                   (state.xk[l], state.xv[l]) if cross else None, group,
+                   cfg.mesh)
     return state, x
 
 
@@ -481,7 +487,7 @@ class BatchedBackboneState:
 def _layer_lanes(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos,
                  sin, bias, pos, cur_pos, read_end: int, num_heads: int,
                  gelu_approx: bool, prefix=None, fuse_insert: bool = True,
-                 group=None):
+                 group=None, mesh=None):
     """One pre-LN layer over B lanes, x (B, T, d_model); writes the KV rows
     at slot `end` of every lane in place. A decode step (T = 1) goes
     through K7 under fuse_insert, else writes the rows and runs K1 over the
@@ -490,9 +496,11 @@ def _layer_lanes(p, x, k_cache, v_cache, k_scale, v_scale, end: int, cos,
     bias of plain attention (prefill, and every step of the plain route,
     which fuses nothing). group: the "model" group of a mesh, num_heads
     then this rank's (its heads' columns of q, k, v and of the caches;
-    out_proj and linear2 summed over the group)."""
+    out_proj and linear2 summed over the group, or whole on the gathered
+    input); mesh: cfg.mesh, under which nothing fuses
+    (`sharding.fusable`)."""
     b, t, _ = x.shape
-    fused = t == 1 and bias is None and fused_layer.supported(p)
+    fused = t == 1 and bias is None and fusable(p, mesh)
     if fused:
         qkv = fused_layer.pre_attention(p, x, eps=1e-5)
     else:
@@ -583,7 +591,7 @@ def forward_lanes(p, cfg, state: BatchedBackboneState, x, n_valid=None,
             state.v_scale[l] if quant else None, end, cos, sin, bias,
             state.pos, cur_pos, read_end, heads, gelu_approx,
             (state.pk[l], state.pv[l], state.ppos) if share else None,
-            bool(cfg.fuse_insert), group)
+            bool(cfg.fuse_insert), group, cfg.mesh)
     return state, x
 
 

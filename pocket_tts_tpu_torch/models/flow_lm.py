@@ -11,8 +11,9 @@ The backbone state is updated in place (see models/backbone.py).
 matrix; with int8 or int4 weights the decode step's flow net runs as ONE
 launch of kernel K6 over the B rows (ops/fused_flow.py), as the JAX
 package's vmap rule runs it. On a mesh (`cfg.on_mesh`) the flow net
-never takes K6, as the JAX package pins it off there (K6 has no sharded
-form; quantized weights on a mesh are refused anyway).
+never takes K6, as the JAX package pins it off there: the net is whole on
+every rank, and its quantized linears run one K4a / K4b call each
+(flow_mlp.forward with fused=False).
 """
 from __future__ import annotations
 

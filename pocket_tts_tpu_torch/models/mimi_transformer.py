@@ -52,11 +52,14 @@ or a mask other than -1e9, on the kernel route.
 On a mesh (`cfg.mesh`, set by runtime.batched.mesh_cfg when "model"
 divides the heads) each rank holds its heads: its columns of q, k, v and
 of the ring, its block of the MLP's hidden width (parallel/sharding.py).
-K2 runs on the local heads; out_proj and linear2 are summed over the
-"model" group before their layer scales and residual adds; an int8 ring's
-new rows are scaled by the whole row's absmax (maxed over the group); a
-gated layer's MLP stays whole on every rank. A cross state is refused
-there.
+K2 runs on the local heads; a float out_proj and linear2 are summed over
+the "model" group before their layer scales and residual adds, a
+quantized one runs whole on the input gathered over the group
+(parallel.sharding.row_linear); an int8 ring's new rows are scaled by the
+whole row's absmax (maxed over the group); a gated layer's MLP stays
+whole on every rank. No layer takes K5a / K5b there
+(`sharding.fusable`): quantized linears go through K4a / K4b on the
+rank's block. A cross state is refused there.
 """
 from __future__ import annotations
 
@@ -72,8 +75,8 @@ from ..ops.basic import (gelu, layer_norm, linear, quantize_rows, rms_norm,
 from ..ops.gating import weights_per_step_gating
 from ..ops.ring_attn import ring_insert_attention, ring_insert_attention_plain
 from ..ops.rope import apply_rope_halves as apply_rope, rope_cos_sin
-from ..parallel.sharding import (local_heads, model_group, reduce_absmax,
-                                 row_linear)
+from ..parallel.sharding import (fusable, local_heads, model_group,
+                                 reduce_absmax, row_linear)
 
 
 @dataclasses.dataclass
@@ -143,7 +146,7 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, offset: int, start,
     this rank's heads (see the module docstring)."""
     *lead, t, _ = x.shape
     group, nh = model_group(cfg), local_heads(cfg)
-    fused = not plain and "gating" not in p and fused_layer.supported(p)
+    fused = not plain and "gating" not in p and fusable(p, cfg.mesh)
     if fused:
         qkv = fused_layer.pre_attention(p, x, eps=cfg.norm_eps)
     else:

@@ -194,7 +194,8 @@ def frame_step_lanes(p, cfg, state: BatchedStreamState, noise,
     valid (B,) bool), both on the device. The EOS protocol is frame_step's;
     a lane done before this step emits nothing but is still computed. On a
     mesh the ranks of a "model" group read the same EOS: the hidden state
-    after each all-reduce is the same bits on all of them, and what
+    after each all-reduce (or whole product on a gathered input) is the
+    same bits on all of them, and what
     follows runs whole on each (tests/test_torch_sharding.py and
     chip_smoke.py phase 11 hold the ranks' audio equal bit for bit)."""
     _, latent, is_eos = flow_lm.decode_step_lanes(p, cfg, state.flow,

@@ -9,7 +9,12 @@ insert the collectives. Here every rank is a process of its own
 collectives itself (models/backbone.py, models/mimi_transformer.py):
 
 - one all-reduce (sum) over "model" after each row-parallel product
-  (`out_proj`, `linear2`), before its residual add (`row_linear`);
+  (a float `out_proj` or `linear2`), before its residual add
+  (`row_linear`);
+- one all-gather over "model" of the input of a quantized `out_proj` or
+  `linear2`, which every rank holds whole: the rank's column block of the
+  input, gathered in rank order, is the whole input, and the whole
+  product runs on it (`row_linear`);
 - one all-reduce (max) over "model" of each new K/V row's absmax before
   an int8 cache quantizes it, so that every head shard scales its columns
   by the WHOLE row's absmax, as the JAX package computes the scales over
@@ -19,11 +24,17 @@ collectives itself (models/backbone.py, models/mimi_transformer.py):
 
 Layout rules (`_spec_for_param`, `_spec_for_state`), the JAX package's:
 
-- `in_proj` and `linear1` are column-parallel, `out_proj` and `linear2`
-  row-parallel (their weights, kept in float32; a bias of a row-parallel
-  product is added once, after the sum), everything else whole on every
-  rank: the flow net, the SEANet, norms, `layer_scale`, gating MLPs,
-  cross-attention.
+- `in_proj` and `linear1` are column-parallel, float or quantized (the
+  `q` / `q4` / `scale` leaves, a q4_0 (L, K/32, N) scale too, split on
+  their output axis like `w` and `b`).
+- A float `out_proj` or `linear2` is row-parallel: its weight, kept in
+  float32, split on the input axis, a bias added once, after the sum. A
+  quantized one stays WHOLE on every rank (the JAX package splits only
+  `['w']` by rows), and its input is gathered first: the layout GSPMD
+  gives a replicated weight after head-sharded activations. It also
+  keeps the ranks of a "model" group bit-equal, which the EOS reads rely
+  on. Everything else is whole on every rank too: the flow net, the
+  SEANet, norms, `layer_scale`, gating MLPs, cross-attention.
 - The column split of `in_proj` FOLLOWS THE HEADS: its output is q | k | v,
   and rank r takes its heads' columns of each third (`Shard.groups` = 3).
   JAX splits the fused 3·d dim into contiguous blocks and lets GSPMD
@@ -107,6 +118,18 @@ def model_group(part_cfg):
     return mesh.get_group("model")
 
 
+def fusable(p, mesh) -> bool:
+    """Whether a transformer layer's params p take the fused layer kernels
+    (K5a / K5b, and K5c / K8 where the cfg asks): `fused_layer.supported`
+    takes them and the layer runs without a mesh, as the JAX package gates
+    them (`mesh is None`). On a mesh a rank holds its heads' columns of
+    in_proj and its block of linear1 beside a whole quantized out_proj /
+    linear2: K5a would run on the shard, and K5b's out_proj -> LN2 -> MLP
+    tail would skip the gather (`row_linear`)."""
+    from ..ops.fused_layer import supported
+    return mesh is None and supported(p)
+
+
 def local_heads(part_cfg) -> int:
     """The heads this rank holds of a transformer part (its cfg's
     `num_heads` over "model" when the part carries the mesh)."""
@@ -129,21 +152,38 @@ def reduce_absmax(rows, group):
 
 
 def row_linear(p, x, group):
-    """A row-parallel linear: x holds this rank's block of the input
-    features and p its rows of the weight, which shard_params keeps in
-    float32. The partial product is taken in float32 and summed over the
-    group in float32 with the (whole) bias, then rounded once to x's dtype,
-    as the whole product rounds once. With bf16 weights and activations
-    this is the unsharded product's precision: products of bf16 values are
-    exact in float32 (and in TF32), and both accumulate in float32.
+    """The product of an `out_proj` or `linear2` whose input x holds this
+    rank's block of the features. A float weight is row-parallel: p holds
+    its rows, which shard_params keeps in float32; the partial product is
+    taken in float32 and summed over the group in float32 with the (whole)
+    bias, then rounded once to x's dtype, as the whole product rounds
+    once. With bf16 weights and activations this is the unsharded
+    product's precision: products of bf16 values are exact in float32
+    (and in TF32), and both accumulate in float32. A quantized weight
+    (`q` / `q4` + `scale`) is whole: x is gathered over the group
+    (`gather_columns`) and the whole product (K4a / K4b on the card) runs
+    on it, the bias added as the unsharded product adds it, no sum.
     Without a group it is ops.basic.linear."""
     from ..ops.basic import linear
     if group is None:
         return linear(p, x)
+    if "w" not in p:
+        return linear(p, gather_columns(x, group))
     y = linear({"w": p["w"]}, x.float())
     dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
     collectives["all_reduce"] += 1
     return (y if p.get("b") is None else y + p["b"].float()).to(x.dtype)
+
+
+def gather_columns(x, group):
+    """The whole feature axis of x (..., W / model): each rank's column
+    block, gathered over the "model" group in rank order, which is the
+    unsharded order (in_proj splits by heads, linear1 contiguously)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    collectives["all_gather"] += 1
+    return torch.cat(parts, -1)
 
 
 def gather_lanes(t, mesh):
@@ -195,8 +235,9 @@ WHOLE = Shard()
 
 def _spec_for_param(path: str, ndim: int) -> Shard:
     """Tensor-parallel layout of a leaf of a transformer's stacked layers:
-    in_proj (by heads) and linear1 column-parallel, out_proj / linear2
-    weights row-parallel, everything else whole."""
+    in_proj (by heads) and linear1 column-parallel, float or quantized;
+    float out_proj / linear2 weights row-parallel; everything else whole,
+    the quantized out_proj / linear2 leaves included."""
     if "cross_attention" in path or "gating" in path:
         return WHOLE
     if "in_proj" in path:
@@ -222,22 +263,6 @@ def _tree_map(fn, tree, path=""):
             f.name: _tree_map(fn, getattr(tree, f.name), f"{path}.{f.name}")
             for f in dataclasses.fields(tree)})
     return fn(path, tree)
-
-
-def refuse_quantized(params) -> None:
-    """Raise NotImplementedError for a tree holding quantized leaves."""
-    def walk(t):
-        if isinstance(t, dict):
-            if "q" in t or "q4" in t:
-                raise NotImplementedError(
-                    "quantized weights on a mesh are not ported: the JAX "
-                    "package splits in_proj / linear1 int8 leaves but keeps "
-                    "quantized out_proj / linear2 whole and runs its K4 "
-                    "kernel unwrapped under GSPMD, and no JAX test runs "
-                    "them; serve float weights on a mesh")
-            for v in t.values():
-                walk(v)
-    walk(params)
 
 
 def _transformers(cfg):
@@ -298,9 +323,7 @@ def _block(t, spec: Shard, mesh):
 
 def shard_params(params, mesh, cfg):
     """This rank's block of a whole params tree (copies of the split
-    leaves; whole leaves are shared). Raises NotImplementedError for
-    quantized weights."""
-    refuse_quantized(params)
+    leaves; whole leaves are shared), float or quantized."""
     spec = _param_spec(mesh, cfg)
     return _tree_map(lambda path, leaf: (
         _block(leaf, spec(path, leaf), mesh)

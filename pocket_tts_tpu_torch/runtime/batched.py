@@ -30,7 +30,9 @@ and both servers) each rank holds its block of the lanes and of the
 heads: the cfg comes from `mesh_cfg`, the params from `shard_params`, and
 the functions here run unchanged on the rank's block; `compact_batch`
 takes the new cursor over every rank's lanes, and the engine gathers the
-audio over "data" where the host reads it.
+audio over "data" where the host reads it. Quantized weights run there
+too, with no fused kernel (K5a / K5b, K6): each linear is one K4a / K4b
+call on the block the rank holds (`sharding.fusable`, `row_linear`).
 """
 from __future__ import annotations
 
@@ -42,8 +44,7 @@ import torch
 
 from ..models import backbone, flow_lm, mimi, mimi_transformer, tts
 from ..parallel.sharding import (axis_rank, axis_size, gather_lanes,
-                                 local_heads, max_over_data, refuse_quantized,
-                                 shard_params)
+                                 local_heads, max_over_data, shard_params)
 from ..text.preprocess import count_words, prepare_text_prompt
 from .engine import _SCAN_BUCKET, _bucket
 
@@ -104,11 +105,10 @@ def lane_block(n: int, mesh) -> range:
 def mesh_setup(engine, mesh):
     """(cfg, params) of a batched decode: mesh_cfg of the engine's cfg, and
     this rank's block of its params (shard_params) on a mesh, else the
-    engine's own. Quantized weights with a mesh raise NotImplementedError
-    before the mesh is read."""
+    engine's own; float or quantized (int8, int4, q4_0, with or without
+    quantized convs), whatever the engine loaded them from."""
     if mesh is None:
         return mesh_cfg(engine.cfg), engine.params
-    refuse_quantized(engine.params)
     cfg = mesh_cfg(engine.cfg, mesh)
     return cfg, shard_params(engine.params, mesh, cfg)
 
@@ -494,8 +494,8 @@ class BatchedEngine:
     """Synthesize many sentences concurrently on one card, or on a mesh.
 
     mesh (parallel.sharding.make_mesh, one process per rank, every rank
-    making the same calls): the params are sharded once (`shard_params`;
-    quantized weights raise NotImplementedError), each rank primes,
+    making the same calls): the params are sharded once (`shard_params`,
+    float or quantized weights), each rank primes,
     prefills and decodes only its own block of the lanes (`lane_block`)
     at its own heads, which is the layout `shard_batched_state` gives a
     whole batch state, and the audio is gathered over "data" where the

@@ -36,8 +36,8 @@ On a ("data", "model") mesh (`mesh=`; parallel/sharding.py, one process
 per rank) the scheduler is replicated: every rank is given the same
 `register_voices` and `submit` calls, and admission, compaction and
 epochs are decided from the same host state everywhere. The decode cfg
-comes from `mesh_cfg` and the params from `shard_params` (float weights
-only). Each rank prefills and decodes its own block of the lanes
+comes from `mesh_cfg` and the params from `shard_params` (float, int8,
+int4 or q4_0 weights; quantized convs whole on every rank). Each rank prefills and decodes its own block of the lanes
 (`batched.lane_block`) at its own heads, and the one host read of a chunk
 gathers pcm, valid and done over "data" before any scheduling decision
 reads them. A rank prefills only its own lanes of an admission group: the

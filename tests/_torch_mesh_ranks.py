@@ -1,4 +1,5 @@
-"""Rank-side jobs of tests/test_torch_sharding.py.
+"""Rank-side jobs of tests/test_torch_sharding.py and
+tests/test_torch_sharding_quant.py.
 
 Each job runs on every rank of a gloo group (pocket_tts_tpu_torch.parallel.
 launch.RankGroup) as job(mesh, *args) and returns numpy arrays and plain
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from pocket_tts_tpu_torch.config import check_supported
+from pocket_tts_tpu_torch.io.quant import quantize_params
 from pocket_tts_tpu_torch.models import backbone, tts
 from pocket_tts_tpu_torch.parallel import sharding
 from pocket_tts_tpu_torch.runtime import batched as tb
@@ -47,13 +49,60 @@ def engine(params_np, cfg, **kw):
                      **kw)
 
 
+# the engine's `quantize` options as quantize_params arguments
+QUANTIZE = {"int8": dict(bits=8), "int4": dict(bits=4),
+            "q4_0": dict(bits=4, group=32)}
+
+
+def params(params_np, quantize=None):
+    """The torch tree of a numpy params tree, quantized as the engine's
+    `quantize` option does (None: float)."""
+    p = to_torch(params_np)
+    return p if quantize is None else quantize_params(p,
+                                                      **QUANTIZE[quantize])
+
+
+# the fused kernels' wrappers a mesh must never reach, and K4a / K4b as
+# ops.basic.linear calls them: {counter: (module, attribute)}
+ROUTES = {"K5a": ("fused_layer", "pre_attention"),
+          "K5b": ("fused_layer", "post_attention"),
+          "K5c": ("fused_layer", "bilayer_post_pre"),
+          "K8": ("fused_step", "megalayer"),
+          "K6": ("fused_flow", "flow_forward"),
+          "K4a": ("basic", "int8_matmul"),
+          "K4b": ("basic", "int4_matmul")}
+_calls = {}
+
+
+def count_routes():
+    """Wrap ROUTES once in this process so that each call counts in
+    `_calls`; returns `_calls` reset to zeros."""
+    import importlib
+    if not _calls:
+        for key, (mod, name) in ROUTES.items():
+            m = importlib.import_module(f"pocket_tts_tpu_torch.ops.{mod}")
+            real = getattr(m, name)
+
+            def fn(*a, _real=real, _key=key, **kw):
+                _calls[_key] += 1
+                return _real(*a, **kw)
+
+            setattr(m, name, fn)
+    _calls.update({key: 0 for key in ROUTES})
+    return _calls
+
+
 # ----------------------------------------------------------------- jobs ---
 
-def shard_params_job(mesh, params_np, cfg):
-    """This rank's block of the params under mesh_cfg(cfg, mesh)."""
+def shard_params_job(mesh, params_np, cfg, quantize=None):
+    """This rank's block of the params (quantized first, see `params`)
+    under mesh_cfg(cfg, mesh); bf16 scales come back as float32, which
+    holds them exactly."""
     cfg_m = tb.mesh_cfg(cfg, mesh)
-    return coords(mesh), to_numpy(sharding.shard_params(
-        to_torch(params_np), mesh, cfg_m))
+    block = sharding.shard_params(params(params_np, quantize), mesh, cfg_m)
+    return coords(mesh), to_numpy(sharding._tree_map(
+        lambda path, t: t.float() if isinstance(t, torch.Tensor)
+        and t.dtype == torch.bfloat16 else t, block))
 
 
 def mesh_cfg_job(mesh, params_np, cfg):
@@ -94,12 +143,13 @@ def _whole_states(p, cfg, prompts, tokens, prompt_lens, token_lens):
 
 
 def frame_steps_job(mesh, params_np, cfg, prompts, tokens, prompt_lens,
-                    token_lens, fae, max_steps, n_frames):
+                    token_lens, fae, max_steps, n_frames, quantize=None):
     """The whole batch state sharded (shard_batched_state), then n_frames
-    of batched_frame_step on this rank's block at temp 0. Returns the
-    local pcm (n_frames, B / data, frame), valid, and the all-reduces a
-    frame issued."""
-    p = to_torch(params_np)
+    of batched_frame_step on this rank's block at temp 0 (quantize: the
+    weights', see `params`). Returns the local pcm (n_frames, B / data,
+    frame), valid, the all-reduces and all-gathers a frame issued, and
+    the calls a frame made of each of ROUTES."""
+    p = params(params_np, quantize)
     cfg_m = tb.mesh_cfg(cfg, mesh)
     whole = _whole_states(p, cfg, prompts, tokens, prompt_lens, token_lens)
     st = sharding.shard_batched_state(whole, mesh, cfg_m)
@@ -110,7 +160,8 @@ def frame_steps_job(mesh, params_np, cfg, prompts, tokens, prompt_lens,
     ms_t = torch.tensor(max_steps[own], dtype=torch.int32)
     noise = torch.zeros(len(block), cfg.latent_dim)
     pcms, valids = [], []
-    sharding.collectives["all_reduce"] = 0
+    sharding.collectives.update(all_reduce=0, all_gather=0)
+    calls = count_routes()
     for _ in range(n_frames):
         pcm, valid = tb.batched_frame_step(ps, cfg_m, st, noise, fae_t, ms_t)
         pcms.append(pcm.numpy())
@@ -118,7 +169,10 @@ def frame_steps_job(mesh, params_np, cfg, prompts, tokens, prompt_lens,
     return dict(coords=coords(mesh), block=(block.start, block.stop),
                 pcm=np.stack(pcms), valid=np.stack(valids),
                 reduces_per_frame=sharding.collectives["all_reduce"]
-                / n_frames)
+                / n_frames,
+                gathers_per_frame=sharding.collectives["all_gather"]
+                / n_frames,
+                calls_per_frame={k: v / n_frames for k, v in calls.items()})
 
 
 def own_prefill_job(mesh, params_np, cfg, prompts, tokens, prompt_lens,
@@ -155,11 +209,14 @@ def own_prefill_job(mesh, params_np, cfg, prompts, tokens, prompt_lens,
                 pos=bool(torch.equal(a.pos, b.pos)))
 
 
-def server_job(mesh, params_np, cfg, voices, reqs, mid, lanes, kw):
+def server_job(mesh, params_np, cfg, voices, reqs, mid, lanes, kw,
+               engine_kw=None):
     """A ContinuousBatchingServer on the mesh at temp 0: the first `mid`
-    requests, one chunk, the rest (admitted mid-decode), drained. Returns
-    each request's pcm and admission chunk."""
-    eng = engine(params_np, cfg)
+    requests, one chunk, the rest (admitted mid-decode), drained (engine_kw:
+    TTSEngine's quantize options). Returns each request's pcm and
+    admission chunk, and the calls of each of ROUTES."""
+    eng = engine(params_np, cfg, **(engine_kw or {}))
+    calls = count_routes()
     srv = ContinuousBatchingServer(eng, lanes=lanes, chunk_frames=4,
                                    text_bucket=32, mesh=mesh, **kw)
     srv.register_voices(voices)
@@ -171,11 +228,12 @@ def server_job(mesh, params_np, cfg, voices, reqs, mid, lanes, kw):
                 admit=[r.admit_step for r in out],
                 compactions=srv.compactions,
                 width=srv.batch.flow.k[0].shape[-1],
-                lanes=srv.batch.lanes)
+                lanes=srv.batch.lanes, calls=dict(calls))
 
 
-def multistream_job(mesh, params_np, cfg, voices, reqs, max_batch):
-    eng = engine(params_np, cfg)
+def multistream_job(mesh, params_np, cfg, voices, reqs, max_batch,
+                    engine_kw=None):
+    eng = engine(params_np, cfg, **(engine_kw or {}))
     srv = MultiStreamServer(eng, max_batch=max_batch, chunk_frames=5,
                             mesh=mesh)
     srv.register_voices(voices)
@@ -184,35 +242,29 @@ def multistream_job(mesh, params_np, cfg, voices, reqs, max_batch):
     return [r.pcm for r in out]
 
 
-def batched_engine_job(mesh, params_np, cfg, prompts, texts):
-    be = tb.BatchedEngine(engine(params_np, cfg), mesh)
+def batched_engine_job(mesh, params_np, cfg, prompts, texts,
+                       engine_kw=None):
+    be = tb.BatchedEngine(engine(params_np, cfg, **(engine_kw or {})), mesh)
     return be.synthesize_batch(texts, be.prime_voices(prompts), temp=0.0)
 
 
-def quantized_refusal_job(mesh, params_np, cfg):
-    """The messages of what a mesh refuses: quantized weights at
-    shard_params, at BatchedEngine and at both servers."""
-    eng = engine(params_np, cfg, quantize="int8")
-    msgs = []
-    for make in (lambda: sharding.shard_params(eng.params, mesh,
-                                               tb.mesh_cfg(cfg, mesh)),
-                 lambda: tb.BatchedEngine(eng, mesh),
-                 lambda: MultiStreamServer(eng, mesh=mesh),
-                 lambda: ContinuousBatchingServer(eng, mesh=mesh)):
-        try:
-            make()
-            msgs.append(None)
-        except NotImplementedError as e:
-            msgs.append(str(e))
-    return msgs
+def cache_engine_job(mesh, path, cfg, prompts, texts):
+    """BatchedEngine on the mesh over an engine loaded from a params cache
+    (safetensors or GGUF): the streams' pcm."""
+    eng = TTSEngine.from_params_cache(path, cfg, seed=0, device="cpu",
+                                      tokenizer=MockTokenizer(cfg.lut.n_bins))
+    be = tb.BatchedEngine(eng, mesh)
+    return be.synthesize_batch(texts, be.prime_voices(prompts), temp=0.0)
 
 
 def tts_decode_job(mesh, params_np, cfg, prompt, tokens, n, fae, max_steps,
-                   scan_len):
+                   scan_len, quantize=None):
     """tts.decode_sentence solo with the mesh cfg's prime and prefill
-    (register_voices' solo route on a mesh): pcm and valid."""
+    (register_voices' solo route on a mesh): pcm, valid and the calls of
+    each of ROUTES (quantize: the weights', see `params`)."""
     cfg_m = tb.mesh_cfg(cfg, mesh)
-    p = sharding.shard_params(to_torch(params_np), mesh, cfg_m)
+    p = sharding.shard_params(params(params_np, quantize), mesh, cfg_m)
+    calls = count_routes()
     state = backbone.init_state(cfg_m.backbone)
     state = tts.prime_voice(p, cfg_m, state, torch.from_numpy(prompt),
                             prompt.shape[0])
@@ -220,7 +272,7 @@ def tts_decode_job(mesh, params_np, cfg, prompt, tokens, n, fae, max_steps,
     _, pcm, valid = tts.decode_sentence(
         p, cfg_m, st, lambda i: torch.zeros(cfg.latent_dim), fae, max_steps,
         scan_len)
-    return pcm.numpy(), valid.numpy()
+    return pcm.numpy(), valid.numpy(), dict(calls)
 
 
 def fail_on_rank1(mesh):

@@ -530,14 +530,30 @@ def test_mesh_expected_launches_per_step(fuse_insert):
     """A rank's launches per batch frame step on phase 11's server: 6 K7
     int8 with statistics (6 K1 over lanes with statistics without the fused
     insert), 2 K2-q, one K3 sequence; 3 all-reduces a layer a step and 3 a
-    backbone layer an admission prefill."""
+    backbone layer an admission prefill; 3 all-gathers a chunk (pcm,
+    valid, done over "data")."""
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
-    want, reduces = cs.mesh_expected(fuse_insert, 10, 2)
+    want, reduces, gathers = cs.mesh_expected(fuse_insert, 10, 2, 3)
     k1 = fuse_insert is False
     assert want == {
         "ring_attn_kv8": 20, "seanet_frame": 10,
         "decode_attn_lanes" if k1 else "decode_insert_attn_kv8": 60,
         "decode_attn_stats" if k1 else "decode_insert_attn_stats": 60}
     assert reduces == 3 * 8 * 10 + 3 * 6 * 2
+    assert gathers == 3 * 3
     assert all(name in cs.KERNELS for name in want)
+
+
+def test_mesh_expected_with_quantized_weights():
+    """Phase 11g: the K4 calls given (a step's, a prefill's) join the
+    launches; a layer takes one max (the int8 rows) and two gathers (the
+    inputs of the whole quantized out_proj and linear2), no sum."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    want, reduces, gathers = cs.mesh_expected(None, 10, 2, 3,
+                                              ("int4_matmul", (55, 24)))
+    assert want["int4_matmul"] == 55 * 10 + 24 * 2
+    assert reduces == 8 * 10 + 6 * 2
+    assert gathers == 3 * 3 + 2 * (8 * 10 + 6 * 2)
+    assert "int4_matmul" in cs.KERNELS

@@ -49,7 +49,7 @@ def _options(parser):
 
 def test_parser_has_every_jax_option_but_two():
     port, jax_ = _options(cli.build_parser()), _options(jax_parser())
-    assert jax_ - port == {"--fetch-models"}
+    assert jax_ - port == set()
     assert port - jax_ == set()
     for argv in (["--bench"], ["-l"], ["--threads", "3", "x"]):
         jargs = vars(jax_parser().parse_args(argv))

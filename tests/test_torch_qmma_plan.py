@@ -6,7 +6,8 @@ the CPU:
 - `rows_plan`: at DEFAULT_CONFIG's and tiny_config(64)'s linears, from 1 to
   128 lanes, the output tiles cover every (row, column) once and the
   reduction slices every k-tile once, none empty, within a portable cluster
-  and the card's shared memory;
+  and the card's shared memory; so at the shapes a rank of a mesh gives
+  K4a / K4b (chip_smoke.mesh_k4_shapes) at 16 and 256 rows;
 - the K6 chain's column split (`flow_cols`) covers each step's columns once
   on clusters of 16 and 8 blocks, and `flow_plan` keeps a block's shared
   memory within 227 KB at DEFAULT_CONFIG for int8, int4 and q4_0;
@@ -26,6 +27,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 from pocket_tts_tpu.config import tiny_config as j_tiny_config
 from pocket_tts_tpu.io.params import params_from_flat, random_flat
 from pocket_tts_tpu.io.quant import quantize_params as j_quantize
@@ -36,6 +38,7 @@ from pocket_tts_tpu.ops.basic import slice_layer_params as j_slice
 from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
 from pocket_tts_tpu_torch.io.params import from_jax_numpy
 from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
+from pocket_tts_tpu_torch.ops import quant_matmul as qm
 from pocket_tts_tpu_torch.ops.basic import (gelu, layer_norm, silu,
                                             slice_layer_params)
 from pocket_tts_tpu_torch.ops.quant_matmul import grouped, unpack_int4
@@ -76,29 +79,49 @@ def covered_once(total, step, parts):
 def test_rows_plan_covers_outputs_and_k_tiles_once(cfg, packed):
     for k, n, t, ln in _linears(cfg):
         for lanes in (1, 2, 4, 16, 32, 64, 128):
-            rows = lanes * t
-            bm, splits, per = fused_layer.rows_plan(rows, k, n, packed,
-                                                    4 if ln else 0)
-            assert bm in fused_layer.MMA_BMS
-            assert 1 <= splits <= fused_layer.MMA_MAX_SPLITS
-            # output tiles: ceil(rows / bm) x ceil(n / 64), each output once
-            assert covered_once(rows, bm, -(-rows // bm))
-            assert covered_once(n, fused_layer.MMA_BN,
-                                -(-n // fused_layer.MMA_BN))
-            # k-tiles of MMA_BKS stored rows, split in slices of `per`
-            kt = (k // 2 if packed else k) // fused_layer.MMA_BKS
-            slices = [(z * per, min(kt, (z + 1) * per))
-                      for z in range(splits)]
-            assert all(lo < hi for lo, hi in slices), (k, n, rows, slices)
-            seen = np.zeros(kt, dtype=int)
-            for lo, hi in slices:
-                seen[lo:hi] += 1
-            assert (seen == 1).all()
-            a_bytes = bm * per * fused_layer.MMA_BKS * (2 if packed else 1) * 2
-            assert a_bytes <= fused_layer.MMA_A_BYTES
-            smem = fused_layer.rows_mma_smem(bm, per, packed, k,
-                                             4 if ln else 0)
-            assert smem <= fused_layer.SMEM_MAX
+            check_rows_plan(lanes * t, k, n, packed, ln)
+
+
+def check_rows_plan(rows, k, n, packed, ln):
+    bm, splits, per = fused_layer.rows_plan(rows, k, n, packed,
+                                            4 if ln else 0)
+    assert bm in fused_layer.MMA_BMS
+    assert 1 <= splits <= fused_layer.MMA_MAX_SPLITS
+    # output tiles: ceil(rows / bm) x ceil(n / 64), each output once
+    assert covered_once(rows, bm, -(-rows // bm))
+    assert covered_once(n, fused_layer.MMA_BN, -(-n // fused_layer.MMA_BN))
+    # k-tiles of MMA_BKS stored rows (the last may hold 16), split in
+    # slices of `per`
+    kt = -(-(k // 2 if packed else k) // fused_layer.MMA_BKS)
+    slices = [(z * per, min(kt, (z + 1) * per)) for z in range(splits)]
+    assert all(lo < hi for lo, hi in slices), (k, n, rows, slices)
+    seen = np.zeros(kt, dtype=int)
+    for lo, hi in slices:
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    a_bytes = bm * per * fused_layer.MMA_BKS * (2 if packed else 1) * 2
+    assert a_bytes <= fused_layer.MMA_A_BYTES
+    smem = fused_layer.rows_mma_smem(bm, per, packed, k, 4 if ln else 0)
+    assert smem <= fused_layer.SMEM_MAX
+
+
+MESH = sorted({(k, n) for model in (2, 4) for _, k, n in
+               chip_smoke.mesh_k4_shapes(DEFAULT_CONFIG, model)})
+
+
+@pytest.mark.parametrize("rows", [16, 256])
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("k,n", MESH, ids=[f"{k}x{n}" for k, n in MESH])
+def test_rows_plan_at_mesh_rank_shapes(k, n, packed, rows):
+    """A rank's K4 shapes on the tensor-core row-block kernel: the widths
+    it takes (q4_0's groups of 32 too), one cover of outputs and
+    k-tiles."""
+    kinds = ([(qm.INT4, 0)] + ([(qm.INT4_GROUPED, 32)] if k % 64 == 0
+                                else [])
+             if packed else [(qm.INT8, 0)])
+    for kind, group in kinds:
+        fused_layer._mma_check("rows_mma", k, n, kind, group, False)
+    check_rows_plan(rows, k, n, packed, False)
 
 
 def test_rows_plan_fills_the_card_at_32_lanes():

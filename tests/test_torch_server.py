@@ -4,8 +4,8 @@ package's test_continuous.py tolerance) in ring mode, across a ring wrap
 and through eager compaction; the same requests through the JAX
 package's ContinuousBatchingServer and MultiStreamServer at temp 0 (atol
 1e-4, the port's end-to-end tolerance); seeded noise at temp 0.7
-independent of admission order; the refusals of what is not ported; and
-CLI --serve."""
+independent of admission order; the serving options (what is refused,
+quantized convs, quantized weights on a mesh); and CLI --serve."""
 import dataclasses
 import json
 import os
@@ -208,11 +208,14 @@ def test_unseeded_requests_draw_engine_seeds():
 @pytest.mark.parametrize("what", ["share_prefix", "quantize", "mesh"])
 def test_unported_serving_options_raise(what):
     """What serving refuses: shared-prefix tables outside the prefix+ring
-    mode (as the JAX server does) and quantized weights on a device mesh
-    (a float mesh serves: tests/test_torch_sharding.py). Quantized convs,
-    once refused, serve: with int8 weights and quantized convs both servers
-    give the solo engine's audio (tests/test_torch_conv_quant.py serves a
-    decoder whose convs quantize, in the serving mode)."""
+    mode (as the JAX server does). Quantized convs and quantized weights
+    on a device mesh, once refused, serve: with int8 weights and quantized
+    convs both servers give the solo engine's audio
+    (tests/test_torch_conv_quant.py serves a decoder whose convs quantize,
+    in the serving mode), and with int8 weights on a 1 x 2 mesh of gloo
+    ranks both give the unsharded servers' audio
+    (tests/test_torch_sharding_quant.py holds the mesh to the JAX
+    package)."""
     if what == "quantize":
         eng = engine(quantize="int8", quantize_convs=True)
         want = solo(eng, TEXT_B, "vb")
@@ -229,9 +232,33 @@ def test_unported_serving_options_raise(what):
             ContinuousBatchingServer(engine(), share_prefix=True,
                                      ring=False)
         return
-    for cls in (ContinuousBatchingServer, MultiStreamServer):
-        with pytest.raises(NotImplementedError, match="quantized"):
-            cls(engine(quantize="int8"), mesh=object())
+    import _torch_mesh_ranks as ranks
+    from pocket_tts_tpu_torch.parallel import launch
+    reqs = [(TEXT_B, "va"), (TEXT_C, "vb")]
+    eng = engine(quantize="int8")
+    srv = server(eng)
+    want = [srv.submit(TEXT_B, "va", temp=0.0)]
+    srv.step()
+    want.append(srv.submit(TEXT_C, "vb", temp=0.0))
+    srv.run_pending()
+    mss = MultiStreamServer(eng, max_batch=2, chunk_frames=5)
+    mss.register_voices(VOICES)
+    want_mss = [mss.submit(t, v, temp=0.0) for t, v in reqs]
+    mss.run_pending()
+    kw = dict(quantize="int8")
+    pnp = ranks.to_numpy(PT)
+    with launch.RankGroup(1, 2, timeout=300) as group:
+        cbs = group.run(ranks.server_job, pnp, CFG, VOICES, reqs, 1, 2, {},
+                        kw)
+        multi = group.run(ranks.multistream_job, pnp, CFG, VOICES, reqs, 2,
+                          kw)
+    assert all(o["calls"]["K4a"] > 0 and o["calls"]["K5a"] == 0
+               for o in cbs)
+    for got, ref in ([(o["pcm"], want) for o in cbs]
+                     + [(o, want_mss) for o in multi]):
+        for a, r in zip(got, ref):
+            assert a.shape == r.pcm.shape and a.size
+            np.testing.assert_allclose(a, r.pcm, atol=JAX_ATOL, rtol=0)
 
 
 def test_cli_serve_writes_one_wav_per_request(tmp_path, monkeypatch,

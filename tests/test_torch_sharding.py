@@ -169,6 +169,20 @@ def mesh14():
     ("/layers/out_proj/b", 2, Shard()),
     ("/layers/linear2/w", 3, Shard(dim=1, float32=True)),
     ("/layers/linear2/b", 2, Shard()),
+    # quantized leaves: int8 / int4, per-channel (L, N) and q4_0 (L, K/32,
+    # N) scales
+    ("/layers/in_proj/q", 3, Shard(dim=2, groups=3)),
+    ("/layers/in_proj/q4", 3, Shard(dim=2, groups=3)),
+    ("/layers/in_proj/scale", 2, Shard(dim=1, groups=3)),
+    ("/layers/in_proj/scale", 3, Shard(dim=2, groups=3)),
+    ("/layers/linear1/q4", 3, Shard(dim=2)),
+    ("/layers/linear1/scale", 3, Shard(dim=2)),
+    ("/mimi/decoder_transformer/layers/linear1/q", 3, Shard(dim=2)),
+    ("/layers/out_proj/q", 3, Shard()),
+    ("/layers/out_proj/scale", 2, Shard()),
+    ("/mimi/decoder_transformer/layers/out_proj/q4", 3, Shard()),
+    ("/layers/linear2/q4", 3, Shard()),
+    ("/layers/linear2/scale", 3, Shard()),
     ("/layers/norm1/scale", 2, Shard()),
     ("/mimi/decoder_transformer/layers/layer_scale_1/scale", 2, Shard()),
     ("/mimi/decoder_transformer/layers/gating/linear_in/w", 4, Shard()),
@@ -176,9 +190,10 @@ def mesh14():
 ])
 def test_param_layout_by_name(path, ndim, want):
     """The JAX package's name rule: in_proj (by heads, q | k | v apart)
-    and linear1 column-parallel, out_proj / linear2 weights row-parallel
-    (kept in float32), their biases, norms, layer scales, gating and
-    cross-attention whole."""
+    and linear1 column-parallel, their quantized leaves too; out_proj /
+    linear2 float weights row-parallel (kept in float32), their quantized
+    leaves, their biases, norms, layer scales, gating and cross-attention
+    whole."""
     assert sharding._spec_for_param(path, ndim) == want
 
 
@@ -463,13 +478,6 @@ def test_batched_engine_on_the_mesh_matches_unsharded(mesh22):
             np.testing.assert_allclose(a, w, atol=ATOL, rtol=0)
 
 
-def test_quantized_weights_on_a_mesh_raise(mesh22):
-    """Quantized weights on a mesh are not ported (ROADMAP): shard_params,
-    BatchedEngine and both servers raise NotImplementedError."""
-    for msgs in mesh22.run(ranks.quantized_refusal_job, PNP, TCFG):
-        assert all(m is not None and "quantized" in m for m in msgs), msgs
-
-
 def test_solo_decode_with_the_mesh_cfg_matches_unsharded(mesh22):
     """A solo stream primed and prefilled with the mesh cfg (the servers'
     register_voices route) and decoded with tts.decode_sentence at its
@@ -483,8 +491,8 @@ def test_solo_decode_with_the_mesh_cfg_matches_unsharded(mesh22):
     st = tts.sentence_prefill(PT, TCFG, st, torch.from_numpy(tokens), 10)
     _, want_pcm, want_valid = tts.decode_sentence(
         PT, TCFG, st, lambda i: torch.zeros(CFG.latent_dim), 3, 6, 9)
-    for pcm, valid in mesh22.run(ranks.tts_decode_job, PNP, TCFG, prompt,
-                                 tokens, 10, 3, 6, 9):
+    for pcm, valid, _ in mesh22.run(ranks.tts_decode_job, PNP, TCFG,
+                                    prompt, tokens, 10, 3, 6, 9):
         np.testing.assert_array_equal(valid, want_valid.numpy())
         np.testing.assert_allclose(pcm, want_pcm.numpy(), atol=ATOL, rtol=0)
 

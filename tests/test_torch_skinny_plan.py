@@ -16,6 +16,11 @@ routes cut their work, checked on the CPU:
   relative; so does K4b's (the skinny kernel below 16 rows, the tensor
   cores' k16 partials from 16, a last k-tile of 16 packed rows at K = 32)
   against `int4_matmul_plain` and `int4_matmul_pallas(interpret=True)`;
+- at the shapes a rank of a mesh gives K4a / K4b (chip_smoke.
+  mesh_k4_shapes: column shards at "model" 2 and 4, the whole out_proj /
+  linear2, the flow net's linears), int8, int4 and q4_0: the skinny plan
+  at 2 rows as above, and the skinny (2 rows) and tensor-core (16 and 256
+  rows) models equal the plain product;
 - the route (dtype, rows) -> kernel of `rows_route`, K4b's included, on a
   stand-in for the kernel library (which entry point a call reaches, and
   which counter counts it).
@@ -28,6 +33,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 from pocket_tts_tpu.config import tiny_config as j_tiny_config
 from pocket_tts_tpu.io.params import params_from_flat, random_flat
 from pocket_tts_tpu.io.quant import quantize_params as j_quantize
@@ -36,6 +42,7 @@ from pocket_tts_tpu.ops import quant_matmul as j_qmm
 from pocket_tts_tpu.ops.basic import slice_layer_params as j_slice
 from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
 from pocket_tts_tpu_torch.io.params import from_jax_numpy
+from pocket_tts_tpu_torch.io.quant import _quantize_weight
 from pocket_tts_tpu_torch.ops import cuda_lib, fused_layer
 from pocket_tts_tpu_torch.ops import quant_matmul as qm
 from pocket_tts_tpu_torch.ops.basic import layer_norm, slice_layer_params
@@ -93,41 +100,78 @@ def _regions_ok(regions, smem):
                                                              "tiny64"])
 def test_skinny_plan_covers_every_weight_byte_once(cfg, kind, rows):
     for k, n, ln in _linears(cfg):
-        kd, group = _layout(kind, k)
-        packed = kd != qm.INT8
-        plan = fused_layer.skinny_plan(rows, k, n, kd, group, ln)
-        ks, srows = plan["ks"], plan["srows"]
-        stored = k // 2 if packed else k
-        assert ks in fused_layer.SKINNY_KS and ks <= 8
-        assert ks * srows == stored and srows >= 1
-        if ks > 1:
-            assert srows % 32 == 0
-        if group:
-            assert srows % group == 0
-        assert srows <= fused_layer.TMA_ROWS or srows % fused_layer.TMA_ROWS == 0
-        # the grid: block u takes tile u // ks, slice u % ks; the ks blocks
-        # of a cluster are u = c * ks .. c * ks + ks - 1, one tile
-        assert plan["grid"] == n // 32 * ks
-        seen = np.zeros((stored, n), dtype=int)
-        for u in range(plan["grid"]):
-            tile, q = divmod(u, ks)
-            seen[q * srows:(q + 1) * srows, tile * 32:(tile + 1) * 32] += 1
-            assert u // ks == tile       # the cluster holds one tile
-        assert (seen == 1).all()
-        # the fewest slices whose slab is within SKINNY_SLAB, else the most
-        valid = fused_layer.skinny_slices(stored, kd, group)
-        fit = [q for q in valid
-               if stored // q * 32 <= fused_layer.SKINNY_SLAB]
-        assert ks == (fit[0] if fit else valid[-1])
-        # the regions hold what the kernel puts there
-        unit = fused_layer.col_unit_bytes(kd, k, ks, group)
-        aw = srows * (2 if packed else 1)
-        regions = [(plan["o_w"], unit),
-                   (plan["o_x"], 4 * rows * (k if ln else aw)),
-                   (plan["o_lnv"], 8 * k if ln else 0),
-                   (plan["o_red"], 4 * fused_layer.COOP_RED_FLOATS),
-                   (plan["o_out"], 4 * rows * 32)]
-        assert _regions_ok(regions, plan["smem"]), (k, n, plan)
+        check_skinny(rows, k, n, *_layout(kind, k), ln)
+
+
+def check_skinny(rows, k, n, kd, group, ln):
+    """skinny_plan's units cover every stored weight byte once, a tile's
+    slices are one cluster, the slice count is the plan's rule, and the
+    shared-memory regions hold what the kernel puts there."""
+    packed = kd != qm.INT8
+    plan = fused_layer.skinny_plan(rows, k, n, kd, group, ln)
+    ks, srows = plan["ks"], plan["srows"]
+    stored = k // 2 if packed else k
+    assert ks in fused_layer.SKINNY_KS and ks <= 8
+    assert ks * srows == stored and srows >= 1
+    if ks > 1:
+        assert srows % 32 == 0
+    if group:
+        assert srows % group == 0
+    assert srows <= fused_layer.TMA_ROWS or srows % fused_layer.TMA_ROWS == 0
+    # the grid: block u takes tile u // ks, slice u % ks; the ks blocks
+    # of a cluster are u = c * ks .. c * ks + ks - 1, one tile
+    assert plan["grid"] == n // 32 * ks
+    seen = np.zeros((stored, n), dtype=int)
+    for u in range(plan["grid"]):
+        tile, q = divmod(u, ks)
+        seen[q * srows:(q + 1) * srows, tile * 32:(tile + 1) * 32] += 1
+        assert u // ks == tile       # the cluster holds one tile
+    assert (seen == 1).all()
+    # the fewest slices whose slab is within SKINNY_SLAB, else the most
+    valid = fused_layer.skinny_slices(stored, kd, group)
+    fit = [q for q in valid
+           if stored // q * 32 <= fused_layer.SKINNY_SLAB]
+    assert ks == (fit[0] if fit else valid[-1])
+    # the regions hold what the kernel puts there
+    unit = fused_layer.col_unit_bytes(kd, k, ks, group)
+    aw = srows * (2 if packed else 1)
+    regions = [(plan["o_w"], unit),
+               (plan["o_x"], 4 * rows * (k if ln else aw)),
+               (plan["o_lnv"], 8 * k if ln else 0),
+               (plan["o_red"], 4 * fused_layer.COOP_RED_FLOATS),
+               (plan["o_out"], 4 * rows * 32)]
+    assert _regions_ok(regions, plan["smem"]), (k, n, plan)
+
+
+MESH = sorted({(k, n): name for model in (2, 4) for name, k, n in
+               chip_smoke.mesh_k4_shapes(DEFAULT_CONFIG, model)}.items())
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("k,n", [kn for kn, _ in MESH],
+                         ids=[f"{k}x{n}" for (k, n), _ in MESH])
+def test_k4_at_mesh_rank_shapes(k, n, kind):
+    """A rank's K4a / K4b shapes: the skinny plan at 2 rows; the skinny
+    model at 2 rows and the tensor-core model at 16 and 256 rows equal
+    the plain product (io/quant.py's layout: q4_0 keeps per-channel scales
+    at K = 32)."""
+    rng = np.random.RandomState(k + n)
+    w = (rng.randn(k, n) * 0.05).astype(np.float32)
+    kw = KINDS[kind]
+    lin = _quantize_weight(w, kw["bits"], kw.get("group", 0))
+    kd, group = _layout(kind, k)
+    assert qm.grouped(lin) == bool(group)
+    check_skinny(2, k, n, kd, group, False)
+    for rows in (2, 16, 256):
+        x = torch.from_numpy((rng.randn(rows, k) * 0.5).astype(np.float32))
+        if rows < fused_layer.MMA_ROWS:
+            got = skinny_model(x, lin, fused_layer.skinny_plan(
+                rows, k, n, kd, group, False)["ks"])
+        else:
+            fused_layer._mma_check("rows_mma", k, n, kd, group, False)
+            got = mma_model(x, lin, fused_layer.rows_plan(
+                rows, k, n, kd != qm.INT8))
+        close_rel(got, qm.deq_dot(x, lin))
 
 
 def test_skinny_plan_at_the_backbone_in_proj():

@@ -13,6 +13,11 @@ route, checked on the CPU:
   float32 partial, the cluster's sum in rank order, the scale once in the
   epilogue) equals `int8_matmul_plain` and the JAX package's
   `int8_matmul_pallas(interpret=True)` within 1e-5 relative in float32;
+- the same plan checks and model at the shapes a rank of a mesh gives
+  K4a (chip_smoke.mesh_k4_shapes: the column shards of in_proj and
+  linear1 at "model" 2 and 4, the whole out_proj / linear2, the flow
+  net's linears) at 256 rows, the prefill's, with 2 and 16 rows on the
+  row-block routes;
 - `int8_route` (dtype, rows) -> simt / skinny / mma / wgmma, and on a
   stand-in for the kernel library each route launches its entry point
   once, counted in `int8_matmul.launches` only (the warpgroup kernel once
@@ -27,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pocket_tts_tpu.ops import quant_matmul as j_qmm
 from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
 from pocket_tts_tpu_torch.ops import cuda_lib, fused_layer
@@ -51,10 +57,22 @@ def _blocks(plan):
             for x in range(nx)]
 
 
+# the K4 shapes of one rank of a mesh, model 2 and 4 (each once)
+MESH = sorted({(k, n): name for model in (2, 4) for name, k, n in
+               chip_smoke.mesh_k4_shapes(DEFAULT_CONFIG, model)}.items())
+MESH_CASES = [(name, k, n) for (k, n), name in MESH]
+MESH_IDS = [f"{k}x{n}" for _, k, n in MESH_CASES]
+
+
 @pytest.mark.parametrize("name,rows", CASES)
 def test_plan_covers_every_output_and_k_row_once(name, rows):
     k, n = SHAPES[name]
-    plan = qm.wgmma_plan(rows, k, n)
+    check_cover(qm.wgmma_plan(rows, k, n), rows, k, n)
+
+
+def check_cover(plan, rows, k, n):
+    """The blocks cover every output element once per slice and store it
+    once; every K row once in a tile's cluster."""
     bt, sp, per = plan["bt"], plan["splits"], plan["kb_per"]
     kb = -(-k // qm.WGMMA_BK)
     assert plan["grid"] == (sp, -(-n // qm.WGMMA_BN), -(-rows // bt))
@@ -83,7 +101,12 @@ def test_plan_covers_every_output_and_k_row_once(name, rows):
 @pytest.mark.parametrize("name,rows", CASES)
 def test_plan_shared_memory_fits_and_is_aligned(name, rows):
     k, n = SHAPES[name]
-    plan = qm.wgmma_plan(rows, k, n)
+    check_smem(qm.wgmma_plan(rows, k, n))
+
+
+def check_smem(plan):
+    """The regions fit, apart, the rings on the swizzle's period, the
+    float32 tile over the rings clear of the mbarriers."""
     bt, s = plan["bt"], plan["stages"]
     assert s >= 3 and 1 <= plan["splits"] <= 8 and bt in qm.WGMMA_BTS
     rings = [(plan["o_x"], s * bt * 128), (plan["o_q"], s * qm.WGMMA_BK *
@@ -155,6 +178,27 @@ def test_model_matches_plain_and_pallas(name, rows):
     assert float(np.abs(got - plain).max()) <= REL * top
     assert float(np.abs(got - want).max()) <= REL * top
     assert float(np.abs(plain - want).max()) <= REL * top
+
+
+@pytest.mark.parametrize("name,k,n", MESH_CASES, ids=MESH_IDS)
+def test_plan_and_model_at_mesh_rank_shapes(name, k, n):
+    """A rank's shapes at 256 rows (the warpgroup kernel): the plan covers
+    and fits, its model equals the plain version; 2 and 16 rows take the
+    skinny and tensor-core row-block kernels
+    (tests/test_torch_skinny_plan.py, test_torch_qmma_plan.py)."""
+    rows = 256
+    assert qm.int8_route(torch.bfloat16, rows) == "wgmma"
+    assert [qm.int8_route(torch.bfloat16, r) for r in (2, 16)] == \
+        ["skinny", "mma"]
+    plan = qm.wgmma_plan(rows, k, n)
+    check_cover(plan, rows, k, n)
+    check_smem(plan)
+    x, q, scale = _case(rows, k, n, k + n)
+    got = wgmma_model(x, q, scale, plan)
+    want = qm.int8_matmul_plain(torch.from_numpy(x), torch.from_numpy(q),
+                                torch.from_numpy(scale)).numpy()
+    assert float(np.abs(got - want).max()) <= REL * float(
+        np.abs(want).max())
 
 
 def test_model_holds_at_every_split():
