@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --kernel-times   # K3-K8 times only (two trees)
+    python3 chip_smoke.py --cards 4 [--out DIR]   # phases 1, 2 and 12 only
 
 Drives the port's solo paths (synthesis through `TTSEngine` with bf16
 weights, with `quantize="int8"`, `"int4"` and `"q4_0"`, with int4 weights
@@ -18,7 +19,8 @@ and params cache, the CLI's other entry points (--bench --json,
 --profile, --batch with FLAC output, --quantize-convs), the A/B runner
 (`python -m pocket_tts_tpu_torch.ab`) and the reference-exact mode at the
 full width of DEFAULT_CONFIG with random weights from seed 0, and checks the twenty-six hand-written CUDA kernel entries on
-them against their plain PyTorch versions. Phases, in order; any failure
+them against their plain PyTorch versions; with --cards 4, sharded
+serving over NCCL on four cards (phase 12). Phases, in order; any failure
 raises, names its phase and the exit code is 1:
 
   1. environment   torch / CUDA versions, card name and power limit
@@ -237,8 +239,36 @@ raises, names its phase and the exit code is 1:
                    max and two gathers a layer; (h) BatchedEngine(mesh=)
                    with int8 weights, f32, within 1e-3 of max |pcm|, its
                    K4a calls as derived; every rank's audio equal bit for
-                   bit; (i) dryrun_multichip(4, "cuda"); wall per step
-                   beside the unsharded server's
+                   bit; (i) dryrun_multichip(4, "cuda", backend="gloo");
+                   wall per step beside the unsharded server's
+ 12. mesh over     only with --cards 4 (which runs phases 1, 2 and 12 and
+     NCCL          fails in phase 1 with fewer cards): NCCL ranks, one a
+                   card (parallel.launch.RankGroup's default on "cuda"),
+                   each subgroup warmed by one collective first; (a) K1
+                   over lanes with statistics, K7 with statistics
+                   (working type and int8), K2 and K2-q at one rank's
+                   shapes on a model-4 mesh (4 backbone heads, 2 mimi
+                   heads, 32 lanes), K3 over 8 and 32 lanes, K4a / K4b at
+                   mesh_k4_shapes(model=4) over 2, 16, 32 and 256 rows,
+                   vs plain, f32 and bf16, and their bf16 times; the
+                   unsharded references on card 0; (b) phase 11's runs
+                   (a, b, c, e, g, h) on a 2 x 2 mesh with phase 11's
+                   tolerances and checks; (c) the serving mode (int4
+                   weights, int8 KV, int8 mimi ring, shared prefix, bf16)
+                   on 1 x 4 and 4 x 1 with 32 lanes and phase 7's 48
+                   requests, and f32 float weights on 1 x 4, each vs the
+                   one-card server with the same checks; (d) the serving
+                   mode on 4 x 1 at 128 lanes (128 long requests) vs one
+                   card; the serving mode on a 1 x 1 mesh (the mesh's
+                   route, no fused kernel, on one card); (e)
+                   dryrun_multichip(4, "cuda") on NCCL. Each group first
+                   times one collective of each kind at its ranks' shapes
+                   (CUDA events, back to back after a barrier); each run
+                   of b-d reports its wall, frames/s, peak memory a rank,
+                   collectives a step and, after it, a steady window:
+                   wall a chunk, device busy without NCCL, kernels a chunk
+                   and NCCL kernel time (torch.profiler) on every rank,
+                   beside one card
 
 The last three lines of standard output are a JSON object of the kernels
 (launches from the runs of the path that uses each: K1-K3 from bf16, the
@@ -852,16 +882,18 @@ def check_k2_lanes(device, dtype, results):
 K3_LANES = (2, 5, LANES)
 
 
-def check_k3_lanes(dec, cfg, device, dtype, results, weights):
-    """K3 over K3_LANES lanes (streams stacked on M) for 3 frames each
-    against the plain chain with a lane axis, pcm and the 8 carries."""
+def check_k3_lanes(dec, cfg, device, dtype, results, weights,
+                   lanes=K3_LANES):
+    """K3 over each of `lanes` lanes (streams stacked on M) for 3 frames
+    each against the plain chain with a lane axis, pcm and the 8
+    carries."""
     import torch
     from pocket_tts_tpu_torch.models import mimi, seanet
     from pocket_tts_tpu_torch.ops.seanet_frame import seanet_frame
     sc, tpf = cfg.mimi.seanet, cfg.mimi.upsample_stride
     g = torch.Generator(device="cpu").manual_seed(9)
     worst_rel = worst_abs = 0.0
-    for nb in K3_LANES:
+    for nb in lanes:
         st_k = mimi.init_state_lanes(cfg.mimi, nb, dtype, device).seanet
         st_p = {k: v.clone() for k, v in st_k.items()}
         for _ in range(3):
@@ -883,7 +915,7 @@ def check_k3_lanes(dec, cfg, device, dtype, results, weights):
                     .item()
                 worst_rel = max(worst_rel, cerr / cs)
     tol = TOL[("seanet", _dt_name(dtype))]
-    log(f"  K3 seanet_frame lanes {_dt_name(dtype)}: B={K3_LANES}, 3 frames "
+    log(f"  K3 seanet_frame lanes {_dt_name(dtype)}: B={lanes}, 3 frames "
         f"each, max_abs_err {worst_abs:.3e}, relative (pcm and 8 carries) "
         f"{worst_rel:.3e} (tol {tol})")
     if not worst_rel <= tol:
@@ -5159,7 +5191,8 @@ def time_encoder_kernels(qtrees, cfg, device):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: sharded serving over a ("data", "model") mesh of gloo ranks
+# phase 11: sharded serving over a ("data", "model") mesh of gloo ranks on
+# the one card; phase 12 (--cards 4): meshes over NCCL, one rank a card
 # ---------------------------------------------------------------------------
 
 # data x model of phase 11's mesh: four ranks share the one card over gloo
@@ -5185,13 +5218,43 @@ _MESH = {}   # a rank's engines and step counter, kept across its jobs
 # these weights give, where one ulp is 7.246e-3 of it)
 MESH_BF16_TOL = 2.0 ** -6
 
+# phase 12: the cards it needs, one NCCL rank a card
+CARDS = 4
+# one rank's kernel shapes at model 4: 4 of the 16 backbone heads (one K7
+# block), 2 of the 8 mimi heads, over the 32 lanes of a 1 x 4 server (and
+# the 32 a rank holds of 12d's 128 at data 4)
+CARDS_HEADS = (4, 2)
+# K3 over a data rank's lanes: 8 (a 32-lane server at data 4), 32 (12d)
+CARDS_K3_LANES = (LANES // 4, LANES)
+# K4a / K4b rows at a model-4 rank: 2 and 16 as phase 11f, 32 (the 1 x 4
+# server's backbone and flow net rows), 256 (a prefill's)
+CARDS_K4_ROWS = (2, 16, LANES, 256)
+# 12c: phase 7's 48 requests (SERVE_TEXTS in turn) on 32 lanes; 12d: 128
+# lanes, each with SERVE_TEXTS[3] (175 frames), all busy to the end
+SERVE48 = tuple(SERVE_TEXTS[i % len(SERVE_TEXTS)] for i in range(48))
+WIDE_TEXTS = (SERVE_TEXTS[3],) * WIDE_LANES
+# 12c and 12d: (data, model), dtype, weights, lanes, requests, label; the
+# server of phase 11 otherwise (int8 KV, int8 mimi ring, shared prefix).
+# 1 x 1 is the mesh's route (no fused kernel, `sharding.fusable`) on one
+# card with no collective: what that route costs apart from the cards
+CARDS_SERVE_RUNS = (
+    ((1, 1), "bf16", "int4", LANES, SERVE48,
+     "12c serving mode, 1 x 1 (the mesh route, one card)"),
+    ((1, 4), "bf16", "int4", LANES, SERVE48, "12c serving mode, 1 x 4"),
+    ((1, 4), "f32", None, LANES, SERVE48, "12c f32 float weights, 1 x 4"),
+    ((4, 1), "bf16", "int4", LANES, SERVE48, "12c serving mode, 4 x 1"),
+    ((4, 1), "bf16", "int4", WIDE_LANES, WIDE_TEXTS,
+     f"12d serving mode, 4 x 1, {WIDE_LANES} lanes"),
+)
 
-def check_mesh_kernels(device, dtype, results):
+
+def check_mesh_kernels(device, dtype, results, heads=MESH_HEADS,
+                       b=MESH_RANK_LANES):
     """K1 over lanes with statistics (caches of the working type and
-    int8), K7 over int8 caches with statistics and K2 (rings of the working
-    type and int8) at one rank's shapes on a model-2 mesh (MESH_HEADS,
-    MESH_RANK_LANES lanes) vs their plain versions; the caches (and scale
-    rows) after each insert equal."""
+    int8), K7 with statistics (caches of the working type and int8) and K2
+    (rings of the working type and int8) at one rank's shapes (`heads`:
+    backbone and mimi heads a rank; b lanes) vs their plain versions; the
+    caches (and scale rows) after each insert equal."""
     import torch
     from pocket_tts_tpu_torch.ops.decode_attn import (decode_attention,
                                                       decode_attention_plain)
@@ -5199,8 +5262,7 @@ def check_mesh_kernels(device, dtype, results):
         decode_insert_attention, decode_insert_attention_plain)
     from pocket_tts_tpu_torch.ops.ring_attn import (
         ring_insert_attention, ring_insert_attention_plain)
-    hb, hm = MESH_HEADS
-    b = MESH_RANK_LANES
+    hb, hm = heads
     g = torch.Generator(device="cpu").manual_seed(31)
     worst = {}
 
@@ -5223,21 +5285,30 @@ def check_mesh_kernels(device, dtype, results):
                                           stats=True)
             sync(device)
             worst[name] = max(worst.get(name, 0.0), stats_err(got, want))
-    name = f"K7 int8 + stats, H={hb}"
-    for mode in ("ring", "linear"):
-        (q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn,
-         vsn) = k7_kv8_case(g, device, dtype, mode, b, h=hb)
-        runs = []
-        for fn in (decode_insert_attention, decode_insert_attention_plain):
-            c = [k.clone(), v.clone(), ks.clone(), vs.clone()]
-            runs.append((fn(q, kn, vn, cur, c[0], c[1], pos, re_, ws,
-                            k_scale=c[2], v_scale=c[3], ks_new=ksn,
-                            vs_new=vsn, stats=True), c))
-        sync(device)
-        (got, c1), (want, c2) = runs
-        if not all(torch.equal(x, y) for x, y in zip(c1, c2)):
-            raise AssertionError(f"{name}: caches differ ({mode})")
-        worst[name] = max(worst.get(name, 0.0), stats_err(got, want))
+    for kvq in (False, True):
+        name = f"K7{' int8' if kvq else ''} + stats, H={hb}"
+        for mode in ("ring", "linear"):
+            if kvq:
+                (q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn,
+                 vsn) = k7_kv8_case(g, device, dtype, mode, b, h=hb)
+                caches = (k, v, ks, vs)
+            else:
+                q, kn, vn, cur, k, v, pos, re_, ws = k7_case(
+                    g, device, dtype, mode, b, h=hb)
+                caches = (k, v)
+            runs = []
+            for fn in (decode_insert_attention,
+                       decode_insert_attention_plain):
+                c = [t.clone() for t in caches]
+                kw = (dict(k_scale=c[2], v_scale=c[3], ks_new=ksn,
+                           vs_new=vsn) if kvq else {})
+                runs.append((fn(q, kn, vn, cur, c[0], c[1], pos, re_, ws,
+                                stats=True, **kw), c))
+            sync(device)
+            (got, c1), (want, c2) = runs
+            if not all(torch.equal(x, y) for x, y in zip(c1, c2)):
+                raise AssertionError(f"{name}: caches differ ({mode})")
+            worst[name] = max(worst.get(name, 0.0), stats_err(got, want))
     cap, t, ctx, hd = 256, 16, 250, hm * 64
     for kvq in (False, True):
         name = f"K2{'-q' if kvq else ''} lanes, H={hm}"
@@ -5278,13 +5349,12 @@ def check_mesh_kernels(device, dtype, results):
         results.setdefault(name, {})[_dt_name(dtype)] = err
 
 
-def time_mesh_kernels(device, dtype):
+def time_mesh_kernels(device, dtype, heads=MESH_HEADS, b=MESH_RANK_LANES):
     """Device time of K1 over lanes with statistics, K7 int8 with
-    statistics, K2 and K2-q at one rank's shapes on a model-2 mesh
-    (MESH_HEADS, MESH_RANK_LANES lanes) vs their plain versions, the
-    library call (SDPA with the kernel's mask; none for int8 caches, for
-    which SDPA over bf16 caches of the same shape is timed for comparison)
-    and each call's bound: [(name, row)]."""
+    statistics, K2 and K2-q at one rank's shapes (`heads`, b lanes) vs
+    their plain versions, the library call (SDPA with the kernel's mask;
+    none for int8 caches, for which SDPA over bf16 caches of the same
+    shape is timed for comparison) and each call's bound: [(name, row)]."""
     import torch
     from pocket_tts_tpu_torch.ops.attention import ring_cache_bias
     from pocket_tts_tpu_torch.ops.decode_attn import (decode_attention,
@@ -5296,8 +5366,7 @@ def time_mesh_kernels(device, dtype):
     g = torch.Generator(device="cpu").manual_seed(37)
     dn = _dt_name(dtype)
     isz = torch.tensor([], dtype=dtype).element_size()
-    hb, hm = MESH_HEADS
-    b = MESH_RANK_LANES
+    hb, hm = heads
     rows = []
     # K1 over lanes with statistics, every slot read (ring mode), S = 1024
     q, k, v, _, _, pos, end = k1_lanes_case(g, device, dtype, False, 1024, b,
@@ -5386,16 +5455,16 @@ def time_mesh_kernels(device, dtype):
 MESH_K4_ROWS = (2, 16, 256)
 
 
-def mesh_k4_cases(device, rng):
-    """[(kind, name, K, N, weight tree)] of phase 11f: each of
-    `mesh_k4_shapes` quantized for int8, int4 and q4_0 from random
-    weights (io/quant.py's rule: q4_0 keeps per-channel scales at K =
-    32), on the card."""
+def mesh_k4_cases(device, rng, model=MESH_SHAPE[1]):
+    """[(kind, name, K, N, weight tree)] of phases 11f and 12a: each of
+    `mesh_k4_shapes` at `model` quantized for int8, int4 and q4_0 from
+    random weights (io/quant.py's rule: q4_0 keeps per-channel scales at K
+    = 32), on the card."""
     from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
     from pocket_tts_tpu_torch.io.quant import _quantize_weight
     out = []
     for kind, kw in QUANTIZE.items():
-        for name, k, n in mesh_k4_shapes(DEFAULT_CONFIG):
+        for name, k, n in mesh_k4_shapes(DEFAULT_CONFIG, model):
             w = (rng.randn(k, n) * 0.05).astype(np.float32)
             lin = _quantize_weight(w, kw["bits"], kw.get("group", 0))
             out.append((kind, name, k, n,
@@ -5403,38 +5472,38 @@ def mesh_k4_cases(device, rng):
     return out
 
 
-def check_mesh_k4(device, results):
-    """Phase 11f: K4a (int8) and K4b (int4, q4_0) vs their plain versions
-    at one rank's shapes (`mesh_k4_shapes`, model 2) over MESH_K4_ROWS
-    rows, f32 and bf16, inputs from RandomState(41); the route each call
-    took logged. Returns the cases (for `time_mesh_k4`)."""
+def check_mesh_k4(device, results, model=MESH_SHAPE[1], rows=MESH_K4_ROWS):
+    """Phases 11f and 12a: K4a (int8) and K4b (int4, q4_0) vs their plain
+    versions at one rank's shapes (`mesh_k4_shapes` at `model`) over each
+    of `rows` rows, f32 and bf16, inputs from RandomState(41); the route
+    each call took logged. Returns the cases (for `time_mesh_k4`)."""
     import torch
     from pocket_tts_tpu_torch.ops.quant_matmul import int8_route
     from pocket_tts_tpu_torch.ops.fused_layer import rows_route
     rng = np.random.RandomState(41)
-    cases = mesh_k4_cases(device, rng)
+    cases = mesh_k4_cases(device, rng, model)
     for dtype in (torch.float32, torch.bfloat16):
         for kind in QUANTIZE:
             mm_name, mm, plain, key = quant_matmul_fns(kind)
             pairs, routes = [], set()
             for _, name, k, n, lin in (c for c in cases if c[0] == kind):
-                for rows in MESH_K4_ROWS:
-                    x = _rand(rng, device, dtype, rows, k, scale=0.5)
+                for nrows in rows:
+                    x = _rand(rng, device, dtype, nrows, k, scale=0.5)
                     pairs.append((mm(x, lin[key], lin["scale"]),
                                   plain(x, lin[key], lin["scale"])))
-                    routes.add((rows, int8_route(dtype, rows)
+                    routes.add((nrows, int8_route(dtype, nrows)
                                 if kind == "int8" else rows_route(dtype,
-                                                                  rows)))
+                                                                  nrows)))
             sync(device)
             _rel_check(mm_name, "quant", dtype, pairs, results,
-                       f" [mesh rank, {kind}]")
+                       f" [mesh rank, model {model}, {kind}]")
             log(f"    routes (rows, kernel): {sorted(routes)}")
     return cases
 
 
-def time_mesh_k4(cases, device):
-    """Phase 11f: device time of each K4a / K4b case at MESH_K4_ROWS rows,
-    bf16, beside the plain version, the library call
+def time_mesh_k4(cases, device, rows=MESH_K4_ROWS):
+    """Phases 11f and 12a: device time of each K4a / K4b case at each of
+    `rows` rows, bf16, beside the plain version, the library call
     (`_weight_int8pack_mm` / `_weight_int4pack_mm`, where one takes the
     shape) and the bound; [(label, row)]."""
     import torch
@@ -5442,8 +5511,8 @@ def time_mesh_k4(cases, device):
     rows_out, int8_lib = [], [True]
     for kind, name, k, n, lin in cases:
         _, mm, plain, key = quant_matmul_fns(kind)
-        for rows in MESH_K4_ROWS:
-            x = _rand(rng, device, torch.bfloat16, rows, k, scale=0.5)
+        for nrows in rows:
+            x = _rand(rng, device, torch.bfloat16, nrows, k, scale=0.5)
             y = mm(x, lin[key], lin["scale"])
             lib = None
             if kind != "int8":
@@ -5455,16 +5524,17 @@ def time_mesh_k4(cases, device):
                 device_ms(lambda: mm(x, lin[key], lin["scale"]), 50),
                 device_ms(lambda: plain(x, lin[key], lin["scale"]), 10),
                 lib, bound_ms(_nbytes(x, y) + _tree_bytes(lin),
-                              2 * rows * k * n),
-                f"rows={rows} K={k} N={n}")))
+                              2 * nrows * k * n),
+                f"rows={nrows} K={k} N={n}")))
     return rows_out
 
 
 def _mesh_engine(dtype, fuse_insert=None, kv8=True, quantize=None):
-    """The engine of a phase-11 run, made once per process: DEFAULT_CONFIG
-    on random weights from seed 0; kv8: the int8 backbone KV cache and the
-    int8 mimi ring; fuse_insert: the backbone's (None: the serving
-    default, K7); quantize: the weights' (TTSEngine's option)."""
+    """The engine of a phase-11 or phase-12 run, made once per process on
+    this process's card: DEFAULT_CONFIG on random weights from seed 0;
+    kv8: the int8 backbone KV cache and the int8 mimi ring; fuse_insert:
+    the backbone's (None: the serving default, K7); quantize: the weights'
+    (TTSEngine's option)."""
     import dataclasses
     import torch
     from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
@@ -5488,20 +5558,26 @@ def _mesh_engine(dtype, fuse_insert=None, kv8=True, quantize=None):
     return _MESH[key]
 
 
+def _lane_steps():
+    if "steps" not in _MESH:
+        _MESH["steps"] = counted_lane_steps()
+    return _MESH["steps"]
+
+
 def mesh_batched_run(mesh, texts, quantize=None):
     """Phases 11a and 11h: BatchedEngine over len(texts) streams, f32, at
     temp 0 to each sentence's frame budget, on `mesh` (None: one process),
     float weights or `quantize`'s: each stream's pcm, and the launches,
     batch frame steps and prefill calls of the run (counters set to 0
     just before it) with the K4 calls a step and a prefill
-    (`mesh_k4_calls`, None with float weights)."""
+    (`mesh_k4_calls`, None with float weights); the run's wall seconds
+    (host clock, synchronized), frames and the peak device memory."""
     import torch
     from pocket_tts_tpu_torch.io.params import random_voice_prompt
     from pocket_tts_tpu_torch.runtime.batched import BatchedEngine
-    if "steps" not in _MESH:
-        _MESH["steps"] = counted_lane_steps()
-    steps = _MESH["steps"]
+    steps = _lane_steps()
     eng = _mesh_engine(torch.float32, kv8=False, quantize=quantize)
+    torch.cuda.reset_peak_memory_stats()
     be = BatchedEngine(eng, mesh)
     prompts = [random_voice_prompt(eng.cfg, 40 + 16 * i, seed=10 + i)
                for i in range(len(texts))]
@@ -5509,51 +5585,94 @@ def mesh_batched_run(mesh, texts, quantize=None):
     torch.cuda.synchronize()
     steps0, prefills0 = steps["steps"], steps["prefills"]
     reset_counters()
+    t0 = time.perf_counter()
     pcm = be.synthesize_batch(texts, voices, temp=0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     return dict(pcm=pcm, launches={k: v for k, v in read_counters().items()
                                    if v},
                 steps=steps["steps"] - steps0,
                 prefills=steps["prefills"] - prefills0,
-                k4=None if quantize is None else mesh_k4_calls(eng.params))
+                k4=None if quantize is None else mesh_k4_calls(eng.params),
+                wall=wall, frames=sum(a.size for a in pcm)
+                / eng.cfg.mimi.frame_size,
+                peak=torch.cuda.max_memory_allocated())
 
 
-def mesh_serve_run(mesh, dtype_name, fuse_insert, voice, quantize=None):
-    """Phases 11b, 11c, 11e and 11g: a ContinuousBatchingServer with 4
-    lanes, the int8 KV cache, the int8 mimi ring and the shared prefix on
-    `mesh` (None: one process), float weights or `quantize`'s (11g: int4,
-    the serving mode), the MESH_TEXTS at temp 0 (two admitted mid-decode),
-    counters and collectives set to 0 just before the run and read just
-    after. Returns each request's pcm and admission chunk, the launches,
-    batch frame steps, prefill calls, chunks, all-reduces, all-gathers,
-    the K4 calls a step and a prefill (`mesh_k4_calls` of the engine's
-    tree) and the wall seconds."""
+def profile_chunks(srv, lanes, n_walls=4, n_prof=3):
+    """Steady serving on `srv` (a drained server, its voice "v"): `lanes`
+    long requests (SERVE_TEXTS[3], 175 frames), two chunks to admit them,
+    n_walls chunks on the host clock (each synchronized), then n_prof
+    under torch.profiler (`profiled_steps`). Returns the median wall (us),
+    device busy and NCCL kernel time (us) a chunk, the other kernels'
+    launches a chunk, and frames a chunk. An NCCL kernel's time includes
+    its wait for the other ranks' kernels, and kernels of two streams
+    may overlap: NCCL time can exceed the wall."""
+    for _ in range(lanes):
+        srv.submit(SERVE_TEXTS[3], "v", temp=0.0)
+    srv.step()
+    srv.step()
+    walls = chunk_walls(srv, n_walls)
+    ka, _ = profiled_steps(srv.step, n_prof)
+    if any(r is None for r in srv._live):
+        raise AssertionError("a lane finished inside the profiled window")
+    kern = device_kernels(ka, n_prof)
+    nccl = [r for r in kern if "nccl" in r[0].lower()]
+    return dict(wall_us=float(np.median(walls)),
+                busy_us=sum(r[1] for r in kern),
+                nccl_us=sum(r[1] for r in nccl),
+                launches=sum(r[2] for r in kern) - sum(r[2] for r in nccl),
+                chunk_frames=srv.chunk_frames, lanes=lanes)
+
+
+def mesh_serve_run(mesh, dtype_name, fuse_insert, voice, quantize=None,
+                   lanes=4, texts=MESH_TEXTS, profile=False):
+    """Phases 11b, 11c, 11e, 11g, 12c and 12d: a ContinuousBatchingServer
+    with `lanes` lanes, the int8 KV cache, the int8 mimi ring and the
+    shared prefix on `mesh` (None: one process), float weights or
+    `quantize`'s (the serving mode: int4), the `texts` at temp 0, counters
+    and collectives set to 0 just before the run and read just after, each
+    chunk synchronized and timed on the host clock. Returns each
+    request's pcm and admission chunk, the launches, batch frame steps,
+    prefill calls, chunks, all-reduces, all-gathers, the K4 calls a step
+    and a prefill (`mesh_k4_calls` of the engine's tree), the walls, the
+    frames and the peak device memory; with profile, the steady figures of
+    `profile_chunks` after the run."""
     import torch
     from pocket_tts_tpu_torch.parallel import sharding
     from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
-    if "steps" not in _MESH:
-        _MESH["steps"] = counted_lane_steps()
-    steps = _MESH["steps"]
+    steps = _lane_steps()
     eng = _mesh_engine(dtype, fuse_insert, quantize=quantize)
-    srv = ContinuousBatchingServer(eng, lanes=4, share_prefix=True,
+    torch.cuda.reset_peak_memory_stats()
+    srv = ContinuousBatchingServer(eng, lanes=lanes, share_prefix=True,
                                    mesh=mesh)
     srv.register_voices({"v": voice})
-    reqs = [srv.submit(t, "v", temp=0.0) for t in MESH_TEXTS]
+    reqs = [srv.submit(t, "v", temp=0.0) for t in texts]
     steps0, prefills0 = steps["steps"], steps["prefills"]
     torch.cuda.synchronize()
     reset_counters()
     sharding.collectives.update(all_reduce=0, all_gather=0)
-    t0 = time.perf_counter()
-    srv.run_pending()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return dict(pcm=[r.pcm for r in reqs], admit=[r.admit_step for r in reqs],
-                launches=read_counters(), steps=steps["steps"] - steps0,
-                prefills=steps["prefills"] - prefills0,
-                reduces=sharding.collectives["all_reduce"],
-                gathers=sharding.collectives["all_gather"], wall=wall,
-                chunks=srv.steps,
-                k4=None if quantize is None else mesh_k4_calls(eng.params))
+    walls = []
+    while srv._queue or any(r is not None for r in srv._live):
+        if len(walls) == 10_000:
+            raise AssertionError("the server did not drain its queue")
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out = dict(pcm=[r.pcm for r in reqs], admit=[r.admit_step for r in reqs],
+               launches=read_counters(), steps=steps["steps"] - steps0,
+               prefills=steps["prefills"] - prefills0,
+               reduces=sharding.collectives["all_reduce"],
+               gathers=sharding.collectives["all_gather"], wall=sum(walls),
+               walls=walls, chunks=srv.steps,
+               frames=sum(r.pcm.size for r in reqs) / eng.cfg.mimi.frame_size,
+               k4=None if quantize is None else mesh_k4_calls(eng.params))
+    if profile:
+        out["prof"] = profile_chunks(srv, lanes)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
 
 
 def _mesh_rel(got, want, what):
@@ -5580,13 +5699,16 @@ def _mesh_same_bits(outs, what):
                                      "rank 0's")
 
 
-def mesh_expected(fuse_insert, n, prefills, chunks, k4=None):
-    """A rank's launches for n batch frame steps of a phase-11 server:
-    6 K7 int8 with statistics (without the fused insert 6 K1 over lanes
-    with statistics), 2 K2-q, one K3 sequence a step; with quantized
-    weights (k4: (counter, (calls a step, calls a prefill)), 11g) the K4
-    calls `mesh_k4_calls` derives from the tree, and no fused kernel;
-    nothing else. And its all-reduces and all-gathers."""
+def mesh_expected(fuse_insert, n, prefills, chunks, k4=None, data=2,
+                  model=2):
+    """A rank's launches for n batch frame steps of a phase-11 or phase-12
+    server on a data x model mesh: 6 K7 int8 with statistics (without the
+    fused insert 6 K1 over lanes with statistics), 2 K2-q, one K3
+    sequence a step; with quantized weights (k4: (counter, (calls a step,
+    calls a prefill))) the K4 calls `mesh_k4_calls` derives from the
+    tree, and no fused kernel; nothing else. And its all-reduces and
+    all-gathers (DEFAULT_CONFIG's heads, 16 and 8, divide every "model"
+    up to 8, so both transformers split)."""
     from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
     nb = DEFAULT_CONFIG.backbone.num_layers
     nm = DEFAULT_CONFIG.mimi.transformer.num_layers
@@ -5596,13 +5718,14 @@ def mesh_expected(fuse_insert, n, prefills, chunks, k4=None):
     else:
         want.update(decode_insert_attn_kv8=nb * n,
                     decode_insert_attn_stats=nb * n)
-    # every layer: one max (the new int8 rows' absmax) and, for out_proj
-    # and linear2, two sums (float weights) or two gathers of the input
-    # (quantized weights, whole on every rank); an admission prefill call
-    # runs the backbone's layers. Each chunk's host read gathers pcm,
-    # valid and done over "data".
-    layers = (nb + nm) * n + nb * prefills
-    gathers = 3 * chunks
+    # on a "model" group of 2 or more, every layer: one max (the new int8
+    # rows' absmax) and, for out_proj and linear2, two sums (float
+    # weights) or two gathers of the input (quantized weights, whole on
+    # every rank); an admission prefill call runs the backbone's layers.
+    # On a "data" group of 2 or more each chunk's host read gathers pcm,
+    # valid and done.
+    layers = (nb + nm) * n + nb * prefills if model > 1 else 0
+    gathers = 3 * chunks if data > 1 else 0
     if k4 is None:
         return want, 3 * layers, gathers
     name, (step, prefill) = k4
@@ -5688,10 +5811,156 @@ def _check_mesh_launches(label, r, o, want):
                 f"{want.get(name, 0)})")
 
 
+def _run_figures(o):
+    """A run's figures on one line (reported, not checked): wall and
+    frames/s, peak device memory; a server's collectives a step and, when
+    profiled, its steady chunk wall, device busy share and NCCL time."""
+    out = (f"wall {o['wall']:.3f} s, {o['frames'] / o['wall']:.1f} "
+           f"frames/s, peak {o['peak'] / 2 ** 20:.0f} MiB")
+    if "walls" in o:
+        out += (f", wall a chunk median "
+                f"{1e3 * float(np.median(o['walls'])):.2f} ms over "
+                f"{len(o['walls'])} chunks; {o['reduces'] / o['steps']:.2f}"
+                f" all-reduces, {o['gathers'] / o['steps']:.2f} all-gathers"
+                " a step")
+    p = o.get("prof")
+    if p:
+        busy = p["busy_us"] - p["nccl_us"]
+        out += (f"; {p['lanes']} lanes busy: wall a chunk "
+                f"{p['wall_us'] / 1e3:.2f} ms, device busy without NCCL "
+                f"{busy / 1e3:.2f} ms ({busy / p['wall_us']:.1%}) in "
+                f"{p['launches']:.0f} kernels; NCCL kernels "
+                f"{p['nccl_us'] / p['chunk_frames']:.1f} us a step (waits "
+                "for the other ranks included)")
+    return out
+
+
+def _log_run_figures(label, outs, ref):
+    log(f"    {label}, one card: {_run_figures(ref)}")
+    for r, o in enumerate(outs):
+        log(f"    {label}, rank {r}: {_run_figures(o)}")
+
+
+def check_serve_outs(label, outs, ref, fuse, quant, dtype_name, data, model,
+                     min_late=2):
+    """One sharded server run (every rank's mesh_serve_run) against its
+    one-card reference: the ranks' audio equal bit for bit, within f32
+    2e-3 / bf16 MESH_BF16_TOL of max |pcm|, the same admission chunks
+    (at least min_late mid-decode), and each rank's launches,
+    all-reduces and all-gathers as `mesh_expected` derives them."""
+    _mesh_same_bits([o["pcm"] for o in outs], label)
+    tol = 2e-3 if dtype_name == "f32" else MESH_BF16_TOL
+    err = _mesh_rel(outs[0]["pcm"], ref["pcm"], label)
+    late = [a for a in outs[0]["admit"] if a]
+    diff = np.concatenate([np.abs(a - w).ravel() for a, w in
+                           zip(outs[0]["pcm"], ref["pcm"])])
+    log(f"  {label}: {len(ref['pcm'])} requests ({len(late)} admitted "
+        f"mid-decode), max |sharded - unsharded| relative to max |pcm| "
+        f"{err:.3e} (tol {tol:.3e}); samples that differ "
+        f"{np.mean(diff > 0):.3%}; ranks equal bit for bit")
+    if outs[0]["admit"] != ref["admit"] or len(late) < min_late:
+        raise AssertionError(f"{label}: admissions {outs[0]['admit']} vs "
+                             f"unsharded {ref['admit']}")
+    if not err <= tol:
+        raise AssertionError(f"{label}: sharded pcm differs: {err}")
+    for r, o in enumerate(outs):
+        n, pf = o["steps"], o["prefills"]
+        k4 = None if quant is None else (quant_matmul_fns(quant)[0], o["k4"])
+        want, reduces, gathers = mesh_expected(fuse, n, pf, o["chunks"], k4,
+                                               data, model)
+        got = {k: v for k, v in o["launches"].items() if v}
+        log(f"    rank {r}: {n} batch frame steps, {pf} admission "
+            f"prefills, {o['chunks']} chunks, launches {got} (want "
+            f"{want}); {o['reduces']} all-reduces (want {reduces}), "
+            f"{o['gathers']} all-gathers (want {gathers}); wall "
+            f"{1e3 * o['wall'] / max(n, 1):.2f} ms a step (unsharded "
+            f"{1e3 * ref['wall'] / max(ref['steps'], 1):.2f})")
+        _check_mesh_launches(label, r, o, want)
+        if (o["reduces"], o["gathers"]) != (reduces, gathers):
+            raise AssertionError(
+                f"{label} rank {r}: {o['reduces']} all-reduces, "
+                f"{o['gathers']} all-gathers (want {reduces}, {gathers})")
+
+
+def mesh_refs(voice, profile=False):
+    """The unsharded references of phase 11's runs, on this process's
+    card: 11a and 11h (BatchedEngine, f32, float and int8 weights) and
+    each of MESH_SERVE_RUNS."""
+    texts = list(MESH_TEXTS[:4])
+    refs = {"a": mesh_batched_run(None, texts),
+            "h": mesh_batched_run(None, texts, "int8")}
+    refs.update({key: mesh_serve_run(None, *key[:2], voice, key[2],
+                                     profile=profile)
+                 for key in MESH_SERVE_RUNS})
+    return refs
+
+
+def check_mesh_runs(grp, voice, refs, tag="11", profile=False):
+    """Phase 11's runs on the rank group `grp` (phase 11: gloo on one card;
+    12b: NCCL, one rank a card), each against its reference in `refs`
+    (mesh_refs): (a) BatchedEngine over 4 streams, f32; (b, c, e, g) the
+    4-lane servers of MESH_SERVE_RUNS; (h) BatchedEngine, int8 weights.
+    profile: log each run's figures (`_run_figures`) beside its
+    reference's."""
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+
+    def name(letter):
+        return f"11{letter}" if tag == "11" else f"{tag} (11{letter})"
+
+    texts = list(MESH_TEXTS[:4])
+    outs = grp.run(mesh_batched_run, texts)
+    _mesh_same_bits([o["pcm"] for o in outs], "BatchedEngine")
+    err = _mesh_rel(outs[0]["pcm"], refs["a"]["pcm"], "BatchedEngine")
+    tol = TOL[("e2e", "f32")]
+    frames = [a.size // DEFAULT_CONFIG.mimi.frame_size
+              for a in refs["a"]["pcm"]]
+    log(f"  {name('a')} BatchedEngine on the mesh, 4 streams, f32, frames "
+        f"{frames}: max |sharded - unsharded| relative to max |pcm| "
+        f"{err:.3e} (tol {tol}); ranks equal bit for bit")
+    if not err <= tol:
+        raise AssertionError(f"{name('a')} sharded BatchedEngine differs: "
+                             f"{err}")
+    if profile:
+        _log_run_figures(name("a"), outs, refs["a"])
+    for key, letter in MESH_SERVE_RUNS.items():
+        dtype_name, fuse, quant = key
+        label = (f"{name(letter[-1])} server {dtype_name}"
+                 + (f", {quant} weights" if quant else "")
+                 + ", int8 KV + int8 ring + shared prefix"
+                 + (", no fused insert" if fuse is False else ""))
+        outs = grp.run(mesh_serve_run, dtype_name, fuse, voice, quant, 4,
+                       MESH_TEXTS, profile)
+        check_serve_outs(label, outs, refs[key], fuse, quant, dtype_name,
+                         grp.data, grp.model)
+        if profile:
+            _log_run_figures(label, outs, refs[key])
+    outs = grp.run(mesh_batched_run, texts, "int8")
+    _mesh_same_bits([o["pcm"] for o in outs], name("h"))
+    err = _mesh_rel(outs[0]["pcm"], refs["h"]["pcm"], name("h"))
+    log(f"  {name('h')} BatchedEngine on the mesh, int8 weights, 4 "
+        f"streams, f32: max |sharded - unsharded| relative to max |pcm| "
+        f"{err:.3e} (tol {tol}); ranks equal bit for bit")
+    if not err <= tol:
+        raise AssertionError(f"{name('h')} sharded int8 BatchedEngine "
+                             f"differs: {err}")
+    for r, o in enumerate(outs):
+        step, prefill = o["k4"]
+        k4 = step * o["steps"] + prefill * o["prefills"]
+        log(f"    rank {r}: {o['steps']} batch frame steps, "
+            f"{o['prefills']} prefill calls, launches {o['launches']} "
+            f"(int8_matmul want {k4})")
+        never = {k: v for k, v in o["launches"].items()
+                 if k.startswith(MESH_NEVER)}
+        if o["launches"].get("int8_matmul", 0) != k4 or never:
+            raise AssertionError(f"{name('h')} rank {r}: {o['launches']}, "
+                                 f"int8_matmul want {k4}")
+    if profile:
+        _log_run_figures(name("h"), outs, refs["h"])
+
+
 def run_mesh_phase(voice, device, errs):
     """Phase 11 (see the module docstring)."""
     import torch
-    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
     from pocket_tts_tpu_torch.parallel.dryrun import dryrun_multichip
     from pocket_tts_tpu_torch.parallel.launch import RankGroup
     t11 = time.perf_counter()
@@ -5705,11 +5974,7 @@ def run_mesh_phase(voice, device, errs):
     for name, r in time_mesh_k4(k4_cases, device):
         _log_mesh_row(name, r)
     log(f"  11f: {time.perf_counter() - t11:.1f} s into phase 11")
-    texts = list(MESH_TEXTS[:4])
-    ref_a = mesh_batched_run(None, texts)["pcm"]
-    ref_h = mesh_batched_run(None, texts, "int8")["pcm"]
-    refs = {key: mesh_serve_run(None, *key[:2], voice, key[2])
-            for key in MESH_SERVE_RUNS}
+    refs = mesh_refs(voice)
     t_ranks = time.perf_counter()
     # gloo, named here: NCCL refuses two ranks on one device
     with RankGroup(*MESH_SHAPE, backend="gloo", device="cuda", threads=2,
@@ -5717,95 +5982,171 @@ def run_mesh_phase(voice, device, errs):
         log(f"  {grp.world} ranks (data {MESH_SHAPE[0]} x model "
             f"{MESH_SHAPE[1]}, gloo) up in "
             f"{time.perf_counter() - t_ranks:.1f} s")
-        outs = [o["pcm"] for o in grp.run(mesh_batched_run, texts)]
-        _mesh_same_bits(outs, "BatchedEngine")
-        err = _mesh_rel(outs[0], ref_a, "BatchedEngine")
-        tol = TOL[("e2e", "f32")]
-        frames = [a.size // DEFAULT_CONFIG.mimi.frame_size for a in ref_a]
-        log(f"  11a BatchedEngine on the mesh, 4 streams, f32, frames "
-            f"{frames}: max |sharded - unsharded| relative to max |pcm| "
-            f"{err:.3e} (tol {tol}); ranks equal bit for bit")
-        if not err <= tol:
-            raise AssertionError(f"11a sharded BatchedEngine differs: {err}")
-        for key, tag in MESH_SERVE_RUNS.items():
-            dtype_name, fuse, quant = key
-            ref = refs[key]
-            outs = grp.run(mesh_serve_run, dtype_name, fuse, voice, quant)
-            label = (f"{tag} server {dtype_name}"
-                     + (f", {quant} weights" if quant else "")
-                     + ", int8 KV + int8 ring + shared prefix"
-                     + (", no fused insert" if fuse is False else ""))
-            _mesh_same_bits([o["pcm"] for o in outs], label)
-            tol = 2e-3 if dtype_name == "f32" else MESH_BF16_TOL
-            err = _mesh_rel(outs[0]["pcm"], ref["pcm"], label)
-            late = [a for a in outs[0]["admit"] if a]
-            diff = np.concatenate([np.abs(a - w).ravel() for a, w in
-                                   zip(outs[0]["pcm"], ref["pcm"])])
-            log(f"  {label}: {len(MESH_TEXTS)} requests ({len(late)} "
-                f"admitted mid-decode), max |sharded - unsharded| relative "
-                f"to max |pcm| {err:.3e} (tol {tol:.3e}); samples that "
-                f"differ {np.mean(diff > 0):.3%}; ranks equal bit for bit")
-            if outs[0]["admit"] != ref["admit"] or len(late) < 2:
-                raise AssertionError(f"{label}: admissions {outs[0]['admit']}"
-                                     f" vs unsharded {ref['admit']}")
-            if not err <= tol:
-                raise AssertionError(f"{label}: sharded pcm differs: {err}")
-            for r, o in enumerate(outs):
-                n, pf = o["steps"], o["prefills"]
-                k4 = (None if quant is None
-                      else (quant_matmul_fns(quant)[0], o["k4"]))
-                want, reduces, gathers = mesh_expected(fuse, n, pf,
-                                                       o["chunks"], k4)
-                got = {k: v for k, v in o["launches"].items() if v}
-                log(f"    rank {r}: {n} batch frame steps, {pf} admission "
-                    f"prefills, {o['chunks']} chunks, launches {got} (want "
-                    f"{want}); {o['reduces']} all-reduces (want "
-                    f"{reduces}), {o['gathers']} all-gathers (want "
-                    f"{gathers}); wall {1e3 * o['wall'] / max(n, 1):.2f} "
-                    f"ms a step (unsharded "
-                    f"{1e3 * ref['wall'] / max(ref['steps'], 1):.2f})")
-                _check_mesh_launches(label, r, o, want)
-                if (o["reduces"], o["gathers"]) != (reduces, gathers):
-                    raise AssertionError(
-                        f"{label} rank {r}: {o['reduces']} all-reduces, "
-                        f"{o['gathers']} all-gathers (want {reduces}, "
-                        f"{gathers})")
-        outs = grp.run(mesh_batched_run, texts, "int8")
-        _mesh_same_bits([o["pcm"] for o in outs], "11h")
-        err = _mesh_rel(outs[0]["pcm"], ref_h, "11h")
-        tol = TOL[("e2e", "f32")]
-        log(f"  11h BatchedEngine on the mesh, int8 weights, 4 streams, "
-            f"f32: max |sharded - unsharded| relative to max |pcm| "
-            f"{err:.3e} (tol {tol}); ranks equal bit for bit")
-        if not err <= tol:
-            raise AssertionError(f"11h sharded int8 BatchedEngine differs: "
-                                 f"{err}")
-        for r, o in enumerate(outs):
-            step, prefill = o["k4"]
-            k4 = step * o["steps"] + prefill * o["prefills"]
-            log(f"    rank {r}: {o['steps']} batch frame steps, "
-                f"{o['prefills']} prefill calls, launches {o['launches']} "
-                f"(int8_matmul want {k4})")
-            never = {k: v for k, v in o["launches"].items()
-                     if k.startswith(MESH_NEVER)}
-            if o["launches"].get("int8_matmul", 0) != k4 or never:
-                raise AssertionError(f"11h rank {r}: {o['launches']}, "
-                                     f"int8_matmul want {k4}")
-    log(f"  11i dryrun_multichip(4, 'cuda'): "
-        f"{dryrun_multichip(4, 'cuda')}")
+        check_mesh_runs(grp, voice, refs)
+    log(f"  11i dryrun_multichip(4, 'cuda', backend='gloo'): "
+        f"{dryrun_multichip(4, 'cuda', backend='gloo')}")
     log(f"  phase 11: {time.perf_counter() - t11:.1f} s")
+
+
+def warm_collectives(mesh):
+    """One all-reduce over the world, then over this rank's "data" and
+    "model" groups, outside the counters: a group's NCCL communicator
+    initializes at its first collective, which no timed run should pay.
+    Returns this rank's card (index, name) and the reduced value (world
+    ** 2)."""
+    import torch
+    import torch.distributed as dist
+    t = torch.ones(1, device=mesh.device_type)
+    dist.all_reduce(t)
+    for dim in ("data", "model"):
+        dist.all_reduce(t, group=mesh.get_group(dim))
+    torch.cuda.synchronize()
+    return (torch.cuda.current_device(), torch.cuda.get_device_name(),
+            float(t[0]))
+
+
+def time_collectives(mesh, lanes, iters=50):
+    """Device time (us) of one collective of each kind a serving step
+    issues, at the shapes of a `lanes`-lane server's rank on `mesh`,
+    outside the counters: "model" sums of a layer's float32 rows
+    (backbone: a row a lane; mimi: a frame's 16 rows a lane), the max of
+    the new int8 rows' absmax, gathers of a quantized layer's bf16 input
+    columns, and the chunk's pcm gathered over "data"; CUDA events around
+    `iters` calls issued back to back by every rank after a barrier, so
+    that little of it is a wait for a late rank. {name: us}."""
+    import torch
+    import torch.distributed as dist
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from pocket_tts_tpu_torch.parallel.sharding import axis_size
+    data, model = axis_size(mesh, "data"), axis_size(mesh, "model")
+    own, tpf = lanes // data, cfg.mimi.upsample_stride
+    bd, md = cfg.backbone.d_model, cfg.mimi.transformer.d_model
+    cases = []
+    if model > 1:
+        g = mesh.get_group("model")
+        cases += [
+            (f"sum f32 ({own}, {bd})", dist.ReduceOp.SUM, (own, bd),
+             torch.float32, g),
+            (f"sum f32 ({own * tpf}, {md})", dist.ReduceOp.SUM,
+             (own * tpf, md), torch.float32, g),
+            (f"max f32 (2, {own})", dist.ReduceOp.MAX, (2, own),
+             torch.float32, g),
+            (f"gather bf16 ({own}, {bd // model})", None,
+             (own, bd // model), torch.bfloat16, g),
+            (f"gather bf16 ({own * tpf}, {md // model})", None,
+             (own * tpf, md // model), torch.bfloat16, g)]
+    if data > 1:
+        cases.append((f"gather pcm f32 ({own}, {5 * cfg.mimi.frame_size})",
+                      None, (own, 5 * cfg.mimi.frame_size), torch.float32,
+                      mesh.get_group("data")))
+    out = {}
+    for name, op, shape, dtype, g in cases:
+        t = torch.zeros(shape, dtype=dtype, device=mesh.device_type)
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size(g))]
+
+        def call():
+            if op is None:
+                dist.all_gather(parts, t, group=g)
+            else:
+                dist.all_reduce(t, op=op, group=g)
+
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+        dist.barrier()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            call()
+        b.record()
+        torch.cuda.synchronize()
+        out[name] = a.elapsed_time(b) * 1e3 / iters
+    return out
+
+
+def run_cards_phase(voice, device, errs, backend=None):
+    """Phase 12 (see the module docstring): backend None is NCCL, one rank
+    a card; "gloo" puts the four ranks on one card (a rehearsal)."""
+    import torch
+    from pocket_tts_tpu_torch.parallel.dryrun import dryrun_multichip
+    from pocket_tts_tpu_torch.parallel.launch import RankGroup
+    t12 = time.perf_counter()
+    hb, hm = CARDS_HEADS
+    log(f"  12a the kernels at one rank's shapes on a model-4 mesh ({hb} "
+        f"backbone heads, {hm} mimi heads, {LANES} lanes; K3 over "
+        f"{CARDS_K3_LANES} lanes; K4a / K4b at rows {CARDS_K4_ROWS}):")
+    for dtype in (torch.float32, torch.bfloat16):
+        check_mesh_kernels(device, dtype, errs, CARDS_HEADS, LANES)
+        eng = _mesh_engine(dtype, kv8=False)
+        check_k3_lanes(eng.params["mimi"]["decoder"], eng.cfg, device, dtype,
+                       errs, eng.seanet_weights, CARDS_K3_LANES)
+    rows = time_mesh_kernels(device, torch.bfloat16, CARDS_HEADS, LANES)
+    k4_cases = check_mesh_k4(device, errs, CARDS, CARDS_K4_ROWS)
+    for name, r in rows + time_mesh_k4(k4_cases, device, CARDS_K4_ROWS):
+        _log_mesh_row(name, r)
+    log(f"  12a: {time.perf_counter() - t12:.1f} s into phase 12")
+    refs = mesh_refs(voice, profile=True)
+    serve_refs = {}
+    for _, dtype_name, quant, lanes, texts, _ in CARDS_SERVE_RUNS:
+        if (dtype_name, quant, lanes) not in serve_refs:
+            serve_refs[dtype_name, quant, lanes] = mesh_serve_run(
+                None, dtype_name, None, voice, quant, lanes, texts, True)
+    log(f"  the unsharded references on card 0: "
+        f"{time.perf_counter() - t12:.1f} s into phase 12")
+    for shape in ((2, 2), (1, 1), (1, 4), (4, 1)):
+        t0 = time.perf_counter()
+        with RankGroup(*shape, backend=backend, device="cuda", threads=2,
+                       timeout=900) as grp:
+            cards = grp.run(warm_collectives)
+            log(f"  {grp.world} ranks (data {shape[0]} x model {shape[1]}, "
+                f"{grp.backend}) up and warm in "
+                f"{time.perf_counter() - t0:.1f} s; rank -> card "
+                f"{[c[:2] for c in cards]}")
+            if any(c[2] != grp.world ** 2 for c in cards) or (
+                    grp.backend == "nccl"
+                    and [c[0] for c in cards] != list(range(grp.world))):
+                raise AssertionError(f"warm-up collectives: {cards}")
+            for lanes in sorted({r[3] for r in CARDS_SERVE_RUNS
+                                 if r[0] == shape} | {LANES}):
+                rows = grp.run(time_collectives, lanes)
+                for r, row in enumerate(rows if rows[0] else []):
+                    log(f"    collectives at a {lanes}-lane server's rank "
+                        f"shapes, rank {r} (us each, CUDA events): "
+                        + ", ".join(f"{k} {v:.1f}" for k, v in row.items()))
+            if shape == (2, 2):
+                check_mesh_runs(grp, voice, refs, "12b", profile=True)
+            for run in CARDS_SERVE_RUNS:
+                mesh_shape, dtype_name, quant, lanes, texts, label = run
+                if mesh_shape != shape:
+                    continue
+                ref = serve_refs[dtype_name, quant, lanes]
+                outs = grp.run(mesh_serve_run, dtype_name, None, voice,
+                               quant, lanes, texts, True)
+                check_serve_outs(label, outs, ref, None, quant, dtype_name,
+                                 *shape, min(2, len(texts) - lanes))
+                _log_run_figures(label, outs, ref)
+        log(f"  data {shape[0]} x model {shape[1]}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    log(f"  12e dryrun_multichip(4, 'cuda'): "
+        f"{dryrun_multichip(4, 'cuda', backend)}")
+    log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
 
 
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="PyTorch port smoke test on "
-                                 "one CUDA GPU")
+                                 "one CUDA GPU (or four, --cards 4)")
     ap.add_argument("--out", default=None,
                     help="directory for the nvcc report and profiler table")
     ap.add_argument("--kernel-times", action="store_true",
                     help="only time K3, K4b, K5a-K5c, K6, K7 and K8 through "
                     "their public wrappers (kernel_times) and print them as "
                     "one JSON line")
+    ap.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
+                    help=f"{CARDS}: only [1] environment, [2] build and [12] "
+                    "the mesh over NCCL, one rank a card (2 x 2, 1 x 4 and "
+                    "4 x 1); needs that many cards")
     args = ap.parse_args(argv)
     out_dir = args.out
     import torch
@@ -5842,6 +6183,10 @@ def main(argv=None) -> int:
             f"count {torch.cuda.device_count()}")
         log(f"  nvidia-smi: {card}")
         log(f"  matmul allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+        if torch.cuda.device_count() < args.cards:
+            raise AssertionError(f"--cards {args.cards} needs {args.cards} "
+                                 f"cards; this machine has "
+                                 f"{torch.cuda.device_count()}")
 
         phase = "build"
         header("[2] build")
@@ -5867,6 +6212,15 @@ def main(argv=None) -> int:
             if out_dir:
                 with open(os.path.join(out_dir, fname), "w") as f:
                     f.write("\n".join(rows) + "\n")
+
+        if args.cards > 1:
+            phase = "mesh over NCCL"
+            header(f"[12] the mesh over NCCL: {args.cards} ranks, one a card "
+                   "(data 2 x model 2, 1 x 4, 4 x 1)")
+            run_cards_phase(random_voice_prompt(DEFAULT_CONFIG, 120), device,
+                            {})
+            header("[done]")
+            return _result(card, kind)
 
         phase = "kernels"
         header("[3] kernels vs plain versions (3c: K7, K2 and K3 over 32 "
@@ -6243,6 +6597,12 @@ def main(argv=None) -> int:
             ms=r["k"][0], plain_ms=r["plain"][0], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["lib"]))
     print(json.dumps({"kernels": kernels}))
+    return _result(card, kind)
+
+
+def _result(card, kind) -> int:
+    """The card's name and power limit, then the result line; 0."""
+    import torch
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -181,7 +181,8 @@ def flow_plan(dmodel, dim, hid, latent, depth, rows, dtype, packed, group,
 def flow_cluster(dmodel, dim, hid, latent, depth, rows, dtype, packed,
                  group) -> int:
     """The first of CLUSTERS (16 blocks, non-portable; then 8) whose
-    clusters the card can place with this call's shared memory."""
+    clusters the card can place with this call's shared memory. Cached
+    per process, which drives one card (parallel/launch.py: one a rank)."""
     lib = cuda_lib.library()
     code = cuda_lib.dtype_code(torch.empty(0, dtype=dtype))
     for csize in CLUSTERS:

@@ -566,7 +566,8 @@ def post_plan(t: int, dm: int, hid: int, kind, group: int = 0,
 @functools.lru_cache(maxsize=None)
 def _max_blocks(smem: int, which: int, code: int) -> int:
     """Blocks of K5b (which 0), K5c (1) or K8 (2) the card holds at once
-    at `smem` bytes of shared memory (0 when the query fails)."""
+    at `smem` bytes of shared memory (0 when the query fails). Cached per
+    process, which drives one card (parallel/launch.py: one a rank)."""
     return cuda_lib.library().ptt_coop_max_blocks(smem, which, code)
 
 

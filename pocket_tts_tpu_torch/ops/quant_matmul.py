@@ -174,7 +174,8 @@ def model_fits():
 def wgmma_fits(lib) -> dict:
     """{bt: (clusters of 1..WGMMA_MAX_SPLITS blocks the card holds at once
     at that bt's shared memory)}, asked of the card once
-    (ptt_wgmma_max_clusters)."""
+    (ptt_wgmma_max_clusters). Cached per process: a process drives one
+    card (a mesh rank holds its card for life, parallel/launch.py)."""
     if "fits" not in _wgmma_state:
         _wgmma_state["fits"] = {
             bt: tuple(lib.ptt_wgmma_max_clusters(bt, sp, _wgmma_smem(bt))

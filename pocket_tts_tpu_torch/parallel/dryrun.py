@@ -18,9 +18,12 @@ rank:
   admission into a running sharded batch), another chunk.
 
     python -m pocket_tts_tpu_torch.parallel.dryrun [N] [--device cpu]
+        [--backend nccl|gloo]
 
-The ranks use the gloo backend (several ranks share one card; NCCL
-refuses that), on "cuda" (the default) or on the CPU.
+The ranks run on "cuda" (the default) or on the CPU, with the backend
+`parallel.launch.resolve` gives: NCCL with one card a rank on "cuda"
+(chip_smoke.py's phase 12e: four H100s), gloo on the CPU; `--backend
+gloo` with "cuda" puts several ranks on one card (phase 11i).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import launch as _launch
 from .sharding import (axis_size, gather_lanes, shard_batched_state,
@@ -109,20 +113,23 @@ def _rank(mesh, cfg):
     if emitted <= 0 or active < 2:
         raise AssertionError(f"dryrun: the sharded server emitted "
                              f"{emitted} frames with {active} active lanes")
-    return dict(mesh=(data, model), batch=b, kernels_vs_plain=err / scale,
-                server_frames=emitted, active=active)
+    return dict(mesh=(data, model), backend=dist.get_backend(), batch=b,
+                kernels_vs_plain=err / scale, server_frames=emitted,
+                active=active)
 
 
 def dryrun_multichip(n_devices: int = 4, device: str = "cuda",
-                     cfg=None) -> dict:
-    """The dry run on n_devices gloo ranks (see the module docstring);
-    cfg: DEFAULT_CONFIG when None. Returns rank 0's report; a rank's
-    failure raises here."""
+                     backend=None, cfg=None) -> dict:
+    """The dry run on n_devices ranks (see the module docstring); backend
+    None: NCCL on "cuda", gloo on "cpu" (`launch.resolve`); cfg:
+    DEFAULT_CONFIG when None. Returns rank 0's report; a rank's failure
+    raises here."""
     model = 2 if n_devices % 2 == 0 else 1
     reports = _launch.launch(_rank, n_devices // model, model,
-                             backend="gloo", device=device, args=(cfg,))
+                             backend=backend, device=device, args=(cfg,))
     rep = reports[0]
-    print(f"dryrun_multichip ok: mesh={rep['mesh']}, batch={rep['batch']}, "
+    print(f"dryrun_multichip ok: backend={rep['backend']}, "
+          f"mesh={rep['mesh']}, batch={rep['batch']}, "
           f"kernels on vs off {rep['kernels_vs_plain']:.2e} of max |pcm|, "
           f"share_prefix=on, admission_cycles=2, "
           f"server_frames={rep['server_frames']}")
@@ -134,5 +141,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n", nargs="?", type=int, default=4)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default=None, choices=_launch.BACKENDS,
+                    help="nccl on cuda, gloo on cpu when not given")
     a = ap.parse_args()
-    dryrun_multichip(a.n, a.device)
+    dryrun_multichip(a.n, a.device, a.backend)

@@ -22,6 +22,13 @@ collectives itself (models/backbone.py, models/mimi_transformer.py):
   (`reduce_absmax`);
 - one all-gather over "data" where the host reads the audio (`gather_lanes`).
 
+Each collective takes tensors on the mesh's device: CUDA tensors over
+NCCL with one rank a card, CPU or CUDA tensors over gloo
+(parallel/launch.py). Every rank of a group receives the same reduced
+bits from either backend, which keeps the ranks of a "model" group equal
+bit for bit: the EOS reads and the admissions run on every rank with no
+broadcast.
+
 Layout rules (`_spec_for_param`, `_spec_for_state`), the JAX package's:
 
 - `in_proj` and `linear1` are column-parallel, float or quantized (the

@@ -287,3 +287,16 @@ def die_on_rank1(mesh):
         import os
         os._exit(3)
     return 0
+
+
+def build_dir_job(mesh):
+    """The kernel library's build directory this rank was handed."""
+    from pocket_tts_tpu_torch.ops import cuda_lib
+    return cuda_lib.build_dir()
+
+
+def stall_job(mesh, seconds):
+    """Hold the rank in a job (as a collective that never ends would)."""
+    import time
+    time.sleep(seconds)
+    return 0

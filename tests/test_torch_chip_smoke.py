@@ -557,3 +557,99 @@ def test_mesh_expected_with_quantized_weights():
     assert reduces == 8 * 10 + 6 * 2
     assert gathers == 3 * 3 + 2 * (8 * 10 + 6 * 2)
     assert "int4_matmul" in cs.KERNELS
+
+
+def _run_cards(monkeypatch, capsys, cards, phase12):
+    """main(["--cards", "4"]) on a stand-in machine with `cards` cards and
+    phase 12 replaced by `phase12`: (return code, captured output)."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.ops import cuda_lib
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "card, 700 W")
+    monkeypatch.setattr(cs, "run_cards_phase", phase12)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(cuda_lib, "library", lambda: None)
+    monkeypatch.setattr(cuda_lib, "build_seconds", lambda: 0.0)
+    rc = cs.main(["--cards", "4"])
+    return rc, capsys.readouterr()
+
+
+def test_cards_4_runs_phases_1_2_and_12_only(monkeypatch, capsys):
+    """--cards 4: environment, build, then phase 12 and the result lines
+    (the card, then the contract's JSON last); no phase of the one-card
+    run."""
+    import json
+    seen = []
+    rc, out = _run_cards(monkeypatch, capsys, 4,
+                         lambda *a, **k: seen.append(a))
+    assert rc == 0 and len(seen) == 1
+    lines = out.out.splitlines()
+    assert "[12] the mesh over NCCL" in out.out
+    for header in ("[3]", "[4]", "[7]", "[11]"):
+        assert header not in out.out
+    assert lines[-2] == "card, 700 W"
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "card", "count": 4}}
+
+
+def test_cards_4_with_fewer_cards_fails_in_phase_1(monkeypatch, capsys):
+    rc, out = _run_cards(monkeypatch, capsys, 1, lambda *a, **k: None)
+    assert rc == 1
+    assert "FAILED in phase 'environment'" in out.err
+    assert "--cards 4 needs 4 cards; this machine has 1" in out.err
+    assert '"ok"' not in out.out
+
+
+def test_a_failing_cards_phase_fails_the_run(monkeypatch, capsys):
+    """A failure in phase 12 (a rank's, raised by parallel.launch) makes
+    main return 1, name the phase and print no result."""
+    def boom(*a, **k):
+        raise RuntimeError("mesh rank 2 failed")
+
+    rc, out = _run_cards(monkeypatch, capsys, 4, boom)
+    assert rc == 1
+    assert "FAILED in phase 'mesh over NCCL'" in out.err
+    assert '"ok"' not in out.out
+
+
+@pytest.mark.parametrize("data,model", [(2, 2), (1, 4), (4, 1)])
+def test_mesh_expected_on_each_mesh(data, model):
+    """Phase 12's meshes: launches a step do not depend on the shape; a
+    "model" group of one adds no all-reduce and no input gather, a
+    "data" group of one no chunk gather."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    for k4 in (None, ("int4_matmul", (55, 24))):
+        want, reduces, gathers = cs.mesh_expected(None, 10, 2, 3, k4, data,
+                                                  model)
+        base, _, _ = cs.mesh_expected(None, 10, 2, 3, k4)
+        assert want == base
+        layers = 8 * 10 + 6 * 2 if model > 1 else 0
+        chunk = 3 * 3 if data > 1 else 0
+        if k4 is None:
+            assert (reduces, gathers) == (3 * layers, chunk)
+        else:
+            assert (reduces, gathers) == (layers, chunk + 2 * layers)
+
+
+def test_phase_12_shapes():
+    """12a's shapes are a model-4 rank's: 4 backbone heads (one K7 block
+    of four), 2 mimi heads, in_proj / linear1 column shards of a quarter;
+    12c and 12d run on four ranks (and one, the mesh route on one card),
+    the lanes divide over data."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG as cfg
+    assert cs.CARDS_HEADS == (cfg.backbone.num_heads // 4,
+                              cfg.mimi.transformer.num_heads // 4) == (4, 2)
+    shapes = {name: (k, n) for name, k, n in cs.mesh_k4_shapes(cfg, 4)}
+    assert shapes["backbone in_proj/4"] == (1024, 768)
+    assert shapes["mimi in_proj/4"] == (512, 384)
+    assert shapes["backbone linear1/4"] == (1024, 1024)
+    assert shapes["mimi linear1/4"] == (512, 512)
+    for shape, _, _, lanes, texts, _ in cs.CARDS_SERVE_RUNS:
+        assert shape[0] * shape[1] in (1, cs.CARDS)
+        assert lanes % shape[0] == 0 and len(texts) >= lanes

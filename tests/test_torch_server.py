@@ -247,7 +247,7 @@ def test_unported_serving_options_raise(what):
     mss.run_pending()
     kw = dict(quantize="int8")
     pnp = ranks.to_numpy(PT)
-    with launch.RankGroup(1, 2, timeout=300) as group:
+    with launch.RankGroup(1, 2, device="cpu", timeout=300) as group:
         cbs = group.run(ranks.server_job, pnp, CFG, VOICES, reqs, 1, 2, {},
                         kw)
         multi = group.run(ranks.multistream_job, pnp, CFG, VOICES, reqs, 2,

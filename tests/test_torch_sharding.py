@@ -148,13 +148,13 @@ def same_within_model_groups(outs):
 
 @pytest.fixture(scope="module")
 def mesh22():
-    with launch.RankGroup(2, 2, timeout=300) as group:
+    with launch.RankGroup(2, 2, device="cpu", timeout=300) as group:
         yield group
 
 
 @pytest.fixture(scope="module")
 def mesh14():
-    with launch.RankGroup(1, 4, timeout=300) as group:
+    with launch.RankGroup(1, 4, device="cpu", timeout=300) as group:
         yield group
 
 
@@ -501,14 +501,14 @@ def test_launch_raises_a_rank_failure():
     """A rank's exception fails the job in the caller, with the rank's
     traceback, and stops the group."""
     with pytest.raises(RuntimeError, match="mesh rank 1 failed"):
-        launch.launch(ranks.fail_on_rank1, 1, 2)
+        launch.launch(ranks.fail_on_rank1, 1, 2, device="cpu")
 
 
 def test_launch_raises_a_rank_that_dies():
     """A rank that exits without replying fails the job in the caller with
     its exit code."""
     with pytest.raises(RuntimeError, match="mesh rank 1 exited with code 3"):
-        launch.launch(ranks.die_on_rank1, 1, 2)
+        launch.launch(ranks.die_on_rank1, 1, 2, device="cpu")
 
 
 def test_dryrun_multichip_tiny():

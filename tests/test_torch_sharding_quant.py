@@ -178,13 +178,13 @@ def assert_unfused(calls, quantize, k4=None):
 
 @pytest.fixture(scope="module")
 def mesh22():
-    with launch.RankGroup(2, 2, timeout=300) as group:
+    with launch.RankGroup(2, 2, device="cpu", timeout=300) as group:
         yield group
 
 
 @pytest.fixture(scope="module")
 def mesh14():
-    with launch.RankGroup(1, 4, timeout=300) as group:
+    with launch.RankGroup(1, 4, device="cpu", timeout=300) as group:
         yield group
 
 
