@@ -46,6 +46,7 @@ from ..models import backbone, flow_lm, mimi, mimi_transformer, tts
 from ..parallel.sharding import (axis_rank, axis_size, gather_lanes,
                                  local_heads, max_over_data, shard_params)
 from ..text.preprocess import count_words, prepare_text_prompt
+from ..utils.profiling import span
 from .engine import _SCAN_BUCKET, _bucket
 
 _PROMPT_BUCKETS = (32, 64, 128, 256)
@@ -290,9 +291,10 @@ def _run_frames(p, cfg, states, n_frames: int, noise_of, frames_after_eos,
     pcms, valids = [], []
     with torch.no_grad():
         for i in range(n_frames):
-            pcm, valid = tts.frame_step_lanes(
-                p, cfg, states, noise_of(i), frames_after_eos, max_steps,
-                seanet_weights)
+            with span("ptt.frame", i=i):
+                pcm, valid = tts.frame_step_lanes(
+                    p, cfg, states, noise_of(i), frames_after_eos, max_steps,
+                    seanet_weights)
             pcms.append(pcm)
             valids.append(valid)
     return states, torch.stack(pcms, 1), torch.stack(valids, 1)

@@ -15,8 +15,14 @@ batched runtime (runtime/batched.py):
   and its audio equals solo synthesis.
 
 A decode chunk runs on the device with no host read; the server reads
-pcm, valid and done once per chunk. Per-request time to first audio and
-completion latency are recorded and summarized p50/p95 (`stats`). Noise
+pcm, valid and done once per chunk. Per-request time to first audio,
+queue wait (`submitted_at` to `admitted_at`) and completion latency are
+recorded and summarized p50/p95 (`stats`). Each request gets the server's
+number (`Request.id`). A step records the spans (utils/profiling.span;
+kept inside `recording()` or a torch.profiler) ptt.step > {ptt.admit >
+{ptt.prefill, ptt.lane_write}, ptt.chunk > ptt.frame (batched.py),
+ptt.read, ptt.bookkeep}; ptt.admit carries the ids and lanes taken,
+ptt.bookkeep the ids completed, ptt.prefill its real and padded rows. Noise
 comes from each request's seed (`Request.seed`, else the engine's
 `request_seed()`), so a seeded request gives the same audio in any lane
 and under any admission order.
@@ -51,6 +57,7 @@ it; chip_smoke.py phase 11 on the card).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -60,6 +67,7 @@ import torch
 from ..models import backbone, tts
 from ..text.preprocess import count_words, prepare_text_prompt
 from ..parallel.sharding import gather_lanes, local_heads
+from ..utils.profiling import span
 from .batched import (_PROMPT_BUCKETS, admit_group, batched_decode_sentence,
                       batched_prime_voice, batched_sentence_prefill,
                       compact_batch, continuous_decode_chunk, draw_noise,
@@ -76,6 +84,10 @@ class Request:
     seed: Optional[int] = None   # noise seed; the engine's next when None
     submitted_at: float = 0.0
     ttfa_s: Optional[float] = None
+    # the server's number for the request (from submit) and when it left
+    # the queue into an admission group or a cohort (perf_counter)
+    id: Optional[int] = None
+    admitted_at: Optional[float] = None
     done_at: Optional[float] = None
     pcm: Optional[np.ndarray] = None
     chunks: Optional[List[np.ndarray]] = None
@@ -89,6 +101,11 @@ class Request:
     def latency_s(self):
         return None if self.done_at is None else (self.done_at
                                                   - self.submitted_at)
+
+    @property
+    def queue_wait_s(self):
+        return None if self.admitted_at is None else (self.admitted_at
+                                                      - self.submitted_at)
 
 
 def _prep(engine, req: Request):
@@ -115,6 +132,7 @@ class MultiStreamServer:
         self._voices: Dict[str, int] = {}
         self._voice_states = None
         self._queue: List[Request] = []
+        self._ids = itertools.count()
         self.completed: List[Request] = []
 
     # -- voices -------------------------------------------------------------
@@ -140,7 +158,7 @@ class MultiStreamServer:
     def submit(self, text: str, voice: str, temp: float = 0.6,
                seed: Optional[int] = None) -> Request:
         req = Request(text=text, voice=voice, temp=temp, seed=seed,
-                      submitted_at=time.perf_counter())
+                      submitted_at=time.perf_counter(), id=next(self._ids))
         self._queue.append(req)
         return req
 
@@ -169,6 +187,9 @@ class MultiStreamServer:
     def _run_cohort(self, cohort: List[Request]):
         eng = self.engine
         dev = eng.device
+        now = time.perf_counter()
+        for req in cohort:
+            req.admitted_at = now
         # pad the cohort to a fixed batch
         reqs = list(cohort) + [cohort[-1]] * (self.max_batch - len(cohort))
         # this rank's lanes (all without a mesh); buckets and budgets are
@@ -240,6 +261,8 @@ class MultiStreamServer:
 def _stats(completed: List[Request], frame_size: int) -> dict:
     ttfa = sorted(r.ttfa_s for r in completed if r.ttfa_s is not None)
     lat = sorted(r.latency_s for r in completed if r.latency_s is not None)
+    wait = sorted(r.queue_wait_s for r in completed
+                  if r.queue_wait_s is not None)
 
     def pct(xs, p):
         return None if not xs else xs[min(len(xs) - 1, int(p * len(xs)))]
@@ -253,6 +276,8 @@ def _stats(completed: List[Request], frame_size: int) -> dict:
         "p95_ttfa_s": pct(ttfa, 0.95),
         "p50_latency_s": pct(lat, 0.50),
         "p95_latency_s": pct(lat, 0.95),
+        "p50_queue_wait_s": pct(wait, 0.50),
+        "p95_queue_wait_s": pct(wait, 0.95),
     }
 
 
@@ -314,6 +339,7 @@ class ContinuousBatchingServer:
         self._voice_states: Dict[str, backbone.BackboneState] = {}
         self.prompt_pad: Optional[int] = None
         self._queue: List[Request] = []
+        self._ids = itertools.count()
         self._live: List[Optional[Request]] = [None] * lanes
         self._chunks: List[List[np.ndarray]] = [[] for _ in range(lanes)]
         self.completed: List[Request] = []
@@ -427,7 +453,7 @@ class ContinuousBatchingServer:
                seed: Optional[int] = None) -> Request:
         req = Request(text=text, voice=voice, temp=temp, seed=seed,
                       submitted_at=time.perf_counter(),
-                      submit_step=self.steps)
+                      submit_step=self.steps, id=next(self._ids))
         self._queue.append(req)
         return req
 
@@ -458,18 +484,21 @@ class ContinuousBatchingServer:
         k = 1
         while k < len(reqs):
             k *= 2
-        tokens = np.zeros((k, self.text_bucket), np.int64)
-        n_valid = np.zeros((k,), np.int32)
-        for i, ids in enumerate(ids_list):
-            tokens[i, : len(ids)] = ids
-            n_valid[i] = len(ids)
-        vstates = stack_states(
-            [self._voice_states[req.voice] for req in reqs]
-            + [self._voice_states[reqs[-1].voice]] * (k - len(reqs)))
-        return batched_sentence_prefill(
-            self.params, self.cfg, vstates,
-            torch.from_numpy(tokens).to(eng.device),
-            torch.from_numpy(n_valid).to(eng.device))
+        with span("ptt.prefill", lanes=len(reqs), lanes_padded=k,
+                  tokens=sum(map(len, ids_list)),
+                  token_slots=k * self.text_bucket):
+            tokens = np.zeros((k, self.text_bucket), np.int64)
+            n_valid = np.zeros((k,), np.int32)
+            for i, ids in enumerate(ids_list):
+                tokens[i, : len(ids)] = ids
+                n_valid[i] = len(ids)
+            vstates = stack_states(
+                [self._voice_states[req.voice] for req in reqs]
+                + [self._voice_states[reqs[-1].voice]] * (k - len(reqs)))
+            return batched_sentence_prefill(
+                self.params, self.cfg, vstates,
+                torch.from_numpy(tokens).to(eng.device),
+                torch.from_numpy(n_valid).to(eng.device))
 
     def _reset_epoch(self):
         eng = self.engine
@@ -491,36 +520,53 @@ class ContinuousBatchingServer:
         """Fill idle lanes from the queue (between decode chunks): pick the
         admissible (lane, request) group first, prefill it in ONE batched
         call, then write the whole group into its lanes."""
-        if self.batch is None:
-            self._reset_epoch()
-        if self.ring:
-            # ring admission: a lane is admissible whenever it is idle; the
-            # request's worst-case frame budget must fit the ring
+        with span("ptt.admit") as sp:
+            if self.batch is None:
+                self._reset_epoch()
             group = []
-            ring_slots = self.capacity - self.prefix_slots
             try:
-                for lane in range(self.lanes):
-                    if not self._queue or self._live[lane] is not None:
-                        continue
-                    req = self._queue[0]
-                    try:
-                        need = self._validate(req)
-                    except ValueError:
-                        self._queue.pop(0)  # evict the rejected request
-                        raise
-                    if need > ring_slots:
-                        self._queue.pop(0)
-                        raise ValueError(
-                            f"request needs {need} frames > ring capacity "
-                            f"{ring_slots} ({self.capacity} - "
-                            f"{self.prefix_slots} prefix); split it or grow "
-                            "capacity")
-                    self._queue.pop(0)
-                    group.append((lane, req))
+                if self.ring:
+                    self._take_ring(group)
+                else:
+                    self._take_linear(group)
             finally:
-                # a raise mid-loop must not lose the already-popped group
+                # a raise mid-scan must not lose the already-popped group
+                if sp:
+                    sp.set(ids=[r.id for _, r in group],
+                           lanes=[lane for lane, _ in group])
                 self._admit_group(group)
-            return
+
+    def _take(self, group, lane: int):
+        """The queue's front request leaves the queue into the group."""
+        req = self._queue.pop(0)
+        req.admitted_at = time.perf_counter()
+        group.append((lane, req))
+
+    def _take_ring(self, group):
+        """Ring admission: a lane is admissible whenever it is idle; the
+        request's worst-case frame budget must fit the ring."""
+        ring_slots = self.capacity - self.prefix_slots
+        for lane in range(self.lanes):
+            if not self._queue or self._live[lane] is not None:
+                continue
+            req = self._queue[0]
+            try:
+                need = self._validate(req)
+            except ValueError:
+                self._queue.pop(0)  # evict the rejected request
+                raise
+            if need > ring_slots:
+                self._queue.pop(0)
+                raise ValueError(
+                    f"request needs {need} frames > ring capacity "
+                    f"{ring_slots} ({self.capacity} - "
+                    f"{self.prefix_slots} prefix); split it or grow "
+                    "capacity")
+            self._take(group, lane)
+
+    def _take_linear(self, group):
+        """Linear-cursor admission: a request joins only if its frame
+        budget fits the slots left, after compaction or a fresh epoch."""
         end = self.batch.flow.end
         # eager compaction: reclaim finished lanes' garbage once it exceeds
         # the margin (the cursor sets the per-frame attention read size)
@@ -534,41 +580,36 @@ class ContinuousBatchingServer:
             if end - max(est_max, self.prefix_slots) >= self.compact_margin:
                 self._compact(live_lanes)
                 end = self.batch.flow.end
-        group = []
         compacted = False
-        try:
-            for lane in range(self.lanes):
-                if not self._queue or self._live[lane] is not None:
-                    continue
-                req = self._queue[0]
-                try:
-                    need = self._validate(req)
-                except ValueError:
-                    self._queue.pop(0)  # evict the rejected request
-                    raise
-                if end + need > self.capacity and not compacted:
-                    # slot budget exhausted: compact the live lanes' rows
-                    # to the cache front (finished lanes' slots come back
-                    # without draining the epoch)
-                    live = [r is not None for r in self._live]
-                    if any(live) and self._compact_useful:
-                        self._compact(live)
-                        end = self.batch.flow.end
-                    elif not any(live):
-                        self._reset_epoch()
-                        end = self.prefix_slots
-                    compacted = True
-                if end + need > self.capacity:
-                    if not group and all(r is None for r in self._live):
-                        self._queue.pop(0)
-                        raise ValueError(
-                            f"request needs {need} frames + {end} prefix "
-                            f"slots > capacity {self.capacity}")
-                    break  # even compacted, the live lanes fill the budget
-                self._queue.pop(0)
-                group.append((lane, req))
-        finally:
-            self._admit_group(group)
+        for lane in range(self.lanes):
+            if not self._queue or self._live[lane] is not None:
+                continue
+            req = self._queue[0]
+            try:
+                need = self._validate(req)
+            except ValueError:
+                self._queue.pop(0)  # evict the rejected request
+                raise
+            if end + need > self.capacity and not compacted:
+                # slot budget exhausted: compact the live lanes' rows
+                # to the cache front (finished lanes' slots come back
+                # without draining the epoch)
+                live = [r is not None for r in self._live]
+                if any(live) and self._compact_useful:
+                    self._compact(live)
+                    end = self.batch.flow.end
+                elif not any(live):
+                    self._reset_epoch()
+                    end = self.prefix_slots
+                compacted = True
+            if end + need > self.capacity:
+                if not group and all(r is None for r in self._live):
+                    self._queue.pop(0)
+                    raise ValueError(
+                        f"request needs {need} frames + {end} prefix "
+                        f"slots > capacity {self.capacity}")
+                break  # even compacted, the live lanes fill the budget
+            self._take(group, lane)
 
     def _drop_epoch(self, extra_requeue=()):
         """A decode or admission call failed part-way: the batch state may
@@ -582,6 +623,7 @@ class ContinuousBatchingServer:
                 req.ttfa_s = None
                 req.first_audio_step = None
                 req.admit_step = None
+                req.admitted_at = None
                 self._queue.insert(0, req)
                 self._live[lane] = None
                 self._chunks[lane] = []
@@ -595,49 +637,55 @@ class ContinuousBatchingServer:
         lo, b = self._own.start, len(self._own)
         # this rank's members of the group, at their local lanes
         own = [(lane - lo, req) for lane, req in group if lane in self._own]
-        if own:
-            fresh = self._prefill_many([r for _, r in own])
-            # the prefill's power-of-two padding lanes get out-of-range
-            # lane indices, so their writes are dropped
-            lane_idx = ([lane for lane, _ in own]
-                        + list(range(b, b + fresh.lanes - len(own))))
-            try:
-                self.batch = admit_group(self.batch, lane_idx, fresh)
-            except Exception:
-                # the lane writes are in place: a failure part-way leaves
-                # the batch half-written
-                self._drop_epoch(extra_requeue=[r for _, r in group])
-                raise
-        n = self._noise.shape[1]
-        for (lane, req), (max_steps, fae, n_tok) in zip(group, metas):
-            if req.seed is None:   # drawn in order on every rank
-                req.seed = eng.request_seed()
-            if lane in self._own:
-                self._noise[lane - lo] = draw_noise(
-                    req.seed, n, eng.cfg.latent_dim, req.temp, eng.dtype,
-                    eng.device)
-            self._fae[lane] = fae
-            self._max_steps[lane] = max_steps
-            self._rows0[lane] = self._voice_rows[req.voice] + n_tok
-            self._live[lane] = req
-            self._chunks[lane] = []
-            req.admit_step = self.steps
-        own = slice(self._own.start, self._own.stop)
-        self._fae_t = torch.from_numpy(self._fae[own]).to(eng.device)
-        self._max_steps_t = torch.from_numpy(self._max_steps[own]).to(
-            eng.device)
+        fresh = self._prefill_many([r for _, r in own]) if own else None
+        with span("ptt.lane_write", lanes=len(group)):
+            if own:
+                # the prefill's power-of-two padding lanes get out-of-range
+                # lane indices, so their writes are dropped
+                lane_idx = ([lane for lane, _ in own]
+                            + list(range(b, b + fresh.lanes - len(own))))
+                try:
+                    self.batch = admit_group(self.batch, lane_idx, fresh)
+                except Exception:
+                    # the lane writes are in place: a failure part-way
+                    # leaves the batch half-written
+                    self._drop_epoch(extra_requeue=[r for _, r in group])
+                    raise
+            n = self._noise.shape[1]
+            for (lane, req), (max_steps, fae, n_tok) in zip(group, metas):
+                if req.seed is None:   # drawn in order on every rank
+                    req.seed = eng.request_seed()
+                if lane in self._own:
+                    self._noise[lane - lo] = draw_noise(
+                        req.seed, n, eng.cfg.latent_dim, req.temp, eng.dtype,
+                        eng.device)
+                self._fae[lane] = fae
+                self._max_steps[lane] = max_steps
+                self._rows0[lane] = self._voice_rows[req.voice] + n_tok
+                self._live[lane] = req
+                self._chunks[lane] = []
+                req.admit_step = self.steps
+            own = slice(self._own.start, self._own.stop)
+            self._fae_t = torch.from_numpy(self._fae[own]).to(eng.device)
+            self._max_steps_t = torch.from_numpy(self._max_steps[own]).to(
+                eng.device)
 
     def step(self) -> int:
         """One admission + one decode chunk. Returns frames emitted."""
+        with span("ptt.step", step=self.steps):
+            return self._step()
+
+    def _step(self) -> int:
         self._admit()
         if all(r is None for r in self._live):
             return 0
         eng = self.engine
         try:
-            self.batch, pcm, valid = continuous_decode_chunk(
-                self.params, self.cfg, self.chunk_frames, self.batch,
-                self._noise, self._fae_t, self._max_steps_t,
-                eng.seanet_weights)
+            with span("ptt.chunk", frames=self.chunk_frames):
+                self.batch, pcm, valid = continuous_decode_chunk(
+                    self.params, self.cfg, self.chunk_frames, self.batch,
+                    self._noise, self._fae_t, self._max_steps_t,
+                    eng.seanet_weights)
         except Exception:
             # the state is updated in place, so a failure part-way leaves
             # it half-written: drop the epoch and restart the live requests
@@ -645,32 +693,39 @@ class ContinuousBatchingServer:
             self._drop_epoch()
             raise
         # the one host read of the chunk (every rank's lanes on a mesh)
-        pcm = gather_lanes(pcm, self.mesh).numpy()
-        valid = gather_lanes(valid, self.mesh).numpy()
-        done = gather_lanes(self.batch.done, self.mesh).numpy()
+        with span("ptt.read"):
+            pcm = gather_lanes(pcm, self.mesh).numpy()
+            valid = gather_lanes(valid, self.mesh).numpy()
+            done = gather_lanes(self.batch.done, self.mesh).numpy()
         now = time.perf_counter()
         self.steps += 1
         emitted = 0
-        for lane, req in enumerate(self._live):
-            if req is None:
-                continue
-            nv = int(valid[lane].sum())
-            if nv > 0:
-                if req.ttfa_s is None:
-                    req.ttfa_s = now - req.submitted_at
-                    req.first_audio_step = self.steps
-                self._chunks[lane].append(pcm[lane, valid[lane]].reshape(-1))
-                emitted += nv
-            if bool(done[lane]):
-                req.pcm = (np.concatenate(self._chunks[lane])
-                           if self._chunks[lane]
-                           else np.zeros(0, np.float32))
-                req.chunks = self._chunks[lane]
-                req.done_at = now
-                self.completed.append(req)
-                self._live[lane] = None
-                self._chunks[lane] = []
-                self._compact_useful = True
+        with span("ptt.bookkeep") as sp:
+            finished = []
+            for lane, req in enumerate(self._live):
+                if req is None:
+                    continue
+                nv = int(valid[lane].sum())
+                if nv > 0:
+                    if req.ttfa_s is None:
+                        req.ttfa_s = now - req.submitted_at
+                        req.first_audio_step = self.steps
+                    self._chunks[lane].append(
+                        pcm[lane, valid[lane]].reshape(-1))
+                    emitted += nv
+                if bool(done[lane]):
+                    req.pcm = (np.concatenate(self._chunks[lane])
+                               if self._chunks[lane]
+                               else np.zeros(0, np.float32))
+                    req.chunks = self._chunks[lane]
+                    req.done_at = now
+                    self.completed.append(req)
+                    finished.append(req.id)
+                    self._live[lane] = None
+                    self._chunks[lane] = []
+                    self._compact_useful = True
+            if sp:
+                sp.set(ids=finished)
         return emitted
 
     def run_pending(self, max_chunks: int = 10_000):

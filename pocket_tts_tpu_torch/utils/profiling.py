@@ -1,33 +1,138 @@
-"""Tracing, frame metering and structured logging.
+"""Tracing, frame metering and the program's spans.
 
-Counterpart of `pocket_tts_tpu/utils/profiling.py`: `log_event` (one JSON
-log line), `FrameMeter` (frames/s, realtime factor and time to first
-audio on the host clock, the CLI's `--bench` report, key for key; `skip`
-takes back a step that gave no frame), `device_trace` (a `torch.profiler`
-trace instead of a `jax.profiler` one) and `enable_compile_cache`, which
-here chooses the directory nvcc builds the kernel library into
-(ops/cuda_lib.py) instead of XLA's compilation cache. Unlike the JAX function it swallows no error: a directory that
-cannot be made raises, and so does a change of directory after the
-library has loaded.
+Counterpart of `pocket_tts_tpu/utils/profiling.py`: `FrameMeter` (frames/s,
+realtime factor and time to first audio on the host clock, the CLI's
+`--bench` report, key for key; `skip` takes back a step that gave no
+frame), `device_trace` (a `torch.profiler` trace instead of a
+`jax.profiler` one) and `enable_compile_cache`, which here chooses the
+directory nvcc builds the kernel library into (ops/cuda_lib.py) instead
+of XLA's compilation cache. Unlike the JAX function it swallows no error:
+a directory that cannot be made raises, and so does a change of directory
+after the library has loaded.
+
+Spans: `span(name, **attrs)` marks a part of the serving path (the
+`ptt.*` names of runtime/server.py and runtime/batched.py). A span is
+recorded inside `recording()` and whenever a `torch.profiler` records; in
+the second case it also opens a `record_function` range of its name, so
+the profiler's timeline puts the host's work beside the card's kernels.
+Records (`Span`: name, start and end on `time.perf_counter_ns`, the
+index of the enclosing span, attributes) go into one bounded buffer,
+`recorded_spans()` a snapshot of it in start order. Off, a span is a flag
+check, the profiler's check and a shared null context.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
-import json
-import logging
+import itertools
 import os
 import tempfile
+import threading
 import time
-from typing import Optional
+from typing import List, Optional
 
-logger = logging.getLogger("pocket_tts_tpu_torch")
+import torch
 
 TRACE_FILE = "trace.json"
+SPAN_BUFFER = 65536   # the spans kept: the newest this many
+
+_profiler_on = torch._C._autograd._profiler_enabled
+_recording = 0        # depth of open `recording()` blocks
+_spans: collections.deque = collections.deque(maxlen=SPAN_BUFFER)
+_index = itertools.count()
+_open = threading.local()
 
 
-def log_event(event: str, **fields):
-    """One structured JSON log line."""
-    logger.info(json.dumps({"event": event, **fields}))
+class Span:
+    """One recorded span: `i` its index (in start order), `parent` the
+    index of the span open around it on the same thread (None at the
+    top), `start_ns` / `end_ns` on `time.perf_counter_ns` (`end_ns` None
+    while open), `attrs` its attributes."""
+
+    __slots__ = ("i", "name", "start_ns", "end_ns", "parent", "attrs",
+                 "_range")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name = name
+        self.attrs = attrs
+        self.end_ns = None
+
+    def set(self, **attrs):
+        """Add attributes known only inside the span."""
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        self._range = None
+        if _profiler_on():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.parent = stack[-1] if stack else None
+        self.i = next(_index)
+        stack.append(self.i)
+        _spans.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.perf_counter_ns()
+        _open.stack.pop()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        return False
+
+
+class _Off:
+    """The span when nothing records: enters and leaves doing nothing,
+    is false, and takes no attributes."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __bool__(self):
+        return False
+
+    def set(self, **attrs):
+        pass
+
+
+_OFF = _Off()
+
+
+def span(name: str, **attrs):
+    """A context manager around a part of the program, recorded inside
+    `recording()` or while a torch.profiler records; yields the `Span`
+    (`.set(**attrs)` adds attributes), or a false null object when off:
+    guard work done only for attributes with `if sp:`."""
+    if not (_recording or _profiler_on()):
+        return _OFF
+    return Span(name, attrs)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans in the block, with or without a profiler (no
+    `record_function` ranges without one). Nests."""
+    global _recording
+    _recording += 1
+    try:
+        yield
+    finally:
+        _recording -= 1
+
+
+def recorded_spans() -> List[Span]:
+    """A snapshot of the buffer: the newest SPAN_BUFFER spans, in start
+    order."""
+    return list(_spans)
 
 
 @contextlib.contextmanager

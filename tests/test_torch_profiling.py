@@ -3,9 +3,8 @@ profiling.py`: FrameMeter gives the same report under one patched clock
 (and `skip` takes back an empty step, first-frame time included);
 device_trace writes a Chrome trace on the CPU; enable_compile_cache picks
 the kernel library's build directory and raises where the JAX function
-would swallow the error; log_event writes the same line."""
+would swallow the error."""
 import json
-import logging
 import os
 
 import pytest
@@ -92,10 +91,3 @@ def test_enable_compile_cache_picks_the_build_dir(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="loaded already"):
         tprof.enable_compile_cache(d)
 
-
-def test_log_event_equals_jax(caplog):
-    with caplog.at_level(logging.INFO):
-        jprof.log_event("frame", n=3, ms=1.5)
-        tprof.log_event("frame", n=3, ms=1.5)
-    assert len(caplog.records) == 2
-    assert caplog.records[0].getMessage() == caplog.records[1].getMessage()
