@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --kernel-times   # K3-K8 times only (two trees)
     python3 chip_smoke.py --cards 4 [--out DIR]   # phases 1, 2 and 12 only
+    python3 chip_smoke.py --frame-graphs [--out DIR]  # phases 1, 2 and 13
 
 Drives the port's solo paths (synthesis through `TTSEngine` with bf16
 weights, with `quantize="int8"`, `"int4"` and `"q4_0"`, with int4 weights
@@ -269,6 +270,15 @@ raises, names its phase and the exit code is 1:
                    wall a chunk, device busy without NCCL, kernels a chunk
                    and NCCL kernel time (torch.profiler) on every rank,
                    beside one card
+ 13. frame graphs  only with --frame-graphs (phases 1, 2 and 13): the
+                   lane frame from CUDA graphs (models/frame_graph.py)
+                   against the eager frame at 256 lanes, int4 + int8 KV +
+                   int8 Mimi ring + shared prefix and bf16, 50 frames
+                   through a 48-slot backbone ring, admissions at the
+                   first three chunks: latents and PCM equal bit for bit,
+                   ptt.frame spans "capture" then "replay", 6 K7 and 2 K2
+                   launches a frame; host ms of a frame's call and ms of
+                   a synchronized chunk on both paths, segments a frame
 
 The last three lines of standard output are a JSON object of the kernels
 (launches from the runs of the path that uses each: K1-K3 from bf16, the
@@ -3333,7 +3343,7 @@ def time_splits(device, dtype):
                 k.data_ptr(), v.data_ptr(), pos.data_ptr(),
                 *(None if t is None else t.data_ptr()
                   for t in (ks, vs, ksn, vsn)), out.data_ptr(),
-                None if st is None else st.data_ptr(), b, q.shape[1],
+                None if st is None else st.data_ptr(), None, b, q.shape[1],
                 q.shape[2], s, e, ws, sp, code, stream), "ptt_insert_attn")
         res[f"K7 {mode} B={b} S={s} "
             f"{'int8 + stats' if kvq else _dt_name(dtype)}"] = (
@@ -3353,7 +3363,8 @@ def time_splits(device, dtype):
             cuda_lib.check(lib.ptt_ring_attn(
                 q.data_ptr(), kn.data_ptr(), vn.data_ptr(), kc.data_ptr(),
                 vc.data_ptr(), out.data_ptr(), st.data_ptr(), None, None,
-                None, None, b, t, h, d, cap, 4096, 0, ctx, sp, code, stream),
+                None, None, None, b, t, h, d, cap, 4096, 0, ctx, sp, code,
+                stream),
                 "ptt_ring_attn")
         res[f"K2 B={b} cap={cap}"] = (k2_split(cap, t), {
             sp: 1e3 * device_ms(lambda: k2(sp), 200)[0]
@@ -6133,6 +6144,163 @@ def run_cards_phase(voice, device, errs, backend=None):
     log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# [13] the lane frame from CUDA graphs (models/frame_graph.py)
+# ---------------------------------------------------------------------------
+
+FG_LANES = 256
+FG_CHUNKS = 10     # 50 frames: the 48-slot backbone ring wraps at 48
+FG_RING = 48       # ring slots (one-word turns need 45)
+FG_TEXT = "Hello."  # one word: 37 frames
+
+
+def frame_graph_engine(kind, device):
+    """The benchmark's two configurations at full width on random weights:
+    "int4kv8" (int4 weights, int8 KV and Mimi ring, shared prefix) or
+    "bf16" (bf16 weights and KV)."""
+    import dataclasses
+    import torch
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
+    if kind == "bf16":
+        return make_engine(DEFAULT_CONFIG, device, torch.bfloat16)
+    cfg = dataclasses.replace(DEFAULT_CONFIG, mimi=dataclasses.replace(
+        DEFAULT_CONFIG.mimi, transformer=dataclasses.replace(
+            DEFAULT_CONFIG.mimi.transformer, quantize_kv=True)))
+    return make_engine(cfg, device, torch.bfloat16, quantize="int4",
+                       quantize_kv=True)
+
+
+def frame_graph_serve(engine, voice, share_prefix, graphs,
+                      lanes=FG_LANES, chunks=FG_CHUNKS):
+    """Serve one-word turns through `lanes` lanes for `chunks` chunks of 5
+    frames, the backbone ring cut to FG_RING slots (it wraps) and the Mimi
+    ring wrapping every 16 frames: half the lanes admitted at the first
+    chunk, the rest at the second, then a queue of as many more, which
+    joins as lanes finish. graphs False runs the frame eagerly (the
+    graph path switched off). Returns a dict: "latents" (frames, B,
+    latent), "pcm" (each request's, in submission order), "modes" (the
+    ptt.frame spans' `graph`), "host_s" (host seconds of each frame's
+    call, unsynchronized), "walls" (synchronized seconds of each chunk),
+    "k7" / "k2" (launches of each a frame), "segments"."""
+    import torch
+    from pocket_tts_tpu_torch.models import frame_graph, tts
+    from pocket_tts_tpu_torch.ops import insert_attn, ring_attn
+    from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
+    from pocket_tts_tpu_torch.utils import profiling
+    prefix = 64 if share_prefix else 128 + 64
+    srv = ContinuousBatchingServer(engine, lanes=lanes, text_bucket=64,
+                                   capacity=prefix + FG_RING,
+                                   share_prefix=share_prefix)
+    srv.register_voices({"v": voice})
+    assert srv.capacity - srv.prefix_slots == FG_RING
+    real, graphable = tts.frame_step_lanes, frame_graph.graphable
+    latents, host_s = [], []
+
+    def frame(p, cfg, state, *a, **k):
+        t0 = time.perf_counter()
+        out = real(p, cfg, state, *a, **k)
+        host_s.append(time.perf_counter() - t0)
+        latents.append(state.prev_latent.clone())
+        return out
+
+    def counts():
+        return (insert_attn.decode_insert_attention.launches
+                + insert_attn.decode_insert_attention.launches_kv8,
+                ring_attn.ring_insert_attention.launches
+                + ring_attn.ring_insert_attention.launches_kv8)
+
+    tts.frame_step_lanes = frame
+    if not graphs:
+        frame_graph.graphable = lambda cfg, state: False
+    reqs, walls = [], []
+    try:
+        k0 = counts()
+        with profiling.recording():
+            t_rec = time.perf_counter()
+            for c in range(chunks):
+                if c < 2:
+                    reqs += [srv.submit(FG_TEXT, "v", temp=0.6,
+                                        seed=1000 + len(reqs))
+                             for _ in range(lanes // 2)]
+                if c == 2:
+                    reqs += [srv.submit(FG_TEXT, "v", temp=0.6,
+                                        seed=1000 + len(reqs))
+                             for _ in range(lanes)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                srv.step()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        k1 = counts()
+        modes = [s.attrs.get("graph") for s in profiling.recorded_spans()
+                 if s.name == "ptt.frame" and s.start_ns * 1e-9 > t_rec]
+    finally:
+        tts.frame_step_lanes = real
+        frame_graph.graphable = graphable
+    n = len(latents)
+    assert n == 5 * chunks, n
+    done = [r for r in reqs if r.pcm is not None]
+    return dict(latents=torch.stack(latents), modes=modes, host_s=host_s,
+                walls=walls, pcm=[r.pcm for r in done], done=len(done),
+                k7=(k1[0] - k0[0]) / n, k2=(k1[1] - k0[1]) / n,
+                segments=frame_graph.run_frame.segments if graphs else 0,
+                offset=srv.batch.mimi.transformer.offset)
+
+
+def check_frame_graphs(device, voice):
+    """[13]: at 256 lanes on both configurations, the frames from CUDA
+    graphs against the same frames run eagerly: latents and PCM equal bit
+    for bit, the ptt.frame spans "capture" then "replay", K7 and K2 one
+    launch a call (6 and 2 a frame) on both paths. Logs the host ms of a
+    frame's call and the ms of a synchronized chunk on both paths, and the
+    graph segments a frame. Returns {kind: row}."""
+    import numpy as np
+    import torch
+    rows = {}
+    for kind in ("int4kv8", "bf16"):
+        eng = frame_graph_engine(kind, device)
+        share = kind == "int4kv8"
+        eager = frame_graph_serve(eng, voice, share, graphs=False)
+        graphed = frame_graph_serve(eng, voice, share, graphs=True)
+        lat_diff = float((graphed["latents"].float()
+                          - eager["latents"].float()).abs().max())
+        pcm_same = (len(eager["pcm"]) == len(graphed["pcm"]) and all(
+            np.array_equal(a, b) for a, b in zip(eager["pcm"],
+                                                 graphed["pcm"])))
+        # steady chunks: after the two admissions and the capture
+        row = dict(
+            host_ms_frame_eager=1e3 * float(np.median(eager["host_s"][10:])),
+            host_ms_frame_graphs=1e3 * float(np.median(
+                graphed["host_s"][10:])),
+            capture_ms=1e3 * graphed["host_s"][0],
+            chunk_ms_eager=1e3 * float(np.median(eager["walls"][3:])),
+            chunk_ms_graphs=1e3 * float(np.median(graphed["walls"][3:])),
+            segments=graphed["segments"], k7=graphed["k7"],
+            k2=graphed["k2"], latents_equal=lat_diff == 0.0,
+            latent_max_diff=lat_diff, pcm_equal=pcm_same,
+            requests_done=graphed["done"])
+        rows[kind] = row
+        log(f"  {kind}, {FG_LANES} lanes: " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()))
+        if not (5 * FG_CHUNKS > FG_RING and graphed["offset"] > 256):
+            raise AssertionError(f"{kind}: the rings did not wrap")
+        if set(eager["modes"]) != {"eager"} or graphed["modes"] != (
+                ["capture"] + ["replay"] * (len(graphed["modes"]) - 1)):
+            raise AssertionError(f"{kind}: frame spans {graphed['modes']}")
+        if (eager["k7"], eager["k2"], graphed["k7"], graphed["k2"]) != (
+                6, 2, 6, 2):
+            raise AssertionError(f"{kind}: K7 / K2 launches a frame "
+                                 f"{eager['k7']} / {eager['k2']} eager, "
+                                 f"{graphed['k7']} / {graphed['k2']} graphs")
+        if not (row["latents_equal"] and pcm_same and graphed["done"] > 0):
+            raise AssertionError(f"{kind}: graphed frames differ from the "
+                                 f"eager ones ({row})")
+        del eng
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="PyTorch port smoke test on "
@@ -6143,6 +6311,9 @@ def main(argv=None) -> int:
                     help="only time K3, K4b, K5a-K5c, K6, K7 and K8 through "
                     "their public wrappers (kernel_times) and print them as "
                     "one JSON line")
+    ap.add_argument("--frame-graphs", action="store_true",
+                    help="only [1] environment, [2] build and [13] the lane "
+                    "frame from CUDA graphs against the eager frame")
     ap.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
                     help=f"{CARDS}: only [1] environment, [2] build and [12] "
                     "the mesh over NCCL, one rank a card (2 x 2, 1 x 4 and "
@@ -6212,6 +6383,15 @@ def main(argv=None) -> int:
             if out_dir:
                 with open(os.path.join(out_dir, fname), "w") as f:
                     f.write("\n".join(rows) + "\n")
+
+        if args.frame_graphs:
+            phase = "frame graphs"
+            header(f"[13] the lane frame from CUDA graphs, {FG_LANES} lanes")
+            rows = check_frame_graphs(
+                device, random_voice_prompt(DEFAULT_CONFIG, 120))
+            print(json.dumps({"frame_graphs": rows}))
+            header("[done]")
+            return _result(card, kind)
 
         if args.cards > 1:
             phase = "mesh over NCCL"

@@ -113,14 +113,15 @@ insert_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
                    KV* kc, KV* vc, const int* __restrict__ pos, float* ksc,
                    float* vsc, const float* __restrict__ ksn,
                    const float* __restrict__ vsn, T* __restrict__ out,
-                   float* __restrict__ st, int nh, int s_len, int read_end,
-                   int ws, float scale) {
+                   float* __restrict__ st, const int* __restrict__ ws_dev,
+                   int nh, int s_len, int read_end, int ws, float scale) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   constexpr int VEC = 16 / (int)sizeof(KV);  // values per 16-byte load
   constexpr int LPR = D / VEC;               // lanes per row
   constexpr int RPW = 32 / LPR;              // rows per warp step
   static_assert(D % VEC == 0 && 32 % LPR == 0, "bad head dim");
   cg::cluster_group cluster = cg::this_cluster();
+  if (ws_dev) ws = *ws_dev;  // the batch's write slot, kept on the device
   const int n = gridDim.x, c = blockIdx.x, b = blockIdx.z;
   const int live = read_end + 1, ld = nh * D;
   // this chunk: units c, c + n, ... of K7_UNIT slots; local slot t is
@@ -371,6 +372,9 @@ insert_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
 // k_scale, v_scale ((B, S) float32, written at ws) and ks_new, vs_new
 // ((B,) float32) are given; caches and new rows 16-byte aligned. stats (or
 // null): (2, B, H) float32, m then l. Requires 0 <= ws <= read_end < S.
+// ws_dev (or null): a device int32 that holds the write slot, read by each
+// block at entry in place of ws (ws is then its host mirror, checked here):
+// the slot a CUDA graph's frame advanced on the device.
 // splits: chunks of [0, read_end], one block each in a cluster (1 to 8, at
 // most ceil((read_end + 1) / 8)).
 extern "C" int ptt_insert_attn(const void* q, const void* k_new,
@@ -378,9 +382,9 @@ extern "C" int ptt_insert_attn(const void* q, const void* k_new,
                                void* k_cache, void* v_cache, const void* pos,
                                void* k_scale, void* v_scale,
                                const void* ks_new, const void* vs_new,
-                               void* out, void* stats, int B, int H, int D,
-                               int S, int read_end, int ws, int splits,
-                               int dtype, void* stream) {
+                               void* out, void* stats, const void* ws_dev,
+                               int B, int H, int D, int S, int read_end,
+                               int ws, int splits, int dtype, void* stream) {
   const bool quant = k_scale != nullptr;
   if (D != 64 || B < 1 || H < 1 || ws < 0 || ws > read_end ||
       read_end >= S || splits < 1 || splits > ptt::K7_MAX_SPLITS ||
@@ -404,8 +408,8 @@ extern "C" int ptt_insert_attn(const void* q, const void* k_new,
       splits, smem, st, (const T*)q, (const KV*)k_new, (const KV*)v_new,     \
       (const int*)cur_pos, (KV*)k_cache, (KV*)v_cache, (const int*)pos,      \
       (float*)k_scale, (float*)v_scale, (const float*)ks_new,                \
-      (const float*)vs_new, (T*)out, (float*)stats, H, S, read_end, ws,      \
-      scale)
+      (const float*)vs_new, (T*)out, (float*)stats, (const int*)ws_dev, H,   \
+      S, read_end, ws, scale)
   cudaError_t rc = cudaSuccess;
   PTT_DISPATCH(dtype, T, {
     if (quant) {

@@ -124,9 +124,9 @@ ring_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
                  KV* __restrict__ vc, T* __restrict__ out,
                  const int* __restrict__ starts,
                  const float* __restrict__ ksn, const float* __restrict__ vsn,
-                 float* __restrict__ ksc, float* __restrict__ vsc, int nq,
-                 int ld, int cap, int off, int start, int context,
-                 float scale) {
+                 float* __restrict__ ksc, float* __restrict__ vsc,
+                 const int* __restrict__ off_dev, int nq, int ld, int cap,
+                 int off, int start, int context, float scale) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   constexpr bool MMA = std::is_same<T, bf16>::value;
   typedef typename std::conditional<MMA, bf16, float>::type ST;  // staged
@@ -137,6 +137,7 @@ ring_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
   constexpr int NJ = D / 8;                        // n8 tiles over D
   constexpr int NT = K2_THREADS;
   cg::cluster_group cluster = cg::this_cluster();
+  if (off_dev) off = *off_dev;  // the ring offset, kept on the device
   const int n = gridDim.x, c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;
@@ -547,7 +548,10 @@ ring_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
 // ld = H*D, updated in place; the K/V rows 16-byte aligned. off:
 // timesteps written so far (a multiple of T), shared by the lanes;
 // starts: (B,) int32 on the device, each lane's first timestep, or null
-// to give every lane `start`.
+// to give every lane `start`. off_dev (or null): a device int32 that holds
+// the offset, read by each block at entry in place of off (off is then its
+// host mirror, checked here): the offset a CUDA graph's frame advanced on
+// the device.
 // int8 rings (K2-q): k_new, v_new and the caches int8, with ks_new, vs_new
 // (B, T) and k_scale, v_scale (B, cap) float32 (the latter written in
 // place); all four null otherwise. splits: chunks of the cap + T keys (16-
@@ -557,9 +561,9 @@ extern "C" int ptt_ring_attn(const void* q, const void* k_new,
                              const void* v_new, void* k_cache, void* v_cache,
                              void* out, const void* starts,
                              const void* ks_new, const void* vs_new,
-                             void* k_scale, void* v_scale, int B, int T,
-                             int H, int D, int cap, int off, int start,
-                             int context, int splits, int dtype,
+                             void* k_scale, void* v_scale, const void* off_dev,
+                             int B, int T, int H, int D, int cap, int off,
+                             int start, int context, int splits, int dtype,
                              void* stream) {
   const bool quant = k_scale != nullptr;
   const int tiles = (cap + T + 15) / 16;
@@ -582,8 +586,8 @@ extern "C" int ptt_ring_attn(const void* q, const void* k_new,
       smem, st,                                                              \
       (const Ty*)q, (const KV*)k_new, (const KV*)v_new, (KV*)k_cache,        \
       (KV*)v_cache, (Ty*)out, (const int*)starts, (const float*)ks_new,      \
-      (const float*)vs_new, (float*)k_scale, (float*)v_scale, T, H * D, cap, \
-      off, start, context, scale)
+      (const float*)vs_new, (float*)k_scale, (float*)v_scale,                \
+      (const int*)off_dev, T, H * D, cap, off, start, context, scale)
   PTT_DISPATCH(dtype, Ty, {
     if (quant) PTT_K2(int8_t); else PTT_K2(Ty);
   });

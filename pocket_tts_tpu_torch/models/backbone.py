@@ -46,7 +46,11 @@ route of a T = 1 step.
 Lanes (continuous batching): the caches are (B, S, H*D) and `pos` (B, S);
 the write slot `end` (and, in prefix+ring mode, `ring_start`) is a host
 int shared by the lanes, while each lane's `next_pos` is a (B,) device
-tensor, so lanes hold streams at different points of their sentences. A
+tensor, so lanes hold streams at different points of their sentences.
+A batch whose frames run from CUDA graphs (models/frame_graph.py) keeps
+the write slot on the device too (`end_dev`): the decode step writes its
+position row and KV rows by that index, K7 reads the slot from it, and
+`advance_lanes` moves both, the host int being the mirror. A
 decode step (T = 1) runs K7 over all lanes in one launch per layer (int8
 caches: its int8-KV variant, the new rows quantized here), or without
 `cfg.fuse_insert` a row write and K1 over the lanes, and with quantized
@@ -95,6 +99,7 @@ from typing import Optional
 
 import torch
 
+from . import frame_graph
 from ..ops import fused_layer, fused_step
 from ..ops.attention import (cross_attention, cross_attn_kv,
                              merge_attn_partials, pos_cache_bias,
@@ -184,21 +189,32 @@ def _quantize_kv(k_rows, v_rows, group):
     return quantize_rows(k_rows, amax[0]), quantize_rows(v_rows, amax[1])
 
 
-def _write_rows(k_cache, v_cache, k_scale, v_scale, end: int, k_rows,
+def _write_rows(k_cache, v_cache, k_scale, v_scale, end, k_rows,
                 v_rows, group=None):
     """Write (..., T, H*D) rows at slots [end, end + T) of (..., S, H*D)
     caches in place; int8 caches get the quantized rows and their scales
-    (group: as in _quantize_kv)."""
+    (group: as in _quantize_kv). end: an int, or a device cursor
+    (frame_graph.Cursor), whose slots are indexed on the device."""
     t = k_rows.shape[-2]
+    dev = getattr(end, "dev", None)
+    if dev is not None:
+        idx = dev.long() + torch.arange(t, device=dev.device)
+
+    def put(dst, src, dim):
+        if dev is None:
+            dst.narrow(dim, end, t).copy_(src)
+        else:
+            dst.index_copy_(dim, idx, src.to(dst.dtype))
+
     if k_scale is None:
-        k_cache.narrow(-2, end, t).copy_(k_rows)
-        v_cache.narrow(-2, end, t).copy_(v_rows)
+        put(k_cache, k_rows, -2)
+        put(v_cache, v_rows, -2)
         return
     for cache, scale, (q, s) in zip(
             (k_cache, v_cache), (k_scale, v_scale),
             _quantize_kv(k_rows, v_rows, group)):
-        cache.narrow(-2, end, t).copy_(q)
-        scale.narrow(-1, end, t).copy_(s)
+        put(cache, q, -2)
+        put(scale, s, -1)
 
 
 def _deq(cache, scale, dtype):
@@ -478,6 +494,8 @@ class BatchedBackboneState:
     pk: Optional[list] = None
     pv: Optional[list] = None
     ppos: Optional[torch.Tensor] = None
+    # `end` on the device as well, a (1,) int32 (frame_graph.attach_cursors)
+    end_dev: Optional[torch.Tensor] = None
 
     @property
     def lanes(self) -> int:
@@ -573,7 +591,12 @@ def forward_lanes(p, cfg, state: BatchedBackboneState, x, n_valid=None,
     positions = state.next_pos[:, None] + ar                  # (B, T)
     rows = (positions if n_valid is None
             else torch.where(ar < n_valid[:, None], positions, -1))
-    state.pos[:, end:end + t] = rows
+    if state.end_dev is None:
+        state.pos[:, end:end + t] = rows
+    else:
+        # the slot cursor on the device (a frame replayed from a graph)
+        state.pos.index_copy_(1, state.end_dev.long() + ar.long(), rows)
+        end = frame_graph.Cursor(state, "end", state.end_dev)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.max_period)
     bias = (None if t == 1 and cfg.use_pallas_attn is not False
             else pos_cache_bias(positions, state.pos, neg=cfg.mask_value))
@@ -599,11 +622,24 @@ def advance_lanes(state: BatchedBackboneState, t: int,
                   n_valid) -> BatchedBackboneState:
     """Consume t slots (shared) and n_valid positions ((B,) tensor or an
     int). In prefix+ring mode the cursor wraps inside [ring_start, S):
-    positions keep counting, only the storage slot recycles."""
-    end = state.end + t
-    if state.ring_start is not None:
-        ring = state.pos.shape[1] - state.ring_start
-        end = state.ring_start + (end - state.ring_start) % ring
-    state.end = end
+    positions keep counting, only the storage slot recycles. A cursor kept
+    on the device (`end_dev`) moves there too, and its host mirror through
+    `frame_graph.host`, so a frame replayed from graphs moves both."""
+    rs = state.ring_start
+    ring = None if rs is None else state.pos.shape[1] - rs
+
+    def move():
+        end = state.end + t
+        if rs is not None:
+            end = rs + (end - rs) % ring
+        state.end = end
+
+    frame_graph.host(move)
+    if state.end_dev is not None:
+        e = state.end_dev
+        if rs is None:
+            e.add_(t)
+        else:
+            e.sub_(rs - t).remainder_(ring).add_(rs)
     state.next_pos += n_valid
     return state

@@ -5,13 +5,14 @@ Counterpart of `pocket_tts_tpu/models/mimi.py`:
   x16 depthwise transposed-conv upsample (k32 s16) with its carry
   2-layer ring-KV transformer over the 16 rows (kernel K2 per layer)
   SEANet decoder (kernel K3)
-The state is updated in place. With lanes (continuous batching) every
-tensor of the state has a leading (B,) axis (the int8 ring's scale rows
-too), except the transformer's shared ring `offset`, and `decode_frame`
-takes latents (B, latent_dim). The checkpoint-driven variants of the
-transformer's layers (RMSNorm `alpha`, gating) run over lanes as they do
-solo; a cross-attention state (mimi_transformer.init_cross) decodes solo
-only, and the lane entry points refuse it.
+The state is updated in place, each tensor in its own storage. With lanes
+(continuous batching) every tensor of the state has a leading (B,) axis
+(the int8 ring's scale rows too), except the transformer's shared ring
+`offset`, and `decode_frame` takes latents (B, latent_dim). The
+checkpoint-driven variants of the transformer's layers (RMSNorm `alpha`,
+gating) run over lanes as they do solo; a cross-attention state
+(mimi_transformer.init_cross) decodes solo only, and the lane entry
+points refuse it.
 """
 from __future__ import annotations
 
@@ -74,7 +75,7 @@ def decode_frame(p, cfg, state: MimiState, latent, gelu_approx: bool = False,
     prev = state.upsample_prev
     y = torch.cat([y[..., : k - s, :] + prev[..., s:, :],
                    y[..., k - s:, :]], -2)
-    state.upsample_prev = y
+    prev.copy_(y)   # in place: a frame replayed from graphs keeps addresses
     if p["upsample"].get("b") is not None:
         y = y + p["upsample"]["b"][None, :]
     emb = y[..., : k - s, :]

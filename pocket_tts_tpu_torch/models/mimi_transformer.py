@@ -24,6 +24,10 @@ offset - start[b] and its ring window is fenced at its own start, so a
 lane that joined a running batch decodes as a solo stream would. K2 runs
 all lanes in one launch per layer, and with quantized weights K5a and K5b
 take the B * T rows of all lanes in one call each (ops/fused_layer.py).
+A batch whose frames run from CUDA graphs (models/frame_graph.py) keeps
+the offset on the device too (`offset_dev`): the positions, K2 (through a
+pointer) and a gated layer's step read it there, and `forward` advances
+both, the host int being the mirror.
 
 The variants a checkpoint switches on (the JAX package's `_layer`):
 `norm1` / `norm2` as RMSNorm when they carry "alpha" (`_norm_any`, eps
@@ -68,6 +72,7 @@ from typing import Optional
 
 import torch
 
+from . import frame_graph
 from ..ops import fused_layer
 from ..ops.attention import cross_attention, cross_attn_kv
 from ..ops.basic import (gelu, layer_norm, linear, quantize_rows, rms_norm,
@@ -93,6 +98,9 @@ class MimiTransformerState:
     # (S_c, H, D) (None: no cross-attention)
     xk: Optional[list] = None
     xv: Optional[list] = None
+    # `offset` on the device as well, a (1,) int32 with lanes
+    # (frame_graph.attach_cursors)
+    offset_dev: Optional[torch.Tensor] = None
 
 
 def init_state(cfg, dtype=torch.float32, device="cpu"):
@@ -138,12 +146,13 @@ def _norm_any(p, x, eps: float):
     return layer_norm(p, x, eps=eps)
 
 
-def _layer(p, x, k_cache, v_cache, k_scale, v_scale, offset: int, start,
+def _layer(p, x, k_cache, v_cache, k_scale, v_scale, offset, start,
            cos, sin, cfg, gelu_approx: bool, plain: bool = False, xk=None,
            xv=None):
     """One layer; plain: the plain ring route (no K2, no K5a/K5b); xk/xv:
-    this layer's cross-attention KV, or None. On a mesh the layer runs on
-    this rank's heads (see the module docstring)."""
+    this layer's cross-attention KV, or None. offset: an int or the
+    batch's device cursor (frame_graph.Cursor). On a mesh the layer runs
+    on this rank's heads (see the module docstring)."""
     *lead, t, _ = x.shape
     group, nh = model_group(cfg), local_heads(cfg)
     fused = not plain and "gating" not in p and fusable(p, cfg.mesh)
@@ -181,7 +190,8 @@ def _layer(p, x, k_cache, v_cache, k_scale, v_scale, offset: int, start,
             xk, xv, cfg.num_heads)
     h = _norm_any(p["norm2"], x, cfg.norm_eps)
     if "gating" in p:
-        up = weights_per_step_gating(p["gating"], h, offset=offset)
+        up = weights_per_step_gating(p["gating"], h,
+                                     offset=getattr(offset, "dev", offset))
     else:
         up = row_linear(p["linear2"], gelu(linear(p["linear1"], h),
                                            gelu_approx), group)
@@ -194,7 +204,9 @@ def forward(p, cfg, state: MimiTransformerState, x,
     advances state.offset by T. The ring step runs K2 unless
     cfg.use_pallas_attn is False (the plain ring route)."""
     t = x.shape[-2]
-    rel = state.offset - state.start      # an int, or (B,) with lanes
+    offset = frame_graph.cursor(state, "offset")
+    # an int, or (B,) with lanes
+    rel = getattr(offset, "dev", offset) - state.start
     if isinstance(rel, torch.Tensor):
         rel = rel[:, None]
     positions = rel + torch.arange(t, dtype=torch.int32, device=x.device)
@@ -209,9 +221,15 @@ def forward(p, cfg, state: MimiTransformerState, x,
     for l in range(cfg.num_layers):
         x = _layer(slice_layer_params(p["layers"], l), x, state.k[l],
                    state.v[l], state.k_scale[l] if quant else None,
-                   state.v_scale[l] if quant else None, state.offset,
+                   state.v_scale[l] if quant else None, offset,
                    state.start, cos, sin, cfg, gelu_approx, plain,
                    state.xk[l] if cross else None,
                    state.xv[l] if cross else None)
-    state.offset += t
+
+    def move():
+        state.offset += t
+
+    frame_graph.host(move)
+    if state.offset_dev is not None:
+        state.offset_dev.add_(t)
     return state, x

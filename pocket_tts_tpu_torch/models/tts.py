@@ -1,10 +1,10 @@
 """Top-level TTS model: prefill, per-frame step, sentence decode.
 
 Counterpart of `pocket_tts_tpu/models/tts.py`. The JAX package compiles a
-frame into one program and scans it on the device; here the frame is a
-host loop over eager PyTorch ops and kernels. The EOS decision is read on
-the host once per frame (one device sync per frame; CUDA graphs are later
-work). Noise is an argument of `frame_step`: the caller draws it (the
+frame into one program and scans it on the device; here the solo frame
+(`frame_step`) is a host loop over eager PyTorch ops and kernels, and its
+EOS decision is read on the host once per frame (one device sync per
+frame). Noise is an argument of `frame_step`: the caller draws it (the
 engine from a seeded torch.Generator on the device; tests inject the JAX
 package's noise).
 
@@ -12,8 +12,13 @@ Lanes (continuous batching): `BatchedStreamState` holds B streams, and
 `frame_step_lanes` follows the JAX `frame_step` under vmap: every lane is
 computed unconditionally (a finished lane runs on garbage and its frame is
 masked, so the shared slot cursor stays uniform), and eos_step, step and
-done are updated on the device with no host read: the caller reads pcm,
-valid and done when it chooses (the servers once per chunk).
+done are updated on the device, in place, with no host read: the caller
+reads pcm, valid and done when it chooses (the servers once per chunk).
+A lane batch in ring mode on one CUDA card runs its frames from CUDA
+graphs (models/frame_graph.py): the PyTorch ops between the hand-written
+kernels are captured at the batch's first frame and replayed after it,
+each kernel still launched by a call to its entry; elsewhere (a linear
+cursor, a mesh, the CPU) the same frame function runs eagerly.
 
 `init_stream_state` and the fixed-length `decode_sentence` are the JAX
 package's names; the engine decodes with `decode_sentence_early_exit`.
@@ -24,7 +29,7 @@ import dataclasses
 
 import torch
 
-from . import backbone, flow_lm, mimi, mimi_transformer
+from . import backbone, flow_lm, frame_graph, mimi, mimi_transformer
 
 
 @dataclasses.dataclass
@@ -165,6 +170,10 @@ class BatchedStreamState:
     eos_step: torch.Tensor     # (B,) int32, -1 until EOS fired
     step: torch.Tensor         # (B,) int32 frames generated
     done: torch.Tensor         # (B,) bool
+    # the frame's CUDA graphs (frame_graph.FrameGraphs), made at the first
+    # frame that takes them
+    graphs: object = dataclasses.field(default=None, repr=False,
+                                       compare=False)
 
     @property
     def lanes(self) -> int:
@@ -197,7 +206,37 @@ def frame_step_lanes(p, cfg, state: BatchedStreamState, noise,
     after each all-reduce (or whole product on a gathered input) is the
     same bits on all of them, and what
     follows runs whole on each (tests/test_torch_sharding.py and
-    chip_smoke.py phase 11 hold the ranks' audio equal bit for bit)."""
+    chip_smoke.py phase 11 hold the ranks' audio equal bit for bit).
+
+    The frame runs from CUDA graphs when the batch is in ring mode on one
+    CUDA card (`frame_graph.graphable`), or when `state.graphs` holds a
+    FrameGraphs already (the CPU tests' stand-in); otherwise eagerly. How
+    it ran: `frame_mode(state)`; the captures, replays and graph segments
+    a frame count in `frame_graph.run_frame`'s attributes."""
+    graphs = state.graphs
+    if graphs is None and frame_graph.graphable(cfg, state):
+        graphs = state.graphs = frame_graph.FrameGraphs()
+    if graphs is None:
+        return _frame_lanes(p, cfg, state, noise, frames_after_eos,
+                            max_steps, seanet_weights)
+    frame_graph.attach_cursors(state)
+    inputs = (noise, frames_after_eos, max_steps)
+    return frame_graph.run_frame(
+        graphs, lambda *a: _frame_lanes(p, cfg, state, *a, seanet_weights),
+        frame_graph.frame_key(p, cfg, state, seanet_weights, inputs),
+        inputs)
+
+
+def frame_mode(state: BatchedStreamState) -> str:
+    """How the batch's last frame ran: "capture" or "replay" (CUDA graphs),
+    or "eager"."""
+    return "eager" if state.graphs is None else state.graphs.last
+
+
+def _frame_lanes(p, cfg, state: BatchedStreamState, noise, frames_after_eos,
+                 max_steps, seanet_weights):
+    """frame_step_lanes' body, run eagerly or under capture: every state
+    tensor is written in place."""
     _, latent, is_eos = flow_lm.decode_step_lanes(p, cfg, state.flow,
                                                   state.prev_latent, noise)
     step, done = state.step, state.done
@@ -211,9 +250,9 @@ def frame_step_lanes(p, cfg, state: BatchedStreamState, noise,
     _, pcm = mimi.decode_frame(p["mimi"], cfg.mimi, state.mimi,
                                flow_lm.denormalize(p, latent),
                                cfg.gelu_approx, seanet_weights)
-    state.prev_latent = latent
-    state.eos_step = eos_step
-    state.step = step + 1
-    state.done = stop | full
+    state.prev_latent.copy_(latent)
+    state.eos_step.copy_(eos_step)
+    step.add_(1)
+    state.done.copy_(stop | full)
     pcm = torch.where(stop[:, None], 0.0, 1.0) * pcm.float()
     return pcm, ~stop

@@ -20,6 +20,7 @@ and flags, so an edited source is rebuilt. Every C entry returns
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -45,15 +46,17 @@ SIGNATURES = {
     # (or null), B, H, D, S, row stride (H*D), end, splits, dtype, stream
     "ptt_decode_attn": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # q, k_new, v_new, cur_pos, k_cache, v_cache, pos, k_scale, v_scale,
-    # ks_new, vs_new (int8 caches, else null), out, stats (or null), B, H,
-    # D, S, read_end, write_slot, splits, dtype, stream
-    "ptt_insert_attn": [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                        I, I, I, P],
+    # ks_new, vs_new (int8 caches, else null), out, stats (or null), the
+    # write slot on the device (or null), B, H, D, S, read_end, write_slot,
+    # splits, dtype, stream
+    "ptt_insert_attn": [P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                        I, I, I, I, P],
     # q, k_new, v_new, k_cache, v_cache, out, starts (or null), ks_new,
-    # vs_new, k_scale, v_scale (int8 rings, else null), B, T, H, D, cap,
-    # offset, start, context, splits, dtype, stream
-    "ptt_ring_attn": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                      I, I, I, P],
+    # vs_new, k_scale, v_scale (int8 rings, else null), the offset on the
+    # device (or null), B, T, H, D, cap, offset, start, context, splits,
+    # dtype, stream
+    "ptt_ring_attn": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                      I, I, I, I, P],
     # pointer array (8), dims array (15), dtype, stream: one conv-GEMM of
     # K3's frame (csrc/seanet_frame.cu)
     "ptt_seanet_gemm": [P, P, I, P],
@@ -241,3 +244,60 @@ def dtype_code(t) -> int:
 
 def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# the hand-written kernels' Python entries, and the frame's CUDA graphs
+# ---------------------------------------------------------------------------
+
+_entry_hook = None
+
+
+def entry(fn):
+    """Mark `fn` as a hand-written kernel's Python entry. While a lane frame
+    is captured into CUDA graphs (models/frame_graph.py sets the hook), a
+    call goes to the capture, which ends the graph segment before it,
+    launches the kernel eagerly and calls the entry again, through its
+    module attribute, at this point of every replay; otherwise the call
+    runs as it is. Every entry takes `out=`: the result of an earlier call
+    with the same operands' shapes, written again in place and returned."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        hook = _entry_hook
+        if hook is None:
+            return fn(*args, **kwargs)
+        return hook(fn, args, kwargs)
+    return call
+
+
+def set_entry_hook(hook):
+    """Install the capture's hook (None: none); returns the one before."""
+    global _entry_hook
+    prev, _entry_hook = _entry_hook, hook
+    return prev
+
+
+def into(out, res):
+    """The plain versions' `out=`: res (a tensor or a tuple of tensors)
+    copied into out, which is returned; res itself when out is None."""
+    if out is None:
+        return res
+    if isinstance(out, tuple):
+        for o, r in zip(out, res):
+            o.copy_(r)
+    else:
+        out.copy_(res)
+    return out
+
+
+def cursor_value(x):
+    """A cursor's value for the glue and the plain versions: the device
+    tensor of a `models.frame_graph.Cursor`, or x itself (a host int)."""
+    return getattr(x, "dev", x)
+
+
+def cursor_ptr(x):
+    """The device address of a cursor's int32, or None for a host int (the
+    kernels then take the int)."""
+    dev = getattr(x, "dev", None)
+    return None if dev is None else dev.data_ptr()

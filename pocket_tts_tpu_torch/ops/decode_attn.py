@@ -111,15 +111,17 @@ def decode_attention_plain(q, k_cache, v_cache, pos, end: int,
     return out, m, l
 
 
+@cuda_lib.entry
 def decode_attention(q, k_cache, v_cache, pos, end: int, k_scale=None,
-                     v_scale=None, stats: bool = False):
+                     v_scale=None, stats: bool = False, out=None):
     """Same contract as decode_attention_plain, solo or with a lane axis;
     launches the CUDA kernel for CUDA tensors (q float32 or bfloat16, D =
     64; caches of q's dtype, or int8 with float32 scales), one launch for
-    all lanes."""
+    all lanes. out: an earlier call's result (out, or (out, m, l) with
+    stats), written again."""
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, pos, end, k_scale,
-                                      v_scale, stats)
+        return cuda_lib.into(out, decode_attention_plain(
+            q, k_cache, v_cache, pos, end, k_scale, v_scale, stats))
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     lanes = q.dim() == 3
@@ -143,9 +145,19 @@ def decode_attention(q, k_cache, v_cache, pos, end: int, k_scale=None,
         raise ValueError("decode_attention: bad operands "
                          f"q{tuple(q.shape)} {q.dtype} k{tuple(k_cache.shape)}"
                          f" {k_cache.dtype} pos{tuple(pos.shape)} end={end}")
-    out = torch.empty_like(q)
-    st = (torch.empty(2, *lead, h, dtype=torch.float32, device=q.device)
-          if stats else None)
+    given = out
+    if out is None:
+        out = torch.empty_like(q)
+        st = (torch.empty(2, *lead, h, dtype=torch.float32, device=q.device)
+              if stats else None)
+    elif stats:
+        # (out, m, l): m and l are rows 0 and 1 of one (2, ..., H) buffer
+        out, st = given[0], given[1]
+        if given[2].data_ptr() != st.data_ptr() + 4 * b * h:
+            raise ValueError("decode_attention: out is not a result of "
+                             "this entry")
+    else:
+        st = None
     rc = cuda_lib.library().ptt_decode_attn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         k_scale.data_ptr() if quant else None,
@@ -162,7 +174,7 @@ def decode_attention(q, k_cache, v_cache, pos, end: int, k_scale=None,
         decode_attention.launches += 1
     if stats:
         decode_attention.launches_stats += 1
-        return out, st[0], st[1]
+        return given if given is not None else (out, st[0], st[1])
     return out
 
 

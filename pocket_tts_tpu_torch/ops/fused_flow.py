@@ -195,12 +195,14 @@ def flow_cluster(dmodel, dim, hid, latent, depth, rows, dtype, packed,
     raise RuntimeError(f"flow_cluster: no cluster of {CLUSTERS} fits")
 
 
-def flow_forward(p, c, x, t_combined):
+@cuda_lib.entry
+def flow_forward(p, c, x, t_combined, out=None):
     """Same contract as flow_forward_plain, for x (latent,) or (B, latent);
     launches K6 for CUDA tensors (LAUNCHES launches for any B; float32 or
-    bfloat16; supported(p); dim, hid and latent multiples of 8)."""
+    bfloat16; supported(p); dim, hid and latent multiples of 8). out: an
+    earlier call's result, written again."""
     if x.device.type == "cpu":
-        return flow_forward_plain(p, c, x, t_combined)
+        return cuda_lib.into(out, flow_forward_plain(p, c, x, t_combined))
     if x.device.type != "cuda":
         raise ValueError(f"flow_forward: unsupported device {x.device}")
     if not supported(p):
@@ -253,7 +255,8 @@ def flow_forward(p, c, x, t_combined):
     ints += [plan["rb"], csize, plan["nslot"], plan["ncl"], int(plan["mma"])]
     mods = torch.empty(b * (depth * 3 * dim + 2 * dim), dtype=torch.float32,
                        device=x.device)
-    out = torch.empty_like(x2)
+    given = out
+    out = torch.empty_like(x2) if given is None else given.view(x2.shape)
     args = [x2, c2, t_combined] + ptrs + [mods, out]
     rc = cuda_lib.library().ptt_fused_flow(
         (ctypes.c_void_p * len(args))(*[0 if t is None else t.data_ptr()
@@ -267,7 +270,7 @@ def flow_forward(p, c, x, t_combined):
         flow_forward.launches_int4 += LAUNCHES
     else:
         flow_forward.launches += LAUNCHES
-    return out.reshape(x.shape)
+    return out.reshape(x.shape) if given is None else given
 
 
 flow_forward.launches = flow_forward.launches_int4 = 0

@@ -623,11 +623,13 @@ def _post_operands(name, p, x, attn):
     return vecs, ints
 
 
-def pre_attention(p, x, eps: float = 1e-5):
+@cuda_lib.entry
+def pre_attention(p, x, eps: float = 1e-5, out=None):
     """Same contract as pre_attention_plain (x (..., dm)); launches K5a
-    once for CUDA tensors (x float32 or bfloat16, supported(p))."""
+    once for CUDA tensors (x float32 or bfloat16, supported(p)). out: an
+    earlier call's result, written again."""
     if x.device.type == "cpu":
-        return pre_attention_plain(p, x, eps)
+        return cuda_lib.into(out, pre_attention_plain(p, x, eps))
     if x.device.type != "cuda":
         raise ValueError(f"pre_attention: unsupported device {x.device}")
     dm = x.shape[-1]
@@ -638,13 +640,15 @@ def pre_attention(p, x, eps: float = 1e-5):
            [(norm.get("scale"), dm), (norm.get("bias"), dm)])
     n = p["in_proj"]["scale"].shape[-1]
     lin, layout = kernel_operands(p["in_proj"], dm, n, x)
-    out = torch.empty(t, n, dtype=x.dtype, device=x.device)
+    given = out
+    out = (torch.empty(t, n, dtype=x.dtype, device=x.device)
+           if given is None else given.view(t, n))
     _rows_call(cuda_lib.library(), x.dtype, x2,
                (norm.get("scale"), norm.get("bias")), lin, layout, None, None,
                out, t, dm, n, ROWS_LN, EPI_ROUND, False, eps,
                cuda_lib.stream_ptr(x.device))
     _count(pre_attention, p, x)
-    return out.reshape(*x.shape[:-1], n)
+    return out.reshape(*x.shape[:-1], n) if given is None else given
 
 
 def _layout(ints):
@@ -663,15 +667,18 @@ def _aligned16(name, tensors):
         raise ValueError(f"{name}: weights must be 16-byte aligned")
 
 
+@cuda_lib.entry
 def post_attention(p, x, attn, eps: float = 1e-5, approx: bool = False,
-                   marks=None):
+                   marks=None, out=None):
     """Same contract as post_attention_plain (x, attn (..., dm)); launches
     K5b for CUDA tensors (cooperative launches, `post_launches` per call;
     x, attn float32 or bfloat16, supported(p)). marks: an int64
     (COOP_MAX_GRID, COOP_MARKS) tensor for the cooperative launch's
-    POST_MARKS (`_marks`), or None."""
+    POST_MARKS (`_marks`), or None. out: an earlier call's result, written
+    again."""
     if x.device.type == "cpu":
-        return post_attention_plain(p, x, attn, eps, approx)
+        return cuda_lib.into(out, post_attention_plain(p, x, attn, eps,
+                                                       approx))
     if x.device.type != "cuda":
         raise ValueError(f"post_attention: unsupported device {x.device}")
     dm = x.shape[-1]
@@ -681,7 +688,8 @@ def post_attention(p, x, attn, eps: float = 1e-5, approx: bool = False,
     hid = p["linear1"]["scale"].shape[-1]
     code = cuda_lib.dtype_code(x)
     lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(x.device)
-    out = torch.empty_like(x2)
+    given = out
+    out = torch.empty_like(x2) if given is None else given.view(rows, dm)
     if post_launches(rows, dm) == 1:
         plan = post_plan(rows, dm, hid, *_layout(ints))
         coop_check("post_attention", plan, 0, code)
@@ -699,7 +707,7 @@ def post_attention(p, x, attn, eps: float = 1e-5, approx: bool = False,
             stream)
         cuda_lib.check(rc, f"ptt_fused_post (plan {plan})")
         _count(post_attention, p, x)
-        return out.reshape(x.shape)
+        return out.reshape(x.shape) if given is None else given
     if marks is not None:
         raise ValueError("post_attention: marks are for the cooperative "
                          "launch")
@@ -717,7 +725,7 @@ def post_attention(p, x, attn, eps: float = 1e-5, approx: bool = False,
                    ints[2 * i:2 * i + 2], res, ls, dst, rows, k, n, pro, epi,
                    approx, eps, stream)
         _count(post_attention, p, x)
-    return out.reshape(x.shape)
+    return out.reshape(x.shape) if given is None else given
 
 
 def bilayer_post_pre(p, p_next, x, attn, eps: float = 1e-5,

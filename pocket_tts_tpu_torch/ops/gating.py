@@ -70,8 +70,10 @@ def weights_per_step_linear(p, x, offset: int = 0, schedule=None):
     if wk.dim() == 2 or wk.shape[0] == 1:
         return linear(_squeeze_module(p), x)
     w = p["w"] if "w" in p else _dequant_stack(p)
-    idx = _step_indices(w.shape[0], schedule, x.shape[-2], int(offset),
-                        x.device)
+    # offset: an int, or a (1,) device tensor (a lane batch's ring cursor)
+    idx = _step_indices(w.shape[0], schedule, x.shape[-2],
+                        offset if isinstance(offset, torch.Tensor)
+                        else int(offset), x.device)
     wt = w[idx].to(x.dtype)                              # (T, in, out)
     y = torch.einsum("...tc,tco->...to", x.float(), wt.float()).to(x.dtype)
     b = p.get("b")

@@ -38,6 +38,14 @@ write the new rows (and scales) into the caches IN PLACE (the JAX function
 returns new caches through input/output aliasing). A launch counts once by
 its caches, in `.launches` (working type) or `.launches_kv8` (int8), and,
 when it returns the statistics, once more in `.launches_stats`.
+
+The write slot is a host int, or the batch's slot cursor
+(`models.frame_graph.Cursor`) when the lane frame runs from CUDA graphs:
+the kernel then loads the slot from the cursor's int32 on the device at
+block entry, and the plain version indexes with it, so a frame replayed
+from a graph writes where the frame advanced the cursor; `int()` of it,
+the host mirror, is what the checks here read. `read_end` and the split
+stay host ints (fixed in ring mode: S - 1).
 """
 from __future__ import annotations
 
@@ -98,7 +106,9 @@ def decode_insert_attention_plain(q, k_new, v_new, cur_pos, k_cache,
     b, h, d = q.shape
     s = k_cache.shape[1]
     quant = k_scale is not None
-    slot = torch.tensor([write_slot], device=k_cache.device)
+    write_slot = cuda_lib.cursor_value(write_slot)
+    slot = (write_slot.long() if isinstance(write_slot, torch.Tensor)
+            else torch.tensor([write_slot], device=k_cache.device))
     k_cache.index_copy_(1, slot, k_new.to(k_cache.dtype))
     v_cache.index_copy_(1, slot, v_new.to(v_cache.dtype))
     if quant:
@@ -139,18 +149,21 @@ def decode_insert_attention_plain(q, k_new, v_new, cur_pos, k_cache,
     return out, m, l
 
 
+@cuda_lib.entry
 def decode_insert_attention(q, k_new, v_new, cur_pos, k_cache, v_cache, pos,
-                            read_end: int, write_slot: int, k_scale=None,
+                            read_end: int, write_slot, k_scale=None,
                             v_scale=None, ks_new=None, vs_new=None,
-                            stats: bool = False):
+                            stats: bool = False, out=None):
     """Same contract as decode_insert_attention_plain; launches the CUDA
     kernel for CUDA tensors (q float32 or bfloat16, D = 64; caches of q's
     dtype, or int8 with float32 scale rows; caches and new rows 16-byte
-    aligned), one launch for all B lanes."""
+    aligned), one launch for all B lanes. write_slot: an int or a device
+    cursor (module docstring). out: an earlier call's result (out, or
+    (out, m, l) with stats), written again."""
     if q.device.type == "cpu":
-        return decode_insert_attention_plain(
+        return cuda_lib.into(out, decode_insert_attention_plain(
             q, k_new, v_new, cur_pos, k_cache, v_cache, pos, read_end,
-            write_slot, k_scale, v_scale, ks_new, vs_new, stats)
+            write_slot, k_scale, v_scale, ks_new, vs_new, stats))
     if q.device.type != "cuda":
         raise ValueError(f"decode_insert_attention: unsupported device "
                          f"{q.device}")
@@ -172,14 +185,23 @@ def decode_insert_attention(q, k_new, v_new, cur_pos, k_cache, v_cache, pos,
             and all(x.is_contiguous() and x.device == q.device
                     for x in ops + (pos, cur_pos) + scales)
             and all(x.data_ptr() % 16 == 0 for x in ops[1:])
-            and 0 <= write_slot <= read_end < s):
+            and 0 <= int(write_slot) <= read_end < s):
         raise ValueError("decode_insert_attention: bad operands "
                          f"q{tuple(q.shape)} {q.dtype} k{tuple(k_cache.shape)}"
                          f" {k_cache.dtype} pos{tuple(pos.shape)} "
                          f"read_end={read_end} write_slot={write_slot}")
-    out = torch.empty_like(q)
-    st = (torch.empty(2, b, h, dtype=torch.float32, device=q.device)
-          if stats else None)
+    if out is None:
+        res = torch.empty_like(q)
+        st = (torch.empty(2, b, h, dtype=torch.float32, device=q.device)
+              if stats else None)
+    elif stats:
+        # (out, m, l): m and l are rows 0 and 1 of one (2, B, H) buffer
+        res, st = out[0], out[1]
+        if out[2].data_ptr() != st.data_ptr() + 4 * b * h:
+            raise ValueError("decode_insert_attention: out is not a "
+                             "result of this entry")
+    else:
+        res, st = out, None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -188,9 +210,9 @@ def decode_insert_attention(q, k_new, v_new, cur_pos, k_cache, v_cache, pos,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cur_pos.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         ptr(k_scale), ptr(v_scale), ptr(ks_new), ptr(vs_new),
-        out.data_ptr(), ptr(st), b, h, d, s, int(read_end), int(write_slot),
-        k7_split(int(read_end), s, b), cuda_lib.dtype_code(q),
-        cuda_lib.stream_ptr(q.device))
+        res.data_ptr(), ptr(st), cuda_lib.cursor_ptr(write_slot), b, h, d, s,
+        int(read_end), int(write_slot), k7_split(int(read_end), s, b),
+        cuda_lib.dtype_code(q), cuda_lib.stream_ptr(q.device))
     cuda_lib.check(rc, "ptt_insert_attn")
     if quant:
         decode_insert_attention.launches_kv8 += 1
@@ -198,8 +220,8 @@ def decode_insert_attention(q, k_new, v_new, cur_pos, k_cache, v_cache, pos,
         decode_insert_attention.launches += 1
     if stats:
         decode_insert_attention.launches_stats += 1
-        return out, st[0], st[1]
-    return out
+        return out if out is not None else (res, st[0], st[1])
+    return res
 
 
 decode_insert_attention.launches = 0

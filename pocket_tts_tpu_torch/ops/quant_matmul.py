@@ -271,18 +271,20 @@ def wgmma_launch(lib, x2, q, scale, y, rows: int, k: int, n: int, stream,
     return plan
 
 
-def int8_matmul(x, q, scale):
+@cuda_lib.entry
+def int8_matmul(x, q, scale, out=None):
     """Same contract as int8_matmul_plain; for CUDA tensors (x float32 or
     bfloat16, `kernel_operands`' layouts) launches the kernel of x's
-    route (`int8_route`) once (`_int8_cuda`)."""
+    route (`int8_route`) once (`_int8_cuda`). out: an earlier call's
+    result, written again."""
     if x.device.type == "cpu":
-        return int8_matmul_plain(x, q, scale)
+        return cuda_lib.into(out, int8_matmul_plain(x, q, scale))
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
-    return _int8_cuda(x, q, scale)
+    return _int8_cuda(x, q, scale, out)
 
 
-def _int8_cuda(x, q, scale):
+def _int8_cuda(x, q, scale, out=None):
     """int8_matmul on the card: one launch of wgmma_int8_kernel
     (`wgmma_launch`) or of the row-block product (`fused_layer.
     rows_launch`), counted in `int8_matmul.launches` only (the warpgroup
@@ -295,7 +297,8 @@ def _int8_cuda(x, q, scale):
             and x.dtype in (torch.float32, torch.bfloat16)):
         raise _bad("int8_matmul", x=x, q=q, scale=scale)
     lin, layout = kernel_operands({"q": q, "scale": scale}, k, n, x)
-    y = torch.empty(rows, n, dtype=x.dtype, device=x.device)
+    y = (torch.empty(rows, n, dtype=x.dtype, device=x.device) if out is None
+         else out.view(rows, n))
     lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(x.device)
     if int8_route(x.dtype, rows) == "wgmma":
         wgmma_launch(lib, x2, q, scale, y, rows, k, n, stream)
@@ -304,7 +307,7 @@ def _int8_cuda(x, q, scale):
         rows_launch(lib, x.dtype, x2, (None, None), lin, layout, None, None,
                     y, rows, k, n, ROWS_LOAD, EPI_ROUND, False, 0.0, stream)
     int8_matmul.launches += 1
-    return y.reshape(*x.shape[:-1], n)
+    return y.reshape(*x.shape[:-1], n) if out is None else out
 
 
 def int4_matmul_plain(x, q4, scale):
@@ -316,12 +319,14 @@ def int4_matmul_plain(x, q4, scale):
     return y.to(x.dtype).reshape(*x.shape[:-1], q4.shape[-1])
 
 
-def int4_matmul(x, q4, scale):
+@cuda_lib.entry
+def int4_matmul(x, q4, scale, out=None):
     """Same contract as int4_matmul_plain; for CUDA tensors (x float32 or
     bfloat16, `kernel_operands`' layouts) launches the row-block product
-    of x's route once (`fused_layer.rows_launch`), counted here only."""
+    of x's route once (`fused_layer.rows_launch`), counted here only.
+    out: an earlier call's result, written again."""
     if x.device.type == "cpu":
-        return int4_matmul_plain(x, q4, scale)
+        return cuda_lib.into(out, int4_matmul_plain(x, q4, scale))
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul: unsupported device {x.device}")
     from .fused_layer import EPI_ROUND, ROWS_LOAD, rows_launch
@@ -332,12 +337,13 @@ def int4_matmul(x, q4, scale):
             and x.dtype in (torch.float32, torch.bfloat16)):
         raise _bad("int4_matmul", x=x, q4=q4, scale=scale)
     lin, layout = kernel_operands({"q4": q4, "scale": scale}, 2 * kh, n, x)
-    y = torch.empty(x2.shape[0], n, dtype=x.dtype, device=x.device)
+    y = (torch.empty(x2.shape[0], n, dtype=x.dtype, device=x.device)
+         if out is None else out.view(x2.shape[0], n))
     rows_launch(cuda_lib.library(), x.dtype, x2, (None, None), lin, layout,
                 None, None, y, x2.shape[0], 2 * kh, n, ROWS_LOAD, EPI_ROUND,
                 False, 0.0, cuda_lib.stream_ptr(x.device))
     int4_matmul.launches += 1
-    return y.reshape(*x.shape[:-1], n)
+    return y.reshape(*x.shape[:-1], n) if out is None else out
 
 
 int8_matmul.launches = int8_matmul.launches_wgmma = 0

@@ -28,6 +28,13 @@ rings the (cap,) scale rows too. Both take an optional lane axis: B streams
 that share the ring offset, each with its own start (continuous batching),
 in one launch. Launches over rings of the working type count in
 `ring_insert_attention.launches`, over int8 rings in `.launches_kv8`.
+
+The offset is a host int, or the batch's ring-offset cursor
+(`models.frame_graph.Cursor`) when the lane frame runs from CUDA graphs:
+the kernel then loads the offset from the cursor's int32 on the device at
+block entry, and the plain version computes with it, so a frame replayed
+from a graph reads and writes where the frame advanced the ring; `int()`
+of it, the host mirror, is what the checks here read.
 """
 from __future__ import annotations
 
@@ -74,6 +81,7 @@ def ring_insert_attention_plain(q, k_new, v_new, k_cache, v_cache,
     With a lane axis: q/k_new/v_new (B, T, H*D), caches (B, cap, H*D), the
     offset shared by the lanes and start a (B,) int32 tensor (each lane's
     first timestep); scales (B, T) and (B, cap); returns (B, T, H*D)."""
+    offset = cuda_lib.cursor_value(offset)
     if k_scale is not None:
         if q.dim() == 3:
             return _ring_plain_q(q, k_new, v_new, k_cache, v_cache, offset,
@@ -148,17 +156,20 @@ def _ring_plain_q(q, k_new, v_new, k_cache, v_cache, offset: int, start,
     return out.to(q.dtype).reshape(b, t, hd)
 
 
-def ring_insert_attention(q, k_new, v_new, k_cache, v_cache, offset: int,
+@cuda_lib.entry
+def ring_insert_attention(q, k_new, v_new, k_cache, v_cache, offset,
                           start, num_heads: int, context: int, k_scale=None,
-                          v_scale=None, ks_new=None, vs_new=None):
+                          v_scale=None, ks_new=None, vs_new=None, out=None):
     """Same contract as ring_insert_attention_plain, solo or with a lane
     axis; launches the CUDA kernel for CUDA tensors (float32 or bfloat16,
     D = 64, T <= 16, cap and offset multiples of T; int8 rings with
-    float32 scales), one launch for all lanes."""
+    float32 scales), one launch for all lanes. offset: an int or a device
+    cursor (module docstring). out: an earlier call's result, written
+    again."""
     if q.device.type == "cpu":
-        return ring_insert_attention_plain(q, k_new, v_new, k_cache, v_cache,
-                                           offset, start, num_heads, context,
-                                           k_scale, v_scale, ks_new, vs_new)
+        return cuda_lib.into(out, ring_insert_attention_plain(
+            q, k_new, v_new, k_cache, v_cache, offset, start, num_heads,
+            context, k_scale, v_scale, ks_new, vs_new))
     if q.device.type != "cuda":
         raise ValueError(f"ring_insert_attention: unsupported device "
                          f"{q.device}")
@@ -177,7 +188,7 @@ def ring_insert_attention(q, k_new, v_new, k_cache, v_cache, offset: int,
                     and start.dtype == torch.int32
                     and start.device == q.device and start.is_contiguous())
     else:
-        start_ok = 0 <= start <= offset
+        start_ok = 0 <= start <= int(offset)
     kv_dtype = torch.int8 if quant else q.dtype
     if not (k_new.shape == v_new.shape == q.shape
             and k_cache.shape == v_cache.shape == lead + (cap, hd)
@@ -190,7 +201,7 @@ def ring_insert_attention(q, k_new, v_new, k_cache, v_cache, offset: int,
                     and x.device == q.device for x, shape in scales
                     if quant)
             and (quant or all(x is None for x, _ in scales))
-            and cap % t == 0 and offset % t == 0 and start_ok):
+            and cap % t == 0 and int(offset) % t == 0 and start_ok):
         raise ValueError("ring_insert_attention: bad operands "
                          f"q{tuple(q.shape)} {q.dtype} cache"
                          f"{tuple(k_cache.shape)} {k_cache.dtype} "
@@ -199,12 +210,13 @@ def ring_insert_attention(q, k_new, v_new, k_cache, v_cache, offset: int,
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    out = torch.empty_like(q)
+    out = torch.empty_like(q) if out is None else out
     rc = cuda_lib.library().ptt_ring_attn(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), out.data_ptr(), start.data_ptr() if lanes else 0,
-        ptr(ks_new), ptr(vs_new), ptr(k_scale), ptr(v_scale), b, t,
-        num_heads, d, cap, int(offset), 0 if lanes else int(start),
+        ptr(ks_new), ptr(vs_new), ptr(k_scale), ptr(v_scale),
+        cuda_lib.cursor_ptr(offset), b, t, num_heads, d, cap, int(offset),
+        0 if lanes else int(start),
         int(context), k2_split(cap, t), cuda_lib.dtype_code(q),
         cuda_lib.stream_ptr(q.device))
     cuda_lib.check(rc, "ptt_ring_attn")

@@ -145,7 +145,7 @@ def frame_shapes(cfg, b: int, t: int):
     return rows
 
 
-def frame_launches(cfg, state: dict, x, weights: dict, nb: int):
+def frame_launches(cfg, state: dict, x, weights: dict, nb: int, pcm=None):
     """The frame's launches as data, in order: ([(name, kind, spec)], pcm).
     kind "gemm": spec holds the conv-GEMM's operands (mode, src, carry, w,
     bias, res, out: tensors or None), its ints (cin, nt, kw, pc, out_elu,
@@ -156,7 +156,8 @@ def frame_launches(cfg, state: dict, x, weights: dict, nb: int):
     in_ch), lane-major; the carries in `state` hold nb lanes. Every
     intermediate tensor is made here and referenced by the list, so no
     launch's tail reads memory the allocator has handed to another
-    tensor."""
+    tensor. pcm: the output to write, of any shape of (nb * T *
+    total_stride, out_ch) elements (None: a new one)."""
     t = x.shape[0] // nb
     out = []
 
@@ -202,7 +203,8 @@ def frame_launches(cfg, state: dict, x, weights: dict, nb: int):
              res_elu=1, tail=(ye, state[rn], pr, t))
         tail = None
     w11, b11 = weights["model_11"]
-    pcm = new(nb * t, cfg.out_ch)
+    pcm = (new(nb * t, cfg.out_ch) if pcm is None
+           else pcm.view(nb * t, cfg.out_ch))
     out.append(("model_11", "last", dict(
         h=h, carry=state["model_11"], w=w11, bias=b11, out=pcm, nt=t,
         cin=h.shape[1], kw=cfg.last_kernel,
@@ -229,14 +231,15 @@ def gemm_args(sp, nb: int, plan, dt: int, stream: int):
         dt, stream)
 
 
-def frame_steps(cfg, state: dict, x, weights: dict, nb: int):
+def frame_steps(cfg, state: dict, x, weights: dict, nb: int, pcm=None):
     """`frame_launches` bound to the kernels: ([(name, (M, N, K), run)],
     pcm), `run()` making one launch (`seanet_frame` runs them all in
-    order; chip_smoke.py times each)."""
+    order; chip_smoke.py times each). pcm: the output to write (None: a
+    new one)."""
     lib = cuda_lib.library()
     dt = cuda_lib.dtype_code(x)
     stream = cuda_lib.stream_ptr(x.device)
-    launches, pcm = frame_launches(cfg, state, x, weights, nb)
+    launches, pcm = frame_launches(cfg, state, x, weights, nb, pcm)
     steps = []
     for name, kind, sp in launches:
         if kind == "gemm":
@@ -264,18 +267,20 @@ def frame_steps(cfg, state: dict, x, weights: dict, nb: int):
     return steps, pcm
 
 
-def seanet_frame(p, cfg, state: dict, x, weights: dict = None):
+@cuda_lib.entry
+def seanet_frame(p, cfg, state: dict, x, weights: dict = None, out=None):
     """x: (T, in_ch) -> pcm (T * total_stride, out_ch), or with a lane axis
     x (B, T, in_ch) -> (B, T * total_stride, out_ch); the carries in
     `state` (with the lane axis: (B, ...) each) are updated in place. p:
     decoder params; weights: their `prep_weights` (built here when not
-    given, which costs the transforms every call)."""
+    given, which costs the transforms every call). out: an earlier call's
+    pcm, written again."""
     if x.device.type == "cpu":
         from ..models.seanet import forward_plain
         new, pcm = forward_plain(p, cfg, state, x)
         for key in state:
             state[key].copy_(new[key])
-        return pcm
+        return cuda_lib.into(out, pcm)
     if x.device.type != "cuda":
         raise ValueError(f"seanet_frame: unsupported device {x.device}")
     if weights is None:
@@ -291,10 +296,12 @@ def seanet_frame(p, cfg, state: dict, x, weights: dict = None):
             raise ValueError(f"seanet_frame: carry {key} has no lane axis "
                              f"of {nb}")
     steps, pcm = frame_steps(cfg, state, x.reshape(-1, x.shape[-1])
-                             .contiguous(), weights, nb)
+                             .contiguous(), weights, nb, out)
     for _, _, run in steps:
         run()
     seanet_frame.launches += 1
+    if out is not None:
+        return out
     return pcm.reshape(nb, -1, cfg.out_ch) if lanes else pcm
 
 

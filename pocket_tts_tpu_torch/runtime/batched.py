@@ -5,7 +5,9 @@ leading lane axis written out (models: `BatchedBackboneState`,
 `BatchedStreamState`, the mimi state with (B, ...) tensors) where the JAX
 package vmaps. Cursors that index storage stay uniform across the lanes,
 as the JAX package's `_axes_like` keeps them: the backbone slot cursor
-`end` (and `ring_start`) and the mimi ring `offset` are host ints. Every
+`end` (and `ring_start`) and the mimi ring `offset` are host ints (a
+batch whose frames run from CUDA graphs keeps `end` and `offset` on the
+device as well, models/frame_graph.py). Every
 per-stream quantity (positions, `next_pos`, the mimi `start`, `step`,
 `eos_step`, `done`) is a (B, ...) tensor on the device, so lanes can sit
 at different points of their sentences (continuous batching), and a frame
@@ -291,10 +293,12 @@ def _run_frames(p, cfg, states, n_frames: int, noise_of, frames_after_eos,
     pcms, valids = [], []
     with torch.no_grad():
         for i in range(n_frames):
-            with span("ptt.frame", i=i):
+            with span("ptt.frame", i=i) as sp:
                 pcm, valid = tts.frame_step_lanes(
                     p, cfg, states, noise_of(i), frames_after_eos, max_steps,
                     seanet_weights)
+                if sp:  # "capture", "replay" (CUDA graphs) or "eager"
+                    sp.set(graph=tts.frame_mode(states))
             pcms.append(pcm)
             valids.append(valid)
     return states, torch.stack(pcms, 1), torch.stack(valids, 1)

@@ -424,7 +424,7 @@ class ContinuousBatchingServer:
                 raise ValueError(
                     "register_voices changed the lane cache shapes while "
                     "requests are live; drain the server first")
-            self.batch = None  # the next _admit builds a fresh epoch
+            self._free_batch()  # the next _admit builds a fresh epoch
 
     def _build_prefix_tables(self) -> bool:
         """Concatenate every registered voice's tables along the slot axis
@@ -500,9 +500,16 @@ class ContinuousBatchingServer:
                 torch.from_numpy(tokens).to(eng.device),
                 torch.from_numpy(n_valid).to(eng.device))
 
+    def _free_batch(self):
+        """Drop the batch, and the CUDA graphs of its frames with it."""
+        if self.batch is not None and self.batch.graphs is not None:
+            self.batch.graphs.reset()
+        self.batch = None
+
     def _reset_epoch(self):
         eng = self.engine
         self._compact_useful = True
+        self._free_batch()
         self.batch = empty_batch_state(eng.params, self.cfg, len(self._own),
                                        self.capacity, self.prefix_slots,
                                        eng.dtype, eng.device, ring=self.ring,
@@ -627,7 +634,7 @@ class ContinuousBatchingServer:
                 self._queue.insert(0, req)
                 self._live[lane] = None
                 self._chunks[lane] = []
-        self.batch = None
+        self._free_batch()
 
     def _admit_group(self, group):
         if not group:
@@ -665,10 +672,17 @@ class ContinuousBatchingServer:
                 self._live[lane] = req
                 self._chunks[lane] = []
                 req.admit_step = self.steps
+            # written in place once made: a frame replayed from CUDA graphs
+            # reads them where its capture did
             own = slice(self._own.start, self._own.stop)
-            self._fae_t = torch.from_numpy(self._fae[own]).to(eng.device)
-            self._max_steps_t = torch.from_numpy(self._max_steps[own]).to(
-                eng.device)
+            fae = torch.from_numpy(self._fae[own])
+            steps = torch.from_numpy(self._max_steps[own])
+            if self._fae_t is None:
+                self._fae_t, self._max_steps_t = (fae.to(eng.device),
+                                                  steps.to(eng.device))
+            else:
+                self._fae_t.copy_(fae)
+                self._max_steps_t.copy_(steps)
 
     def step(self) -> int:
         """One admission + one decode chunk. Returns frames emitted."""
