@@ -68,19 +68,22 @@ def int4_channels(w: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Precision:
     """weights: "float" or "int4" (per-channel linears) or "fp8";
-    kv / mimi_kv: "float", "int8", "int4" or "fp8" rows; acts: "float" or
-    "fp8" inputs to every matrix product."""
+    kv / mimi_kv: "float", "int8", "int4" or "fp8" rows; acts: "float",
+    "bf16" or "fp8" inputs to every matrix product."""
     weights: str = "float"
     kv: str = "float"
     mimi_kv: str = "float"
     acts: str = "float"
 
     def act(self, x):
+        if self.acts == "bf16":
+            return x.to(torch.bfloat16).float()
         return fp8_rows(x) if self.acts == "fp8" else x
 
     def out(self, x):
         """What a stage hands on (latents, PCM frames) in the working
-        type: float32 as computed, or fp8 rows for the control."""
+        type: float32 as computed, bfloat16, or fp8 rows for the
+        control."""
         return self.act(x)
 
     @staticmethod
@@ -101,6 +104,13 @@ def configured(spec: dict) -> Precision:
     """The precision a configuration file's "reference" entry states."""
     return Precision(weights=spec["weights"], kv=spec["kv"],
                      mimi_kv=spec["mimi_kv"], acts="float")
+
+
+def bf16_inputs(spec: dict) -> Precision:
+    """The configured precision with every matrix product's inputs, and
+    what each stage hands on, rounded to bfloat16: the yardstick of the
+    PCM's error (`compare.py`)."""
+    return dataclasses.replace(configured(spec), acts="bf16")
 
 
 def lower(spec: dict) -> Precision:
@@ -402,6 +412,13 @@ def run_request(model: Model, voice, tokens, latents, noise):
         eos, lat = model.flow_lm(voice, tokens, latents, noise)
         pcm = model.mimi(latents)
     return eos, lat, pcm
+
+
+def run_mimi(model: Model, latents):
+    """pcm (n, frame) of served latents (n, lat) through the Mimi
+    decoder alone."""
+    with torch.no_grad(), no_tf32():
+        return model.mimi(latents)
 
 
 def prepare_text(text: str):

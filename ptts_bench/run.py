@@ -22,7 +22,6 @@ import argparse  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
-import math  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -71,36 +70,6 @@ def power_limit() -> str:
         return "unknown"
 
 
-def model_flops(run, cap, conf, mix, tok) -> float:
-    """The model's operations over the traced chunks: each frame a lane
-    emitted there and each text row admitted there."""
-    from . import model_flops as mf, reference, traffic
-    m = conf["model"]
-    voice_len = traffic.voice_order(mix, run.seed)
-    first, last = run.notes["traced_steps"]
-    total = 0.0
-    sizes = {}
-    for c in range(first, last):
-        for req in cap.lanes.get(c, []):
-            if req is None:
-                continue
-            if id(req) not in sizes:
-                text = reference.prepare_text(req.text)[0]
-                sizes[id(req)] = (voice_len[int(req.voice[1:])],
-                                  len(tok.encode(text)))
-            nv, nt = sizes[id(req)]
-            frames = (req.pcm.size // run.frame_size if req.pcm is not None
-                      else math.inf)
-            if req.admit_step == c:
-                total += sum(mf.prefill_row(m, nv + i + 1)
-                             for i in range(nt))
-            for i in range(run.chunk_frames):
-                j = (c - req.admit_step) * run.chunk_frames + i
-                if j < frames:
-                    total += mf.frame(m, nv + nt + j + 1, j)
-    return total
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -145,45 +114,31 @@ def main(argv=None) -> int:
 
 
 def run_cell(cell, conf, mix, bench, seed, seconds, trace, control,
-             device, dtype, kernels=None):
+             device, dtype, kernels=None, root=ROOT):
     """One run; returns (the result dict, its key "checks" last; the
-    run's records). Used by
-    `main` on the card and by the tests on the CPU at small sizes."""
+    run's records). Used by `main` on the card and by the tests on the
+    CPU at small sizes. `root` holds the model families (`families/`)."""
     import torch
     from pocket_tts_tpu_torch.ops import cuda_lib
-    from . import compare, serve, traffic
+    from . import families, serve
+    fam = families.load(conf, root)
     if device.type == "cuda":
         cuda_lib.set_build_dir(str(serve.cache_dirs()["kernels"]))
     run = serve.Run(t0=T0)
     run.seed = seed
-    run.frame_size = (conf["model"]["mimi"]["upsample_stride"]
-                      * math.prod(s["stride"] for s in
-                                  conf["model"]["mimi"]["seanet"]["stages"]))
-    srv = serve.build(conf, mix, seed, device, dtype)
-    planned = traffic.plan(mix, seed)
-    serve.warm_prefills(srv, mix, planned)
-    cap = serve.serve(mix, srv, planned, run, seconds, device, trace,
+    run.frame_size = fam.frame_size(conf)
+    srv = fam.build(conf, mix, seed, device, dtype)
+    planned = fam.plan(mix, seed)
+    fam.warm(srv, mix, planned)
+    cap = serve.serve(mix, fam, srv, planned, run, seconds, device, trace,
                       kernel_specs() if kernels is None else kernels)
     run.device_name = (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu")
     run.peaks = peaks_for(run.device_name)
-    tok = traffic.WordTokenizer(conf["model"]["lut"]["n_bins"])
     if trace:
-        run.flops_traced = model_flops(run, cap, conf, mix, tok)
+        run.flops_traced = fam.model_flops(run, cap, conf, mix)
     # the sample, then the program's state freed before the reference
-    cands = []
-    for s in run.sent:
-        if s.done_step is None or not (run.open_step < s.done_step
-                                       <= run.close_step):
-            continue
-        lane = cap.lane_of(s.req, s.req.admit_step)
-        n = s.req.pcm.size // run.frame_size
-        if lane is not None and n > 0:
-            cands.append(compare.Case(s, lane, n, None, None))
-    cases = compare.pick(cands, mix["sample"], seed)
-    for c in cases:
-        c.latents = cap.request_latents(c.sent.req, c.lane, c.frames)
-        c.pcm = c.sent.req.pcm.reshape(c.frames, run.frame_size)
+    cases = fam.sample(run, cap, mix, seed)
     cap.close()
     attempted = sum(1 for s in run.sent
                     if run.t_open < s.t_send <= run.t_close)
@@ -191,7 +146,7 @@ def run_cell(cell, conf, mix, bench, seed, seconds, trace, control,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    verdict = compare.judge(conf, mix, cases, seed, device, control)
+    verdict = fam.judge(conf, mix, cases, seed, device, control)
     run.notes["rows"] = verdict["rows"]
     names = [m["name"] for m in bench[
         "per_layer" if trace else "end_to_end"]

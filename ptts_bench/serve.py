@@ -1,24 +1,25 @@
 """One run of a cell: set-up, the measured window, the correctness check.
 
 The harness plays the clients of the port's continuous-batching server
-(`pocket_tts_tpu_torch.runtime.server.ContinuousBatchingServer`): it
-submits each request when its session sends it, calls `step()` (one
-admission and one decode chunk of every lane), and stamps on its own clock
-when each stream's chunk reaches it, which is when `step()` returns. A
-request's frames are contiguous from the chunk after its admission, so its
-chunk k arrives with step `admit_step + 1 + k`.
+(the cell's model family builds it, `families/`): it submits each request
+when its session sends it, calls `step()` (one admission and one decode
+chunk of every lane), and stamps on its own clock when each stream's chunk
+reaches it, which is when `step()` returns. A request's frames are
+contiguous from the chunk after its admission, so its chunk k arrives with
+step `admit_step + 1 + k`.
 
-Two probes sit on the timed path in every run: each frame's latents are
-copied as `models/tts.frame_step_lanes` returns (one small device copy a
-frame, for the comparison), and the lane each live request holds is read
-from the server at the first frame of a chunk. The traced run adds host
-timers around each admission prefill and decode chunk (synchronized), and
-after the window profiles `trace_chunks` more chunks with a record of each
-hand-written kernel call (`kernels/`).
+The family's probe sits on the timed path in every run (`Capture`: what
+the judge needs of each frame, and the lane each live request holds at
+the first frame of a chunk). The traced run adds host timers around the
+family's `TIMED` functions (synchronized), and after the window profiles
+`trace_chunks` more chunks with a record of each hand-written kernel call
+(`kernels/`). The mix keys read here: `lanes`, `chunk_frames`, `capacity`,
+`arrivals`, `warm_chunks` (optional) and `trace_chunks`.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import inspect
 import json
 import os
@@ -27,23 +28,27 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
-from . import traffic, weights
+from . import families
 
 ROOT = Path(__file__).resolve().parent
 PROGRAM = "pocket_tts_tpu_torch"
 
 
 def load_cell(name: str, root: Path = ROOT):
-    """(workload entry, configuration file, mix) of a cell named in
-    BENCHMARK.json."""
+    """(workload entry, configuration file, mix, BENCHMARK.json) of a cell
+    named in BENCHMARK.json; fails here where the configuration's model
+    family has no file."""
     bench = json.loads((root.parent / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     cell = cells[name]
-    conf = {c["name"]: c for c in bench["configs"]}[cell["config"]]
-    return (cell, json.loads((root.parent / conf["file"]).read_text()),
-            traffic.load(cell["traffic"], root), bench)
+    entry = {c["name"]: c for c in bench["configs"]}[cell["config"]]
+    conf = json.loads((root.parent / entry["file"]).read_text())
+    families.load(conf, root)
+    mix = json.loads((root / "traffic" / f"{cell['traffic']}.json")
+                     .read_text())
+    return cell, conf, mix, bench
 
 
 def cache_dirs(root: Path = ROOT) -> dict:
@@ -62,25 +67,6 @@ def set_cache_env(root: Path = ROOT) -> dict:
     os.environ["TORCH_EXTENSIONS_DIR"] = str(dirs["extensions"])
     os.environ["CUDA_CACHE_PATH"] = str(dirs["cuda"])
     return dirs
-
-
-def model_config(model: dict):
-    """The port's ModelConfig with the sizes of a configuration file."""
-    from pocket_tts_tpu_torch import config as pc
-
-    def fill(obj, spec):
-        ch = {}
-        for k, v in spec.items():
-            cur = getattr(obj, k)
-            if dataclasses.is_dataclass(cur):
-                ch[k] = fill(cur, v)
-            elif k == "stages":
-                ch[k] = tuple(pc.SeanetStage(**s) for s in v)
-            else:
-                ch[k] = v
-        return dataclasses.replace(obj, **ch)
-
-    return fill(pc.DEFAULT_CONFIG, model)
 
 
 def patch_everywhere(orig, repl) -> list:
@@ -111,7 +97,7 @@ def unpatch(hits):
 
 @dataclasses.dataclass
 class Sent:
-    plan: traffic.Planned
+    plan: object           # the family's planned request
     req: object            # the server's Request
     session: int
     t_send: float
@@ -148,11 +134,12 @@ class Run:
 
 
 class Client:
-    """The cell's clients around one server."""
+    """The cell's clients around one server; `submit(srv, planned)` hands
+    the server one planned request."""
 
-    def __init__(self, srv, mix: dict, planned: List[traffic.Planned],
-                 run: Run):
+    def __init__(self, srv, mix: dict, planned: list, run: Run, submit):
         self.srv = srv
+        self.submit = submit
         self.mix = mix
         self.plan = planned
         self.run = run
@@ -172,7 +159,7 @@ class Client:
             raise RuntimeError("the traffic plan ran out: raise `pool`")
         p = self.plan[self.cursor]
         self.cursor += 1
-        req = self.srv.submit(p.text, p.voice, temp=p.temp, seed=p.seed)
+        req = self.submit(self.srv, p)
         s = Sent(p, req, session, now if due is None else due)
         self.run.sent.append(s)
         self.busy[id(req)] = s
@@ -208,67 +195,12 @@ class Client:
         return now
 
 
-class Capture:
-    """Each frame's latents (B, latent) and, at each chunk's first frame,
-    which request every lane holds."""
-
-    def __init__(self, srv, chunk_frames: int):
-        import torch
-        from pocket_tts_tpu_torch.models import tts
-        self.srv = srv
-        self.cf = chunk_frames
-        self.latents = []
-        self.lanes: Dict[int, list] = {}
-        self.orig = tts.frame_step_lanes
-        self.annotate = False
-        cap = self
-
-        def frame_step_lanes(p, cfg, state, *a, **k):
-            out = cap.orig(p, cfg, state, *a, **k)
-            i = len(cap.latents)
-            if i % cap.cf == 0:
-                cap.lanes[i // cap.cf] = list(cap.srv._live)
-            if cap.annotate:
-                with torch.profiler.record_function("bench::probe"):
-                    cap.latents.append(state.prev_latent.clone())
-            else:
-                cap.latents.append(state.prev_latent.clone())
-            return out
-
-        def traced(p, cfg, state, *a, **k):
-            if not cap.annotate:
-                return frame_step_lanes(p, cfg, state, *a, **k)
-            with torch.profiler.record_function("tts::frame"):
-                return frame_step_lanes(p, cfg, state, *a, **k)
-
-        self.hits = patch_everywhere(self.orig,
-                                     same_attributes(traced, self.orig))
-
-    def lane_of(self, req, admit_step: int) -> Optional[int]:
-        live = self.lanes.get(admit_step)
-        if live is None:
-            return None
-        for lane, r in enumerate(live):
-            if r is req:
-                return lane
-        return None
-
-    def request_latents(self, req, lane: int, n: int):
-        import torch
-        a = req.admit_step * self.cf
-        return torch.stack([self.latents[a + j][lane] for j in range(n)])
-
-    def close(self):
-        unpatch(self.hits)
-
-
 class Timers:
-    """Synchronized host timers around each admission prefill and decode
-    chunk (the traced run's window)."""
+    """Synchronized host timers around each call of the functions `timed`
+    names ({Run list: (module, function)}; the traced run's window)."""
 
-    def __init__(self, run: Run, device):
+    def __init__(self, run: Run, device, timed: dict):
         import torch
-        from pocket_tts_tpu_torch.runtime import batched
         self.on = True
         self.hits = []
 
@@ -276,7 +208,7 @@ class Timers:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
 
-        def timed(orig, out):
+        def wrap(orig, out):
             def wrapper(*a, **k):
                 if not self.on:
                     return orig(*a, **k)
@@ -288,9 +220,9 @@ class Timers:
                 return res
             return same_attributes(wrapper, orig)
 
-        for orig, out in ((batched.batched_sentence_prefill, run.prefill_s),
-                          (batched.continuous_decode_chunk, run.chunk_s)):
-            self.hits += patch_everywhere(orig, timed(orig, out))
+        for out, (mod, fn) in timed.items():
+            orig = getattr(importlib.import_module(mod), fn)
+            self.hits += patch_everywhere(orig, wrap(orig, getattr(run, out)))
 
     def close(self):
         unpatch(self.hits)
@@ -305,7 +237,6 @@ class KernelCalls:
     call is the outer call's."""
 
     def __init__(self, specs: dict):
-        import importlib
         import torch
         self.calls: List[tuple] = []
         self.on = False
@@ -340,65 +271,16 @@ class KernelCalls:
         unpatch(self.hits)
 
 
-def build(conf: dict, mix: dict, seed: int, device, dtype):
-    """The server of a configuration and mix, its engine on the
-    benchmark's weights and voices."""
-    from pocket_tts_tpu_torch.io.params import params_from_flat
-    from pocket_tts_tpu_torch.runtime.engine import TTSEngine
-    from pocket_tts_tpu_torch.runtime.server import ContinuousBatchingServer
-    serving = conf["serving"]
-    cfg0 = model_config(conf["model"])
-    if serving.get("mimi_quantize_kv"):
-        cfg0 = dataclasses.replace(cfg0, mimi=dataclasses.replace(
-            cfg0.mimi, transformer=dataclasses.replace(
-                cfg0.mimi.transformer, quantize_kv=True)))
-    flat = weights.checkpoint(conf["model"], seed, device)
-    host = {k: v.cpu().numpy() for k, v in flat.items()}
-    del flat
-    params, cfg = params_from_flat(host, cfg0, dtype=dtype, device=device)
-    del host
-    tok = traffic.WordTokenizer(cfg.lut.n_bins)
-    eng = TTSEngine(params=params, cfg=cfg, dtype=dtype, device=device,
-                    seed=weights.sub_seed(seed, 5) % (1 << 62),
-                    tokenizer=tok, quantize=serving.get("quantize"),
-                    quantize_kv=bool(serving.get("quantize_kv")))
-    srv = ContinuousBatchingServer(
-        eng, lanes=mix["lanes"], capacity=mix["capacity"],
-        chunk_frames=mix["chunk_frames"], text_bucket=mix["text_bucket"],
-        share_prefix=bool(serving.get("share_prefix")))
-    lengths = traffic.voice_order(mix, seed)
-    prompts = weights.voices(conf["model"], lengths, seed, device)
-    srv.register_voices({f"v{i}": p.cpu().numpy()
-                         for i, p in enumerate(prompts)})
-    return srv
-
-
-def warm_prefills(srv, mix: dict, planned):
-    """One admission prefill at each power-of-two group size up to the
-    mix's `warm_groups` (admission pads a group to a power of two), on
-    requests of the plan; the ramp warms its own group size."""
-    k = 1
-    while k <= mix["warm_groups"]:
-        reqs = []
-        for p in planned[:k]:
-            r = srv.submit(p.text, p.voice, temp=p.temp, seed=p.seed)
-            srv._validate(r)
-            reqs.append(r)
-        srv._queue.clear()
-        srv._prefill_many(reqs)
-        k *= 2
-
-
-def serve(mix: dict, srv, planned, run: Run, seconds: float, device,
+def serve(mix: dict, fam, srv, planned, run: Run, seconds: float, device,
           trace: bool, kernel_specs: dict):
     """The warm-up, the window, and with trace the profiled chunks after
-    it; returns the Capture."""
+    it, on the server of the model family `fam`; returns its Capture."""
     import torch
     cf = mix["chunk_frames"]
     run.chunk_frames, run.lanes = cf, mix["lanes"]
-    cap = Capture(srv, cf)
-    client = Client(srv, mix, planned, run)
-    timers = Timers(run, device) if trace else None
+    cap = fam.Capture(srv, cf)
+    client = Client(srv, mix, planned, run, fam.submit)
+    timers = Timers(run, device, fam.TIMED) if trace else None
     if timers:
         timers.on = False
     warm = mix.get("warm_chunks", mix["arrivals"].get("ramp_chunks", 0) + 1)
@@ -431,24 +313,26 @@ def serve(mix: dict, srv, planned, run: Run, seconds: float, device,
         run.memory_peak = int(torch.cuda.max_memory_allocated(device))
     if trace:
         timers.on = False
-        profile_chunks(srv, client, cap, run, mix, device, kernel_specs)
+        profile_chunks(srv, client, cap, run, mix, device, kernel_specs,
+                       fam.PHASES)
     if timers:
         timers.close()
     return cap
 
 
 def profile_chunks(srv, client, cap, run: Run, mix: dict, device,
-                   kernel_specs: dict):
-    """`trace_chunks` chunks under torch.profiler after the window."""
+                   kernel_specs: dict, phases: dict):
+    """`trace_chunks` chunks under torch.profiler after the window, the
+    host's phases in ranges: `server::admit` around the server's `_admit`,
+    and each of `phases` ({range name: (module, function)})."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
     from . import trace as tr
     calls = KernelCalls(kernel_specs)
     cap.annotate = True
-    # name the host's phases of a step for the idle gaps: admission, the
-    # decode chunk; the rest of a step is its host read and bookkeeping
-    from pocket_tts_tpu_torch.runtime import batched
+    # name the host's phases of a step for the idle gaps: admission and
+    # the family's; the rest of a step is its host read and bookkeeping
     admit = srv._admit
 
     def annotated(name, fn):
@@ -458,9 +342,10 @@ def profile_chunks(srv, client, cap, run: Run, mix: dict, device,
         return same_attributes(wrapper, fn)
 
     srv._admit = annotated("server::admit", admit)
-    chunk = patch_everywhere(batched.continuous_decode_chunk, annotated(
-        "batched::continuous_decode_chunk",
-        batched.continuous_decode_chunk))
+    named = []
+    for name, (mod, fn) in phases.items():
+        orig = getattr(importlib.import_module(mod), fn)
+        named += patch_everywhere(orig, annotated(name, orig))
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
@@ -479,7 +364,7 @@ def profile_chunks(srv, client, cap, run: Run, mix: dict, device,
                 torch.cuda.synchronize(device)
         calls.on = False
     calls.close()
-    unpatch(chunk)
+    unpatch(named)
     srv._admit = admit
     cap.annotate = False
     run.notes["traced_steps"] = (first, srv.steps)

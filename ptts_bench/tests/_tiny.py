@@ -37,9 +37,10 @@ def conf(name="pocket-tts.int4-kv8", dtype="float32"):
                                 {"in_ch": d // 2, "out_ch": d // 4,
                                  "kernel": 8, "stride": 4}]}}}
     c["serving"]["dtype"] = dtype
-    # float32 on both sides agrees to ~1e-7 at these sizes (the cells'
-    # limits are set from bf16 runs on the card)
-    c["limits"] = {"latent_rel": 1e-4, "pcm_rel": 1e-4, "eos_miss": 0}
+    # float32 on both sides agrees to ~1e-7 at these sizes, ~5e-5 of
+    # bfloat16's distance in the PCM (the cells' limits are set from bf16
+    # runs on the card)
+    c["limits"] = {"latent_rel": 1e-4, "pcm_vs_bf16": 0.01, "eos_miss": 0}
     return c
 
 

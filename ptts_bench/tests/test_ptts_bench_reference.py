@@ -14,11 +14,17 @@ def test_reference_agrees_with_the_port_on_the_cpu(name):
                             _tiny.bench(), 2 ** 31 + 3, 6.0, False, True,
                             torch.device("cpu"), torch.float32)
     assert out["correct"] and out["sampled"] >= 3
+    # relative errors to float32 rounding; the PCM's distance, in units of
+    # bfloat16's, to float32 rounding in those units
+    most = {"latent_rel": 1e-5, "pcm_vs_bf16": 1e-3, "eos_miss": 0}
+    assert set(out["checks"]) == set(most)
     for name_, c in out["checks"].items():
-        assert c["value"] <= (1e-5 if name_ != "eos_miss" else 0), name_
+        assert c["value"] <= most[name_], name_
     # the control, one precision step down, reads far above the port
     assert out["control"]["latent_rel"] > 100 * max(
         out["checks"]["latent_rel"]["value"], 1e-7)
+    assert out["control"]["pcm_vs_bf16"] > 100 * max(
+        out["checks"]["pcm_vs_bf16"]["value"], 1e-3)
 
 
 def test_int4_channels_match_the_rule():

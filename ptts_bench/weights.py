@@ -5,7 +5,10 @@ The checkpoint has the key set and torch layouts of Kyutai's
 (`model`), filled the way random test checkpoints of this model are:
 N(0, 0.02) for weights and biases, N(0, 1) for the BOS latent and the
 time-embedding frequencies, 0.2 for the upsampler, ones and zeros for
-norms, 0.01 layer scales, an EOS bias of -6. Every random value comes from
+norms, 0.01 layer scales, an EOS bias of -6; but the SEANet's last conv
+has taps that sum to zero over its kernel for each input channel and no
+bias, so that the PCM has no DC offset on any seed, as audio has none (a
+drawn offset left the PCM's norm to the seed). Every random value comes from
 one torch.Generator on the device, in a few large draws, and is rounded
 to bfloat16 (the type the model is served in), so the program and the
 reference read the same numbers. Voices are prompt embeddings of
@@ -29,7 +32,8 @@ def sub_seed(seed: int, *tag: int) -> int:
 
 def layout(model: dict) -> List[Tuple[str, tuple, object]]:
     """[(key, shape, fill)] of the checkpoint; fill a float std for
-    N(0, std), or ("const", value)."""
+    N(0, std), ("const", value), or ("zero_dc", std) for N(0, std) less
+    its mean over the last axis (the kernel's taps)."""
     bb, fl, mi = model["backbone"], model["flow"], model["mimi"]
     dm, lat = bb["d_model"], model["latent_dim"]
     hid = dm * bb["hidden_scale"]
@@ -113,8 +117,8 @@ def layout(model: dict) -> List[Tuple[str, tuple, object]]:
                  (st["out_ch"],), s)]
     out += [("mimi.decoder.model.11.conv.weight",
              (sc["out_ch"], sc["stages"][-1]["out_ch"], sc["last_kernel"]),
-             s),
-            ("mimi.decoder.model.11.conv.bias", (sc["out_ch"],), s)]
+             ("zero_dc", s)),
+            ("mimi.decoder.model.11.conv.bias", (sc["out_ch"],), zero)]
     return out
 
 
@@ -129,19 +133,28 @@ def checkpoint(model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
     representable in bfloat16."""
     items = layout(model)
     n = sum(int(np.prod(shape)) for _, shape, fill in items
-            if not isinstance(fill, tuple))
+            if not _const(fill))
     gen = torch.Generator(device=device)
     gen.manual_seed(sub_seed(seed, 1))
     z = _draw(gen, n, device)
     out, a = {}, 0
     for key, shape, fill in items:
-        if isinstance(fill, tuple):
+        if _const(fill):
             out[key] = torch.full(shape, fill[1], device=device)
             continue
         m = int(np.prod(shape))
-        out[key] = (z[a:a + m].view(shape) * fill).to(torch.bfloat16).float()
+        w = z[a:a + m].view(shape)
+        if isinstance(fill, tuple):
+            w = (w - w.mean(-1, keepdim=True)) * fill[1]
+        else:
+            w = w * fill
+        out[key] = w.to(torch.bfloat16).float()
         a += m
     return out
+
+
+def _const(fill) -> bool:
+    return isinstance(fill, tuple) and fill[0] == "const"
 
 
 def voices(model: dict, lengths, seed: int, device) -> List[torch.Tensor]:
