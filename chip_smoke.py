@@ -6301,6 +6301,319 @@ def check_frame_graphs(device, voice):
     return rows
 
 
+# --------------------------------------------------------------- phase 14 --
+
+MOSHI_LANES = 32
+# the bound of a call: its bytes at the card's bandwidth or its operations
+# at its bf16 peak, whichever takes longer (PERF.md, section 6)
+HBM_BYTES_S, BF16_FLOPS_S = 3.35e12, 989e12
+
+
+def _bound_us(flops, nbytes):
+    return 1e6 * max(flops / BF16_FLOPS_S, nbytes / HBM_BYTES_S)
+
+
+def k7_moshi_case(device, dtype, d=128, h=32, s=3072, context=3000, ws=1000,
+                  b=MOSHI_LANES, seed=71):
+    """K7's inputs at Moshi's shapes (or Pocket TTS's with d=64, h=16,
+    s=1024): a ring of s slots whose write slot is ws, lane i holding the
+    last L_i positions before its new row, those more than `context` back
+    left out (-1), lanes from 1 slot to past the window; lane 1 an idle
+    lane (cur_pos -1). Returns (q, k_new, v_new, cur_pos, k_cache,
+    v_cache, pos, read_end, write_slot)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    hd = h * d
+    kc = torch.randn(b, s, hd, generator=g, device=device).to(dtype)
+    vc = torch.randn(b, s, hd, generator=g, device=device).to(dtype)
+    q = torch.randn(b, h, d, generator=g, device=device).to(dtype)
+    kn = torch.randn(b, 1, hd, generator=g, device=device).to(dtype)
+    vn = torch.randn(b, 1, hd, generator=g, device=device).to(dtype)
+    pos = torch.full((b, s), -1, dtype=torch.int32)
+    cur = torch.zeros(b, dtype=torch.int32)
+    for i in range(b):
+        fill = 1 + (i * 331) % (s + 100)
+        cur[i] = fill
+        for j in range(1, min(fill + 1, s)):
+            if j < context:
+                pos[i, (ws - j) % s] = fill - j
+    cur[1] = -1
+    pos[:, ws] = cur
+    return (q, kn, vn, cur.to(device), kc, vc, pos.to(device), s - 1, ws)
+
+
+def _k7_cost(q, kc, pos):
+    b, h, d = q.shape
+    valid = int((pos >= 0).sum())
+    row = kc.shape[-1] * kc.element_size()
+    nbytes = 2 * valid * row + pos.numel() * 4 + 4 * q.numel() * \
+        q.element_size()
+    return 4.0 * valid * h * d, nbytes
+
+
+def check_k7_moshi(device, d=128):
+    """K7 at D = 128 (Moshi: 32 heads, a 3,072-slot ring, a 3,000-slot
+    window, 32 lanes) or at D = 64 (Pocket TTS: 16 heads, 1,024 slots),
+    bf16, against its plain version: the output, and the caches after the
+    insert. Returns the row (us, bound_us, plain_us, err)."""
+    import torch
+    from pocket_tts_tpu_torch.ops.insert_attn import (
+        decode_insert_attention, decode_insert_attention_plain)
+    dt = torch.bfloat16
+    case = (k7_moshi_case(device, dt) if d == 128 else
+            k7_moshi_case(device, dt, d=64, h=16, s=1024, context=1024,
+                          ws=300))
+    q, kn, vn, cur, kc, vc, pos, re_, ws = case
+    kc2, vc2 = kc.clone(), vc.clone()
+    got = decode_insert_attention(q, kn, vn, cur, kc, vc, pos, re_, ws)
+    want = decode_insert_attention_plain(q, kn, vn, cur, kc2, vc2, pos, re_,
+                                         ws)
+    err = float((got.float() - want.float()).abs().max())
+    if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
+        raise AssertionError(f"K7 D={d}: the caches differ from the plain "
+                             "insert")
+    # two bf16 ulps of an output below 4 in magnitude
+    if err > 3.2e-2 or not torch.isfinite(got).all():
+        raise AssertionError(f"K7 D={d}: max abs err {err}")
+    us = 1e3 * device_ms(lambda: decode_insert_attention(
+        q, kn, vn, cur, kc, vc, pos, re_, ws), 100)[0]
+    plain_us = 1e3 * device_ms(lambda: decode_insert_attention_plain(
+        q, kn, vn, cur, kc2, vc2, pos, re_, ws), 5)[0]
+    return dict(us=us, bound_us=_bound_us(*_k7_cost(q, kc, pos)),
+                plain_us=plain_us, err=err)
+
+
+def check_k2_moshi(device, t=2, layers=8):
+    """K2 at t new rows a frame over `layers` layers' rings (Moshi's Mimi:
+    2 rows, 8 layers; Pocket TTS's: 16 rows), 8 heads of 64, 256 slots,
+    a 250-step window, 32 lanes with their own starts, bf16, the ring
+    wrapped: each layer's output against the plain version, and the
+    rings after the insert equal to the plain insert's (the kernel's
+    padding rows of the MMA never write). Returns the row."""
+    import torch
+    from pocket_tts_tpu_torch.ops.ring_attn import (
+        ring_insert_attention, ring_insert_attention_plain)
+    dt = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(72 + t)
+    b, cap, h, d, ctx, off = MOSHI_LANES, 256, 8, 64, 250, 608
+    hd = h * d
+    start = torch.tensor([max(0, off - (i * 37) % 420) // t * t
+                          for i in range(b)], dtype=torch.int32,
+                         device=device)
+    calls, err = [], 0.0
+    for _ in range(layers):
+        q, kn, vn = (torch.randn(b, t, hd, generator=g, device=device)
+                     .to(dt) for _ in range(3))
+        kc, vc = (torch.randn(b, cap, hd, generator=g, device=device)
+                  .to(dt) for _ in range(2))
+        kc2, vc2 = kc.clone(), vc.clone()
+        got = ring_insert_attention(q, kn, vn, kc, vc, off, start, h, ctx)
+        want = ring_insert_attention_plain(q, kn, vn, kc2, vc2, off, start,
+                                           h, ctx)
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
+            raise AssertionError(f"K2 T={t}: the rings differ from the "
+                                 "plain insert")
+        calls.append((q, kn, vn, kc, vc, kc2, vc2))
+    if err > 3.2e-2:
+        raise AssertionError(f"K2 T={t}: max abs err {err}")
+    q, kn, vn, kc, vc, kc2, vc2 = calls[0]
+    us = 1e3 * device_ms(lambda: ring_insert_attention(
+        q, kn, vn, kc, vc, off, start, h, ctx), 200)[0]
+    plain_us = 1e3 * device_ms(lambda: ring_insert_attention_plain(
+        q, kn, vn, kc2, vc2, off, start, h, ctx), 10)[0]
+    # keys a query sees: its window, fenced by the lane's start
+    seen = sum(min(ctx, off + i - int(s0) + 1) for s0 in start.tolist()
+               for i in range(t))
+    rows = sum(min(cap, off + t - int(s0)) for s0 in start.tolist())
+    nbytes = 2 * rows * hd * 2 + 4 * b * t * hd * 2
+    return dict(us=us, bound_us=_bound_us(4.0 * seen * h * d, nbytes),
+                plain_us=plain_us, err=err)
+
+
+def check_k3_moshi(device, moshi_shape=True, frames=3):
+    """K3 over 32 lanes at Moshi's SEANet (2 rows a frame, a first conv
+    512 -> 1024 whose 6-row carry moves up by 2 rows a frame, four stages
+    8, 6, 5, 4) or Pocket TTS's (16 rows, three stages), bf16, against the
+    plain chain over `frames` frames (the carries across them). Returns
+    the row."""
+    import dataclasses
+    import torch
+    from pocket_tts_tpu_torch.config import DEFAULT_CONFIG, MoshiConfig
+    from pocket_tts_tpu_torch.io import moshi_params
+    from ptts_bench.moshi import weights as moshi_weights
+    from pocket_tts_tpu_torch.io.params import random_params
+    from pocket_tts_tpu_torch.models import mimi, seanet
+    from pocket_tts_tpu_torch.ops.seanet_frame import (frame_shapes,
+                                                       prep_weights,
+                                                       seanet_frame)
+    dt = torch.bfloat16
+    if moshi_shape:
+        cfg = MoshiConfig()
+        dec = moshi_params.mimi_from_flat(moshi_weights.draw(
+            dataclasses.asdict(cfg), 73, device, dt, prefix="mimi."), cfg,
+            dt, device)["decoder"]
+        mcfg = cfg.mimi
+    else:
+        p, pcfg = random_params(DEFAULT_CONFIG, seed=0, dtype=dt,
+                                device=device)
+        dec, mcfg = p["mimi"]["decoder"], pcfg.mimi
+    sc, tpf = mcfg.seanet, mcfg.upsample_stride
+    w = prep_weights(dec, sc)
+    st = mimi.init_state_lanes(mcfg, MOSHI_LANES, dt, device).seanet
+    st2 = {k: v.clone() for k, v in st.items()}
+    g = torch.Generator(device=device).manual_seed(74)
+    err = 0.0
+    for _ in range(frames):
+        z = torch.randn(MOSHI_LANES, tpf, sc.in_ch, generator=g,
+                        device=device).to(dt)
+        got = seanet_frame(dec, sc, st, z, w)
+        new, want = seanet.forward_plain(dec, sc, st2, z)
+        for k in st2:
+            st2[k].copy_(new[k])
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        for k in st:
+            cerr = float((st[k].float() - st2[k].float()).abs().max())
+            if cerr > 0.1:
+                raise AssertionError(f"K3: carry {k} off by {cerr}")
+    if err > 5e-2 or not torch.isfinite(got).all():
+        raise AssertionError(f"K3 ({len(sc.stages)} stages): max abs err "
+                             f"{err}")
+    us = 1e3 * device_ms(lambda: seanet_frame(dec, sc, st, z, w), 30)[0]
+    plain_us = 1e3 * device_ms(lambda: seanet.forward_plain(dec, sc, st2,
+                                                            z), 5)[0]
+    flops = sum(2.0 * m * n * k for _, kind, m, n, k in frame_shapes(
+        sc, MOSHI_LANES, tpf) if kind != "overlap")
+    nbytes = (sum(v.numel() * v.element_size() for pair in w.values()
+                  for v in pair if v is not None)
+              + z.numel() * 2 + 2 * sum(v.numel() * 2 for v in st.values())
+              + got.numel() * 2)
+    return dict(us=us, bound_us=_bound_us(flops, nbytes), plain_us=plain_us,
+                err=err)
+
+
+def check_moshi_frames(device, frames=12, capacity=256):
+    """Moshi's lane frame at full width, bf16, 32 lanes (a 256-slot ring
+    here, so that two batches fit): the frames replayed from CUDA graphs
+    against the same frames run eagerly, bit for bit (PCM, text and audio
+    logits), through an admission mid-run; the `ptt.frame` spans
+    "capture" then "replay"; 32 K7, 8 K2 and 1 K3 a frame; the spans
+    ptt.temporal, ptt.depth and ptt.mimi inside every frame. Returns the
+    row (host and device ms a frame both ways)."""
+    import dataclasses
+    import torch
+    from pocket_tts_tpu_torch.config import MoshiConfig
+    from pocket_tts_tpu_torch.io import moshi_params
+    from pocket_tts_tpu_torch.models import moshi
+    from pocket_tts_tpu_torch.ops.insert_attn import decode_insert_attention
+    from ptts_bench.moshi import weights as moshi_weights
+    from pocket_tts_tpu_torch.ops.ring_attn import ring_insert_attention
+    from pocket_tts_tpu_torch.ops.seanet_frame import (prep_weights,
+                                                       seanet_frame)
+    from pocket_tts_tpu_torch.utils import profiling
+    cfg = dataclasses.replace(MoshiConfig(), kv_capacity=capacity,
+                              context=capacity - 8)
+    dt = torch.bfloat16
+    p = moshi_params.params_from_flat(moshi_weights.draw(
+        dataclasses.asdict(cfg), 75, device, dt), cfg, dt, device)
+    w = prep_weights(p["mimi"]["decoder"], cfg.mimi.seanet)
+    b = MOSHI_LANES
+    g = torch.Generator(device=device).manual_seed(76)
+    noise = torch.rand(b, capacity, 1 + cfg.n_q, generator=g, device=device)
+    user = torch.randint(0, cfg.card, (b, capacity, cfg.n_q), generator=g,
+                         device=device)
+    out = {}
+    for mode in ("eager", "graphs"):
+        st = moshi.empty_lanes(cfg, b, dt, device)
+        moshi.admit(cfg, st, range(0, b, 2), [frames - 2] * (b // 2))
+        step = (moshi.frame_step_lanes if mode == "graphs"
+                else moshi.frame_step_lanes_eager)
+        rec = dict(pcm=[], text=[], audio=[], modes=[], host=[], k7=[],
+                   k2=[], k3=[], spans=0)
+        for i in range(frames):
+            if i == 3:
+                moshi.admit(cfg, st, range(1, b, 2), [frames] * (b // 2))
+            n7, n2, n3 = (decode_insert_attention.launches,
+                          ring_insert_attention.launches,
+                          seanet_frame.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profiling.recording():
+                pcm, valid = step(p, cfg, st, noise, user, w)
+            torch.cuda.synchronize()
+            rec["host"].append(time.perf_counter() - t0)
+            rec["k7"].append(decode_insert_attention.launches - n7)
+            rec["k2"].append(ring_insert_attention.launches - n2)
+            rec["k3"].append(seanet_frame.launches - n3)
+            rec["modes"].append(moshi.frame_mode(st) if mode == "graphs"
+                                else "eager")
+            rec["pcm"].append((pcm * valid[:, None]).cpu())
+            rec["text"].append(st.text_logits.float().cpu())
+            rec["audio"].append(st.audio_logits.float().cpu())
+        names = [sp.name for sp in profiling.recorded_spans()[-40:]]
+        rec["spans"] = sum(names.count(n) for n in (
+            "ptt.temporal", "ptt.depth", "ptt.mimi"))
+        out[mode] = rec
+        del st
+        torch.cuda.empty_cache()
+    e, gr = out["eager"], out["graphs"]
+    same = all(torch.equal(a, c) for key in ("pcm", "text", "audio")
+               for a, c in zip(e[key], gr[key]))
+    row = dict(
+        frames_equal=same,
+        host_ms_frame_eager=1e3 * float(np.median(e["host"][4:])),
+        host_ms_frame_graphs=1e3 * float(np.median(gr["host"][4:])),
+        capture_ms=1e3 * gr["host"][0], modes=gr["modes"][:3],
+        launches=(gr["k7"][-1], gr["k2"][-1], gr["k3"][-1]),
+        eager_launches=(e["k7"][-1], e["k2"][-1], e["k3"][-1]),
+        spans_last_frames=gr["spans"])
+    log("  moshi frame, 32 lanes: " + ", ".join(f"{k} {v}" for k, v in
+                                               row.items()))
+    want = (cfg.num_layers, cfg.mimi.transformer.num_layers, 1)
+    if gr["modes"] != ["capture"] + ["replay"] * (frames - 1):
+        raise AssertionError(f"moshi frame modes {gr['modes']}")
+    if row["launches"] != want or row["eager_launches"] != want:
+        raise AssertionError(f"moshi K7 / K2 / K3 launches a frame "
+                             f"{row['launches']}, eager "
+                             f"{row['eager_launches']}, want {want}")
+    if not same:
+        raise AssertionError("moshi: graphed frames differ from the eager "
+                             "ones")
+    if not gr["spans"]:
+        raise AssertionError("moshi: no ptt.temporal / depth / mimi spans "
+                             "in the replayed frames")
+    return row
+
+
+def check_moshi(device):
+    """[14]: the kernels Moshi forces (K7 at D = 128, K2 at 2 rows, K3 at
+    four stages), each against its plain version and timed beside Pocket
+    TTS's instantiations of the same kernels (K7 at D = 64, K2 at 16 rows,
+    K3 at three stages), then Moshi's lane frame from graphs against the
+    eager frame. Returns {label: row}."""
+    import torch
+    rows = {}
+    for label, fn in (
+            ("K7 bf16 D=128 H=32 B=32 S=3072 window 3000",
+             lambda: check_k7_moshi(device, 128)),
+            ("K7 bf16 D=64 H=16 B=32 S=1024 ring",
+             lambda: check_k7_moshi(device, 64)),
+            ("K2 bf16 T=2 B=32 cap 256 (8 layers)",
+             lambda: check_k2_moshi(device, 2)),
+            ("K2 bf16 T=16 B=32 cap 256",
+             lambda: check_k2_moshi(device, 16, layers=2)),
+            ("K3 bf16 four stages B=32 T=2",
+             lambda: check_k3_moshi(device, True)),
+            ("K3 bf16 three stages B=32 T=16",
+             lambda: check_k3_moshi(device, False))):
+        rows[label] = fn()
+        log(f"  {label}: " + ", ".join(f"{k} {v:.4g}" for k, v in
+                                       rows[label].items()))
+        torch.cuda.empty_cache()
+    rows["moshi frame"] = check_moshi_frames(device)
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="PyTorch port smoke test on "
@@ -6314,6 +6627,10 @@ def main(argv=None) -> int:
     ap.add_argument("--frame-graphs", action="store_true",
                     help="only [1] environment, [2] build and [13] the lane "
                     "frame from CUDA graphs against the eager frame")
+    ap.add_argument("--moshi", action="store_true",
+                    help="only [1] environment, [2] build and [14] Moshi's "
+                    "kernels (K7 at D = 128, K2 at 2 rows, K3 at four "
+                    "stages) and its lane frame from CUDA graphs")
     ap.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
                     help=f"{CARDS}: only [1] environment, [2] build and [12] "
                     "the mesh over NCCL, one rank a card (2 x 2, 1 x 4 and "
@@ -6383,6 +6700,14 @@ def main(argv=None) -> int:
             if out_dir:
                 with open(os.path.join(out_dir, fname), "w") as f:
                     f.write("\n".join(rows) + "\n")
+
+        if args.moshi:
+            phase = "moshi"
+            header("[14] Moshi's kernels and lane frame")
+            rows = check_moshi(device)
+            print(json.dumps({"moshi": rows}))
+            header("[done]")
+            return _result(card, kind)
 
         if args.frame_graphs:
             phase = "frame graphs"

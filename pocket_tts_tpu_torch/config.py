@@ -49,6 +49,11 @@ sharded serving run; `runtime.batched.mesh_cfg` sets them, and a mesh of
 another kind, or `on_mesh` without the SEANet's mesh, raises. So no
 configuration silently runs something other than what it asks for.
 
+`MoshiConfig` (with `MoshiDepthConfig`, `RvqConfig` and its Mimi,
+`MOSHI_MIMI`) sizes the port's second architecture, Moshi, which the
+same continuous-batching server runs (models/moshi.py, runtime/moshi.py);
+`tiny_moshi_config` is its CPU test size.
+
 The kernel wrappers keep their one rule either way: plain PyTorch for
 tensors on the CPU, the hand-written CUDA kernel (or an error) for
 tensors on the card. The model calls the plain functions by cfg, never
@@ -288,6 +293,121 @@ def tiny_config(seed_dims: int = 16) -> ModelConfig:
 
 
 DEFAULT_CONFIG = ModelConfig()
+
+
+# ---------------------------------------------------------------------------
+# Moshi: the full-duplex speech-text model over Mimi (models/moshi.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoshiDepthConfig:
+    """The depth transformer ("depformer"): one sub-step a codebook, each
+    with its own linears (`depformer_weights_per_step`), causal over the
+    frame's sub-steps, no positional embedding, no final norm."""
+    d_model: int = 1024
+    num_heads: int = 16
+    num_layers: int = 6
+    hidden: int = 2816          # SwiGLU width: 2 * floor(4.125 * 1024) // 3
+    steps: int = 8              # sub-steps a frame: Moshi's codebooks
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.num_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class RvqConfig:
+    """Mimi's split residual vector quantizer (decode side): the first
+    `n_semantic` codebooks and the rest each summed, each group through
+    its own 1x1 projection dim -> mimi.dim, the two added."""
+    n_q: int = 8
+    bins: int = 2048
+    dim: int = 256
+    n_semantic: int = 1
+
+
+# Mimi as Moshi runs it: 8 codebooks at 12.5 Hz, a x2 depthwise upsample
+# (k4 s2) to the 25 Hz transformer of 8 layers, SEANet with four stages
+# (strides 8, 6, 5, 4) behind a first conv 512 -> 1024
+MOSHI_MIMI = MimiConfig(
+    latent_dim=256, dim=512, upsample_kernel=4, upsample_stride=2,
+    transformer=MimiTransformerConfig(
+        d_model=512, num_heads=8, num_layers=8, hidden_dim=2048,
+        context=250, capacity=256, norm_eps=1e-5),
+    seanet=SeanetConfig(
+        in_ch=512,
+        stages=(SeanetStage(1024, 512, 16, 8), SeanetStage(512, 256, 12, 6),
+                SeanetStage(256, 128, 10, 5), SeanetStage(128, 64, 8, 4))))
+
+
+@dataclasses.dataclass(frozen=True)
+class MoshiConfig:
+    """Moshi 7B (kyutai/moshiko-pytorch-bf16; `_lm_kwargs` of
+    moshi/models/loaders.py): a temporal transformer over 17 summed token
+    streams a frame (text, Moshi's n_q codebooks, the user's n_q), a depth
+    transformer that samples Moshi's codebooks one after another, and
+    Mimi's decoder for Moshi's codes. `delays` is the delay of each stream
+    in grid steps (text, Moshi's codebooks, the user's); a slot before a
+    stream's first token holds the initial token (`text_card`, `card`).
+    Sampling: top-k from the softmax at a temperature, text and audio
+    each their own."""
+    d_model: int = 4096
+    num_heads: int = 32
+    num_layers: int = 32
+    hidden: int = 11264         # SwiGLU width: 2 * floor(4.125 * 4096) // 3
+    context: int = 3000         # attention window, in frames
+    kv_capacity: int = 3072     # ring slots (a multiple of 8 above context)
+    max_period: int = 10000
+    norm_eps: float = 1e-8      # rms_norm_f32
+    text_card: int = 32000
+    card: int = 2048
+    n_q: int = 8
+    delays: tuple = (0, 0, 1, 1, 1, 1, 1, 1, 1, 0, 1, 1, 1, 1, 1, 1, 1)
+    text_temp: float = 0.7
+    text_topk: int = 25
+    audio_temp: float = 0.8
+    audio_topk: int = 250
+    depth: MoshiDepthConfig = MoshiDepthConfig()
+    rvq: RvqConfig = RvqConfig()
+    mimi: MimiConfig = MOSHI_MIMI
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.num_heads
+
+    @property
+    def streams(self) -> int:
+        """Token streams a frame: text, then Moshi's and the user's."""
+        return 1 + 2 * self.n_q
+
+    @property
+    def frame_size(self) -> int:
+        return self.mimi.frame_size
+
+
+def tiny_moshi_config() -> MoshiConfig:
+    """A miniature Moshi for CPU tests: the same topology (four SEANet
+    stages, a widening first conv, a split RVQ, a window shorter than the
+    ring), tiny widths."""
+    d = 16
+    return MoshiConfig(
+        d_model=4 * d, num_heads=4, num_layers=2, hidden=88, context=20,
+        kv_capacity=24, text_card=40, card=16, n_q=4,
+        delays=(0, 0, 1, 1, 1, 0, 1, 1, 1), text_topk=5, audio_topk=6,
+        depth=MoshiDepthConfig(d_model=2 * d, num_heads=2, num_layers=2,
+                               hidden=40, steps=4),
+        rvq=RvqConfig(n_q=4, bins=16, dim=8, n_semantic=1),
+        mimi=MimiConfig(
+            latent_dim=8, dim=2 * d, upsample_kernel=4, upsample_stride=2,
+            transformer=MimiTransformerConfig(
+                d_model=2 * d, num_heads=2, num_layers=2, hidden_dim=4 * d,
+                context=12, capacity=16, norm_eps=1e-5),
+            seanet=SeanetConfig(
+                in_ch=2 * d,
+                stages=(SeanetStage(4 * d, 2 * d, 16, 8),
+                        SeanetStage(2 * d, d, 12, 6),
+                        SeanetStage(d, d // 2, 10, 5),
+                        SeanetStage(d // 2, d // 4, 8, 4)))))
 
 
 def check_supported(cfg: ModelConfig) -> None:

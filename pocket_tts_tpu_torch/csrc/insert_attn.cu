@@ -311,32 +311,40 @@ insert_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
   }
   cluster.sync();  // every block's partials are in its shared memory
   if (c == 0 && head_ok) {
-    // lane L: columns 2L, 2L + 1 of head h; all remote reads issued
-    // before the first is used
-    static_assert(D == 64, "two columns a lane");
-    float mr[K7_MAX_SPLITS], lr[K7_MAX_SPLITS], ar[K7_MAX_SPLITS][2];
+    // lane L: columns CPL * L .. CPL * L + CPL - 1 of head h (two at
+    // D = 64, four at D = 128); all remote reads issued before the first
+    // is used
+    constexpr int CPL = D / 32;
+    static_assert(D == 64 || D == 128, "two or four columns a lane");
+    float mr[K7_MAX_SPLITS], lr[K7_MAX_SPLITS], ar[K7_MAX_SPLITS][CPL];
 #pragma unroll
     for (int r = 0; r < K7_MAX_SPLITS; ++r) {
       if (r < n) {
         mr[r] = cluster.map_shared_rank(wm, r)[warp];
         lr[r] = cluster.map_shared_rank(wl, r)[warp];
-        const float2 a2 = *reinterpret_cast<const float2*>(
-            &cluster.map_shared_rank(&wacc[0][0], r)[warp * D + 2 * lane]);
-        ar[r][0] = a2.x;
-        ar[r][1] = a2.y;
+        const float* src =
+            &cluster.map_shared_rank(&wacc[0][0], r)[warp * D + CPL * lane];
+#pragma unroll
+        for (int j = 0; j < CPL; j += 2) {
+          const float2 a2 = *reinterpret_cast<const float2*>(src + j);
+          ar[r][j] = a2.x;
+          ar[r][j + 1] = a2.y;
+        }
       }
     }
     float mx = mr[0];
 #pragma unroll
     for (int r = 1; r < K7_MAX_SPLITS; ++r)
       if (r < n) mx = fmaxf(mx, mr[r]);
-    float a0 = 0.f, a1 = 0.f, ll = 0.f;
+    float a[CPL], ll = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) a[j] = 0.f;
 #pragma unroll
     for (int r = 0; r < K7_MAX_SPLITS; ++r) {
       if (r < n) {
         const float f = partial_weight(mr[r], mx);
-        a0 += ar[r][0] * f;
-        a1 += ar[r][1] * f;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) a[j] += ar[r][j] * f;
         ll += lr[r] * f;
       }
     }
@@ -346,16 +354,18 @@ insert_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
         const float lg = lnew[warp] * sc2;
         const float m_fin = fmaxf(mx, lg);
         const float corr = exp2f(mx - m_fin), pn = exp2f(lg - m_fin);
-        const size_t vi = nrow + h * D + 2 * lane;
+        const size_t vi = nrow + h * D + CPL * lane;
         ll = ll * corr + pn;
-        a0 = a0 * corr + pn * ((float)vn[vi] * vsn[b]);
-        a1 = a1 * corr + pn * ((float)vn[vi + 1] * vsn[b]);
+#pragma unroll
+        for (int j = 0; j < CPL; ++j)
+          a[j] = a[j] * corr + pn * ((float)vn[vi + j] * vsn[b]);
         mx = m_fin;
       }
     }
     const size_t i = (size_t)b * nh + h;
-    out[i * D + 2 * lane] = from_f<T>(ll > 0.f ? a0 / ll : 0.f);
-    out[i * D + 2 * lane + 1] = from_f<T>(ll > 0.f ? a1 / ll : 0.f);
+#pragma unroll
+    for (int j = 0; j < CPL; ++j)
+      out[i * D + CPL * lane + j] = from_f<T>(ll > 0.f ? a[j] / ll : 0.f);
     if (STATS && lane == 0) {
       st[i] = mx * LN2;  // back to natural-log units
       st[(size_t)gridDim.z * nh + i] = ll;
@@ -386,7 +396,7 @@ extern "C" int ptt_insert_attn(const void* q, const void* k_new,
                                int B, int H, int D, int S, int read_end,
                                int ws, int splits, int dtype, void* stream) {
   const bool quant = k_scale != nullptr;
-  if (D != 64 || B < 1 || H < 1 || ws < 0 || ws > read_end ||
+  if ((D != 64 && D != 128) || B < 1 || H < 1 || ws < 0 || ws > read_end ||
       read_end >= S || splits < 1 || splits > ptt::K7_MAX_SPLITS ||
       splits > (read_end + ptt::K7_UNIT) / ptt::K7_UNIT ||
       (v_scale != nullptr) != quant || (ks_new != nullptr) != quant ||
@@ -402,14 +412,19 @@ extern "C" int ptt_insert_attn(const void* q, const void* k_new,
   const float scale = 1.0f / sqrtf((float)D);
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(splits, (H + ptt::K7_WARPS - 1) / ptt::K7_WARPS, B);
-#define PTT_K7(KV, STATS)                                                    \
+#define PTT_K7_D(KV, STATS, D_)                                              \
   rc = ptt::launch_clustered(                                                \
-      ptt::insert_attn_kernel<T, KV, STATS, 64>, grid, dim3(ptt::K7_THREADS), \
+      ptt::insert_attn_kernel<T, KV, STATS, D_>, grid, dim3(ptt::K7_THREADS), \
       splits, smem, st, (const T*)q, (const KV*)k_new, (const KV*)v_new,     \
       (const int*)cur_pos, (KV*)k_cache, (KV*)v_cache, (const int*)pos,      \
       (float*)k_scale, (float*)v_scale, (const float*)ks_new,                \
       (const float*)vs_new, (T*)out, (float*)stats, (const int*)ws_dev, H,   \
       S, read_end, ws, scale)
+#define PTT_K7(KV, STATS)                                                    \
+  do {                                                                       \
+    if (D == 64) PTT_K7_D(KV, STATS, 64);                                    \
+    else PTT_K7_D(KV, STATS, 128);                                           \
+  } while (0)
   cudaError_t rc = cudaSuccess;
   PTT_DISPATCH(dtype, T, {
     if (quant) {
@@ -419,5 +434,6 @@ extern "C" int ptt_insert_attn(const void* q, const void* k_new,
     }
   });
 #undef PTT_K7
+#undef PTT_K7_D
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel `pocket_tts_tpu/ops/pallas_seanet.py:
 // seanet_frame` (`_seanet_batched` -> `_kernel`; weight transforms
 // `_prep_weights`). The Python wrapper (ops/seanet_frame.py) launches, per
-// frame: conv k7 -> ELU -> 3 x [convtr k=2s (+ overlap-add carry) ->
+// frame: conv k7 -> ELU -> 3 or 4 x [convtr k=2s (+ overlap-add carry) ->
 // resnet (ELU, causal conv k3, ELU, 1x1, residual) -> ELU] -> final conv k3,
 // reading and writing the 8 streaming carries in place. Values are rounded
 // to the working type at the TPU kernel's points (pallas_seanet.py:76-92):
@@ -120,7 +120,8 @@ struct K3Gemm {
   const T* res;     // (M, N) or null
   T* out;           // (M, N)
   // tail (or null): dst[lane, r, e] = src[(lane*nt + nt - rows + r) *
-  // width + e], r < rows, e < width: the last rows of each lane of src
+  // width + e], r < rows, e < width: the last rows of each lane of src;
+  // with rows > nt, dst's rows move up by nt and src's nt rows follow
   const T* tail_src;
   T* tail_dst;
   int tail_width, tail_rows, tail_nt;
@@ -223,10 +224,28 @@ seanet_gemm_kernel(const K3Gemm<T> g) {
         (((long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + z) *
             K3_THREADS + tid;
     const long per = (long)g.tail_rows * g.tail_width;
-    for (long e = gid; e < (long)(g.M / g.nt) * per; e += nth) {
-      const long ln = e / per, r = e % per / g.tail_width;
-      g.tail_dst[e] = g.tail_src[(ln * g.tail_nt + g.tail_nt - g.tail_rows +
-                                  r) * g.tail_width + e % g.tail_width];
+    const int keep = g.tail_rows - g.tail_nt;  // carry rows that stay
+    if (keep <= 0) {
+      for (long e = gid; e < (long)(g.M / g.nt) * per; e += nth) {
+        const long ln = e / per, r = e % per / g.tail_width;
+        g.tail_dst[e] = g.tail_src[(ln * g.tail_nt + g.tail_nt -
+                                    g.tail_rows + r) * g.tail_width +
+                                   e % g.tail_width];
+      }
+    } else {
+      // a carry longer than the frame's rows (the k7 conv over 2 rows a
+      // frame): it moves up by nt rows and takes the frame's rows at its
+      // end; one thread walks a (lane, column) down its rows, so each row
+      // is read before it is written over
+      for (long e = gid; e < (long)(g.M / g.nt) * g.tail_width; e += nth) {
+        const long ln = e / g.tail_width, col = e % g.tail_width;
+        T* dst = g.tail_dst + ln * per + col;
+        for (int r = 0; r < g.tail_rows; ++r)
+          dst[(long)r * g.tail_width] =
+              r < keep ? dst[(long)(r + g.tail_nt) * g.tail_width]
+                       : g.tail_src[(ln * g.tail_nt + r - keep) *
+                                        g.tail_width + col];
+      }
     }
   }
 
@@ -631,7 +650,7 @@ int k3_gemm(void* const* p, const int* d, cudaStream_t st) {
       splits < 1 || splits > K3_MAX_SPLITS ||
       (g.mode == A_WINDOW && (!g.carry || g.pc < g.kw - 1)) ||
       (g.tail_dst && (!g.tail_src || g.tail_rows < 1 ||
-                      g.tail_rows > g.tail_nt || g.tail_width < 1)))
+                      g.tail_width < 1)))
     return (int)cudaErrorInvalidValue;
   const int ktiles = (g.K + K3_BK - 1) / K3_BK;
   g.kt_split = (ktiles + splits - 1) / splits;

@@ -35,9 +35,15 @@ run eagerly. `FrameGraphs(graph=...)` takes another class with
 `torch.cuda.CUDAGraph`'s capture_begin / capture_end / replay / reset,
 which is how the CPU tests drive it (a stand-in that records each
 segment's ops and runs them again).
+
+`span(name, **attrs)` marks a part of a frame (`utils.profiling.span`):
+under capture the segments split at its ends and each replay opens and
+closes it there, so the graph pieces and kernels replayed inside it fall
+inside its range (Moshi's `ptt.temporal`, `ptt.depth`, `ptt.mimi`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import warnings
@@ -45,8 +51,9 @@ import warnings
 import torch
 
 from ..ops import cuda_lib
+from ..utils import profiling
 
-GRAPH, ENTRY, HOST = range(3)
+GRAPH, ENTRY, HOST, SPAN = range(4)
 _capturing = None   # the FrameGraphs whose frame is being captured
 
 
@@ -83,6 +90,31 @@ def host(fn) -> None:
     fn()
     if _capturing is not None:
         _capturing.items.append((HOST, fn))
+
+
+@contextlib.contextmanager
+def span(name: str, **attrs):
+    """`profiling.span(name, **attrs)` around a part of a frame; while the
+    frame is captured, the graph segments end and begin again at the
+    span's ends, and every replay opens and closes the span at those
+    points."""
+    cap = _capturing
+    if cap is None:
+        with profiling.span(name, **attrs):
+            yield
+        return
+    cap._end()
+    cap.items.append((SPAN, name, attrs))
+    sp = profiling.span(name, **attrs)
+    sp.__enter__()
+    try:
+        cap._begin()
+        yield
+        cap._end()
+    finally:
+        sp.__exit__(None, None, None)
+    cap.items.append((SPAN, None, None))
+    cap._begin()
 
 
 def attach_cursors(state) -> None:
@@ -255,12 +287,19 @@ class FrameGraphs:
         for mine, given in zip(self.inputs, inputs):
             if given is not mine:
                 mine.copy_(given)
+        spans = []
         for item in self.items:
             kind = item[0]
             if kind == GRAPH:
                 item[1].replay()
             elif kind == ENTRY:
                 getattr(item[1], item[2])(*item[3], **item[4])
+            elif kind == SPAN:
+                if item[1] is None:
+                    spans.pop().__exit__(None, None, None)
+                else:
+                    spans.append(profiling.span(item[1], **item[2]))
+                    spans[-1].__enter__()
             else:
                 item[1]()
         return tuple(o.clone() for o in self.outputs)

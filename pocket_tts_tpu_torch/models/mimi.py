@@ -1,4 +1,6 @@
-"""Decode-only Mimi codec: 32-d latent -> 1920 samples of 24 kHz PCM.
+"""Decode-only Mimi codec: 32-d latent -> 1920 samples of 24 kHz PCM
+(Pocket TTS), or Moshi's 8 codes a frame through the split RVQ
+(`decode_codes_frame`).
 
 Counterpart of `pocket_tts_tpu/models/mimi.py`:
   quantizer output projection, conv 1x1 (32 -> 512)
@@ -70,6 +72,47 @@ def decode_frame(p, cfg, state: MimiState, latent, gelu_approx: bool = False,
     w = p["quantizer"]["w"][:, :, 0].float()
     x = (w @ latent.float() if latent.dim() == 1
          else latent.float() @ w.T).to(latent.dtype)
+    return _decode_emb(p, cfg, state, x, gelu_approx, seanet_weights)
+
+
+def decode_codes_frame(p, cfg, state: MimiState, codes,
+                       seanet_weights: dict = None):
+    """Moshi's Mimi: codes (B, n_q) int64, one frame of each lane ->
+    (state, pcm (B, frame)). The split RVQ: the first group's codebook
+    rows and the rest's each summed in float32, each group through its
+    own 1x1 projection, the two added and rounded once to the working
+    type (p["quantizer"]: "first" (n_semantic, bins, dim), "rest" (n_q -
+    n_semantic, bins, dim), "proj_first" / "proj_rest" (dim, mimi dim));
+    then the upsample, transformer and SEANet of `decode_frame`."""
+    x = rvq_decode(p["quantizer"], codes).to(p["upsample"]["w"].dtype)
+    return _decode_emb(p, cfg, state, x, False, seanet_weights)
+
+
+def rvq_decode(q, codes):
+    """The split RVQ's float32 embedding (B, mimi dim) of codes (B, n_q)."""
+    nf = q["first"].shape[0]
+    rows = torch.arange(codes.shape[1], device=codes.device)[None]
+    first = q["first"][rows[:, :nf], codes[:, :nf]].sum(1)
+    rest = q["rest"][rows[:, nf:] - nf, codes[:, nf:]].sum(1)
+    return first @ q["proj_first"] + rest @ q["proj_rest"]
+
+
+def clear_lanes(state: MimiState, lanes) -> None:
+    """Zero the streaming carries (the upsample's and SEANet's) of the
+    lanes where `lanes` (B,) bool is set, in place: those lanes' next
+    frame decodes from silence, as a fresh stream's first does."""
+    def clear(c):
+        c.masked_fill_(lanes.view(-1, *([1] * (c.dim() - 1))), 0)
+
+    clear(state.upsample_prev)
+    for c in state.seanet.values():
+        clear(c)
+
+
+def _decode_emb(p, cfg, state: MimiState, x, gelu_approx: bool,
+                seanet_weights: dict):
+    """The frame's mimi.dim embedding x ((dim,) or (B, dim)) -> (state,
+    pcm): upsample, transformer, SEANet."""
     k, s = cfg.upsample_kernel, cfg.upsample_stride
     y = depthwise_upsample(p["upsample"], x[..., None, :], k, s)  # (k, dim)
     prev = state.upsample_prev

@@ -6,6 +6,9 @@ Counterpart of `pocket_tts_tpu/models/seanet.py` (the decoder):
   model_5:  streaming convtr k10 s5       + model_6 resnet + ELU
   model_8:  streaming convtr k8 s4        + model_9 resnet + ELU
   model_11: streaming conv k3 s1 -> 1 channel
+Moshi's Mimi has a fourth stage (convtr k16 s8 at model_2, the others
+moved up by three) and its first conv widens 512 -> 1024 channels; the
+final conv is then model_14 (`ops.seanet_frame.stage_keys`, `last_key`).
 Time-major (T, C) throughout; a narrow last stage runs in the JAX package's
 BLOCKED-TIME layout (T, s*C), so the carries have the same shapes in both
 packages.
@@ -37,7 +40,7 @@ from ..ops.conv import (conv1d, conv1d_blocked, conv1d_init_state,
                         conv_transpose1d_init_state, streaming_conv1d,
                         streaming_conv_transpose1d,
                         streaming_conv_transpose1d_blocked)
-from ..ops.seanet_frame import STAGES, seanet_frame
+from ..ops.seanet_frame import last_key, seanet_frame, stage_keys
 
 
 def _blocked(cfg, idx: int) -> bool:
@@ -54,7 +57,8 @@ def init_state(cfg, t_in: int, dtype=torch.float32, device="cpu") -> dict:
     dd = dict(dtype=dtype, device=device)
     state = {"model_0": conv1d_init_state(cfg.in_ch, cfg.first_kernel, 1,
                                           **dd)}
-    for si, (st, (name, rname)) in enumerate(zip(cfg.stages, STAGES)):
+    for si, (st, (name, rname)) in enumerate(zip(cfg.stages,
+                                                 stage_keys(cfg))):
         if _blocked(cfg, si):
             state[name] = torch.zeros(1, st.stride * st.out_ch, **dd)
             state[rname] = torch.zeros(1, st.stride * st.out_ch, **dd)
@@ -65,10 +69,11 @@ def init_state(cfg, t_in: int, dtype=torch.float32, device="cpu") -> dict:
                                              1, **dd)
     last = cfg.stages[-1]
     if _blocked(cfg, len(cfg.stages) - 1):
-        state["model_11"] = torch.zeros(1, last.stride * last.out_ch, **dd)
+        state[last_key(cfg)] = torch.zeros(1, last.stride * last.out_ch,
+                                           **dd)
     else:
-        state["model_11"] = conv1d_init_state(last.out_ch, cfg.last_kernel,
-                                              1, **dd)
+        state[last_key(cfg)] = conv1d_init_state(last.out_ch,
+                                                 cfg.last_kernel, 1, **dd)
     return state
 
 
@@ -141,7 +146,9 @@ def forward_plain(p, cfg, state: dict, x):
         p["model_0"], state["model_0"], x, stride=1)
     x = elu(x)
     blocked = False
-    for si, (st, (name, rname)) in enumerate(zip(cfg.stages, STAGES)):
+    last = last_key(cfg)
+    for si, (st, (name, rname)) in enumerate(zip(cfg.stages,
+                                                 stage_keys(cfg))):
         if _blocked(cfg, si):
             blocked = True
             new_state[name], x = streaming_conv_transpose1d_blocked(
@@ -153,11 +160,9 @@ def forward_plain(p, cfg, state: dict, x):
             new_state[rname], x = _resnet(p[rname], state[rname], x)
         x = elu(x)
     if blocked:
-        new_state["model_11"], yb = conv1d_blocked(
-            p["model_11"], x, state["model_11"])
+        new_state[last], yb = conv1d_blocked(p[last], x, state[last])
         return new_state, yb.reshape(*yb.shape[:-2], -1, cfg.out_ch)
-    new_state["model_11"], x = streaming_conv1d(
-        p["model_11"], state["model_11"], x, stride=1)
+    new_state[last], x = streaming_conv1d(p[last], state[last], x, stride=1)
     return new_state, x
 
 

@@ -26,7 +26,7 @@ for tensors on the card; there is no other switch. Both update the 8
 carries in `state` IN PLACE. Both take an optional lane axis: x (B, T,
 in_ch) with carries (B, ...); the kernels then stack the B streams on the
 GEMMs' M axis, with the weights shared, and launch the same sequence as
-for one stream.
+for one stream (14 launches at three stages, 18 at four).
 """
 from __future__ import annotations
 
@@ -42,10 +42,30 @@ CARRY_KEYS = ("model_0", "model_2", "model_3", "model_5", "model_6",
               "model_8", "model_9", "model_11")
 
 
+def stage_keys(cfg) -> tuple:
+    """((transposed conv, resnet) module keys) of each stage: model_{3i+2}
+    and model_{3i+3}, as the decoder's nn.Sequential numbers them (the
+    three-stage decoder's are STAGES)."""
+    return tuple((f"model_{3 * i + 2}", f"model_{3 * i + 3}")
+                 for i in range(len(cfg.stages)))
+
+
+def last_key(cfg) -> str:
+    """The final conv's key: model_{3N+2} (model_11 at three stages,
+    model_14 at four)."""
+    return f"model_{3 * len(cfg.stages) + 2}"
+
+
+def carry_keys(cfg) -> tuple:
+    """Every carry of the decoder (CARRY_KEYS at three stages)."""
+    return (("model_0",) + tuple(k for pair in stage_keys(cfg) for k in pair)
+            + (last_key(cfg),))
+
+
 def kernel_ok(cfg) -> bool:
-    """The decoder shape the kernels cover: three K == 2*stride stages and
-    one output channel."""
-    return (len(cfg.stages) == 3 and cfg.out_ch == 1
+    """The decoder shape the kernels cover: three or four K == 2*stride
+    stages (Pocket TTS's Mimi, Moshi's) and one output channel."""
+    return (len(cfg.stages) in (3, 4) and cfg.out_ch == 1
             and all(st.kernel == 2 * st.stride for st in cfg.stages))
 
 
@@ -63,8 +83,8 @@ def prep_weights(p, cfg) -> dict:
     if not kernel_ok(cfg):
         raise NotImplementedError(f"SEANet shape not covered: {cfg}")
     out = {"model_0": _window(p["model_0"]),
-           "model_11": _window(p["model_11"])}
-    for tr, rn in STAGES:
+           last_key(cfg): _window(p[last_key(cfg)])}
+    for tr, rn in stage_keys(cfg):
         w = p[tr]["w"]
         cin, cout, k = w.shape
         out[tr] = (w.permute(0, 2, 1).reshape(cin, k * cout).contiguous(),
@@ -132,7 +152,7 @@ def frame_shapes(cfg, b: int, t: int):
     m = b * t
     rows = [("model_0", "gemm", m, cfg.stages[0].in_ch,
              cfg.first_kernel * cfg.in_ch)]
-    for st, (tr, rn) in zip(cfg.stages, STAGES):
+    for st, (tr, rn) in zip(cfg.stages, stage_keys(cfg)):
         rows.append((tr, "gemm", m, st.kernel * st.out_ch, st.in_ch))
         m *= st.stride
         hid = st.out_ch // 2
@@ -140,7 +160,7 @@ def frame_shapes(cfg, b: int, t: int):
                  (rn + ".block_1", "gemm", m, hid,
                   cfg.resnet_kernel * st.out_ch),
                  (rn + ".block_3", "gemm", m, st.out_ch, hid)]
-    rows.append(("model_11", "last", m, cfg.out_ch,
+    rows.append((last_key(cfg), "last", m, cfg.out_ch,
                  cfg.last_kernel * cfg.stages[-1].out_ch))
     return rows
 
@@ -182,7 +202,7 @@ def frame_launches(cfg, state: dict, x, weights: dict, nb: int, pcm=None):
          kw=cfg.first_kernel, carry=state["model_0"], pc=pc0, out_elu=1)
     # the first conv's carry (the last latent rows), once launch 1 read it
     tail = (x, state["model_0"], pc0, t)
-    for st, (tr, rn) in zip(cfg.stages, STAGES):
+    for st, (tr, rn) in zip(cfg.stages, stage_keys(cfg)):
         s, cout = st.stride, st.out_ch
         w2, b2 = weights[tr]
         u = new(nb * t, w2.shape[1])
@@ -202,13 +222,14 @@ def frame_launches(cfg, state: dict, x, weights: dict, nb: int, pcm=None):
         gemm(rn + ".block_3", A_ROWS, v, wc, bc, h, wc.shape[0], t, res=y,
              res_elu=1, tail=(ye, state[rn], pr, t))
         tail = None
-    w11, b11 = weights["model_11"]
+    last = last_key(cfg)
+    w11, b11 = weights[last]
     pcm = (new(nb * t, cfg.out_ch) if pcm is None
            else pcm.view(nb * t, cfg.out_ch))
-    out.append(("model_11", "last", dict(
-        h=h, carry=state["model_11"], w=w11, bias=b11, out=pcm, nt=t,
+    out.append((last, "last", dict(
+        h=h, carry=state[last], w=w11, bias=b11, out=pcm, nt=t,
         cin=h.shape[1], kw=cfg.last_kernel,
-        pc=carry_rows("model_11", h.shape[1]), blocks=k3_last_split(t))))
+        pc=carry_rows(last, h.shape[1]), blocks=k3_last_split(t))))
     return out, pcm
 
 
@@ -287,7 +308,7 @@ def seanet_frame(p, cfg, state: dict, x, weights: dict = None, out=None):
         weights = prep_weights(p, cfg)
     lanes = x.dim() == 3
     nb = x.shape[0] if lanes else 1
-    for key in CARRY_KEYS:
+    for key in carry_keys(cfg):
         c = state[key]
         if c.dtype != x.dtype or not c.is_contiguous() \
                 or c.device != x.device:

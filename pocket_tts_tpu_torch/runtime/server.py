@@ -53,6 +53,13 @@ lanes. The ranks of a "model" group compute the same reduced hidden state
 bit for bit (the all-reduce hands every rank the same sum), so their EOS
 decisions agree without a broadcast (tests/test_torch_sharding.py holds
 it; chip_smoke.py phase 11 on the card).
+
+What is a model's own sits in six methods: `_setup_lanes` (the decode
+cfg and params, and the lanes' tables), `prefix_slots`, `_validate` (a
+request's frame need), `_reset_epoch` (an empty batch), `_admit_group`
+and `_decode_chunk`. `runtime/moshi.MoshiServer` overrides them to serve
+Moshi's full-duplex calls on the same lanes, admission, chunk and host
+read.
 """
 from __future__ import annotations
 
@@ -328,7 +335,6 @@ class ContinuousBatchingServer:
         # None disables (exhaustion-only compaction).
         self.compact_margin = compact_margin
         self.mesh = mesh
-        self.cfg, self.params = mesh_setup(engine, mesh)
         # this rank's lanes (all without a mesh)
         self._own = lane_block(lanes, mesh)
         self.share_prefix = share_prefix
@@ -349,12 +355,17 @@ class ContinuousBatchingServer:
         # finishes, compacting again frees nothing
         self._compact_useful = True
         self.batch: Optional[tts.BatchedStreamState] = None
-        dev = engine.device
+        self._setup_lanes()
+
+    def _setup_lanes(self):
+        """The decode cfg and params, and the lanes' tables."""
+        engine, lanes = self.engine, self.lanes
+        self.cfg, self.params = mesh_setup(engine, self.mesh)
         # per-lane noise (own lanes, capacity, latent): a request runs at
         # most capacity - prefix_slots frames
         self._noise = torch.zeros(len(self._own), self.capacity,
                                   engine.cfg.latent_dim, dtype=engine.dtype,
-                                  device=dev)
+                                  device=engine.device)
         self._fae = np.ones((lanes,), np.int32)
         self._max_steps = np.zeros((lanes,), np.int32)
         self._fae_t = self._max_steps_t = None
@@ -693,13 +704,9 @@ class ContinuousBatchingServer:
         self._admit()
         if all(r is None for r in self._live):
             return 0
-        eng = self.engine
         try:
             with span("ptt.chunk", frames=self.chunk_frames):
-                self.batch, pcm, valid = continuous_decode_chunk(
-                    self.params, self.cfg, self.chunk_frames, self.batch,
-                    self._noise, self._fae_t, self._max_steps_t,
-                    eng.seanet_weights)
+                pcm, valid = self._decode_chunk()
         except Exception:
             # the state is updated in place, so a failure part-way leaves
             # it half-written: drop the epoch and restart the live requests
@@ -741,6 +748,15 @@ class ContinuousBatchingServer:
             if sp:
                 sp.set(ids=finished)
         return emitted
+
+    def _decode_chunk(self):
+        """chunk_frames frames of every lane: (pcm, valid) on the
+        device."""
+        self.batch, pcm, valid = continuous_decode_chunk(
+            self.params, self.cfg, self.chunk_frames, self.batch,
+            self._noise, self._fae_t, self._max_steps_t,
+            self.engine.seanet_weights)
+        return pcm, valid
 
     def run_pending(self, max_chunks: int = 10_000):
         for _ in range(max_chunks):

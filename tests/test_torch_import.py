@@ -4,7 +4,8 @@ card has none of the first three, and the port keeps its own copies of the
 JAX package's JAX-free modules (config, text, io.wav, io.safetensors_io,
 io.audio, io.audio_in, io.gguf, the manifest half of io.fetch, native
 with its own copy of the C++ source, runtime.player) and runs ab without
-them; the mesh modules (parallel.*) included.
+them; the mesh modules (parallel.*) and Moshi's (models.moshi,
+runtime.moshi, io.moshi_params) included.
 Checked in a fresh interpreter, since this test process has JAX loaded
 already."""
 import os
@@ -56,6 +57,9 @@ MODULES = [
     "pocket_tts_tpu_torch.parallel.sharding",
     "pocket_tts_tpu_torch.parallel.launch",
     "pocket_tts_tpu_torch.parallel.dryrun",
+    "pocket_tts_tpu_torch.models.moshi",
+    "pocket_tts_tpu_torch.runtime.moshi",
+    "pocket_tts_tpu_torch.io.moshi_params",
     "chip_smoke",
 ]
 

@@ -5,8 +5,9 @@
         --out spans_turns128.json
 
 from the root of a checkout. It builds a cell of BENCHMARK.json as the
-benchmark does (`ptts_bench.serve`: weights, voices, warm prefills, the
-closed loop until every lane was admitted), then:
+benchmark does, through the cell's model family (`ptts_bench.families`:
+Pocket TTS's weights, voices and warm prefills, or Moshi's; the closed
+loop until every lane was admitted), then:
 
 1. cost: `--blocks` pairs of `--block-steps` steps, one with
    `profiling.recording()` around the steps and one without, in turn
@@ -20,7 +21,10 @@ closed loop until every lane was admitted), then:
    and the kernel records on): the same split there, the mean
    `bench::step` range against the mean `ptt.step` range from the
    profiler's own trace, the idle gaps with their labels, and the four
-   span metrics as the benchmark's readers read them.
+   span metrics as the benchmark's readers read them;
+4. nesting: for each span name, the share of its spans whose parent is
+   the span it belongs in (Moshi's `ptt.temporal`, `ptt.depth` and
+   `ptt.mimi` in `ptt.frame`).
 
 Prints one JSON line and writes it to --out. Imports neither JAX nor the
 JAX package.
@@ -40,7 +44,14 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 SPANS = ("ptt.step", "ptt.admit", "ptt.prefill", "ptt.lane_write",
-         "ptt.chunk", "ptt.frame", "ptt.read", "ptt.bookkeep")
+         "ptt.chunk", "ptt.frame", "ptt.read", "ptt.bookkeep",
+         "ptt.temporal", "ptt.depth", "ptt.mimi")
+# the span each span is recorded in
+PARENT = {"ptt.admit": "ptt.step", "ptt.prefill": "ptt.admit",
+          "ptt.lane_write": "ptt.admit", "ptt.chunk": "ptt.step",
+          "ptt.frame": "ptt.chunk", "ptt.read": "ptt.step",
+          "ptt.bookkeep": "ptt.step", "ptt.temporal": "ptt.frame",
+          "ptt.depth": "ptt.frame", "ptt.mimi": "ptt.frame"}
 TIMED = ("ptt.prefill", "ptt.chunk", "ptt.read")
 METRICS = ("queue_wait_p95_ms", "prefill_pad_pct", "host_read_ms",
            "server_host_ms")
@@ -52,7 +63,7 @@ def split(steps):
     def ms(s):
         return (s.end_ns - s.start_ns) * 1e-6
     n = len(steps)
-    out = {name: 0.0 for name in SPANS}
+    out = {name: 0.0 for name in SPANS[:8]}
     host = 0.0
     for st, under in steps:
         out["ptt.step"] += ms(st)
@@ -84,6 +95,23 @@ def span_cost(n=200_000):
     return out
 
 
+def nesting(steps):
+    """{span name: share of its spans under the traced steps whose parent
+    is PARENT[name]} for the names that occur."""
+    by_i, seen, ok = {}, {}, {}
+    for st, under in steps:
+        by_i[st.i] = st
+        for k in under:
+            by_i[k.i] = k
+    for k in by_i.values():
+        if k.name in PARENT:
+            seen[k.name] = seen.get(k.name, 0) + 1
+            par = by_i.get(k.parent)
+            ok[k.name] = ok.get(k.name, 0) + int(
+                par is not None and par.name == PARENT[k.name])
+    return {name: ok[name] / seen[name] for name in seen}
+
+
 def trace_cover(path):
     """From the profiler's chrome trace: the mean `bench::step` and
     `ptt.step` range (ms) on the window's thread, and the count of each."""
@@ -110,16 +138,17 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from ptts_bench import serve
+    from ptts_bench import families, serve
     from pocket_tts_tpu_torch.ops import cuda_lib
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
         return 3
     _, conf, mix, _ = serve.load_cell(args.workload)
+    fam = families.load(conf, serve.ROOT)
     serve.set_cache_env()
     torch.set_num_threads(2)
     cuda_lib.set_build_dir(str(serve.cache_dirs()["kernels"]))
-    out = measure(conf, mix, args.seed, torch.device("cuda", 0),
+    out = measure(fam, conf, mix, args.seed, torch.device("cuda", 0),
                   torch.bfloat16, args.blocks, args.block_steps)
     out["workload"] = args.workload
     line = json.dumps(out)
@@ -130,19 +159,21 @@ def main(argv=None) -> int:
     return 0
 
 
-def measure(conf, mix, seed, device, dtype, blocks, block_steps) -> dict:
-    """Steps 1-3 of the module's docstring on one server of the cell."""
+def measure(fam, conf, mix, seed, device, dtype, blocks,
+            block_steps) -> dict:
+    """Steps 1-4 of the module's docstring on one server of the cell,
+    built by its model family `fam` (`ptts_bench.families.load`)."""
     import torch
-    from ptts_bench import run as brun, serve, trace as tr, traffic
+    from ptts_bench import run as brun, serve, trace as tr
     from ptts_bench.metrics.host_read_ms import traced
     from pocket_tts_tpu_torch.utils import profiling
     t0 = time.perf_counter()
     rec = serve.Run(t0=t0, seed=seed)
-    srv = serve.build(conf, mix, seed, device, dtype)
-    planned = traffic.plan(mix, seed)
-    serve.warm_prefills(srv, mix, planned)
-    cap = serve.Capture(srv, mix["chunk_frames"])
-    client = serve.Client(srv, mix, planned, rec)
+    srv = fam.build(conf, mix, seed, device, dtype)
+    planned = fam.plan(mix, seed)
+    fam.warm(srv, mix, planned)
+    cap = fam.Capture(srv, mix["chunk_frames"])
+    client = serve.Client(srv, mix, planned, rec, fam.submit)
     rec.chunk_frames, rec.lanes = mix["chunk_frames"], mix["lanes"]
 
     def step():
@@ -189,7 +220,7 @@ def measure(conf, mix, seed, device, dtype, blocks, block_steps) -> dict:
     tr.reduce = reduce
     try:
         serve.profile_chunks(srv, client, cap, rec, mix, device,
-                             brun.kernel_specs())
+                             brun.kernel_specs(), fam.PHASES)
     finally:
         tr.reduce = orig
     metrics = {m: brun.load_reader("metrics", m).read(rec) for m in METRICS}
@@ -213,11 +244,13 @@ def measure(conf, mix, seed, device, dtype, blocks, block_steps) -> dict:
         },
         "split_recording": split(recorded) if recorded else None,
         "split_traced": split(in_trace) if in_trace else None,
+        "nesting": nesting(in_trace),
         "cover": cover,
         "idle_gaps": gaps,
         "gaps_in_step_named_ptt": all(" > ptt." in g[0] for g in inside),
-        "device_idle_pct": 100.0 * (1 - rec.trace["busy_s"]
-                                    / rec.trace["window_s"]),
+        "device_idle_pct": (100.0 * (1 - rec.trace["busy_s"]
+                                     / rec.trace["window_s"])
+                            if rec.trace["window_s"] > 0 else None),
         "metrics": metrics,
     }
 
