@@ -1902,8 +1902,10 @@ def _counters():
     `launches_int4` and launches over lanes in `launches_lanes`; K1, K2 and
     K7 count int8-KV launches in `launches_kv8` (K1 over lanes in
     `launches_lanes` instead), K1 and K7 their launches with statistics
-    once more in `launches_stats`; K8 counts by weights and once more with
-    an int8 cache, K5c in `bilayer_post_pre.launches_bilayer`."""
+    once more in `launches_stats`, K7 its launches over a cache of more
+    than K7_LONG_SLOTS slots once more in `launches_long`; K8 counts by
+    weights and once more with an int8 cache, K5c in
+    `bilayer_post_pre.launches_bilayer`."""
     from pocket_tts_tpu_torch.ops import fused_flow, fused_layer
     from pocket_tts_tpu_torch.ops.decode_attn import decode_attention
     from pocket_tts_tpu_torch.ops.insert_attn import decode_insert_attention
@@ -1931,6 +1933,8 @@ def _counters():
                                       "launches_kv8"),
            "decode_insert_attn_stats": (decode_insert_attention,
                                         "launches_stats"),
+           "decode_insert_attn_long": (decode_insert_attention,
+                                       "launches_long"),
            "rows_mma": (fused_layer._rows_call, "launches_mma"),
            "rows_skinny": (fused_layer._rows_call, "launches_skinny")}
     for name, fn in (("fused_pre", fused_layer.pre_attention),
@@ -2582,8 +2586,8 @@ def time_k3_plans(engine, device, dtype):
 def kernel_times(device):
     """Device us of K3 (bf16 and f32, solo and 32 lanes), K7 (bf16 ring
     and linear, B=32, S=1024; int8 ring, B=32, S=896, with and without the
-    statistics) at time_kernels' shapes, of K5a, K5b and K6
-    (quant_kernel_times), and of K5b solo, K5c, K8 and K4b
+    statistics) at time_kernels' shapes, K7 at Moshi's (time_k7_moshi),
+    of K5a, K5b and K6 (quant_kernel_times), and of K5b solo, K5c, K8 and K4b
     (coop_kernel_times), through the public wrappers only
     (`seanet_frame`, `decode_insert_attention`, `pre_attention`,
     `post_attention`, `flow_forward`, `bilayer_post_pre`, `megalayer`,
@@ -2626,6 +2630,7 @@ def kernel_times(device):
             1e3 * device_ms(lambda: decode_insert_attention(
                 q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn, vsn,
                 stats=stats), 200)[0]
+    res.update(time_k7_moshi(device))
     return coop_kernel_times(device, quant_kernel_times(device, res))
 
 
@@ -3284,7 +3289,7 @@ def time_splits(device, dtype):
     from pocket_tts_tpu_torch.ops import cuda_lib
     from pocket_tts_tpu_torch.ops.decode_attn import (K1_UNIT, MAX_SPLITS,
                                                       k1_split)
-    from pocket_tts_tpu_torch.ops.insert_attn import k7_split
+    from pocket_tts_tpu_torch.ops.insert_attn import K7_LONG_SLOTS, k7_split
     from pocket_tts_tpu_torch.ops.ring_attn import k2_split
     lib = cuda_lib.library()
     g = torch.Generator(device="cpu").manual_seed(26)
@@ -3322,7 +3327,9 @@ def time_splits(device, dtype):
                 sp: 1e3 * device_ms(lambda: k1(q, k, v, pos, e, sp, ks, vs,
                                                st), 100)[0]
                 for sp in range(1, MAX_SPLITS + 1)})
-    # K7 at the serving shapes (and solo, as `--fuse-insert` calls it)
+    # K7 at the serving shapes (and solo, as `--fuse-insert` calls it), on
+    # the walk the wrapper takes there and on the long-ring walk (only the
+    # attended slots), the evidence for keeping the two apart
     for mode, b, kvq in (("ring", LANES, False), ("linear", LANES, False),
                          ("ring", LANES, True), ("ring", 1, False)):
         if kvq:
@@ -3337,19 +3344,37 @@ def time_splits(device, dtype):
         s = k.shape[1]
         out = torch.empty_like(q)
 
-        def k7(sp):
+        def k7(sp, long_ring=None):
+            if long_ring is None:
+                long_ring = s > K7_LONG_SLOTS
             cuda_lib.check(lib.ptt_insert_attn(
                 q.data_ptr(), kn.data_ptr(), vn.data_ptr(), cur.data_ptr(),
                 k.data_ptr(), v.data_ptr(), pos.data_ptr(),
                 *(None if t is None else t.data_ptr()
                   for t in (ks, vs, ksn, vsn)), out.data_ptr(),
                 None if st is None else st.data_ptr(), None, b, q.shape[1],
-                q.shape[2], s, e, ws, sp, code, stream), "ptt_insert_attn")
-        res[f"K7 {mode} B={b} S={s} "
-            f"{'int8 + stats' if kvq else _dt_name(dtype)}"] = (
-                k7_split(e, s, b), {
-                    sp: 1e3 * device_ms(lambda: k7(sp), 100)[0]
-                    for sp in range(1, MAX_SPLITS + 1)})
+                q.shape[2], s, e, ws, sp, int(long_ring), code, stream),
+                "ptt_insert_attn")
+        label = (f"K7 {mode} B={b} S={s} "
+                 f"{'int8 + stats' if kvq else _dt_name(dtype)}")
+        res[label] = (k7_split(e, s, b), {
+            sp: 1e3 * device_ms(lambda: k7(sp), 100)[0]
+            for sp in range(1, MAX_SPLITS + 1)})
+        res[label + " long walk"] = (k7_split(e, K7_LONG_SLOTS + 1, b), {
+            sp: 1e3 * device_ms(lambda: k7(sp, True), 100)[0]
+            for sp in range(1, MAX_SPLITS + 1)})
+    # K7 at Moshi's shape (D = 128, 32 heads, 32 lanes, a 3,072-slot ring at
+    # the duplex32 cell's ages): the long-ring path's split
+    q, kn, vn, cur, k, v, pos, e, ws = k7_moshi_case(device, dtype,
+                                                     fills=duplex_ages())
+    b, s = q.shape[0], k.shape[1]
+    out = torch.empty_like(q)
+    ks = vs = ksn = vsn = st = None
+    res[f"K7 ring B={b} S={s} D=128 duplex32 ages {_dt_name(dtype)}"] = (
+        k7_split(e, s, b), {sp: 1e3 * device_ms(lambda: k7(sp), 50)[0]
+                            for sp in range(1, MAX_SPLITS + 1)})
+    del q, kn, vn, k, v, pos
+    torch.cuda.empty_cache()
     h, d, cap, t, ctx = 8, 64, 256, 16, 250
     for b in (1, LANES):
         kc = torch.randn(b, cap, h * d, generator=g).to(device, dtype)
@@ -6313,14 +6338,30 @@ def _bound_us(flops, nbytes):
     return 1e6 * max(flops / BF16_FLOPS_S, nbytes / HBM_BYTES_S)
 
 
+def duplex_ages(seed=73):
+    """The lane fills of the moshi7b.duplex32 cell at its first step: the
+    ages of its plan's aged calls (ptts_bench.moshi.traffic.plan at
+    `seed`, one a session), the positions each lane holds before its new
+    row."""
+    from pathlib import Path
+    import ptts_bench
+    from ptts_bench import traffic
+    from ptts_bench.moshi.traffic import plan
+    mix = traffic.load("duplex32", Path(ptts_bench.__file__).parent)
+    return [p.age for p in plan(mix, seed)[:mix["arrivals"]["sessions"]]]
+
+
 def k7_moshi_case(device, dtype, d=128, h=32, s=3072, context=3000, ws=1000,
-                  b=MOSHI_LANES, seed=71):
+                  b=MOSHI_LANES, seed=71, fills=None, kv8=False):
     """K7's inputs at Moshi's shapes (or Pocket TTS's with d=64, h=16,
     s=1024): a ring of s slots whose write slot is ws, lane i holding the
-    last L_i positions before its new row, those more than `context` back
-    left out (-1), lanes from 1 slot to past the window; lane 1 an idle
-    lane (cur_pos -1). Returns (q, k_new, v_new, cur_pos, k_cache,
-    v_cache, pos, read_end, write_slot)."""
+    last fills[i] positions before its new row, those `context` or more
+    back left out (-1). fills None: lanes from 1 slot to past the window,
+    lane 1 an invalid new row (cur_pos -1) and lane K7_IDLE idle (nothing
+    attended). kv8: int8 caches and new rows quantized as the backbone
+    does, with their scale rows. Returns (q, k_new, v_new, cur_pos,
+    k_cache, v_cache, pos, read_end, write_slot), then with kv8 (k_scale,
+    v_scale, ks_new, vs_new)."""
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
     hd = h * d
@@ -6329,17 +6370,28 @@ def k7_moshi_case(device, dtype, d=128, h=32, s=3072, context=3000, ws=1000,
     q = torch.randn(b, h, d, generator=g, device=device).to(dtype)
     kn = torch.randn(b, 1, hd, generator=g, device=device).to(dtype)
     vn = torch.randn(b, 1, hd, generator=g, device=device).to(dtype)
+    idle = fills is None
+    if fills is None:
+        fills = [1 + (i * 331) % (s + 100) for i in range(b)]
     pos = torch.full((b, s), -1, dtype=torch.int32)
     cur = torch.zeros(b, dtype=torch.int32)
-    for i in range(b):
-        fill = 1 + (i * 331) % (s + 100)
+    for i, fill in enumerate(fills):
         cur[i] = fill
-        for j in range(1, min(fill + 1, s)):
-            if j < context:
-                pos[i, (ws - j) % s] = fill - j
-    cur[1] = -1
+        j = torch.arange(1, min(fill, context - 1, s - 1) + 1)
+        pos[i, (ws - j) % s] = (fill - j).to(torch.int32)
+    if idle:
+        cur[1] = -1
+        pos[K7_IDLE], cur[K7_IDLE] = -1, -1
     pos[:, ws] = cur
-    return (q, kn, vn, cur.to(device), kc, vc, pos.to(device), s - 1, ws)
+    case = (q, kn, vn, cur.to(device), kc, vc, pos.to(device), s - 1, ws)
+    if not kv8:
+        return case
+    from pocket_tts_tpu_torch.models.backbone import quantize_rows
+    (kc, ks), (vc, vs) = quantize_rows(kc), quantize_rows(vc)
+    (kn, ksn), (vn, vsn) = quantize_rows(kn), quantize_rows(vn)
+    ks[:, ws] = vs[:, ws] = 1e3          # stale scales: never read
+    return (q, kn, vn, case[3], kc, vc, case[6], s - 1, ws, ks, vs,
+            ksn[:, 0].contiguous(), vsn[:, 0].contiguous())
 
 
 def _k7_cost(q, kc, pos):
@@ -6351,36 +6403,139 @@ def _k7_cost(q, kc, pos):
     return 4.0 * valid * h * d, nbytes
 
 
-def check_k7_moshi(device, d=128):
-    """K7 at D = 128 (Moshi: 32 heads, a 3,072-slot ring, a 3,000-slot
-    window, 32 lanes) or at D = 64 (Pocket TTS: 16 heads, 1,024 slots),
-    bf16, against its plain version: the output, and the caches after the
-    insert. Returns the row (us, bound_us, plain_us, err)."""
+def _k7_compare(got, want, stats):
+    """K7's result against its plain version's, each lane and head on its
+    own: |out - plain| within two ulps of the working type at that head's
+    largest |plain| (and at least 1e-4 of it: float32 sums taken in
+    another order), m within 1e-4 of max(1, |m|), l within 1e-4 relative
+    (a row dropped from a lane of ~2,000 moves l by ~1e-3; the kernel's
+    sums read ~1e-6). Returns {ok, err (max abs), out_x (the worst
+    err / limit), and with stats m_err, l_err}."""
+    import torch
+    o, op = (got[0], want[0]) if stats else (got, want)
+    eps = torch.finfo(op.dtype).eps         # one ulp at 1
+    o, op = o.float(), op.float()
+    err = (o - op).abs().amax(-1)
+    scale = op.abs().amax(-1)
+    _, e = torch.frexp(scale)               # scale in [2^(e-1), 2^e)
+    # two ulps there: 2 * eps * 2^(e-1)
+    lim = torch.maximum(torch.ldexp(torch.full_like(scale, eps), e),
+                        1e-4 * scale)
+    lim = torch.where(scale > 0, lim, torch.zeros_like(lim))
+    x = torch.where(lim > 0, err / lim.clamp_min(1e-30),
+                    torch.where(err > 0, torch.inf, 0.0))
+    row = dict(err=float(err.max()), out_x=float(x.max()))
+    ok = bool(torch.isfinite(o).all()) and row["out_x"] <= 1.0
+    if stats:
+        (_, m, l), (_, mp, lp) = got, want
+        live = torch.isfinite(mp)
+        ok = ok and torch.equal(live, torch.isfinite(m))
+        if live.any():
+            row["m_err"] = float(((m[live] - mp[live]).abs()
+                                  / mp[live].abs().clamp_min(1.0)).max())
+            row["l_err"] = float(((l[live] - lp[live]).abs()
+                                  / lp[live]).max())
+        ok = ok and row.get("m_err", 0) <= 1e-4 and row.get("l_err", 0) <= 1e-4
+    return dict(ok=ok, **row)
+
+
+def _k7_drop_row(pos, ws):
+    """pos (post-insert) with one attended slot dropped: the middle one,
+    the write slot aside, of the lane that holds the most."""
+    lane = int((pos >= 0).sum(1).argmax())
+    slots = (pos[lane] >= 0).nonzero().flatten()
+    slots = slots[slots != ws]
+    out = pos.clone()
+    out[lane, slots[len(slots) // 2]] = -1
+    return out
+
+
+def check_k7_moshi(device, d=128, kv8=False, stats=False, s=None,
+                   fills=None, dtype=None):
+    """K7 at D = 128 (Moshi: 32 heads) or at D = 64 (Pocket TTS: 16 heads),
+    32 lanes, over s slots (default: 3,072 at D = 128, a 3,000-slot
+    window, the long-ring path; 1,024 at D = 64, the short path; s =
+    3,072 at D = 64 takes the long path), bf16 (or `dtype`) or int8
+    caches, with or without the statistics, against its plain version
+    (_k7_compare): the output (m and l), the caches and scale rows after
+    the insert, and with fills None an invalid new row, an idle lane (out
+    0, m = -inf, l = 0) and lanes past the window (fills: the lanes'
+    positions, as duplex_ages gives them). The launch counts in
+    `launches_long` iff S > K7_LONG_SLOTS. The same comparison against the
+    plain version with one attended row dropped (_k7_drop_row) must fail.
+    Returns the row (us, bound_us, plain_us, err, out_x, and m_err, l_err
+    with stats; drop_out_x, and drop_l_err with stats, of the dropped
+    row)."""
     import torch
     from pocket_tts_tpu_torch.ops.insert_attn import (
-        decode_insert_attention, decode_insert_attention_plain)
-    dt = torch.bfloat16
-    case = (k7_moshi_case(device, dt) if d == 128 else
-            k7_moshi_case(device, dt, d=64, h=16, s=1024, context=1024,
-                          ws=300))
-    q, kn, vn, cur, kc, vc, pos, re_, ws = case
+        K7_LONG_SLOTS, decode_insert_attention, decode_insert_attention_plain)
+    dt = dtype or torch.bfloat16
+    s = s or (3072 if d == 128 else 1024)
+    h, context, ws = (32 if d == 128 else 16), min(s, 3000), \
+        (1000 if s > 1024 else 300)
+    case = k7_moshi_case(device, dt, d=d, h=h, s=s, context=context, ws=ws,
+                         fills=fills, kv8=kv8)
+    q, kn, vn, cur, kc, vc, pos, re_, ws = case[:9]
+    kw = dict(zip(("k_scale", "v_scale", "ks_new", "vs_new"), case[9:]))
+    kw2 = {k: (v.clone() if k in ("k_scale", "v_scale") else v)
+           for k, v in kw.items()}
     kc2, vc2 = kc.clone(), vc.clone()
-    got = decode_insert_attention(q, kn, vn, cur, kc, vc, pos, re_, ws)
+    label = (f"K7 D={d} S={s}{' int8' if kv8 else ''}"
+             f"{' stats' if stats else ''}{' ' + _dt_name(dt)}"
+             f"{' ages' if fills is not None else ''}")
+    long0 = decode_insert_attention.launches_long
+    got = decode_insert_attention(q, kn, vn, cur, kc, vc, pos, re_, ws,
+                                  stats=stats, **kw)
+    long1 = decode_insert_attention.launches_long - long0
     want = decode_insert_attention_plain(q, kn, vn, cur, kc2, vc2, pos, re_,
-                                         ws)
-    err = float((got.float() - want.float()).abs().max())
+                                         ws, stats=stats, **kw2)
+    if long1 != int(s > K7_LONG_SLOTS):
+        raise AssertionError(f"{label}: launches_long counted {long1}")
     if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
-        raise AssertionError(f"K7 D={d}: the caches differ from the plain "
+        raise AssertionError(f"{label}: the caches differ from the plain "
                              "insert")
-    # two bf16 ulps of an output below 4 in magnitude
-    if err > 3.2e-2 or not torch.isfinite(got).all():
-        raise AssertionError(f"K7 D={d}: max abs err {err}")
+    if kw and not (torch.equal(kw["k_scale"], kw2["k_scale"])
+                   and torch.equal(kw["v_scale"], kw2["v_scale"])):
+        raise AssertionError(f"{label}: the scale rows differ")
+    if fills is None:
+        _k7_idle_check(label, got, stats, q.shape[0])
+    row = _k7_compare(got, want, stats)
+    if not row.pop("ok"):
+        raise AssertionError(f"{label}: against the plain version {row}")
+    # the plain insert again writes the same new row: caches stay equal
+    drop = _k7_compare(got, decode_insert_attention_plain(
+        q, kn, vn, cur, kc2, vc2, _k7_drop_row(pos, ws), re_, ws,
+        stats=stats, **kw2), stats)
+    if drop.pop("ok"):
+        raise AssertionError(f"{label}: one attended row dropped passes "
+                             f"the comparison {drop}")
+    row["drop_out_x"] = drop["out_x"]
+    if "l_err" in drop:
+        row["drop_l_err"] = drop["l_err"]
     us = 1e3 * device_ms(lambda: decode_insert_attention(
-        q, kn, vn, cur, kc, vc, pos, re_, ws), 100)[0]
+        q, kn, vn, cur, kc, vc, pos, re_, ws, stats=stats, **kw), 100)[0]
     plain_us = 1e3 * device_ms(lambda: decode_insert_attention_plain(
-        q, kn, vn, cur, kc2, vc2, pos, re_, ws), 5)[0]
+        q, kn, vn, cur, kc2, vc2, pos, re_, ws, stats=stats, **kw2), 5)[0]
     return dict(us=us, bound_us=_bound_us(*_k7_cost(q, kc, pos)),
-                plain_us=plain_us, err=err)
+                plain_us=plain_us, **row)
+
+
+def time_k7_moshi(device):
+    """K7 at Moshi's shapes (bf16, D = 128, 32 heads, 32 lanes, a 3,072-slot
+    ring, a 3,000-slot window) through its public wrapper, with lanes
+    filled 1-3,000 and at the duplex32 cell's ages (duplex_ages), each
+    checked against its plain version first (check_k7_moshi): {label:
+    us}, each beside its bound ("... bound")."""
+    import torch
+    res = {}
+    for label, fills in (("fills 1-3000", None),
+                         ("duplex32 ages", duplex_ages())):
+        row = check_k7_moshi(device, fills=fills)
+        name = f"K7 bf16 D=128 B={MOSHI_LANES} S=3072 {label}"
+        res[name] = row["us"]
+        res[name + " bound"] = row["bound_us"]
+        torch.cuda.empty_cache()
+    return res
 
 
 def check_k2_moshi(device, t=2, layers=8):
@@ -6494,18 +6649,21 @@ def check_k3_moshi(device, moshi_shape=True, frames=3):
 
 def check_moshi_frames(device, frames=12, capacity=256):
     """Moshi's lane frame at full width, bf16, 32 lanes (a 256-slot ring
-    here, so that two batches fit): the frames replayed from CUDA graphs
-    against the same frames run eagerly, bit for bit (PCM, text and audio
-    logits), through an admission mid-run; the `ptt.frame` spans
-    "capture" then "replay"; 32 K7, 8 K2 and 1 K3 a frame; the spans
-    ptt.temporal, ptt.depth and ptt.mimi inside every frame. Returns the
-    row (host and device ms a frame both ways)."""
+    by default, so that two batches fit; past K7_LONG_SLOTS, K7's
+    long-ring path): the frames replayed from CUDA graphs against the
+    same frames run eagerly, bit for bit (PCM, text and audio logits),
+    through an admission mid-run; the `ptt.frame` spans "capture" then
+    "replay"; 32 K7, 8 K2 and 1 K3 a frame, the K7 launches counted in
+    `launches_long` iff the ring is long; the spans ptt.temporal,
+    ptt.depth and ptt.mimi inside every frame. Returns the row (host and
+    device ms a frame both ways)."""
     import dataclasses
     import torch
     from pocket_tts_tpu_torch.config import MoshiConfig
     from pocket_tts_tpu_torch.io import moshi_params
     from pocket_tts_tpu_torch.models import moshi
-    from pocket_tts_tpu_torch.ops.insert_attn import decode_insert_attention
+    from pocket_tts_tpu_torch.ops.insert_attn import (K7_LONG_SLOTS,
+                                                      decode_insert_attention)
     from ptts_bench.moshi import weights as moshi_weights
     from pocket_tts_tpu_torch.ops.ring_attn import ring_insert_attention
     from pocket_tts_tpu_torch.ops.seanet_frame import (prep_weights,
@@ -6529,13 +6687,14 @@ def check_moshi_frames(device, frames=12, capacity=256):
         step = (moshi.frame_step_lanes if mode == "graphs"
                 else moshi.frame_step_lanes_eager)
         rec = dict(pcm=[], text=[], audio=[], modes=[], host=[], k7=[],
-                   k2=[], k3=[], spans=0)
+                   k7_long=[], k2=[], k3=[], spans=0)
         for i in range(frames):
             if i == 3:
                 moshi.admit(cfg, st, range(1, b, 2), [frames] * (b // 2))
-            n7, n2, n3 = (decode_insert_attention.launches,
-                          ring_insert_attention.launches,
-                          seanet_frame.launches)
+            n7, n7l, n2, n3 = (decode_insert_attention.launches,
+                               decode_insert_attention.launches_long,
+                               ring_insert_attention.launches,
+                               seanet_frame.launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with profiling.recording():
@@ -6543,6 +6702,8 @@ def check_moshi_frames(device, frames=12, capacity=256):
             torch.cuda.synchronize()
             rec["host"].append(time.perf_counter() - t0)
             rec["k7"].append(decode_insert_attention.launches - n7)
+            rec["k7_long"].append(decode_insert_attention.launches_long
+                                  - n7l)
             rec["k2"].append(ring_insert_attention.launches - n2)
             rec["k3"].append(seanet_frame.launches - n3)
             rec["modes"].append(moshi.frame_mode(st) if mode == "graphs"
@@ -6576,6 +6737,11 @@ def check_moshi_frames(device, frames=12, capacity=256):
         raise AssertionError(f"moshi K7 / K2 / K3 launches a frame "
                              f"{row['launches']}, eager "
                              f"{row['eager_launches']}, want {want}")
+    long_want = cfg.num_layers if capacity > K7_LONG_SLOTS else 0
+    if set(e["k7_long"] + gr["k7_long"]) != {long_want}:
+        raise AssertionError(f"moshi K7 long-ring launches a frame "
+                             f"{gr['k7_long']}, eager {e['k7_long']}, want "
+                             f"{long_want}")
     if not same:
         raise AssertionError("moshi: graphed frames differ from the eager "
                              "ones")
@@ -6596,8 +6762,23 @@ def check_moshi(device):
     for label, fn in (
             ("K7 bf16 D=128 H=32 B=32 S=3072 window 3000",
              lambda: check_k7_moshi(device, 128)),
+            ("K7 int8 D=128 S=3072", lambda: check_k7_moshi(device, 128,
+                                                            kv8=True)),
+            ("K7 bf16 stats D=128 S=3072",
+             lambda: check_k7_moshi(device, 128, stats=True)),
+            ("K7 int8 stats D=128 S=3072",
+             lambda: check_k7_moshi(device, 128, kv8=True, stats=True)),
             ("K7 bf16 D=64 H=16 B=32 S=1024 ring",
              lambda: check_k7_moshi(device, 64)),
+            ("K7 bf16 D=64 H=16 S=3072", lambda: check_k7_moshi(
+                device, 64, s=3072)),
+            ("K7 int8 stats D=64 S=3072", lambda: check_k7_moshi(
+                device, 64, kv8=True, stats=True, s=3072)),
+            ("K7 f32 stats D=128 S=3072", lambda: check_k7_moshi(
+                device, 128, stats=True, dtype=torch.float32)),
+            ("K7 bf16 stats D=128 S=3072 duplex32 ages",
+             lambda: check_k7_moshi(device, 128, stats=True,
+                                    fills=duplex_ages())),
             ("K2 bf16 T=2 B=32 cap 256 (8 layers)",
              lambda: check_k2_moshi(device, 2)),
             ("K2 bf16 T=16 B=32 cap 256",
@@ -6610,7 +6791,12 @@ def check_moshi(device):
         log(f"  {label}: " + ", ".join(f"{k} {v:.4g}" for k, v in
                                        rows[label].items()))
         torch.cuda.empty_cache()
+    rows["K7 D=128 timings"] = time_k7_moshi(device)
+    log("  " + ", ".join(f"{k} {v:.2f} us" for k, v in
+                         rows["K7 D=128 timings"].items()))
     rows["moshi frame"] = check_moshi_frames(device)
+    rows["moshi frame, 2,304-slot ring"] = check_moshi_frames(device,
+                                                             capacity=2304)
     return rows
 
 

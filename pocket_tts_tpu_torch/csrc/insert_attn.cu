@@ -48,12 +48,15 @@
 // chunks (ops/insert_attn.py `k7_split`); units of K7_UNIT slots are dealt
 // out to the chunks in turn (ops/decode_attn.py `chunk_units`). The split
 // is a function of read_end, S and the lane count B: one lane takes up to
-// 8 chunks, many lanes (the card full already) 2. A lane's result depends
-// only on its own inputs: the count only changes how its slots are summed.
+// 8 chunks; many lanes (the card full already) 2, in a cache of at most
+// K7_LONG_SLOTS (ops/insert_attn.py) slots, and up to 8 past it, where the
+// wrapper also passes long_ring. A lane's result depends only on
+// its own inputs: the count only changes how its slots are summed.
 // Grid (splits, H / 4, B); the `splits` blocks of one (4 heads, lane) form
 // a thread-block cluster (at most 8). A block reads its chunk's positions
 // (and int8 scales) into shared memory once for its 4 heads; then warp w
-// walks every slot of the chunk for head 4y + w, streaming its rows through
+// walks the chunk's rows for head 4y + w (every slot of the chunk, or, in a
+// long ring, only its attended ones: see below), streaming them through
 // a ring in shared memory with 16-byte `cp.async` copies, two steps ahead
 // of their use, so the block's warps read neighbouring 128-byte pieces of
 // the same cache rows together (with one head a block, as K1 has it, the
@@ -83,6 +86,31 @@
 // 52.38 us at B=32, S=1024 in the ring (SDPA 59.09, bound 39.91), 30.04
 // in linear mode to slot 700, 33.20 over int8 caches at S=896 (34.86 with
 // the statistics).
+//
+// Long rings (S > K7_LONG_SLOTS; Moshi's temporal ring: 3,072 slots, a
+// 3,000-slot window, lanes holding a few hundred to 2,250 positions). The
+// walk above pays a whole step (the ring wait, the shuffles, exp2f, the
+// accumulator) for a masked slot: with 2 chunks a block made 384 steps
+// whatever its lane held, and a call took the same ~290 us at any fill.
+// So here (LONG) each block first lists its chunk's attended local slots in
+// increasing order (warp w takes a stretch of ceil(nloc / 128) * 32 slots,
+// counts its attended ones with ballots, and places them after the counts
+// of the warps before it; two barriers), and the walk runs over that list
+// alone: ceil(n_live / 2 RPW) steps, a masked slot costing its 4-byte
+// position. The split takes 8 chunks at any lane count, so a lane's rows
+// spread over its whole cluster (the longest, 2,250 rows, ~70 steps a
+// block). Only the pairing of rows within a step changes the f32 order.
+// Measured (chip_smoke.py, one H100 80GB HBM3 at 700 W): at D = 128, 32
+// heads, B = 32, S = 3,072 with lanes at ages of mean 646, 291.7 us before,
+// 148.5 after (bound 101.7); lanes filled 1-3,000: 326.1 -> 302.8 (bound
+// 224.2). At the ages of the duplex32 cell's own plan (mean 502): 118.6 us
+// (bound 79.2); by split count 178.9 us at 1 chunk, 142.3 at 2, 134.8 at 3,
+// 117.7 at 8. The ring's depth did not matter (2, 3, 4, 6 steps: 148.0,
+// 148.5, 149.5, 151.7 us at mean 646), so it stays 3. At Pocket TTS's
+// shapes, where nearly every slot is attended, this walk is slower in the
+// bf16 ring at 32 lanes (57.3 against 50.7 us on 2 chunks) and faster over
+// int8 caches with the statistics (28.9 against 33.7) and solo (11.3
+// against 12.6 on 8 chunks), so the two walks stay apart by S for now.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -100,13 +128,14 @@ constexpr int K7_SLOTS = 3;   // cp.async ring of each warp, in steps
 constexpr int K7_UNIT = 8;    // slots dealt out to the chunks in turn
 
 // dynamic shared memory of one block: the K/V ring, then the chunk's
-// positions (and, int8 caches, its k and v scales)
-inline size_t k7_smem(int chunk, bool quant) {
+// positions (and, int8 caches, its k and v scales; long rings, the list of
+// its attended slots)
+inline size_t k7_smem(int chunk, bool quant, bool long_ring) {
   return sizeof(uint4) * K7_WARPS * K7_SLOTS * 4 * 32 +
-         (size_t)chunk * (quant ? 12 : 4);
+         (size_t)chunk * ((quant ? 12 : 4) + (long_ring ? 4 : 0));
 }
 
-template <typename T, typename KV, bool STATS, int D>
+template <typename T, typename KV, bool STATS, int D, bool LONG>
 __global__ void __launch_bounds__(K7_THREADS)
 insert_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
                    const KV* __restrict__ vn, const int* __restrict__ cpos,
@@ -165,6 +194,7 @@ insert_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
   int* pos_s = reinterpret_cast<int*>(ring + K7_WARPS * K7_SLOTS * 4 * 32);
   float* ks_s = reinterpret_cast<float*>(pos_s + nloc);
   float* vs_s = ks_s + nloc;
+  int* live_s = reinterpret_cast<int*>(QUANT ? vs_s + nloc : ks_s);
 #pragma unroll 4
   for (int t = tid; t < nloc; t += K7_THREADS) {
     const int s = slot_of(t);
@@ -194,15 +224,53 @@ insert_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
   }
   __syncthreads();
 
-  // Warp w walks every slot of the chunk for its head h0 + w, so the
-  // block's warps read neighbouring 128-byte pieces of the same cache rows
-  // together. Step i covers local slots t and t + RPW, t = i * 2 RPW + grp.
-  // Each lane copies its 16 bytes of the step's K and V rows into its own
-  // slots of the warp's ring (zeros for a masked row, which is never read;
-  // the new row for slot ws) and later reads back only those, so the ring
-  // needs no barrier.
+  // The rows the walk takes: row j is local slot local(j). A long ring
+  // (LONG) lists the chunk's attended slots in increasing order first, so
+  // that a masked slot costs nothing past its position: warp w takes the
+  // local slots [lo, hi), counts its attended ones by ballots, and writes
+  // them after those of the warps before it.
+  int nrows = nloc;
+  if constexpr (LONG) {
+    __shared__ int wcnt[K7_WARPS];
+    const int per = (nloc + K7_THREADS - 1) / K7_THREADS * 32;
+    const int lo = min(warp * per, nloc), hi = min(lo + per, nloc);
+    int cnt = 0;
+    for (int t = lo + lane; t - lane < hi; t += 32)
+      cnt += __popc(__ballot_sync(0xffffffffu, t < hi && pos_s[t] >= 0));
+    if (lane == 0) wcnt[warp] = cnt;
+    __syncthreads();
+    int off = 0;
+    nrows = 0;
+#pragma unroll
+    for (int w = 0; w < K7_WARPS; ++w) {
+      off += w < warp ? wcnt[w] : 0;
+      nrows += wcnt[w];
+    }
+    for (int t = lo + lane; t - lane < hi; t += 32) {
+      const bool ok = t < hi && pos_s[t] >= 0;
+      const unsigned bal = __ballot_sync(0xffffffffu, ok);
+      if (ok) live_s[off + __popc(bal & ((1u << lane) - 1u))] = t;
+      off += __popc(bal);
+    }
+    __syncthreads();
+  }
+  auto local = [&](int j) {
+    if constexpr (LONG) return j < nrows ? live_s[j] : 0;
+    else return j;
+  };
+  auto attended = [&](int j, int t) {
+    if constexpr (LONG) return j < nrows;
+    else return t < nloc && pos_s[t] >= 0;
+  };
+
+  // Warp w walks the chunk's rows for its head h0 + w, so the block's warps
+  // read neighbouring 128-byte pieces of the same cache rows together. Step
+  // i covers rows j and j + RPW, j = i * 2 RPW + grp. Each lane copies its
+  // 16 bytes of the step's K and V rows into its own slots of the warp's
+  // ring (zeros for a masked row, which is never read; the new row for slot
+  // ws) and later reads back only those, so the ring needs no barrier.
   constexpr int R2 = 2 * RPW;
-  const int nsteps = head_ok ? (nloc + R2 - 1) / R2 : 0;
+  const int nsteps = head_ok ? (nrows + R2 - 1) / R2 : 0;
   uint4* my = ring + warp * K7_SLOTS * 4 * 32 + lane;
   const KV* kr = kc + row0 + h * D + sub * VEC;
   const KV* vr = vc + row0 + h * D + sub * VEC;
@@ -213,8 +281,8 @@ insert_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
       const int slot = i % K7_SLOTS;
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int t = i * R2 + grp + u * RPW;
-        const bool ok = t < nloc && pos_s[t] >= 0;
+        const int j = i * R2 + grp + u * RPW, t = local(j);
+        const bool ok = attended(j, t);
         const int s = ok ? slot_of(t) : 0;
         cp_async16(my + (4 * slot + 2 * u) * 32,
                    s == ws ? knr : kr + (size_t)s * ld, ok);
@@ -234,7 +302,8 @@ insert_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
   for (int i = 0; i < nsteps; ++i) {
     issue(i + K7_SLOTS - 1);
     cp_async_wait<K7_SLOTS - 1>();  // step i has landed
-    const int t0 = i * R2 + grp, slot = i % K7_SLOTS;
+    const int j0 = i * R2 + grp, slot = i % K7_SLOTS;
+    int tl[2];
     float lg[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
@@ -252,10 +321,11 @@ insert_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
     }
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const int t = t0 + u * RPW;
+      const int j = j0 + u * RPW, t = local(j);
       float x = lg[u] * sc2;
-      if constexpr (QUANT) x *= (t < nloc ? ks_s[t] : 0.f);
-      lg[u] = t < nloc && pos_s[t] >= 0 ? x : -INFINITY;
+      if constexpr (QUANT) x *= (j < nrows ? ks_s[t] : 0.f);
+      lg[u] = attended(j, t) ? x : -INFINITY;
+      tl[u] = t;
     }
     // both rows folded into the running max, sum and accumulator at once;
     // each weight is rounded to the working type against that max
@@ -269,8 +339,7 @@ insert_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
         const float p = exp2f(lg[u] - m_new);
         l += p;
         float pw = p;
-        if constexpr (QUANT)
-          pw *= t0 + u * RPW < nloc ? vs_s[t0 + u * RPW] : 0.f;
+        if constexpr (QUANT) pw *= j0 + u * RPW < nrows ? vs_s[tl[u]] : 0.f;
         w[u] = rnd<T>(pw);
       }
       float v0[VEC], v1[VEC];
@@ -386,7 +455,8 @@ insert_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kn,
 // block at entry in place of ws (ws is then its host mirror, checked here):
 // the slot a CUDA graph's frame advanced on the device.
 // splits: chunks of [0, read_end], one block each in a cluster (1 to 8, at
-// most ceil((read_end + 1) / 8)).
+// most ceil((read_end + 1) / 8)). long_ring: nonzero walks only the
+// chunk's attended slots (LONG; ops/insert_attn.py decides, from S).
 extern "C" int ptt_insert_attn(const void* q, const void* k_new,
                                const void* v_new, const void* cur_pos,
                                void* k_cache, void* v_cache, const void* pos,
@@ -394,7 +464,8 @@ extern "C" int ptt_insert_attn(const void* q, const void* k_new,
                                const void* ks_new, const void* vs_new,
                                void* out, void* stats, const void* ws_dev,
                                int B, int H, int D, int S, int read_end,
-                               int ws, int splits, int dtype, void* stream) {
+                               int ws, int splits, int long_ring,
+                               int dtype, void* stream) {
   const bool quant = k_scale != nullptr;
   if ((D != 64 && D != 128) || B < 1 || H < 1 || ws < 0 || ws > read_end ||
       read_end >= S || splits < 1 || splits > ptt::K7_MAX_SPLITS ||
@@ -407,14 +478,15 @@ extern "C" int ptt_insert_attn(const void* q, const void* k_new,
     return (int)cudaErrorInvalidValue;
   const int units = (read_end + ptt::K7_UNIT) / ptt::K7_UNIT;
   const size_t smem = ptt::k7_smem(
-      (units + splits - 1) / splits * ptt::K7_UNIT, quant);
+      (units + splits - 1) / splits * ptt::K7_UNIT, quant, long_ring != 0);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)D);
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(splits, (H + ptt::K7_WARPS - 1) / ptt::K7_WARPS, B);
-#define PTT_K7_D(KV, STATS, D_)                                              \
+#define PTT_K7_D(KV, STATS, D_, LONG)                                        \
   rc = ptt::launch_clustered(                                                \
-      ptt::insert_attn_kernel<T, KV, STATS, D_>, grid, dim3(ptt::K7_THREADS), \
+      ptt::insert_attn_kernel<T, KV, STATS, D_, LONG>, grid,                 \
+      dim3(ptt::K7_THREADS),                                                 \
       splits, smem, st, (const T*)q, (const KV*)k_new, (const KV*)v_new,     \
       (const int*)cur_pos, (KV*)k_cache, (KV*)v_cache, (const int*)pos,      \
       (float*)k_scale, (float*)v_scale, (const float*)ks_new,                \
@@ -422,8 +494,13 @@ extern "C" int ptt_insert_attn(const void* q, const void* k_new,
       S, read_end, ws, scale)
 #define PTT_K7(KV, STATS)                                                    \
   do {                                                                       \
-    if (D == 64) PTT_K7_D(KV, STATS, 64);                                    \
-    else PTT_K7_D(KV, STATS, 128);                                           \
+    if (long_ring) {                                                         \
+      if (D == 64) PTT_K7_D(KV, STATS, 64, true);                            \
+      else PTT_K7_D(KV, STATS, 128, true);                                   \
+    } else {                                                                 \
+      if (D == 64) PTT_K7_D(KV, STATS, 64, false);                           \
+      else PTT_K7_D(KV, STATS, 128, false);                                  \
+    }                                                                        \
   } while (0)
   cudaError_t rc = cudaSuccess;
   PTT_DISPATCH(dtype, T, {

@@ -48,9 +48,9 @@ SIGNATURES = {
     # q, k_new, v_new, cur_pos, k_cache, v_cache, pos, k_scale, v_scale,
     # ks_new, vs_new (int8 caches, else null), out, stats (or null), the
     # write slot on the device (or null), B, H, D, S, read_end, write_slot,
-    # splits, dtype, stream
+    # splits, long_ring (walk only the attended slots), dtype, stream
     "ptt_insert_attn": [P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
-                        I, I, I, I, P],
+                        I, I, I, I, I, P],
     # q, k_new, v_new, k_cache, v_cache, out, starts (or null), ks_new,
     # vs_new, k_scale, v_scale (int8 rings, else null), the offset on the
     # device (or null), B, T, H, D, cap, offset, start, context, splits,

@@ -28,9 +28,28 @@ batched product:
 
 The kernel splits the slots [0, read_end] into `k7_split(read_end, S, B)`
 chunks, one thread block each, merged on chip (one thread-block cluster
-per head and lane; ops/decode_attn.chunk_units deals the slots out). With
-many lanes the card is full already, so the split takes fewer chunks; a
-lane's result depends only on its own inputs either way.
+per head and lane; ops/decode_attn.chunk_units deals the slots out). The
+kernel adapts to the cache's slot count S, and to nothing else:
+
+- S <= K7_LONG_SLOTS (2,048; Pocket TTS's 1,024-slot caches): each block
+  walks every slot of its chunk, a masked one zero-filled; with many
+  lanes the card is full already, so the split takes at most
+  K7_LANES_SPLITS (2) chunks (52 us at B = 32, S = 1,024 in the ring;
+  33.5 over int8 caches at S = 896; chip_smoke.py on an H100 80GB HBM3
+  at 700 W, csrc/insert_attn.cu has the rest).
+- S > K7_LONG_SLOTS (Moshi's 3,072-slot ring, whose lanes hold a few
+  hundred to 2,250 positions): each block first lists its chunk's
+  attended slots (pos >= 0, the write slot as below) in increasing order
+  and walks only those, so a call's time follows the rows its lanes
+  hold; the split takes up to MAX_SPLITS (8) chunks at any lane count,
+  so a lane's rows spread over its whole cluster. At D = 128, 32 heads,
+  B = 32, lanes at ages of mean 646: 148.5 us, where walking every slot
+  on 2 chunks took 291.7 (bound 101.7; the same card); at the duplex32
+  cell's planned ages (mean 502) 118.6 (bound 79.2). Such launches count
+  once more in `.launches_long`.
+
+A lane's result depends only on its own inputs either way: the split and
+the walk change only the order in which its slots are summed.
 
 `decode_insert_attention` runs the plain version for tensors on the CPU
 and the kernel for tensors on the card; there is no other switch. Both
@@ -61,21 +80,28 @@ from .decode_attn import MAX_SPLITS
 # at most K7_LANES_SPLITS from K7_MANY_LANES lanes on. chip_smoke.py's
 # `time_splits` times every count: solo, more chunks are faster up to 8;
 # at 32 lanes (16 heads each, the card full) two chunks ran fastest, bf16
-# and int8 (PERF.md, section 6).
+# and int8 (PERF.md, section 6). A cache of more than K7_LONG_SLOTS slots
+# takes the long-ring walk (only the attended slots, compacted per chunk)
+# and up to MAX_SPLITS chunks at any lane count: the wrapper decides and
+# tells the kernel (its `long_ring` argument), so the threshold lives here.
 K7_UNIT = 8
 K7_CHUNK = 32
 K7_MANY_LANES = 8
 K7_LANES_SPLITS = 2
+K7_LONG_SLOTS = 2048
 
 
 def k7_split(read_end: int, s: int, b: int) -> int:
     """The number of chunks K7 cuts the slots [0, read_end] of an S-slot
-    cache into at B lanes: one per K7_CHUNK slots, at most MAX_SPLITS, and
-    at most K7_LANES_SPLITS from K7_MANY_LANES lanes on."""
+    cache into at B lanes: one per K7_CHUNK slots, at most MAX_SPLITS, and,
+    for a cache of at most K7_LONG_SLOTS slots, at most K7_LANES_SPLITS
+    from K7_MANY_LANES lanes on."""
     if not 0 <= read_end < s:
         raise ValueError(f"k7_split: read_end {read_end} outside [0, {s})")
     n = min(MAX_SPLITS, -(-(read_end + 1) // K7_CHUNK))
-    return n if b < K7_MANY_LANES else min(n, K7_LANES_SPLITS)
+    if s > K7_LONG_SLOTS or b < K7_MANY_LANES:
+        return n
+    return min(n, K7_LANES_SPLITS)
 
 
 def insert_slot_mask(pos, cur_pos, read_end: int, write_slot: int,
@@ -212,12 +238,15 @@ def decode_insert_attention(q, k_new, v_new, cur_pos, k_cache, v_cache, pos,
         ptr(k_scale), ptr(v_scale), ptr(ks_new), ptr(vs_new),
         res.data_ptr(), ptr(st), cuda_lib.cursor_ptr(write_slot), b, h, d, s,
         int(read_end), int(write_slot), k7_split(int(read_end), s, b),
-        cuda_lib.dtype_code(q), cuda_lib.stream_ptr(q.device))
+        int(s > K7_LONG_SLOTS), cuda_lib.dtype_code(q),
+        cuda_lib.stream_ptr(q.device))
     cuda_lib.check(rc, "ptt_insert_attn")
     if quant:
         decode_insert_attention.launches_kv8 += 1
     else:
         decode_insert_attention.launches += 1
+    if s > K7_LONG_SLOTS:
+        decode_insert_attention.launches_long += 1
     if stats:
         decode_insert_attention.launches_stats += 1
         return out if out is not None else (res, st[0], st[1])
@@ -227,3 +256,4 @@ def decode_insert_attention(q, k_new, v_new, cur_pos, k_cache, v_cache, pos,
 decode_insert_attention.launches = 0
 decode_insert_attention.launches_kv8 = 0
 decode_insert_attention.launches_stats = 0
+decode_insert_attention.launches_long = 0

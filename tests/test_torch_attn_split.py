@@ -23,7 +23,12 @@ on the CPU, f32:
   decomposition (the write slot's row from the new row in the chunk that
   owns it, or, int8, merged after the cluster; the insert into the caches)
   equals decode_insert_attention_plain, each lane of a many-lane call its
-  own solo call.
+  own solo call. Past K7_LONG_SLOTS slots (Moshi's 3,072-slot ring) the
+  split takes up to 8 chunks at any lane count, and a mirror of the
+  kernel's compacted walk (each chunk's attended slots listed by warp
+  ballots, then walked two rows a lane group a step) reads each attended
+  slot once and no masked one; the model over that walk equals the plain
+  version at 1-8 chunks.
 """
 import inspect
 import math
@@ -38,7 +43,8 @@ from pocket_tts_tpu_torch.ops.decode_attn import (K1_UNIT, MAX_SPLITS,
                                                   decode_attention_plain,
                                                   k1_split)
 from pocket_tts_tpu_torch.ops.insert_attn import (
-    K7_MANY_LANES, K7_UNIT, decode_insert_attention_plain, k7_split)
+    K7_LANES_SPLITS, K7_LONG_SLOTS, K7_MANY_LANES, K7_UNIT,
+    decode_insert_attention_plain, k7_split)
 from pocket_tts_tpu_torch.ops.ring_attn import (K2_TILE, k2_split,
                                                 ring_insert_attention_plain)
 
@@ -340,23 +346,82 @@ def test_k2_model_over_lanes_with_fences(int8):
 # ---------------------------------------------------------------- K7 model --
 
 @pytest.mark.parametrize("b", [1, 2, 32, 64])
-@pytest.mark.parametrize("s", [128, 896, 1024])
+@pytest.mark.parametrize("s", [128, 896, 1024, 2048, 3072])
 def test_k7_split_covers_slots_once(s, b):
+    """Up to 2,048 slots the split is what it always was (at most 2 chunks
+    from 8 lanes on); past that, one chunk per 32 slots up to 8 at any lane
+    count (8 at S = 3,072 in ring mode, 32 lanes)."""
     for read_end in range(s):
         n = k7_split(read_end, s, b)
         assert 1 <= n <= MAX_SPLITS
         assert_split(n, read_end + 1, K7_UNIT)
+        every = min(MAX_SPLITS, -(-(read_end + 1) // 32))
+        if s > K7_LONG_SLOTS or b < K7_MANY_LANES:
+            assert n == every
+        else:
+            assert n == min(every, K7_LANES_SPLITS)
     with pytest.raises(ValueError):
         k7_split(s, s, b)
+    if s > K7_LONG_SLOTS:
+        assert k7_split(s - 1, s, b) == MAX_SPLITS
+
+
+def k7_long_walk(pos, cur, ws, read_end, n, c, quant, rpw=2):
+    """The cache slots one warp of chunk c (of n) walks on the long-ring
+    path, in walk order, for one lane (pos (S,) post-insert, cur its new
+    row's position), mirroring csrc/insert_attn.cu: the chunk's positions
+    (slot ws: attended iff the row is valid, never for int8), then its 4
+    warps each list the attended local slots of a stretch of
+    ceil(nloc / 128) * 32 by ballots over 32 slots, placed after the
+    counts of the warps before; then step i takes rows i * 2 rpw + g and
+    i * 2 rpw + g + rpw for lane group g (rpw = 2 at D = 128 in bf16).
+    Returns [(step, row, cache slot)] in walk order."""
+    live = read_end + 1
+    units = -(-live // K7_UNIT)
+    nloc = (units - c + n - 1) // n * K7_UNIT
+
+    def slot_of(t):
+        return (c + n * (t // K7_UNIT)) * K7_UNIT + t % K7_UNIT
+
+    pos_s = []
+    for t in range(nloc):
+        sl = slot_of(t)
+        if sl == ws:
+            pos_s.append(0 if cur >= 0 and not quant else -1)
+        else:
+            pos_s.append(int(pos[sl]) if sl < live else -1)
+    warps, per = 4, -(-nloc // 128) * 32
+    stretch = [(min(w * per, nloc), min(min(w * per, nloc) + per, nloc))
+               for w in range(warps)]
+    counts = [sum(pos_s[t] >= 0 for t in range(lo, hi)) for lo, hi in stretch]
+    listed = [None] * sum(counts)
+    for w, (lo, hi) in enumerate(stretch):
+        off = sum(counts[:w])
+        for base in range(lo, hi, 32):
+            ballot = [t < hi and pos_s[t] >= 0 for t in range(base, base + 32)]
+            for lane, ok in enumerate(ballot):
+                if ok:
+                    listed[off + sum(ballot[:lane])] = base + lane
+            off += sum(ballot)
+    rows = []
+    for i in range(-(-len(listed) // (2 * rpw))):
+        for g in range(rpw):
+            for u in range(2):
+                j = i * 2 * rpw + g + u * rpw
+                if j < len(listed):
+                    rows.append((i, j, slot_of(listed[j])))
+    return rows
 
 
 def k7_model(q, kn, vn, cur, k, v, pos, read_end, ws, ks=None, vs=None,
-             ksn=None, vsn=None):
+             ksn=None, vsn=None, n=None):
     """K7's decomposition over lanes: q (B, H, D), new rows (B, 1, H*D),
     PRE-insert caches (B, S, H*D), written in place at ws as the kernel
     does, pos POST-insert (B, S). Working type: the chunk that owns ws
     takes its K, V from the new row, valid iff cur >= 0; int8: ws stays out
     of the chunks and the new row (times its scales) merges after them.
+    Past K7_LONG_SLOTS slots each chunk takes the slots of its compacted
+    walk (k7_long_walk) alone. n: the chunk count (k7_split's if None).
     Returns out, m, l."""
     b, h, d = q.shape
     s = k.shape[1]
@@ -367,9 +432,13 @@ def k7_model(q, kn, vn, cur, k, v, pos, read_end, ws, ks=None, vs=None,
     if not quant:
         kh[:, ws], vh[:, ws] = kn[:, 0].float(), vn[:, 0].float()
     kh, vh = kh.view(b, s, h, d), vh.view(b, s, h, d)
-    n = k7_split(read_end, s, b)
+    n = k7_split(read_end, s, b) if n is None else n
     parts = []
     for c in range(n):
+        if s > K7_LONG_SLOTS:
+            parts.append(k7_long_partial(q, kh, vh, cur, pos, read_end, ws,
+                                         n, c, ks, vs))
+            continue
         i = chunk_slots(c, n, read_end + 1, K7_UNIT)
         lg = torch.einsum("bhd,bshd->bhs", q.float(), kh[:, i]) \
             / math.sqrt(d)
@@ -389,6 +458,27 @@ def k7_model(q, kn, vn, cur, k, v, pos, read_end, ws, ks=None, vs=None,
     if quant:
         ks[:, ws], vs[:, ws] = ksn, vsn
     return merge_chunks(parts)
+
+
+def k7_long_partial(q, kh, vh, cur, pos, read_end, ws, n, c, ks, vs):
+    """Chunk c's partial over each lane's walked slots alone (no mask: the
+    walk holds attended slots only; a lane with none gives m = -inf)."""
+    b, h, d = q.shape
+    out = []
+    for i in range(b):
+        rows = [sl for _, _, sl in k7_long_walk(
+            pos[i], int(cur[i]), ws, read_end, n, c, ks is not None)]
+        idx = torch.tensor(rows or [0], dtype=torch.long)
+        lg = torch.einsum("hd,khd->hk", q[i].float(), kh[i, idx]) \
+            / math.sqrt(d)
+        vals = vh[i, idx].permute(1, 0, 2)
+        if ks is not None:
+            lg = lg * ks[i, idx]
+            vals = vals * vs[i, idx, None]
+        if not rows:
+            lg = torch.full_like(lg, NEG)
+        out.append(flash_partial(lg, vals))
+    return tuple(torch.stack(x) for x in zip(*out))
 
 
 def k7_inputs(rng, b, s, h, d, mode, ws, int8):
@@ -479,3 +569,101 @@ def test_k7_model_equals_plain(int8, mode, ws):
                                                       "ks_new", "vs_new")))
                 np.testing.assert_allclose(solo[0].numpy(), out[sl].numpy(),
                                            atol=ATOL)
+
+
+def k7_long_inputs(rng, h, int8, s=3072, context=3000, ws=1500, d=128):
+    """A Moshi-shaped call: an S-slot ring whose write slot ws is mid-ring,
+    each lane holding its last positions before the new row, those
+    `context` or more back left out (-1), as models/moshi._temporal keeps
+    them. Lanes: 700 positions; idle (every pos -1, cur -1); past the
+    window (3,500 steps: 2,999 held, wrapped round the ring); 2,250 (the
+    longest call); 1 (the new row alone)."""
+    fills = (700, -1, 3500, 2250, 0)
+    b = len(fills)
+    q, k, v, ks, vs = k1_inputs(rng, b, s, h, d, int8)
+    _, kn, vn, ksn, vsn = k1_inputs(rng, b, 1, h, d, int8)
+    pos = torch.full((b, s), -1, dtype=torch.int32)
+    cur = torch.full((b,), -1, dtype=torch.int32)
+    for i, fill in enumerate(fills):
+        if fill < 0:
+            continue
+        cur[i] = fill
+        for j in range(1, min(fill, context - 1) + 1):
+            pos[i, (ws - j) % s] = fill - j
+    pos[:, ws] = cur
+    if int8:
+        ks[:, ws] = vs[:, ws] = 1e3          # stale scales: never read
+        ksn, vsn = ksn[:, 0].contiguous(), vsn[:, 0].contiguous()
+    return q, kn, vn, cur, k, v, pos, s - 1, ks, vs, ksn, vsn
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("n", range(1, MAX_SPLITS + 1))
+def test_k7_long_walk_reads_each_attended_slot_once(n, int8):
+    """Over a chunk count n, the long-ring walks of a lane's n chunks read
+    every attended slot once and no other, each chunk's slots in the walk
+    order of its compacted list (increasing local slots); the write slot
+    is walked iff the new row is valid, never with int8 (merged after the
+    cluster); an idle lane walks nothing; a lane past the window 2,999
+    slots."""
+    q, kn, vn, cur, k, v, pos, re_, ks, vs, ksn, vsn = k7_long_inputs(
+        np.random.RandomState(n), 2, int8)
+    ws = 1500
+    for i in range(q.shape[0]):
+        want = {int(x) for x in torch.nonzero(pos[i] >= 0)}
+        if int8:
+            want.discard(ws)
+        seen = []
+        for c in range(n):
+            walk = k7_long_walk(pos[i], int(cur[i]), ws, re_, n, c, int8)
+            rows = [j for _, j, _ in walk]
+            slots = [sl for _, _, sl in sorted(walk, key=lambda r: r[1])]
+            # rows 0..R-1 once each, 4 a step; the list in slot order; the
+            # chunk's own units
+            assert sorted(rows) == list(range(len(walk)))
+            assert all(j // 4 == step for step, j, _ in walk)
+            assert slots == sorted(slots)
+            assert all(sl // K7_UNIT % n == c for sl in slots)
+            seen += slots
+        assert len(seen) == len(set(seen)) and set(seen) == want
+    assert (pos[1] < 0).all() and int(cur[1]) == -1
+    assert int((pos[2] >= 0).sum()) == 3000    # 2,999 held + the new row
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("n", range(1, MAX_SPLITS + 1))
+def test_k7_long_model_equals_plain(n, int8):
+    """The plain model of the long-ring decomposition (each chunk's
+    compacted walk, merged in chunk order; int8: the new row after the
+    cluster) equals decode_insert_attention_plain within 1e-6 in f32 at
+    D = 128, S = 3,072, n chunks (out; m within 1e-6 of itself; l, a sum of
+    up to 3,000 terms, within 4e-6 of itself), with the statistics, the
+    caches and scale rows after the insert; the idle lane gives out 0, m =
+    -inf, l = 0."""
+    rng = np.random.RandomState(100 + n + 9 * int8)
+    q, kn, vn, cur, k, v, pos, re_, ks, vs, ksn, vsn = k7_long_inputs(
+        rng, 2, int8)
+    ws = 1500
+    k2, v2 = k.clone(), v.clone()
+    kw = {}
+    if int8:
+        kw = dict(k_scale=ks.clone(), v_scale=vs.clone(), ks_new=ksn,
+                  vs_new=vsn)
+    out, m, l = k7_model(q, kn, vn, cur, k, v, pos, re_, ws, ks, vs, ksn,
+                         vsn, n=n)
+    want, wm, wl = decode_insert_attention_plain(
+        q, kn, vn, cur, k2, v2, pos, re_, ws, stats=True, **kw)
+    assert torch.equal(k, k2) and torch.equal(v, v2)
+    if int8:
+        assert torch.equal(ks, kw["k_scale"])
+        assert torch.equal(vs, kw["v_scale"])
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=ATOL)
+    assert torch.equal(torch.isneginf(m), torch.isneginf(wm))
+    live = torch.isfinite(wm)
+    # m: D = 128 dot products summed in another order (a few ulps at ~5)
+    np.testing.assert_allclose(m[live].numpy(), wm[live].numpy(), atol=ATOL,
+                               rtol=ATOL)
+    # l: f32 sums of up to 3,000 terms in another order, ~sqrt(3000) ulps
+    np.testing.assert_allclose(l.numpy(), wl.numpy(), rtol=4e-6)
+    assert (out[1] == 0).all() and (l[1] == 0).all()
+    assert torch.isneginf(m[1]).all()

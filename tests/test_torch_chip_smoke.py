@@ -653,3 +653,35 @@ def test_phase_12_shapes():
     for shape, _, _, lanes, texts, _ in cs.CARDS_SERVE_RUNS:
         assert shape[0] * shape[1] in (1, cs.CARDS)
         assert lanes % shape[0] == 0 and len(texts) >= lanes
+
+
+@pytest.mark.parametrize("d,kv8,stats", [(128, False, False),
+                                         (128, True, True),
+                                         (64, False, True)])
+def test_k7_comparison_fails_a_dropped_row(d, kv8, stats):
+    """check_k7_moshi's comparison (_k7_compare) passes the plain version
+    against itself and fails it against the plain version with one
+    attended row dropped (_k7_drop_row) from a lane of 2,250: by the
+    output alone, and by l with the statistics. Two lanes at Moshi's (or
+    Pocket TTS's) widths over a 3,072-slot ring, on the CPU."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import chip_smoke as cs
+    from pocket_tts_tpu_torch.ops.insert_attn import (
+        decode_insert_attention_plain as plain)
+    case = cs.k7_moshi_case("cpu", torch.bfloat16, d=d,
+                            h=32 if d == 128 else 16, b=2,
+                            fills=[700, 2250], kv8=kv8)
+    q, kn, vn, cur, kc, vc, pos, re_, ws = case[:9]
+    kw = dict(zip(("k_scale", "v_scale", "ks_new", "vs_new"), case[9:]))
+    want = plain(q, kn, vn, cur, kc, vc, pos, re_, ws, stats=stats, **kw)
+    same = cs._k7_compare(want, want, stats)
+    assert same["ok"] and same["err"] == 0.0
+    dropped = cs._k7_drop_row(pos, ws)
+    assert int((pos >= 0).sum() - (dropped >= 0).sum()) == 1
+    assert bool((dropped[:, ws] == pos[:, ws]).all())
+    drop = cs._k7_compare(want, plain(q, kn, vn, cur, kc, vc, dropped, re_,
+                                      ws, stats=stats, **kw), stats)
+    assert not drop["ok"] and drop["out_x"] > 1.0
+    if stats:
+        assert drop["l_err"] > 1e-4 and drop["m_err"] <= 1e-4
