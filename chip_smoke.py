@@ -2721,112 +2721,6 @@ def quant_kernel_times(device, res):
     return res
 
 
-def finish_bench(lin, h, x1, ls2, mode, ks, dtype):
-    """One launch of csrc/coop_bench.cu at T = 1: y = round(x1 + ls2 *
-    ((h @ W2) * s2 + b2)) (1, dm) in dtype; mode 0 the layer tail's own
-    way (each block's MLP tiles' rows of W2 to a partial, summed by
-    warps), 1 W2 split by output columns in ks slices of its rows. None
-    when the layout does not fit in a block's shared memory."""
-    import ctypes
-    import torch
-    from pocket_tts_tpu_torch.ops import cuda_lib
-    from pocket_tts_tpu_torch.ops import fused_layer as fl
-    from pocket_tts_tpu_torch.ops.quant_matmul import kernel_operands
-    hid, dm = h.shape[-1], x1.shape[-1]
-    y = torch.empty(1, dm, dtype=dtype, device=h.device)
-    (w, s, b), (kind, group) = kernel_operands(lin, hid, dm, y)
-    grid = min(fl.COOP_MAX_GRID, hid // fl.COOP_TILE)
-    if mode == 0:
-        units = -(-(hid // fl.COOP_TILE) // grid)
-        unit = fl.mlp_tile_bytes(kind, dm, group)[1]
-    else:
-        units = -(-(dm // fl.COOP_TILE) * ks // grid)
-        unit = fl.col_unit_bytes(kind, hid, ks, group)
-    o_act = fl.align128(units * unit)
-    smem = (o_act + 4 * (hid + fl.COOP_RED_FLOATS + fl.COOP_TILE)
-            + fl.SMEM_SLACK)
-    if smem > fl.SMEM_MAX:
-        return None
-    f32 = dict(dtype=torch.float32, device=h.device)
-    ptrs = [h, x1, ls2, w, s, b, torch.empty(grid, dm, **f32),
-            torch.empty(hid, **f32), torch.empty(ks, dm, **f32), y]
-    plan = [mode, grid, ks, fl.finish_vec(1, dm, grid), smem, o_act]
-    cuda_lib.check(cuda_lib.library().ptt_finish_bench(
-        (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr()
-                                        for t in ptrs]),
-        (ctypes.c_int * 2)(kind, group), (ctypes.c_int * 6)(*plan), dm, hid,
-        cuda_lib.dtype_code(y), cuda_lib.stream_ptr(h.device)),
-        f"ptt_finish_bench (plan {plan})")
-    return y
-
-
-def finish_times(path, bls, device, dtype, res, two_ways):
-    """The backbone's MLP down projection and cross-block sum at T = 1
-    both ways (finish_bench): mode 0 ("rows", what K5b, K5c and K8 run)
-    and mode 1 ("cols") at one slice and at the slices col_split picks,
-    each checked against the plain version (TOL quant) and timed one layer
-    repeated and in frame order (two_ways)."""
-    import torch
-    from pocket_tts_tpu_torch.ops import fused_layer as fl
-    from pocket_tts_tpu_torch.ops.quant_matmul import kernel_operands
-    rng = np.random.RandomState(45)
-    lins = [p["linear2"] for p in bls]
-    hid = bls[0]["linear1"]["scale"].shape[-1]
-    dm = lins[0]["scale"].shape[-1]
-    h = _rand(rng, device, dtype, hid, scale=0.5).float()
-    x1 = _rand(rng, device, torch.float32, 1, dm)
-    ls2 = bls[0].get("layer_scale_2", {}).get("scale")
-    plain = (x1 + (1.0 if ls2 is None else ls2.float())
-             * fl._deq(h[None], lins[0])).to(dtype)
-    scale = plain.float().abs().max().item()
-    _, (kind, group) = kernel_operands(lins[0], hid, dm, plain)
-    stored = hid // 2 if "q4" in lins[0] else hid
-    grid = min(fl.COOP_MAX_GRID, hid // fl.COOP_TILE)
-    split = fl.col_split(dm // fl.COOP_TILE, stored, grid, group)
-    for mode, ks, label in ((0, 1, "rows"), (1, 1, "cols ks=1"),
-                            (1, split, f"cols ks={split}")):
-        if label == "cols ks=1" and split == 1:
-            continue
-        y = finish_bench(lins[0], h, x1, ls2, mode, ks, dtype)
-        if y is None:
-            log(f"  finish {label} {path}: does not fit in shared memory")
-            continue
-        err = (y.float() - plain.float()).abs().max().item() / scale
-        if not err <= TOL[("quant", _dt_name(dtype))]:
-            raise AssertionError(f"finish {label} {path}: {err:.3e} of "
-                                 f"max|plain|")
-        two_ways(f"finish {label} {path} backbone T=1",
-                 [lambda l=l: finish_bench(l, h, x1, ls2, mode, ks, dtype)
-                  for l in lins],
-                 _tree_bytes(lins[0]) + _nbytes(h, x1, y), 2 * hid * dm)
-
-
-def barrier_times(device, res):
-    """What a grid barrier costs (csrc/coop_bench.cu ptt_barrier_bench):
-    one cooperative launch of 128 blocks (the backbone's grid) with 1 and
-    with 101 barriers: grid.sync(); grid.sync() in a launch with clusters
-    of 2, each followed by a cluster barrier; and a hand-written barrier
-    (one arrival counter, release / acquire). A barrier's cost is the
-    difference over 100. Added to res ({label: us})."""
-    import torch
-    from pocket_tts_tpu_torch.ops import cuda_lib
-    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(device)
-    bar = torch.zeros(2, dtype=torch.int32, device=device)
-    for kind, label in ((0, "grid barrier"),
-                        (1, "grid + cluster barrier, clusters of 2"),
-                        (2, "hand-written grid barrier")):
-        t = {}
-        for n in (1, 101):
-            t[n] = 1e3 * device_ms(lambda n=n: cuda_lib.check(
-                lib.ptt_barrier_bench(n, 128, kind, bar.data_ptr(), stream),
-                "ptt_barrier_bench"), 120)[0]
-        res[f"{label}: launch with one"] = t[1]
-        res[f"{label}: each"] = (t[101] - t[1]) / 100
-    sync(device)
-    if bar[0].item() != 0 or bar[1].item() == 0:  # every arrival matched
-        raise AssertionError(f"hand-written barrier left {bar.tolist()}")
-
-
 def coop_kernel_times(device, res):
     """Device us of the cooperative kernels through their public wrappers
     (`post_attention`, `bilayer_post_pre`, `megalayer`), bf16, on
@@ -2846,10 +2740,8 @@ def coop_kernel_times(device, res):
     bound and the dense bf16 product, and, where the tree has the
     warpgroup kernel, its plan sweep (time_k4a_plans); and the device
     time of one prefill call of 128 rows through the six layers (24 K4a
-    or K4b launches) for int8, int4 and q4_0. Where the tree
-    has csrc/coop_bench.cu, also what a grid barrier costs
-    (barrier_times) and the MLP's down projection with its cross-block
-    sum both ways (finish_times). Added to res ({label: us})."""
+    or K4b launches) for int8, int4 and q4_0. Added to res ({label:
+    us})."""
     import itertools
     import torch
     from pocket_tts_tpu_torch.config import DEFAULT_CONFIG
@@ -2865,8 +2757,6 @@ def coop_kernel_times(device, res):
     rng = np.random.RandomState(43)
     g = torch.Generator(device="cpu").manual_seed(44)
     us = lambda fn: 1e3 * device_ms(fn, 120)[0]
-    if "ptt_barrier_bench" in cuda_lib.SIGNATURES:  # not in older trees
-        barrier_times(device, res)
 
     def two_ways(label, calls, nbytes, flops):
         """calls: one per layer, frame order; the first repeated, then
@@ -2894,8 +2784,6 @@ def coop_kernel_times(device, res):
                       for p in ls],
                      _tree_bytes(post) + _nbytes(x, a) * 3 // 2,
                      _linear_flops(post, t))
-        if "ptt_finish_bench" in cuda_lib.SIGNATURES:  # not in older trees
-            finish_times(path, bls, device, dt, res, two_ways)
         dm = bb.d_model
         x = _rand(rng, device, dt, 1, dm, scale=0.5)
         a = _rand(rng, device, dt, 1, dm, scale=0.5)
@@ -6661,7 +6549,7 @@ def check_moshi_frames(device, frames=12, capacity=256):
     import torch
     from pocket_tts_tpu_torch.config import MoshiConfig
     from pocket_tts_tpu_torch.io import moshi_params
-    from pocket_tts_tpu_torch.models import moshi
+    from pocket_tts_tpu_torch.models import frame_graph, moshi
     from pocket_tts_tpu_torch.ops.insert_attn import (K7_LONG_SLOTS,
                                                       decode_insert_attention)
     from ptts_bench.moshi import weights as moshi_weights
@@ -6706,8 +6594,8 @@ def check_moshi_frames(device, frames=12, capacity=256):
                                   - n7l)
             rec["k2"].append(ring_insert_attention.launches - n2)
             rec["k3"].append(seanet_frame.launches - n3)
-            rec["modes"].append(moshi.frame_mode(st) if mode == "graphs"
-                                else "eager")
+            rec["modes"].append(frame_graph.frame_mode(st)
+                                if mode == "graphs" else "eager")
             rec["pcm"].append((pcm * valid[:, None]).cpu())
             rec["text"].append(st.text_logits.float().cpu())
             rec["audio"].append(st.audio_logits.float().cpu())

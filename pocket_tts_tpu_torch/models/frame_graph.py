@@ -1,4 +1,6 @@
-"""Piecewise CUDA graphs over one lane frame step (`tts.frame_step_lanes`).
+"""Piecewise CUDA graphs over one lane frame step (`lane_frame`, under
+both families' `frame_step_lanes`), and the frame loop of a chunk
+(`run_frames`).
 
 A frame of 256 lanes launches ~760-850 device kernels, most of them
 PyTorch ops between the hand-written kernels (K5a/K5b, K7, K6, K2, K3,
@@ -28,13 +30,15 @@ them through a pointer. A change of the batch's tensors (a new epoch, new
 prefix tables), of the params or of the arguments' shapes captures again
 (`frame_key`), and `reset` frees the segments.
 
-Which frames take graphs (`graphable`): a lane batch in ring mode on one
-CUDA card. A linear cursor moves K7's read end and split every frame, a
-mesh runs collectives inside the frame and the CPU has no graphs: those
-run eagerly. `FrameGraphs(graph=...)` takes another class with
-`torch.cuda.CUDAGraph`'s capture_begin / capture_end / replay / reset,
-which is how the CPU tests drive it (a stand-in that records each
-segment's ops and runs them again).
+Which frames take graphs (`graphable`, the only place that decides): a
+lane batch on one CUDA card with no mesh and a ring cursor. A Pocket
+batch's linear cursor moves K7's read end and split every frame, a mesh
+runs collectives inside the frame and the CPU has no graphs: those run
+eagerly. A Moshi batch is always a ring on one device.
+`FrameGraphs(graph=...)` takes another class with `torch.cuda.CUDAGraph`'s
+capture_begin / capture_end / replay / reset, which is how the CPU tests
+drive it (a stand-in that records each segment's ops and runs them
+again).
 
 `span(name, **attrs)` marks a part of a frame (`utils.profiling.span`):
 under capture the segments split at its ends and each replay opens and
@@ -118,25 +122,67 @@ def span(name: str, **attrs):
 
 
 def attach_cursors(state) -> None:
-    """Keep a lane batch's backbone write slot (`flow.end_dev`) and Mimi
-    ring offset (`mimi.transformer.offset_dev`) on the device too, from
-    their host ints; the frame then reads and advances both there."""
-    flow, tr = state.flow, state.mimi.transformer
-    dev = state.step.device
-    if flow.end_dev is None:
-        flow.end_dev = torch.tensor([flow.end], dtype=torch.int32,
-                                    device=dev)
-    if tr.offset_dev is None:
-        tr.offset_dev = torch.tensor([tr.offset], dtype=torch.int32,
-                                     device=dev)
+    """Keep a lane batch's write slot (`end_dev` of its `flow`, else its
+    own) and Mimi ring offset (`mimi.transformer.offset_dev`) on the
+    device too, from their host ints; the frame then reads and advances
+    both there."""
+    for obj, name in ((getattr(state, "flow", state), "end"),
+                      (state.mimi.transformer, "offset")):
+        if getattr(obj, name + "_dev") is None:
+            setattr(obj, name + "_dev", torch.tensor(
+                [getattr(obj, name)], dtype=torch.int32,
+                device=state.done.device))
 
 
 def graphable(cfg, state) -> bool:
-    """Frames of this batch run from CUDA graphs: one CUDA card (no mesh)
-    and the prefix+ring cursor."""
+    """Frames of this lane batch run from CUDA graphs: one CUDA card (no
+    mesh) and a ring cursor; a Moshi batch (no backbone `flow`) is one."""
+    flow = getattr(state, "flow", None)
+    if flow is None:
+        return state.done.device.type == "cuda"
     return (state.step.device.type == "cuda" and not cfg.on_mesh
-            and cfg.backbone.mesh is None
-            and state.flow.ring_start is not None)
+            and cfg.backbone.mesh is None and flow.ring_start is not None)
+
+
+def lane_frame(p, cfg, state, body, inputs, seanet_weights=None):
+    """body(p, cfg, state, *inputs, seanet_weights), a family's frame (it
+    writes the state in place), from CUDA graphs where `graphable` or
+    where `state.graphs` is set already (the CPU tests' stand-in), else
+    eagerly; the libraries' handles are made before the first capture
+    (cuBLAS cannot make one during it). How it ran: `frame_mode`."""
+    graphs = state.graphs
+    if graphs is None and graphable(cfg, state):
+        x = torch.ones(8, 8, device=state.done.device)
+        for dt in (torch.bfloat16, torch.float32):
+            x.to(dt) @ x.to(dt)
+        graphs = state.graphs = FrameGraphs()
+    if graphs is None:
+        return body(p, cfg, state, *inputs, seanet_weights)
+    attach_cursors(state)
+    return run_frame(
+        graphs, lambda *a: body(p, cfg, state, *a, seanet_weights),
+        frame_key(p, cfg, state, seanet_weights, inputs), inputs)
+
+
+def frame_mode(state) -> str:
+    """How a lane batch's last frame ran: "capture", "replay" or "eager"."""
+    return "eager" if state.graphs is None else state.graphs.last
+
+
+def run_frames(state, n: int, step):
+    """n frames, step(i) -> (pcm (B, frame), valid (B,)), each in a
+    `ptt.frame` span whose `graph` says how it ran: (state, pcm (B, n,
+    frame), valid (B, n))."""
+    pcms, valids = [], []
+    with torch.no_grad():
+        for i in range(n):
+            with profiling.span("ptt.frame", i=i) as sp:
+                pcm, valid = step(i)
+                if sp:
+                    sp.set(graph=frame_mode(state))
+            pcms.append(pcm)
+            valids.append(valid)
+    return state, torch.stack(pcms, 1), torch.stack(valids, 1)
 
 
 def _tensors(obj, out: list) -> list:

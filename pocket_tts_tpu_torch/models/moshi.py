@@ -28,9 +28,8 @@ The frame of a lane at its step t (config.MoshiConfig has the sizes):
 Draws: top-k at a temperature, by the inverse of the top-k softmax's CDF
 at one uniform number a draw, from the lane's table of uniforms (drawn
 from the request's seed at admission): row t, column 0 for the text, 1 + k
-for code k. Everything stays on the device, so a frame is captured and
-replayed from CUDA graphs (models/frame_graph.py) as the Pocket TTS lane
-frame is, in ring mode on one card; the spans `ptt.temporal`,
+for code k. Everything stays on the device, so on the card a frame runs
+from CUDA graphs (models/frame_graph.py); the spans `ptt.temporal`,
 `ptt.depth` (attribute `substeps`) and `ptt.mimi` mark the three parts
 (`frame_graph.span`). The lanes share the temporal ring's write slot
 (`end`, kept on the device as well: `end_dev`) and the Mimi ring offset;
@@ -41,10 +40,9 @@ its first a grid columns, given, pass through the temporal transformer
 in one causal pass that writes its K/V rows behind the shared write slot,
 and its Mimi decodes from its frame a - 1 on, from silence.
 
-`frame_step_lanes_eager` is the same frame run eagerly: on the CPU (the
-kernels' plain versions) the tests hold it against the plain reference
-(ptts_bench/moshi/reference.py), and on the card the frames replayed
-from graphs are held against it bit for bit.
+`frame_step_lanes_eager` is the same frame run eagerly: the tests hold
+it against the plain reference on the CPU, and the frames from graphs
+against it bit for bit on the card.
 """
 from __future__ import annotations
 
@@ -55,7 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from . import frame_graph, mimi
-from ..ops.basic import inv_sqrt, linear, rms_norm, silu
+from ..ops.basic import inv_sqrt, linear, rms_norm
+from ..ops.gating import activation_gating
 from ..ops.insert_attn import decode_insert_attention
 from ..ops.rope import apply_rope_halves, rope_cos_sin
 
@@ -117,10 +116,8 @@ def empty_lanes(cfg, b: int, dtype=torch.float32, device="cpu"
         audio_logits=torch.zeros(b, cfg.n_q, cfg.card, **dd),
         tokens=torch.zeros(b, 1 + cfg.n_q, dtype=torch.int64,
                            device=device),
-        delays=torch.tensor(cfg.delays, dtype=torch.int32, device=device),
-        end_dev=torch.zeros(1, dtype=torch.int32, device=device))
-    state.mimi.transformer.offset_dev = torch.zeros(1, dtype=torch.int32,
-                                                    device=device)
+        delays=torch.tensor(cfg.delays, dtype=torch.int32, device=device))
+    frame_graph.attach_cursors(state)
     return state
 
 
@@ -178,21 +175,17 @@ def resume(p, cfg, state: MoshiLanes, lane: int, cols) -> None:
     slots = (state.end - a + pos.long()) % s
     state.pos[lane, slots] = pos
     cos, sin = rope_cos_sin(pos[:, None], cfg.head_dim, cfg.max_period)
-    h, hd = cfg.num_heads, cfg.head_dim
-    for l, lp in enumerate(p["layers"]):
-        qkv = linear(lp["in_proj"], rms_norm(lp["norm1"], x, cfg.norm_eps))
-        q, k, v = qkv.view(a, 1, 3, h, hd).unbind(2)
-        q = apply_rope_halves(q, cos, sin)
-        k = apply_rope_halves(k, cos, sin)
-        state.k[l][lane, slots] = k.reshape(a, h * hd)
-        state.v[l][lane, slots] = v.reshape(a, h * hd)
+    hd = cfg.num_heads * cfg.head_dim
+
+    def attend(l, q, k, v):
+        state.k[l][lane, slots] = k.reshape(a, hd)
+        state.v[l][lane, slots] = v.reshape(a, hd)
         attn = F.scaled_dot_product_attention(
             q[:, 0].transpose(0, 1), k[:, 0].transpose(0, 1),
             v[:, 0].transpose(0, 1), is_causal=True)
-        x = x + linear(lp["out_proj"], attn.transpose(0, 1).reshape(
-            a, h * hd))
-        x = x + _gating(lp["linear_in"], lp["linear_out"],
-                        rms_norm(lp["norm2"], x, cfg.norm_eps))
+        return attn.transpose(0, 1).reshape(a, hd)
+
+    _layers(p, cfg, x, cos, sin, attend)   # for the K/V rows it writes
     state.prev[lane] = cols[-1]
     state.next_pos[lane] = a
     tr = state.mimi.transformer
@@ -212,12 +205,21 @@ def sample_topk(logits, u, temp: float, k: int):
     return idx.gather(-1, j[:, None])[:, 0]
 
 
-def _gating(p_in, p_out, x):
-    """linear_out(silu(a) * b), [a, b] = linear_in(x), the product in
-    float32 rounded once."""
-    h = linear(p_in, x)
-    a, b = h.float().chunk(2, -1)
-    return linear(p_out, (silu(a) * b).to(x.dtype))
+def _layers(p, cfg, x, cos, sin, attend):
+    """The temporal transformer's layers over rows x (R, D), RoPE by cos,
+    sin; attend(l, q, k, v) is layer l's attention of the rows' q, k, v
+    (R, 1, H, hd), (R, H * hd). Returns x after the last layer."""
+    r = x.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
+    for l, lp in enumerate(p["layers"]):
+        qkv = linear(lp["in_proj"], rms_norm(lp["norm1"], x, cfg.norm_eps))
+        q, k, v = qkv.view(r, 1, 3, h, hd).unbind(2)
+        q = apply_rope_halves(q, cos, sin)
+        k = apply_rope_halves(k, cos, sin)
+        x = x + linear(lp["out_proj"], attend(l, q, k, v))
+        x = x + activation_gating(lp, rms_norm(lp["norm2"], x, cfg.norm_eps),
+                                  torch.float32)
+    return x
 
 
 def _embed(p, cfg, cols):
@@ -241,19 +243,15 @@ def _temporal(p, cfg, state: MoshiLanes, x):
     state.pos.index_fill_(1, (slot + (s - cfg.context)) % s, -1)
     state.pos.index_copy_(1, slot, t[:, None])
     cos, sin = rope_cos_sin(t[:, None], cfg.head_dim, cfg.max_period)
-    h, hd = cfg.num_heads, cfg.head_dim
-    for l, lp in enumerate(p["layers"]):
-        qkv = linear(lp["in_proj"], rms_norm(lp["norm1"], x, cfg.norm_eps))
-        q, k, v = qkv.view(b, 1, 3, h, hd).unbind(2)
-        q = apply_rope_halves(q, cos, sin)
-        k = apply_rope_halves(k, cos, sin)
-        attn = decode_insert_attention(
-            q[:, 0].contiguous(), k.reshape(b, 1, h * hd),
-            v.reshape(b, 1, h * hd).contiguous(), t, state.k[l], state.v[l],
-            state.pos, s - 1, end)
-        x = x + linear(lp["out_proj"], attn.reshape(b, h * hd))
-        x = x + _gating(lp["linear_in"], lp["linear_out"],
-                        rms_norm(lp["norm2"], x, cfg.norm_eps))
+    hd = cfg.num_heads * cfg.head_dim
+
+    def attend(l, q, k, v):
+        return decode_insert_attention(
+            q[:, 0].contiguous(), k.reshape(b, 1, hd),
+            v.reshape(b, 1, hd).contiguous(), t, state.k[l], state.v[l],
+            state.pos, s - 1, end).reshape(b, hd)
+
+    x = _layers(p, cfg, x, cos, sin, attend)
     return rms_norm(p["out_norm"], x, cfg.norm_eps)
 
 
@@ -290,8 +288,10 @@ def _depth(p, cfg, state: MoshiLanes, z, text, u):
             attn = _depth_attend(q, state.dk[l], state.dv[l], k,
                                  dep.num_heads)
             y = y + linear(lp["out_proj"][k], attn)
-            y = y + _gating(lp["linear_in"][k], lp["linear_out"][k],
-                            rms_norm(lp["norm2"], y, cfg.norm_eps))
+            y = y + activation_gating(
+                {"linear_in": lp["linear_in"][k],
+                 "linear_out": lp["linear_out"][k]},
+                rms_norm(lp["norm2"], y, cfg.norm_eps), torch.float32)
         logits = linear(pd["linears"][k], y)
         state.audio_logits[:, k].copy_(logits)
         prev_tok = sample_topk(logits, u[:, 1 + k], cfg.audio_temp,
@@ -367,24 +367,10 @@ def frame_step_lanes(p, cfg, state: MoshiLanes, noise, user,
     lane's user codes, row f its frame f. Returns (pcm (B, frame_size)
     float32, valid (B,) bool) on the device; the frame's text and audio
     logits are in `state.text_logits` / `state.audio_logits` and its draws
-    in `state.tokens` until the next frame. On a CUDA card the frame runs
-    from CUDA graphs (the first frame of a batch captures); how it ran:
-    `frame_mode(state)`."""
-    graphs = state.graphs
-    if graphs is None and state.pos.device.type == "cuda":
-        # the libraries' handles are made outside the capture (cuBLAS
-        # cannot make one while a stream is captured)
-        x = torch.ones(8, 8, device=state.pos.device)
-        for dt in (torch.bfloat16, torch.float32):
-            x.to(dt) @ x.to(dt)
-        graphs = state.graphs = frame_graph.FrameGraphs()
-    if graphs is None:
-        return _frame(p, cfg, state, noise, user, seanet_weights)
-    inputs = (noise, user)
-    return frame_graph.run_frame(
-        graphs, lambda *a: _frame(p, cfg, state, *a, seanet_weights),
-        frame_graph.frame_key(p, cfg, state, seanet_weights, inputs),
-        inputs)
+    in `state.tokens` until the next frame. Graphs or eager:
+    `frame_graph.lane_frame`."""
+    return frame_graph.lane_frame(p, cfg, state, _frame, (noise, user),
+                                  seanet_weights)
 
 
 def frame_step_lanes_eager(p, cfg, state: MoshiLanes, noise, user,
@@ -393,7 +379,3 @@ def frame_step_lanes_eager(p, cfg, state: MoshiLanes, noise, user,
     entries on the card, their plain versions on the CPU."""
     return _frame(p, cfg, state, noise, user, seanet_weights)
 
-
-def frame_mode(state: MoshiLanes) -> str:
-    """How the batch's last frame ran: "capture", "replay" or "eager"."""
-    return "eager" if state.graphs is None else state.graphs.last

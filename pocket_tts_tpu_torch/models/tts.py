@@ -14,11 +14,8 @@ computed unconditionally (a finished lane runs on garbage and its frame is
 masked, so the shared slot cursor stays uniform), and eos_step, step and
 done are updated on the device, in place, with no host read: the caller
 reads pcm, valid and done when it chooses (the servers once per chunk).
-A lane batch in ring mode on one CUDA card runs its frames from CUDA
-graphs (models/frame_graph.py): the PyTorch ops between the hand-written
-kernels are captured at the batch's first frame and replayed after it,
-each kernel still launched by a call to its entry; elsewhere (a linear
-cursor, a mesh, the CPU) the same frame function runs eagerly.
+In ring mode on one CUDA card the frames run from CUDA graphs
+(models/frame_graph.py), elsewhere eagerly.
 
 `init_stream_state` and the fixed-length `decode_sentence` are the JAX
 package's names; the engine decodes with `decode_sentence_early_exit`.
@@ -204,33 +201,13 @@ def frame_step_lanes(p, cfg, state: BatchedStreamState, noise,
     a lane done before this step emits nothing but is still computed. On a
     mesh the ranks of a "model" group read the same EOS: the hidden state
     after each all-reduce (or whole product on a gathered input) is the
-    same bits on all of them, and what
-    follows runs whole on each (tests/test_torch_sharding.py and
-    chip_smoke.py phase 11 hold the ranks' audio equal bit for bit).
-
-    The frame runs from CUDA graphs when the batch is in ring mode on one
-    CUDA card (`frame_graph.graphable`), or when `state.graphs` holds a
-    FrameGraphs already (the CPU tests' stand-in); otherwise eagerly. How
-    it ran: `frame_mode(state)`; the captures, replays and graph segments
-    a frame count in `frame_graph.run_frame`'s attributes."""
-    graphs = state.graphs
-    if graphs is None and frame_graph.graphable(cfg, state):
-        graphs = state.graphs = frame_graph.FrameGraphs()
-    if graphs is None:
-        return _frame_lanes(p, cfg, state, noise, frames_after_eos,
-                            max_steps, seanet_weights)
-    frame_graph.attach_cursors(state)
-    inputs = (noise, frames_after_eos, max_steps)
-    return frame_graph.run_frame(
-        graphs, lambda *a: _frame_lanes(p, cfg, state, *a, seanet_weights),
-        frame_graph.frame_key(p, cfg, state, seanet_weights, inputs),
-        inputs)
-
-
-def frame_mode(state: BatchedStreamState) -> str:
-    """How the batch's last frame ran: "capture" or "replay" (CUDA graphs),
-    or "eager"."""
-    return "eager" if state.graphs is None else state.graphs.last
+    same bits on all of them, and what follows runs whole on each
+    (tests/test_torch_sharding.py and chip_smoke.py phase 11 hold the
+    ranks' audio equal bit for bit). Graphs or eager:
+    `frame_graph.lane_frame`."""
+    return frame_graph.lane_frame(p, cfg, state, _frame_lanes,
+                                  (noise, frames_after_eos, max_steps),
+                                  seanet_weights)
 
 
 def _frame_lanes(p, cfg, state: BatchedStreamState, noise, frames_after_eos,

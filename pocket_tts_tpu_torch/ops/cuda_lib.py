@@ -101,15 +101,6 @@ SIGNATURES = {
     # fused_step.MEGA_PLAN_KEYS), dm, H (hidden), D, S, read_end,
     # write_slot, eps, approx, marks (or null), dtype, stream
     "ptt_megalayer": [P, P, P, I, I, I, I, I, I, F, I, P, I, P],
-    # pointer array (10), W2's (kind, group), plan array (6: mode, grid,
-    # ks, fin_e, shared memory, o_act), dm, H, dtype, stream: the two
-    # cross-block sums of the MLP's down projection side by side
-    # (csrc/coop_bench.cu; timed by chip_smoke.py --kernel-times)
-    "ptt_finish_bench": [P, P, P, I, I, I, P],
-    # barriers, grid blocks, kind (0 grid.sync, 1 with clusters of 2, 2
-    # hand-written), the hand-written barrier's 2 zeroed words, stream: a
-    # cooperative launch of barriers (csrc/coop_bench.cu)
-    "ptt_barrier_bench": [I, I, I, P, P],
     # cluster size, chain and modulation dynamic shared memory, tensor
     # cores (0/1), solo (0/1), dtype -> clusters the card holds at once
     "ptt_flow_max_clusters": [I, I, I, I, I, I],

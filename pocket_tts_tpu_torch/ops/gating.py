@@ -24,12 +24,16 @@ from .basic import linear, silu
 from .quant_matmul import unpack_int4
 
 
-def activation_gating(p, x):
+def activation_gating(p, x, dtype=None):
     """linear_out(silu(left) * right), left/right the feature halves of
-    linear_in(x)."""
+    linear_in(x); with dtype (Moshi's float32) the product is computed in
+    it and rounded once to x's type."""
     h = linear(p["linear_in"], x)
+    if dtype is not None:
+        h = h.to(dtype)
     half = h.shape[-1] // 2
-    return linear(p["linear_out"], silu(h[..., :half]) * h[..., half:])
+    g = silu(h[..., :half]) * h[..., half:]
+    return linear(p["linear_out"], g if dtype is None else g.to(x.dtype))
 
 
 def _weight_stack(p):

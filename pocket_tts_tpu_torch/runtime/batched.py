@@ -44,11 +44,11 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..models import backbone, flow_lm, mimi, mimi_transformer, tts
+from ..models import (backbone, flow_lm, frame_graph, mimi,
+                      mimi_transformer, tts)
 from ..parallel.sharding import (axis_rank, axis_size, gather_lanes,
                                  local_heads, max_over_data, shard_params)
 from ..text.preprocess import count_words, prepare_text_prompt
-from ..utils.profiling import span
 from .engine import _SCAN_BUCKET, _bucket
 
 _PROMPT_BUCKETS = (32, 64, 128, 256)
@@ -288,22 +288,6 @@ def batched_frame_step(p, cfg, states, noise, frames_after_eos, max_steps,
                                     max_steps, seanet_weights)
 
 
-def _run_frames(p, cfg, states, n_frames: int, noise_of, frames_after_eos,
-                max_steps, seanet_weights):
-    pcms, valids = [], []
-    with torch.no_grad():
-        for i in range(n_frames):
-            with span("ptt.frame", i=i) as sp:
-                pcm, valid = tts.frame_step_lanes(
-                    p, cfg, states, noise_of(i), frames_after_eos, max_steps,
-                    seanet_weights)
-                if sp:  # "capture", "replay" (CUDA graphs) or "eager"
-                    sp.set(graph=tts.frame_mode(states))
-            pcms.append(pcm)
-            valids.append(valid)
-    return states, torch.stack(pcms, 1), torch.stack(valids, 1)
-
-
 def batched_decode_sentence(p, cfg, states, noise, frames_after_eos,
                             max_steps, scan_len: int, frame_offset: int = 0,
                             seanet_weights: dict = None):
@@ -313,9 +297,10 @@ def batched_decode_sentence(p, cfg, states, noise, frames_after_eos,
     Returns (states, pcm (B, scan_len, frame), valid (B, scan_len))."""
     # a contiguous (B, latent) copy: the kernels (K6 over the lanes) read
     # row-major rows, and noise[:, i] is a strided view
-    return _run_frames(p, cfg, states, scan_len,
-                       lambda i: noise[:, frame_offset + i].contiguous(),
-                       frames_after_eos, max_steps, seanet_weights)
+    return frame_graph.run_frames(states, scan_len, lambda i: (
+        tts.frame_step_lanes(p, cfg, states,
+                             noise[:, frame_offset + i].contiguous(),
+                             frames_after_eos, max_steps, seanet_weights)))
 
 
 def continuous_decode_chunk(p, cfg, chunk_frames: int, states, noise,
@@ -327,10 +312,10 @@ def continuous_decode_chunk(p, cfg, chunk_frames: int, states, noise,
     masked). Returns (states, pcm (B, chunk, frame), valid (B, chunk))."""
     lane = torch.arange(states.lanes, device=noise.device)
     last = noise.shape[1] - 1
-    return _run_frames(
-        p, cfg, states, chunk_frames,
-        lambda i: noise[lane, states.step.clamp(max=last).long()],
-        frames_after_eos, max_steps, seanet_weights)
+    return frame_graph.run_frames(states, chunk_frames, lambda i: (
+        tts.frame_step_lanes(p, cfg, states,
+                             noise[lane, states.step.clamp(max=last).long()],
+                             frames_after_eos, max_steps, seanet_weights)))
 
 
 # ---------------------------------------------------------------------------

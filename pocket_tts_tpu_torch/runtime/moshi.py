@@ -1,16 +1,10 @@
-"""Moshi on the continuous-batching server: the engine, the call, and the
-server's Moshi methods.
+"""Moshi on the lane scheduler: the engine, the call, and Moshi's lanes.
 
 `MoshiEngine` holds Moshi's params and config on one device (bf16 on the
-card) with the SEANet layouts of kernel K3. `MoshiServer` is
-runtime/server.ContinuousBatchingServer with Moshi's own in the methods
-the server leaves to a model: the lanes' tables (each call's uniforms,
-drawn from its seed, and its user codes), an empty lane batch, a call's
-frame need, the admission of a group of calls into idle lanes (a call
-starts from the initial tokens with no prefill, or, resumed at a step,
-has its first steps prefilled), and the decode chunk. The scan of the
-queue, the ring admission, the chunk's one host read and the
-bookkeeping are the server's.
+card) with the SEANet layouts of kernel K3. `MoshiServer` is the lane
+scheduler (runtime/lanes.py) with Moshi's lanes: each call's uniforms,
+drawn from its seed, and user codes; a call starts from the initial
+tokens, or, resumed at a step, has its first steps prefilled.
 
 A request is a `Call`: the user's stream of n_q Mimi codes a frame (n
 frames); Moshi answers with n frames of PCM (the lane runs n + 1 frames:
@@ -21,17 +15,16 @@ first a steps) answers from its frame a - 1 on, n - a + 1 frames.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..models import moshi
+from ..models import frame_graph, moshi
 from ..ops.seanet_frame import prep_weights
 from ..utils.profiling import span
 from .engine import _device
-from .server import ContinuousBatchingServer, Request
+from .lanes import Job, LaneScheduler
 
 
 class MoshiEngine:
@@ -68,13 +61,11 @@ class MoshiEngine:
 
 
 @dataclasses.dataclass
-class Call(Request):
+class Call(Job):
     """A full-duplex call: the user's codes (frames, n_q), and where it
     resumes, the text (a,) and codes (a, n_q) Moshi drew at its first a
-    steps. A call has no text prompt and no voice."""
-    text: str = ""
-    voice: str = ""
-    codes: Optional[np.ndarray] = None
+    steps."""
+    codes: np.ndarray
     history: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
     @property
@@ -83,8 +74,8 @@ class Call(Request):
         return 0 if self.history is None else len(self.history[0])
 
 
-class MoshiServer(ContinuousBatchingServer):
-    """The continuous-batching server over a MoshiEngine: ring mode on one
+class MoshiServer(LaneScheduler):
+    """The lane scheduler over a MoshiEngine: ring admission on one
     device, `lanes` calls at a time, a temporal ring of `capacity` slots
     (the cfg's `kv_capacity` when None)."""
 
@@ -92,21 +83,16 @@ class MoshiServer(ContinuousBatchingServer):
                  capacity: Optional[int] = None, chunk_frames: int = 5):
         super().__init__(engine, lanes,
                          capacity or engine.cfg.kv_capacity, chunk_frames)
-
-    def _setup_lanes(self):
         # per lane: the call's uniforms (a row a step) and the user's
         # codes (a row a frame)
-        eng = self.engine
-        self.cfg, self.params = eng.cfg, eng.params
-        nq = eng.cfg.n_q
-        self._noise = torch.zeros(self.lanes, self.capacity, 1 + nq,
-                                  device=eng.device)
-        self._user = torch.zeros(self.lanes, self.capacity, nq,
-                                 dtype=torch.int64, device=eng.device)
+        self.cfg, self.params = engine.cfg, engine.params
+        nq = engine.cfg.n_q
+        self._noise = torch.zeros(lanes, self.capacity, 1 + nq,
+                                  device=engine.device)
+        self._user = torch.zeros(lanes, self.capacity, nq,
+                                 dtype=torch.int64, device=engine.device)
 
-    @property
-    def prefix_slots(self) -> int:
-        return 0   # a call has no prompt
+    lane_frames = property(lambda self: self.capacity)   # no prompt
 
     def submit_call(self, codes, seed: Optional[int] = None,
                     history=None) -> Call:
@@ -126,63 +112,42 @@ class MoshiServer(ContinuousBatchingServer):
                 raise ValueError(f"a call's history is (a,) and (a, {nq}) "
                                  f"with 0 < a < {len(codes)}")
             history = (text, own)
-        call = Call(seed=seed, codes=codes, history=history,
-                    submitted_at=time.perf_counter(),
-                    submit_step=self.steps, id=next(self._ids))
-        self._queue.append(call)
-        return call
+        return self._submit(Call(seed=seed, codes=codes, history=history))
 
     def _validate(self, req: Call) -> int:
         # its frames and the one that decodes nothing
         return len(req.codes) + 1
 
     def _reset_epoch(self):
-        self._compact_useful = True
-        self._free_batch()
         eng = self.engine
         self.batch = moshi.empty_lanes(eng.cfg, self.lanes, eng.dtype,
                                        eng.device)
 
-    def _admit_group(self, group):
+    def _write_lanes(self, group):
         """Each call's uniforms and user codes into its lane's rows, the
         lanes reset for it (models/moshi.admit), and each call with a
         history resumed (models/moshi.resume, in a `ptt.prefill` span)."""
-        if not group:
-            return
         eng = self.engine
         n = self.capacity
         with span("ptt.lane_write", lanes=len(group)):
             for lane, req in group:
-                if req.seed is None:
-                    req.seed = eng.request_seed()
                 self._noise[lane] = eng.draws(req.seed, n)
                 user = torch.from_numpy(req.codes).to(eng.device)
                 self._user[lane, : len(user)] = user
-                self._live[lane] = req
-                self._chunks[lane] = []
-                req.admit_step = self.steps
-            try:
-                moshi.admit(eng.cfg, self.batch, [lane for lane, _ in group],
-                            [len(req.codes) for _, req in group])
-            except Exception:
-                self._drop_epoch()
-                raise
+            moshi.admit(eng.cfg, self.batch, [lane for lane, _ in group],
+                        [len(req.codes) for _, req in group])
         aged = [(lane, req) for lane, req in group if req.history]
         if not aged:
             return
         rows = sum(req.age for _, req in aged)
         with span("ptt.prefill", lanes=len(aged), lanes_padded=len(aged),
                   tokens=rows, token_slots=rows), torch.no_grad():
-            try:
-                for lane, req in aged:
-                    text, own = (torch.from_numpy(x).to(eng.device)
-                                 for x in req.history)
-                    moshi.resume(eng.params, eng.cfg, self.batch, lane,
-                                 moshi.history_columns(
-                                     eng.cfg, text, own, self._user[lane]))
-            except Exception:
-                self._drop_epoch()
-                raise
+            for lane, req in aged:
+                text, own = (torch.from_numpy(x).to(eng.device)
+                             for x in req.history)
+                moshi.resume(eng.params, eng.cfg, self.batch, lane,
+                             moshi.history_columns(
+                                 eng.cfg, text, own, self._user[lane]))
 
     def _decode_chunk(self):
         self.batch, pcm, valid = decode_chunk(
@@ -193,17 +158,8 @@ class MoshiServer(ContinuousBatchingServer):
 
 def decode_chunk(p, cfg, chunk_frames: int, batch: moshi.MoshiLanes, noise,
                  user, seanet_weights: dict = None):
-    """chunk_frames frames of every lane (models/moshi.frame_step_lanes),
-    each in a `ptt.frame` span that says how it ran; returns (batch, pcm
-    (B, chunk, frame), valid (B, chunk)), on the device."""
-    pcms, valids = [], []
-    with torch.no_grad():
-        for i in range(chunk_frames):
-            with span("ptt.frame", i=i) as sp:
-                pcm, valid = moshi.frame_step_lanes(p, cfg, batch, noise,
-                                                    user, seanet_weights)
-                if sp:
-                    sp.set(graph=moshi.frame_mode(batch))
-            pcms.append(pcm)
-            valids.append(valid)
-    return batch, torch.stack(pcms, 1), torch.stack(valids, 1)
+    """chunk_frames frames of every lane (`frame_graph.run_frames`): (batch,
+    pcm (B, chunk, frame), valid (B, chunk)), on the device."""
+    return frame_graph.run_frames(
+        batch, chunk_frames, lambda i: moshi.frame_step_lanes(
+            p, cfg, batch, noise, user, seanet_weights))

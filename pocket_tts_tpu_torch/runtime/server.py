@@ -7,25 +7,18 @@ batched runtime (runtime/batched.py):
 
 - MultiStreamServer: fixed cohorts. Requests queue, prefill together and
   decode in chunks; a late request waits for the cohort.
-- ContinuousBatchingServer: per-chunk admission into a RUNNING batch. The
+- ContinuousBatchingServer: per-chunk admission into a RUNNING batch,
+  the lane scheduler (runtime/lanes.py) over Pocket TTS's lanes. The
   slot/position decoupling allows it with a shared slot cursor: a joining
   lane's KV prefix is written whole (admit_group), its positions, step
   and mimi start are its own, and its later KV writes share the batch's
-  slot cursor. A request submitted mid-decode starts within chunk_frames
-  and its audio equals solo synthesis.
-
-A decode chunk runs on the device with no host read; the server reads
-pcm, valid and done once per chunk. Per-request time to first audio,
-queue wait (`submitted_at` to `admitted_at`) and completion latency are
-recorded and summarized p50/p95 (`stats`). Each request gets the server's
-number (`Request.id`). A step records the spans (utils/profiling.span;
-kept inside `recording()` or a torch.profiler) ptt.step > {ptt.admit >
-{ptt.prefill, ptt.lane_write}, ptt.chunk > ptt.frame (batched.py),
-ptt.read, ptt.bookkeep}; ptt.admit carries the ids and lanes taken,
-ptt.bookkeep the ids completed, ptt.prefill its real and padded rows. Noise
-comes from each request's seed (`Request.seed`, else the engine's
-`request_seed()`), so a seeded request gives the same audio in any lane
-and under any admission order.
+  slot cursor, so its audio equals solo synthesis. Its own: voices, their
+  prefill at admission (ptt.admit > {ptt.prefill, ptt.lane_write};
+  ptt.prefill carries its real and padded rows), the lanes' noise and EOS
+  tables, the chunk (ptt.chunk > ptt.frame) and the linear cursor with
+  compaction beside ring admission. Noise comes from each request's seed
+  (else the engine's `request_seed()`), the same in any lane and under
+  any admission order.
 
 Shared-prefix serving (`ContinuousBatchingServer(share_prefix=True)`, ring
 mode only), as the JAX package's: each voice's prompt KV is split off its
@@ -43,23 +36,17 @@ per rank) the scheduler is replicated: every rank is given the same
 `register_voices` and `submit` calls, and admission, compaction and
 epochs are decided from the same host state everywhere. The decode cfg
 comes from `mesh_cfg` and the params from `shard_params` (float, int8,
-int4 or q4_0 weights; quantized convs whole on every rank). Each rank prefills and decodes its own block of the lanes
-(`batched.lane_block`) at its own heads, and the one host read of a chunk
-gathers pcm, valid and done over "data" before any scheduling decision
-reads them. A rank prefills only its own lanes of an admission group: the
-others' prefill would be computed and thrown away, and a group's
-collectives stay inside the "model" group, whose ranks hold the same
-lanes. The ranks of a "model" group compute the same reduced hidden state
-bit for bit (the all-reduce hands every rank the same sum), so their EOS
-decisions agree without a broadcast (tests/test_torch_sharding.py holds
-it; chip_smoke.py phase 11 on the card).
-
-What is a model's own sits in six methods: `_setup_lanes` (the decode
-cfg and params, and the lanes' tables), `prefix_slots`, `_validate` (a
-request's frame need), `_reset_epoch` (an empty batch), `_admit_group`
-and `_decode_chunk`. `runtime/moshi.MoshiServer` overrides them to serve
-Moshi's full-duplex calls on the same lanes, admission, chunk and host
-read.
+int4 or q4_0 weights; quantized convs whole on every rank). Each rank
+prefills and decodes its own block of the lanes (`batched.lane_block`) at
+its own heads, and the one host read of a chunk gathers pcm, valid and
+done over "data" before any scheduling decision reads them. A rank
+prefills only its own lanes of an admission group: the others' prefill
+would be computed and thrown away, and a group's collectives stay inside
+the "model" group, whose ranks hold the same lanes. The ranks of a
+"model" group compute the same reduced hidden state bit for bit (the
+all-reduce hands every rank the same sum), so their EOS decisions agree
+without a broadcast (tests/test_torch_sharding.py holds it; chip_smoke.py
+phase 11 on the card).
 """
 from __future__ import annotations
 
@@ -81,38 +68,15 @@ from .batched import (_PROMPT_BUCKETS, admit_group, batched_decode_sentence,
                       empty_batch_state, lane_block, mesh_setup,
                       shrink_lanes, stack_states)
 from .engine import _SCAN_BUCKET, _bucket
+from .lanes import Job, LaneScheduler, latency_stats
 
 
 @dataclasses.dataclass
-class Request:
+class Request(Job):
+    """A sentence in a registered voice (scheduling fields: `Job`)."""
     text: str
     voice: str
     temp: float = 0.6
-    seed: Optional[int] = None   # noise seed; the engine's next when None
-    submitted_at: float = 0.0
-    ttfa_s: Optional[float] = None
-    # the server's number for the request (from submit) and when it left
-    # the queue into an admission group or a cohort (perf_counter)
-    id: Optional[int] = None
-    admitted_at: Optional[float] = None
-    done_at: Optional[float] = None
-    pcm: Optional[np.ndarray] = None
-    chunks: Optional[List[np.ndarray]] = None
-    # scheduling clock (ContinuousBatchingServer): decode chunks run
-    # before admission and until first audio
-    submit_step: Optional[int] = None
-    admit_step: Optional[int] = None
-    first_audio_step: Optional[int] = None
-
-    @property
-    def latency_s(self):
-        return None if self.done_at is None else (self.done_at
-                                                  - self.submitted_at)
-
-    @property
-    def queue_wait_s(self):
-        return None if self.admitted_at is None else (self.admitted_at
-                                                      - self.submitted_at)
 
 
 def _prep(engine, req: Request):
@@ -262,37 +226,13 @@ class MultiStreamServer:
             self.completed.append(req)
 
     def stats(self) -> dict:
-        return _stats(self.completed, self.engine.frame_size)
+        return latency_stats(self.completed, self.engine.frame_size)
 
 
-def _stats(completed: List[Request], frame_size: int) -> dict:
-    ttfa = sorted(r.ttfa_s for r in completed if r.ttfa_s is not None)
-    lat = sorted(r.latency_s for r in completed if r.latency_s is not None)
-    wait = sorted(r.queue_wait_s for r in completed
-                  if r.queue_wait_s is not None)
-
-    def pct(xs, p):
-        return None if not xs else xs[min(len(xs) - 1, int(p * len(xs)))]
-
-    frames = sum(r.pcm.size for r in completed
-                 if r.pcm is not None) / frame_size
-    return {
-        "requests": len(completed),
-        "frames": int(frames),
-        "p50_ttfa_s": pct(ttfa, 0.50),
-        "p95_ttfa_s": pct(ttfa, 0.95),
-        "p50_latency_s": pct(lat, 0.50),
-        "p95_latency_s": pct(lat, 0.95),
-        "p50_queue_wait_s": pct(wait, 0.50),
-        "p95_queue_wait_s": pct(wait, 0.95),
-    }
 
 
-class ContinuousBatchingServer:
+class ContinuousBatchingServer(LaneScheduler):
     """Per-chunk admission of new requests into a running batch.
-
-    B lanes decode together; between chunks, finished lanes are re-filled
-    from the queue.
 
     Default (ring=True) the backbone KV is a PREFIX+RING: slots
     [0, prefix_slots) hold each lane's prompt+text prefix, and the shared
@@ -309,8 +249,7 @@ class ContinuousBatchingServer:
     true live-row maximum.
 
     share_prefix=True (ring mode only): one shared copy of each voice's
-    prompt KV for the whole batch (see the module docstring); `capacity`
-    then budgets text + ring only.
+    prompt KV for the whole batch (the module docstring).
     """
 
     def __init__(self, engine, lanes: int = 32,
@@ -321,10 +260,9 @@ class ContinuousBatchingServer:
         if share_prefix and not ring:
             raise ValueError("share_prefix requires the prefix+ring KV "
                              "mode (ring=True)")
-        self.engine = engine
-        self.lanes = lanes
-        self.capacity = capacity or engine.cfg.backbone.kv_capacity
-        self.chunk_frames = chunk_frames
+        super().__init__(engine, lanes,
+                         capacity or engine.cfg.backbone.kv_capacity,
+                         chunk_frames)
         self.text_bucket = text_bucket
         self.ring = ring
         # (ring=False only) eager compaction: attention reads scale with the
@@ -343,24 +281,13 @@ class ContinuousBatchingServer:
         self._voice_tables: Dict[str, tuple] = {}
         self._prefix_tables = None
         self._voice_states: Dict[str, backbone.BackboneState] = {}
+        self._voice_rows: Dict[str, int] = {}
         self.prompt_pad: Optional[int] = None
-        self._queue: List[Request] = []
-        self._ids = itertools.count()
-        self._live: List[Optional[Request]] = [None] * lanes
-        self._chunks: List[List[np.ndarray]] = [[] for _ in range(lanes)]
-        self.completed: List[Request] = []
-        self.steps = 0  # decode chunks executed (scheduling clock)
         self.compactions = 0
-        # compaction reclaims finished lanes' slots; until another lane
-        # finishes, compacting again frees nothing
-        self._compact_useful = True
-        self.batch: Optional[tts.BatchedStreamState] = None
-        self._setup_lanes()
-
-    def _setup_lanes(self):
-        """The decode cfg and params, and the lanes' tables."""
-        engine, lanes = self.engine, self.lanes
-        self.cfg, self.params = mesh_setup(engine, self.mesh)
+        # compaction reclaims finished lanes' slots: until another request
+        # completes, compacting again frees nothing (None: not this epoch)
+        self._compacted_at: Optional[int] = None
+        self.cfg, self.params = mesh_setup(engine, mesh)
         # per-lane noise (own lanes, capacity, latent): a request runs at
         # most capacity - prefix_slots frames
         self._noise = torch.zeros(len(self._own), self.capacity,
@@ -370,7 +297,6 @@ class ContinuousBatchingServer:
         self._max_steps = np.zeros((lanes,), np.int32)
         self._fae_t = self._max_steps_t = None
         self._rows0 = np.zeros((lanes,), np.int32)  # valid rows at admission
-        self._voice_rows: Dict[str, int] = {}
 
     @property
     def prefix_slots(self) -> int:
@@ -378,6 +304,11 @@ class ContinuousBatchingServer:
         if self.share_prefix:  # the prompt lives in the shared tables
             return self.text_bucket
         return self.prompt_pad + self.text_bucket
+
+    @property
+    def lane_frames(self) -> int:
+        """The ring: what a lane's cache holds past its prefix."""
+        return self.capacity - self.prefix_slots
 
     # -- voices --------------------------------------------------------------
     def register_voices(self, prompts: Dict[str, np.ndarray]):
@@ -462,11 +393,8 @@ class ContinuousBatchingServer:
     # -- requests ------------------------------------------------------------
     def submit(self, text: str, voice: str, temp: float = 0.6,
                seed: Optional[int] = None) -> Request:
-        req = Request(text=text, voice=voice, temp=temp, seed=seed,
-                      submitted_at=time.perf_counter(),
-                      submit_step=self.steps, id=next(self._ids))
-        self._queue.append(req)
-        return req
+        return self._submit(Request(text=text, voice=voice, temp=temp,
+                                    seed=seed))
 
     def _validate(self, req: Request) -> int:
         """Tokenize and bound-check a request BEFORE it joins an admission
@@ -480,12 +408,6 @@ class ContinuousBatchingServer:
                 f"{self.text_bucket}; split it (engine.synthesize "
                 "re-chunks)")
         return _max_steps(self.engine, text) + 8
-
-    def _meta(self, req: Request):
-        """(max_steps, frames_after_eos, n_tokens) of a validated
-        request."""
-        text, guess, ids = req._prep  # cached by _validate
-        return _max_steps(self.engine, text), guess + 2, len(ids)
 
     def _prefill_many(self, reqs: Sequence[Request]):
         """ONE batched prefill for an admission group (this rank's part of
@@ -511,20 +433,24 @@ class ContinuousBatchingServer:
                 torch.from_numpy(tokens).to(eng.device),
                 torch.from_numpy(n_valid).to(eng.device))
 
-    def _free_batch(self):
-        """Drop the batch, and the CUDA graphs of its frames with it."""
-        if self.batch is not None and self.batch.graphs is not None:
-            self.batch.graphs.reset()
-        self.batch = None
-
+    # -- the lanes -----------------------------------------------------------
     def _reset_epoch(self):
         eng = self.engine
-        self._compact_useful = True
+        self._compacted_at = None
         self._free_batch()
         self.batch = empty_batch_state(eng.params, self.cfg, len(self._own),
                                        self.capacity, self.prefix_slots,
                                        eng.dtype, eng.device, ring=self.ring,
                                        prefix_tables=self._prefix_tables)
+
+    def _take_lanes(self, group):
+        if self.ring:
+            super()._take_lanes(group)
+        else:
+            self._take_linear(group)
+
+    def _compact_useful(self) -> bool:
+        return self._compacted_at != len(self.completed)
 
     def _compact(self, live):
         own = live[self._own.start:self._own.stop]
@@ -532,55 +458,7 @@ class ContinuousBatchingServer:
             self.batch, torch.tensor(own, device=self.engine.device),
             self.prefix_slots, self.mesh)
         self.compactions += 1
-        self._compact_useful = False
-
-    def _admit(self):
-        """Fill idle lanes from the queue (between decode chunks): pick the
-        admissible (lane, request) group first, prefill it in ONE batched
-        call, then write the whole group into its lanes."""
-        with span("ptt.admit") as sp:
-            if self.batch is None:
-                self._reset_epoch()
-            group = []
-            try:
-                if self.ring:
-                    self._take_ring(group)
-                else:
-                    self._take_linear(group)
-            finally:
-                # a raise mid-scan must not lose the already-popped group
-                if sp:
-                    sp.set(ids=[r.id for _, r in group],
-                           lanes=[lane for lane, _ in group])
-                self._admit_group(group)
-
-    def _take(self, group, lane: int):
-        """The queue's front request leaves the queue into the group."""
-        req = self._queue.pop(0)
-        req.admitted_at = time.perf_counter()
-        group.append((lane, req))
-
-    def _take_ring(self, group):
-        """Ring admission: a lane is admissible whenever it is idle; the
-        request's worst-case frame budget must fit the ring."""
-        ring_slots = self.capacity - self.prefix_slots
-        for lane in range(self.lanes):
-            if not self._queue or self._live[lane] is not None:
-                continue
-            req = self._queue[0]
-            try:
-                need = self._validate(req)
-            except ValueError:
-                self._queue.pop(0)  # evict the rejected request
-                raise
-            if need > ring_slots:
-                self._queue.pop(0)
-                raise ValueError(
-                    f"request needs {need} frames > ring capacity "
-                    f"{ring_slots} ({self.capacity} - "
-                    f"{self.prefix_slots} prefix); split it or grow "
-                    "capacity")
-            self._take(group, lane)
+        self._compacted_at = len(self.completed)
 
     def _take_linear(self, group):
         """Linear-cursor admission: a request joins only if its frame
@@ -590,7 +468,7 @@ class ContinuousBatchingServer:
         # the margin (the cursor sets the per-frame attention read size)
         live_lanes = [r is not None for r in self._live]
         if (self.compact_margin is not None and any(live_lanes)
-                and self._compact_useful):
+                and self._compact_useful()):
             est_max = max(
                 int(self._rows0[lane])
                 + (self.steps - r.admit_step) * self.chunk_frames
@@ -602,21 +480,15 @@ class ContinuousBatchingServer:
         for lane in range(self.lanes):
             if not self._queue or self._live[lane] is not None:
                 continue
-            req = self._queue[0]
-            try:
-                need = self._validate(req)
-            except ValueError:
-                self._queue.pop(0)  # evict the rejected request
-                raise
+            need = self._front_need()
             if end + need > self.capacity and not compacted:
                 # slot budget exhausted: compact the live lanes' rows
                 # to the cache front (finished lanes' slots come back
                 # without draining the epoch)
-                live = [r is not None for r in self._live]
-                if any(live) and self._compact_useful:
-                    self._compact(live)
+                if any(live_lanes) and self._compact_useful():
+                    self._compact(live_lanes)
                     end = self.batch.flow.end
-                elif not any(live):
+                elif not any(live_lanes):
                     self._reset_epoch()
                     end = self.prefix_slots
                 compacted = True
@@ -629,29 +501,10 @@ class ContinuousBatchingServer:
                 break  # even compacted, the live lanes fill the budget
             self._take(group, lane)
 
-    def _drop_epoch(self, extra_requeue=()):
-        """A decode or admission call failed part-way: the batch state may
-        be half-written. Reset the epoch and put every affected request
-        back at the queue front to restart from scratch (seeded requests
-        reproduce their audio)."""
-        for req in reversed(list(extra_requeue)):
-            self._queue.insert(0, req)
-        for lane, req in enumerate(self._live):
-            if req is not None:
-                req.ttfa_s = None
-                req.first_audio_step = None
-                req.admit_step = None
-                req.admitted_at = None
-                self._queue.insert(0, req)
-                self._live[lane] = None
-                self._chunks[lane] = []
-        self._free_batch()
-
-    def _admit_group(self, group):
-        if not group:
-            return
+    def _write_lanes(self, group):
+        """ONE batched prefill of the group's own lanes, then its caches,
+        noise and EOS tables into its lanes."""
         eng = self.engine
-        metas = [self._meta(r) for _, r in group]
         lo, b = self._own.start, len(self._own)
         # this rank's members of the group, at their local lanes
         own = [(lane - lo, req) for lane, req in group if lane in self._own]
@@ -662,27 +515,17 @@ class ContinuousBatchingServer:
                 # lane indices, so their writes are dropped
                 lane_idx = ([lane for lane, _ in own]
                             + list(range(b, b + fresh.lanes - len(own))))
-                try:
-                    self.batch = admit_group(self.batch, lane_idx, fresh)
-                except Exception:
-                    # the lane writes are in place: a failure part-way
-                    # leaves the batch half-written
-                    self._drop_epoch(extra_requeue=[r for _, r in group])
-                    raise
+                self.batch = admit_group(self.batch, lane_idx, fresh)
             n = self._noise.shape[1]
-            for (lane, req), (max_steps, fae, n_tok) in zip(group, metas):
-                if req.seed is None:   # drawn in order on every rank
-                    req.seed = eng.request_seed()
+            for lane, req in group:
                 if lane in self._own:
                     self._noise[lane - lo] = draw_noise(
                         req.seed, n, eng.cfg.latent_dim, req.temp, eng.dtype,
                         eng.device)
-                self._fae[lane] = fae
-                self._max_steps[lane] = max_steps
-                self._rows0[lane] = self._voice_rows[req.voice] + n_tok
-                self._live[lane] = req
-                self._chunks[lane] = []
-                req.admit_step = self.steps
+                text, guess, ids = req._prep   # cached by _validate
+                self._fae[lane] = guess + 2
+                self._max_steps[lane] = _max_steps(eng, text)
+                self._rows0[lane] = self._voice_rows[req.voice] + len(ids)
             # written in place once made: a frame replayed from CUDA graphs
             # reads them where its capture did
             own = slice(self._own.start, self._own.stop)
@@ -695,60 +538,6 @@ class ContinuousBatchingServer:
                 self._fae_t.copy_(fae)
                 self._max_steps_t.copy_(steps)
 
-    def step(self) -> int:
-        """One admission + one decode chunk. Returns frames emitted."""
-        with span("ptt.step", step=self.steps):
-            return self._step()
-
-    def _step(self) -> int:
-        self._admit()
-        if all(r is None for r in self._live):
-            return 0
-        try:
-            with span("ptt.chunk", frames=self.chunk_frames):
-                pcm, valid = self._decode_chunk()
-        except Exception:
-            # the state is updated in place, so a failure part-way leaves
-            # it half-written: drop the epoch and restart the live requests
-            # from scratch (their seeds reproduce their audio)
-            self._drop_epoch()
-            raise
-        # the one host read of the chunk (every rank's lanes on a mesh)
-        with span("ptt.read"):
-            pcm = gather_lanes(pcm, self.mesh).numpy()
-            valid = gather_lanes(valid, self.mesh).numpy()
-            done = gather_lanes(self.batch.done, self.mesh).numpy()
-        now = time.perf_counter()
-        self.steps += 1
-        emitted = 0
-        with span("ptt.bookkeep") as sp:
-            finished = []
-            for lane, req in enumerate(self._live):
-                if req is None:
-                    continue
-                nv = int(valid[lane].sum())
-                if nv > 0:
-                    if req.ttfa_s is None:
-                        req.ttfa_s = now - req.submitted_at
-                        req.first_audio_step = self.steps
-                    self._chunks[lane].append(
-                        pcm[lane, valid[lane]].reshape(-1))
-                    emitted += nv
-                if bool(done[lane]):
-                    req.pcm = (np.concatenate(self._chunks[lane])
-                               if self._chunks[lane]
-                               else np.zeros(0, np.float32))
-                    req.chunks = self._chunks[lane]
-                    req.done_at = now
-                    self.completed.append(req)
-                    finished.append(req.id)
-                    self._live[lane] = None
-                    self._chunks[lane] = []
-                    self._compact_useful = True
-            if sp:
-                sp.set(ids=finished)
-        return emitted
-
     def _decode_chunk(self):
         """chunk_frames frames of every lane: (pcm, valid) on the
         device."""
@@ -758,12 +547,6 @@ class ContinuousBatchingServer:
             self.engine.seanet_weights)
         return pcm, valid
 
-    def run_pending(self, max_chunks: int = 10_000):
-        for _ in range(max_chunks):
-            if not self._queue and all(r is None for r in self._live):
-                return
-            self.step()
-        raise RuntimeError("run_pending did not drain the queue")
-
-    def stats(self) -> dict:
-        return _stats(self.completed, self.engine.frame_size)
+    def _to_host(self, x) -> np.ndarray:
+        """Every rank's lanes on a mesh (gathered over "data")."""
+        return gather_lanes(x, self.mesh).numpy()

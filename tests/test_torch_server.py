@@ -5,10 +5,12 @@ and through eager compaction; the same requests through the JAX
 package's ContinuousBatchingServer and MultiStreamServer at temp 0 (atol
 1e-4, the port's end-to-end tolerance); seeded noise at temp 0.7
 independent of admission order; the serving options (what is refused,
-quantized convs, quantized weights on a mesh); and CLI --serve."""
+quantized convs, quantized weights on a mesh); CLI --serve; and the lane
+scheduler's seam (runtime/lanes.py) under a minimal stand-in model."""
 import dataclasses
 import json
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import jax
@@ -22,6 +24,7 @@ from pocket_tts_tpu.runtime.server import (
     ContinuousBatchingServer as JCBS, MultiStreamServer as JMSS)
 from pocket_tts_tpu_torch.io.params import from_jax_numpy, random_voice_prompt
 from pocket_tts_tpu_torch.runtime.engine import TTSEngine
+from pocket_tts_tpu_torch.runtime.lanes import Job, LaneScheduler
 from pocket_tts_tpu_torch.runtime.server import (ContinuousBatchingServer,
                                                  MultiStreamServer)
 from pocket_tts_tpu_torch.text.preprocess import prepare_text_prompt
@@ -300,3 +303,151 @@ def test_cli_without_card_needs_device_cpu(capsys, tmp_path, monkeypatch):
                      str(out), "--quantize", "int8",
                      "--quantize-convs"]) == 0
     assert os.listdir(out) == ["req_0000.wav"]
+
+
+# ---------------------------------------------------------------------------
+# the lane scheduler's seam, under a stand-in model
+# ---------------------------------------------------------------------------
+
+FRAME = 3   # samples a frame of the stand-in model
+
+
+@dataclasses.dataclass
+class _Ask(Job):
+    frames: int
+
+
+class _Seeds:
+    """The engine as the scheduler sees one: seeds 101, 102, ... in turn."""
+    frame_size = FRAME
+
+    def __init__(self):
+        self.drawn = 0
+
+    def request_seed(self):
+        self.drawn += 1
+        return 100 + self.drawn
+
+
+class _Echo(LaneScheduler):
+    """The smallest lane model: a request asks for `frames` frames, each of
+    FRAME samples equal to its seed; a lane holds `capacity` frames;
+    `fail` ("write" or "chunk") makes that call raise."""
+
+    def __init__(self, lanes=2, capacity=8, chunk_frames=2):
+        super().__init__(_Seeds(), lanes, capacity, chunk_frames)
+        self.fail = None
+        self.writes = []     # (lane, id, seed) of each lane write
+
+    @property
+    def lane_frames(self):
+        return self.capacity
+
+    def submit(self, frames, seed=None):
+        return self._submit(_Ask(frames=frames, seed=seed))
+
+    def _validate(self, req):
+        return req.frames
+
+    def _reset_epoch(self):
+        self._free_batch()
+        b = self.lanes
+        self.batch = SimpleNamespace(done=torch.ones(b, dtype=torch.bool),
+                                     graphs=None, left=[0] * b,
+                                     value=[0.0] * b)
+
+    def _write_lanes(self, group):
+        if self.fail == "write":
+            raise RuntimeError("lane write")
+        for lane, req in group:
+            self.writes.append((lane, req.id, req.seed))
+            self.batch.left[lane] = req.frames
+            self.batch.value[lane] = float(req.seed)
+            self.batch.done[lane] = False
+
+    def _decode_chunk(self):
+        if self.fail == "chunk":
+            raise RuntimeError("chunk")
+        b, c, st = self.lanes, self.chunk_frames, self.batch
+        valid = torch.zeros(b, c, dtype=torch.bool)
+        for lane in range(b):
+            n = min(c, st.left[lane])
+            valid[lane, :n] = True
+            st.left[lane] -= n
+            st.done[lane] = st.left[lane] == 0
+        pcm = torch.tensor(st.value)[:, None, None].expand(b, c, FRAME)
+        return pcm.clone(), valid
+
+
+def _cleared(req):
+    return (req.ttfa_s, req.first_audio_step, req.admit_step,
+            req.admitted_at) == (None,) * 4
+
+
+@pytest.mark.parametrize("case", ["ring", "oversized", "seeds", "stamps",
+                                  "done", "chunk_raises", "write_raises"])
+def test_lane_scheduler_seam(case):
+    """Two lanes of 8 frames, chunks of 2: a (3 frames, seed 11), b (5),
+    c (2, or 9 where `oversized`) and d (4, seed 7) in that order. Ring
+    admission fills idle lanes in queue order; a request larger than a
+    lane is refused and evicted; seeds are drawn in order; time to first
+    audio and its step are stamped; a finished request has its chunks
+    joined; a lane write or a chunk that raises puts every request the
+    scheduler held back at the queue front, stamps cleared (live lanes
+    last lane first, then the group in its order), and the queue then
+    drains to the same audio."""
+    srv = _Echo()
+    a, b, c, d = (srv.submit(f, seed=s) for f, s in (
+        (3, 11), (5, None), (9 if case == "oversized" else 2, None),
+        (4, 7)))
+    assert srv.step() == 4                       # a and b, 2 frames each
+    assert srv._live == [a, b] and srv._queue == [c, d]
+    if case == "chunk_raises":
+        srv.fail = "chunk"
+        with pytest.raises(RuntimeError, match="chunk"):
+            srv.step()
+        assert srv._queue == [b, a, c, d] and srv._live == [None, None]
+        assert _cleared(a) and _cleared(b) and srv.batch is None
+        assert srv._chunks == [[], []]
+        srv.fail = None
+    srv.step()                                   # a completes
+    if case == "oversized":
+        with pytest.raises(ValueError, match="lane holds"):
+            srv.step()
+        assert c not in srv._queue and c.admit_step is None
+    if case == "write_raises":
+        srv.fail = "write"
+        with pytest.raises(RuntimeError, match="lane write"):
+            srv.step()
+        assert srv._queue == [b, c, d] and _cleared(b) and _cleared(c)
+        assert srv._live == [None, None] and srv.batch is None
+    srv.fail = None
+    srv.run_pending()
+    done = [r for r in (a, b, c, d) if r.pcm is not None]
+    assert done == ([a, b, d] if case == "oversized" else [a, b, c, d])
+    for r in done:
+        assert np.array_equal(r.pcm, np.full(r.frames * FRAME,
+                                             float(r.seed), np.float32))
+    if case == "ring":
+        assert [(lane, rid) for lane, rid, _ in srv.writes] == [
+            (0, a.id), (1, b.id), (0, c.id), (0, d.id)]
+        assert [r.admit_step for r in done] == [0, 0, 2, 3]
+        assert srv.steps == 5 and srv.completed == [a, c, b, d]
+    elif case == "seeds":
+        # drawn in queue order, once each; a seeded request keeps its own
+        assert [r.seed for r in done] == [11, 101, 102, 7]
+        assert srv.engine.drawn == 2
+    elif case == "stamps":
+        for r in done:
+            assert r.submitted_at <= r.admitted_at <= r.done_at
+            assert r.ttfa_s > 0
+            assert r.first_audio_step == r.admit_step + 1
+    elif case == "done":
+        assert [len(r.chunks) for r in done] == [2, 3, 1, 2]
+        for r in done:
+            assert np.array_equal(np.concatenate(r.chunks), r.pcm)
+        assert srv.stats()["frames"] == 3 + 5 + 2 + 4
+    elif case in ("chunk_raises", "write_raises"):
+        # restarted from scratch: the same seeds, no frame twice
+        assert [r.seed for r in done] == [11, 101, 102, 7]
+        assert srv._queue == [] and srv._live == [None, None]
